@@ -23,6 +23,26 @@
    tokens/s and peak memory, and checks the engine against a re-prefill of
    prompt + generated tokens in a fresh cache.
 4. The same engine with an int8 KV cache at full width and 4 layers.
+5. The training kernels against their plain versions at the training
+   path's shapes: RMSNorm forward (writing r) and backward [16384, 768]
+   bf16; cross-entropy
+   forward and backward [16384, 32000] f32; flash attention forward and
+   backward at llama_125m's B 8, H 12, S 2048, D 64, at Llama-2-7B's
+   head (B 1, H 32, S 2048, D 128) and GQA 4:1 over packed rows, causal
+   bf16.  Each is held elementwise against an f32 computation of the
+   same function and against the plain version, and timed beside its
+   bound, the plain version and one library call.
+6. The trainer on llama_125m_lm at full width and depth, built as the
+   CLI builds it (b 8 x s 2048, bf16 compute, adamw + clip + warmup
+   cosine, 20 steps from seed 0).  Counts are zeroed just before the run
+   and read just after; each training kernel must have run exactly
+   20 x its launches a step under full remat.  The loss must stay finite
+   and fall.  Prints step ms, tokens/s, peak memory, the losses, an MFU
+   (its formula beside it) and a profiled step's device time by kind.
+6b. (a) One step's gradients of llama_125m cut to 2 layers, kernels
+   against the plain versions on the card, at f32 and bf16; (b) five f32
+   steps of a small decoder with 64-wide heads on the card against the
+   same steps on the CPU.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -41,17 +61,27 @@ PEAK_BF16_FLOPS = 989e12      # dense tensor-core bf16
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
 
 SEED = 0
-KERNELS = {
-    "rms_norm": dict(
-        source="tensorflow_train_distributed_torch/csrc/rms_norm.cu",
-        replaces="tensorflow_train_distributed_tpu/ops/pallas_kernels.py:396"),
-    "paged_attention": dict(
-        source="tensorflow_train_distributed_torch/csrc/paged_attention.cu",
-        replaces="tensorflow_train_distributed_tpu/ops/pallas_kernels.py:290"),
-    "paged_kv_gather": dict(
-        source="tensorflow_train_distributed_torch/csrc/paged_kv_gather.cu",
-        replaces="tensorflow_train_distributed_tpu/ops/pallas_kernels.py:121"),
-}
+_CSRC = "tensorflow_train_distributed_torch/csrc/"
+_PK = "tensorflow_train_distributed_tpu/ops/pallas_kernels.py"
+_FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+# (name, source, the TPU kernel it replaces, the main path that runs it:
+# "serve" (phase 3) or "train" (phase 6)).  RMSNorm's forward is on both
+# paths and has a row for each, with that path's launches and shapes.
+KERNELS = [
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "serve"),
+    ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290", "serve"),
+    ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121", "serve"),
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "train"),
+    ("rms_norm_bwd", _CSRC + "rms_norm.cu", _PK + ":429", "train"),
+    ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "train"),
+    ("cross_entropy_bwd", _CSRC + "cross_entropy.cu", _PK + ":584", "train"),
+    ("flash_attention", _CSRC + "flash_attention_fwd.cu", _FA + ":589",
+     "train"),
+    ("flash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _FA + ":941",
+     "train"),                                          # and dq, :1287
+]
+SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
+TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
 
 
 def log(msg: str) -> None:
@@ -95,7 +125,7 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# -- phase 1 -------------------------------------------------------------------
+# -- phase 1 ------------------------------------------------------------------
 
 
 def phase_device():
@@ -118,14 +148,16 @@ def phase_device():
             log(f"  ptxas {line.strip()}")
 
 
-# -- phase 2 -------------------------------------------------------------------
+# -- phase 2 ------------------------------------------------------------------
 
 
 def _check(what, got, want, allowed, rule) -> float:
     """Elementwise ``|got - want| <= allowed``; logs and returns the max
     absolute error, raises where any element is outside."""
+    import torch
+
     diff = (got.float() - want.float()).abs()
-    worst = (diff / allowed).max().item()
+    worst = torch.where(diff == 0, 0.0, diff / allowed).max().item()
     err = diff.max().item()
     log(f"  {what}: max_abs_err {err:.3e}; worst |err| / allowed "
         f"{worst:.3f} (allowed: {rule}) {'ok' if worst <= 1 else 'FAIL'}")
@@ -287,7 +319,7 @@ def phase_kernels() -> dict:
     return rows
 
 
-# -- phases 3 and 4 -------------------------------------------------------------
+# -- phases 3 and 4 -----------------------------------------------------------
 
 
 def _requests(rng, n, lo, hi, vocab, prefix_len):
@@ -430,7 +462,7 @@ def phase_engine(config, *, label, n_requests, max_new, lo, hi,
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = K.launch_counts()
+    counts = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     for rid, p in zip(rids, prompts):
         toks = out[rid]
@@ -465,6 +497,609 @@ def phase_engine(config, *, label, n_requests, max_new, lo, hi,
     return counts, stats
 
 
+# -- phase 5 ------------------------------------------------------------------
+
+
+def _backward_ms(out, inputs, grad, launches=20) -> float:
+    """Device time of one autograd backward of an already built graph."""
+    import torch
+
+    return device_ms(lambda: torch.autograd.grad(out, inputs, grad,
+                                                 retain_graph=True),
+                     launches=launches)
+
+
+def _leaf(*ts):
+    return [t.detach().clone().requires_grad_(True) for t in ts]
+
+
+def _rms_norm_fwd_case(gen) -> dict:
+    """K1f as the training path calls it (also writing r for the
+    backward) at its rows: [B*S, d_model] = [16384, 768] bf16."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    n, d = 16384, 768
+    x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    y, r = K.rms_norm_forward(x, s, 1e-5, with_r=True)
+    ref = K.rms_norm_reference(x, s)
+    r32 = torch.rsqrt(x.float().square().mean(-1) + 1e-5)
+    torch.cuda.synchronize()
+    # As phase 2: f32 math rounded once to bf16; r is f32 in another
+    # summation order.
+    err = _check(f"rms_norm [{n}, {d}] bf16 (with r)", y, ref,
+                 2 ** -7 * ref.float().abs() + 1e-6,
+                 "one bf16 step: 2^-7 |ref| + 1e-6")
+    _check("rms_norm r", r, r32, 1e-6 * r32.abs(), "1e-6 |ref|")
+    ms = device_ms(lambda: K.rms_norm_forward(x, s, 1e-5, with_r=True))
+    plain = device_ms(lambda: K.rms_norm_reference(x, s))
+    lib = device_ms(lambda: F.rms_norm(x, (d,), s, 1e-5))
+    bnd = bound(2 * n * d * 2 + n * 4 + d * 2, 4 * n * d, PEAK_F32_FLOPS)
+    _report("rms_norm", f"[{n}, {d}] bf16 with r", ms, plain, lib, bnd)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=lib)
+
+
+def _rms_norm_bwd_case(gen) -> dict:
+    """K1b at the training path's rows: [B*S, d_model] = [16384, 768],
+    bf16 activations and scale (the bf16 policy casts the scale)."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    n, d = 16384, 768
+    x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    g = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    _, r = K.rms_norm_forward(x, s, 1e-5, with_r=True)
+    dx = K.rms_norm_backward(x, s, r, g)
+    (xp,) = _leaf(x)
+    yp = K.rms_norm_reference(xp, s)
+    (plain,) = torch.autograd.grad(yp, xp, g, retain_graph=True)
+    x32, s32, g32 = x.float(), s.float(), g.float()
+    (x32l,) = _leaf(x32)
+    (ref32,) = torch.autograd.grad(K.rms_norm_reference(x32l, s32), x32l,
+                                   g32)
+    rr = torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-5)
+    c = (g32 * s32 * x32).mean(-1, keepdim=True)
+    terms = (rr * g32 * s32).abs() + (x32 * rr ** 3 * c).abs()
+    torch.cuda.synchronize()
+    # f32 math rounded once to bf16 (one bf16 step, at most 2^-7 of the
+    # value), plus 1e-5 of the two terms of r*g*s - x*r^3*mean(g*s*x) for
+    # f32 sums in another order.
+    allowed = 2 ** -7 * ref32.abs() + 1e-5 * terms
+    _check("rms_norm_bwd [16384, 768] bf16 vs f32", dx, ref32, allowed,
+           "2^-7 |ref32| + 1e-5 (|r g s| + |x r^3 c|)")
+    err = _check("rms_norm_bwd vs its plain version", dx, plain,
+                 (plain.float() - ref32).abs() + allowed,
+                 "|plain - ref32| + the above")
+    ms = device_ms(lambda: K.rms_norm_backward(x, s, r, g))
+    plain_ms = _backward_ms(yp, xp, g)
+    (xl,) = _leaf(x)
+    yl = F.rms_norm(xl, (d,), s, 1e-5)
+    lib = _backward_ms(yl, xl, g)
+    bnd = bound(3 * n * d * 2 + n * 4 + d * 2, 8 * n * d, PEAK_F32_FLOPS)
+    _report("rms_norm_bwd", f"[{n}, {d}] bf16", ms, plain_ms, lib, bnd)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=lib)
+
+
+def _cross_entropy_cases(gen) -> dict:
+    """K3f and K3b at the training path's logits: [B*S, vocab] =
+    [16384, 32000] f32 (the task casts logits to f32 first)."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    n, v = 16384, 32000
+    logits = 3 * torch.randn(n, v, generator=gen, device="cuda")
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    g = torch.full((n,), 1.0 / n, device="cuda")     # d(mean loss)
+    loss, lse = K.cross_entropy_forward(logits, labels)
+    (lp,) = _leaf(logits)
+    plain = K.cross_entropy_reference(lp, labels)
+    torch.cuda.synchronize()
+    # One f32 logsumexp over 32,000 columns each, summed in another order.
+    err_f = _check("cross_entropy [16384, 32000] f32 vs plain", loss,
+                   plain, 2e-5 + 1e-6 * plain.abs(), "2e-5 + 1e-6 |ref|")
+    dl = K.cross_entropy_backward(logits, labels, lse, g)
+    (dplain,) = torch.autograd.grad(plain, lp, g, retain_graph=True)
+    pg = torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True)
+                   ) * g[:, None]
+    torch.cuda.synchronize()
+    # (p - onehot) g with p = exp(x - lse): lse within 2e-5 moves p by
+    # 2e-5 of itself; 3e-5 (|ref| + p g).
+    err_b = _check("cross_entropy_bwd vs plain", dl, dplain,
+                   3e-5 * (dplain.abs() + pg), "3e-5 (|ref| + p g)")
+    del pg
+    lab64 = labels.long()
+    rows = {}
+    nbytes_f = 4 * n * v + 4 * n + 8 * n
+    nbytes_b = 8 * n * v + 12 * n
+    ms = device_ms(lambda: K.cross_entropy_forward(logits, labels),
+                   launches=20)
+    plain_ms = device_ms(lambda: K.cross_entropy_reference(logits, labels),
+                         launches=10)
+    lib = device_ms(lambda: F.cross_entropy(logits, lab64,
+                                            reduction="none"), launches=10)
+    bnd = bound(nbytes_f, 4 * n * v, PEAK_F32_FLOPS)
+    _report("cross_entropy", f"[{n}, {v}] f32", ms, plain_ms, lib, bnd)
+    rows["cross_entropy"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bnd[0], bound_by=bnd[1],
+                                 library_ms=lib)
+    ms = device_ms(lambda: K.cross_entropy_backward(logits, labels, lse, g),
+                   launches=20)
+    plain_ms = _backward_ms(plain, lp, g, launches=10)
+    (ll,) = _leaf(logits)
+    lib_out = F.cross_entropy(ll, lab64, reduction="none")
+    lib = _backward_ms(lib_out, ll, g, launches=10)
+    bnd = bound(nbytes_b, 4 * n * v, PEAK_F32_FLOPS)
+    _report("cross_entropy_bwd", f"[{n}, {v}] f32", ms, plain_ms, lib, bnd)
+    rows["cross_entropy_bwd"] = dict(max_abs_err=err_b, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bnd[0],
+                                     bound_by=bnd[1], library_ms=lib)
+    return rows
+
+
+def _segments(gen, b, s):
+    """[B, S] int32 packed rows: documents of random lengths, ids rising
+    along each row."""
+    import torch
+
+    cuts = torch.sort(torch.randint(1, s, (b, 5), generator=gen,
+                                    device="cuda"), dim=1).values
+    pos = torch.arange(s, device="cuda")
+    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32)
+
+
+def _flash_f32(q, k, v, do, causal, seg, scale):
+    """The flash function in f32 from the same (bf16) inputs, one batch row
+    at a time, with the magnitude terms its error bounds need: the exact
+    out/dq/dk/dv, and for each the sum of |terms| that bf16 rounding of
+    p, dS and o can move (see ``_flash_case``)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    rep = q.shape[1] // k.shape[1]
+    res = {n: [] for n in ("out", "dq", "dk", "dv", "out_t", "dq_t", "dk_t",
+                           "dv_t")}
+    pairs = 0
+    for i in range(q.shape[0]):
+        q32, k32, v32, g32 = (t[i].float() for t in (q, k, v, do))
+        k32 = k32.repeat_interleave(rep, 0)
+        v32 = v32.repeat_interleave(rep, 0)
+        n = q32.shape[1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device)
+        if causal:
+            keep = keep.tril()
+        if seg is not None:
+            keep = keep & (seg[i][:, None] == seg[i][None, :])
+        pairs += int(keep.sum()) * q32.shape[0]
+        s = (q32 @ k32.transpose(-1, -2)) * scale
+        s = s + torch.where(keep, 0.0, K.FLASH_MASK_VALUE)
+        p = torch.softmax(s, -1)
+        del s
+        out = p @ v32
+        dp = g32 @ v32.transpose(-1, -2)
+        di = (g32 * out).sum(-1, keepdim=True)
+        ds = p * (dp - di) * scale
+        del dp
+        dio = (g32.abs() * out.abs()).sum(-1, keepdim=True)  # o rounding
+        dsa = ds.abs()
+
+        def group(t):
+            return t.unflatten(0, (-1, rep)).sum(1)
+
+        res["out"].append(out)
+        res["out_t"].append(p @ v32.abs())
+        res["dq"].append(ds @ k32)
+        res["dq_t"].append(dsa @ k32.abs()
+                           + scale * dio * (p @ k32.abs()))
+        pt = p.transpose(-1, -2)
+        res["dk"].append(group(ds.transpose(-1, -2) @ q32))
+        res["dk_t"].append(group(dsa.transpose(-1, -2) @ q32.abs()
+                                 + scale * pt @ (dio * q32.abs())))
+        res["dv"].append(group(pt @ g32))
+        res["dv_t"].append(group(pt @ g32.abs()))
+        del p, pt, ds, dsa
+    return {k: torch.stack(v) for k, v in res.items()}, pairs
+
+
+def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main) -> dict:
+    """K2 forward and backward on [B, H, S, D] views of [B, S, H, D]
+    storage (the model's layout), causal, bf16, against the plain version
+    and an f32 computation of the same function."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    def bshd(heads):
+        return torch.randn(b, s, heads, d, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = bshd(h), bshd(kvh), bshd(kvh), bshd(h)
+    seg = _segments(gen, b, s) if packed else None
+    scale = d ** -0.5
+    o, lse = K.flash_attention_forward(q, k, v, seg, True, scale)
+    dq, dk, dv = K.flash_attention_backward(q, k, v, o, lse, do, seg, True,
+                                            scale)
+    qp, kp, vp = _leaf(q, k, v)
+    op = K.flash_attention_reference(qp, kp, vp, causal=True,
+                                     segment_ids=seg, sm_scale=scale)
+    gp = torch.autograd.grad(op, (qp, kp, vp), do, retain_graph=True)
+    ref, pairs = _flash_f32(q, k, v, do, True, seg, scale)
+    torch.cuda.synchronize()
+    rows, errs = {}, {}
+    # The kernel rounds p to bf16 before p.v and dS before dS.k / dS^T.q,
+    # reads o in bf16 for di, and rounds its outputs once; each rounding
+    # moves a value by at most 2^-8 of itself (bf16 keeps 8 significant
+    # bits).  So it stays within 2^-7 of (|ref32| + the sum of |terms|
+    # those roundings touch), a factor 2 for the f32 sums.  Against the
+    # plain version, its own measured distance from ref32 is allowed on
+    # top.
+    for name, got, plain in (("out", o, op), ("dq", dq, gp[0]),
+                             ("dk", dk, gp[1]), ("dv", dv, gp[2])):
+        r32 = ref[name]
+        allowed = 2 ** -7 * (r32.abs() + ref[name + "_t"]) + 1e-6
+        _check(f"flash {label} {name} vs f32", got, r32, allowed,
+               "2^-7 (|ref32| + |terms|) + 1e-6")
+        errs[name] = _check(f"flash {label} {name} vs plain", got, plain,
+                            (plain.float() - r32).abs() + allowed,
+                            "|plain - ref32| + the above")
+    del ref
+    shape = (f"B {b} H {h} KVH {kvh} S {s} D {d} causal bf16"
+             + (" packed" if packed else ""))
+    in_bytes = (q.numel() + k.numel() + v.numel()) * 2
+    fwd_bytes = in_bytes + o.numel() * 2 + lse.numel() * 4
+    bwd_bytes = (in_bytes + 2 * o.numel() * 2 + lse.numel() * 4
+                 + (dq.numel() + dk.numel() + dv.numel()) * 2)
+    rep = h // kvh
+    kr, vr = (t.repeat_interleave(rep, 1) for t in (k, v))
+    mask = None
+    if seg is not None:
+        mask = ((seg[:, None, :, None] == seg[:, None, None, :])
+                & torch.ones(s, s, dtype=torch.bool, device="cuda").tril())
+
+    def lib_fwd(qq, kk, vv):
+        if mask is None:
+            return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+    ms = device_ms(lambda: K.flash_attention_forward(q, k, v, seg, True,
+                                                     scale), launches=10)
+    plain_ms = device_ms(lambda: K.flash_attention_reference(
+        q, k, v, causal=True, segment_ids=seg, sm_scale=scale), launches=3)
+    lib = device_ms(lambda: lib_fwd(q, kr, vr), launches=10)
+    bnd = bound(fwd_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)
+    _report("flash_attention", shape, ms, plain_ms, lib, bnd)
+    rows["flash_attention"] = dict(max_abs_err=errs["out"], ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bnd[0],
+                                   bound_by=bnd[1], library_ms=lib)
+    ms = device_ms(lambda: K.flash_attention_backward(
+        q, k, v, o, lse, do, seg, True, scale), launches=10)
+    plain_ms = _backward_ms(op, (qp, kp, vp), do, launches=3)
+    ql, kl, vl = _leaf(q, kr, vr)
+    lib = _backward_ms(lib_fwd(ql, kl, vl), (ql, kl, vl), do, launches=10)
+    bnd = bound(bwd_bytes, 10 * d * pairs, PEAK_BF16_FLOPS)
+    _report("flash_attention_bwd", shape, ms, plain_ms, lib, bnd)
+    rows["flash_attention_bwd"] = dict(
+        max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
+    log(f"  flash {label}: {pairs} visible (query, key) pairs")
+    return rows if main else {}
+
+
+def phase_train_kernels() -> dict:
+    """The training kernels against their plain versions at the training
+    path's shapes; returns their rows of the kernels' JSON line."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = {"rms_norm": _rms_norm_fwd_case(gen),
+            "rms_norm_bwd": _rms_norm_bwd_case(gen)}
+    torch.cuda.empty_cache()
+    rows.update(_cross_entropy_cases(gen))
+    torch.cuda.empty_cache()
+    # llama_125m's attention (the JSON line's shape), Llama-2-7B's head,
+    # and GQA over packed rows.
+    rows.update(_flash_case(gen, "llama_125m", 8, 12, 12, 2048, 64,
+                            packed=False, main=True))
+    torch.cuda.empty_cache()
+    _flash_case(gen, "llama2_7b head", 1, 32, 32, 2048, 128, packed=False,
+                main=False)
+    _flash_case(gen, "gqa packed", 2, 16, 4, 1024, 128, packed=True,
+                main=False)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+
+def train_launches_per_step(num_layers: int) -> dict:
+    """Kernel launches of one training step of a decoder under full remat:
+    every block's forward runs twice (the forward, and again in the
+    backward), the final norm and the loss once."""
+    n = num_layers
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n,
+            "rms_norm": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
+            "cross_entropy": 1, "cross_entropy_bwd": 1}
+
+
+def phase_train(steps: int = 20, log_every: int = 5) -> tuple:
+    """The trainer on llama_125m_lm at full width and depth, through the
+    CLI's own construction (``train.make_trainer``): b 8 x s 2048, bf16
+    compute over f32 params, adamw + clip 1.0 + warmup_cosine, random
+    weights from seed 0.  Counts are zeroed just before ``fit`` and read
+    just after."""
+    import math
+
+    import torch
+    from tensorflow_train_distributed_torch import train as T
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    name = "llama_125m_lm"
+    args = T.build_parser().parse_args(
+        ["--config", name, "--steps", str(steps), "--seed", str(SEED),
+         "--log-every", str(log_every), "--log-grad-norm", "--device",
+         "cuda"])
+    entry = registry.get_entry(name)
+    cfg = entry["config"]
+    _, trainer, batches = T.make_trainer(args, entry)
+    state = trainer.create_state()
+    torch.cuda.synchronize()
+    stamps = []     # host time at each window's drain
+
+    def on_log(step, m):
+        if step % log_every == 0:
+            stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = trainer.fit(batches, steps=steps, state=state,
+                                 on_log=on_log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: K.launch_counts()[k] for k in TRAIN_KERNELS}
+    others = {k: v for k, v in K.launch_counts().items()
+              if k not in TRAIN_KERNELS and v}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for _, m in history]
+    for step, m in history:
+        log(f"  step {step}: loss {m['loss']:.4f} accuracy "
+            f"{m['accuracy']:.4f} lr {m['lr']:.3e} grad_norm "
+            f"{m['grad_norm']:.3f}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    want = {k: steps * v for k, v in
+            train_launches_per_step(cfg.num_layers).items()}
+    log(f"  launches {counts} (expected {want}); others {others}")
+    if counts != want or others:
+        raise AssertionError(f"training launches {counts}, others {others};"
+                             f" expected {want}")
+    # Window times between metric drains (each drain waits for the
+    # device); the first window, which holds the warm-up, is left out.
+    windows = [(b - a) / log_every for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(windows) if windows else wall / steps
+    b, s = entry["global_batch_size"], entry["dataset_kwargs"]["seq_len"]
+    tokens = b * s
+    n_params = state.num_params()
+    n_dense = n_params - cfg.vocab_size * cfg.d_model    # no embedding
+    flops = (6 * n_dense + 6 * cfg.num_layers * s * cfg.d_model) * tokens
+    stats = dict(
+        config=name, steps=steps, batch=b, seq=s, params=n_params,
+        step_ms=step_s * 1e3, window_ms_per_step=[w * 1e3 for w in windows],
+        tokens_per_s=tokens / step_s, peak_mem_gib=peak / 2 ** 30,
+        wall_s=wall, losses=losses,
+        mfu=flops / step_s / PEAK_BF16_FLOPS,
+        mfu_formula="(6 (N - V d) + 6 L S d) tokens / step_s / 989e12")
+    stats["profile"] = _profile_train_step(trainer, state, batches)
+    log(f"  training: {json.dumps(stats)}")
+    return counts, stats
+
+
+def _profile_train_step(trainer, state, batches):
+    """One more training step under torch.profiler (CUPTI), after the
+    counted run: the device's busy share of the step's wall time and the
+    kernel time by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tensorflow_train_distributed_torch.data.pipeline import to_device
+
+    batch = to_device(next(iter(batches)), "cuda")
+    trainer.train_step(state, batch)            # same shapes, warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds = dict.fromkeys(("matmul", "flash_attention", "flash_attention_bwd",
+                           "cross_entropy", "rms_norm", "other"), 0.0)
+    top, n_kernels = [], 0
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        n_kernels += e.count
+        low = e.key.lower()
+        kind = ("flash_attention_bwd" if "flash_bwd" in low
+                else "flash_attention" if "flash_fwd" in low
+                else "cross_entropy" if ("ce_fwd_kernel" in low
+                                         or "ce_bwd_kernel" in low)
+                else "rms_norm" if "rms_norm" in low
+                else "matmul" if any(k in low for k in (
+                    "gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul"))
+                else "other")
+        kinds[kind] += us
+        top.append((us, e.count, e.key[:70]))
+    busy = sum(kinds.values())
+    if busy == 0:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return None
+    top.sort(reverse=True)
+    for us, count, name in top[:12]:
+        log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {name}")
+    return dict(step_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                busy_share_profiled=busy / wall_us, device_kernels=n_kernels,
+                kernel_ms_by_kind={k: v / 1e3 for k, v in kinds.items()})
+
+
+# -- phase 6b -----------------------------------------------------------------
+
+
+class _plain_kernels:
+    """Context in which the training kernels' wrappers compute their plain
+    versions on CUDA tensors (the comparison model of phase 6b only)."""
+
+    def __enter__(self):
+        from tensorflow_train_distributed_torch.ops import kernels as K
+
+        self.saved = (K.rms_norm, K.cross_entropy, K.flash_attention)
+        K.rms_norm = K.rms_norm_reference
+        K.cross_entropy = K.cross_entropy_reference
+        K.flash_attention = K.flash_attention_reference
+
+    def __exit__(self, *exc):
+        from tensorflow_train_distributed_torch.ops import kernels as K
+
+        K.rms_norm, K.cross_entropy, K.flash_attention = self.saved
+
+
+def phase_grad_check() -> dict:
+    """(a) One step's gradients of llama_125m cut to 2 layers, kernels
+    against the same model with every training wrapper on its plain
+    version, at f32 and under the bf16 policy: each leaf's relative L2
+    distance, the largest held to a stated bound."""
+    import dataclasses
+
+    import torch
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import (
+        HostBatches, to_device)
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS, CausalLmTask)
+    from tensorflow_train_distributed_torch.training import optimizers
+    from tensorflow_train_distributed_torch.training.mixed_precision import (
+        Policy)
+    from tensorflow_train_distributed_torch.training.trainer import Trainer
+
+    src = SyntheticLM(num_examples=64, seq_len=2048, vocab_size=32_000)
+    host = next(iter(HostBatches(src, 8, seed=SEED)))
+    out = {}
+    # f32: the same math in other orders; bf16: the kernels and the plain
+    # versions round at other places (p, dS, the norms' outputs).
+    for precision, dtype, tol in (("float32", torch.float32, 1e-4),
+                                  ("bfloat16", torch.bfloat16, 3e-2)):
+        cfg = dataclasses.replace(LLAMA_PRESETS["llama_125m"], num_layers=2,
+                                  dtype=dtype)
+        trainer = Trainer(CausalLmTask(cfg, device="meta"),
+                          optimizers.sgd(0.0),
+                          policy=Policy.from_name(precision), device="cuda")
+        state = trainer.create_state()
+        params = list(state.params.values())
+        batch = trainer.policy.cast_to_compute(to_device(host, "cuda"))
+        got, loss_k, _ = trainer._microbatch_grads(params, batch, None)
+        with _plain_kernels():
+            want, loss_p, _ = trainer._microbatch_grads(params, batch, None)
+        worst, worst_name = 0.0, ""
+        for name, a, b in zip(state.params, got, want):
+            rel = ((a.float() - b.float()).norm()
+                   / b.float().norm().clamp_min(1e-30)).item()
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"  grads {precision} (2 layers): loss kernels {loss_k.item():.6f}"
+            f" plain {loss_p.item():.6f}; worst leaf {worst_name} relative "
+            f"L2 {worst:.3e} (bound {tol}) {'ok' if worst <= tol else 'FAIL'}")
+        if not worst <= tol:
+            raise AssertionError(f"{precision} grads: {worst_name} differs "
+                                 f"by {worst:.3e} > {tol}")
+        out[precision] = dict(worst_leaf=worst_name, worst_rel_l2=worst,
+                              bound=tol)
+        del trainer, state, params, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_card_vs_cpu(steps: int = 5) -> dict:
+    """(b) A llama_tiny-width decoder with 64-wide heads (so the flash
+    kernel takes it; GQA 2:1) at f32 and seq 128: ``steps`` steps on the
+    card against the same steps of the port on the CPU, whose plain
+    versions the CPU tests hold to the JAX package."""
+    import dataclasses
+
+    import torch
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS, CausalLmTask)
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.training import (
+        optimizers, schedules)
+    from tensorflow_train_distributed_torch.training.mixed_precision import (
+        Policy)
+    from tensorflow_train_distributed_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama_tiny"], num_heads=2,
+                              num_kv_heads=1, head_dim=64, remat=True)
+    params = convert.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device="cpu", dtype=torch.float32)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        lr = schedules.by_name("warmup_cosine", 3e-3, steps, warmup_steps=1)
+        tx = optimizers.make_optimizer("adamw", lr, weight_decay=0.01,
+                                       grad_clip_norm=1.0)
+        trainer = Trainer(CausalLmTask(cfg, device="meta"), tx,
+                          policy=Policy.from_name("float32"),
+                          config=TrainerConfig(log_every=1,
+                                               log_grad_norm=True),
+                          lr_schedule=lr, device=device)
+        state = trainer.create_state({k: v.clone() for k, v in
+                                      params.items()})
+        K.reset_launch_counts()
+        src = SyntheticLM(num_examples=64, seq_len=128, vocab_size=256)
+        state, history = trainer.fit(HostBatches(src, 8, seed=SEED),
+                                     steps=steps, state=state)
+        runs[device] = (history, {k: p.detach().cpu() for k, p in
+                                  state.params.items()},
+                        K.launch_counts())
+    counts = {k: runs["cuda"][2][k] for k in TRAIN_KERNELS}
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a training kernel did not run: {counts}")
+    dl = max(abs(a["loss"] - b["loss"]) for (_, a), (_, b) in
+             zip(runs["cpu"][0], runs["cuda"][0]))
+    dg = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+             for (_, a), (_, b) in zip(runs["cpu"][0], runs["cuda"][0]))
+    dp = max(((runs["cuda"][1][k] - p).norm() / p.norm()).item()
+             for k, p in runs["cpu"][1].items())
+    losses = [(a["loss"], b["loss"]) for (_, a), (_, b) in
+              zip(runs["cpu"][0], runs["cuda"][0])]
+    log(f"  card vs cpu, {steps} steps f32: losses {losses}")
+    # f32 on both sides, other kernels and summation orders, carried
+    # through five adamw steps.
+    ok = dl <= 1e-4 and dg <= 1e-3 and dp <= 1e-4
+    log(f"  max |loss diff| {dl:.3e} (bound 1e-4), grad_norm relative "
+        f"{dg:.3e} (1e-3), params relative L2 {dp:.3e} (1e-4); launches "
+        f"{counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's training run left the CPU's")
+    return dict(max_loss_diff=dl, grad_norm_rel=dg, params_rel_l2=dp,
+                launches=counts)
+
+
 def main() -> int:
     import torch
 
@@ -487,7 +1122,7 @@ def main() -> int:
     log("== phase 1: device and build")
     phase_device()
     log("== phase 2: kernels against their plain versions")
-    rows = phase_kernels()
+    rows = {"serve": phase_kernels()}
     log("== phase 3: serving engine, llama2_7b full width and depth")
     counts, stats = phase_engine(
         LLAMA_PRESETS["llama2_7b"], label="llama2_7b bf16",
@@ -502,12 +1137,23 @@ def main() -> int:
                             n_requests=6, max_new=16, lo=16, hi=200,
                             check_requests=[1], tol=0.25)
     engines["llama2_7b_4layers_kv_int8"] = stats
+    torch.cuda.empty_cache()
+    log("== phase 5: training kernels against their plain versions")
+    rows["train"] = phase_train_kernels()
+    log("== phase 6: trainer, llama_125m_lm full width and depth")
+    train_counts, training = phase_train()
+    torch.cuda.empty_cache()
+    log("== phase 6b: gradients against the plain versions; card vs CPU")
+    training["grad_check"] = phase_grad_check()
+    training["card_vs_cpu"] = phase_card_vs_cpu()
 
-    kernels = [dict(name=name, route="cuda", source=meta["source"],
-                    replaces=meta["replaces"], launches=counts[name],
-                    **rows[name])
-               for name, meta in KERNELS.items()]
+    paths = {"serve": counts, "train": train_counts}
+    kernels = [dict(name=name, route="cuda", source=source,
+                    replaces=replaces, path=path, launches=paths[path][name],
+                    **rows[path][name])
+               for name, source, replaces, path in KERNELS]
     print(json.dumps({"engines": engines}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

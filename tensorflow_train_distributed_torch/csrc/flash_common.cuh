@@ -1,0 +1,259 @@
+// Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu): the argument block, tile loads into shared
+// memory, and two warp-level tile products with one register layout for
+// both element types.
+//
+// Layout of a warp's [16, 8*NT] f32 tile in registers (the accumulator
+// layout of mma.sync m16n8k16): lane = 4*g + t holds, for each n-tile n,
+//   c[n][0], c[n][1] at row g,     columns 8n + 2t, 8n + 2t + 1
+//   c[n][2], c[n][3] at row g + 8, the same columns.
+// bf16 tiles run on the tensor cores (mma.sync, f32 accumulation); f32
+// tiles run the same products with FMAs in that layout, so every kernel
+// body is written once.
+#pragma once
+
+#include "common.cuh"
+
+namespace ttd_flash {
+
+using bf16 = __nv_bfloat16;
+
+// The library kernel's mask value (flash_attention.py DEFAULT_MASK_VALUE):
+// added, not substituted, to a masked score.
+constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
+
+// Element strides of a [B, H, S, D] operand; D is contiguous.
+struct Strides {
+  long long b, h, s;
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  void* out;      // forward: o; backward: unused
+  void* dq;
+  void* dk;
+  void* dv;
+  float* lse;     // [B, H, S] f32 row logsumexp (written fwd, read bwd)
+  float* di;      // [B, H, S] f32 rowsum(dO * O) (backward scratch)
+  const int* seg; // [B, S] int32 segment ids, or null
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int batch, heads, kv_heads, seq;
+  float scale;
+  int causal;
+};
+
+// Copies BT rows of D elements (row stride ``stride`` elements) from
+// global memory into a shared tile of row pitch D + 16 bytes, with
+// 16-byte loads.  The wrapper guarantees 16-byte aligned rows.
+template <typename T, int D, int BT, int NTHREADS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          long long stride) {
+  constexpr int kEpv = 16 / sizeof(T);
+  constexpr int kVpr = D / kEpv;
+  constexpr int kLd = D + kEpv;
+  for (int i = threadIdx.x; i < BT * kVpr; i += NTHREADS) {
+    const int r = i / kVpr;
+    const int c = (i - r * kVpr) * kEpv;
+    *reinterpret_cast<uint4*>(dst + r * kLd + c) =
+        *reinterpret_cast<const uint4*>(src + r * stride + c);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename T>
+struct Tile;
+
+// bf16: tensor cores.
+template <>
+struct Tile<bf16> {
+  // c[16, 8*NT] = A[16, D] . B[8*NT, D]^T; A and B row-major in shared
+  // memory with row pitch LD, products accumulated in f32.
+  template <int D, int NT, int LD>
+  static __device__ __forceinline__ void abt(const bf16* a, const bf16* b,
+                                             float (*c)[4], float*) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t af[4];
+      af[0] = ld32(a + g * LD + kk + 2 * t);
+      af[1] = ld32(a + (g + 8) * LD + kk + 2 * t);
+      af[2] = ld32(a + g * LD + kk + 8 + 2 * t);
+      af[3] = ld32(a + (g + 8) * LD + kk + 8 + 2 * t);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t bfr[2];
+        bfr[0] = ld32(b + (n * 8 + g) * LD + kk + 2 * t);
+        bfr[1] = ld32(b + (n * 8 + g) * LD + kk + 8 + 2 * t);
+        mma16816(c[n], af, bfr);
+      }
+    }
+  }
+
+  // acc[16, D] += P[16, 8*NT] . B[8*NT, D]; P is a register tile (rounded
+  // to bf16 here, as the library casts p to v's dtype), B row-major in
+  // shared memory with row pitch LD.
+  template <int D, int NT, int LD>
+  static __device__ __forceinline__ void pb(const float (*p)[4],
+                                            const bf16* b, float (*acc)[4],
+                                            float*) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t af[4];
+      af[0] = pack_f32(p[2 * j][0], p[2 * j][1]);
+      af[1] = pack_f32(p[2 * j][2], p[2 * j][3]);
+      af[2] = pack_f32(p[2 * j + 1][0], p[2 * j + 1][1]);
+      af[3] = pack_f32(p[2 * j + 1][2], p[2 * j + 1][3]);
+      const bf16* r0 = b + (16 * j + 2 * t) * LD;
+      const bf16* r8 = b + (16 * j + 8 + 2 * t) * LD;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = n * 8 + g;
+        uint32_t bfr[2];
+        bfr[0] = pack_raw(r0[col], r0[LD + col]);
+        bfr[1] = pack_raw(r8[col], r8[LD + col]);
+        mma16816(acc[n], af, bfr);
+      }
+    }
+  }
+};
+
+// f32: the same products with FMAs in the same register layout.  ``pb``
+// stages P through a per-warp shared scratch of 16 x (8*NT + 4) floats.
+template <>
+struct Tile<float> {
+  template <int D, int NT, int LD>
+  static __device__ __forceinline__ void abt(const float* a, const float* b,
+                                             float (*c)[4], float*) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < D; ++k) {
+      const float a0 = a[g * LD + k];
+      const float a1 = a[(g + 8) * LD + k];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float b0 = b[(n * 8 + 2 * t) * LD + k];
+        const float b1 = b[(n * 8 + 2 * t + 1) * LD + k];
+        c[n][0] += a0 * b0;
+        c[n][1] += a0 * b1;
+        c[n][2] += a1 * b0;
+        c[n][3] += a1 * b1;
+      }
+    }
+  }
+
+  template <int D, int NT, int LD>
+  static __device__ __forceinline__ void pb(const float (*p)[4],
+                                            const float* b, float (*acc)[4],
+                                            float* scratch) {
+    constexpr int kPl = NT * 8 + 4;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      scratch[g * kPl + n * 8 + 2 * t] = p[n][0];
+      scratch[g * kPl + n * 8 + 2 * t + 1] = p[n][1];
+      scratch[(g + 8) * kPl + n * 8 + 2 * t] = p[n][2];
+      scratch[(g + 8) * kPl + n * 8 + 2 * t + 1] = p[n][3];
+    }
+    __syncwarp();
+#pragma unroll 2
+    for (int k = 0; k < NT * 8; ++k) {
+      const float p0 = scratch[g * kPl + k];
+      const float p1 = scratch[(g + 8) * kPl + k];
+      const float* row = b + k * LD;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float b0 = row[n * 8 + 2 * t];
+        const float b1 = row[n * 8 + 2 * t + 1];
+        acc[n][0] += p0 * b0;
+        acc[n][1] += p0 * b1;
+        acc[n][2] += p1 * b0;
+        acc[n][3] += p1 * b1;
+      }
+    }
+    __syncwarp();
+  }
+};
+
+// Tile rows: 64 for bf16 (four warps of 16 rows), 32 for f32 (two warps),
+// so that four tiles of head_dim 256 fit the 227 KB of shared memory.
+template <typename T>
+struct Cfg {
+  static constexpr int kBt = sizeof(T) == 2 ? 64 : 32;
+  static constexpr int kThreads = kBt * 2;
+  static constexpr int kNt = kBt / 8;
+};
+
+template <typename T, int D>
+__host__ __device__ constexpr int tile_pitch() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+// Shared bytes of ``tiles`` tiles plus 4 int/float vectors of BT and, for
+// f32, the per-warp P scratch.
+template <typename T, int D>
+__host__ __device__ constexpr int smem_bytes(int tiles) {
+  return tiles * Cfg<T>::kBt * tile_pitch<T, D>() * static_cast<int>(sizeof(T)) +
+         4 * Cfg<T>::kBt * 4 +
+         (sizeof(T) == 4 ? (Cfg<T>::kBt / 16) * 16 * (Cfg<T>::kNt * 8 + 4) * 4
+                         : 0);
+}
+
+// Whether key ``col`` is visible to query ``row`` (absolute positions;
+// ``sq``/``sk`` their segment ids when ``seg``).
+__device__ __forceinline__ bool visible(int row, int col, int causal,
+                                        bool seg, int sq, int sk) {
+  return (!causal || col <= row) && (!seg || sq == sk);
+}
+
+}  // namespace ttd_flash

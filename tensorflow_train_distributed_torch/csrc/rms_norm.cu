@@ -1,20 +1,24 @@
-// Fused RMSNorm forward for Hopper (sm_90a).
+// Fused RMSNorm forward and backward for Hopper (sm_90a).
 //
 // Replaces: tensorflow_train_distributed_tpu/ops/pallas_kernels.py
 //   _rmsnorm_fwd_call (kernel _rmsnorm_fwd_kernel): per row
-//   y = x * rsqrt(mean(x^2) + eps) * s, accumulated in f32.  The TPU kernel
-//   also writes r for its backward; serving needs no backward, so this one
-//   writes y only (the backward comes with the training slice).
+//   y = x * r * s with r = rsqrt(mean(x^2) + eps), accumulated in f32; it
+//   also writes r [N, 1] f32 for the backward (optional here: serving
+//   passes null and skips the write).
+//   _rms_norm_pallas_bwd (kernel _rmsnorm_bwd_kernel): per row
+//   dx = r * (g * s) - x * r^3 * mean((g * s) * x), in f32, written in x's
+//   dtype.  dscale = sum_rows g * x * r stays a plain column reduction
+//   outside the kernel, as in the JAX package.
 //
-// Bound on this card: bytes.  Each row is read, reduced and written once:
-//   N*D elements in, N*D out, D scale values, against ~4 flops an element,
-//   far below the 295 flop/byte ridge of the H100.
+// Bound on this card: bytes.  The forward reads x once and writes y (and
+//   4 bytes of r a row); the backward reads x and g and writes dx.  A few
+//   flops an element against the H100's 295 flop/byte ridge.
 //
-// Design: one 256-thread block per row.  Pass 1 accumulates the squares in
-//   f32 (strided, coalesced loads) and reduces with warp shuffles plus one
-//   shared-memory step; pass 2 re-reads the row (it is still in L1/L2 at
-//   D = 4096) and writes y in x's dtype.  Simple first: no vector loads
-//   and no multi-row blocks yet.
+// Design: one 256-thread block per row.  Pass 1 accumulates the row's sum
+//   (squares, or g*s*x) in f32 with strided, coalesced loads and reduces
+//   with warp shuffles plus one shared-memory step; pass 2 re-reads the
+//   row (still in L1/L2 at D <= 4096) and writes the result in x's dtype.
+//   Simple first: no vector loads and no multi-row blocks yet.
 #include "common.cuh"
 
 namespace {
@@ -22,10 +26,29 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// Block-wide sum of one float per thread; every thread gets the total.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float partial[kWarps];
+  __shared__ float total;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  v = ttd::warp_sum(v);
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float s = lane < kWarps ? partial[lane] : 0.f;
+    s = ttd::warp_sum(s);
+    if (lane == 0) total = s;
+  }
+  __syncthreads();
+  return total;
+}
+
 template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
     rms_norm_fwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                        T* __restrict__ y, int d, float eps) {
+                        T* __restrict__ y, float* __restrict__ r_out, int d,
+                        float eps) {
   const long long row = blockIdx.x;
   const T* xr = x + row * d;
   T* yr = y + row * d;
@@ -35,51 +58,95 @@ __global__ void __launch_bounds__(kThreads)
     const float v = ttd::to_f32(xr[i]);
     acc += v * v;
   }
-  __shared__ float partial[kWarps];
-  __shared__ float r_shared;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  acc = ttd::warp_sum(acc);
-  if (lane == 0) partial[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < kWarps ? partial[lane] : 0.f;
-    s = ttd::warp_sum(s);
-    if (lane == 0) r_shared = rsqrtf(s / static_cast<float>(d) + eps);
-  }
-  __syncthreads();
-  const float r = r_shared;
+  const float r = rsqrtf(block_sum(acc) / static_cast<float>(d) + eps);
+  if (r_out != nullptr && threadIdx.x == 0) r_out[row] = r;
   for (int i = threadIdx.x; i < d; i += kThreads) {
     yr[i] = ttd::from_f32<T>(ttd::to_f32(xr[i]) * r * ttd::to_f32(scale[i]));
   }
 }
 
 template <typename T, typename S>
-int launch(const void* x, const void* scale, void* y, int n_rows, int d,
-           float eps, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    rms_norm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                        const float* __restrict__ r_in,
+                        const T* __restrict__ g, T* __restrict__ dx, int d) {
+  const long long row = blockIdx.x;
+  const T* xr = x + row * d;
+  const T* gr = g + row * d;
+  T* dxr = dx + row * d;
+
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    acc += ttd::to_f32(gr[i]) * ttd::to_f32(scale[i]) * ttd::to_f32(xr[i]);
+  }
+  const float c = block_sum(acc) / static_cast<float>(d);
+  const float r = r_in[row];
+  const float r3 = r * r * r;
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    const float gs = ttd::to_f32(gr[i]) * ttd::to_f32(scale[i]);
+    dxr[i] = ttd::from_f32<T>(r * gs - ttd::to_f32(xr[i]) * r3 * c);
+  }
+}
+
+template <typename T, typename S>
+int launch_fwd(const void* x, const void* scale, void* y, float* r,
+               int n_rows, int d, float eps, cudaStream_t stream) {
   rms_norm_fwd_kernel<T, S><<<n_rows, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale),
-      static_cast<T*>(y), d, eps);
+      static_cast<T*>(y), r, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename S>
+int launch_bwd(const void* x, const void* scale, const float* r,
+               const void* g, void* dx, int n_rows, int d,
+               cudaStream_t stream) {
+  rms_norm_bwd_kernel<T, S><<<n_rows, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale), r,
+      static_cast<const T*>(g), static_cast<T*>(dx), d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, y: [n_rows, d] contiguous, dtype x_dtype; scale: [d], dtype s_dtype.
-// Returns cudaGetLastError() after the launch (0 on success).
+// x, y: [n_rows, d] contiguous, dtype x_dtype; scale: [d], dtype s_dtype;
+// r: [n_rows] f32 or null (not written).  Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int ttd_rms_norm_fwd(const void* x, const void* scale, void* y,
-                                int n_rows, int d, float eps, int x_dtype,
-                                int s_dtype, void* stream) {
+                                void* r, int n_rows, int d, float eps,
+                                int x_dtype, int s_dtype, void* stream) {
   if (n_rows <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* rf = static_cast<float*>(r);
   using bf16 = __nv_bfloat16;
   if (x_dtype == ttd::kF32 && s_dtype == ttd::kF32)
-    return launch<float, float>(x, scale, y, n_rows, d, eps, st);
+    return launch_fwd<float, float>(x, scale, y, rf, n_rows, d, eps, st);
   if (x_dtype == ttd::kF32 && s_dtype == ttd::kBF16)
-    return launch<float, bf16>(x, scale, y, n_rows, d, eps, st);
+    return launch_fwd<float, bf16>(x, scale, y, rf, n_rows, d, eps, st);
   if (x_dtype == ttd::kBF16 && s_dtype == ttd::kF32)
-    return launch<bf16, float>(x, scale, y, n_rows, d, eps, st);
+    return launch_fwd<bf16, float>(x, scale, y, rf, n_rows, d, eps, st);
   if (x_dtype == ttd::kBF16 && s_dtype == ttd::kBF16)
-    return launch<bf16, bf16>(x, scale, y, n_rows, d, eps, st);
+    return launch_fwd<bf16, bf16>(x, scale, y, rf, n_rows, d, eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x, g, dx: [n_rows, d] contiguous, dtype x_dtype; scale: [d], dtype
+// s_dtype; r: [n_rows] f32 from the forward.
+extern "C" int ttd_rms_norm_bwd(const void* x, const void* scale,
+                                const void* r, const void* g, void* dx,
+                                int n_rows, int d, int x_dtype, int s_dtype,
+                                void* stream) {
+  if (n_rows <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* rf = static_cast<const float*>(r);
+  using bf16 = __nv_bfloat16;
+  if (x_dtype == ttd::kF32 && s_dtype == ttd::kF32)
+    return launch_bwd<float, float>(x, scale, rf, g, dx, n_rows, d, st);
+  if (x_dtype == ttd::kF32 && s_dtype == ttd::kBF16)
+    return launch_bwd<float, bf16>(x, scale, rf, g, dx, n_rows, d, st);
+  if (x_dtype == ttd::kBF16 && s_dtype == ttd::kF32)
+    return launch_bwd<bf16, float>(x, scale, rf, g, dx, n_rows, d, st);
+  if (x_dtype == ttd::kBF16 && s_dtype == ttd::kBF16)
+    return launch_bwd<bf16, bf16>(x, scale, rf, g, dx, n_rows, d, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

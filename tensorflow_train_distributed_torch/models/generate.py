@@ -18,14 +18,15 @@ def _decode_model(config: LlamaConfig, params: dict, *,
     ``{name: tensor}`` dict in the port's layout — ``convert``).  The
     family-dispatch point (MoE joins with its slice).  The module is built
     on the meta device and takes the tensors by assignment, so weights
-    are never allocated twice."""
+    are never allocated twice; serving takes no gradients, so they are
+    frozen."""
     if not isinstance(config, LlamaConfig):
         raise TypeError(f"no decoder for config type {type(config).__name__}"
                         " yet (the port serves the Llama family)")
     model = LlamaModel(config, device="meta")
     model.load_state_dict({k: v.to(device) for k, v in params.items()},
                           strict=True, assign=True)
-    return model.eval()
+    return model.requires_grad_(False).eval()
 
 
 def cast_floating(params: dict, dtype: torch.dtype) -> dict:

@@ -1,14 +1,22 @@
-"""Transformer building blocks for the decoder's serving modes.
+"""Transformer building blocks for the decoder: training and serving.
 
-Counterpart of the JAX package's ``models/layers.py``, ported for the
-paged-KV serving engine: ``Embed``, RoPE (with the Llama-3 frequency
-scaling), the int8 KV recipe, ``RMSNorm`` over the fused kernel, the
-gated ``MlpBlock`` and the decode modes of ``MultiHeadAttention``.  The
-training branch of attention waits for the training slice.
+Counterpart of the JAX package's ``models/layers.py``: ``Embed``, RoPE
+(with the Llama-3 frequency scaling), the int8 KV recipe, ``RMSNorm``
+over the fused kernel, the gated ``MlpBlock`` and ``MultiHeadAttention``
+in its training branch (self-attention through the flash dispatch) and
+its decode modes (linear and paged KV caches).
 
 Weights keep the flax layout, so converted checkpoints load verbatim:
 dense kernels are ``[in, out]`` (``y = x @ kernel``), the embedding table
-``[vocab, d_model]``, norm scales ``[d]``.
+``[vocab, d_model]``, norm scales ``[d]``.  They are trainable
+parameters; serving runs under ``torch.no_grad()``.
+
+Mixed precision: the JAX trainer casts every floating parameter to the
+policy's compute dtype before the forward.  Here each leaf module
+(``Dense``, ``Embed``, ``RMSNorm``) casts its own parameters to
+``compute_dtype`` when that is set (``LlamaModel.set_compute_dtype``),
+inside autograd, so the f32 masters receive the gradients; the cast sits
+inside the module so that a rematerialised block recomputes it too.
 
 KV caches are plain tensors held in a ``KVCache`` and updated IN PLACE
 (the JAX package threads them functionally and donates the old buffers;
@@ -39,6 +47,7 @@ from torch import nn
 from tensorflow_train_distributed_torch.ops import kernels as K
 from tensorflow_train_distributed_torch.ops.attention import (
     dot_product_attention,
+    multihead_attention_kernel,
 )
 
 
@@ -59,7 +68,18 @@ class KVCache:
         return self.block_table is not None
 
 
-class Dense(nn.Module):
+class _Leaf(nn.Module):
+    """A module that owns parameters: ``compute_dtype`` (None, or the
+    policy's compute dtype) is the cast each parameter takes on use."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def _cast(self, p: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return p if cd is None or p.dtype == cd else p.to(cd)
+
+
+class Dense(_Leaf):
     """``y = x @ kernel (+ bias)``, kernel ``[in, out]`` (flax layout);
     inputs and weights are promoted to ``dtype`` as flax's Dense does."""
 
@@ -69,20 +89,20 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.empty(in_features, out_features, dtype=dtype,
-                        device=device), requires_grad=False)
+                        device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, dtype=dtype,
-                                              device=device),
-                                  requires_grad=False)
+                                              device=device))
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        y = torch.matmul(x.to(self.dtype),
+                         self._cast(self.kernel).to(self.dtype))
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + self._cast(self.bias).to(self.dtype)
         return y
 
 
-class Embed(nn.Module):
+class Embed(_Leaf):
     """Token embedding (table ``[vocab, features]``)."""
 
     def __init__(self, vocab_size: int, features: int, *,
@@ -90,12 +110,13 @@ class Embed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.embedding = nn.Parameter(
-            torch.empty(vocab_size, features, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.empty(vocab_size, features, dtype=dtype, device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        # take-then-cast equals the JAX cast-then-take bit for bit.
-        return self.embedding[ids].to(self.dtype)
+        # take-then-cast equals the JAX cast-then-take bit for bit; the
+        # backward then sums repeated tokens' rows in f32 (JAX sums them
+        # in the compute dtype before its cast back).
+        return self._cast(self.embedding[ids]).to(self.dtype)
 
 
 def llama3_scaled_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
@@ -153,10 +174,10 @@ def _quantize_kv_rows(t: torch.Tensor):
     return qt.to(torch.int8), scale
 
 
-class RMSNorm(nn.Module):
-    """Llama-family norm over the fused kernel (``ops.kernels.rms_norm``).
-    ``zero_centered`` (Gemma): output x̂·(1 + scale); the +1 is applied
-    here, outside the kernel."""
+class RMSNorm(_Leaf):
+    """Llama-family norm over the fused kernel (``ops.kernels.rms_norm``:
+    K1f forward, K1b backward).  ``zero_centered`` (Gemma): output
+    x̂·(1 + scale); the +1 is applied here, outside the kernel."""
 
     def __init__(self, features: int, *, epsilon: float = 1e-5,
                  dtype=torch.float32, zero_centered: bool = False,
@@ -166,11 +187,12 @@ class RMSNorm(nn.Module):
         self.dtype = dtype
         self.zero_centered = zero_centered
         self.scale = nn.Parameter(
-            torch.empty(features, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.empty(features, dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.scale + 1.0 if self.zero_centered else self.scale
+        scale = self._cast(self.scale)
+        if self.zero_centered:
+            scale = scale + 1.0
         return K.rms_norm(x, scale, epsilon=self.epsilon).to(self.dtype)
 
 
@@ -196,13 +218,16 @@ class MlpBlock(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA/GQA self-attention over a KV cache (serving modes only).
+    """MHA/GQA causal self-attention: training, or decode over a KV cache.
 
-    A call appends this call's k/v rows at each row's own position
-    (``index``) and attends over everything up to it: over a linear cache
-    (``_slot_decode_step``, the serving engine's batch-1 prefill) or over
-    the paged pool (``_paged_decode_step``, the slot-grid decode step,
-    whose read is the fused paged-attention kernel)."""
+    Without a cache (training, ``_train_step``) the whole sequence attends
+    through ``ops.attention.multihead_attention_kernel``: the flash kernel
+    on CUDA, the reference on the CPU.  With one, a call appends this
+    call's k/v rows at each row's own position (``index``) and attends
+    over everything up to it: over a linear cache (``_slot_decode_step``,
+    the serving engine's batch-1 prefill) or over the paged pool
+    (``_paged_decode_step``, the slot-grid decode step, whose read is the
+    fused paged-attention kernel)."""
 
     def __init__(self, features: int, num_heads: int, head_dim: int,
                  num_kv_heads: Optional[int] = None, *, dtype=torch.float32,
@@ -241,20 +266,37 @@ class MultiHeadAttention(nn.Module):
         y = self.qkv(x).view(b, s, h + 2 * kvh, hd)
         return y[:, :, :h], y[:, :, h:h + kvh], y[:, :, h + kvh:]
 
-    def forward(self, x: torch.Tensor, layer_cache: dict, cache: KVCache,
-                *, positions: torch.Tensor, rope) -> torch.Tensor:
-        """``layer_cache``: this layer's leaves of ``cache``; ``positions``
-        [B, S] = ``cache.index[:, None] + arange(S)``; ``rope`` the
-        (sin, cos) tables at those positions."""
+    def forward(self, x: torch.Tensor, layer_cache: Optional[dict],
+                cache: Optional[KVCache], *, positions: torch.Tensor, rope,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``layer_cache``: this layer's leaves of ``cache`` (both None for
+        training); ``positions`` [B, S] the tokens' positions (decode:
+        ``cache.index[:, None] + arange(S)``); ``rope`` the (sin, cos)
+        tables at those positions; ``segment_ids`` [B, S] (training only)
+        the packing restriction."""
         q, k, v = self._qkv(x)
         q = rotate(q, *rope)
         k = rotate(k, *rope)
+        if cache is None:
+            return self._train_step(q, k, v, segment_ids)
+        if segment_ids is not None:
+            raise ValueError("decode mode does not take packed segments")
         if cache.paged:
             out = self._paged_decode_step(q, k, v, layer_cache, positions,
                                           cache)
         else:
             out = self._slot_decode_step(q, k, v, layer_cache, positions)
         return self._attn_epilogue(out)
+
+    def _train_step(self, q, k, v, segment_ids):
+        """Causal self-attention over the whole sequence (the JAX
+        ``__call__`` without decode): keys sit at their queries'
+        positions; GQA's kv heads are read, not repeated, by the flash
+        kernel (the reference path repeats them)."""
+        out = multihead_attention_kernel(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, segment_ids=segment_ids)
+        return self._attn_epilogue(out.transpose(1, 2))
 
     def _stored(self, k: torch.Tensor, v: torch.Tensor, cache_dtype):
         """Rows as the cache stores them: int8 + scales, or cast."""
@@ -328,6 +370,6 @@ class MultiHeadAttention(nn.Module):
         return out.transpose(1, 2)
 
     def _attn_epilogue(self, out: torch.Tensor) -> torch.Tensor:
-        """Head merge and output projection (shared by both modes)."""
+        """Head merge and output projection (shared by all modes)."""
         b, s = out.shape[:2]
         return self.out(out.reshape(b, s, self.num_heads * self.head_dim))

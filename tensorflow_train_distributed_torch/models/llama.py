@@ -1,16 +1,19 @@
-"""Llama-family decoder in its serving (KV-cache) modes.
+"""Llama-family decoder: training forward, serving (KV-cache) modes and
+the causal-LM task.
 
 Counterpart of the JAX package's ``models/llama.py``: ``LlamaConfig`` and
 ``LLAMA_PRESETS`` carry over field for field (``dtype`` is a
-``torch.dtype``), ``DecoderBlock`` and ``LlamaModel`` run the decode
-modes.  Architecture per Llama-2: RMSNorm pre-norm, RoPE, SwiGLU FFN,
-untied LM head, optional GQA; plus the Gemma and Qwen knobs.
+``torch.dtype``); ``LlamaModel`` runs the training forward
+(``model(tokens, segment_ids=...)``, per-block rematerialisation) and the
+decode modes (``model(tokens, cache)``); ``CausalLmTask`` holds the
+next-token loss.  Architecture per Llama-2: RMSNorm pre-norm, RoPE,
+SwiGLU FFN, untied LM head, optional GQA; plus the Gemma and Qwen knobs.
 
 The model holds a plain list of layers: the JAX package's scanned versus
 unrolled layouts differ only in its parameter tree, which
 ``convert.params_from_flax`` flattens (so ``scan_layers`` is not a field
-here).  The training-only fields (remat, sequence and pipeline
-parallelism, LoRA) come with the training slice.
+here).  Sequence and pipeline parallelism and LoRA wait for later
+slices, as do the "dots" and "no_ffn" remat policies.
 """
 
 from __future__ import annotations
@@ -20,8 +23,13 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tensorflow_train_distributed_torch.models import layers as L
+from tensorflow_train_distributed_torch.ops.losses import (
+    fold_sample_weight,
+    softmax_cross_entropy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +44,13 @@ class LlamaConfig:
     rope_base: float = 10_000.0
     rms_epsilon: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # Sliding-window attention / StreamingLLM sinks: generate()-only in
-    # the JAX package; the serving engine refuses them.
+    # Per-block rematerialisation in training: "full" keeps only the
+    # blocks' inputs and recomputes each block in the backward
+    # (torch.utils.checkpoint); "dots" and "no_ffn" are not ported yet.
+    remat: bool = True
+    remat_policy: str = "full"
+    # Sliding-window attention / StreamingLLM sinks: not ported yet; the
+    # training forward and the serving engine refuse them.
     sliding_window: Optional[int] = None
     attention_sinks: int = 0
     # int8 KV cache: rows store int8 with one f32 scale per
@@ -112,9 +125,10 @@ LLAMA_PRESETS = {
                               ffn_size=2048, max_positions=2048),
     "llama_tiny": LlamaConfig(vocab_size=256, d_model=64, num_layers=2,
                               num_heads=4, num_kv_heads=2, ffn_size=128,
-                              max_positions=128, dtype=torch.float32),
-    # The JAX preset differs from llama_tiny only in its scanned
-    # parameter tree.
+                              max_positions=128, dtype=torch.float32,
+                              remat=False),
+    # The JAX preset differs from llama_tiny in its scanned parameter tree
+    # and in remat.
     "llama_tiny_scan": LlamaConfig(vocab_size=256, d_model=64, num_layers=2,
                                    num_heads=4, num_kv_heads=2, ffn_size=128,
                                    max_positions=128, dtype=torch.float32),
@@ -141,18 +155,46 @@ class DecoderBlock(nn.Module):
         self.mlp = L.MlpBlock(cfg.d_model, cfg.ffn_size, dtype=cfg.dtype,
                               activation=cfg.mlp_activation, device=device)
 
-    def forward(self, x, layer_cache: dict, cache: L.KVCache, *,
-                positions, rope):
+    def forward(self, x, layer_cache: Optional[dict],
+                cache: Optional[L.KVCache], *, positions, rope,
+                segment_ids=None):
         h = self.attn_norm(x)
         x = x + self.attention(h, layer_cache, cache, positions=positions,
-                               rope=rope)
+                               rope=rope, segment_ids=segment_ids)
         return x + self.mlp(self.mlp_norm(x))
 
 
+def segment_relative_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """[B, S] segment ids → [B, S] positions restarting at each segment
+    (what RoPE sees in a packed row: each document at 0..len-1)."""
+    s = segment_ids.shape[-1]
+    idx = torch.arange(s, device=segment_ids.device)
+    restart = torch.cat(
+        [torch.ones_like(segment_ids[..., :1], dtype=torch.bool),
+         segment_ids[..., 1:] != segment_ids[..., :-1]], dim=-1)
+    last_restart = torch.cummax(
+        torch.where(restart, idx, torch.zeros_like(idx)), dim=-1).values
+    return idx - last_restart
+
+
+def refuse_unported_training(cfg: LlamaConfig) -> None:
+    """Raise for the training options not ported yet (the training forward
+    checks; ``CausalLmTask`` checks at construction, before any state)."""
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "training with sliding-window attention "
+            "(local_attention_chunked, the splash kernel) is not ported yet")
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported yet; 'full' is")
+
+
 class LlamaModel(nn.Module):
-    """Decoder over a ``layers.KVCache``: ``model(tokens [B, S], cache)``
-    appends the tokens at each row's ``cache.index``, returns logits
-    [B, S, vocab] in ``config.dtype`` and advances the index by S."""
+    """The decoder.  Training: ``model(tokens [B, S], segment_ids=...)``
+    returns logits [B, S, vocab] in ``config.dtype``, each block
+    rematerialised under ``config.remat``.  Decode: ``model(tokens,
+    cache)`` over a ``layers.KVCache`` appends the tokens at each row's
+    ``cache.index``, returns the logits and advances the index by S."""
 
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
@@ -168,20 +210,53 @@ class LlamaModel(nn.Module):
         self.lm_head = L.Dense(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
                                device=device)
 
-    def forward(self, tokens: torch.Tensor, cache: L.KVCache) -> torch.Tensor:
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Cast every parameter to ``dtype`` on use (the mixed-precision
+        policy's compute dtype; None turns the cast off)."""
+        for m in self.modules():
+            if isinstance(m, L._Leaf):
+                m.compute_dtype = dtype
+
+    def forward(self, tokens: torch.Tensor,
+                cache: Optional[L.KVCache] = None, *,
+                segment_ids: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
+        if cache is not None and (segment_ids is not None
+                                  or positions is not None):
+            raise ValueError("decode mode takes its positions from the "
+                             "cache and no packed segments")
         x = self.token_embed(tokens)
         if cfg.embed_scale:
             # Gemma input normalizer, the constant rounded to x's dtype.
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
-        positions = cache.index[:, None] + torch.arange(
-            tokens.shape[1], device=tokens.device)
+        if cache is not None:
+            positions = cache.index[:, None] + torch.arange(
+                tokens.shape[1], device=tokens.device)
+        elif positions is None:
+            if segment_ids is not None:
+                positions = segment_relative_positions(segment_ids)
+            else:
+                positions = torch.arange(
+                    tokens.shape[1], device=tokens.device).expand(
+                        tokens.shape)
         rope = L.rope_sin_cos(positions, cfg.attn_head_dim,
                               base=cfg.rope_base, scaling=cfg.rope_scaling)
-        for layer, lc in zip(self.layers, cache.layers):
-            x = layer(x, lc, cache, positions=positions, rope=rope)
-        cache.index += tokens.shape[1]
+        if cache is not None:
+            for layer, lc in zip(self.layers, cache.layers):
+                x = layer(x, lc, cache, positions=positions, rope=rope)
+            cache.index += tokens.shape[1]
+        else:
+            refuse_unported_training(cfg)
+            for layer in self.layers:
+                if cfg.remat and torch.is_grad_enabled():
+                    x = checkpoint(layer, x, None, None, positions=positions,
+                                   rope=rope, segment_ids=segment_ids,
+                                   use_reentrant=False)
+                else:
+                    x = layer(x, None, None, positions=positions, rope=rope,
+                              segment_ids=segment_ids)
         return self.lm_head(self.final_norm(x))
 
     def init_cache(self, batch: int, cache_len: int, *, paged_blocks: int = 0,
@@ -223,3 +298,35 @@ class LlamaModel(nn.Module):
         return L.KVCache(layers=layers,
                          index=zeros(batch, dtype=torch.int32),
                          cache_len=cache_len, block_table=table)
+
+
+class CausalLmTask:
+    """Next-token objective over ``SyntheticLM`` batches (the JAX
+    ``CausalLmTask``): ``loss_fn`` and ``predict_fn`` on the model this
+    task holds.  ``device="meta"`` builds it without storage, for weights
+    loaded later (``Trainer.create_state``)."""
+
+    def __init__(self, config: LlamaConfig, *, device=None):
+        refuse_unported_training(config)
+        self.config = config
+        self.model = LlamaModel(config, device=device)
+
+    def loss_fn(self, batch: dict):
+        """(mean loss, metrics) of one batch: ``tokens``, ``targets``
+        [B, S] and optionally ``segment_ids``, ``loss_weights``,
+        ``sample_weight``."""
+        logits = self.model(batch["tokens"],
+                            segment_ids=batch.get("segment_ids")).float()
+        weights = fold_sample_weight(batch, batch["targets"].shape,
+                                     batch.get("loss_weights"))
+        loss, acc = softmax_cross_entropy(logits, batch["targets"],
+                                          weights=weights)
+        metrics = {"accuracy": acc}
+        if weights is not None:
+            metrics["loss_weight"] = weights.sum()
+        return loss, metrics
+
+    def predict_fn(self, batch: dict) -> torch.Tensor:
+        """Next-token logits."""
+        return self.model(batch["tokens"],
+                          segment_ids=batch.get("segment_ids"))

@@ -26,7 +26,9 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("rms_norm.cu", "paged_attention.cu", "paged_kv_gather.cu")
+SOURCES = ("rms_norm.cu", "paged_attention.cu", "paged_kv_gather.cu",
+           "cross_entropy.cu", "flash_attention_fwd.cu",
+           "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,13 +38,19 @@ build_info: dict = {}   # seconds, path, ptxas report of the last build
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
-    "ttd_rms_norm_fwd": [_VP, _VP, _VP, _I, _I, ctypes.c_float, _I, _I, _VP],
+    "ttd_rms_norm_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
+    "ttd_rms_norm_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "ttd_cross_entropy_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "ttd_cross_entropy_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "ttd_flash_attention_fwd": [_VP] * 7 + [_I] * 5 + [_F, _I, _I, _VP],
+    "ttd_flash_attention_bwd": [_VP] * 12 + [_I] * 5 + [_F, _I, _I, _VP],
     "ttd_paged_kv_gather": [_VP, _VP, _VP, _I, _I, _I, _I,
                             ctypes.c_longlong, _I, _VP],
     "ttd_paged_attention": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _I, _I, _VP],
+                            _F, _I, _I, _VP],
     "ttd_paged_attention_smem": [_I, _I, _I],
 }
 

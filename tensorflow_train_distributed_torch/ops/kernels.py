@@ -1,13 +1,16 @@
-"""The serving path's hand-written Hopper kernels and their plain versions.
+"""The port's hand-written Hopper kernels and their plain versions.
 
 Counterpart of the JAX package's ``ops/pallas_kernels.py``.  Each kernel
 has two faces with one signature and layout (the JAX function's):
 
-- ``rms_norm`` / ``paged_kv_gather`` / ``paged_attention``: the wrapper.
-  On a CUDA tensor it launches the CUDA kernel from ``csrc/`` (built and
-  loaded by ``ops.cuda_build``) on the current stream, or raises; it never
-  falls back.  On a CPU tensor it computes the plain version, because that
-  is where the tensor lies (the CPU tests).
+- ``rms_norm`` / ``cross_entropy`` / ``flash_attention`` /
+  ``paged_kv_gather`` / ``paged_attention``: the wrapper.  On a CUDA
+  tensor it launches the CUDA kernel from ``csrc/`` (built and loaded by
+  ``ops.cuda_build``) on the current stream, or raises; it never falls
+  back.  On a CPU tensor it computes the plain version, because that is
+  where the tensor lies (the CPU tests).  The training kernels are
+  ``torch.autograd.Function``s whose backward is a kernel too (K1b, K3b,
+  flash backward), as the JAX functions are ``custom_vjp``s.
 - ``*_reference``: plain PyTorch, the oracle the kernels are held against
   on the card and the math the CPU path runs.
 
@@ -27,7 +30,10 @@ from tensorflow_train_distributed_torch.ops.attention import (
     dot_product_attention,
 )
 
-LAUNCHES = {"rms_norm": 0, "paged_attention": 0, "paged_kv_gather": 0}
+LAUNCHES = {"rms_norm": 0, "rms_norm_bwd": 0, "cross_entropy": 0,
+            "cross_entropy_bwd": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0, "paged_attention": 0,
+            "paged_kv_gather": 0}
 
 # Element-type codes shared with csrc/common.cuh (ttd::DType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -74,26 +80,84 @@ def _stream() -> int:
 
 
 # ---------------------------------------------------------------------------
-# RMSNorm (K1f)
+# RMSNorm (K1f forward, K1b backward)
 # ---------------------------------------------------------------------------
 
 
 def rms_norm_reference(x: torch.Tensor, scale: torch.Tensor, *,
                        epsilon: float = 1e-5) -> torch.Tensor:
-    """Plain version (``models.layers.RMSNorm`` numerics, f32 accumulation)."""
+    """Plain version (``models.layers.RMSNorm`` numerics, f32 accumulation);
+    its autograd backward is K1b's plain version."""
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + epsilon)
     return (y * scale.float()).to(x.dtype)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
-             epsilon: float = 1e-5) -> torch.Tensor:
-    """Fused RMSNorm.  ``x``: [..., D] f32/bf16; ``scale``: [D]."""
-    if _on_cpu("rms_norm", x, scale):
-        return rms_norm_reference(x, scale, epsilon=epsilon)
+def rms_norm_forward(x2: torch.Tensor, scale: torch.Tensor,
+                     epsilon: float, with_r: bool):
+    """K1f on CUDA [N, D] rows: y, and r = rsqrt(mean x² + eps) [N] f32 when
+    ``with_r``."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
+    n, d = x2.shape
+    y = torch.empty_like(x2)
+    r = (torch.empty(n, dtype=torch.float32, device=x2.device) if with_r
+         else None)
+    rc = library().ttd_rms_norm_fwd(
+        x2.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        r.data_ptr() if with_r else None, n, d, epsilon,
+        _DTYPE_CODES[x2.dtype], _DTYPE_CODES[scale.dtype], _stream())
+    _raise_on("rms_norm", rc)
+    LAUNCHES["rms_norm"] += 1
+    return y, r
+
+
+def rms_norm_backward(x2: torch.Tensor, scale: torch.Tensor,
+                      r: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K1b on CUDA [N, D] rows: ``dx`` in x's dtype from the forward's
+    ``r`` [N] f32 and the output cotangent ``g`` (x's dtype, contiguous)."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    n, d = x2.shape
+    dx = torch.empty_like(x2)
+    rc = library().ttd_rms_norm_bwd(
+        x2.data_ptr(), scale.data_ptr(), r.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), n, d, _DTYPE_CODES[x2.dtype],
+        _DTYPE_CODES[scale.dtype], _stream())
+    _raise_on("rms_norm_bwd", rc)
+    LAUNCHES["rms_norm_bwd"] += 1
+    return dx
+
+
+class _RmsNormFn(torch.autograd.Function):
+    """K1f forward saving r, K1b backward; ``dscale`` is the plain column
+    reduction the JAX backward leaves outside its kernel, returned in the
+    scale's dtype (``_rms_norm_pallas_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, epsilon):
+        y, r = rms_norm_forward(x2, scale, epsilon, with_r=True)
+        ctx.save_for_backward(x2, scale, r)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, scale, r = ctx.saved_tensors
+        g = g.to(x2.dtype).contiguous()
+        dx = rms_norm_backward(x2, scale, r, g)
+        ds = torch.einsum("nd,nd->d", g.float(),
+                          x2.float() * r[:, None]).to(scale.dtype)
+        return dx, ds, None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
+             epsilon: float = 1e-5) -> torch.Tensor:
+    """Fused RMSNorm.  ``x``: [..., D] f32/bf16; ``scale``: [D].  Under
+    autograd (an input that needs a gradient) the kernel also writes r and
+    the backward runs K1b."""
+    if _on_cpu("rms_norm", x, scale):
+        return rms_norm_reference(x, scale, epsilon=epsilon)
     floats = (torch.float32, torch.bfloat16)
     _check("rms_norm", x, "x", floats)
     _check("rms_norm", scale, "scale", floats)
@@ -101,16 +165,270 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
     if tuple(scale.shape) != (d,):
         raise ValueError(f"rms_norm: scale shape {tuple(scale.shape)} != "
                          f"({d},)")
-    y = torch.empty_like(x)
-    n = x.numel() // d if d else 0
-    if n == 0:
-        return y
-    rc = library().ttd_rms_norm_fwd(
-        x.data_ptr(), scale.data_ptr(), y.data_ptr(), n, d, epsilon,
-        _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], _stream())
-    _raise_on("rms_norm", rc)
-    LAUNCHES["rms_norm"] += 1
-    return y
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    x2 = x.view(-1, d)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RmsNormFn.apply(x2, scale, epsilon).view(x.shape)
+    return rms_norm_forward(x2, scale, epsilon,
+                            with_r=False)[0].view(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Fused softmax cross-entropy (K3f forward, K3b backward)
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_reference(logits: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """Plain version: per-example ``logsumexp(logits) - logits[label]`` in
+    f32 (``pallas_kernels.cross_entropy_reference``); its autograd
+    backward, ``(softmax - onehot) * g``, is K3b's plain version."""
+    x = logits.float()
+    lse = torch.logsumexp(x, dim=-1)
+    ll = torch.gather(x, -1, labels.long()[..., None])[..., 0]
+    return lse - ll
+
+
+def cross_entropy_forward(logits2: torch.Tensor, labels: torch.Tensor):
+    """K3f on CUDA [N, V] logits and [N] int32 labels: (loss, lse), [N]
+    f32 each."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    n, v = logits2.shape
+    loss = torch.empty(n, dtype=torch.float32, device=logits2.device)
+    lse = torch.empty_like(loss)
+    rc = library().ttd_cross_entropy_fwd(
+        logits2.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+        lse.data_ptr(), n, v, _DTYPE_CODES[logits2.dtype], _stream())
+    _raise_on("cross_entropy", rc)
+    LAUNCHES["cross_entropy"] += 1
+    return loss, lse
+
+
+def cross_entropy_backward(logits2: torch.Tensor, labels: torch.Tensor,
+                           lse: torch.Tensor, g: torch.Tensor
+                           ) -> torch.Tensor:
+    """K3b on CUDA: ``dlogits`` [N, V] in logits' dtype from the forward's
+    ``lse`` and the per-row cotangent ``g`` [N] f32."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    n, v = logits2.shape
+    dlogits = torch.empty_like(logits2)
+    rc = library().ttd_cross_entropy_bwd(
+        logits2.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+        g.data_ptr(), dlogits.data_ptr(), n, v,
+        _DTYPE_CODES[logits2.dtype], _stream())
+    _raise_on("cross_entropy_bwd", rc)
+    LAUNCHES["cross_entropy_bwd"] += 1
+    return dlogits
+
+
+class _CrossEntropyFn(torch.autograd.Function):
+    """K3f forward saving lse, K3b backward writing dlogits in logits'
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, logits2, labels):
+        loss, lse = cross_entropy_forward(logits2, labels)
+        ctx.save_for_backward(logits2, labels, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits2, labels, lse = ctx.saved_tensors
+        return cross_entropy_backward(logits2, labels, lse,
+                                      g.float().contiguous()), None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-example softmax cross-entropy with integer labels, never
+    materialising the softmax.  ``logits``: [..., V] f32/bf16; ``labels``:
+    int32 [...] in [0, V).  Returns f32 [...]."""
+    if _on_cpu("cross_entropy", logits, labels):
+        return cross_entropy_reference(logits, labels)
+    _check("cross_entropy", logits, "logits", (torch.float32,
+                                                torch.bfloat16))
+    _check("cross_entropy", labels, "labels", (torch.int32,))
+    v = logits.shape[-1]
+    if tuple(labels.shape) != tuple(logits.shape[:-1]):
+        raise ValueError(f"cross_entropy: labels {tuple(labels.shape)} do "
+                         f"not match logits {tuple(logits.shape)}")
+    if labels.numel() == 0:
+        return torch.zeros(labels.shape, dtype=torch.float32,
+                           device=logits.device)
+    loss = _CrossEntropyFn.apply(logits.view(-1, v), labels.view(-1))
+    return loss.view(labels.shape)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (K2 forward and backward)
+# ---------------------------------------------------------------------------
+
+# The library kernel's additive mask value (flash_attention.py
+# DEFAULT_MASK_VALUE).
+FLASH_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+FLASH_HEAD_DIMS = (64, 128, 256)
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = False,
+                              segment_ids=None, sm_scale: float = 1.0):
+    """Plain version with the library kernel's numerics: scores
+    ``q·kᵀ`` in f32, ``sm_scale`` applied in f32 after the product, masked
+    scores get ``+ FLASH_MASK_VALUE``, the softmax weights are rounded to
+    v's dtype before ``p·v``, the output is in q's dtype.  ``q``:
+    [B, H, S, D]; ``k``/``v``: [B, KVH, S, D] with H % KVH == 0 (kv head
+    ``h // (H / KVH)`` serves query head h); ``segment_ids``: [B, S] or
+    None (equal ids attend).  Its autograd backward is the backward
+    kernels' plain version."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    keep = None
+    if segment_ids is not None:
+        keep = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+    if causal:
+        n = q.shape[2]
+        tri = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        keep = tri if keep is None else keep & tri
+    if keep is not None:
+        s = s + torch.where(keep, 0.0, FLASH_MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its last dim is contiguous and every row starts 16-byte
+    aligned (the kernels' tile loads), else a contiguous copy."""
+    e = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * e % 16 == 0 for st in t.stride()[:-1])):
+        return t
+    return t.contiguous()
+
+
+def _strides(*ts) -> "ctypes.Array":
+    import ctypes
+
+    vals = [st for t in ts for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _bshd(b, s, h, d, like):
+    """A [B, H, S, D] view of fresh [B, S, H, D] storage: the layout the
+    model's head merge reads without a copy."""
+    return torch.empty((b, s, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def flash_attention_forward(q, k, v, segment_ids, causal: bool,
+                            sm_scale: float):
+    """K2 forward on CUDA tensors checked by ``flash_attention``: (o, lse),
+    o [B, H, S, D] in q's dtype (a view of [B, S, H, D] storage), lse
+    [B, H, S] f32."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    b, h, s, d = q.shape
+    o = _bshd(b, s, h, d, q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    seg = segment_ids
+    rc = library().ttd_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), seg.data_ptr() if seg is not None else None,
+        _strides(q, k, v, o), b, h, k.shape[1], s, d, sm_scale, int(causal),
+        _DTYPE_CODES[q.dtype], _stream())
+    _raise_on("flash_attention", rc)
+    LAUNCHES["flash_attention"] += 1
+    return o, lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do, segment_ids, causal: bool,
+                             sm_scale: float):
+    """K2 backward on CUDA (three kernels: di, dk/dv, dq): (dq, dk, dv) in
+    q's dtype from the forward's o and lse and the output cotangent
+    ``do`` (q's dtype, 16-byte aligned rows)."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    dq = _bshd(b, s, h, d, q)
+    dk = _bshd(b, s, kvh, d, k)
+    dv = _bshd(b, s, kvh, d, v)
+    di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    seg = segment_ids
+    rc = library().ttd_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), di.data_ptr(),
+        seg.data_ptr() if seg is not None else None,
+        _strides(q, k, v, o, do, dq, dk, dv), b, h, kvh, s, d, sm_scale,
+        int(causal), _DTYPE_CODES[q.dtype], _stream())
+    _raise_on("flash_attention_bwd", rc)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, sm_scale):
+        q, k, v = (_aligned_rows(t) for t in (q, k, v))
+        o, lse = flash_attention_forward(q, k, v, segment_ids, causal,
+                                         sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, lse, _aligned_rows(do.to(q.dtype)), seg, ctx.causal,
+            ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
+                    sm_scale: float = 1.0):
+    """Flash attention forward (and, under autograd, backward) over
+    [B, H, S, D] queries and [B, KVH, S, D] keys and values; arguments as
+    ``flash_attention_reference``.  The kernel takes S a multiple of 64,
+    D in (64, 128, 256), f32 or bf16 (one dtype for q, k, v) and int32
+    segment ids."""
+    tensors = [q, k, v] + ([segment_ids] if segment_ids is not None else [])
+    if _on_cpu("flash_attention", *tensors):
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         segment_ids=segment_ids,
+                                         sm_scale=sm_scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} dtype {t.dtype}; q, "
+                            f"k, v must share one of f32/bf16")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError("flash_attention: q must be [B, H, S, D] and k, v "
+                         "[B, KVH, S, D]")
+    b, h, s, d = q.shape
+    kb, kvh, ks, kd = k.shape
+    if (kb, ks, kd) != (b, s, d) or kvh == 0 or h % kvh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} do not agree (self-attention, "
+                         f"H a multiple of KVH)")
+    if d not in FLASH_HEAD_DIMS or s % 64:
+        raise ValueError(f"flash_attention: the kernel takes head_dim in "
+                         f"{FLASH_HEAD_DIMS} and S a multiple of 64, got "
+                         f"D={d}, S={s}")
+    if segment_ids is not None:
+        _check("flash_attention", segment_ids, "segment_ids", (torch.int32,))
+        if tuple(segment_ids.shape) != (b, s):
+            raise ValueError(f"flash_attention: segment_ids "
+                             f"{tuple(segment_ids.shape)} != ({b}, {s})")
+    if q.numel() == 0:
+        return torch.zeros_like(q)
+    return _FlashAttentionFn.apply(q, k, v, segment_ids, bool(causal),
+                                   float(sm_scale))
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,11 @@ card's machine does not have; this file imports only the port.)
 Tolerances: gathers bitwise; f32 RMSNorm 1e-5 (rsqrtf against torch's
 rsqrt, other summation order); f32 paged attention 2e-5 (online softmax
 against one softmax); bf16 queries 3e-2 (the reference rounds logits and
-weights to bf16, the kernel keeps f32).
+weights to bf16, the kernel keeps f32).  Training kernels: f32 RMSNorm
+and cross-entropy gradients 1e-5 (row sums in another order); f32 flash
+attention 2e-5 in the output and 1e-4 in the gradients (sums over up to
+512 keys or queries, in tiles); bf16 3e-2 (the kernel and the plain
+version round p, dS and their outputs to bf16 at other places).
 """
 
 import dataclasses
@@ -165,5 +169,145 @@ def test_engine_on_card_matches_engine_on_cpu(gen, kv_int8):
         out = eng.run()
         outs.append([out[i] for i in ids])
         if device == "cuda":
-            assert min(K.launch_counts().values()) > 0
+            counts = K.launch_counts()
+            assert min(counts[k] for k in ("rms_norm", "paged_attention",
+                                           "paged_kv_gather")) > 0
     assert outs[0] == outs[1]
+
+
+# -- training kernels ---------------------------------------------------------
+
+
+def _grads(fn, inputs, cotangent):
+    """(output, grads of ``inputs``) of ``fn`` under autograd."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, cotangent)
+    return out.detach(), grads
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (300, 128, torch.float32), (7, 768, torch.bfloat16),
+    (1, 4096, torch.float32), (513, 1000, torch.bfloat16)])
+def test_rms_norm_autograd_matches_plain(gen, rows, d, dtype):
+    """K1f with r and K1b through the autograd Function against autograd
+    of the plain version: dx from the kernel, dscale from the shared
+    column reduction, in the scale's dtype."""
+    x = _randn(gen, rows, d, dtype=dtype)
+    s = (1 + 0.1 * _randn(gen, d)).to(dtype)
+    g = _randn(gen, rows, d, dtype=dtype)
+    before = K.launch_counts()
+    y, (dx, ds) = _grads(K.rms_norm, (x, s), g)
+    after = K.launch_counts()
+    assert after["rms_norm"] == before["rms_norm"] + 1
+    assert after["rms_norm_bwd"] == before["rms_norm_bwd"] + 1
+    y_ref, (dx_ref, ds_ref) = _grads(K.rms_norm_reference, (x, s), g)
+    assert dx.dtype == dtype and ds.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    for got, want in ((y, y_ref), (dx, dx_ref)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    # dscale sums over every row: 1e-4 of the column sums in f32.
+    torch.testing.assert_close(ds.float(), ds_ref.float(),
+                               rtol=max(tol, 1e-4), atol=max(tol, 1e-4))
+
+
+@pytest.mark.parametrize("n,v,dtype", [
+    (300, 3000, torch.float32), (5, 3000, torch.bfloat16),
+    (64, 32000, torch.float32), (3, 4099, torch.float32)])
+def test_cross_entropy_autograd_matches_plain(gen, n, v, dtype):
+    """K3f and K3b against autograd of the plain version, at V = 3000 (not
+    a multiple of the TPU kernel's 2048-column block), an odd V (the
+    scalar path) and bf16 logits."""
+    logits = (4 * _randn(gen, n, v)).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    w = torch.rand(n, generator=gen, device="cuda")
+    before = K.launch_counts()
+    loss, (dl,) = _grads(lambda lg: K.cross_entropy(lg, labels), (logits,),
+                         w)
+    after = K.launch_counts()
+    assert after["cross_entropy"] == before["cross_entropy"] + 1
+    assert after["cross_entropy_bwd"] == before["cross_entropy_bwd"] + 1
+    ref, (dl_ref,) = _grads(lambda lg: K.cross_entropy_reference(lg, labels),
+                            (logits,), w)
+    assert loss.dtype == torch.float32 and dl.dtype == dtype
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(dl.float(), dl_ref.float(), rtol=tol,
+                               atol=tol)
+
+
+def _segments(gen, b, s):
+    cuts = torch.sort(torch.randint(1, s, (b, 3), generator=gen,
+                                    device="cuda"), dim=1).values
+    pos = torch.arange(s, device="cuda")
+    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (4, 2, 128), (4, 1, 256)])
+@pytest.mark.parametrize("causal,packed", [(True, False), (False, False),
+                                           (True, True), (False, True)])
+def test_flash_attention_matches_plain(gen, dtype, h, kvh, d, causal,
+                                       packed):
+    """Forward and backward of the flash kernels against autograd of the
+    plain version: f32 and bf16, head_dim 64/128/256, MHA, GQA and MQA,
+    causal and full, with and without packed segment ids; q/k/v are
+    [B, H, S, D] views of [B, S, H, D] storage, as the model passes them."""
+    b, s = 2, 256
+
+    def bshd(heads):
+        return _randn(gen, b, s, heads, d, dtype=dtype).transpose(1, 2)
+
+    q, k, v, do = bshd(h), bshd(kvh), bshd(kvh), bshd(h)
+    seg = _segments(gen, b, s) if packed else None
+    kw = dict(causal=causal, segment_ids=seg, sm_scale=d ** -0.5)
+    before = K.launch_counts()
+    out, grads = _grads(lambda *t: K.flash_attention(*t, **kw), (q, k, v),
+                        do)
+    after = K.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    ref, ref_grads = _grads(
+        lambda *t: K.flash_attention_reference(*t, **kw), (q, k, v), do)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=2e-5 if f32 else 3e-2,
+                               atol=2e-5 if f32 else 3e-2)
+    for got, want in zip(grads, ref_grads):
+        assert got.shape == want.shape and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=1e-4 if f32 else 3e-2,
+                                   atol=1e-4 if f32 else 3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_seq_a_multiple_of_64_only(gen, dtype):
+    """S = 192: three bf16 tiles of 64 (six f32 tiles of 32), not a
+    multiple of the 128 the model's gate asks for; the kernel takes it."""
+    q, k, v, do = (_randn(gen, 1, 2, 192, 64, dtype=dtype)
+                   for _ in range(4))
+    kw = dict(causal=True, sm_scale=0.125)
+    out, grads = _grads(lambda *t: K.flash_attention(*t, **kw), (q, k, v),
+                        do)
+    ref, ref_grads = _grads(
+        lambda *t: K.flash_attention_reference(*t, **kw), (q, k, v), do)
+    f32 = dtype == torch.float32
+    for got, want, tol in ((out, ref, 2e-5), *zip(grads, ref_grads,
+                                                   (1e-4,) * 3)):
+        tol = tol if f32 else 3e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(gen):
+    q = _randn(gen, 1, 2, 128, 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.flash_attention(q, q, q)
+    q = _randn(gen, 1, 2, 96, 64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        K.flash_attention(q, q, q)
+    q = _randn(gen, 1, 2, 128, 64)
+    with pytest.raises(TypeError, match="dtype"):
+        K.flash_attention(q, q.half(), q)

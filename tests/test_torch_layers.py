@@ -87,8 +87,8 @@ def test_rms_norm_module_matches_flax(zero_centered):
         {"params": {"scale": jnp.asarray(scale)}}, jnp.asarray(x))
     mod = TL.RMSNorm(32, zero_centered=zero_centered)
     mod.scale.data = _t(scale)
-    np.testing.assert_allclose(mod(_t(x)).numpy(), np.asarray(want),
-                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(mod(_t(x)).detach().numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("activation", ["silu", "gelu"])
@@ -104,8 +104,8 @@ def test_mlp_block_matches_flax(activation):
         jnp.asarray(x))
     mod = TL.MlpBlock(16, 24, activation=activation)
     mod.load_state_dict({f"{k}.kernel": _t(v) for k, v in p.items()})
-    np.testing.assert_allclose(mod(_t(x)).numpy(), np.asarray(want),
-                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mod(_t(x)).detach().numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 # -- DecoderBlock -------------------------------------------------------------
