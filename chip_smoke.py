@@ -43,6 +43,34 @@
    against the plain versions on the card, at f32 and bf16; (b) five f32
    steps of a small decoder with 64-wide heads on the card against the
    same steps on the CPU.
+7. The grouped-matmul kernels (gmm, tgmm) against their plain versions:
+   the forward (bf16 x bf16 -> f32), the grad_lhs (f32 x bf16 read
+   transposed -> bf16) and the grad_rhs (tgmm, bf16 x f32 -> bf16) at
+   moe_370m's expert shapes (16,384 rows, 8 experts, 768 <-> 2048, group
+   sizes from a top-2 routing of random tokens), at Mixtral-8x7B's
+   (8,192 rows, 4096 <-> 14336, 8 experts) and at Qwen1.5-MoE-A2.7B's
+   (8,192 rows, 2048 <-> 1408, 60 experts), and on edge cases (empty
+   groups, ragged groups, k and n off the tiles, rows past the sizes'
+   sum).  Each is held elementwise against an f32 computation and the
+   plain version within ``K.gmm_tolerance`` (each output's own depth),
+   and timed beside its bound, the plain per-group loop and
+   ``F.grouped_mm`` where that call takes the operands.  Two controls
+   must fall outside that bound: the plain result with 32 of one group's
+   products left out, and the f32-math products run with the cotangent
+   rounded to bf16.
+8. The trainer on moe_370m with the dropless gmm dispatch at full width
+   and depth, fed as ``tools/bench_moe.py`` feeds the JAX trainer
+   (``MoeLmTask``, adamw 1e-4 b2 0.95 wd 0.1, bf16 compute over f32
+   params) with ``SyntheticLM`` batches of 8 x 1024, 20 steps from seed
+   0.  Counts are zeroed just before the run and read just after; every
+   kernel of the path must have run exactly 20 x its launches a step.
+   The loss must stay finite and its last window below its first (no
+   token can be dropped: every routed row is in the group sizes by
+   construction).  Prints step ms, tokens/s, peak memory, the MFU by the
+   active-parameter formula and a profiled step's device time by kind.
+8b. (a) One step's gradients of moe_370m cut to 2 layers, kernels against
+   the plain versions, at f32 and bf16; (b) five f32 steps of
+   moe_tiny_lm_gmm on the card against the same steps on the CPU.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -64,9 +92,11 @@ SEED = 0
 _CSRC = "tensorflow_train_distributed_torch/csrc/"
 _PK = "tensorflow_train_distributed_tpu/ops/pallas_kernels.py"
 _FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+_MB = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
 # (name, source, the TPU kernel it replaces, the main path that runs it:
-# "serve" (phase 3) or "train" (phase 6)).  RMSNorm's forward is on both
-# paths and has a row for each, with that path's launches and shapes.
+# "serve" (phase 3), "train" (phase 6) or "moe_train" (phase 8)).
+# RMSNorm's forward is on both of the first two paths and has a row for
+# each, with that path's launches and shapes.
 KERNELS = [
     ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "serve"),
     ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290", "serve"),
@@ -79,9 +109,14 @@ KERNELS = [
      "train"),
     ("flash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _FA + ":941",
      "train"),                                          # and dq, :1287
+    ("gmm", _CSRC + "grouped_matmul.cu", _MB + ":314", "moe_train"),
+    ("tgmm", _CSRC + "grouped_matmul.cu", _MB + ":573", "moe_train"),
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
+# The MoE trainer runs the training kernels and the grouped matmuls.
+MOE_TRAIN_KERNELS = TRAIN_KERNELS + [k[0] for k in KERNELS
+                                     if k[3] == "moe_train"]
 
 
 def log(msg: str) -> None:
@@ -95,14 +130,15 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, *, launches: int = 40, repeats: int = 5) -> float:
+def device_ms(fn, *, launches: int = 40, repeats: int = 5,
+              warmup: int = 3) -> float:
     """Median over ``repeats`` of the mean device time of ``launches``
     back-to-back calls, timed with CUDA events.  A device sleep queued
     first keeps the stream busy while the host enqueues, so the events
     bracket device work only."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -151,14 +187,19 @@ def phase_device():
 # -- phase 2 ------------------------------------------------------------------
 
 
-def _check(what, got, want, allowed, rule) -> float:
-    """Elementwise ``|got - want| <= allowed``; logs and returns the max
-    absolute error, raises where any element is outside."""
+def _worst_ratio(got, want, allowed) -> float:
+    """max |got - want| / allowed elementwise (0 where they are equal)."""
     import torch
 
     diff = (got.float() - want.float()).abs()
-    worst = torch.where(diff == 0, 0.0, diff / allowed).max().item()
-    err = diff.max().item()
+    return torch.where(diff == 0, 0.0, diff / allowed).max().item()
+
+
+def _check(what, got, want, allowed, rule) -> float:
+    """Elementwise ``|got - want| <= allowed``; logs and returns the max
+    absolute error, raises where any element is outside."""
+    worst = _worst_ratio(got, want, allowed)
+    err = (got.float() - want.float()).abs().max().item()
     log(f"  {what}: max_abs_err {err:.3e}; worst |err| / allowed "
         f"{worst:.3f} (allowed: {rule}) {'ok' if worst <= 1 else 'FAIL'}")
     if not worst <= 1:
@@ -925,8 +966,9 @@ def _profile_train_step(trainer, state, batches):
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = dict.fromkeys(("matmul", "flash_attention", "flash_attention_bwd",
-                           "cross_entropy", "rms_norm", "other"), 0.0)
+    kinds = dict.fromkeys(("matmul", "gmm", "tgmm", "flash_attention",
+                           "flash_attention_bwd", "cross_entropy",
+                           "rms_norm", "other"), 0.0)
     top, n_kernels = [], 0
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
@@ -934,7 +976,9 @@ def _profile_train_step(trainer, state, batches):
             continue
         n_kernels += e.count
         low = e.key.lower()
-        kind = ("flash_attention_bwd" if "flash_bwd" in low
+        kind = ("tgmm" if "tgmm_kernel" in low
+                else "gmm" if "gmm_kernel" in low
+                else "flash_attention_bwd" if "flash_bwd" in low
                 else "flash_attention" if "flash_fwd" in low
                 else "cross_entropy" if ("ce_fwd_kernel" in low
                                          or "ce_bwd_kernel" in low)
@@ -956,56 +1000,45 @@ def _profile_train_step(trainer, state, batches):
                 kernel_ms_by_kind={k: v / 1e3 for k, v in kinds.items()})
 
 
-# -- phase 6b -----------------------------------------------------------------
+# -- phases 6b and 8b ---------------------------------------------------------
 
 
 class _plain_kernels:
     """Context in which the training kernels' wrappers compute their plain
-    versions on CUDA tensors (the comparison model of phase 6b only)."""
+    versions on CUDA tensors (the comparison models of phases 6b and 8b
+    only)."""
+
+    NAMES = ("rms_norm", "cross_entropy", "flash_attention", "gmm")
 
     def __enter__(self):
         from tensorflow_train_distributed_torch.ops import kernels as K
 
-        self.saved = (K.rms_norm, K.cross_entropy, K.flash_attention)
-        K.rms_norm = K.rms_norm_reference
-        K.cross_entropy = K.cross_entropy_reference
-        K.flash_attention = K.flash_attention_reference
+        self.saved = {n: getattr(K, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(K, n, getattr(K, n + "_reference"))
 
     def __exit__(self, *exc):
         from tensorflow_train_distributed_torch.ops import kernels as K
 
-        K.rms_norm, K.cross_entropy, K.flash_attention = self.saved
+        for n, fn in self.saved.items():
+            setattr(K, n, fn)
 
 
-def phase_grad_check() -> dict:
-    """(a) One step's gradients of llama_125m cut to 2 layers, kernels
+def _grad_check(label, make_task, host, bounds) -> dict:
+    """One step's gradients of ``make_task(dtype)`` on the card, kernels
     against the same model with every training wrapper on its plain
-    version, at f32 and under the bf16 policy: each leaf's relative L2
-    distance, the largest held to a stated bound."""
-    import dataclasses
-
+    version, for each (precision, dtype, bound) of ``bounds``: each
+    leaf's relative L2 distance, the largest held to the bound."""
     import torch
-    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
-    from tensorflow_train_distributed_torch.data.pipeline import (
-        HostBatches, to_device)
-    from tensorflow_train_distributed_torch.models.llama import (
-        LLAMA_PRESETS, CausalLmTask)
+    from tensorflow_train_distributed_torch.data.pipeline import to_device
     from tensorflow_train_distributed_torch.training import optimizers
     from tensorflow_train_distributed_torch.training.mixed_precision import (
         Policy)
     from tensorflow_train_distributed_torch.training.trainer import Trainer
 
-    src = SyntheticLM(num_examples=64, seq_len=2048, vocab_size=32_000)
-    host = next(iter(HostBatches(src, 8, seed=SEED)))
     out = {}
-    # f32: the same math in other orders; bf16: the kernels and the plain
-    # versions round at other places (p, dS, the norms' outputs).
-    for precision, dtype, tol in (("float32", torch.float32, 1e-4),
-                                  ("bfloat16", torch.bfloat16, 3e-2)):
-        cfg = dataclasses.replace(LLAMA_PRESETS["llama_125m"], num_layers=2,
-                                  dtype=dtype)
-        trainer = Trainer(CausalLmTask(cfg, device="meta"),
-                          optimizers.sgd(0.0),
+    for precision, dtype, tol in bounds:
+        trainer = Trainer(make_task(dtype), optimizers.sgd(0.0),
                           policy=Policy.from_name(precision), device="cuda")
         state = trainer.create_state()
         params = list(state.params.values())
@@ -1019,12 +1052,12 @@ def phase_grad_check() -> dict:
                    / b.float().norm().clamp_min(1e-30)).item()
             if rel > worst:
                 worst, worst_name = rel, name
-        log(f"  grads {precision} (2 layers): loss kernels {loss_k.item():.6f}"
+        log(f"  grads {label} {precision}: loss kernels {loss_k.item():.6f}"
             f" plain {loss_p.item():.6f}; worst leaf {worst_name} relative "
             f"L2 {worst:.3e} (bound {tol}) {'ok' if worst <= tol else 'FAIL'}")
         if not worst <= tol:
-            raise AssertionError(f"{precision} grads: {worst_name} differs "
-                                 f"by {worst:.3e} > {tol}")
+            raise AssertionError(f"{label} {precision} grads: {worst_name} "
+                                 f"differs by {worst:.3e} > {tol}")
         out[precision] = dict(worst_leaf=worst_name, worst_rel_l2=worst,
                               bound=tol)
         del trainer, state, params, got, want
@@ -1032,19 +1065,63 @@ def phase_grad_check() -> dict:
     return out
 
 
-def phase_card_vs_cpu(steps: int = 5) -> dict:
-    """(b) A llama_tiny-width decoder with 64-wide heads (so the flash
-    kernel takes it; GQA 2:1) at f32 and seq 128: ``steps`` steps on the
-    card against the same steps of the port on the CPU, whose plain
-    versions the CPU tests hold to the JAX package."""
+def phase_grad_check() -> dict:
+    """(a) llama_125m cut to 2 layers, b 8 x s 2048.  f32: the same math
+    in other orders; bf16: the kernels and the plain versions round at
+    other places (p, dS, the norms' outputs)."""
     import dataclasses
 
     import torch
-    from tensorflow_train_distributed_torch import convert
     from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
     from tensorflow_train_distributed_torch.data.pipeline import HostBatches
     from tensorflow_train_distributed_torch.models.llama import (
         LLAMA_PRESETS, CausalLmTask)
+
+    src = SyntheticLM(num_examples=64, seq_len=2048, vocab_size=32_000)
+    host = next(iter(HostBatches(src, 8, seed=SEED)))
+    return _grad_check(
+        "llama_125m[2 layers]",
+        lambda dtype: CausalLmTask(dataclasses.replace(
+            LLAMA_PRESETS["llama_125m"], num_layers=2, dtype=dtype),
+            device="meta"), host,
+        (("float32", torch.float32, 1e-4),
+         ("bfloat16", torch.bfloat16, 3e-2)))
+
+
+def phase_moe_grad_check() -> dict:
+    """(a) moe_370m with gmm cut to 2 layers, b 8 x s 1024.  f32: other
+    summation orders (1e-4).  bf16: besides the roundings at other
+    places, a token whose top-2 choice is a near-tie may go to another
+    expert on one side: each such row moves ~1/sqrt(rows an expert) of
+    that expert's gradient, so the bound is 0.1."""
+    import dataclasses
+
+    import torch
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
+    from tensorflow_train_distributed_torch.models.moe import (
+        MOE_PRESETS, MoeLmTask)
+
+    src = SyntheticLM(num_examples=64, seq_len=1024, vocab_size=32_000)
+    host = next(iter(HostBatches(src, 8, seed=SEED)))
+    return _grad_check(
+        "moe_370m[2 layers] gmm",
+        lambda dtype: MoeLmTask(dataclasses.replace(
+            MOE_PRESETS["moe_370m"], num_layers=2, dispatch="gmm",
+            dtype=dtype), device="meta"), host,
+        (("float32", torch.float32, 1e-4),
+         ("bfloat16", torch.bfloat16, 1e-1)))
+
+
+def _card_vs_cpu(label, make_task, cfg, kernels, *, seq, vocab,
+                 steps) -> dict:
+    """``steps`` f32 steps of ``make_task()`` on the card against the same
+    steps of the port on the CPU, whose plain versions the CPU tests hold
+    to the JAX package; every kernel in ``kernels`` must have run."""
+    import torch
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
     from tensorflow_train_distributed_torch.ops import kernels as K
     from tensorflow_train_distributed_torch.training import (
         optimizers, schedules)
@@ -1053,8 +1130,6 @@ def phase_card_vs_cpu(steps: int = 5) -> dict:
     from tensorflow_train_distributed_torch.training.trainer import (
         Trainer, TrainerConfig)
 
-    cfg = dataclasses.replace(LLAMA_PRESETS["llama_tiny"], num_heads=2,
-                              num_kv_heads=1, head_dim=64, remat=True)
     params = convert.init_params(cfg, torch.Generator().manual_seed(SEED),
                                  device="cpu", dtype=torch.float32)
     runs = {}
@@ -1062,23 +1137,22 @@ def phase_card_vs_cpu(steps: int = 5) -> dict:
         lr = schedules.by_name("warmup_cosine", 3e-3, steps, warmup_steps=1)
         tx = optimizers.make_optimizer("adamw", lr, weight_decay=0.01,
                                        grad_clip_norm=1.0)
-        trainer = Trainer(CausalLmTask(cfg, device="meta"), tx,
-                          policy=Policy.from_name("float32"),
+        trainer = Trainer(make_task(), tx, policy=Policy.from_name("float32"),
                           config=TrainerConfig(log_every=1,
                                                log_grad_norm=True),
                           lr_schedule=lr, device=device)
         state = trainer.create_state({k: v.clone() for k, v in
                                       params.items()})
         K.reset_launch_counts()
-        src = SyntheticLM(num_examples=64, seq_len=128, vocab_size=256)
+        src = SyntheticLM(num_examples=64, seq_len=seq, vocab_size=vocab)
         state, history = trainer.fit(HostBatches(src, 8, seed=SEED),
                                      steps=steps, state=state)
         runs[device] = (history, {k: p.detach().cpu() for k, p in
                                   state.params.items()},
                         K.launch_counts())
-    counts = {k: runs["cuda"][2][k] for k in TRAIN_KERNELS}
+    counts = {k: runs["cuda"][2][k] for k in kernels}
     if min(counts.values()) <= 0:
-        raise AssertionError(f"a training kernel did not run: {counts}")
+        raise AssertionError(f"{label}: a kernel did not run: {counts}")
     dl = max(abs(a["loss"] - b["loss"]) for (_, a), (_, b) in
              zip(runs["cpu"][0], runs["cuda"][0]))
     dg = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
@@ -1087,7 +1161,7 @@ def phase_card_vs_cpu(steps: int = 5) -> dict:
              for k, p in runs["cpu"][1].items())
     losses = [(a["loss"], b["loss"]) for (_, a), (_, b) in
               zip(runs["cpu"][0], runs["cuda"][0])]
-    log(f"  card vs cpu, {steps} steps f32: losses {losses}")
+    log(f"  {label} card vs cpu, {steps} steps f32: losses {losses}")
     # f32 on both sides, other kernels and summation orders, carried
     # through five adamw steps.
     ok = dl <= 1e-4 and dg <= 1e-3 and dp <= 1e-4
@@ -1095,9 +1169,356 @@ def phase_card_vs_cpu(steps: int = 5) -> dict:
         f"{dg:.3e} (1e-3), params relative L2 {dp:.3e} (1e-4); launches "
         f"{counts} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the card's training run left the CPU's")
+        raise AssertionError(f"{label}: the card's training run left the "
+                             f"CPU's")
     return dict(max_loss_diff=dl, grad_norm_rel=dg, params_rel_l2=dp,
                 launches=counts)
+
+
+def phase_card_vs_cpu(steps: int = 5) -> dict:
+    """(b) A llama_tiny-width decoder with 64-wide heads (so the flash
+    kernel takes it; GQA 2:1) at f32 and seq 128."""
+    import dataclasses
+
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS, CausalLmTask)
+
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama_tiny"], num_heads=2,
+                              num_kv_heads=1, head_dim=64, remat=True)
+    return _card_vs_cpu("llama_tiny[hd 64]",
+                        lambda: CausalLmTask(cfg, device="meta"), cfg,
+                        TRAIN_KERNELS, seq=128, vocab=256, steps=steps)
+
+
+def phase_moe_card_vs_cpu(steps: int = 5) -> dict:
+    """(b) moe_tiny_lm_gmm (f32, seq 32: its attention takes the plain
+    path, the grouped matmuls the kernels)."""
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.models.moe import MoeLmTask
+
+    entry = registry.get_entry("moe_tiny_lm_gmm")
+    cfg = entry["config"]
+    return _card_vs_cpu("moe_tiny_lm_gmm",
+                        lambda: MoeLmTask(cfg, device="meta"), cfg,
+                        ["gmm", "tgmm"],
+                        seq=entry["dataset_kwargs"]["seq_len"],
+                        vocab=entry["dataset_kwargs"]["vocab_size"],
+                        steps=steps)
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+
+def _routed_sizes(gen, tokens, d, experts, top_k):
+    """[E] int32 group sizes of a top-k routing of ``tokens`` random
+    tokens through a random f32 router, rows padded to 128 on the last
+    expert (``models/moe.py``'s pad)."""
+    import torch
+
+    x = torch.randn(tokens, d, generator=gen, device="cuda")
+    w = torch.randn(d, experts, generator=gen, device="cuda") / d ** 0.5
+    top = torch.topk(torch.softmax(x @ w, -1), top_k).indices.reshape(-1)
+    sizes = torch.zeros(experts, dtype=torch.int64, device="cuda")
+    sizes.scatter_add_(0, top, torch.ones_like(top))
+    m = tokens * top_k
+    sizes[-1] += -(-m // 128) * 128 - m
+    return sizes.to(torch.int32)
+
+
+def _library_ms(fn, **timing):
+    """``device_ms`` of a library call, or None where the call does not
+    take these operands (``F.grouped_mm`` wants bf16)."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"  library call refused: {str(e).splitlines()[0][:160]}")
+        return None
+    return device_ms(fn, **timing)
+
+
+def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
+              timed=True) -> dict:
+    """One grouped matmul as the MoE step runs it, for a forward product
+    of width k -> n over ``sizes`` (``near``: where ``F.grouped_mm``
+    cannot compute the function itself, its nearest call, timed as a
+    yardstick and kept out of ``library_ms``):
+
+    - ``fwd``: gmm, lhs [m, k] bf16 x rhs [E, k, n] bf16 -> [m, n] f32
+      (tensor cores, depth k);
+    - ``grad_lhs``: gmm, cotangent [m, n] f32 x the same rhs read
+      transposed -> [m, k] bf16 (f32 math, depth n);
+    - ``tgmm``: grad_rhs, lhs [m, k] bf16 (read as [k, m]) x cotangent
+      [m, n] f32 -> [E, k, n] bf16 (f32 math, depth: each group's rows).
+
+    Held against the f32 computation within ``K.gmm_tolerance``, and
+    against the plain version within that plus the plain version's own
+    distance from the f32 values.  Two controls show the bound is tight
+    enough to catch a wrong kernel: the plain result with 32 of one
+    group's summed products left out, and, for the f32-math products, the
+    kernel run with the cotangent rounded to bf16 (the tensor-core
+    path).  Each must fall outside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    e = sizes.shape[0]
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    spans = K._group_spans(sizes, m)
+    g0, lo, hi = max(spans, key=lambda sp: sp[2] - sp[1])  # largest group
+    near = None
+    if kind in ("fwd", "grad_lhs"):
+        w = randn(e, k, n)
+    if kind == "fwd":
+        a, depth, out_dtype = randn(m, k), k, torch.float32
+        run = lambda: K.gmm_forward(a, w, sizes, out_dtype, False)
+        plain = lambda aa, ww, dt: K.gmm_reference(
+            aa, ww, sizes, preferred_element_type=dt)
+        lib = lambda: F.grouped_mm(a, w, offs=offs, out_dtype=out_dtype)
+        # The library's nearest call: the same products, bf16 output.
+        near = lambda: F.grouped_mm(a, w, offs=offs)
+        operands, flops = (a, w), 2 * int(sizes.sum()) * k * n
+        bf16_control = None
+    elif kind == "grad_lhs":
+        a, depth, out_dtype = randn(m, n, dtype=torch.float32), n, bf
+        run = lambda: K.gmm_forward(a, w, sizes, out_dtype, True)
+        plain = lambda aa, ww, dt: K.gmm_reference(
+            aa, ww, sizes, preferred_element_type=dt, transpose_rhs=True)
+        lib = lambda: F.grouped_mm(a, w.transpose(1, 2), offs=offs,
+                                   out_dtype=out_dtype)
+        operands, flops = (a, w), 2 * int(sizes.sum()) * k * n
+        bf16_control = lambda: K.gmm_forward(a.to(bf), w, sizes, bf, True)
+    else:
+        x = randn(m, k)
+        w = randn(m, n, dtype=torch.float32)        # the cotangent
+        a, out_dtype = x, bf
+        depth = torch.tensor([end - start for _, start, end in spans],
+                             dtype=torch.float32, device="cuda")[:, None, None]
+        run = lambda: K.tgmm_forward(x, w, sizes, out_dtype)
+        plain = lambda aa, ww, dt: K.tgmm_reference(
+            aa.t(), ww, sizes, preferred_element_type=dt)
+        lib = lambda: F.grouped_mm(x.t(), w, offs=offs, out_dtype=out_dtype)
+        operands, flops = (x, w), 2 * m * k * n
+        bf16_control = lambda: K.tgmm_forward(x, w.to(bf), sizes, bf)
+    tensor_cores = all(t.dtype == bf for t in operands)
+    got = run()
+    ref32 = plain(*operands, torch.float32)
+    sumsq32 = plain(*(t.float() ** 2 for t in operands), torch.float32)
+    ref = plain(*operands, out_dtype)
+    torch.cuda.synchronize()
+    rule = (f"K.gmm_tolerance, {'tensor cores' if tensor_cores else 'f32'}"
+            f"{', bf16 output' if out_dtype == bf else ''}")
+    allowed = K.gmm_tolerance(got, ref32, sumsq32, depth, tensor_cores)
+    _check(f"{kind} {label} vs f32", got, ref32, allowed, rule)
+    err = _check(f"{kind} {label} vs its plain version", got, ref,
+                 (ref.float() - ref32).abs() + allowed,
+                 "|plain - ref32| + the above")
+    controls, ratios = {}, {}
+    if timed and hi - lo >= 32:
+        # 32 products of group g0's sums left out.
+        cut = [operands[0].clone(), operands[1]]
+        if kind == "tgmm":
+            cut[0][lo:lo + 32] = 0
+        else:
+            cut[0][lo:hi, :32] = 0
+        controls["dropped 32 products"] = plain(*cut, out_dtype)
+        del cut
+    if timed and bf16_control is not None:
+        controls["bf16 cotangent"] = bf16_control()
+    for what, bad in controls.items():
+        worst = _worst_ratio(bad, ref32, K.gmm_tolerance(
+            bad, ref32, sumsq32, depth, tensor_cores))
+        log(f"  control {kind} {label}, {what}: worst |err| / allowed "
+            f"{worst:.3g} {'rejected' if worst > 1 else 'ACCEPTED'}")
+        if not worst > 1:
+            raise AssertionError(f"{kind} {label}: the bound accepts a "
+                                 f"result with {what}")
+        ratios[what] = worst
+    del controls, sumsq32, ref32, allowed
+    nbytes = (sum(t.numel() * t.element_size() for t in operands)
+              + got.numel() * got.element_size() + 4 * e)
+    bnd = bound(nbytes, flops, PEAK_BF16_FLOPS if tensor_cores
+                else PEAK_F32_FLOPS)
+    shape = (f"{label}: m {m}, {k} -> {n}, E {e}, "
+             f"{' x '.join(str(t.dtype)[6:] for t in operands)} -> "
+             f"{str(out_dtype)[6:]}")
+    row = dict(case=label, kind=kind, shape=shape, max_abs_err=err,
+               ms=None, plain_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=None, near_library_ms=None,
+               control_worst_ratio=ratios)
+    if timed:
+        timing = timing or {}
+        row.update(ms=device_ms(run, **timing),
+                   plain_ms=device_ms(lambda: plain(*operands, out_dtype),
+                                      **timing),
+                   library_ms=_library_ms(lib, **timing))
+        if near is not None and row["library_ms"] is None:
+            row["near_library_ms"] = _library_ms(near, **timing)
+        lib_txt = ("refused" if row["library_ms"] is None
+                   else f"{row['library_ms'] * 1e3:.1f} us")
+        if row["near_library_ms"] is not None:
+            lib_txt += (f"; with a bf16 output "
+                        f"{row['near_library_ms'] * 1e3:.1f} us")
+        log(f"  {kind} {shape}: kernel {row['ms'] * 1e3:.1f} us "
+            f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), bound "
+            f"{bnd[0] * 1e3:.1f} us ({bnd[1]}), plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, F.grouped_mm {lib_txt}")
+    del got, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe_kernels() -> tuple:
+    """gmm and tgmm against their plain versions at the MoE shapes.
+    Returns (rows of the kernels' JSON line, every case's record)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cases = []
+    # moe_370m: 8 x 1024 tokens, top-2 of 8 experts; the FFN's two widths.
+    sizes = _routed_sizes(gen, 8 * 1024, 768, 8, 2)
+    log(f"  moe_370m group sizes {sizes.tolist()}")
+    for kind in ("fwd", "grad_lhs", "tgmm"):
+        for k, n in ((768, 2048), (2048, 768)):
+            cases.append(_gmm_case(gen, f"moe_370m {k}->{n}", kind, 16384,
+                                   k, n, sizes))
+    # Mixtral-8x7B: 4096 tokens x top-2 of 8, 4096 -> 14336 (962 GFLOP a
+    # call: few timed launches).
+    sizes = _routed_sizes(gen, 4096, 4096, 8, 2)
+    for kind in ("fwd", "grad_lhs", "tgmm"):
+        cases.append(_gmm_case(gen, "mixtral_8x7b", kind, 8192, 4096, 14336,
+                               sizes, timing=dict(launches=2, repeats=3,
+                                                  warmup=1)))
+    # Qwen1.5-MoE-A2.7B: 2048 tokens x top-4 of 60, 2048 -> 1408.
+    sizes = _routed_sizes(gen, 2048, 2048, 60, 4)
+    for kind in ("fwd", "grad_lhs", "tgmm"):
+        cases.append(_gmm_case(gen, "qwen15_moe_a27b", kind, 8192, 2048,
+                               1408, sizes, timing=dict(launches=10)))
+    # Edge cases: empty and ragged groups, k and n off the tiles, rows
+    # past the sizes' sum (the kernel writes zeros there).
+    for sizes_l, k, n in (([0, 37, 0, 200, 40], 72, 100),
+                          ([300, 0], 200, 40), ([1, 0, 0], 16, 8)):
+        sizes = torch.tensor(sizes_l, dtype=torch.int32, device="cuda")
+        for kind in ("fwd", "grad_lhs", "tgmm"):
+            _gmm_case(gen, f"edge {sizes_l}", kind, 320, k, n, sizes,
+                      timed=False)
+    rows = {"gmm": next(c for c in cases if c["kind"] == "fwd"),
+            "tgmm": next(c for c in cases if c["kind"] == "tgmm")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {k: {f: v[f] for f in keys} for k, v in rows.items()}, cases
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+
+def moe_launches_per_step(cfg) -> dict:
+    """Kernel launches of one MoE training step under full remat: the
+    decoder's (``train_launches_per_step``), plus for each MoE layer
+    three gmm in the forward, three again in the recompute and three
+    grad_lhs gmm, and three tgmm (grad_rhs) in the backward."""
+    n_moe = -(-cfg.num_layers // cfg.moe_every)
+    out = train_launches_per_step(cfg.num_layers)
+    out.update(gmm=9 * n_moe, tgmm=3 * n_moe)
+    return out
+
+
+def phase_moe_train(steps: int = 20, log_every: int = 5) -> tuple:
+    """The trainer on moe_370m with dispatch "gmm" at full width and depth,
+    fed as ``tools/bench_moe.py`` feeds the JAX trainer: ``MoeLmTask``,
+    adamw(1e-4, b1 0.9, b2 0.95, weight decay 0.1), bf16 compute over f32
+    params, ``SyntheticLM`` 8 x 1024 at vocab 32000, random weights from
+    seed 0.  Counts are zeroed just before ``fit`` and read just after."""
+    import dataclasses
+    import math
+
+    import torch
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
+    from tensorflow_train_distributed_torch.models.moe import (
+        MOE_PRESETS, MoeLmTask)
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.training import optimizers
+    from tensorflow_train_distributed_torch.training.mixed_precision import (
+        Policy)
+    from tensorflow_train_distributed_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    cfg = dataclasses.replace(MOE_PRESETS["moe_370m"], dispatch="gmm")
+    b, s = 8, 1024
+    trainer = Trainer(
+        MoeLmTask(cfg, device="meta"),
+        optimizers.adamw(1e-4, b1=0.9, b2=0.95, weight_decay=0.1),
+        policy=Policy.from_name("bfloat16"),
+        config=TrainerConfig(seed=SEED, log_every=log_every,
+                             log_grad_norm=True), device="cuda")
+    state = trainer.create_state()
+    batches = HostBatches(SyntheticLM(seq_len=s, vocab_size=cfg.vocab_size),
+                          b, seed=SEED)
+    torch.cuda.synchronize()
+    stamps = []
+
+    def on_log(step, m):
+        if step % log_every == 0:
+            stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = trainer.fit(batches, steps=steps, state=state,
+                                 on_log=on_log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: K.launch_counts()[k] for k in MOE_TRAIN_KERNELS}
+    others = {k: v for k, v in K.launch_counts().items()
+              if k not in MOE_TRAIN_KERNELS and v}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for _, m in history]
+    for step, m in history:
+        log(f"  step {step}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} "
+            f"aux {m['aux_loss']:.4f} accuracy {m['accuracy']:.4f} "
+            f"grad_norm {m['grad_norm']:.3f} expert load "
+            f"{m['expert_load_min']:.3f}-{m['expert_load_max']:.3f}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    first = statistics.mean(losses[:log_every])
+    last = statistics.mean(losses[-log_every:])
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first window {first}, "
+                             f"last {last}")
+    want = {k: steps * v for k, v in moe_launches_per_step(cfg).items()}
+    log(f"  launches {counts} (expected {want}); others {others}")
+    if counts != want or others:
+        raise AssertionError(f"MoE training launches {counts}, others "
+                             f"{others}; expected {want}")
+    windows = [(t1 - t0_) / log_every for t0_, t1 in zip(stamps, stamps[1:])]
+    step_s = statistics.median(windows) if windows else wall / steps
+    tokens = b * s
+    n_expert = sum(p.numel() for k, p in state.params.items()
+                   if ".experts." in k)
+    n_dense = state.num_params() - n_expert
+    active = n_dense + n_expert * cfg.top_k / cfg.num_experts
+    flops_per_token = 6 * active + 12 * cfg.num_layers * cfg.d_model * s * 0.5
+    stats = dict(
+        config="moe_370m", dispatch="gmm", steps=steps, batch=b, seq=s,
+        params=state.num_params(), active_params=int(active),
+        step_ms=step_s * 1e3, window_ms_per_step=[w * 1e3 for w in windows],
+        tokens_per_s=tokens / step_s, peak_mem_gib=peak / 2 ** 30,
+        wall_s=wall, losses=losses, first_window_loss=first,
+        last_window_loss=last,
+        mfu=flops_per_token * tokens / step_s / PEAK_BF16_FLOPS,
+        mfu_formula="(6 (N_dense + N_expert k / E) + 12 L d S / 2) tokens"
+                    " / step_s / 989e12 (tools/bench_moe.py)")
+    stats["profile"] = _profile_train_step(trainer, state, batches)
+    log(f"  moe training: {json.dumps(stats)}")
+    return counts, stats
 
 
 def main() -> int:
@@ -1146,14 +1567,27 @@ def main() -> int:
     log("== phase 6b: gradients against the plain versions; card vs CPU")
     training["grad_check"] = phase_grad_check()
     training["card_vs_cpu"] = phase_card_vs_cpu()
+    torch.cuda.empty_cache()
+    log("== phase 7: grouped-matmul kernels against their plain versions")
+    rows["moe_train"], moe_cases = phase_moe_kernels()
+    log("== phase 8: MoE trainer, moe_370m gmm full width and depth")
+    moe_counts, moe_training = phase_moe_train()
+    torch.cuda.empty_cache()
+    log("== phase 8b: MoE gradients against the plain versions; card vs "
+        "CPU")
+    moe_training["grad_check"] = phase_moe_grad_check()
+    moe_training["card_vs_cpu"] = phase_moe_card_vs_cpu()
 
-    paths = {"serve": counts, "train": train_counts}
+    paths = {"serve": counts, "train": train_counts,
+             "moe_train": moe_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
                for name, source, replaces, path in KERNELS]
     print(json.dumps({"engines": engines}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"moe_training": moe_training}), flush=True)
+    print(json.dumps({"moe_kernel_cases": moe_cases}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

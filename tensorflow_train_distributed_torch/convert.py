@@ -5,7 +5,9 @@ The port's parameter names and layouts follow flax's: a flax path
 ``a/b/c`` becomes ``a.b.c``, the unrolled ``layer_{i}/…`` and the scanned
 ``layers/stack/block/…`` trees both become ``layers.{i}.…``, and every
 array keeps its flax layout — dense kernels ``[in, out]``, the embedding
-``[vocab, d_model]``, norm scales ``[d]``.  ``--params-npz`` files hold
+``[vocab, d_model]``, norm scales ``[d]``, the MoE experts' stacked
+kernels ``[E, in, out]`` (``layer_{i}/moe/experts/wi_gate/kernel`` →
+``layers.{i}.moe.experts.wi_gate.kernel``).  ``--params-npz`` files hold
 the flat flax dict (``flax.traverse_util.flatten_dict(params, sep="/")``
 saved with ``np.savez``).
 """
@@ -18,22 +20,33 @@ import re
 import numpy as np
 import torch
 
+from tensorflow_train_distributed_torch.models import layers as L
 from tensorflow_train_distributed_torch.models.llama import (
     LlamaConfig,
     LlamaModel,
 )
+from tensorflow_train_distributed_torch.models.moe import MoeConfig, MoeLmModel
 
 _SCANNED = "layers/stack/block/"
 _UNROLLED = re.compile(r"^layer_(\d+)/(.*)$")
 
 
-def expected_shapes(config: LlamaConfig) -> dict:
+def _model_class(config):
+    """The port's decoder for a config: ``LlamaModel`` or ``MoeLmModel``."""
+    if isinstance(config, MoeConfig):
+        return MoeLmModel
+    if isinstance(config, LlamaConfig):
+        return LlamaModel
+    raise TypeError(f"no decoder for config type {type(config).__name__}")
+
+
+def expected_shapes(config) -> dict:
     """``{name: shape}`` of every parameter the port's model holds."""
-    model = LlamaModel(config, device="meta")
+    model = _model_class(config)(config, device="meta")
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
-def params_from_flax(flat: dict, config: LlamaConfig) -> dict:
+def params_from_flax(flat: dict, config) -> dict:
     """Flat flax params (``{"a/b/c": array}``, either layer layout) →
     the port's ``{name: tensor}`` on the CPU, dtypes kept.  Raises on a
     missing, extra or misshapen key."""
@@ -74,30 +87,38 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))    # a writable copy
 
 
-def load_npz(path: str, config: LlamaConfig) -> dict:
+def load_npz(path: str, config) -> dict:
     """``params_from_flax`` of an ``np.savez`` of the flat flax dict."""
     with np.load(path) as f:
         return params_from_flax({k: f[k] for k in f.files}, config)
 
 
-def init_params(config: LlamaConfig, generator: torch.Generator, *,
+def init_params(config, generator: torch.Generator, *,
                 device="cuda", dtype=None) -> dict:
     """Random weights made from ``generator`` directly on ``device``, in
     ``dtype`` (default ``config.dtype``), with the JAX package's
     initialisers: embedding N(0, 1), dense kernels N(0, 1/fan_in) (flax's
-    lecun_normal, untruncated here), biases zero, norm scales one (zero
-    when ``norm_zero_centered``).  ``generator`` must live on ``device``."""
+    lecun_normal, untruncated here; fan_in is ``shape[-2]``, so an
+    expert-stacked ``[E, in, out]`` kernel draws each expert as its own
+    ``[in, out]``, as ``lecun_normal(batch_axis=(0,))`` does), biases
+    zero, norm scales one (zero for a zero-centered norm).
+    ``generator`` must live on ``device``."""
     dtype = dtype or config.dtype
     params = {}
-    for name, shape in expected_shapes(config).items():
+    model = _model_class(config)(config, device="meta")
+    # A zero-centered norm computes x̂·(1 + scale): its scale starts at 0.
+    zero_scales = {f"{name}.scale" for name, m in model.named_modules()
+                   if isinstance(m, L.RMSNorm) and m.zero_centered}
+    for name, p in model.state_dict().items():
+        shape = tuple(p.shape)
         if name.endswith(".scale"):
-            fill = 0.0 if config.norm_zero_centered else 1.0
+            fill = 0.0 if name in zero_scales else 1.0
             t = torch.full(shape, fill, dtype=dtype, device=device)
         elif name.endswith(".bias"):
             t = torch.zeros(shape, dtype=dtype, device=device)
         else:
             std = 1.0 if name.endswith("embedding") else 1 / math.sqrt(
-                shape[0])
+                shape[-2])
             t = torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32).mul_(std).to(dtype)
         params[name] = t

@@ -14,7 +14,7 @@ parameters; serving runs under ``torch.no_grad()``.
 Mixed precision: the JAX trainer casts every floating parameter to the
 policy's compute dtype before the forward.  Here each leaf module
 (``Dense``, ``Embed``, ``RMSNorm``) casts its own parameters to
-``compute_dtype`` when that is set (``LlamaModel.set_compute_dtype``),
+``compute_dtype`` when that is set (``set_compute_dtype``),
 inside autograd, so the f32 masters receive the gradients; the cast sits
 inside the module so that a rematerialised block recomputes it too.
 
@@ -77,6 +77,14 @@ class _Leaf(nn.Module):
     def _cast(self, p: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         return p if cd is None or p.dtype == cd else p.to(cd)
+
+
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Cast every parameter of ``model`` to ``dtype`` on use (the
+    mixed-precision policy's compute dtype; None turns the cast off)."""
+    for m in model.modules():
+        if isinstance(m, _Leaf):
+            m.compute_dtype = dtype
 
 
 class Dense(_Leaf):

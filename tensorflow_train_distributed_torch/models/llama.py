@@ -210,13 +210,6 @@ class LlamaModel(nn.Module):
         self.lm_head = L.Dense(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
                                device=device)
 
-    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
-        """Cast every parameter to ``dtype`` on use (the mixed-precision
-        policy's compute dtype; None turns the cast off)."""
-        for m in self.modules():
-            if isinstance(m, L._Leaf):
-                m.compute_dtype = dtype
-
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[L.KVCache] = None, *,
                 segment_ids: Optional[torch.Tensor] = None,

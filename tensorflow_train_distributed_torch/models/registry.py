@@ -1,14 +1,16 @@
 """Decoder configs by registry name (the ``--config`` values the JAX
 package's ``models/registry.py`` maps to decoder tasks): name → the
-``LlamaConfig`` and the training conventions of the JAX entry (dataset
-and its kwargs, global batch, peak learning rate, schedule, warmup ratio,
-global-norm clip).  The other families join with their slices."""
+``LlamaConfig`` or ``MoeConfig`` and the training conventions of the JAX
+entry (dataset and its kwargs, global batch, peak learning rate,
+schedule, warmup ratio, global-norm clip).  The other families join with
+their slices."""
 
 from __future__ import annotations
 
 import dataclasses
 
 from tensorflow_train_distributed_torch.models.llama import LLAMA_PRESETS
+from tensorflow_train_distributed_torch.models.moe import MOE_PRESETS
 
 _SFT = dict(dataset="lm", dataset_kwargs={}, global_batch_size=64,
             learning_rate=2e-5, lr_schedule="warmup_cosine",
@@ -19,6 +21,10 @@ _LM_32K = dict(dataset="lm", learning_rate=3e-4,
 _TINY = dict(dataset="lm", dataset_kwargs=dict(vocab_size=256, seq_len=32),
              global_batch_size=16, learning_rate=1e-3,
              lr_schedule="constant", warmup_ratio=0.0, grad_clip_norm=None)
+
+_MOE = dict(dataset="lm", global_batch_size=64, learning_rate=1e-4,
+            lr_schedule="constant", warmup_ratio=0.0, grad_clip_norm=None,
+            dataset_kwargs={})
 
 _ENTRIES = {
     "llama2_7b_sft": dict(_SFT, config=LLAMA_PRESETS["llama2_7b"]),
@@ -44,6 +50,14 @@ _ENTRIES = {
         dataset_kwargs=dict(vocab_size=256, seq_len=64)),
     "llama_tiny_sft": dict(_TINY, config=LLAMA_PRESETS["llama_tiny"]),
     "llama_tiny_pp": dict(_TINY, config=LLAMA_PRESETS["llama_tiny_pp"]),
+    "mixtral_8x7b": dict(_MOE, config=MOE_PRESETS["mixtral_8x7b"]),
+    "qwen15_moe_a27b": dict(_MOE, config=MOE_PRESETS["qwen15_moe_a27b"]),
+    "moe_tiny_lm": dict(_TINY, config=MOE_PRESETS["moe_tiny"]),
+    "qwen_moe_tiny_lm": dict(_TINY, config=MOE_PRESETS["qwen_moe_tiny"]),
+    "moe_tiny_shared_lm": dict(_TINY, config=MOE_PRESETS["moe_tiny_shared"]),
+    # The dropless (grouped-matmul) variant of moe_tiny_lm.
+    "moe_tiny_lm_gmm": dict(_TINY, config=dataclasses.replace(
+        MOE_PRESETS["moe_tiny"], dispatch="gmm")),
 }
 
 

@@ -28,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("rms_norm.cu", "paged_attention.cu", "paged_kv_gather.cu",
            "cross_entropy.cu", "flash_attention_fwd.cu",
-           "flash_attention_bwd.cu")
+           "flash_attention_bwd.cu", "grouped_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +52,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _F, _I, _I, _VP],
     "ttd_paged_attention_smem": [_I, _I, _I],
+    "ttd_gmm": [_VP] * 4 + [_I] * 8 + [_VP],
+    "ttd_tgmm": [_VP] * 4 + [_I] * 7 + [_VP],
 }
 
 

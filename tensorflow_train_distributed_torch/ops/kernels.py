@@ -4,13 +4,15 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``.  Each kernel
 has two faces with one signature and layout (the JAX function's):
 
 - ``rms_norm`` / ``cross_entropy`` / ``flash_attention`` /
-  ``paged_kv_gather`` / ``paged_attention``: the wrapper.  On a CUDA
+  ``paged_kv_gather`` / ``paged_attention`` / ``gmm`` / ``tgmm``: the
+  wrapper.  On a CUDA
   tensor it launches the CUDA kernel from ``csrc/`` (built and loaded by
   ``ops.cuda_build``) on the current stream, or raises; it never falls
   back.  On a CPU tensor it computes the plain version, because that is
   where the tensor lies (the CPU tests).  The training kernels are
   ``torch.autograd.Function``s whose backward is a kernel too (K1b, K3b,
-  flash backward), as the JAX functions are ``custom_vjp``s.
+  flash backward, gmm and tgmm), as the JAX functions are
+  ``custom_vjp``s.
 - ``*_reference``: plain PyTorch, the oracle the kernels are held against
   on the card and the math the CPU path runs.
 
@@ -33,7 +35,7 @@ from tensorflow_train_distributed_torch.ops.attention import (
 LAUNCHES = {"rms_norm": 0, "rms_norm_bwd": 0, "cross_entropy": 0,
             "cross_entropy_bwd": 0, "flash_attention": 0,
             "flash_attention_bwd": 0, "paged_attention": 0,
-            "paged_kv_gather": 0}
+            "paged_kv_gather": 0, "gmm": 0, "tgmm": 0}
 
 # Element-type codes shared with csrc/common.cuh (ttd::DType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -587,3 +589,236 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
     _raise_on("paged_attention", rc)
     LAUNCHES["paged_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Grouped matmul (K6: megablox gmm and tgmm)
+# ---------------------------------------------------------------------------
+
+GMM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _group_spans(group_sizes: torch.Tensor, rows: int):
+    """(group, first row, end row) of each group over ``rows`` rows, the
+    sizes clamped as the kernels clamp them (negative sizes count as 0,
+    rows past ``rows`` do not exist).  Reads the sizes on the host."""
+    spans, start = [], 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), rows)
+        spans.append((g, start, end))
+        start = end
+    return spans
+
+
+def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                  group_sizes: torch.Tensor, *,
+                  preferred_element_type: torch.dtype = torch.float32,
+                  transpose_rhs: bool = False) -> torch.Tensor:
+    """Plain version of megablox ``gmm``: ``out[r] = lhs[r] @ rhs[g]`` for
+    the rows r of group g (consecutive rows, ``group_sizes`` [E] int32
+    counting them in order), ``rhs`` [E, k, n] or, with ``transpose_rhs``,
+    [E, n, k]; rows past the sizes' sum are zero.  A loop over groups with
+    ``torch.matmul`` in f32 (megablox computes bf16 x bf16 products
+    exactly and accumulates in f32, and any f32 operand in f32), rounded
+    once to ``preferred_element_type``.  Differentiable by autograd."""
+    m = lhs.shape[0]
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    pieces = []
+    for g, start, end in _group_spans(group_sizes, m):
+        w = rhs[g].float()
+        pieces.append(lhs[start:end].float() @ (w.t() if transpose_rhs
+                                                else w))
+    done = sum(p.shape[0] for p in pieces)
+    pieces.append(lhs.new_zeros((m - done, n), dtype=torch.float32))
+    return torch.cat(pieces).to(preferred_element_type)
+
+
+def tgmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                   group_sizes: torch.Tensor, *,
+                   preferred_element_type: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
+    """Plain version of megablox ``tgmm``: ``out[g] = lhs[:, rows of g] @
+    rhs[rows of g]`` with ``lhs`` [k, m] (megablox's layout), ``rhs``
+    [m, n]; [E, k, n], zero for an empty group.  f32 math, rounded once
+    to ``preferred_element_type``."""
+    k, m = lhs.shape
+    out = lhs.new_zeros((group_sizes.shape[0], k, rhs.shape[1]),
+                        dtype=torch.float32)
+    for g, start, end in _group_spans(group_sizes, m):
+        if end > start:
+            out[g] = lhs[:, start:end].float() @ rhs[start:end].float()
+    return out.to(preferred_element_type)
+
+
+def gmm_tolerance(got: torch.Tensor, ref32: torch.Tensor,
+                  sumsq32: torch.Tensor, depth, tensor_cores: bool
+                  ) -> torch.Tensor:
+    """The largest ``|got - ref32|`` the grouped-matmul kernels allow
+    themselves, elementwise.  ``ref32`` is the f32 value (the plain
+    version), ``sumsq32`` the plain version of the squared operands, so
+    R = sqrt(Σ(a·b)²) over the products each output sums, and ``depth``
+    their count (a number, or a tensor that broadcasts: a tgmm group's
+    rows).  In units of 2^-24·R:
+
+    - f32 math (any f32 operand; FMAs, rounded to nearest): the rounding
+      errors of both sums add up as a random walk, ~0.6·sqrt(depth),
+      allowed 16·sqrt(depth);
+    - tensor cores (bf16 x bf16): each 16-deep ``mma`` truncates its f32
+      sum, an error that grows linearly with depth: depth/2 more.
+
+    A bf16 output adds half a bf16 step of the larger of |got| and
+    |ref32| (one rounding of a value that is right to the above).  An
+    operand rounded to bf16 on the way (2^-9 of it) misses this by far."""
+    r = torch.sqrt(sumsq32)
+    depth = torch.as_tensor(depth, dtype=torch.float32, device=r.device)
+    units = 16 * torch.sqrt(depth) + (depth / 2 if tensor_cores else 0)
+    allowed = 2.0 ** -24 * units * r
+    if got.dtype == torch.bfloat16:
+        top = torch.maximum(got.float().abs(), ref32.abs())
+        _, e = torch.frexp(top)      # top in [2^(e-1), 2^e): a step 2^(e-8)
+        half_step = torch.where(top > 0, torch.ldexp(torch.ones_like(top),
+                                                     e - 9), 0.0)
+        allowed = allowed + half_step
+    return allowed
+
+
+def _gmm_checks(name: str, lhs, rhs, group_sizes, transpose_rhs: bool):
+    """Raises on what the CUDA kernels do not take; returns (m, k, n)."""
+    for what, t in (("lhs", lhs), ("rhs", rhs)):
+        _check(name, t, what, GMM_DTYPES)
+    _check(name, group_sizes, "group_sizes", (torch.int32,))
+    if lhs.dim() != 2 or group_sizes.dim() != 1:
+        raise ValueError(f"{name}: lhs must be 2-D and group_sizes 1-D")
+    m, k = lhs.shape
+    if name == "tgmm":
+        if rhs.dim() != 2 or rhs.shape[0] != m:
+            raise ValueError(f"tgmm: rhs {tuple(rhs.shape)} must be "
+                             f"[m, n] with m = {m}")
+        return m, k, rhs.shape[1]
+    if rhs.dim() != 3 or rhs.shape[0] != group_sizes.shape[0]:
+        raise ValueError(f"gmm: rhs {tuple(rhs.shape)} must be [E, k, n] "
+                         f"with E = len(group_sizes) = "
+                         f"{group_sizes.shape[0]}")
+    rk, n = (rhs.shape[2], rhs.shape[1]) if transpose_rhs else rhs.shape[1:]
+    if rk != k:
+        raise ValueError(f"gmm: lhs {tuple(lhs.shape)} and rhs "
+                         f"{tuple(rhs.shape)} (transpose_rhs="
+                         f"{transpose_rhs}) do not agree on k")
+    return m, k, n
+
+
+def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor,
+                group_sizes: torch.Tensor, out_dtype: torch.dtype,
+                transpose_rhs: bool) -> torch.Tensor:
+    """K6 ``gmm`` on CUDA tensors: [m, n] in ``out_dtype``.  The group
+    sizes stay on the device: the kernel's blocks read them."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    m, k, n = _gmm_checks("gmm", lhs, rhs, group_sizes, transpose_rhs)
+    out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
+    if out.numel() == 0:
+        return out
+    rc = library().ttd_gmm(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+        out.data_ptr(), m, k, n, rhs.shape[0], int(transpose_rhs),
+        _DTYPE_CODES[lhs.dtype], _DTYPE_CODES[rhs.dtype],
+        _DTYPE_CODES[out_dtype], _stream())
+    _raise_on("gmm", rc)
+    LAUNCHES["gmm"] += 1
+    return out
+
+
+def tgmm_forward(lhs_mk: torch.Tensor, rhs: torch.Tensor,
+                 group_sizes: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """K6 ``tgmm`` on CUDA tensors, reading ``lhs_mk`` [m, k] in place
+    (megablox's [k, m] operand is its transpose): [E, k, n] in
+    ``out_dtype``, zero for an empty group."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    m, k, n = _gmm_checks("tgmm", lhs_mk, rhs, group_sizes, False)
+    num_groups = group_sizes.shape[0]
+    out = torch.empty((num_groups, k, n), dtype=out_dtype,
+                      device=lhs_mk.device)
+    if out.numel() == 0:
+        return out
+    rc = library().ttd_tgmm(
+        lhs_mk.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+        out.data_ptr(), m, k, n, num_groups, _DTYPE_CODES[lhs_mk.dtype],
+        _DTYPE_CODES[rhs.dtype], _DTYPE_CODES[out_dtype], _stream())
+    _raise_on("tgmm", rc)
+    LAUNCHES["tgmm"] += 1
+    return out
+
+
+def _gmm_call(lhs, rhs, group_sizes, out_dtype, transpose_rhs):
+    """gmm's plain version for CPU tensors, its kernel for CUDA ones."""
+    if _on_cpu("gmm", lhs, rhs, group_sizes):
+        return gmm_reference(lhs, rhs, group_sizes,
+                             preferred_element_type=out_dtype,
+                             transpose_rhs=transpose_rhs)
+    return gmm_forward(lhs, rhs, group_sizes, out_dtype, transpose_rhs)
+
+
+def _tgmm_call(lhs_mk, rhs, group_sizes, out_dtype):
+    """tgmm of ``lhs_mk.t()`` and ``rhs``: the plain version for CPU
+    tensors, the kernel (reading ``lhs_mk`` in place) for CUDA ones."""
+    if _on_cpu("tgmm", lhs_mk, rhs, group_sizes):
+        return tgmm_reference(lhs_mk.t(), rhs, group_sizes,
+                              preferred_element_type=out_dtype)
+    return tgmm_forward(lhs_mk.contiguous(), rhs.contiguous(), group_sizes,
+                        out_dtype)
+
+
+class _GmmFn(torch.autograd.Function):
+    """megablox's ``gmm`` custom VJP (``ops.py`` ``_gmm_fwd``/``_gmm_bwd``):
+    the forward is gmm; the backward is grad_lhs = gmm(grad, rhs,
+    transpose_rhs flipped) rounded to lhs's dtype and grad_rhs =
+    tgmm(lhsᵀ, grad) rounded to rhs's dtype (swapped back when the
+    forward read rhs transposed).  Each product is the kernel on CUDA
+    tensors and the plain version on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, out_dtype, transpose_rhs):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        ctx.transpose_rhs = transpose_rhs
+        return _gmm_call(lhs, rhs, group_sizes, out_dtype, transpose_rhs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        grad = grad.contiguous()
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = _gmm_call(grad, rhs, group_sizes, lhs.dtype,
+                             not ctx.transpose_rhs)
+        if ctx.needs_input_grad[1]:
+            drhs = _tgmm_call(lhs, grad, group_sizes, rhs.dtype)
+            if ctx.transpose_rhs:
+                drhs = drhs.transpose(1, 2)
+        return dlhs, drhs, None, None, None
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
+        preferred_element_type: torch.dtype = torch.float32,
+        transpose_rhs: bool = False) -> torch.Tensor:
+    """Grouped matmul with megablox's signature and layout (arguments as
+    ``gmm_reference``; no ``group_offset``): the kernel on CUDA tensors,
+    the plain version on CPU ones, differentiable through ``_GmmFn``.
+    The kernel takes contiguous f32/bf16 operands and int32 sizes on the
+    same device and never reads the sizes on the host."""
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        return _GmmFn.apply(lhs, rhs, group_sizes, preferred_element_type,
+                            bool(transpose_rhs))
+    return _gmm_call(lhs, rhs, group_sizes, preferred_element_type,
+                     bool(transpose_rhs))
+
+
+def tgmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
+         preferred_element_type: torch.dtype = torch.float32
+         ) -> torch.Tensor:
+    """Transposed grouped matmul with megablox's signature and layout
+    (arguments as ``tgmm_reference``): ``lhs`` [k, m] is read in place
+    when it is the transpose of a contiguous [m, k] tensor (as
+    ``x.t()``), copied otherwise."""
+    return _tgmm_call(lhs.t(), rhs, group_sizes, preferred_element_type)

@@ -28,6 +28,7 @@ import torch
 
 from tensorflow_train_distributed_torch import convert
 from tensorflow_train_distributed_torch.models import registry
+from tensorflow_train_distributed_torch.models.llama import LlamaConfig
 
 
 def parse_prompt(spec: str) -> list:
@@ -113,6 +114,9 @@ def main(argv=None) -> int:
         cfg = registry.get_config(args.config)
     except ValueError as e:
         raise SystemExit(str(e))
+    if not isinstance(cfg, LlamaConfig):
+        raise SystemExit(f"{args.config}: MoE serving is not ported yet "
+                         f"(it comes with the MoE serving slice)")
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_cache_int8=True)
     reqs = [{"prompt": parse_prompt(s), "max_new": args.max_new,

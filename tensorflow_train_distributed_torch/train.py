@@ -13,6 +13,8 @@ one JSON line of metrics goes to stdout.
   python -m tensorflow_train_distributed_torch.train --config llama_125m_lm --steps 20
   python -m tensorflow_train_distributed_torch.train --config llama_tiny_sft \\
       --steps 3 --device cpu
+  python -m tensorflow_train_distributed_torch.train --config moe_tiny_lm_gmm \\
+      --steps 3 --device cpu
 """
 
 from __future__ import annotations
@@ -72,6 +74,10 @@ def make_trainer(args, entry: dict):
     from tensorflow_train_distributed_torch.data.datasets import get_dataset
     from tensorflow_train_distributed_torch.data.pipeline import HostBatches
     from tensorflow_train_distributed_torch.models.llama import CausalLmTask
+    from tensorflow_train_distributed_torch.models.moe import (
+        MoeConfig,
+        MoeLmTask,
+    )
     from tensorflow_train_distributed_torch.training import schedules
     from tensorflow_train_distributed_torch.training.mixed_precision import (
         Policy,
@@ -94,7 +100,9 @@ def make_trainer(args, entry: dict):
             else entry["grad_clip_norm"])
     tx = make_optimizer(args.optimizer, lr, weight_decay=args.weight_decay,
                         grad_clip_norm=clip)
-    task = CausalLmTask(entry["config"], device="meta")
+    cfg = entry["config"]
+    task_cls = MoeLmTask if isinstance(cfg, MoeConfig) else CausalLmTask
+    task = task_cls(cfg, device="meta")
     trainer = Trainer(
         task, tx, policy=Policy.from_name(args.precision),
         config=TrainerConfig(seed=args.seed, grad_accum=args.grad_accum,

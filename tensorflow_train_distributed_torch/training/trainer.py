@@ -23,6 +23,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from tensorflow_train_distributed_torch.data.pipeline import to_device
+from tensorflow_train_distributed_torch.models import layers as L
 from tensorflow_train_distributed_torch.training import mixed_precision as mp
 from tensorflow_train_distributed_torch.training.mixed_precision import Policy
 from tensorflow_train_distributed_torch.training.optimizers import (
@@ -46,7 +47,8 @@ class TrainerConfig:
 
 class Trainer:
     """Owns state creation, the step and the fit loop for one task (a
-    ``models.llama.CausalLmTask``) on one device."""
+    ``models.llama.CausalLmTask`` or ``models.moe.MoeLmTask``) on one
+    device."""
 
     def __init__(self, task, optimizer: GradientTransformation, *,
                  policy: Policy = Policy(),
@@ -78,7 +80,7 @@ class Trainer:
         model.load_state_dict(
             {k: v.to(device=self.device, dtype=dtype)
              for k, v in params.items()}, strict=True, assign=True)
-        model.set_compute_dtype(self.policy.compute_dtype)
+        L.set_compute_dtype(model, self.policy.compute_dtype)
         model.train()
         named = dict(model.named_parameters())
         return TrainState(

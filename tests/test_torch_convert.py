@@ -120,3 +120,14 @@ def test_init_params_seeded_and_shaped():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.equal(a["final_norm.scale"],
                        torch.ones(cfg.d_model, dtype=torch.bfloat16))
+
+
+def test_init_params_starts_zero_centered_norm_scales_at_zero():
+    """A zero-centered norm (Gemma) computes x̂·(1 + scale): its scales
+    start at 0, every other norm's at 1."""
+    cfg = dataclasses.replace(TORCH_PRESETS["llama_tiny"],
+                              norm_zero_centered=True)
+    p = convert.init_params(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
+    scales = [v for k, v in p.items() if k.endswith(".scale")]
+    assert scales and not any(v.any() for v in scales)

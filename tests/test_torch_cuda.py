@@ -15,6 +15,11 @@ and cross-entropy gradients 1e-5 (row sums in another order); f32 flash
 attention 2e-5 in the output and 1e-4 in the gradients (sums over up to
 512 keys or queries, in tiles); bf16 3e-2 (the kernel and the plain
 version round p, dS and their outputs to bf16 at other places).
+Grouped matmul (gmm, tgmm): held to ``K.gmm_tolerance`` of the f32
+values: 16·sqrt(K)·2^-24·sqrt(Σ(a·b)²) over the K products of each
+output (f32 sums in another order), plus K/2 of the same unit on the
+tensor cores (each 16-deep step truncates), plus half a bf16 step of the
+value when the output is bf16.
 """
 
 import dataclasses
@@ -311,3 +316,113 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(gen):
     q = _randn(gen, 1, 2, 128, 64)
     with pytest.raises(TypeError, match="dtype"):
         K.flash_attention(q, q.half(), q)
+
+
+# -- K6: grouped matmul -------------------------------------------------------
+
+
+def _assert_within(got, ref32, sumsq32, depth, operands):
+    tensor_cores = all(t.dtype == torch.bfloat16 for t in operands)
+    allowed = K.gmm_tolerance(got, ref32, sumsq32, depth, tensor_cores)
+    err = (got.float() - ref32).abs()
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+
+
+def _group_rows(sizes, m):
+    """Each group's row count (the tgmm depth), [E, 1, 1]."""
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    rows = [end - start for _, start, end in K._group_spans(gs, m)]
+    return torch.tensor(rows, dtype=torch.float32,
+                        device="cuda")[:, None, None]
+
+
+_GMM_CASES = [
+    # m, k, n, sizes: ragged and empty groups, k and n off the tiles,
+    # rows past the sizes' sum (zeros), one group, the 128-row pad.
+    (300, 72, 100, [0, 37, 0, 200, 40]),
+    (256, 64, 128, [256]),
+    (128, 768, 2048 + 8, [50, 0, 78]),
+    (1, 16, 8, [1, 0]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_GMM_CASES)))
+@pytest.mark.parametrize("types", [
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.float32, torch.float32)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_gmm_kernel(gen, case, types, transpose):
+    m, k, n, sizes = _GMM_CASES[case]
+    lt, rt, ot = types
+    e = len(sizes)
+    lhs = _randn(gen, m, k, dtype=lt)
+    rhs = _randn(gen, *((e, n, k) if transpose else (e, k, n)), dtype=rt)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    before = K.launch_counts()["gmm"]
+    got = K.gmm(lhs, rhs, gs, preferred_element_type=ot,
+                transpose_rhs=transpose)
+    assert K.launch_counts()["gmm"] == before + 1
+    assert got.dtype == ot and got.shape == (m, n)
+    ref32 = K.gmm_reference(lhs, rhs, gs, transpose_rhs=transpose)
+    sumsq32 = K.gmm_reference(lhs.float() ** 2, rhs.float() ** 2, gs,
+                              transpose_rhs=transpose)
+    _assert_within(got, ref32, sumsq32, k, (lhs, rhs))
+    assert not got[sum(sizes):].any()
+
+
+@pytest.mark.parametrize("case", range(len(_GMM_CASES)))
+@pytest.mark.parametrize("types", [
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32, torch.float32)])
+def test_tgmm_kernel(gen, case, types):
+    m, k, n, sizes = _GMM_CASES[case]
+    lt, rt, ot = types
+    x = _randn(gen, m, k, dtype=lt)
+    g = _randn(gen, m, n, dtype=rt)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    before = K.launch_counts()["tgmm"]
+    got = K.tgmm(x.t(), g, gs, preferred_element_type=ot)
+    assert K.launch_counts()["tgmm"] == before + 1
+    assert got.dtype == ot and got.shape == (len(sizes), k, n)
+    ref32 = K.tgmm_reference(x.t(), g, gs)
+    sumsq32 = K.tgmm_reference(x.float().t() ** 2, g.float() ** 2, gs)
+    _assert_within(got, ref32, sumsq32, _group_rows(sizes, m), (x, g))
+    for i, s in enumerate(sizes):
+        if s == 0:
+            assert not got[i].any()          # an empty group writes zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_gmm_fn_matches_autograd_of_the_plain_version(gen, dtype, transpose):
+    m, k, n, sizes = 384, 96, 160, [100, 0, 120, 164]
+    e = len(sizes)
+    lhs = _randn(gen, m, k, dtype=dtype)
+    rhs = _randn(gen, *((e, n, k) if transpose else (e, k, n)), dtype=dtype)
+    cot = _randn(gen, m, n)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    grads = []
+    # The kernels on the operands; the plain version on f32 copies, so
+    # its gradients are the f32 values, unrounded.
+    for fn, ops in ((K.gmm, (lhs, rhs)),
+                    (K.gmm_reference, (lhs.float(), rhs.float()))):
+        a, b = (t.clone().requires_grad_(True) for t in ops)
+        fn(a, b, gs, transpose_rhs=transpose).backward(cot)
+        grads.append((a.grad, b.grad))
+    (ga, gb), (ra, rb) = grads
+    assert ga.dtype == dtype and gb.dtype == dtype
+    assert not gb[1].any()
+    # _gmm_bwd's products run in f32 (the cotangent is f32): grad_lhs
+    # sums n products, grad_rhs each group's rows; both are rounded once
+    # to the operand's dtype.
+    sq = rhs.float() ** 2
+    sumsq_a = K.gmm_reference(cot ** 2, sq, gs,
+                              transpose_rhs=not transpose)
+    sumsq_b = K.tgmm_reference(lhs.float().t() ** 2, cot ** 2, gs)
+    if transpose:
+        sumsq_b = sumsq_b.transpose(1, 2)
+    _assert_within(ga, ra, sumsq_a, n, (cot,))
+    _assert_within(gb, rb, sumsq_b, _group_rows(sizes, m), (cot,))
