@@ -71,6 +71,33 @@
 8b. (a) One step's gradients of moe_370m cut to 2 layers, kernels against
    the plain versions, at f32 and bf16; (b) five f32 steps of
    moe_tiny_lm_gmm on the card against the same steps on the CPU.
+9. The splash kernel (K7, forward and backward) against its plain
+   version: Mistral-7B's attention (B 1, H 32, KVH 8, S 8192, D 128,
+   window 4096, bf16), packed rows with sinks, and edge cases at small
+   sizes in f32 and bf16 (window 1, windows off the tile, sinks = window,
+   window >= S, which must equal K2's causal kernels bit for bit).  Each
+   is held elementwise against an f32 computation of the same function
+   and against the plain version; the first two are timed beside the
+   bound, the plain version, ``local_attention_chunked`` (K7's CPU path),
+   SDPA with the band as a boolean mask and ``flex_attention`` with a
+   sliding-window block mask (compiled where it compiles; never on the
+   main path).
+10. The trainer on mistral_7b_lm at full width (d 4096, 32 / 8 heads, ffn
+   14336, window 4096) cut to 4 layers, built as the CLI builds it (b 8 x
+   s 8192, bf16 over f32, adamw + clip + warmup cosine, 10 steps from
+   seed 0).  Counts are zeroed just before the run and read just after:
+   per step exactly 8 splash / 4 splash backward launches and no flash
+   attention, RMSNorm 17 / 9, cross-entropy 1 / 1.  The losses must stay
+   finite, and the first batch's must fall under the trained weights
+   (a batch the run did not see is read before and after and reported).
+   Prints step ms, tokens/s, peak memory, the MFU (its
+   formula beside it, attention at the window's mean visible keys) and a
+   profiled step's device time by kind.
+10b. (a) One step's gradients of the phase-10 model cut to 2 layers at
+   b 1 x s 8192, kernels against the plain versions, f32 and bf16; (b)
+   five f32 steps of a small windowed decoder (window 128, 4 sinks, seq
+   512) on the card (K7) against the same steps on the CPU
+   (``local_attention_chunked``).
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -93,8 +120,11 @@ _CSRC = "tensorflow_train_distributed_torch/csrc/"
 _PK = "tensorflow_train_distributed_tpu/ops/pallas_kernels.py"
 _FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 _MB = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
+_SP = ("jax/experimental/pallas/ops/tpu/splash_attention/"
+       "splash_attention_kernel.py")
 # (name, source, the TPU kernel it replaces, the main path that runs it:
-# "serve" (phase 3), "train" (phase 6) or "moe_train" (phase 8)).
+# "serve" (phase 3), "train" (phase 6), "moe_train" (phase 8) or
+# "window_train" (phase 10)).
 # RMSNorm's forward is on both of the first two paths and has a row for
 # each, with that path's launches and shapes.
 KERNELS = [
@@ -111,6 +141,10 @@ KERNELS = [
      "train"),                                          # and dq, :1287
     ("gmm", _CSRC + "grouped_matmul.cu", _MB + ":314", "moe_train"),
     ("tgmm", _CSRC + "grouped_matmul.cu", _MB + ":573", "moe_train"),
+    ("splash_attention", _CSRC + "flash_attention_fwd.cu", _SP + ":895",
+     "window_train"),
+    ("splash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _SP + ":1857",
+     "window_train"),                                   # and dq, :1405
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
@@ -698,57 +732,62 @@ def _segments(gen, b, s):
     return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32)
 
 
-def _flash_f32(q, k, v, do, causal, seg, scale):
-    """The flash function in f32 from the same (bf16) inputs, one batch row
-    at a time, with the magnitude terms its error bounds need: the exact
-    out/dq/dk/dv, and for each the sum of |terms| that bf16 rounding of
-    p, dS and o can move (see ``_flash_case``)."""
+def _flash_f32(q, k, v, do, causal, seg, scale, window=None, sinks=0):
+    """The flash function (with ``window``, the splash function) in f32
+    from the same (bf16) inputs, one (batch row, kv head) at a time, with
+    the magnitude terms its error bounds need: the exact out/dq/dk/dv, and
+    for each the sum of |terms| that bf16 rounding of p, dS and o can move
+    (see ``_flash_case``).  Also returns the visible (query, key) pairs,
+    summed over heads."""
     import torch
     from tensorflow_train_distributed_torch.ops import kernels as K
 
     rep = q.shape[1] // k.shape[1]
-    res = {n: [] for n in ("out", "dq", "dk", "dv", "out_t", "dq_t", "dk_t",
-                           "dv_t")}
+    names = ("out", "dq", "dk", "dv", "out_t", "dq_t", "dk_t", "dv_t")
+    res = {n: [] for n in names}
     pairs = 0
+    n = q.shape[2]
     for i in range(q.shape[0]):
-        q32, k32, v32, g32 = (t[i].float() for t in (q, k, v, do))
-        k32 = k32.repeat_interleave(rep, 0)
-        v32 = v32.repeat_interleave(rep, 0)
-        n = q32.shape[1]
         keep = torch.ones(n, n, dtype=torch.bool, device=q.device)
         if causal:
             keep = keep.tril()
+        if window is not None:
+            keep = keep & K.splash_mask(n, window, sinks, q.device)
         if seg is not None:
             keep = keep & (seg[i][:, None] == seg[i][None, :])
-        pairs += int(keep.sum()) * q32.shape[0]
-        s = (q32 @ k32.transpose(-1, -2)) * scale
-        s = s + torch.where(keep, 0.0, K.FLASH_MASK_VALUE)
-        p = torch.softmax(s, -1)
-        del s
-        out = p @ v32
-        dp = g32 @ v32.transpose(-1, -2)
-        di = (g32 * out).sum(-1, keepdim=True)
-        ds = p * (dp - di) * scale
-        del dp
-        dio = (g32.abs() * out.abs()).sum(-1, keepdim=True)  # o rounding
-        dsa = ds.abs()
-
-        def group(t):
-            return t.unflatten(0, (-1, rep)).sum(1)
-
-        res["out"].append(out)
-        res["out_t"].append(p @ v32.abs())
-        res["dq"].append(ds @ k32)
-        res["dq_t"].append(dsa @ k32.abs()
-                           + scale * dio * (p @ k32.abs()))
-        pt = p.transpose(-1, -2)
-        res["dk"].append(group(ds.transpose(-1, -2) @ q32))
-        res["dk_t"].append(group(dsa.transpose(-1, -2) @ q32.abs()
-                                 + scale * pt @ (dio * q32.abs())))
-        res["dv"].append(group(pt @ g32))
-        res["dv_t"].append(group(pt @ g32.abs()))
-        del p, pt, ds, dsa
-    return {k: torch.stack(v) for k, v in res.items()}, pairs
+        pairs += int(keep.sum()) * q.shape[1]
+        mask = torch.where(keep, 0.0, K.FLASH_MASK_VALUE)
+        row = {nm: [] for nm in names}
+        for g in range(k.shape[1]):
+            # The group's query heads [rep, S, D] against kv head g [S, D].
+            q32 = q[i, g * rep:(g + 1) * rep].float()
+            g32 = do[i, g * rep:(g + 1) * rep].float()
+            k32, v32 = k[i, g].float(), v[i, g].float()
+            p = torch.softmax((q32 @ k32.t()) * scale + mask, -1)
+            out = p @ v32
+            dp = g32 @ v32.t()
+            di = (g32 * out).sum(-1, keepdim=True)
+            ds = p * (dp - di) * scale
+            del dp
+            dio = (g32.abs() * out.abs()).sum(-1, keepdim=True)  # o rounding
+            dsa = ds.abs()
+            pt = p.transpose(-1, -2)
+            row["out"].append(out)
+            row["out_t"].append(p @ v32.abs())
+            row["dq"].append(ds @ k32)
+            row["dq_t"].append(dsa @ k32.abs()
+                               + scale * dio * (p @ k32.abs()))
+            # dk, dv of kv head g sum over its query group.
+            row["dk"].append((ds.transpose(-1, -2) @ q32).sum(0))
+            row["dk_t"].append((dsa.transpose(-1, -2) @ q32.abs()
+                                + scale * pt @ (dio * q32.abs())).sum(0))
+            row["dv"].append((pt @ g32).sum(0))
+            row["dv_t"].append((pt @ g32.abs()).sum(0))
+            del p, pt, ds, dsa
+        for nm in names:
+            stack = torch.cat if nm[:2] in ("ou", "dq") else torch.stack
+            res[nm].append(stack(row[nm]))
+    return {nm: torch.stack(v) for nm, v in res.items()}, pairs
 
 
 def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main) -> dict:
@@ -967,7 +1006,8 @@ def _profile_train_step(trainer, state, batches):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kinds = dict.fromkeys(("matmul", "gmm", "tgmm", "flash_attention",
-                           "flash_attention_bwd", "cross_entropy",
+                           "flash_attention_bwd", "splash_attention",
+                           "splash_attention_bwd", "cross_entropy",
                            "rms_norm", "other"), 0.0)
     top, n_kernels = [], 0
     for e in prof.key_averages():
@@ -976,10 +1016,15 @@ def _profile_train_step(trainer, state, batches):
             continue
         n_kernels += e.count
         low = e.key.lower()
+        # K7 is K2's kernels with BAND = true (the di pass has no band and
+        # counts as flash_attention_bwd).
+        band = "true>" in low or "lb1ee" in low
         kind = ("tgmm" if "tgmm_kernel" in low
                 else "gmm" if "gmm_kernel" in low
-                else "flash_attention_bwd" if "flash_bwd" in low
-                else "flash_attention" if "flash_fwd" in low
+                else ("splash_attention_bwd" if band
+                      else "flash_attention_bwd") if "flash_bwd" in low
+                else ("splash_attention" if band
+                      else "flash_attention") if "flash_fwd" in low
                 else "cross_entropy" if ("ce_fwd_kernel" in low
                                          or "ce_bwd_kernel" in low)
                 else "rms_norm" if "rms_norm" in low
@@ -1005,10 +1050,11 @@ def _profile_train_step(trainer, state, batches):
 
 class _plain_kernels:
     """Context in which the training kernels' wrappers compute their plain
-    versions on CUDA tensors (the comparison models of phases 6b and 8b
-    only)."""
+    versions on CUDA tensors (the comparison models of phases 6b, 8b and
+    10b only)."""
 
-    NAMES = ("rms_norm", "cross_entropy", "flash_attention", "gmm")
+    NAMES = ("rms_norm", "cross_entropy", "flash_attention",
+             "splash_attention", "gmm")
 
     def __enter__(self):
         from tensorflow_train_distributed_torch.ops import kernels as K
@@ -1521,6 +1567,383 @@ def phase_moe_train(steps: int = 20, log_every: int = 5) -> tuple:
     return counts, stats
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+
+def _flex_ms(q, k, v, window, sinks, do):
+    """Forward and backward times of ``flex_attention`` (compiled; the
+    compile is not timed) with a sliding-window block mask on the same
+    inputs, or (None, None) where it does not compile here."""
+    import torch
+
+    try:
+        import torch._inductor.config as inductor_config
+        from torch.nn.attention.flex_attention import (
+            create_block_mask, flex_attention)
+
+        inductor_config.compile_threads = 1     # no worker processes
+
+        def band(b, h, qi, ki):
+            return (qi >= ki) & ((qi - ki < window) | (ki < sinks))
+
+        s = q.shape[2]
+        block = create_block_mask(band, B=None, H=None, Q_LEN=s, KV_LEN=s,
+                                  device="cuda")
+        flex = torch.compile(flex_attention)
+        t0 = time.perf_counter()
+        ql, kl, vl = _leaf(q, k, v)
+        out = flex(ql, kl, vl, block_mask=block, scale=1.0)
+        torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+        torch.cuda.synchronize()
+        log(f"  flex_attention compiled in {time.perf_counter() - t0:.1f} s")
+        fwd = device_ms(lambda: flex(q, k, v, block_mask=block, scale=1.0),
+                        launches=10)
+        return fwd, _backward_ms(out, (ql, kl, vl), do, launches=10)
+    except Exception as e:          # any failure to build is "not run"
+        log(f"  flex_attention not run: {type(e).__name__}: "
+            f"{str(e).splitlines()[0][:160] if str(e) else ''}")
+        return None, None
+
+
+def _splash_case(gen, label, b, h, kvh, s, d, window, sinks, *, packed,
+                 dtype, timed=False) -> dict:
+    """K7 forward and backward (the launch functions, on the pre-scaled
+    query) on [B, H, S, D] views of [B, S, H, D] storage, held against an
+    f32 computation of the same function and against the plain version;
+    with ``timed``, timed beside the bound, the plain version,
+    ``local_attention_chunked``, SDPA with the band as a boolean mask and
+    ``flex_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import attention as TA
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    def bshd(heads):
+        return torch.randn(b, s, heads, d, generator=gen, device="cuda").to(
+            dtype).transpose(1, 2)
+
+    q, k, v, do = bshd(h), bshd(kvh), bshd(kvh), bshd(h)
+    seg = _segments(gen, b, s) if packed else None
+    qs = K.splash_scaled_q(q, d ** -0.5)
+    o, lse = K.splash_attention_forward(qs, k, v, seg, window, sinks)
+    dq, dk, dv = K.splash_attention_backward(qs, k, v, o, lse, do, seg,
+                                             window, sinks)
+    ref, pairs = _flash_f32(qs, k, v, do, True, seg, 1.0, window=window,
+                            sinks=sinks)
+    qp, kp, vp = _leaf(qs, k, v)
+    op = K.splash_attention_reference(qp, kp, vp, window=window,
+                                      sinks=sinks, segment_ids=seg,
+                                      sm_scale=1.0)
+    gp = torch.autograd.grad(op, (qp, kp, vp), do, retain_graph=True)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    # bf16: as K2 (_flash_case): the kernel rounds p before p.v, dS before
+    # its products, reads o in bf16 and rounds its outputs, each at most
+    # 2^-8 of a value, so 2^-7 (|ref32| + |terms|).  f32: other summation
+    # orders over up to S terms, 2^-14 of the same.  Against the plain
+    # version, its measured distance from ref32 on top.
+    unit = 2 ** -7 if bf16 else 2 ** -14
+    errs = {}
+    tag = (f"splash {label} {'bf16' if bf16 else 'f32'}")
+    for name, got, plain in (("out", o, op), ("dq", dq, gp[0]),
+                             ("dk", dk, gp[1]), ("dv", dv, gp[2])):
+        r32 = ref[name]
+        allowed = unit * (r32.abs() + ref[name + "_t"]) + 1e-6
+        rule = f"2^{-7 if bf16 else -14} (|ref32| + |terms|) + 1e-6"
+        _check(f"{tag} {name} vs f32", got, r32, allowed, rule)
+        errs[name] = _check(f"{tag} {name} vs plain", got, plain,
+                            (plain.float() - r32).abs() + allowed,
+                            "|plain - ref32| + the above")
+    del ref
+    if window >= s:
+        # Nothing but causality is masked: K2's causal kernels, bit for bit.
+        o2, lse2 = K.flash_attention_forward(qs, k, v, seg, True, 1.0)
+        g2 = K.flash_attention_backward(qs, k, v, o2, lse2, do, seg, True,
+                                        1.0)
+        same = all(torch.equal(a, c) for a, c in
+                   zip((o, lse, dq, dk, dv), (o2, lse2, *g2)))
+        log(f"  {tag}: window {window} >= S {s}, equal to K2 causal bit for "
+            f"bit: {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{tag}: differs from K2's causal output")
+    row = dict(case=label, dtype=str(dtype)[6:], shape=dict(
+        b=b, h=h, kvh=kvh, s=s, d=d, window=window, sinks=sinks,
+        packed=packed), pairs=pairs, max_abs_err=errs["out"],
+        max_abs_err_bwd=max(errs["dq"], errs["dk"], errs["dv"]))
+    if not timed:
+        return row
+    elem = q.element_size()
+    in_bytes = (q.numel() + k.numel() + v.numel()) * elem
+    fwd_bytes = in_bytes + o.numel() * elem + lse.numel() * 4
+    bwd_bytes = (in_bytes + 2 * o.numel() * elem + lse.numel() * 4
+                 + (dq.numel() + dk.numel() + dv.numel()) * elem)
+    rep = h // kvh
+    kr, vr = (t.repeat_interleave(rep, 1) for t in (k, v))
+    mask = K.splash_mask(s, window, sinks, "cuda")
+    if seg is not None:
+        mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                              scale=1.0)
+
+    def chunked(qq, kk, vv):
+        return TA.local_attention_chunked(qq, kk, vv, window=window,
+                                          segment_ids=seg, sinks=sinks,
+                                          softmax_scale=1.0)
+
+    fb = bound(fwd_bytes, 4 * d * pairs, PEAK_BF16_FLOPS if bf16
+               else PEAK_F32_FLOPS)
+    bb = bound(bwd_bytes, 10 * d * pairs, PEAK_BF16_FLOPS if bf16
+               else PEAK_F32_FLOPS)
+    row.update(
+        ms=device_ms(lambda: K.splash_attention_forward(
+            qs, k, v, seg, window, sinks), launches=10),
+        plain_ms=device_ms(lambda: K.splash_attention_reference(
+            qs, k, v, window=window, sinks=sinks, segment_ids=seg,
+            sm_scale=1.0), launches=3),
+        bound_ms=fb[0], bound_by=fb[1],
+        library_ms=device_ms(lambda: sdpa(qs, kr, vr), launches=10),
+        bwd_ms=device_ms(lambda: K.splash_attention_backward(
+            qs, k, v, o, lse, do, seg, window, sinks), launches=10),
+        plain_bwd_ms=_backward_ms(op, (qp, kp, vp), do, launches=3),
+        bwd_bound_ms=bb[0], bwd_bound_by=bb[1])
+    del op, gp
+    ql, kl, vl = _leaf(qs, kr, vr)
+    row["library_bwd_ms"] = _backward_ms(sdpa(ql, kl, vl), (ql, kl, vl), do,
+                                         launches=10)
+    if s % window == 0:
+        row["chunked_ms"] = device_ms(lambda: chunked(qs, kr, vr),
+                                      launches=3)
+        ql, kl, vl = _leaf(qs, kr, vr)
+        row["chunked_bwd_ms"] = _backward_ms(chunked(ql, kl, vl),
+                                             (ql, kl, vl), do, launches=3)
+    del ql, kl, vl
+    torch.cuda.empty_cache()
+    row["flex_ms"], row["flex_bwd_ms"] = (
+        _flex_ms(qs, kr, vr, window, sinks, do) if seg is None
+        else (None, None))
+    shape = (f"B {b} H {h} KVH {kvh} S {s} D {d} window {window} sinks "
+             f"{sinks}{' packed' if packed else ''} {row['dtype']}")
+
+    def us(x):
+        return "not run" if x is None else f"{x * 1e3:.1f} us"
+
+    log(f"  splash_attention {shape}: kernel {us(row['ms'])} "
+        f"({4 * d * pairs / row['ms'] / 1e9:.1f} TFLOP/s), bound "
+        f"{us(fb[0])} ({fb[1]}), plain {us(row['plain_ms'])}, chunked "
+        f"{us(row.get('chunked_ms'))}, SDPA (mask) {us(row['library_ms'])}"
+        f", flex {us(row['flex_ms'])}")
+    log(f"  splash_attention_bwd {shape}: kernel {us(row['bwd_ms'])} "
+        f"({10 * d * pairs / row['bwd_ms'] / 1e9:.1f} TFLOP/s), bound "
+        f"{us(bb[0])} ({bb[1]}), plain {us(row['plain_bwd_ms'])}, chunked "
+        f"{us(row.get('chunked_bwd_ms'))}, SDPA (mask) "
+        f"{us(row['library_bwd_ms'])}, flex {us(row['flex_bwd_ms'])}")
+    log(f"  splash {label}: {pairs} visible (query, key) pairs")
+    return row
+
+
+def phase_window_kernels() -> tuple:
+    """K7 against its plain version: Mistral-7B's attention (the JSON
+    line's shape), packed rows with sinks, and the edge cases at small
+    sizes in f32 and bf16.  Returns (rows of the kernels' JSON line, every
+    case's record)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bf, f32 = torch.bfloat16, torch.float32
+    main = _splash_case(gen, "mistral_7b head", 1, 32, 8, 8192, 128, 4096, 0,
+                        packed=False, dtype=bf, timed=True)
+    torch.cuda.empty_cache()
+    cases = [main, _splash_case(gen, "packed sinks", 2, 16, 4, 4096, 128,
+                                1024, 4, packed=True, dtype=bf, timed=True)]
+    torch.cuda.empty_cache()
+    # window 1 (the diagonal), windows off the tile (100, 4095), sinks =
+    # window, window >= S (K2's causal output), packed rows whose
+    # boundaries fall inside the band, GQA 4:1 and 1:1, head_dim 64/128.
+    for dtype in (bf, f32):
+        for args, kw in (
+                (("window 1", 1, 4, 1, 1024, 64, 1, 0), {}),
+                (("window 100", 2, 4, 4, 512, 128, 100, 0), dict(
+                    packed=True)),
+                (("window 4095", 1, 2, 2, 4096, 64, 4095, 0), {}),
+                (("sinks = window", 1, 8, 2, 1024, 128, 200, 200), {}),
+                (("window >= S", 2, 4, 2, 512, 64, 600, 0), dict(
+                    packed=True))):
+            cases.append(_splash_case(gen, *args, dtype=dtype,
+                                      packed=kw.get("packed", False)))
+        torch.cuda.empty_cache()
+    fwd = {f: main[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+    bwd = dict(max_abs_err=main["max_abs_err_bwd"], ms=main["bwd_ms"],
+               plain_ms=main["plain_bwd_ms"], bound_ms=main["bwd_bound_ms"],
+               bound_by=main["bwd_bound_by"],
+               library_ms=main["library_bwd_ms"])
+    return {"splash_attention": fwd, "splash_attention_bwd": bwd}, cases
+
+
+# -- phases 10 and 10b --------------------------------------------------------
+
+
+def window_launches_per_step(num_layers: int) -> dict:
+    """Kernel launches of one windowed training step under full remat: the
+    decoder's, with the splash kernel in the flash kernel's place."""
+    out = train_launches_per_step(num_layers)
+    out["splash_attention"] = out.pop("flash_attention")
+    out["splash_attention_bwd"] = out.pop("flash_attention_bwd")
+    return out
+
+
+def phase_window_train(steps: int = 10, log_every: int = 2,
+                       num_layers: int = 4) -> tuple:
+    """The trainer on mistral_7b_lm at full width, cut to ``num_layers``
+    layers, through the CLI's own construction (``train.make_trainer``):
+    b 8 x s 8192, window 4096, bf16 compute over f32 params, adamw + clip
+    1.0 + warmup_cosine, random weights from seed 0.  Counts are zeroed
+    just before ``fit`` and read just after.
+
+    The loss that must fall is the first batch's: its step-1 loss (the
+    initial weights) against its loss under the trained weights.  The
+    step losses themselves move with the batch (SyntheticLM rows repeat
+    with periods from 4 to 8192 tokens), by more than ten steps move
+    them.  A batch the run does not see is read before and after, and
+    reported."""
+    import math
+
+    import torch
+    from tensorflow_train_distributed_torch import train as T
+    from tensorflow_train_distributed_torch.data.pipeline import to_device
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    name = "mistral_7b_lm"
+    args = T.build_parser().parse_args(
+        ["--config", name, "--steps", str(steps), "--seed", str(SEED),
+         "--log-every", str(log_every), "--log-grad-norm", "--device",
+         "cuda"])
+    entry = registry.get_entry(name)
+    cfg = dataclasses.replace(entry["config"], num_layers=num_layers)
+    entry = dict(entry, config=cfg)
+    task, trainer, batches = T.make_trainer(args, entry)
+    state = trainer.create_state()
+    order = iter(batches)
+    first = next(order)
+    for _ in range(steps - 1):
+        next(order)
+    unseen = next(order)
+
+    def batch_loss(host):
+        with torch.no_grad():
+            loss, _ = task.loss_fn(trainer.policy.cast_to_compute(
+                to_device(host, "cuda")))
+        return loss.item()
+
+    unseen_before = batch_loss(unseen)
+    torch.cuda.synchronize()
+    stamps = []
+
+    def on_log(step, m):
+        if step % log_every == 0:
+            stamps.append(time.perf_counter())
+
+    kernels = list(window_launches_per_step(num_layers))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = trainer.fit(batches, steps=steps, state=state,
+                                 on_log=on_log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: K.launch_counts()[k] for k in kernels}
+    others = {k: v for k, v in K.launch_counts().items()
+              if k not in kernels and v}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for _, m in history]
+    for step, m in history:
+        log(f"  step {step}: loss {m['loss']:.4f} accuracy "
+            f"{m['accuracy']:.4f} lr {m['lr']:.3e} grad_norm "
+            f"{m['grad_norm']:.3f}")
+    first_after, unseen_after = batch_loss(first), batch_loss(unseen)
+    log(f"  first batch: loss {losses[0]:.4f} at step 1, {first_after:.4f}"
+        f" trained; a batch the run did not see: {unseen_before:.4f} -> "
+        f"{unseen_after:.4f}")
+    if not all(math.isfinite(x) for x in losses + [first_after]):
+        raise AssertionError(f"non-finite loss: {losses}, {first_after}")
+    if not first_after < losses[0]:
+        raise AssertionError(f"the first batch's loss did not fall: "
+                             f"{losses[0]} -> {first_after}")
+    want = {k: steps * v for k, v in
+            window_launches_per_step(num_layers).items()}
+    log(f"  launches {counts} (expected {want}); others {others}")
+    if counts != want or others:
+        raise AssertionError(f"windowed training launches {counts}, others "
+                             f"{others}; expected {want} and no flash "
+                             f"attention")
+    windows = [(b - a) / log_every for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(windows) if windows else wall / steps
+    b, s = entry["global_batch_size"], entry["dataset_kwargs"]["seq_len"]
+    w = cfg.sliding_window
+    tokens = b * s
+    n_params = state.num_params()
+    n_dense = n_params - cfg.vocab_size * cfg.d_model    # no embedding
+    keys = sum(min(i + 1, w) for i in range(s)) / s    # mean visible keys
+    flops = (6 * n_dense + 12 * num_layers * cfg.d_model * keys) * tokens
+    stats = dict(
+        config=name, num_layers=num_layers, steps=steps, batch=b, seq=s,
+        window=w, params=n_params, step_ms=step_s * 1e3,
+        window_ms_per_step=[x * 1e3 for x in windows],
+        tokens_per_s=tokens / step_s, peak_mem_gib=peak / 2 ** 30,
+        wall_s=wall, losses=losses, first_batch_trained_loss=first_after,
+        unseen_batch_loss=[unseen_before, unseen_after],
+        mean_visible_keys=keys,
+        mfu=flops / step_s / PEAK_BF16_FLOPS,
+        mfu_formula=(f"(6 (N - V d) + 12 L d {keys:.1f}) tokens / step_s "
+                     f"/ 989e12 ({keys:.1f} = mean visible keys)"))
+    stats["profile"] = _profile_train_step(trainer, state, batches)
+    log(f"  windowed training: {json.dumps(stats)}")
+    return counts, stats
+
+
+def phase_window_grad_check() -> dict:
+    """(a) The phase-10 model cut to 2 layers, at b 1 x s 8192 (the plain
+    version's [B, 32, 8192, 8192] f32 scores take 8.6 GB a batch row).
+    f32: other summation orders; bf16: the kernels round p, dS and the
+    norms' outputs at other places than the plain versions."""
+    import torch
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS, CausalLmTask)
+
+    cfg = dataclasses.replace(LLAMA_PRESETS["mistral_7b"], num_layers=2)
+    src = SyntheticLM(num_examples=8, seq_len=8192,
+                      vocab_size=cfg.vocab_size)
+    host = next(iter(HostBatches(src, 1, seed=SEED)))
+    return _grad_check(
+        "mistral_7b[2 layers]",
+        lambda dtype: CausalLmTask(dataclasses.replace(cfg, dtype=dtype),
+                                   device="meta"), host,
+        (("float32", torch.float32, 1e-4),
+         ("bfloat16", torch.bfloat16, 3e-2)))
+
+
+def phase_window_card_vs_cpu(steps: int = 5) -> dict:
+    """(b) A small windowed decoder: d 256, 4 heads / 2 kv, head_dim 64,
+    ffn 512, vocab 256, 2 layers, seq 512, window 128, 4 sinks, full
+    remat, f32.  The card runs K7; the CPU runs local_attention_chunked."""
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS, CausalLmTask)
+
+    cfg = dataclasses.replace(
+        LLAMA_PRESETS["llama_tiny"], d_model=256, num_heads=4,
+        num_kv_heads=2, head_dim=64, ffn_size=512, num_layers=2,
+        sliding_window=128, attention_sinks=4, remat=True)
+    return _card_vs_cpu("windowed decoder[w 128, 4 sinks]",
+                        lambda: CausalLmTask(cfg, device="meta"), cfg,
+                        list(window_launches_per_step(2)), seq=512,
+                        vocab=256, steps=steps)
+
+
 def main() -> int:
     import torch
 
@@ -1577,9 +2000,19 @@ def main() -> int:
         "CPU")
     moe_training["grad_check"] = phase_moe_grad_check()
     moe_training["card_vs_cpu"] = phase_moe_card_vs_cpu()
+    torch.cuda.empty_cache()
+    log("== phase 9: splash kernel against its plain version")
+    rows["window_train"], window_cases = phase_window_kernels()
+    log("== phase 10: windowed trainer, mistral_7b_lm full width, 4 layers")
+    window_counts, window_training = phase_window_train()
+    torch.cuda.empty_cache()
+    log("== phase 10b: windowed gradients against the plain versions; card "
+        "vs CPU")
+    window_training["grad_check"] = phase_window_grad_check()
+    window_training["card_vs_cpu"] = phase_window_card_vs_cpu()
 
     paths = {"serve": counts, "train": train_counts,
-             "moe_train": moe_counts}
+             "moe_train": moe_counts, "window_train": window_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -1588,6 +2021,8 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"moe_training": moe_training}), flush=True)
     print(json.dumps({"moe_kernel_cases": moe_cases}), flush=True)
+    print(json.dumps({"window_training": window_training}), flush=True)
+    print(json.dumps({"window_kernel_cases": window_cases}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-// Flash attention backward for Hopper (sm_90a).
+// Flash attention (K2) and splash attention (K7) backward for Hopper
+// (sm_90a).
 //
-// Replaces: the Pallas TPU library's backward, reached from
+// K2 replaces: the Pallas TPU library's backward, reached from
 //   tensorflow_train_distributed_tpu/ops/attention.py:357-367:
 //   jax/experimental/pallas/ops/tpu/flash_attention.py
 //   _flash_attention_bwd_dkv and _flash_attention_bwd_dq, after
@@ -27,6 +28,19 @@
 //   Tiles and products as in the forward (mma.sync for bf16, FMAs for
 //   f32).  Simple first: the probabilities are recomputed in both (2) and
 //   (3); no pipelining.
+//
+// K7 replaces: the splash kernel's backward, splash_attention_kernel.py
+//   _splash_attention_bwd_dkv (:1857) and _splash_attention_bwd_dq
+//   (:1405), for the sliding-window band of the forward
+//   (flash_attention_fwd.cu).  With q pre-scaled and a scale of 1 the K2
+//   arithmetic is splash's: p = exp(s - lse), dV += p^T.dO with p rounded
+//   to dO's dtype, dS = p * (dP - di), dK += dS^T.Q and dQ += dS.K with dS
+//   rounded to the operands' dtype, f32 accumulation.
+//   Bound: operations, 10*D flops a visible (query, key) pair.
+//   Design: K2's three kernels instantiated with BAND = true.  dq visits
+//   the forward's kv tiles (KvTiles); a dk/dv tile visits the q tiles from
+//   its diagonal to the last row its window reaches (q_tiles_end), or all
+//   of them when it holds a sink.  Still no atomics.
 #include "flash_common.cuh"
 
 namespace ttd_flash {
@@ -55,7 +69,7 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) p.di[row] = acc;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(Cfg<T>::kThreads)
     flash_bwd_dkv_kernel(Params p) {
   constexpr int BT = Cfg<T>::kBt;
@@ -85,6 +99,8 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   const bool seg = p.seg != nullptr;
   float* wscratch = scratch + warp * 16 * (NT * 8 + 4);
   const int n_tiles = p.seq / BT;
+  const int q_end = q_tiles_end<BAND, BT>(p.window, p.sinks, k0,
+                                             n_tiles);
 
   const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
   const T* vg = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
@@ -110,7 +126,7 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
     const T* dog = static_cast<const T*>(p.dout) + b * p.sdo.b +
                    h * p.sdo.h;
     const long long stat = (static_cast<long long>(b) * p.heads + h) * p.seq;
-    for (int qt = p.causal ? kt : 0; qt < n_tiles; ++qt) {
+    for (int qt = p.causal ? kt : 0; qt < q_end; ++qt) {
       const int q0 = qt * BT;
       __syncthreads();                // the previous q tile is consumed
       load_tile<T, D, BT, NTHREADS>(qs, qg + q0 * p.sq.s, p.sq.s);
@@ -133,8 +149,9 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
           const int lc = n * 8 + 2 * t + (e & 1);   // query in the tile
           const int lr = e < 2 ? lr0 : lr1;          // key in the tile
           float x = pt[n][e] * p.scale;
-          if (!visible(q0 + lc, k0 + lr, p.causal, seg,
-                       seg ? segq[lc] : 0, seg ? segk[lr] : 0))
+          if (!visible<BAND>(q0 + lc, k0 + lr, p.causal, p.window,
+                             p.sinks, seg, seg ? segq[lc] : 0,
+                             seg ? segk[lr] : 0))
             x += kMaskValue;
           pt[n][e] = expf(x - lse_s[lc]);
         }
@@ -175,7 +192,7 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(Cfg<T>::kThreads)
     flash_bwd_dq_kernel(Params p) {
   constexpr int BT = Cfg<T>::kBt;
@@ -226,7 +243,8 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   const int n_kv = p.causal ? qt + 1 : p.seq / BT;
-  for (int kt = 0; kt < n_kv; ++kt) {
+  const KvTiles<BAND, BT> tiles(p.window, p.sinks, q0);
+  for (int kt = tiles.first(); kt < n_kv; kt = tiles.next(kt)) {
     const int k0 = kt * BT;
     __syncthreads();
     load_tile<T, D, BT, NTHREADS>(ks, kg + k0 * p.sk.s, p.sk.s);
@@ -246,8 +264,9 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
         const int lc = n * 8 + 2 * t + (e & 1);
         const int lr = e < 2 ? lr0 : lr1;
         float x = pr[n][e] * p.scale;
-        if (!visible(q0 + lr, k0 + lc, p.causal, seg,
-                     seg ? segq[lr] : 0, seg ? segk[lc] : 0))
+        if (!visible<BAND>(q0 + lr, k0 + lc, p.causal, p.window,
+                           p.sinks, seg, seg ? segq[lr] : 0,
+                           seg ? segk[lc] : 0))
           x += kMaskValue;
         pr[n][e] = expf(x - (e < 2 ? lse0 : lse1));
       }
@@ -277,7 +296,7 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BAND>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, D>(4);
   const long long rows = static_cast<long long>(p.batch) * p.heads * p.seq;
@@ -285,50 +304,40 @@ int launch(const Params& p, cudaStream_t stream) {
                            stream>>>(p, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, BAND>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv(p.seq / Cfg<T>::kBt, p.kv_heads, p.batch);
-  flash_bwd_dkv_kernel<T, D><<<grid_kv, Cfg<T>::kThreads, bytes, stream>>>(
-      p);
+  flash_bwd_dkv_kernel<T, D, BAND>
+      <<<grid_kv, Cfg<T>::kThreads, bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, BAND>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(p.seq / Cfg<T>::kBt, p.heads, p.batch);
-  flash_bwd_dq_kernel<T, D><<<grid_q, Cfg<T>::kThreads, bytes, stream>>>(p);
+  flash_bwd_dq_kernel<T, D, BAND>
+      <<<grid_q, Cfg<T>::kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool BAND>
 int launch_d(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
+    case 64: return launch<T, 64, BAND>(p, stream);
+    case 128: return launch<T, 128, BAND>(p, stream);
+    case 256: return launch<T, 256, BAND>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-}  // namespace ttd_flash
-
-// Operands as ttd_flash_attention_fwd, plus dout [B, H, S, D] and the
-// gradients dq [B, H, S, D], dk, dv [B, KVH, S, D] (element strides, D
-// contiguous, 16-byte aligned rows); lse from the forward; di: [B, H, S]
-// f32 scratch.  ``strides`` holds 24 element strides: (b, h, s) of q, k,
-// v, o, dout, dq, dk, dv.  Launches three kernels; returns the first
-// CUDA error (0 on success).
-extern "C" int ttd_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* di, const void* seg, const long long* strides, int batch,
-    int heads, int kv_heads, int seq, int head_dim, float scale, int causal,
-    int dtype, void* stream) {
-  using namespace ttd_flash;
+Params bwd_params(const void* q, const void* k, const void* v,
+                  const void* o, const void* lse, const void* dout, void* dq,
+                  void* dk, void* dv, void* di, const void* seg,
+                  const long long* strides, int batch, int heads,
+                  int kv_heads, int seq) {
   Params p{};
   p.q = q;
   p.k = k;
@@ -353,13 +362,59 @@ extern "C" int ttd_flash_attention_bwd(
   p.heads = heads;
   p.kv_heads = kv_heads;
   p.seq = seq;
-  p.scale = scale;
-  p.causal = causal;
-  if (batch <= 0 || seq <= 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads || seq % 64)
+  return p;
+}
+
+template <bool BAND>
+int run(const Params& p, int head_dim, int dtype, void* stream) {
+  if (p.batch <= 0 || p.seq <= 0) return 0;
+  if (p.kv_heads <= 0 || p.heads % p.kv_heads || p.seq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ttd::kF32) return launch_d<float>(p, head_dim, st);
-  if (dtype == ttd::kBF16) return launch_d<bf16>(p, head_dim, st);
+  if (dtype == ttd::kF32) return launch_d<float, BAND>(p, head_dim, st);
+  if (dtype == ttd::kBF16) return launch_d<bf16, BAND>(p, head_dim, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+}  // namespace ttd_flash
+
+// Operands as ttd_flash_attention_fwd, plus dout [B, H, S, D] and the
+// gradients dq [B, H, S, D], dk, dv [B, KVH, S, D] (element strides, D
+// contiguous, 16-byte aligned rows); lse from the forward; di: [B, H, S]
+// f32 scratch.  ``strides`` holds 24 element strides: (b, h, s) of q, k,
+// v, o, dout, dq, dk, dv.  Launches three kernels; returns the first
+// CUDA error (0 on success).
+extern "C" int ttd_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* di, const void* seg, const long long* strides, int batch,
+    int heads, int kv_heads, int seq, int head_dim, float scale, int causal,
+    int dtype, void* stream) {
+  using namespace ttd_flash;
+  Params p = bwd_params(q, k, v, o, lse, dout, dq, dk, dv, di, seg, strides,
+                        batch, heads, kv_heads, seq);
+  p.scale = scale;
+  p.causal = causal;
+  return run<false>(p, head_dim, dtype, stream);
+}
+
+// K7: operands as ttd_flash_attention_bwd (q pre-scaled, dq the gradient
+// of that scaled q), the band as ttd_splash_attention_fwd.
+extern "C" int ttd_splash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* di, const void* seg, const long long* strides, int batch,
+    int heads, int kv_heads, int seq, int head_dim, int window, int sinks,
+    int dtype, void* stream) {
+  using namespace ttd_flash;
+  if (window < 1 || sinks < 0 || sinks > window)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = bwd_params(q, k, v, o, lse, dout, dq, dk, dv, di, seg, strides,
+                        batch, heads, kv_heads, seq);
+  p.scale = 1.f;
+  p.causal = 1;
+  p.window = window < seq ? window : seq;
+  p.sinks = sinks < seq ? sinks : seq;
+  return run<true>(p, head_dim, dtype, stream);
 }

@@ -1,6 +1,7 @@
-// Flash attention forward for Hopper (sm_90a).
+// Flash attention (K2) and splash attention (K7) forward for Hopper
+// (sm_90a).
 //
-// Replaces: the Pallas TPU library kernel the JAX package calls from
+// K2 replaces: the Pallas TPU library kernel the JAX package calls from
 //   tensorflow_train_distributed_tpu/ops/attention.py:357-367,
 //   jax/experimental/pallas/ops/tpu/flash_attention.py
 //   _flash_attention_impl: causal or full attention over q, k, v
@@ -25,12 +26,29 @@
 //   same layout with FMAs.  GQA reads kv head h / (H / KVH) directly,
 //   with no repeated copy.  Simple first: no cp.async/TMA pipelining, no
 //   wgmma, one tile in flight.
+//
+// K7 replaces: the Pallas TPU splash kernel the JAX package calls for
+//   sliding-window attention, tensorflow_train_distributed_tpu/ops/
+//   attention.py:232-274 (make_splash_mha over a LocalMask per head),
+//   jax/experimental/pallas/ops/tpu/splash_attention/
+//   splash_attention_kernel.py _splash_attention_forward (:895).  Causal
+//   attention of key k by query q when q - window < k <= q or k < sinks,
+//   with segment ids.  Splash's numerics, bar one rounding: the caller
+//   passes q * sm_scale rounded to q's dtype and the kernel applies a scale
+//   of 1; scores in f32; masked scores get -0.7 f32max; the output in q's
+//   dtype.  Splash keeps p in f32 for p.v; the bf16 kernel rounds p to bf16
+//   to run p.v on the tensor cores, as K2 does.
+//   Bound: operations, 4*D flops a visible (query, key) pair.
+//   Design: K2's kernel instantiated with BAND = true.  A q tile visits the
+//   kv tiles from the one holding its first row's window start to its
+//   diagonal, after the tiles holding sinks (KvTiles); the band's edge is
+//   masked inside the tiles it cuts (visible<true>).
 #include "flash_common.cuh"
 
 namespace ttd_flash {
 namespace {
 
-template <typename T, int D>
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(Cfg<T>::kThreads)
     flash_fwd_kernel(Params p) {
   constexpr int BT = Cfg<T>::kBt;
@@ -76,7 +94,8 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   const int n_kv = p.causal ? qt + 1 : p.seq / BT;
-  for (int kt = 0; kt < n_kv; ++kt) {
+  const KvTiles<BAND, BT> tiles(p.window, p.sinks, q0);
+  for (int kt = tiles.first(); kt < n_kv; kt = tiles.next(kt)) {
     const int k0 = kt * BT;
     __syncthreads();                    // the previous tile is consumed
     load_tile<T, D, BT, NTHREADS>(ks, kg + k0 * p.sk.s, p.sk.s);
@@ -97,8 +116,9 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
         const int lc = n * 8 + 2 * t + (e & 1);
         const int lr = e < 2 ? lr0 : lr1;
         float x = s[n][e] * p.scale;
-        if (!visible(q0 + lr, k0 + lc, p.causal, seg,
-                     seg ? segq[lr] : 0, seg ? segk[lc] : 0))
+        if (!visible<BAND>(q0 + lr, k0 + lc, p.causal, p.window,
+                           p.sinks, seg, seg ? segq[lr] : 0,
+                           seg ? segk[lc] : 0))
           x += kMaskValue;
         s[n][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
@@ -152,26 +172,59 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BAND>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, D>(3);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_kernel<T, D, BAND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.seq / Cfg<T>::kBt, p.heads, p.batch);
-  flash_fwd_kernel<T, D><<<grid, Cfg<T>::kThreads, bytes, stream>>>(p);
+  flash_fwd_kernel<T, D, BAND><<<grid, Cfg<T>::kThreads, bytes, stream>>>(
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool BAND>
 int launch_d(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
+    case 64: return launch<T, 64, BAND>(p, stream);
+    case 128: return launch<T, 128, BAND>(p, stream);
+    case 256: return launch<T, 256, BAND>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+Params fwd_params(const void* q, const void* k, const void* v, void* o,
+                  void* lse, const void* seg, const long long* strides,
+                  int batch, int heads, int kv_heads, int seq) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = o;
+  p.lse = static_cast<float*>(lse);
+  p.seg = static_cast<const int*>(seg);
+  p.sq = {strides[0], strides[1], strides[2]};
+  p.sk = {strides[3], strides[4], strides[5]};
+  p.sv = {strides[6], strides[7], strides[8]};
+  p.so = {strides[9], strides[10], strides[11]};
+  p.batch = batch;
+  p.heads = heads;
+  p.kv_heads = kv_heads;
+  p.seq = seq;
+  return p;
+}
+
+template <bool BAND>
+int run(const Params& p, int head_dim, int dtype, void* stream) {
+  if (p.batch <= 0 || p.seq <= 0) return 0;
+  if (p.kv_heads <= 0 || p.heads % p.kv_heads || p.seq % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == ttd::kF32) return launch_d<float, BAND>(p, head_dim, st);
+  if (dtype == ttd::kBF16) return launch_d<bf16, BAND>(p, head_dim, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -189,28 +242,30 @@ extern "C" int ttd_flash_attention_fwd(
     int kv_heads, int seq, int head_dim, float scale, int causal, int dtype,
     void* stream) {
   using namespace ttd_flash;
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = o;
-  p.lse = static_cast<float*>(lse);
-  p.seg = static_cast<const int*>(seg);
-  p.sq = {strides[0], strides[1], strides[2]};
-  p.sk = {strides[3], strides[4], strides[5]};
-  p.sv = {strides[6], strides[7], strides[8]};
-  p.so = {strides[9], strides[10], strides[11]};
-  p.batch = batch;
-  p.heads = heads;
-  p.kv_heads = kv_heads;
-  p.seq = seq;
+  Params p = fwd_params(q, k, v, o, lse, seg, strides, batch, heads,
+                        kv_heads, seq);
   p.scale = scale;
   p.causal = causal;
-  if (batch <= 0 || seq <= 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads || seq % 64)
+  return run<false>(p, head_dim, dtype, stream);
+}
+
+// K7: operands as ttd_flash_attention_fwd, q already scaled (the kernel's
+// scale is 1), causal, keys within ``window`` of their query (the query's
+// own included) or among the first ``sinks``; 1 <= window, 0 <= sinks <=
+// window.  A window at or past seq is plain causal attention.
+extern "C" int ttd_splash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* seg, const long long* strides, int batch, int heads,
+    int kv_heads, int seq, int head_dim, int window, int sinks, int dtype,
+    void* stream) {
+  using namespace ttd_flash;
+  if (window < 1 || sinks < 0 || sinks > window)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ttd::kF32) return launch_d<float>(p, head_dim, st);
-  if (dtype == ttd::kBF16) return launch_d<bf16>(p, head_dim, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Params p = fwd_params(q, k, v, o, lse, seg, strides, batch, heads,
+                        kv_heads, seq);
+  p.scale = 1.f;
+  p.causal = 1;
+  p.window = window < seq ? window : seq;
+  p.sinks = sinks < seq ? sinks : seq;
+  return run<true>(p, head_dim, dtype, stream);
 }

@@ -1,7 +1,8 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): the argument block, tile loads into shared
-// memory, and two warp-level tile products with one register layout for
-// both element types.
+// memory, two warp-level tile products with one register layout for
+// both element types, and the sliding-window band of the splash kernels
+// (K7), which run the same kernel bodies instantiated with BAND = true.
 //
 // Layout of a warp's [16, 8*NT] f32 tile in registers (the accumulator
 // layout of mma.sync m16n8k16): lane = 4*g + t holds, for each n-tile n,
@@ -44,6 +45,8 @@ struct Params {
   int batch, heads, kv_heads, seq;
   float scale;
   int causal;
+  int window;     // K7 (BAND): keys q - window < k <= q, plus
+  int sinks;      // the first ``sinks`` keys; 1 <= window <= seq
 };
 
 // Copies BT rows of D elements (row stride ``stride`` elements) from
@@ -250,10 +253,46 @@ __host__ __device__ constexpr int smem_bytes(int tiles) {
 }
 
 // Whether key ``col`` is visible to query ``row`` (absolute positions;
-// ``sq``/``sk`` their segment ids when ``seg``).
+// ``sq``/``sk`` their segment ids when ``seg``).  With BAND (K7, always
+// causal) a key also has to lie in the window or among the sinks.
+template <bool BAND>
 __device__ __forceinline__ bool visible(int row, int col, int causal,
-                                        bool seg, int sq, int sk) {
-  return (!causal || col <= row) && (!seg || sq == sk);
+                                        int window, int sinks, bool seg,
+                                        int sq, int sk) {
+  return (!causal || col <= row) &&
+         (!BAND || row - col < window || col < sinks) && (!seg || sq == sk);
+}
+
+// The kv tiles a q tile starting at ``q0`` visits under BAND: the sink
+// tiles [0, sink_end), then [lo, its diagonal].  Tiles wholly left of the
+// band are skipped, as splash skips the blocks its mask empties.  K2
+// (BAND = false) starts at 0 and steps by one.
+template <bool BAND, int BT>
+struct KvTiles {
+  int lo = 0;
+  int sink_end = 0;
+  __device__ __forceinline__ KvTiles(int window, int sinks, int q0) {
+    if (BAND) {
+      lo = max(0, q0 - window + 1) / BT;
+      sink_end = min((sinks + BT - 1) / BT, lo);
+    }
+  }
+  __device__ __forceinline__ int first() const {
+    return BAND && sink_end > 0 ? 0 : lo;
+  }
+  __device__ __forceinline__ int next(int kt) const {
+    return BAND && kt + 1 == sink_end ? lo : kt + 1;
+  }
+};
+
+// One past the last q tile whose rows see a key of the kv tile starting
+// at ``k0``: under BAND, the last row the window reaches from the tile's
+// last key, or every tile for a tile holding a sink.
+template <bool BAND, int BT>
+__device__ __forceinline__ int q_tiles_end(int window, int sinks, int k0,
+                                           int n_tiles) {
+  if (!BAND || k0 < sinks) return n_tiles;
+  return min(n_tiles, (k0 + BT + window - 2) / BT + 1);
 }
 
 }  // namespace ttd_flash

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``models/layers.py``: ``Embed``, RoPE
 (with the Llama-3 frequency scaling), the int8 KV recipe, ``RMSNorm``
 over the fused kernel, the gated ``MlpBlock`` and ``MultiHeadAttention``
-in its training branch (self-attention through the flash dispatch) and
-its decode modes (linear and paged KV caches).
+in its training branch (self-attention through the kernel dispatch,
+sliding windows included) and its decode modes (linear and paged KV
+caches; a sliding window's rolling cache is not ported).
 
 Weights keep the flax layout, so converted checkpoints load verbatim:
 dense kernels are ``[in, out]`` (``y = x @ kernel``), the embedding table
@@ -230,7 +231,8 @@ class MultiHeadAttention(nn.Module):
 
     Without a cache (training, ``_train_step``) the whole sequence attends
     through ``ops.attention.multihead_attention_kernel``: the flash kernel
-    on CUDA, the reference on the CPU.  With one, a call appends this
+    on CUDA, or with a sliding ``window`` (and ``sinks``) the splash
+    kernel; the reference paths on the CPU.  With one, a call appends this
     call's k/v rows at each row's own position (``index``) and attends
     over everything up to it: over a linear cache (``_slot_decode_step``,
     the serving engine's batch-1 prefill) or over the paged pool
@@ -240,7 +242,8 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, features: int, num_heads: int, head_dim: int,
                  num_kv_heads: Optional[int] = None, *, dtype=torch.float32,
                  kv_cache_int8: bool = False, fused_qkv: bool = False,
-                 qkv_bias: bool = False, device=None):
+                 qkv_bias: bool = False, window: Optional[int] = None,
+                 sinks: int = 0, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = head_dim
@@ -248,6 +251,8 @@ class MultiHeadAttention(nn.Module):
         self.dtype = dtype
         self.kv_cache_int8 = kv_cache_int8
         self.fused_qkv = fused_qkv
+        self.window = window
+        self.sinks = sinks
         kvh = self.num_kv_heads
         if fused_qkv:
             self.qkv = Dense(features, (num_heads + 2 * kvh) * head_dim,
@@ -287,6 +292,10 @@ class MultiHeadAttention(nn.Module):
         k = rotate(k, *rope)
         if cache is None:
             return self._train_step(q, k, v, segment_ids)
+        if self.window is not None or self.sinks:
+            raise NotImplementedError(
+                "decode with a sliding window or attention sinks (the "
+                "rolling-cache decode) is not ported yet")
         if segment_ids is not None:
             raise ValueError("decode mode does not take packed segments")
         if cache.paged:
@@ -299,11 +308,12 @@ class MultiHeadAttention(nn.Module):
     def _train_step(self, q, k, v, segment_ids):
         """Causal self-attention over the whole sequence (the JAX
         ``__call__`` without decode): keys sit at their queries'
-        positions; GQA's kv heads are read, not repeated, by the flash
-        kernel (the reference path repeats them)."""
+        positions; GQA's kv heads are read, not repeated, by the kernels
+        (the reference paths repeat them)."""
         out = multihead_attention_kernel(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, segment_ids=segment_ids)
+            causal=True, segment_ids=segment_ids, window=self.window,
+            sinks=self.sinks)
         return self._attn_epilogue(out.transpose(1, 2))
 
     def _stored(self, k: torch.Tensor, v: torch.Tensor, cache_dtype):

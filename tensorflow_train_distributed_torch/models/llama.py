@@ -13,7 +13,8 @@ The model holds a plain list of layers: the JAX package's scanned versus
 unrolled layouts differ only in its parameter tree, which
 ``convert.params_from_flax`` flattens (so ``scan_layers`` is not a field
 here).  Sequence and pipeline parallelism and LoRA wait for later
-slices, as do the "dots" and "no_ffn" remat policies.
+slices, as do the "dots" and "no_ffn" remat policies and the rolling
+KV cache that decodes a sliding-window model.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ class LlamaConfig:
     # (torch.utils.checkpoint); "dots" and "no_ffn" are not ported yet.
     remat: bool = True
     remat_policy: str = "full"
-    # Sliding-window attention / StreamingLLM sinks: not ported yet; the
-    # training forward and the serving engine refuse them.
+    # Sliding-window attention (Mistral) / StreamingLLM sinks: trained
+    # through the splash kernel (K7); decode and the serving engine refuse
+    # them (the rolling cache is not ported).
     sliding_window: Optional[int] = None
     attention_sinks: int = 0
     # int8 KV cache: rows store int8 with one f32 scale per
@@ -150,7 +152,9 @@ class DecoderBlock(nn.Module):
         self.attention = L.MultiHeadAttention(
             cfg.d_model, cfg.num_heads, cfg.attn_head_dim, cfg.num_kv_heads,
             dtype=cfg.dtype, kv_cache_int8=cfg.kv_cache_int8,
-            fused_qkv=cfg.fused_qkv, qkv_bias=cfg.qkv_bias, device=device)
+            fused_qkv=cfg.fused_qkv, qkv_bias=cfg.qkv_bias,
+            window=cfg.sliding_window, sinks=cfg.attention_sinks,
+            device=device)
         self.mlp_norm = L.RMSNorm(cfg.d_model, **norm)
         self.mlp = L.MlpBlock(cfg.d_model, cfg.ffn_size, dtype=cfg.dtype,
                               activation=cfg.mlp_activation, device=device)
@@ -180,10 +184,6 @@ def segment_relative_positions(segment_ids: torch.Tensor) -> torch.Tensor:
 def refuse_unported_training(cfg: LlamaConfig) -> None:
     """Raise for the training options not ported yet (the training forward
     checks; ``CausalLmTask`` checks at construction, before any state)."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "training with sliding-window attention "
-            "(local_attention_chunked, the splash kernel) is not ported yet")
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r} is not ported yet; 'full' is")

@@ -4,14 +4,14 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``.  Each kernel
 has two faces with one signature and layout (the JAX function's):
 
 - ``rms_norm`` / ``cross_entropy`` / ``flash_attention`` /
-  ``paged_kv_gather`` / ``paged_attention`` / ``gmm`` / ``tgmm``: the
-  wrapper.  On a CUDA
+  ``splash_attention`` / ``paged_kv_gather`` / ``paged_attention`` /
+  ``gmm`` / ``tgmm``: the wrapper.  On a CUDA
   tensor it launches the CUDA kernel from ``csrc/`` (built and loaded by
   ``ops.cuda_build``) on the current stream, or raises; it never falls
   back.  On a CPU tensor it computes the plain version, because that is
   where the tensor lies (the CPU tests).  The training kernels are
   ``torch.autograd.Function``s whose backward is a kernel too (K1b, K3b,
-  flash backward, gmm and tgmm), as the JAX functions are
+  flash and splash backward, gmm and tgmm), as the JAX functions are
   ``custom_vjp``s.
 - ``*_reference``: plain PyTorch, the oracle the kernels are held against
   on the card and the math the CPU path runs.
@@ -34,7 +34,8 @@ from tensorflow_train_distributed_torch.ops.attention import (
 
 LAUNCHES = {"rms_norm": 0, "rms_norm_bwd": 0, "cross_entropy": 0,
             "cross_entropy_bwd": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0, "paged_attention": 0,
+            "flash_attention_bwd": 0, "splash_attention": 0,
+            "splash_attention_bwd": 0, "paged_attention": 0,
             "paged_kv_gather": 0, "gmm": 0, "tgmm": 0}
 
 # Element-type codes shared with csrc/common.cuh (ttd::DType).
@@ -405,32 +406,175 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
         return flash_attention_reference(q, k, v, causal=causal,
                                          segment_ids=segment_ids,
                                          sm_scale=sm_scale)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
-            raise TypeError(f"flash_attention: {name} dtype {t.dtype}; q, "
-                            f"k, v must share one of f32/bf16")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("flash_attention: q must be [B, H, S, D] and k, v "
-                         "[B, KVH, S, D]")
-    b, h, s, d = q.shape
-    kb, kvh, ks, kd = k.shape
-    if (kb, ks, kd) != (b, s, d) or kvh == 0 or h % kvh:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
-                         f"{tuple(k.shape)} do not agree (self-attention, "
-                         f"H a multiple of KVH)")
-    if d not in FLASH_HEAD_DIMS or s % 64:
-        raise ValueError(f"flash_attention: the kernel takes head_dim in "
-                         f"{FLASH_HEAD_DIMS} and S a multiple of 64, got "
-                         f"D={d}, S={s}")
-    if segment_ids is not None:
-        _check("flash_attention", segment_ids, "segment_ids", (torch.int32,))
-        if tuple(segment_ids.shape) != (b, s):
-            raise ValueError(f"flash_attention: segment_ids "
-                             f"{tuple(segment_ids.shape)} != ({b}, {s})")
+    _attention_checks("flash_attention", q, k, v, segment_ids)
     if q.numel() == 0:
         return torch.zeros_like(q)
     return _FlashAttentionFn.apply(q, k, v, segment_ids, bool(causal),
                                    float(sm_scale))
+
+
+def _attention_checks(name: str, q, k, v, segment_ids) -> None:
+    """Raises on what the flash and splash kernels do not take."""
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"{name}: {what} dtype {t.dtype}; q, k, v must "
+                            f"share one of f32/bf16")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, H, S, D] and k, v "
+                         f"[B, KVH, S, D]")
+    b, h, s, d = q.shape
+    kb, kvh, ks, kd = k.shape
+    if (kb, ks, kd) != (b, s, d) or kvh == 0 or h % kvh:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} do not agree (self-attention, "
+                         f"H a multiple of KVH)")
+    if d not in FLASH_HEAD_DIMS or s % 64:
+        raise ValueError(f"{name}: the kernel takes head_dim in "
+                         f"{FLASH_HEAD_DIMS} and S a multiple of 64, got "
+                         f"D={d}, S={s}")
+    if segment_ids is not None:
+        _check(name, segment_ids, "segment_ids", (torch.int32,))
+        if tuple(segment_ids.shape) != (b, s):
+            raise ValueError(f"{name}: segment_ids "
+                             f"{tuple(segment_ids.shape)} != ({b}, {s})")
+
+
+# ---------------------------------------------------------------------------
+# Splash attention (K7 forward and backward): sliding-window causal
+# ---------------------------------------------------------------------------
+
+
+def splash_scaled_q(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """The query splash attends with: ``q * sm_scale`` rounded to q's
+    dtype, the scale first rounded to that dtype (the JAX function's
+    ``(q * scale).astype(q.dtype)`` with a weakly typed scale)."""
+    return q * torch.tensor(sm_scale, dtype=q.dtype).item()
+
+
+def splash_mask(s: int, window: int, sinks: int,
+                device=None) -> torch.Tensor:
+    """[S, S] bool, True where query row i sees key j:
+    ``j <= i and (i - j < window or j < sinks)``
+    (``dot_product_attention``'s mask)."""
+    pos = torch.arange(s, device=device)
+    dist = pos[:, None] - pos[None, :]
+    return (dist >= 0) & ((dist < window) | (pos[None, :] < sinks))
+
+
+def splash_attention_reference(q, k, v, *, window: int, sinks: int = 0,
+                               segment_ids=None, sm_scale: float):
+    """Plain version with the splash kernel's numerics: q scaled by
+    ``splash_scaled_q``; scores ``qs·kᵀ`` in f32; masked scores replaced
+    by ``FLASH_MASK_VALUE``; softmax and ``p·v`` in f32 (v cast to f32,
+    p not rounded); the output rounded once to q's dtype.  The mask is
+    ``splash_mask`` and, with ``segment_ids`` [B, S], equal ids.  Shapes
+    as ``flash_attention_reference``.  Its autograd backward is the
+    backward kernel's plain version."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    qs = splash_scaled_q(q, sm_scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    keep = splash_mask(q.shape[2], window, sinks, q.device)
+    if segment_ids is not None:
+        keep = keep & (segment_ids[:, None, :, None]
+                       == segment_ids[:, None, None, :])
+    s = torch.where(keep, s, FLASH_MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def splash_attention_forward(qs, k, v, segment_ids, window: int, sinks: int):
+    """K7 forward on CUDA tensors checked by ``splash_attention``, ``qs``
+    already scaled: (o, lse) as ``flash_attention_forward``."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    b, h, s, d = qs.shape
+    o = _bshd(b, s, h, d, qs)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=qs.device)
+    seg = segment_ids
+    rc = library().ttd_splash_attention_fwd(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), seg.data_ptr() if seg is not None else None,
+        _strides(qs, k, v, o), b, h, k.shape[1], s, d, window, sinks,
+        _DTYPE_CODES[qs.dtype], _stream())
+    _raise_on("splash_attention", rc)
+    LAUNCHES["splash_attention"] += 1
+    return o, lse
+
+
+def splash_attention_backward(qs, k, v, o, lse, do, segment_ids,
+                              window: int, sinks: int):
+    """K7 backward on CUDA (three kernels: di, dk/dv, dq): (dqs, dk, dv),
+    dqs the gradient of the scaled query."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    b, h, s, d = qs.shape
+    kvh = k.shape[1]
+    dq = _bshd(b, s, h, d, qs)
+    dk = _bshd(b, s, kvh, d, k)
+    dv = _bshd(b, s, kvh, d, v)
+    di = torch.empty((b, h, s), dtype=torch.float32, device=qs.device)
+    seg = segment_ids
+    rc = library().ttd_splash_attention_bwd(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), di.data_ptr(),
+        seg.data_ptr() if seg is not None else None,
+        _strides(qs, k, v, o, do, dq, dk, dv), b, h, kvh, s, d, window,
+        sinks, _DTYPE_CODES[qs.dtype], _stream())
+    _raise_on("splash_attention_bwd", rc)
+    LAUNCHES["splash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _SplashAttentionFn(torch.autograd.Function):
+    """K7 forward saving (o, lse), K7 backward; over the scaled query, so
+    autograd carries the gradient through the scaling as JAX does."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, segment_ids, window, sinks):
+        qs, k, v = (_aligned_rows(t) for t in (qs, k, v))
+        o, lse = splash_attention_forward(qs, k, v, segment_ids, window,
+                                          sinks)
+        ctx.save_for_backward(qs, k, v, o, lse, segment_ids)
+        ctx.window, ctx.sinks = window, sinks
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, k, v, o, lse, seg = ctx.saved_tensors
+        dq, dk, dv = splash_attention_backward(
+            qs, k, v, o, lse, _aligned_rows(do.to(qs.dtype)), seg,
+            ctx.window, ctx.sinks)
+        return dq, dk, dv, None, None, None
+
+
+def splash_attention(q, k, v, *, window: int, sinks: int = 0,
+                     segment_ids=None, sm_scale: float):
+    """Sliding-window causal attention (forward and, under autograd,
+    backward) with the splash kernel's numerics; arguments as
+    ``splash_attention_reference``.  The kernel takes what
+    ``flash_attention``'s does, with ``window >= 1`` and
+    ``0 <= sinks <= window``; the tiles outside the band are skipped."""
+    if window < 1 or not 0 <= sinks <= window:
+        raise ValueError(f"splash_attention: needs window >= 1 and 0 <= "
+                         f"sinks <= window, got window={window}, "
+                         f"sinks={sinks}")
+    tensors = [q, k, v] + ([segment_ids] if segment_ids is not None else [])
+    if _on_cpu("splash_attention", *tensors):
+        return splash_attention_reference(q, k, v, window=window,
+                                          sinks=sinks,
+                                          segment_ids=segment_ids,
+                                          sm_scale=sm_scale)
+    _attention_checks("splash_attention", q, k, v, segment_ids)
+    if q.numel() == 0:
+        return torch.zeros_like(q)
+    s = q.shape[2]          # a window past S masks as one of S (C ints)
+    return _SplashAttentionFn.apply(splash_scaled_q(q, sm_scale), k, v,
+                                    segment_ids, min(window, s),
+                                    min(sinks, s))
 
 
 # ---------------------------------------------------------------------------

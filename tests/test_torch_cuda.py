@@ -14,7 +14,9 @@ weights to bf16, the kernel keeps f32).  Training kernels: f32 RMSNorm
 and cross-entropy gradients 1e-5 (row sums in another order); f32 flash
 attention 2e-5 in the output and 1e-4 in the gradients (sums over up to
 512 keys or queries, in tiles); bf16 3e-2 (the kernel and the plain
-version round p, dS and their outputs to bf16 at other places).
+version round p, dS and their outputs to bf16 at other places).  The
+splash kernel (K7) to the same tolerances, and bit for bit to the flash
+kernel where its window reaches past the sequence.
 Grouped matmul (gmm, tgmm): held to ``K.gmm_tolerance`` of the f32
 values: 16·sqrt(K)·2^-24·sqrt(Σ(a·b)²) over the K products of each
 output (f32 sums in another order), plus K/2 of the same unit on the
@@ -316,6 +318,114 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(gen):
     q = _randn(gen, 1, 2, 128, 64)
     with pytest.raises(TypeError, match="dtype"):
         K.flash_attention(q, q.half(), q)
+
+
+# -- K7: splash attention -----------------------------------------------------
+
+
+# (H, KVH, S, D, window, sinks, packed), at B 2: window 1 (the diagonal
+# tile only), windows off the 64-row tile (100, 4095), sinks = window,
+# sinks with packed rows whose boundaries fall inside the band, GQA 4:1
+# and 1:1, head_dim 64, 128 and 256.
+SPLASH_CASES = [
+    (4, 1, 512, 64, 1, 0, False),
+    (4, 4, 512, 128, 100, 0, True),
+    (2, 2, 4096, 64, 4095, 0, False),
+    (8, 2, 1024, 128, 200, 200, False),
+    (4, 1, 768, 64, 128, 4, True),
+    (2, 2, 256, 256, 64, 7, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,s,d,window,sinks,packed", SPLASH_CASES)
+def test_splash_attention_matches_plain(gen, dtype, h, kvh, s, d, window,
+                                        sinks, packed):
+    """K7 forward and backward through the autograd Function against
+    autograd of the plain version, on [B, H, S, D] views of [B, S, H, D]
+    storage.  The f32 kernel differs from the plain version only in its
+    summation order (2e-5, 1e-4 in the gradients, as the flash kernel);
+    the bf16 kernel rounds p and dS to bf16 where the plain version keeps
+    f32 (3e-2, as the flash kernel's bf16 tests)."""
+    b = 2
+
+    def bshd(heads):
+        return _randn(gen, b, s, heads, d, dtype=dtype).transpose(1, 2)
+
+    q, k, v, do = bshd(h), bshd(kvh), bshd(kvh), bshd(h)
+    seg = _segments(gen, b, s) if packed else None
+    kw = dict(window=window, sinks=sinks, segment_ids=seg,
+              sm_scale=d ** -0.5)
+    before = K.launch_counts()
+    out, grads = _grads(lambda *t: K.splash_attention(*t, **kw), (q, k, v),
+                        do)
+    after = K.launch_counts()
+    assert after["splash_attention"] == before["splash_attention"] + 1
+    assert (after["splash_attention_bwd"]
+            == before["splash_attention_bwd"] + 1)
+    assert after["flash_attention"] == before["flash_attention"]
+    ref, ref_grads = _grads(
+        lambda *t: K.splash_attention_reference(*t, **kw), (q, k, v), do)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=2e-5 if f32 else 3e-2,
+                               atol=2e-5 if f32 else 3e-2)
+    for got, want in zip(grads, ref_grads):
+        assert got.shape == want.shape and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=1e-4 if f32 else 3e-2,
+                                   atol=1e-4 if f32 else 3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splash_attention_window_past_s_is_flash_causal(gen, dtype):
+    """A window at or past S masks nothing beyond causality: K7's output,
+    row statistics and gradients equal K2's causal ones bit for bit (the
+    same tiles in the same order)."""
+    b, h, kvh, s, d = 2, 4, 2, 512, 64
+    q, do = (_randn(gen, b, h, s, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, b, kvh, s, d, dtype=dtype) for _ in range(2))
+    seg = _segments(gen, b, s)
+    qs = K.splash_scaled_q(q, d ** -0.5)
+    for window in (s, s + 7, 2 ** 31 - 1):
+        o7, lse7 = K.splash_attention_forward(qs, k, v, seg, window, 0)
+        o2, lse2 = K.flash_attention_forward(qs, k, v, seg, True, 1.0)
+        assert torch.equal(o7, o2) and torch.equal(lse7, lse2)
+        g7 = K.splash_attention_backward(qs, k, v, o7, lse7, do, seg,
+                                         window, 0)
+        g2 = K.flash_attention_backward(qs, k, v, o2, lse2, do, seg, True,
+                                        1.0)
+        for a, b_ in zip(g7, g2):
+            assert torch.equal(a, b_)
+
+
+def test_splash_attention_at_the_mistral_head(gen):
+    """Mistral-7B's attention: H 32, KVH 8, S 8192, D 128, window 4096,
+    bf16, B 1; forward and backward against the plain version (3e-2, as
+    above)."""
+    b, h, kvh, s, d = 1, 32, 8, 8192, 128
+
+    def bshd(heads):
+        return _randn(gen, b, s, heads, d, dtype=torch.bfloat16).transpose(
+            1, 2)
+
+    q, k, v, do = bshd(h), bshd(kvh), bshd(kvh), bshd(h)
+    kw = dict(window=4096, sm_scale=d ** -0.5)
+    out, grads = _grads(lambda *t: K.splash_attention(*t, **kw), (q, k, v),
+                        do)
+    ref, ref_grads = _grads(
+        lambda *t: K.splash_attention_reference(*t, **kw), (q, k, v), do)
+    for got, want in zip((out, *grads), (ref, *ref_grads)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+def test_splash_attention_rejects_what_the_kernel_does_not_take(gen):
+    q = _randn(gen, 1, 2, 128, 64)
+    with pytest.raises(ValueError, match="window >= 1"):
+        K.splash_attention(q, q, q, window=4, sinks=5, sm_scale=1.0)
+    q = _randn(gen, 1, 2, 96, 64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        K.splash_attention(q, q, q, window=8, sm_scale=1.0)
 
 
 # -- K6: grouped matmul -------------------------------------------------------
