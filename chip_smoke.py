@@ -31,7 +31,8 @@
    head (B 1, H 32, S 2048, D 128) and GQA 4:1 over packed rows, causal
    bf16.  Each is held elementwise against an f32 computation of the
    same function and against the plain version, and timed beside its
-   bound, the plain version and one library call.
+   bound, the plain version and one library call; flash attention's
+   lines name the body that served it and its TFLOP/s.
 6. The trainer on llama_125m_lm at full width and depth, built as the
    CLI builds it (b 8 x s 2048, bf16 compute, adamw + clip + warmup
    cosine, 20 steps from seed 0).  Counts are zeroed just before the run
@@ -75,10 +76,12 @@
    version: Mistral-7B's attention (B 1, H 32, KVH 8, S 8192, D 128,
    window 4096, bf16), packed rows with sinks, and edge cases at small
    sizes in f32 and bf16 (window 1, windows off the tile, sinks = window,
-   window >= S, which must equal K2's causal kernels bit for bit).  Each
-   is held elementwise against an f32 computation of the same function
-   and against the plain version; the first two are timed beside the
-   bound, the plain version, ``local_attention_chunked`` (K7's CPU path),
+   sinks past one tile, window >= S, which must equal K2's causal kernels
+   bit for bit).  Each is held elementwise against an f32 computation of
+   the same function and against the plain version; the first two are
+   timed, with the body that served them (wgmma, mma.sync or FMA) and
+   their TFLOP/s, beside the bound, the plain version,
+   ``local_attention_chunked`` (K7's CPU path),
    SDPA with the band as a boolean mask and ``flex_attention`` with a
    sliding-window block mask (compiled where it compiles; never on the
    main path).
@@ -857,6 +860,9 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main) -> dict:
     lib = device_ms(lambda: lib_fwd(q, kr, vr), launches=10)
     bnd = bound(fwd_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)
     _report("flash_attention", shape, ms, plain_ms, lib, bnd)
+    body = K.flash_attention_body(q.dtype, d)
+    log(f"  flash_attention {shape}: {body} body, "
+        f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s")
     rows["flash_attention"] = dict(max_abs_err=errs["out"], ms=ms,
                                    plain_ms=plain_ms, bound_ms=bnd[0],
                                    bound_by=bnd[1], library_ms=lib)
@@ -867,6 +873,8 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main) -> dict:
     lib = _backward_ms(lib_fwd(ql, kl, vl), (ql, kl, vl), do, launches=10)
     bnd = bound(bwd_bytes, 10 * d * pairs, PEAK_BF16_FLOPS)
     _report("flash_attention_bwd", shape, ms, plain_ms, lib, bnd)
+    log(f"  flash_attention_bwd {shape}: {body} body, "
+        f"{10 * d * pairs / ms / 1e9:.1f} TFLOP/s")
     rows["flash_attention_bwd"] = dict(
         max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]), ms=ms,
         plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
@@ -1729,13 +1737,16 @@ def _splash_case(gen, label, b, h, kvh, s, d, window, sinks, *, packed,
     def us(x):
         return "not run" if x is None else f"{x * 1e3:.1f} us"
 
+    row["body"] = K.flash_attention_body(dtype, d)
     log(f"  splash_attention {shape}: kernel {us(row['ms'])} "
-        f"({4 * d * pairs / row['ms'] / 1e9:.1f} TFLOP/s), bound "
+        f"({row['body']} body, {4 * d * pairs / row['ms'] / 1e9:.1f} "
+        f"TFLOP/s), bound "
         f"{us(fb[0])} ({fb[1]}), plain {us(row['plain_ms'])}, chunked "
         f"{us(row.get('chunked_ms'))}, SDPA (mask) {us(row['library_ms'])}"
         f", flex {us(row['flex_ms'])}")
     log(f"  splash_attention_bwd {shape}: kernel {us(row['bwd_ms'])} "
-        f"({10 * d * pairs / row['bwd_ms'] / 1e9:.1f} TFLOP/s), bound "
+        f"({row['body']} body, {10 * d * pairs / row['bwd_ms'] / 1e9:.1f} "
+        f"TFLOP/s), bound "
         f"{us(bb[0])} ({bb[1]}), plain {us(row['plain_bwd_ms'])}, chunked "
         f"{us(row.get('chunked_bwd_ms'))}, SDPA (mask) "
         f"{us(row['library_bwd_ms'])}, flex {us(row['flex_bwd_ms'])}")
@@ -1758,15 +1769,21 @@ def phase_window_kernels() -> tuple:
     cases = [main, _splash_case(gen, "packed sinks", 2, 16, 4, 4096, 128,
                                 1024, 4, packed=True, dtype=bf, timed=True)]
     torch.cuda.empty_cache()
-    # window 1 (the diagonal), windows off the tile (100, 4095), sinks =
-    # window, window >= S (K2's causal output), packed rows whose
-    # boundaries fall inside the band, GQA 4:1 and 1:1, head_dim 64/128.
+    # window 1 (the diagonal), windows off the tile (100, 4095, and 129
+    # and 4096 at S 4224, which cut the wgmma body's 128-row kv tiles),
+    # sinks = window, sinks past one tile, window >= S (K2's causal
+    # output), packed rows whose boundaries fall inside the band, GQA 4:1
+    # and 1:1, head_dim 64/128.
     for dtype in (bf, f32):
         for args, kw in (
                 (("window 1", 1, 4, 1, 1024, 64, 1, 0), {}),
                 (("window 100", 2, 4, 4, 512, 128, 100, 0), dict(
                     packed=True)),
                 (("window 4095", 1, 2, 2, 4096, 64, 4095, 0), {}),
+                (("window 129", 1, 4, 2, 512, 128, 129, 0), {}),
+                (("window 4096 S 4224", 1, 4, 1, 4224, 64, 4096, 0), {}),
+                (("sinks 130", 2, 4, 2, 1024, 64, 300, 130), dict(
+                    packed=True)),
                 (("sinks = window", 1, 8, 2, 1024, 128, 200, 200), {}),
                 (("window >= S", 2, 4, 2, 512, 64, 600, 0), dict(
                     packed=True))):

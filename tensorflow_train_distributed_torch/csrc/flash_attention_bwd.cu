@@ -15,19 +15,46 @@
 //   S*S*D flops a head for the causal half, against reading q, k, v, o,
 //   dO and writing dq, dk, dv once).
 //
-// Design: the library's split, so no atomics and a deterministic result.
-//   (1) flash_bwd_di: one warp per query row computes di.
-//   (2) flash_bwd_dkv: one block per (k tile, kv head, batch); each warp
-//       owns 16 key rows and keeps dK and dV in registers while the block
-//       loops over the GQA group's heads and, per head, over the q tiles
-//       from the diagonal on (causal) -- the TPU's sequential q axis.  The
-//       group's contributions are summed in f32 before one rounding, so no
-//       repeated K/V copy is needed.
-//   (3) flash_bwd_dq: one block per (q tile, head, batch) loops over the kv
-//       tiles up to the diagonal, keeping dQ in registers.
-//   Tiles and products as in the forward (mma.sync for bf16, FMAs for
-//   f32).  Simple first: the probabilities are recomputed in both (2) and
-//   (3); no pipelining.
+// Design: the library's split, so no atomics and a deterministic result
+//   (two runs give equal gradients bit for bit), in three launches:
+//   (1) flash_bwd_di: one warp per query row computes di in f32.
+//   (2) dk/dv: one block per (kv tile, kv head, batch) keeps dK and dV in
+//       f32 registers while it loops over the GQA group's heads and, per
+//       head, over the q tiles from the diagonal on (causal) -- the TPU's
+//       sequential q axis.  The group's contributions are summed before
+//       one rounding, so no repeated K/V copy is needed.  blockIdx.x runs
+//       the kv tiles in ascending order: the early tiles (and the sink
+//       tiles) walk the most q tiles and start first.
+//   (3) dq: one block per (q tile, head, batch) loops over the kv tiles up
+//       to the diagonal, keeping dQ in f32 registers; q tiles in reverse
+//       when causal, the longest first.
+//   The probabilities are recomputed in both (2) and (3): 14 S*S*D units
+//   of work against the bound's 10, the price of no atomics.
+//
+// Bodies, chosen statically as in the forward (``body()``):
+// wgmma body (bf16, D 64 and 128; flash_bwd_dkv_wgmma_kernel,
+//   flash_bwd_dq_wgmma_kernel), the forward's building blocks
+//   (hopper.cuh): 384 threads, a producer warpgroup that feeds a 2-stage
+//   TMA ring through tensor maps of q, k, v and dO, two consumer
+//   warpgroups of 64 rows on wgmma.  dk/dv: 128 keys a block; K and V
+//   loaded once, the ring carries 64-row Q and dO tiles with their lse
+//   and di rows (bulk copies); S^T = K.Q^T and dP^T = V.dO^T with both
+//   operands K-major, then dV += P^T.dO and dK += dS^T.Q with P^T and
+//   dS^T rounded to bf16 in registers and dO, Q read MN-major (transpose
+//   bit).  dq: 128 q rows a block, Q and dO loaded once, the ring carries
+//   64-row K and V tiles; S = Q.K^T, dP = dO.V^T, dQ += dS.K (K
+//   MN-major).  The two score products of a tile are committed as two
+//   wgmma groups, so the exponentials run while the second (dP^T or dP)
+//   is on the tensor cores, and in dk/dv dS^T is formed while dV is.
+//   Masks only on boundary tiles, empty tiles skipped, as in the
+//   forward; dK, dV and dQ rounded once and stored through shared memory
+//   with 16-byte stores.
+//   Left for later: di fused into the dq kernel's prologue, overlap of
+//   one tile's elementwise work with the next tile's products, a deeper
+//   ring.
+// mma.sync body (bf16, D 256) and FMA body (f32): flash_bwd_dkv_kernel,
+//   flash_bwd_dq_kernel, 64-row tiles (32 for f32), one warp per 16 rows,
+//   tiles staged by the whole block, one tile in flight.
 //
 // K7 replaces: the splash kernel's backward, splash_attention_kernel.py
 //   _splash_attention_bwd_dkv (:1857) and _splash_attention_bwd_dq
@@ -296,6 +323,424 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   }
 }
 
+// The wgmma bodies' shapes.  dk/dv: 128 keys a block (two consumer
+// warpgroups of 64), q tiles of 64 rows with their lse and di rows in a
+// ring.  dq: 128 q rows a block, kv tiles of 64 rows in a ring.  (128-row
+// streamed tiles at D 64 measured slower; PERF.md §6.)  S is a
+// multiple of 64, so no streamed tile is ragged.
+template <int D>
+struct BwdWg {
+  static constexpr int kBk = 128;
+  static constexpr int kBq = 64;
+  static constexpr int kDqBq = 128;
+  static constexpr int kDqBk = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 384;
+  static constexpr int kDkvSmem = 1024 +
+      (2 * kBk * D + 2 * kStages * kBq * D) * 2 + 2 * kStages * kBq * 4 +
+      (2 * kStages + 1) * 8;
+  static constexpr int kDqSmem = 1024 +
+      (2 * kDqBq * D + 2 * kStages * kDqBk * D) * 2 + (2 * kStages + 1) * 8;
+};
+
+template <int D, bool BAND>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               Params p) {
+  using C = BwdWg<D>;
+  namespace hw = ttd_hopper;
+  constexpr int kQ = C::kBq * D;           // elements of a Q or dO tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* ks = reinterpret_cast<bf16*>(base);
+  bf16* vs = ks + C::kBk * D;
+  bf16* qdo = vs + C::kBk * D;             // stage s: Q at 2s, dO at 2s + 1
+  float* stats = reinterpret_cast<float*>(qdo + 2 * C::kStages * kQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * C::kStages *
+                                               C::kBq);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* kvbar = empty + C::kStages;
+
+  const int k0 = blockIdx.x * C::kBk;      // longest first: the early keys
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = p.heads / p.kv_heads;
+  const int k_last = min(k0 + C::kBk, p.seq) - 1;
+  const int n_q = p.seq / C::kBq;
+  const int qt_first = p.causal ? k0 / C::kBq : 0;
+  const int qt_end = !BAND || k0 < p.sinks
+                         ? n_q
+                         : min(n_q, (k_last + p.window - 1) / C::kBq + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 256);
+    }
+    hw::mbar_init(kvbar, 1);
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: K and V once, then Q, dO, lse and di of each (head of the
+    // group, q tile) into the ring.
+    hw::regs_dec<40>();
+    if (threadIdx.x == 256) {
+      hw::mbar_expect_tx(kvbar, 2 * C::kBk * D * 2);
+      hw::tma_load_rows<C::kBk, D>(ks, &tk, kvbar, k0, kvh, b);
+      hw::tma_load_rows<C::kBk, D>(vs, &tv, kvbar, k0, kvh, b);
+      int i = 0;
+      for (int hh = 0; hh < rep; ++hh) {
+        const int h = kvh * rep + hh;
+        const long long stat = (static_cast<long long>(b) * p.heads + h) *
+                               p.seq;
+        for (int qt = qt_first; qt < qt_end; ++qt, ++i) {
+          const int s = i % C::kStages;
+          hw::mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+          hw::mbar_expect_tx(&full[s], 2 * kQ * 2 + 2 * C::kBq * 4);
+          bf16* qs = qdo + 2 * s * kQ;
+          hw::tma_load_rows<C::kBq, D>(qs, &tq, &full[s], qt * C::kBq, h, b);
+          hw::tma_load_rows<C::kBq, D>(qs + kQ, &tdo, &full[s], qt * C::kBq,
+                                       h, b);
+          float* st = stats + 2 * s * C::kBq;
+          hw::bulk_load(st, p.lse + stat + qt * C::kBq, C::kBq * 4, &full[s]);
+          hw::bulk_load(st + C::kBq, p.di + stat + qt * C::kBq, C::kBq * 4,
+                        &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns keys [w0, w0 + 64).
+  hw::regs_inc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int w0 = k0 + 64 * wg;
+  const int kr0 = w0 + 16 * warp + g;      // this thread's keys
+  const int kr1 = kr0 + 8;
+  const bool seg = p.seg != nullptr;
+  const int* segb = p.seg + static_cast<long long>(b) * p.seq;
+  const int sk0 = seg ? segb[min(kr0, p.seq - 1)] : 0;
+  const int sk1 = seg ? segb[min(kr1, p.seq - 1)] : 0;
+  const float sl2 = p.scale * kLog2e;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float pt[C::kBq / 2], dst[C::kBq / 2];   // P^T and dP^T, then dS^T
+#pragma unroll
+  for (int i = 0; i < C::kBq / 2; ++i) pt[i] = dst[i] = 0.f;
+
+  hw::mbar_wait(kvbar, 0);
+  int i = 0;
+  for (int hh = 0; hh < rep; ++hh) {
+    for (int qt = qt_first; qt < qt_end; ++qt, ++i) {
+      const int s = i % C::kStages;
+      hw::mbar_wait(&full[s], (i / C::kStages) & 1);
+      const int q0 = qt * C::kBq;
+      if (!tile_empty<BAND>(p, q0, q0 + C::kBq - 1, w0, w0 + 63)) {
+        const bf16* qs = qdo + 2 * s * kQ;
+        const bf16* dos = qs + kQ;
+        const float* lse_s = stats + 2 * s * C::kBq;
+        const float* di_s = lse_s + C::kBq;
+        // S^T and dP^T in two groups: P^T (the exponentials) is computed
+        // while dP^T is on the tensor cores, and dS^T while dV is.
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::wgmma_ss<C::kBq>(pt, hw::desc_k<C::kBk>(ks, 64 * wg, kk),
+                               hw::desc_k<C::kBq>(qs, 0, kk), kk > 0);
+        hw::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hw::wgmma_ss<C::kBq>(dst, hw::desc_k<C::kBk>(vs, 64 * wg, kk),
+                               hw::desc_k<C::kBq>(dos, 0, kk), kk > 0);
+        hw::wgmma_commit();
+        hw::wgmma_wait<1>();               // S^T is in
+        hw::reg_fence<C::kBq / 2>(pt);
+        if (tile_masked<BAND>(p, q0, q0 + C::kBq - 1, w0, w0 + 63)) {
+#pragma unroll
+          for (int j = 0; j < C::kBq / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = 8 * j + 2 * t + (e & 1);   // query in the tile
+              // An invisible pair's probability is exactly 0 (its score
+              // would get + kMaskValue): set, not computed.
+              pt[4 * j + e] =
+                  visible<BAND>(q0 + qc, e < 2 ? kr0 : kr1, p.causal,
+                                p.window, p.sinks, seg,
+                                seg ? segb[q0 + qc] : 0, e < 2 ? sk0 : sk1)
+                      ? exp2f(pt[4 * j + e] * sl2 - lse_s[qc] * kLog2e)
+                      : 0.f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < C::kBq / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = 8 * j + 2 * t + (e & 1);
+              pt[4 * j + e] =
+                  exp2f(pt[4 * j + e] * sl2 - lse_s[qc] * kLog2e);
+            }
+          }
+        }
+        uint32_t pf[C::kBq / 16][4], sf[C::kBq / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < C::kBq / 16; ++kk) frag_a(pt, kk, pf[kk]);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::kBq / 16; ++kk)
+          hw::wgmma_rs<D>(dv, pf[kk], hw::desc_mn<C::kBq>(dos, kk));
+        hw::wgmma_commit();
+        hw::wgmma_wait<1>();               // dP^T is in; dV may still run
+        hw::reg_fence<C::kBq / 2>(dst);
+#pragma unroll
+        for (int j = 0; j < C::kBq / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = 8 * j + 2 * t + (e & 1);
+            dst[4 * j + e] =
+                pt[4 * j + e] * (dst[4 * j + e] - di_s[qc]) * p.scale;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < C::kBq / 16; ++kk) frag_a(dst, kk, sf[kk]);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::kBq / 16; ++kk)
+          hw::wgmma_rs<D>(dk, sf[kk], hw::desc_mn<C::kBq>(qs, kk));
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::reg_fence<D / 2>(dk);
+        hw::reg_fence<D / 2>(dv);
+#pragma unroll
+        for (int kk = 0; kk < C::kBq / 16; ++kk)   // live until dV is done
+          asm volatile("" : "+r"(pf[kk][0]), "+r"(pf[kk][1]),
+                       "+r"(pf[kk][2]), "+r"(pf[kk][3]) :: "memory");
+      }
+      hw::mbar_arrive(&empty[s]);
+    }
+  }
+
+  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
+  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
+  store_rows<D>(dk, 1.f, 1.f, ks + 64 * wg * 64, C::kBk * 64, dkg, p.sdk.s,
+                w0, p.seq, wg);
+  store_rows<D>(dv, 1.f, 1.f, vs + 64 * wg * 64, C::kBk * 64, dvg, p.sdv.s,
+                w0, p.seq, wg);
+}
+
+template <int D, bool BAND>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              Params p) {
+  using C = BwdWg<D>;
+  namespace hw = ttd_hopper;
+  constexpr int kQ = C::kDqBq * D;
+  constexpr int kKv = C::kDqBk * D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  bf16* dos = qs + kQ;
+  bf16* kvs = dos + kQ;                    // stage s: K at 2s, V at 2s + 1
+  uint64_t* full = reinterpret_cast<uint64_t*>(kvs + 2 * C::kStages * kKv);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* qbar = empty + C::kStages;
+
+  const int n_qt = (p.seq + C::kDqBq - 1) / C::kDqBq;
+  const int qt = p.causal ? n_qt - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (p.heads / p.kv_heads);
+  const int q0 = qt * C::kDqBq;
+  const int q_end = min(q0 + C::kDqBq, p.seq);
+  const int n_kv = p.causal ? (q_end - 1) / C::kDqBk + 1 : p.seq / C::kDqBk;
+  const KvTiles<BAND, C::kDqBk> tiles(p.window, p.sinks, q0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 256);
+    }
+    hw::mbar_init(qbar, 1);
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    hw::regs_dec<40>();
+    if (threadIdx.x == 256) {
+      hw::mbar_expect_tx(qbar, 2 * kQ * 2);
+      hw::tma_load_rows<C::kDqBq, D>(qs, &tq, qbar, q0, h, b);
+      hw::tma_load_rows<C::kDqBq, D>(dos, &tdo, qbar, q0, h, b);
+      int i = 0;
+      for (int kt = tiles.first(); kt < n_kv; kt = tiles.next(kt), ++i) {
+        const int s = i % C::kStages;
+        hw::mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+        hw::mbar_expect_tx(&full[s], 2 * kKv * 2);
+        bf16* ks = kvs + 2 * s * kKv;
+        hw::tma_load_rows<C::kDqBk, D>(ks, &tk, &full[s], kt * C::kDqBk, kvh,
+                                       b);
+        hw::tma_load_rows<C::kDqBk, D>(ks + kKv, &tv, &full[s],
+                                       kt * C::kDqBk, kvh, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [w0, w0 + 64).
+  hw::regs_inc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int w0 = q0 + 64 * wg;
+  const int r0 = w0 + 16 * warp + g;
+  const int r1 = r0 + 8;
+  const bool seg = p.seg != nullptr;
+  const int* segb = p.seg + static_cast<long long>(b) * p.seq;
+  const int sq0 = seg ? segb[min(r0, p.seq - 1)] : 0;
+  const int sq1 = seg ? segb[min(r1, p.seq - 1)] : 0;
+  const long long stat = (static_cast<long long>(b) * p.heads + h) * p.seq;
+  const float lse0 = r0 < p.seq ? p.lse[stat + r0] * kLog2e : 0.f;
+  const float lse1 = r1 < p.seq ? p.lse[stat + r1] * kLog2e : 0.f;
+  const float di0 = r0 < p.seq ? p.di[stat + r0] : 0.f;
+  const float di1 = r1 < p.seq ? p.di[stat + r1] : 0.f;
+  const float sl2 = p.scale * kLog2e;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float sc[C::kDqBk / 2], dp[C::kDqBk / 2];   // S and dP, then dS
+#pragma unroll
+  for (int i = 0; i < C::kDqBk / 2; ++i) sc[i] = dp[i] = 0.f;
+
+  hw::mbar_wait(qbar, 0);
+  int i = 0;
+  for (int kt = tiles.first(); kt < n_kv; kt = tiles.next(kt), ++i) {
+    const int s = i % C::kStages;
+    hw::mbar_wait(&full[s], (i / C::kStages) & 1);
+    const int k0 = kt * C::kDqBk;
+    if (!tile_empty<BAND>(p, w0, w0 + 63, k0, k0 + C::kDqBk - 1)) {
+      const bf16* ks = kvs + 2 * s * kKv;
+      const bf16* vs = ks + kKv;
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hw::wgmma_ss<C::kDqBk>(sc, hw::desc_k<C::kDqBq>(qs, 64 * wg, kk),
+                               hw::desc_k<C::kDqBk>(ks, 0, kk), kk > 0);
+      hw::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hw::wgmma_ss<C::kDqBk>(dp, hw::desc_k<C::kDqBq>(dos, 64 * wg, kk),
+                               hw::desc_k<C::kDqBk>(vs, 0, kk), kk > 0);
+      hw::wgmma_commit();
+      hw::wgmma_wait<1>();                 // S is in: P while dP runs
+      hw::reg_fence<C::kDqBk / 2>(sc);
+      if (tile_masked<BAND>(p, w0, w0 + 63, k0, k0 + C::kDqBk - 1)) {
+#pragma unroll
+        for (int j = 0; j < C::kDqBk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            sc[4 * j + e] =
+                visible<BAND>(e < 2 ? r0 : r1, col, p.causal, p.window,
+                              p.sinks, seg, e < 2 ? sq0 : sq1,
+                              seg ? segb[col] : 0)
+                    ? exp2f(sc[4 * j + e] * sl2 - (e < 2 ? lse0 : lse1))
+                    : 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < C::kDqBk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] =
+                exp2f(sc[4 * j + e] * sl2 - (e < 2 ? lse0 : lse1));
+        }
+      }
+      hw::wgmma_wait<0>();                 // dP is in
+      hw::reg_fence<C::kDqBk / 2>(dp);
+#pragma unroll
+      for (int j = 0; j < C::kDqBk / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] *
+                          (dp[4 * j + e] - (e < 2 ? di0 : di1)) * p.scale;
+      }
+      uint32_t sf[C::kDqBk / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C::kDqBk / 16; ++kk) frag_a(dp, kk, sf[kk]);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::kDqBk / 16; ++kk)
+        hw::wgmma_rs<D>(dq, sf[kk], hw::desc_mn<C::kDqBk>(ks, kk));
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::reg_fence<D / 2>(dq);
+    }
+    hw::mbar_arrive(&empty[s]);
+  }
+
+  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+  store_rows<D>(dq, 1.f, 1.f, qs + 64 * wg * 64, C::kDqBq * 64, dqg, p.sdq.s,
+                w0, p.seq, wg);
+}
+
+template <int D, bool BAND>
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  using C = BwdWg<D>;
+  namespace hw = ttd_hopper;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hw::make_map(&tq, p.q, p.sq.b, p.sq.h, p.sq.s, p.batch, p.heads,
+                    p.seq, D) ||
+      !hw::make_map(&tk, p.k, p.sk.b, p.sk.h, p.sk.s, p.batch, p.kv_heads,
+                    p.seq, D) ||
+      !hw::make_map(&tv, p.v, p.sv.b, p.sv.h, p.sv.s, p.batch, p.kv_heads,
+                    p.seq, D) ||
+      !hw::make_map(&tdo, p.dout, p.sdo.b, p.sdo.h, p.sdo.s, p.batch,
+                    p.heads, p.seq, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(p.batch) * p.heads * p.seq;
+  flash_bwd_di_kernel<bf16><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                              stream>>>(p, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D, BAND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kDkvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv((p.seq + C::kBk - 1) / C::kBk, p.kv_heads, p.batch);
+  flash_bwd_dkv_wgmma_kernel<D, BAND>
+      <<<grid_kv, C::kThreads, C::kDkvSmem, stream>>>(tq, tk, tv, tdo, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D, BAND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q((p.seq + C::kDqBq - 1) / C::kDqBq, p.heads, p.batch);
+  flash_bwd_dq_wgmma_kernel<D, BAND>
+      <<<grid_q, C::kThreads, C::kDqSmem, stream>>>(tq, tk, tv, tdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, bool BAND>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, D>(4);
@@ -371,9 +816,14 @@ int run(const Params& p, int head_dim, int dtype, void* stream) {
   if (p.kv_heads <= 0 || p.heads % p.kv_heads || p.seq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ttd::kF32) return launch_d<float, BAND>(p, head_dim, st);
-  if (dtype == ttd::kBF16) return launch_d<bf16, BAND>(p, head_dim, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (body(head_dim, dtype)) {
+    case kWgmma:
+      return head_dim == 64 ? launch_wgmma<64, BAND>(p, st)
+                            : launch_wgmma<128, BAND>(p, st);
+    case kMmaSync: return launch<bf16, 256, BAND>(p, st);
+    case kFma: return launch_d<float, BAND>(p, head_dim, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

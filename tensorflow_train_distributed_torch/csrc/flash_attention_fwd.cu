@@ -13,19 +13,51 @@
 //   the library's separate l and m.
 //
 // Bound on this card: operations for bf16 at S >= a few hundred
-//   (4*S*S*D flops a head against 4*S*D elements moved; at the llama_125m
-//   shape 51.5 GFLOP against 0.1 GB), bytes only at short S.
+//   (4*D flops a visible (query, key) pair against 4*S*D elements moved
+//   a head; at the llama_125m shape 51.5 GFLOP against 0.1 GB), bytes
+//   only at short S.  Only wgmma reaches the tensor cores' 989 TFLOP/s.
 //
-// Design: one block per (q tile, head, batch); the TPU grid's sequential
-//   kv axis becomes a loop inside the block over the kv tiles, stopping at
-//   the diagonal tile when causal (the tiles above it are skipped, as the
-//   library skips them).  Each warp owns 16 query rows and keeps its
-//   running max, sum and output accumulator in registers; K and V tiles
-//   are staged in shared memory by the whole block.  bf16 products run on
-//   the tensor cores with mma.sync m16n8k16 (f32 accumulate); f32 runs the
-//   same layout with FMAs.  GQA reads kv head h / (H / KVH) directly,
-//   with no repeated copy.  Simple first: no cp.async/TMA pipelining, no
-//   wgmma, one tile in flight.
+// Bodies, chosen statically by (dtype, head_dim) in ``body()``
+// (flash_common.cuh), the same for K2 and K7 and for the backward:
+//
+// wgmma body (bf16, D 64 and 128; flash_fwd_wgmma_kernel).  One block
+//   of 384 threads per (q tile of 128 rows, head, batch); blockIdx.x runs
+//   the q tiles in reverse when causal, so the tiles with the most kv
+//   tiles start first.  Warpgroup 2 is the producer: after setmaxnreg
+//   gives its registers to the consumers, one thread loads Q once and
+//   then K and V of each kv tile (128 rows) with TMA into a ring of 3
+//   (D 64) or 2 (D 128) stages, each stage with a full and an empty
+//   mbarrier.  The operands are strided [B, S, H, D] storage seen as
+//   [B, H, S, D]: each gets a rank-4 tensor map (D, S, H, B) encoded on
+//   the host per call (64 x 64 boxes, 128-byte swizzle; rows past S read
+//   as zeros), passed as a __grid_constant__ parameter.  Warpgroups 0
+//   and 1 each own 64 q rows: S = Q.K^T is wgmma m64n128k16 with both
+//   operands K-major in shared memory; the online softmax runs on the
+//   accumulator in registers in log2 units (exp2f, log2 e folded into
+//   the scale; the saved lse is converted back to natural log); P is
+//   rounded to bf16 in registers and O += P.V is wgmma with A from
+//   registers and V read MN-major through the descriptor's transpose
+//   bit.  At D 64 the tiles are software-pipelined inside a warpgroup:
+//   Q.K^T of tile i is issued together with P.V of tile i - 1, and the
+//   softmax of tile i runs while P.V of tile i - 1 is on the tensor cores
+//   (P of two tiles in registers).  At D 128 a warpgroup takes one tile
+//   at a time and the two warpgroups overlap each other (measured faster
+//   there), skipping tiles with no visible pair (``tile_empty``).  Masks
+//   are computed only on tiles that may hold an invisible pair
+//   (``tile_masked``: the diagonal, the band's edge, sink tiles, a
+//   ragged last tile, and every tile under segment ids).
+//   The epilogue rounds O through the warpgroup's own rows of the Q tile
+//   and stores it with 16-byte stores; lse from one lane a row.
+//   Left for later: ping-pong ordering of the two warpgroups' products,
+//   a persistent grid, TMA stores.
+// mma.sync body (bf16, D 256: its [64, 256] f32 output accumulator alone
+//   takes 128 registers a thread and would not fit beside the scores) and
+//   FMA body (f32: wgmma's tf32 would change the numerics):
+//   flash_fwd_kernel, one block per (64-row q tile, head, batch), the
+//   TPU grid's sequential kv axis a loop inside the block; each warp owns
+//   16 rows, K and V tiles staged by the whole block, one tile in flight.
+//   GQA reads kv head h / (H / KVH) directly, with no repeated copy, in
+//   every body.
 //
 // K7 replaces: the Pallas TPU splash kernel the JAX package calls for
 //   sliding-window attention, tensorflow_train_distributed_tpu/ops/
@@ -39,10 +71,11 @@
 //   dtype.  Splash keeps p in f32 for p.v; the bf16 kernel rounds p to bf16
 //   to run p.v on the tensor cores, as K2 does.
 //   Bound: operations, 4*D flops a visible (query, key) pair.
-//   Design: K2's kernel instantiated with BAND = true.  A q tile visits the
-//   kv tiles from the one holding its first row's window start to its
+//   Design: K2's bodies instantiated with BAND = true.  A q tile visits
+//   the kv tiles from the one holding its first row's window start to its
 //   diagonal, after the tiles holding sinks (KvTiles); the band's edge is
-//   masked inside the tiles it cuts (visible<true>).
+//   masked inside the tiles it cuts (visible<true>).  With a window at or
+//   past S nothing else differs from K2 causal, bit for bit.
 #include "flash_common.cuh"
 
 namespace ttd_flash {
@@ -172,6 +205,290 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads)
   }
 }
 
+// The wgmma body's shape: 128 q rows a block (two consumer warpgroups of
+// 64), kv tiles of 128 rows in a ring of kStages, one producer warpgroup.
+template <int D>
+struct FwdWg {
+  static constexpr int kBm = 128;
+  static constexpr int kBn = 128;
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  // Software-pipelined inside a warpgroup at D 64, where the softmax
+  // weighs most against the products; at D 128 the extra P tile in
+  // registers cost more than it hid (PERF.md §6).
+  static constexpr bool kPipelined = D == 64;
+  static constexpr int kThreads = 384;
+  static constexpr int kQElems = kBm * D;
+  static constexpr int kKvElems = kBn * D;          // one K or V tile
+  static constexpr int kSmem = 1024 + (kQElems + 2 * kStages * kKvElems) * 2 +
+                               (2 * kStages + 1) * 8;
+};
+
+template <int D, bool BAND>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, Params p) {
+  using C = FwdWg<D>;
+  namespace hw = ttd_hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  bf16* kvs = qs + C::kQElems;          // stage s: K at 2s, V at 2s + 1
+  uint64_t* full = reinterpret_cast<uint64_t*>(kvs + 2 * C::kStages *
+                                               C::kKvElems);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* qbar = empty + C::kStages;
+
+  const int n_qt = (p.seq + C::kBm - 1) / C::kBm;
+  // The q tiles with the most kv tiles first: the last ones when causal.
+  const int qt = p.causal ? n_qt - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (p.heads / p.kv_heads);
+  const int q0 = qt * C::kBm;
+  const int q_end = min(q0 + C::kBm, p.seq);
+  const int n_kv = p.causal ? (q_end - 1) / C::kBn + 1
+                            : (p.seq + C::kBn - 1) / C::kBn;
+  const KvTiles<BAND, C::kBn> tiles(p.window, p.sinks, q0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 256);
+    }
+    hw::mbar_init(qbar, 1);
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: Q once, then K and V of each kv tile into the ring.
+    hw::regs_dec<40>();
+    if (threadIdx.x == 256) {
+      hw::mbar_expect_tx(qbar, C::kQElems * 2);
+      hw::tma_load_rows<C::kBm, D>(qs, &tq, qbar, q0, h, b);
+      int i = 0;
+      for (int kt = tiles.first(); kt < n_kv; kt = tiles.next(kt), ++i) {
+        const int s = i % C::kStages;
+        hw::mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+        hw::mbar_expect_tx(&full[s], 2 * C::kKvElems * 2);
+        bf16* ks = kvs + 2 * s * C::kKvElems;
+        hw::tma_load_rows<C::kBn, D>(ks, &tk, &full[s], kt * C::kBn, kvh, b);
+        hw::tma_load_rows<C::kBn, D>(ks + C::kKvElems, &tv, &full[s],
+                                     kt * C::kBn, kvh, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [w0, w0 + 64).
+  hw::regs_inc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int w0 = q0 + 64 * wg;
+  const int r0 = w0 + 16 * warp + g;       // this thread's rows
+  const int r1 = r0 + 8;
+  const bool seg = p.seg != nullptr;
+  const int* segb = p.seg + static_cast<long long>(b) * p.seq;
+  const int sq0 = seg ? segb[min(r0, p.seq - 1)] : 0;
+  const int sq1 = seg ? segb[min(r1, p.seq - 1)] : 0;
+  const float sl2 = p.scale * kLog2e;      // scores in log2 units
+
+  float o[D / 2];
+  float s[C::kBn / 2];
+  uint32_t pf[C::kBn / 16][4];             // P of the tile whose P.V is next
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < C::kBn / 2; ++i) s[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  float a0 = 0.f, a1 = 0.f;                // the last tile's rescale factors
+
+  // The online softmax of the scores of the kv tile at k0 (in ``s``):
+  // updates the running max and this thread's share of the row sums,
+  // sets the rescale factors of the output so far, and leaves P rounded
+  // to bf16 in ``next``.
+  auto softmax = [&](int k0, uint32_t (*next)[4]) {
+    float mx0 = m0, mx1 = m1;
+    if (tile_masked<BAND>(p, w0, w0 + 63, k0, k0 + C::kBn - 1)) {
+#pragma unroll
+      for (int j = 0; j < C::kBn / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = e < 2 ? r0 : r1;
+          float x = s[4 * j + e] * sl2;
+          if (col >= p.seq ||
+              !visible<BAND>(row, col, p.causal, p.window, p.sinks, seg,
+                             e < 2 ? sq0 : sq1, seg ? segb[col] : 0))
+            x += kMaskValue;
+          s[4 * j + e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < C::kBn / 8; ++j) {
+        s[4 * j] *= sl2;
+        s[4 * j + 1] *= sl2;
+        s[4 * j + 2] *= sl2;
+        s[4 * j + 3] *= sl2;
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    a0 = exp2f(m0 - mx0);                  // 0 on the first tile (m = -inf)
+    a1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < C::kBn / 8; ++j) {
+      s[4 * j] = exp2f(s[4 * j] - m0);
+      s[4 * j + 1] = exp2f(s[4 * j + 1] - m0);
+      s[4 * j + 2] = exp2f(s[4 * j + 2] - m1);
+      s[4 * j + 3] = exp2f(s[4 * j + 3] - m1);
+      ls0 += s[4 * j] + s[4 * j + 1];
+      ls1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * a0 + ls0;                    // this thread's share of the row
+    l1 = l1 * a1 + ls1;
+#pragma unroll
+    for (int kk = 0; kk < C::kBn / 16; ++kk) frag_a(s, kk, next[kk]);
+  };
+  auto scores = [&](int stage) {           // s = Q . K^T, issued
+    const bf16* ks = kvs + 2 * stage * C::kKvElems;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hw::wgmma_ss<C::kBn>(s, hw::desc_k<C::kBm>(qs, 64 * wg, kk),
+                           hw::desc_k<C::kBn>(ks, 0, kk), kk > 0);
+    hw::wgmma_commit();
+  };
+  auto pv = [&](int stage) {               // o += P . V, issued
+    const bf16* vs = kvs + (2 * stage + 1) * C::kKvElems;
+#pragma unroll
+    for (int kk = 0; kk < C::kBn / 16; ++kk)
+      hw::wgmma_rs<D>(o, pf[kk], hw::desc_mn<C::kBn>(vs, kk));
+    hw::wgmma_commit();
+  };
+
+  auto rescale = [&]() {                   // o *= the last tile's factors
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= a0;
+      o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1;
+      o[4 * j + 3] *= a1;
+    }
+  };
+
+  hw::mbar_wait(qbar, 0);
+  if constexpr (C::kPipelined) {
+    // The scores of kv tile i are issued together with P.V of tile
+    // i - 1, and the softmax of tile i runs while P.V of tile i - 1 is on
+    // the tensor cores.
+    int kt = tiles.first();
+    hw::mbar_wait(&full[0], 0);
+    hw::wgmma_fence();
+    scores(0);
+    hw::wgmma_wait<0>();
+    hw::reg_fence<C::kBn / 2>(s);
+    softmax(kt * C::kBn, pf);
+    int i = 0;
+    for (kt = tiles.next(kt); kt < n_kv; kt = tiles.next(kt)) {
+      ++i;
+      const int st = i % C::kStages;
+      const int prev = (i - 1) % C::kStages;
+      hw::mbar_wait(&full[st], (i / C::kStages) & 1);
+      hw::wgmma_fence();
+      scores(st);
+      pv(prev);
+      hw::wgmma_wait<1>();                 // the scores are in
+      hw::reg_fence<C::kBn / 2>(s);
+      uint32_t next[C::kBn / 16][4];
+      softmax(kt * C::kBn, next);
+      hw::wgmma_wait<0>();                 // P.V of tile i - 1 is in
+      hw::reg_fence<D / 2>(o);
+#pragma unroll
+      for (int kk = 0; kk < C::kBn / 16; ++kk)
+        asm volatile("" : "+r"(pf[kk][0]), "+r"(pf[kk][1]), "+r"(pf[kk][2]),
+                     "+r"(pf[kk][3]) :: "memory");
+      hw::mbar_arrive(&empty[prev]);
+      rescale();
+#pragma unroll
+      for (int kk = 0; kk < C::kBn / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pf[kk][r] = next[kk][r];
+    }
+    hw::wgmma_fence();
+    pv(i % C::kStages);
+    hw::wgmma_wait<0>();
+    hw::reg_fence<D / 2>(o);
+    hw::mbar_arrive(&empty[i % C::kStages]);
+  } else {
+    // One tile at a time; the two warpgroups overlap each other.  Tiles
+    // with no visible pair for this warpgroup are skipped (their
+    // probabilities would be exactly 0).
+    int i = 0;
+    for (int kt = tiles.first(); kt < n_kv; kt = tiles.next(kt), ++i) {
+      const int st = i % C::kStages;
+      hw::mbar_wait(&full[st], (i / C::kStages) & 1);
+      const int k0 = kt * C::kBn;
+      if (!tile_empty<BAND>(p, w0, w0 + 63, k0, k0 + C::kBn - 1)) {
+        hw::wgmma_fence();
+        scores(st);
+        hw::wgmma_wait<0>();
+        hw::reg_fence<C::kBn / 2>(s);
+        softmax(k0, pf);
+        rescale();
+        hw::wgmma_fence();
+        pv(st);
+        hw::wgmma_wait<0>();
+        hw::reg_fence<D / 2>(o);
+      }
+      hw::mbar_arrive(&empty[st]);
+    }
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (t == 0) {
+    float* lse = p.lse + (static_cast<long long>(b) * p.heads + h) * p.seq;
+    if (r0 < p.seq) lse[r0] = m0 * kLn2 + logf(l0);
+    if (r1 < p.seq) lse[r1] = m1 * kLn2 + logf(l1);
+  }
+  bf16* og = static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h;
+  store_rows<D>(o, l0 == 0.f ? 1.f : 1.f / l0, l1 == 0.f ? 1.f : 1.f / l1,
+                qs + 64 * wg * 64, C::kBm * 64, og, p.so.s, w0, p.seq, wg);
+}
+
+template <int D, bool BAND>
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  using C = FwdWg<D>;
+  CUtensorMap tq, tk, tv;
+  if (!ttd_hopper::make_map(&tq, p.q, p.sq.b, p.sq.h, p.sq.s, p.batch,
+                            p.heads, p.seq, D) ||
+      !ttd_hopper::make_map(&tk, p.k, p.sk.b, p.sk.h, p.sk.s, p.batch,
+                            p.kv_heads, p.seq, D) ||
+      !ttd_hopper::make_map(&tv, p.v, p.sv.b, p.sv.h, p.sv.s, p.batch,
+                            p.kv_heads, p.seq, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D, BAND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.seq + C::kBm - 1) / C::kBm, p.heads, p.batch);
+  flash_fwd_wgmma_kernel<D, BAND><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, bool BAND>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, D>(3);
@@ -222,9 +539,14 @@ int run(const Params& p, int head_dim, int dtype, void* stream) {
   if (p.kv_heads <= 0 || p.heads % p.kv_heads || p.seq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ttd::kF32) return launch_d<float, BAND>(p, head_dim, st);
-  if (dtype == ttd::kBF16) return launch_d<bf16, BAND>(p, head_dim, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (body(head_dim, dtype)) {
+    case kWgmma:
+      return head_dim == 64 ? launch_wgmma<64, BAND>(p, st)
+                            : launch_wgmma<128, BAND>(p, st);
+    case kMmaSync: return launch<bf16, 256, BAND>(p, st);
+    case kFma: return launch_d<float, BAND>(p, head_dim, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -247,6 +569,13 @@ extern "C" int ttd_flash_attention_fwd(
   p.scale = scale;
   p.causal = causal;
   return run<false>(p, head_dim, dtype, stream);
+}
+
+// Which body serves (dtype, head_dim) in the forward and the backward,
+// K2 and K7 alike: 2 the wgmma body, 1 the mma.sync body, 0 the FMA
+// body, -1 none (the pair is refused).
+extern "C" int ttd_flash_attention_body(int head_dim, int dtype) {
+  return ttd_flash::body(head_dim, dtype);
 }
 
 // K7: operands as ttd_flash_attention_fwd, q already scaled (the kernel's

@@ -1,8 +1,11 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): the argument block, tile loads into shared
-// memory, two warp-level tile products with one register layout for
-// both element types, and the sliding-window band of the splash kernels
-// (K7), which run the same kernel bodies instantiated with BAND = true.
+// flash_attention_bwd.cu): the argument block, the choice of body, the
+// sliding-window band of the splash kernels (K7), which run the same
+// bodies instantiated with BAND = true, and for each body its tiles:
+// the wgmma bodies' masks, register fragments and epilogue (below, on
+// hopper.cuh's TMA ring and wgmma), and the mma.sync / FMA bodies' tile
+// loads and two warp-level tile products with one register layout for
+// both element types (f32 and bf16 at D 256).
 //
 // Layout of a warp's [16, 8*NT] f32 tile in registers (the accumulator
 // layout of mma.sync m16n8k16): lane = 4*g + t holds, for each n-tile n,
@@ -14,6 +17,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ttd_flash {
 
@@ -293,6 +297,105 @@ __device__ __forceinline__ int q_tiles_end(int window, int sinks, int k0,
                                            int n_tiles) {
   if (!BAND || k0 < sinks) return n_tiles;
   return min(n_tiles, (k0 + BT + window - 2) / BT + 1);
+}
+
+// -- the wgmma bodies (bf16, head_dim 64 and 128) ----------------------------
+//
+// A consumer warpgroup owns 64 rows of the products; its [64, N] f32
+// accumulators follow the wgmma layout: thread 32 w + 4 g + t (warp w,
+// lane 4 g + t) holds, for each n-tile j of 8 columns,
+//   d[4j], d[4j + 1] at row 16 w + g,     columns 8j + 2t, 8j + 2t + 1
+//   d[4j + 2], d[4j + 3] at row 16 w + g + 8, the same columns,
+// the register layout of the mma.sync bodies above, four warps deep.
+
+// The body that serves (head_dim, dtype), chosen statically and the same
+// for the forward and the backward: kWgmma for bf16 at D 64 and 128,
+// kMmaSync for bf16 at D 256 (its [64, 256] f32 accumulators would not
+// fit a warpgroup's registers beside the scores), kFma for f32 (wgmma's
+// tf32 would change its numerics); kNone where the pair is refused.
+enum Body : int { kNone = -1, kFma = 0, kMmaSync = 1, kWgmma = 2 };
+
+inline Body body(int head_dim, int dtype) {
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) return kNone;
+  if (dtype == ttd::kF32) return kFma;
+  if (dtype == ttd::kBF16) return head_dim == 256 ? kMmaSync : kWgmma;
+  return kNone;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Whether a tile of rows [r0, r1] x columns [c0, c1] (absolute positions,
+// c1 possibly past S) may hold a pair that is not visible: only such
+// tiles are masked element by element.  Conservative: a tile it flags may
+// turn out wholly visible.  (Rows past S are never stored.)
+template <bool BAND>
+__device__ __forceinline__ bool tile_masked(const Params& p, int r0, int r1,
+                                            int c0, int c1) {
+  return p.seg != nullptr || c1 >= p.seq || (p.causal && c1 > r0) ||
+         (BAND && r1 - c0 >= p.window && c1 >= p.sinks);
+}
+
+// Whether no pair of the tile is visible (it is skipped: its
+// probabilities would all be exactly 0).
+template <bool BAND>
+__device__ __forceinline__ bool tile_empty(const Params& p, int r0, int r1,
+                                           int c0, int c1) {
+  return r0 >= p.seq || c0 >= p.seq || (p.causal && c0 > r1) ||
+         (BAND && r0 - c1 >= p.window && c0 >= p.sinks);
+}
+
+// The A operand of depth step ``kk`` (16 columns) from a [64, N] f32
+// accumulator: its columns 16 kk .. 16 kk + 15 rounded to bf16, in
+// wgmma's register-A layout (that of mma.sync m16n8k16).
+__device__ __forceinline__ void frag_a(const float* s, int kk, uint32_t* a) {
+  a[0] = pack_f32(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_f32(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_f32(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_f32(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// Rounds a warpgroup's [64, D] f32 accumulator (rows of thread-row half 0
+// scaled by ``f0``, half 1 by ``f1``) to bf16 and writes rows [row0,
+// row0 + 64) of a strided output: first into the warpgroup's own rows of
+// a swizzled tile in shared memory (``stage``: those rows of panel 0;
+// ``panel_elems``: elements between panels), then with 16-byte stores.
+// Rows at or past ``seq`` are not written.  ``wg`` names the warpgroup's
+// barrier (1 + wg).
+template <int D>
+__device__ __forceinline__ void store_rows(const float* acc, float f0,
+                                           float f1, bf16* stage,
+                                           int panel_elems, bf16* out,
+                                           long long row_stride, int row0,
+                                           int seq, int wg) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  unsigned char* st = reinterpret_cast<unsigned char*>(stage);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + g + 8 * half;
+      const float f = half ? f1 : f0;
+      *reinterpret_cast<uint32_t*>(
+          st + (j / 8) * panel_elems * 2 + r * 128 +
+          (((j % 8) ^ (r & 7)) << 4) + 4 * t) =
+          pack_f32(acc[4 * j + 2 * half] * f, acc[4 * j + 2 * half + 1] * f);
+    }
+  }
+  ttd_hopper::bar_sync(1 + wg, 128);
+  constexpr int kRowChunks = D / 8;
+  for (int c = tid; c < 64 * kRowChunks; c += 128) {
+    const int r = c / kRowChunks;
+    const int c8 = c % kRowChunks;
+    if (row0 + r >= seq) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        st + (c8 / 8) * panel_elems * 2 + r * 128 + (((c8 % 8) ^ (r & 7)) << 4));
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(row0 + r) *
+                                        row_stride + c8 * 8) = v;
+  }
 }
 
 }  // namespace ttd_flash

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "ttd_flash_attention_bwd": [_VP] * 12 + [_I] * 5 + [_F, _I, _I, _VP],
     "ttd_splash_attention_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
     "ttd_splash_attention_bwd": [_VP] * 12 + [_I] * 8 + [_VP],
+    "ttd_flash_attention_body": [_I, _I],
     "ttd_paged_kv_gather": [_VP, _VP, _VP, _I, _I, _I, _I,
                             ctypes.c_longlong, _I, _VP],
     "ttd_paged_attention": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,

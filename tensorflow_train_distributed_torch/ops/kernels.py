@@ -328,6 +328,17 @@ def _bshd(b, s, h, d, like):
                        device=like.device).transpose(1, 2)
 
 
+def flash_attention_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel body that serves K2 and K7 (forward and backward) at
+    ``dtype`` and ``head_dim``, as the library chooses it: "wgmma",
+    "mma.sync" or "FMA" ("none" where the pair is refused)."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    code = library().ttd_flash_attention_body(
+        head_dim, _DTYPE_CODES.get(dtype, -1))
+    return {2: "wgmma", 1: "mma.sync", 0: "FMA"}.get(code, "none")
+
+
 def flash_attention_forward(q, k, v, segment_ids, causal: bool,
                             sm_scale: float):
     """K2 forward on CUDA tensors checked by ``flash_attention``: (o, lse),

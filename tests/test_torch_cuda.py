@@ -290,12 +290,16 @@ def test_flash_attention_matches_plain(gen, dtype, h, kvh, d, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_seq_a_multiple_of_64_only(gen, dtype):
-    """S = 192: three bf16 tiles of 64 (six f32 tiles of 32), not a
-    multiple of the 128 the model's gate asks for; the kernel takes it."""
-    q, k, v, do = (_randn(gen, 1, 2, 192, 64, dtype=dtype)
-                   for _ in range(4))
-    kw = dict(causal=True, sm_scale=0.125)
+@pytest.mark.parametrize("s,causal,d", [
+    (192, True, 64), (64, True, 64), (320, True, 128), (192, False, 128),
+    (320, False, 64)])
+def test_flash_attention_seq_a_multiple_of_64_only(gen, dtype, s, causal, d):
+    """S = 64, 192, 320: multiples of 64 that are not multiples of the
+    wgmma body's 128-row q and kv tiles (nor of the 128 the model's gate
+    asks for), so the last tiles are ragged and masked; the kernel takes
+    them, causal and full."""
+    q, k, v, do = (_randn(gen, 1, 2, s, d, dtype=dtype) for _ in range(4))
+    kw = dict(causal=causal, sm_scale=d ** -0.5)
     out, grads = _grads(lambda *t: K.flash_attention(*t, **kw), (q, k, v),
                         do)
     ref, ref_grads = _grads(
@@ -324,16 +328,21 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(gen):
 
 
 # (H, KVH, S, D, window, sinks, packed), at B 2: window 1 (the diagonal
-# tile only), windows off the 64-row tile (100, 4095), sinks = window,
-# sinks with packed rows whose boundaries fall inside the band, GQA 4:1
-# and 1:1, head_dim 64, 128 and 256.
+# tile only), windows off the 64-row tile (100, 4095) and off the wgmma
+# body's 128-row kv tile (129; 4096 at S 4224, 33 tiles of 128), sinks =
+# window, sinks with packed rows whose boundaries fall inside the band,
+# sinks past one 128-row tile (130), GQA 4:1 and 1:1, head_dim 64, 128
+# and 256.
 SPLASH_CASES = [
     (4, 1, 512, 64, 1, 0, False),
     (4, 4, 512, 128, 100, 0, True),
     (2, 2, 4096, 64, 4095, 0, False),
     (8, 2, 1024, 128, 200, 200, False),
     (4, 1, 768, 64, 128, 4, True),
-    (2, 2, 256, 256, 64, 7, False)]
+    (2, 2, 256, 256, 64, 7, False),
+    (4, 2, 640, 128, 129, 0, False),
+    (2, 1, 4224, 64, 4096, 0, False),
+    (4, 1, 1024, 128, 300, 130, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -396,6 +405,29 @@ def test_splash_attention_window_past_s_is_flash_causal(gen, dtype):
                                         1.0)
         for a, b_ in zip(g7, g2):
             assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,d", [("flash", 64), ("flash", 128),
+                                      ("splash", 128), ("splash", 64)])
+def test_attention_backward_is_deterministic(gen, dtype, kernel, d):
+    """The backward has no atomics (dk/dv and dq in separate kernels, each
+    sum in one fixed order): two runs on the same inputs give equal
+    gradients, bit for bit, at GQA 4:1 over packed rows."""
+    b, h, kvh, s = 2, 8, 2, 640
+    q, do = (_randn(gen, b, h, s, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, b, kvh, s, d, dtype=dtype) for _ in range(2))
+    seg = _segments(gen, b, s)
+    if kernel == "flash":
+        o, lse = K.flash_attention_forward(q, k, v, seg, True, d ** -0.5)
+        runs = [K.flash_attention_backward(q, k, v, o, lse, do, seg, True,
+                                           d ** -0.5) for _ in range(2)]
+    else:
+        o, lse = K.splash_attention_forward(q, k, v, seg, 200, 3)
+        runs = [K.splash_attention_backward(q, k, v, o, lse, do, seg, 200, 3)
+                for _ in range(2)]
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
 
 
 def test_splash_attention_at_the_mistral_head(gen):
