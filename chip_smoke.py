@@ -9,11 +9,15 @@
 2. Kernels against their plain PyTorch versions on the card, at the serving
    path's shapes: RMSNorm [8, 4096] and [128, 4096] bf16; paged attention
    over 8 lanes, 32 heads (MHA), head_dim 128, block 16, 64 blocks a lane,
-   ragged lengths, q_len 1, bf16 and int8 pools; the paged KV gather of the
+   ragged lengths up to 1,024 rows, q_len 1, bf16 and int8 pools, and the
+   engine's short lanes (90-130 rows, bf16); the paged KV gather of the
    same pool.  Prints each kernel's error against its stated tolerance,
    median time (CUDA events, launches queued back to back behind a device
    sleep so host overhead is not timed), bound, the plain version's time
    and one PyTorch library call's time as a yardstick the port never calls.
+   RMSNorm and paged attention name the body that served them (K1f: warp
+   or block; K4: ring or staged) and time the other body on the same
+   inputs.
 3. The serving engine on Llama-2-7B at full width and depth (bf16, random
    weights from a seed): 8 slots, chunk 8, cache_len 1024, block 16; a
    dozen greedy requests of 16-300 prompt tokens, two sharing a 64-token
@@ -24,8 +28,10 @@
    prompt + generated tokens in a fresh cache.
 4. The same engine with an int8 KV cache at full width and 4 layers.
 5. The training kernels against their plain versions at the training
-   path's shapes: RMSNorm forward (writing r) and backward [16384, 768]
-   bf16; cross-entropy
+   path's shapes: RMSNorm forward (writing r; its body named and the
+   block body timed beside it) and backward [16384, 768] bf16, and the
+   forward at mistral_7b_lm's rows [65536, 4096] (phase 10's path);
+   cross-entropy
    forward and backward [16384, 32000] f32; flash attention forward and
    backward at llama_125m's B 8, H 12, S 2048, D 64, at Llama-2-7B's
    head (B 1, H 32, S 2048, D 128) and GQA 4:1 over packed rows, causal
@@ -128,8 +134,9 @@ _SP = ("jax/experimental/pallas/ops/tpu/splash_attention/"
 # (name, source, the TPU kernel it replaces, the main path that runs it:
 # "serve" (phase 3), "train" (phase 6), "moe_train" (phase 8) or
 # "window_train" (phase 10)).
-# RMSNorm's forward is on both of the first two paths and has a row for
-# each, with that path's launches and shapes.
+# RMSNorm's forward is on every path; it has a row for serving, llama_125m
+# training and mistral_7b_lm training, each with that path's launches and
+# shapes (moe_370m's rows are llama_125m's shape).
 KERNELS = [
     ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "serve"),
     ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290", "serve"),
@@ -148,12 +155,19 @@ KERNELS = [
      "window_train"),
     ("splash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _SP + ":1857",
      "window_train"),                                   # and dq, :1405
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "window_train"),
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
 # The MoE trainer runs the training kernels and the grouped matmuls.
 MOE_TRAIN_KERNELS = TRAIN_KERNELS + [k[0] for k in KERNELS
                                      if k[3] == "moe_train"]
+
+
+# Every timed case of phases 2 and 5 that the kernels' JSON line does not
+# carry (the other body's time, shapes off the main path), printed as one
+# JSON line.
+CASES = []
 
 
 def log(msg: str) -> None:
@@ -244,10 +258,99 @@ def _check(what, got, want, allowed, rule) -> float:
     return err
 
 
-def _report(name, shape, ms, plain_ms, lib_ms, bnd):
-    log(f"  {name} {shape}: kernel {ms * 1e3:.1f} us, bound "
+def _report(name, shape, ms, plain_ms, lib_ms, bnd, body=None):
+    served = f" ({body} body)" if body else ""
+    log(f"  {name} {shape}: kernel {ms * 1e3:.1f} us{served}, bound "
         f"{bnd[0] * 1e3:.1f} us ({bnd[1]}), plain {plain_ms * 1e3:.1f} us, "
         f"library {lib_ms * 1e3:.1f} us")
+
+
+def _other_body_ms(other, fn) -> dict:
+    """Times the kernel's body ``other``, the one the library did not
+    choose, on the same inputs (``fn(other)``)."""
+    ms = device_ms(lambda: fn(other))
+    log(f"    the {other} body on the same inputs: {ms * 1e3:.1f} us")
+    return {f"{other}_body_ms": ms}
+
+
+def _paged_case(label, q, kp, vp, sc, table, lengths, c) -> dict:
+    """K4 on one pool and set of lanes: held against the f32 reference
+    and the plain version, timed beside both bodies, its bound, the plain
+    version and SDPA over the gathered rows."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    lanes, _, heads, hd = q.shape
+    kw = {} if sc is None else dict(k_scales=sc[0], v_scales=sc[1])
+    body = K.paged_attention_body(q, kp, vp)
+    out = K.paged_attention(q, kp, vp, table, lengths, **kw)
+    ref = K.paged_attention_reference(q, kp, vp, table, lengths, **kw)
+    # The f32 reference is the same math as the kernel's: the query is
+    # rescaled so that it applies the bf16-rounded scale the bf16 path
+    # applies, and int8 rows come dequantised through bf16 as the kernel
+    # and the reference dequantise them.
+    s_bf16 = torch.tensor(hd ** -0.5, dtype=torch.bfloat16).item()
+    s_f32 = torch.tensor(hd ** -0.5, dtype=torch.float32).item()
+    q32 = q.float() * (s_bf16 / s_f32)
+    if sc is None:
+        k32, v32 = kp.float(), vp.float()
+    else:
+        k32 = (kp.to(q.dtype) * sc[0][..., None].to(q.dtype)).float()
+        v32 = (vp.to(q.dtype) * sc[1][..., None].to(q.dtype)).float()
+    ref32 = K.paged_attention_reference(q32, k32, v32, table, lengths)
+    del k32, v32
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    log(f"  paged_attention {label}: {body} body; outputs up to "
+        f"{ref32.abs().max().item():.3f}, median magnitude "
+        f"{ref32.abs().median().item():.3f}")
+    # The kernel keeps f32 to the end and rounds its output once to bf16
+    # (at most 2^-8 of the value), plus the f32 tests' 2e-5 for another
+    # summation order.
+    _check(f"paged_attention {label} vs f32 reference", out, ref32,
+           2 ** -8 * ref32.abs() + 2e-5, "2^-8 |ref32| + 2e-5")
+    # The plain version on the same inputs also rounds logits and softmax
+    # weights to bf16: its own distance from the f32 math, measured here,
+    # is allowed on top.
+    err = _check(f"paged_attention {label} vs its plain version", out, ref,
+                 (ref.float() - ref32).abs() + 2 ** -8 * ref32.abs() + 2e-5,
+                 "|ref - ref32| + 2^-8 |ref32| + 2e-5")
+
+    def call(body=None):
+        return K.paged_attention(q, kp, vp, table, lengths, body=body, **kw)
+
+    ms = device_ms(call)
+    plain = device_ms(lambda: K.paged_attention_reference(
+        q, kp, vp, table, lengths, **kw), launches=10)
+    # SDPA over the rows the lanes can see (whole pool blocks), gathered
+    # and dequantised beforehand: the same function on the same inputs.
+    bs = kp.shape[1]
+    rows = min(c, -(-(int(lengths.max().item()) + 1) // bs) * bs)
+    kc = K.paged_kv_gather_reference(kp, table, rows)
+    vc = K.paged_kv_gather_reference(vp, table, rows)
+    if sc is not None:
+        kc = kc.to(q.dtype) * K.paged_kv_gather_reference(
+            sc[0][..., None], table, rows).to(q.dtype)
+        vc = vc.to(q.dtype) * K.paged_kv_gather_reference(
+            sc[1][..., None], table, rows).to(q.dtype)
+    pos = torch.arange(rows, device=q.device)
+    mask = (pos[None, :] <= lengths.long()[:, None])[:, None, None, :]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, kc, vc))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    visible = (lengths.long() + 1).clamp(max=c).sum().item()
+    nbytes = (visible * heads * hd * kp.element_size() * 2
+              + q.numel() * 2 * 2 + table.numel() * 4 + lanes * 4
+              + (visible * heads * 4 * 2 if sc else 0))
+    bnd = bound(nbytes, 4 * visible * heads * hd, PEAK_BF16_FLOPS)
+    shape = (f"{lanes} lanes x {heads} heads x hd {hd}, bs {bs}, "
+             f"{table.shape[1]} blocks, {visible} visible rows, {label}")
+    _report("paged_attention", shape, ms, plain, lib, bnd, body)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+               bound_by=bnd[1], library_ms=lib)
+    return dict(row, case=label, body=body, visible_rows=visible,
+                **_other_body_ms("staged", call))
 
 
 def phase_kernels() -> dict:
@@ -276,15 +379,21 @@ def phase_kernels() -> dict:
         err = _check(f"rms_norm [{n}, {d}] bf16", y, ref,
                      2 ** -7 * ref.float().abs() + 1e-6,
                      "one bf16 step: 2^-7 |ref| + 1e-6")
+        body = K.rms_norm_body(x, scale)
         ms = device_ms(lambda: K.rms_norm(x, scale))
         plain = device_ms(lambda: K.rms_norm_reference(x, scale))
         lib = device_ms(lambda: F.rms_norm(x, (d,), scale, 1e-5))
         bnd = bound(2 * n * d * 2 + d * 2, 4 * n * d, PEAK_F32_FLOPS)
-        _report("rms_norm", f"[{n}, {d}] bf16", ms, plain, lib, bnd)
+        _report("rms_norm", f"[{n}, {d}] bf16", ms, plain, lib, bnd, body)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                   bound_by=bnd[1], library_ms=lib)
+        CASES.append(dict(row, kernel="rms_norm", case=f"[{n}, {d}] bf16",
+                          body=body, **_other_body_ms(
+                              "warp" if body == "block" else "block",
+                              lambda b: K.rms_norm_forward(
+                                  x, scale, 1e-5, with_r=False, body=b))))
         if n == 8:      # the decode step's shape goes into the JSON line
-            rows["rms_norm"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=lib)
+            rows["rms_norm"] = row
 
     # Paged pool: 8 lanes x 64 blocks of 16 rows, 32 kv heads x 128.
     lanes, heads, hd, bs, n_blk = 8, 32, 128, 16, 64
@@ -296,7 +405,6 @@ def phase_kernels() -> dict:
                             dtype=torch.int32)
     q = torch.randn(lanes, 1, heads, hd, generator=gen, device=dev).to(
         torch.bfloat16)
-    visible = (lengths.long() + 1).clamp(max=c).sum().item()
     kpool = torch.randn(nb, bs, heads, hd, generator=gen, device=dev).to(
         torch.bfloat16)
     vpool = torch.randn(nb, bs, heads, hd, generator=gen, device=dev).to(
@@ -307,70 +415,20 @@ def phase_kernels() -> dict:
                        device=dev, dtype=torch.int8)
     ks = torch.rand(nb, bs, heads, generator=gen, device=dev) / 127 + 1e-4
     vs = torch.rand(nb, bs, heads, generator=gen, device=dev) / 127 + 1e-4
-    pos = torch.arange(c, device=dev)
-    mask = (pos[None, :] <= lengths.long()[:, None])[:, None, None, :]
-    # The f32 reference is the same math as the kernel's: the query is
-    # rescaled so that it applies the bf16-rounded scale the bf16 path
-    # applies, and int8 rows come dequantised through bf16 as the kernel
-    # and the reference dequantise them.
-    s_bf16 = torch.tensor(hd ** -0.5, dtype=torch.bfloat16).item()
-    s_f32 = torch.tensor(hd ** -0.5, dtype=torch.float32).item()
-    q32 = q.float() * (s_bf16 / s_f32)
-    for kind, kp, vp, sc in (("bf16", kpool, vpool, None),
-                             ("int8", k8, v8, (ks, vs))):
-        kw = {} if sc is None else dict(k_scales=sc[0], v_scales=sc[1])
-        out = K.paged_attention(q, kp, vp, table, lengths, **kw)
-        ref = K.paged_attention_reference(q, kp, vp, table, lengths, **kw)
-        if sc is None:
-            k32, v32 = kp.float(), vp.float()
-        else:
-            k32 = (kp.to(q.dtype) * sc[0][..., None].to(q.dtype)).float()
-            v32 = (vp.to(q.dtype) * sc[1][..., None].to(q.dtype)).float()
-        ref32 = K.paged_attention_reference(q32, k32, v32, table, lengths)
-        del k32, v32
-        torch.cuda.synchronize()
-        assert torch.isfinite(out).all()
-        log(f"  paged_attention {kind}: outputs up to "
-            f"{ref32.abs().max().item():.3f}, median magnitude "
-            f"{ref32.abs().median().item():.3f}")
-        # The kernel keeps f32 to the end and rounds its output once to
-        # bf16 (at most 2^-8 of the value), plus the f32 tests' 2e-5 for
-        # another summation order.
-        _check(f"paged_attention {kind} vs f32 reference", out, ref32,
-               2 ** -8 * ref32.abs() + 2e-5, "2^-8 |ref32| + 2e-5")
-        # The plain version on the same inputs also rounds logits and
-        # softmax weights to bf16: its own distance from the f32 math,
-        # measured here, is allowed on top.
-        err = _check(f"paged_attention {kind} vs its plain version", out,
-                     ref, (ref.float() - ref32).abs()
-                     + 2 ** -8 * ref32.abs() + 2e-5,
-                     "|ref - ref32| + 2^-8 |ref32| + 2e-5")
-        ms = device_ms(lambda: K.paged_attention(q, kp, vp, table, lengths,
-                                                 **kw))
-        plain = device_ms(lambda: K.paged_attention_reference(
-            q, kp, vp, table, lengths, **kw), launches=10)
-        kc = K.paged_kv_gather_reference(kp, table, c)
-        vc = K.paged_kv_gather_reference(vp, table, c)
-        if sc is not None:
-            kc = kc.to(q.dtype) * K.paged_kv_gather_reference(
-                sc[0][..., None], table, c).to(q.dtype)
-            vc = vc.to(q.dtype) * K.paged_kv_gather_reference(
-                sc[1][..., None], table, c).to(q.dtype)
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, kc, vc))
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask))
-        elem = kp.element_size()
-        nbytes = (visible * heads * hd * elem * 2 + q.numel() * 2 * 2
-                  + table.numel() * 4 + lanes * 4
-                  + (visible * heads * 4 * 2 if sc else 0))
-        bnd = bound(nbytes, 4 * visible * heads * hd, PEAK_BF16_FLOPS)
-        shape = (f"{lanes} lanes x {heads} heads x hd {hd}, bs {bs}, "
-                 f"{n_blk} blocks, {visible} visible rows, {kind}")
-        _report("paged_attention", shape, ms, plain, lib, bnd)
-        if kind == "bf16":      # the main path's pool type
-            rows["paged_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=lib)
+    # The engine's short lanes: 90-130 rows, as its profiled chunk fills
+    # them (100-token prompts and the tokens decoded since).
+    short = torch.randint(90, 131, (lanes,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    for label, kp, vp, sc, lens in (
+            ("bf16", kpool, vpool, None, lengths),
+            ("int8", k8, v8, (ks, vs), lengths),
+            ("bf16, short lanes", kpool, vpool, None, short)):
+        case = _paged_case(label, q, kp, vp, sc, table, lens, c)
+        CASES.append(dict(case, kernel="paged_attention"))
+        if label == "bf16":      # the main path's pool type
+            rows["paged_attention"] = {
+                k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
 
     # Gather: the bf16 pool (bitwise) and the f32 scale pool [nb, bs, 32, 1].
     for kind, pool in (("bf16", kpool), ("f32 scales", ks[..., None])):
@@ -591,14 +649,14 @@ def _leaf(*ts):
     return [t.detach().clone().requires_grad_(True) for t in ts]
 
 
-def _rms_norm_fwd_case(gen) -> dict:
-    """K1f as the training path calls it (also writing r for the
-    backward) at its rows: [B*S, d_model] = [16384, 768] bf16."""
+def _rms_norm_fwd_case(gen, n: int, d: int) -> dict:
+    """K1f as the training path calls it (also writing r for the backward)
+    at its rows [B*S, d_model] bf16: [16384, 768] for llama_125m_lm (and
+    moe_370m), [65536, 4096] for mistral_7b_lm."""
     import torch
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
 
-    n, d = 16384, 768
     x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
     s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
         torch.bfloat16)
@@ -612,13 +670,22 @@ def _rms_norm_fwd_case(gen) -> dict:
                  2 ** -7 * ref.float().abs() + 1e-6,
                  "one bf16 step: 2^-7 |ref| + 1e-6")
     _check("rms_norm r", r, r32, 1e-6 * r32.abs(), "1e-6 |ref|")
-    ms = device_ms(lambda: K.rms_norm_forward(x, s, 1e-5, with_r=True))
+    del ref, r32
+    body = K.rms_norm_body(x, s)
+
+    def call(b=None):
+        return K.rms_norm_forward(x, s, 1e-5, with_r=True, body=b)
+
+    ms = device_ms(call)
     plain = device_ms(lambda: K.rms_norm_reference(x, s))
     lib = device_ms(lambda: F.rms_norm(x, (d,), s, 1e-5))
     bnd = bound(2 * n * d * 2 + n * 4 + d * 2, 4 * n * d, PEAK_F32_FLOPS)
-    _report("rms_norm", f"[{n}, {d}] bf16 with r", ms, plain, lib, bnd)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=lib)
+    _report("rms_norm", f"[{n}, {d}] bf16 with r", ms, plain, lib, bnd, body)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+               bound_by=bnd[1], library_ms=lib)
+    CASES.append(dict(row, kernel="rms_norm", case=f"[{n}, {d}] bf16 with r",
+                      body=body, **_other_body_ms("block", call)))
+    return row
 
 
 def _rms_norm_bwd_case(gen) -> dict:
@@ -884,11 +951,13 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main) -> dict:
 
 def phase_train_kernels() -> dict:
     """The training kernels against their plain versions at the training
-    path's shapes; returns their rows of the kernels' JSON line."""
+    path's shapes; returns their rows of the kernels' JSON line by path:
+    "train" (llama_125m_lm) and "window_train" (K1f at mistral_7b_lm's
+    rows)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    rows = {"rms_norm": _rms_norm_fwd_case(gen),
+    rows = {"rms_norm": _rms_norm_fwd_case(gen, 16384, 768),
             "rms_norm_bwd": _rms_norm_bwd_case(gen)}
     torch.cuda.empty_cache()
     rows.update(_cross_entropy_cases(gen))
@@ -903,7 +972,9 @@ def phase_train_kernels() -> dict:
     _flash_case(gen, "gqa packed", 2, 16, 4, 1024, 128, packed=True,
                 main=False)
     torch.cuda.empty_cache()
-    return rows
+    window = {"rms_norm": _rms_norm_fwd_case(gen, 65536, 4096)}
+    torch.cuda.empty_cache()
+    return {"train": rows, "window_train": window}
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -2000,7 +2071,8 @@ def main() -> int:
     engines["llama2_7b_4layers_kv_int8"] = stats
     torch.cuda.empty_cache()
     log("== phase 5: training kernels against their plain versions")
-    rows["train"] = phase_train_kernels()
+    train_rows = phase_train_kernels()
+    rows["train"] = train_rows["train"]
     log("== phase 6: trainer, llama_125m_lm full width and depth")
     train_counts, training = phase_train()
     torch.cuda.empty_cache()
@@ -2020,6 +2092,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== phase 9: splash kernel against its plain version")
     rows["window_train"], window_cases = phase_window_kernels()
+    rows["window_train"].update(train_rows["window_train"])
     log("== phase 10: windowed trainer, mistral_7b_lm full width, 4 layers")
     window_counts, window_training = phase_window_train()
     torch.cuda.empty_cache()
@@ -2040,6 +2113,7 @@ def main() -> int:
     print(json.dumps({"moe_kernel_cases": moe_cases}), flush=True)
     print(json.dumps({"window_training": window_training}), flush=True)
     print(json.dumps({"window_kernel_cases": window_cases}), flush=True)
+    print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the attention kernels: mbarriers,
-// TMA tile loads through a tensor map, wgmma over 128-byte-swizzled
+// cp.async copies in commit groups (paged attention's ring), TMA tile loads through a tensor map, wgmma over 128-byte-swizzled
 // shared-memory tiles, register rebalancing between warpgroups, and the
 // host-side encoding of a tensor map for a strided [B, H, S, D] operand.
 //
@@ -72,6 +72,32 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (start == 0) start = clock64();
     else if (clock64() - start > (1ll << 34)) __trap();
   }
+}
+
+// -- cp.async ------------------------------------------------------------------
+
+// 16 bytes from global memory (through L2 only) into shared memory.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// 4 bytes from global into shared memory.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Closes this thread's group of cp.async copies issued since the last
+// commit (an empty group where there were none).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // -- TMA -----------------------------------------------------------------------

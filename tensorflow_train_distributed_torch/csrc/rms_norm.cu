@@ -14,17 +14,41 @@
 //   4 bytes of r a row); the backward reads x and g and writes dx.  A few
 //   flops an element against the H100's 295 flop/byte ridge.
 //
-// Design: one 256-thread block per row.  Pass 1 accumulates the row's sum
-//   (squares, or g*s*x) in f32 with strided, coalesced loads and reduces
-//   with warp shuffles plus one shared-memory step; pass 2 re-reads the
-//   row (still in L1/L2 at D <= 4096) and writes the result in x's dtype.
-//   Simple first: no vector loads and no multi-row blocks yet.
+// Forward, two bodies, chosen statically (``fwd_body``):
+//   warp (the rule): one warp per row, four rows in flight a block, the
+//     warps striding over rows in a grid of as many blocks as the SMs
+//     hold at once.  Each lane loads its share of the row as 16-byte
+//     vectors (8 bf16 or 4 f32) and keeps it in registers between the
+//     sum of squares and the write, so x is read once, and loads the
+//     next row it walks once the current one is written; the sum is a
+//     warp shuffle, with no block barrier and no shared memory in the
+//     row loop; lane 0 writes r.  The scale's floats are loaded once per warp and held in
+//     registers for every row it walks where they fit (at most 32 a lane:
+//     d <= 1024); wider rows take them from shared memory, filled once a
+//     block (as f32) while each warp's first row is in flight.  It
+//     applies where every lane holds whole 16-byte vectors (d * sizeof(x)
+//     a multiple of 512 bytes), d <= 4096, x, scale and y are 16-byte
+//     aligned and there are at least kMinWarpRows rows: d 768 (llama_125m,
+//     moe_370m) and 4096 (Llama-2-7B prefill, mistral_7b_lm).
+//   block (every other case: d 1000, a misaligned view, and fewer rows,
+//     such as a decode step's 8, which a warp per row puts on too few
+//     SMs and which the card ran faster this way): one 256-thread block
+//     per row, strided scalar loads, a block_sum through shared memory,
+//     the row read twice (the second time from L1/L2).
+// Backward: one 256-thread block per row (the block body's pattern):
+//   pass 1 sums g*s*x with block_sum, pass 2 re-reads the row and
+//   writes dx.  The warp-row helpers (Pack, load_floats) are what a warp
+//   body of the backward would use.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRowWarps = 4;                 // warp body: rows a block
+constexpr int kRowThreads = 32 * kRowWarps;
+constexpr int kMaxD = 4096;                  // warp body: widest row
+constexpr int kMinWarpRows = 64;             // warp body: fewest rows
 
 // Block-wide sum of one float per thread; every thread gets the total.
 __device__ __forceinline__ float block_sum(float v) {
@@ -65,6 +89,152 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// 16 bytes of T as E floats, and back (rounded to nearest even).
+template <typename T>
+struct Pack;
+template <>
+struct Pack<float> {
+  static constexpr int E = 4;
+  __device__ static void unpack(const uint4& raw, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(&raw);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+  __device__ static uint4 pack(const float* f) {
+    const float4 v = make_float4(f[0], f[1], f[2], f[3]);
+    return *reinterpret_cast<const uint4*>(&v);
+  }
+};
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static void unpack(const uint4& raw, float* f) {
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(b[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static uint4 pack(const float* f) {
+    uint4 raw;
+    __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      b[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return raw;
+  }
+};
+
+// E consecutive values of S at ``p`` (aligned to E * sizeof(S) bytes) as
+// floats, through the read-only cache.
+template <typename S, int E>
+__device__ __forceinline__ void load_floats(const S* __restrict__ p,
+                                            float* f) {
+  constexpr int kBytes = E * static_cast<int>(sizeof(S));
+  if constexpr (kBytes % 16 == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int w = 0; w < kBytes / 16; ++w)
+      Pack<S>::unpack(__ldg(v + w), f + w * Pack<S>::E);
+  } else {  // four bf16 (an f32 row's vector of scale)
+    static_assert(kBytes == 8, "4 bf16 or whole 16-byte vectors");
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 lo = __bfloat1622float2(b[0]);
+    const float2 hi = __bfloat1622float2(b[1]);
+    f[0] = lo.x;
+    f[1] = lo.y;
+    f[2] = hi.x;
+    f[3] = hi.y;
+  }
+}
+
+// Warp body: lane l holds vectors l, l + 32, ... (nv of them, nv <= NV)
+// of each row it walks.  The scale's floats sit in registers where they
+// fit (kHold), else in ``staged`` (shared memory, [d] f32, filled once a
+// block while the warps' first rows are in flight).
+template <typename T, typename S, int NV>
+__global__ void __launch_bounds__(kRowThreads)
+    rms_norm_fwd_warp_kernel(const T* __restrict__ x,
+                             const S* __restrict__ scale, T* __restrict__ y,
+                             float* __restrict__ r_out, long long n_rows,
+                             int d, float eps) {
+  constexpr int E = Pack<T>::E;
+  constexpr bool kHold = NV * E <= 32;
+  extern __shared__ float4 staged4[];
+  float* staged = reinterpret_cast<float*>(staged4);
+  const int lane = threadIdx.x & 31;
+  const int nv = d / (32 * E);
+  const long long stride = static_cast<long long>(gridDim.x) * kRowWarps;
+  long long row =
+      static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+
+  uint4 v[NV];
+  auto load_row = [&v, x, d, nv, lane](long long rw) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + rw * d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i < nv) v[i] = xr[i * 32 + lane];
+  };
+  if (row < n_rows) load_row(row);
+
+  float held[kHold ? NV * E : 1];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i < nv) load_floats<S, E>(scale + (i * 32 + lane) * E, held + i * E);
+  } else {
+    for (int i = threadIdx.x; i < d / E; i += kRowThreads)
+      load_floats<S, E>(scale + i * E, staged + i * E);
+    __syncthreads();
+  }
+
+  for (; row < n_rows; row += stride) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (i < nv) {
+        float f[E];
+        Pack<T>::unpack(v[i], f);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc += f[e] * f[e];
+      }
+    }
+    const float r = rsqrtf(ttd::warp_sum(acc) / static_cast<float>(d) + eps);
+    if (r_out != nullptr && lane == 0) r_out[row] = r;
+    uint4* yr = reinterpret_cast<uint4*>(y + row * d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (i < nv) {
+        float f[E], sf[E];
+        Pack<T>::unpack(v[i], f);
+        if constexpr (kHold) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) sf[e] = held[i * E + e];
+        } else {
+          const float4* s4 = staged4 + (i * 32 + lane) * E / 4;
+#pragma unroll
+          for (int w = 0; w < E / 4; ++w) {
+            const float4 q = s4[w];
+            sf[4 * w] = q.x;
+            sf[4 * w + 1] = q.y;
+            sf[4 * w + 2] = q.z;
+            sf[4 * w + 3] = q.w;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) f[e] = f[e] * r * sf[e];
+        yr[i * 32 + lane] = Pack<T>::pack(f);
+      }
+    }
+    if (row + stride < n_rows) load_row(row + stride);
+  }
+}
+
 template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
     rms_norm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
@@ -88,9 +258,64 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Element size of a dtype code (0 for an unknown code).
+int dtype_bytes(int code) {
+  return code == ttd::kF32 ? 4 : code == ttd::kBF16 ? 2 : 0;
+}
+
+// Whether the warp body can run: every lane holds whole 16-byte vectors
+// of a row no wider than kMaxD, and the pointers are 16-byte aligned
+// (``aligned``).
+bool warp_runs(int d, int x_dtype, int s_dtype, bool aligned) {
+  const int xb = dtype_bytes(x_dtype);
+  return aligned && xb != 0 && dtype_bytes(s_dtype) != 0 && d > 0 &&
+         d <= kMaxD && (d * xb) % (32 * 16) == 0;
+}
+
+// The forward's body: 1 (warp) where it runs and there are at least
+// kMinWarpRows rows, 0 (block) otherwise.
+int fwd_body(int n_rows, int d, int x_dtype, int s_dtype, bool aligned) {
+  return n_rows >= kMinWarpRows && warp_runs(d, x_dtype, s_dtype, aligned);
+}
+
+template <typename T, typename S, int NV>
+int launch_fwd_warp(const void* x, const void* scale, void* y, float* r,
+                    long long n_rows, int d, float eps,
+                    cudaStream_t stream) {
+  auto kernel = rms_norm_fwd_warp_kernel<T, S, NV>;
+  const size_t smem = NV * Pack<T>::E <= 32 ? 0 : d * sizeof(float);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kRowThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long need = (n_rows + kRowWarps - 1) / kRowWarps;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 1 ? per_sm : 1);
+  kernel<<<static_cast<unsigned>(need < resident ? need : resident),
+           kRowThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale),
+      static_cast<T*>(y), r, n_rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename S>
 int launch_fwd(const void* x, const void* scale, void* y, float* r,
-               int n_rows, int d, float eps, cudaStream_t stream) {
+               int n_rows, int d, float eps, int body, cudaStream_t stream) {
+  if (body == 1) {
+    const int nv = d * static_cast<int>(sizeof(T)) / (32 * 16);
+    if (nv <= 4)
+      return launch_fwd_warp<T, S, 4>(x, scale, y, r, n_rows, d, eps, stream);
+    if (nv <= 8)
+      return launch_fwd_warp<T, S, 8>(x, scale, y, r, n_rows, d, eps, stream);
+    if (nv <= 16)
+      return launch_fwd_warp<T, S, 16>(x, scale, y, r, n_rows, d, eps,
+                                       stream);
+    return launch_fwd_warp<T, S, 32>(x, scale, y, r, n_rows, d, eps, stream);
+  }
   rms_norm_fwd_kernel<T, S><<<n_rows, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale),
       static_cast<T*>(y), r, d, eps);
@@ -109,24 +334,42 @@ int launch_bwd(const void* x, const void* scale, const float* r,
 
 }  // namespace
 
+// The forward's body for ``n_rows`` rows of ``d`` at these dtypes: 1
+// (warp), 0 (block); ``aligned``: x, scale and y start on 16-byte
+// boundaries.
+extern "C" int ttd_rms_norm_fwd_body(int n_rows, int d, int x_dtype,
+                                     int s_dtype, int aligned) {
+  return fwd_body(n_rows, d, x_dtype, s_dtype, aligned != 0);
+}
+
 // x, y: [n_rows, d] contiguous, dtype x_dtype; scale: [d], dtype s_dtype;
-// r: [n_rows] f32 or null (not written).  Returns cudaGetLastError() after
-// the launch (0 on success).
+// r: [n_rows] f32 or null (not written).  ``body``: -1 the static choice
+// (ttd_rms_norm_fwd_body), 0 block, 1 warp (refused where it cannot run).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ttd_rms_norm_fwd(const void* x, const void* scale, void* y,
                                 void* r, int n_rows, int d, float eps,
-                                int x_dtype, int s_dtype, void* stream) {
+                                int x_dtype, int s_dtype, int body,
+                                void* stream) {
   if (n_rows <= 0) return 0;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(scale) |
+                         reinterpret_cast<uintptr_t>(y);
+  const bool aligned = addr % 16 == 0;
+  if (body == -1) body = fwd_body(n_rows, d, x_dtype, s_dtype, aligned);
+  if (body < 0 || body > 1 ||
+      (body == 1 && !warp_runs(d, x_dtype, s_dtype, aligned)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* rf = static_cast<float*>(r);
   using bf16 = __nv_bfloat16;
   if (x_dtype == ttd::kF32 && s_dtype == ttd::kF32)
-    return launch_fwd<float, float>(x, scale, y, rf, n_rows, d, eps, st);
+    return launch_fwd<float, float>(x, scale, y, rf, n_rows, d, eps, body, st);
   if (x_dtype == ttd::kF32 && s_dtype == ttd::kBF16)
-    return launch_fwd<float, bf16>(x, scale, y, rf, n_rows, d, eps, st);
+    return launch_fwd<float, bf16>(x, scale, y, rf, n_rows, d, eps, body, st);
   if (x_dtype == ttd::kBF16 && s_dtype == ttd::kF32)
-    return launch_fwd<bf16, float>(x, scale, y, rf, n_rows, d, eps, st);
+    return launch_fwd<bf16, float>(x, scale, y, rf, n_rows, d, eps, body, st);
   if (x_dtype == ttd::kBF16 && s_dtype == ttd::kBF16)
-    return launch_fwd<bf16, bf16>(x, scale, y, rf, n_rows, d, eps, st);
+    return launch_fwd<bf16, bf16>(x, scale, y, rf, n_rows, d, eps, body, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

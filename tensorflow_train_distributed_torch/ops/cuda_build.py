@@ -40,7 +40,8 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ttd_rms_norm_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
+    "ttd_rms_norm_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _I, _VP],
+    "ttd_rms_norm_fwd_body": [_I, _I, _I, _I, _I],
     "ttd_rms_norm_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "ttd_cross_entropy_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "ttd_cross_entropy_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
@@ -51,10 +52,10 @@ _SIGNATURES = {
     "ttd_flash_attention_body": [_I, _I],
     "ttd_paged_kv_gather": [_VP, _VP, _VP, _I, _I, _I, _I,
                             ctypes.c_longlong, _I, _VP],
-    "ttd_paged_attention": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _F, _I, _I, _VP],
+    "ttd_paged_attention": [_VP] * 10 + [_I] * 9 + [_F, _I, _I, _I, _VP],
     "ttd_paged_attention_smem": [_I, _I, _I],
+    "ttd_paged_attention_body": [_I, _I, _I, _I],
+    "ttd_paged_attention_chunk_rows": [],
     "ttd_gmm": [_VP] * 4 + [_I] * 8 + [_VP],
     "ttd_tgmm": [_VP] * 4 + [_I] * 7 + [_VP],
 }

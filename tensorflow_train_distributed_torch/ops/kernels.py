@@ -18,7 +18,9 @@ has two faces with one signature and layout (the JAX function's):
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels (``reset_launch_counts`` / ``launch_counts``).
+kernels (``reset_launch_counts`` / ``launch_counts``).  K1f and K4 have
+two bodies each, one launch either way; ``rms_norm_body`` and
+``paged_attention_body`` name the one the library picks for a call.
 """
 
 from __future__ import annotations
@@ -97,10 +99,34 @@ def rms_norm_reference(x: torch.Tensor, scale: torch.Tensor, *,
     return (y * scale.float()).to(x.dtype)
 
 
+RMS_NORM_BODIES = ("block", "warp")     # csrc/rms_norm.cu fwd_body codes
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def rms_norm_body(x: torch.Tensor, scale: torch.Tensor) -> str:
+    """The body that serves K1f for rows ``x`` [..., D] and ``scale``, as
+    the library chooses it: "warp" (a warp per row, 16-byte loads; 64 rows
+    or more) or "block" (a block per row).  The wrapper's output is a
+    fresh, aligned allocation, so this is the body it launches."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    d = x.shape[-1]
+    code = library().ttd_rms_norm_fwd_body(
+        x.numel() // d if d else 0, d, _DTYPE_CODES.get(x.dtype, -1),
+        _DTYPE_CODES.get(scale.dtype, -1), int(_aligned(x, scale)))
+    return RMS_NORM_BODIES[code]
+
+
 def rms_norm_forward(x2: torch.Tensor, scale: torch.Tensor,
-                     epsilon: float, with_r: bool):
+                     epsilon: float, with_r: bool,
+                     body: Optional[str] = None):
     """K1f on CUDA [N, D] rows: y, and r = rsqrt(mean x² + eps) [N] f32 when
-    ``with_r``."""
+    ``with_r``.  ``body`` None takes the library's choice; "block" or
+    "warp" forces one (to time the two side by side), and a forced body
+    that cannot run on these rows raises."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     n, d = x2.shape
@@ -110,7 +136,11 @@ def rms_norm_forward(x2: torch.Tensor, scale: torch.Tensor,
     rc = library().ttd_rms_norm_fwd(
         x2.data_ptr(), scale.data_ptr(), y.data_ptr(),
         r.data_ptr() if with_r else None, n, d, epsilon,
-        _DTYPE_CODES[x2.dtype], _DTYPE_CODES[scale.dtype], _stream())
+        _DTYPE_CODES[x2.dtype], _DTYPE_CODES[scale.dtype],
+        -1 if body is None else RMS_NORM_BODIES.index(body), _stream())
+    if rc and body is not None:
+        raise ValueError(f"rms_norm: the {body} body does not run on these "
+                         f"rows (cudaError {rc})")
     _raise_on("rms_norm", rc)
     LAUNCHES["rms_norm"] += 1
     return y, r
@@ -680,12 +710,46 @@ def _rounded_scale(hd: int, dtype: torch.dtype) -> float:
     return torch.tensor(hd ** -0.5, dtype=dtype).item()
 
 
+PAGED_BODIES = ("staged", "ring")   # csrc/paged_attention.cu choose_body
+# Rows of a lane one block of the ring body takes (ring::kChunkRows); a
+# longer lane spreads over several blocks.
+PAGED_CHUNK_ROWS = 256
+_TICKETS: dict = {}
+
+
+def paged_attention_body(q, k_pool, v_pool=None) -> str:
+    """The body that serves K4 for these query and pool tensors, as the
+    library chooses it: "ring" (bf16 or int8 pools at head_dim 64 or 128,
+    16-byte aligned, at most 8 query rows a kv-head group) or "staged"."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
+    code = library().ttd_paged_attention_body(
+        _DTYPE_CODES.get(k_pool.dtype, -1), k_pool.shape[-1],
+        q.shape[2] // k_pool.shape[2] * q.shape[1], int(_aligned(*pools)))
+    return PAGED_BODIES[code]
+
+
+def _paged_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed int32 tickets for the ring body's merge, one buffer per
+    device and stream (the kernel leaves them zero), grown as needed."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
 def paged_attention(q, k_pool, v_pool, table, lengths, *,
                     k_scales=None, v_scales=None,
-                    cache_len: Optional[int] = None):
+                    cache_len: Optional[int] = None,
+                    body: Optional[str] = None):
     """Flash-style decode attention straight through the block table
     (the dense per-lane KV view is never built).  Arguments as
-    ``paged_attention_reference``."""
+    ``paged_attention_reference``; on CUDA tensors ``body`` None takes the
+    library's choice (``paged_attention_body``), "staged" or "ring" forces
+    one (to time the two side by side), and a forced body that does not
+    apply raises."""
     tensors = [q, k_pool, v_pool, table, lengths]
     int8 = k_scales is not None
     if int8 != (v_scales is not None):
@@ -723,13 +787,27 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
                  or tuple(v_scales.shape) != (nb, bs, kvh)):
         raise ValueError("paged_attention: scales must be [nb, bs, kvh]")
     c = cache_len if cache_len is not None else n_blk * bs
+    rows = heads // kvh * q_len
     lib = library()
-    smem = lib.ttd_paged_attention_smem(heads // kvh * q_len, hd, bs)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"paged_attention: {smem} bytes of shared memory per block "
-            f"(rep*q_len={heads // kvh * q_len}, hd={hd}, bs={bs}) exceed "
-            f"the {_SMEM_LIMIT} a Hopper block can use")
+    auto = paged_attention_body(q, k_pool, v_pool)
+    chosen = body or auto
+    if chosen not in (auto, "staged"):
+        raise ValueError(f"paged_attention: body {body!r} does not serve "
+                         f"this call; the library's choice is {auto!r}")
+    workspace = tickets = None
+    if chosen == "staged":
+        smem = lib.ttd_paged_attention_smem(rows, hd, bs)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"paged_attention: {smem} bytes of shared memory per block "
+                f"(rep*q_len={rows}, hd={hd}, bs={bs}) exceed the "
+                f"{_SMEM_LIMIT} a Hopper block can use")
+    else:
+        chunks = -(-min(c, n_blk * bs) // PAGED_CHUNK_ROWS)
+        if chunks > 1:      # a lane may span blocks: room for their merge
+            workspace = torch.empty(kvh * lanes * chunks * rows * (hd + 2),
+                                    dtype=torch.float32, device=q.device)
+            tickets = _paged_tickets(q.device, kvh * lanes)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -738,9 +816,11 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
         k_scales.data_ptr() if int8 else None,
         v_scales.data_ptr() if int8 else None,
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
         lanes, q_len, heads, kvh, hd, nb, bs, n_blk, c,
         _rounded_scale(hd, q.dtype), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k_pool.dtype], _stream())
+        _DTYPE_CODES[k_pool.dtype], PAGED_BODIES.index(chosen), _stream())
     _raise_on("paged_attention", rc)
     LAUNCHES["paged_attention"] += 1
     return out

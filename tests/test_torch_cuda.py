@@ -8,9 +8,12 @@ the engine on the CPU.  Needs an H100; skips elsewhere.  On the card:
 card's machine does not have; this file imports only the port.)
 
 Tolerances: gathers bitwise; f32 RMSNorm 1e-5 (rsqrtf against torch's
-rsqrt, other summation order); f32 paged attention 2e-5 (online softmax
-against one softmax); bf16 queries 3e-2 (the reference rounds logits and
-weights to bf16, the kernel keeps f32).  Training kernels: f32 RMSNorm
+rsqrt, other summation order), bf16 one bf16 step, r within 1e-6 of the
+f32 value; f32 paged attention 2e-5 (online softmax against one
+softmax); bf16 queries 3e-2 against the plain version (it rounds logits
+and weights to bf16, the kernel keeps f32), and K4's ring body within
+2^-8 |ref32| + 2e-5 of the f32 math on the pools as it reads them (one
+rounding of the output).  Training kernels: f32 RMSNorm
 and cross-entropy gradients 1e-5 (row sums in another order); f32 flash
 attention 2e-5 in the output and 1e-4 in the gradients (sums over up to
 512 keys or queries, in tiles); bf16 3e-2 (the kernel and the plain
@@ -133,6 +136,234 @@ def test_paged_attention_kernel_int8(gen, q_dtype, bs, n_blk):
     tol = 2e-5 if q_dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+# -- K4's ring body (bf16 and int8 pools at hd 64/128) ---------------------
+
+
+def _ring_args(gen, lengths, *, heads=4, kvh=2, q_len=1, hd=128, bs=16,
+               n_blk=40, q_dtype=torch.float32, int8=False):
+    """Lanes of the given lengths over a shuffled pool; bf16 pools (int8
+    with f32 scales when ``int8``).  Returns (args, scale kwargs)."""
+    lanes = len(lengths)
+    nb = lanes * n_blk + 1
+    q = _randn(gen, lanes, q_len, heads, hd, dtype=q_dtype)
+    perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
+    table = perm[:lanes * n_blk].view(lanes, n_blk).to(torch.int32)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if not int8:
+        kp = _randn(gen, nb, bs, kvh, hd, dtype=torch.bfloat16)
+        vp = _randn(gen, nb, bs, kvh, hd, dtype=torch.bfloat16)
+        return (q, kp, vp, table, lengths), {}
+    kp, vp = (torch.randint(-127, 128, (nb, bs, kvh, hd), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand(nb, bs, kvh, generator=gen, device="cuda") / 127
+              + 1e-3 for _ in range(2))
+    return (q, kp, vp, table, lengths), dict(k_scales=ks, v_scales=vs)
+
+
+def _ring_ref32(args, kw, cache_len=None):
+    """The kernel's math in f32: pools as the kernel reads them (int8
+    dequantised through q's dtype), the scale rounded to q's dtype."""
+    q, kp, vp, table, lengths = args
+    hd = q.shape[-1]
+    if kw:
+        kp = kp.to(q.dtype) * kw["k_scales"][..., None].to(q.dtype)
+        vp = vp.to(q.dtype) * kw["v_scales"][..., None].to(q.dtype)
+    rescale = (torch.tensor(hd ** -0.5, dtype=q.dtype).item()
+               / torch.tensor(hd ** -0.5).item())
+    return K.paged_attention_reference(
+        q.float() * rescale, kp.float(), vp.float(), table, lengths,
+        cache_len=cache_len)
+
+
+def _assert_ring_close(got, ref32):
+    """f32 queries: 2e-5 (another summation order); bf16: one rounding of
+    the output (2^-8 of the value) on top."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, ref32, rtol=2e-5, atol=2e-5)
+    else:
+        assert ((got.float() - ref32).abs()
+                <= 2 ** -8 * ref32.abs() + 2e-5).all()
+
+
+def test_paged_attention_body_choice(gen):
+    q = _randn(gen, 2, 1, 32, 128, dtype=torch.bfloat16)
+    pool = _randn(gen, 9, 16, 32, 128, dtype=torch.bfloat16)
+    assert K.paged_attention_body(q, pool, pool) == "ring"
+    assert K.paged_attention_body(q, pool.float(), pool.float()) == "staged"
+    assert K.paged_attention_body(q, pool.to(torch.int8)) == "ring"
+    q64 = _randn(gen, 2, 3, 8, 64)                   # R = 4 * 3 = 12 > 8
+    pool64 = _randn(gen, 9, 16, 2, 64, dtype=torch.bfloat16)
+    assert K.paged_attention_body(q64, pool64) == "staged"
+    assert K.paged_attention_body(q64[:, :2], pool64) == "ring"   # R 8
+    odd = _randn(gen, 2, 1, 2, 32, dtype=torch.bfloat16)
+    assert K.paged_attention_body(odd, pool64[..., :32].contiguous()) == \
+        "staged"
+    flat = torch.empty(9 * 16 * 2 * 64 + 1, dtype=torch.bfloat16,
+                       device="cuda")
+    misaligned = flat[1:].view(9, 16, 2, 64)
+    assert K.paged_attention_body(q64[:, :1], misaligned) == "staged"
+
+
+def test_paged_attention_chunk_rows_match_the_library(gen):
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    assert K.PAGED_CHUNK_ROWS == library().ttd_paged_attention_chunk_rows()
+
+
+@pytest.mark.parametrize("heads,kvh,q_len,hd", [
+    (32, 32, 1, 128),              # Llama-2-7B decode (R = 1)
+    (4, 4, 1, 64), (6, 2, 1, 128),  # R = 1, R = 3
+    (4, 2, 3, 64), (8, 2, 2, 128)])  # R = 6, R = 8
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_ring_chunk_boundaries(gen, heads, kvh, q_len, hd,
+                                               q_dtype):
+    """Lanes whose last visible row falls on each side of one and two
+    chunks, a lane of length 0 and lanes at cache_len - 1: every block of
+    a lane's chunks, the direct write and the ticket merge."""
+    C = K.PAGED_CHUNK_ROWS
+    c = 40 * 16
+    lengths = [0, C - q_len - 1, C - q_len, C - q_len + 1, 2 * C - q_len,
+               2 * C - q_len + 1, c - q_len, c - 1]
+    args, kw = _ring_args(gen, lengths, heads=heads, kvh=kvh, q_len=q_len,
+                          hd=hd, q_dtype=q_dtype)
+    assert K.paged_attention_body(args[0], args[1], args[2]) == "ring"
+    before = K.launch_counts()["paged_attention"]
+    got = K.paged_attention(*args)
+    assert K.launch_counts()["paged_attention"] == before + 1
+    _assert_ring_close(got, _ring_ref32(args, kw))
+
+
+@pytest.mark.parametrize("cache_len", [629, 513, 257, 250])
+def test_paged_attention_ring_cache_len_mid_block(gen, cache_len):
+    """cache_len cut inside a pool block (and at a chunk's edge): rows at
+    or past it do not exist, even where a lane's length reaches them."""
+    lengths = [0, 100, 249, 256, 300, 628, 639]
+    args, kw = _ring_args(gen, lengths, q_len=2)
+    got = K.paged_attention(*args, cache_len=cache_len)
+    _assert_ring_close(got, _ring_ref32(args, kw, cache_len))
+
+
+def test_paged_attention_ring_stale_lane_isolated(gen):
+    """A lane whose table holds ids past the pool (and negative ones) reads
+    only pool rows and leaves the other lanes bit for bit as they were."""
+    args, _ = _ring_args(gen, [300, 20, 600])
+    q, kp, vp, table, lengths = args
+    clean = K.paged_attention(*args)
+    dirty_table = table.clone()
+    dirty_table[1] = torch.arange(40, device="cuda", dtype=torch.int32) * \
+        7919 - 1000
+    dirty = K.paged_attention(q, kp, vp, dirty_table, lengths)
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(clean[0], dirty[0]) and torch.equal(clean[2],
+                                                           dirty[2])
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_attention_ring_int8(gen, q_dtype, hd):
+    args, kw = _ring_args(gen, [0, 255, 256, 600], q_len=2, hd=hd,
+                          q_dtype=q_dtype, int8=True)
+    assert K.paged_attention_body(args[0], args[1], args[2]) == "ring"
+    got = K.paged_attention(*args, **kw)
+    _assert_ring_close(got, _ring_ref32(args, kw))
+    want = K.paged_attention_reference(*args, **kw)
+    tol = 2e-5 if q_dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_ring_is_deterministic(gen, int8):
+    """Lanes over one to three chunks: the same call twice, bit for bit
+    (the last block merges the chunks in chunk order)."""
+    args, kw = _ring_args(gen, [639, 300, 511, 5, 600, 257], heads=32,
+                          kvh=32, q_dtype=torch.bfloat16, int8=int8)
+    first = K.paged_attention(*args, **kw)
+    for _ in range(3):
+        assert torch.equal(K.paged_attention(*args, **kw), first)
+
+
+def test_paged_attention_bodies_agree(gen):
+    """The staged body forced on the ring body's inputs: both within the
+    f32 reference's tolerance; a forced ring body where it does not apply
+    raises."""
+    args, kw = _ring_args(gen, [0, 40, 300, 639], heads=8, kvh=4, q_len=2)
+    ref32 = _ring_ref32(args, kw)
+    for body in ("ring", "staged"):
+        _assert_ring_close(K.paged_attention(*args, body=body), ref32)
+    q, kp, vp, table, lengths = args
+    with pytest.raises(ValueError, match="body"):
+        K.paged_attention(q, kp.float(), vp.float(), table, lengths,
+                          body="ring")
+
+
+# -- K1f's warp body ----------------------------------------------------------
+
+
+def _rms_checks(x, s, y, r):
+    ref = K.rms_norm_reference(x, s)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    else:   # f32 math rounded once to bf16: one bf16 step
+        assert ((y.float() - ref.float()).abs()
+                <= 2 ** -7 * ref.float().abs() + 1e-6).all()
+    r32 = torch.rsqrt(x.float().square().mean(-1) + 1e-5)
+    assert ((r - r32).abs() <= 1e-6 * r32).all()
+
+
+@pytest.mark.parametrize("rows", [64, 67, 4101, 20001])
+@pytest.mark.parametrize("d", [768, 4096])
+@pytest.mark.parametrize("x_dtype,s_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+def test_rms_norm_warp_body(gen, rows, d, x_dtype, s_dtype):
+    """Row counts from the body's 64 up, off the block's 4 rows and past
+    one row per resident warp (the grid stride), d 768 (scale held in registers) and 4096
+    (staged in shared memory); y within the plain version's tolerance, r within
+    1e-6 of the f32 value."""
+    x = (3 * _randn(gen, rows, d)).to(x_dtype)
+    s = (1 + 0.1 * _randn(gen, d)).to(s_dtype)
+    assert K.rms_norm_body(x, s) == "warp"
+    before = K.launch_counts()["rms_norm"]
+    y, r = K.rms_norm_forward(x, s, 1e-5, with_r=True)
+    assert K.launch_counts()["rms_norm"] == before + 1
+    _rms_checks(x, s, y, r)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_block_body_cases(gen, x_dtype):
+    """d 1000 (not whole 16-byte vectors a lane), a misaligned view and a
+    decode step's 8 rows take the block body; all still match, and a
+    forced warp body raises where it does not apply."""
+    few = _randn(gen, 8, 4096, dtype=x_dtype)
+    s = (1 + 0.1 * _randn(gen, 4096)).to(x_dtype)
+    assert K.rms_norm_body(few, s) == "block"
+    _rms_checks(few, s, *K.rms_norm_forward(few, s, 1e-5, with_r=True))
+    x = _randn(gen, 33, 1000, dtype=x_dtype)
+    s = (1 + 0.1 * _randn(gen, 1000)).to(x_dtype)
+    assert K.rms_norm_body(x, s) == "block"
+    _rms_checks(x, s, *K.rms_norm_forward(x, s, 1e-5, with_r=True))
+    flat = _randn(gen, 65 * 768 + 1, dtype=x_dtype)
+    view = flat[1:].view(65, 768)
+    s = (1 + 0.1 * _randn(gen, 768)).to(x_dtype)
+    assert view.is_contiguous() and K.rms_norm_body(view, s) == "block"
+    _rms_checks(view, s, *K.rms_norm_forward(view, s, 1e-5, with_r=True))
+    with pytest.raises(ValueError, match="body"):
+        K.rms_norm_forward(view, s, 1e-5, with_r=True, body="warp")
+
+
+@pytest.mark.parametrize("rows", [8, 515])
+def test_rms_norm_bodies_agree(gen, rows):
+    """Both bodies forced on the same rows (the warp body also below the
+    64 rows from which the library takes it)."""
+    x = _randn(gen, rows, 4096, dtype=torch.bfloat16)
+    s = (1 + 0.1 * _randn(gen, 4096)).to(torch.bfloat16)
+    for body in ("warp", "block"):
+        _rms_checks(x, s, *K.rms_norm_forward(x, s, 1e-5, with_r=True,
+                                              body=body))
 
 
 @pytest.mark.parametrize("shape,dtype", [

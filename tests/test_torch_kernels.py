@@ -51,6 +51,31 @@ def test_rms_norm_bf16_matches_pallas():
                                rtol=2 ** -8, atol=1e-6)
 
 
+@pytest.mark.parametrize("n,d", [(13, 768), (5, 4096)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_rms_norm_fwd_call_matches_plain(n, d, dtype):
+    """The Pallas forward (``_rmsnorm_fwd_call``, y and r) against the
+    plain version the card's K1f is held to, at the training width (768)
+    and the 7B models' (4096): y within 1e-6 in f32 and one bf16 step in
+    bf16, r within 1e-6 of the f32 ``rsqrt(mean x^2 + eps)``."""
+    x = 3 * _rand((n, d))
+    s = 1.0 + 0.1 * _rand((d,), seed=1)
+    y, r = pk._rmsnorm_fwd_call(jnp.asarray(x, dtype), jnp.asarray(s)[None],
+                                epsilon=1e-5, interpret=True)
+    xt = torch.from_numpy(np.array(jnp.asarray(x, dtype), np.float32))
+    if dtype == jnp.bfloat16:
+        xt = xt.to(torch.bfloat16)
+    got = K.rms_norm_reference(xt, torch.from_numpy(s))
+    want = np.asarray(y, np.float32)
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   rtol=2 ** -7, atol=1e-6)
+    r32 = torch.rsqrt(xt.float().square().mean(-1) + 1e-5).numpy()
+    np.testing.assert_allclose(np.asarray(r)[:, 0], r32, rtol=1e-6)
+
+
 def test_rms_norm_cpu_wrapper_is_the_reference():
     x = torch.from_numpy(_rand((5, 64)))
     s = torch.from_numpy(_rand((64,), seed=2))
@@ -162,6 +187,30 @@ def test_paged_attention_cpu_wrapper_is_the_reference():
         K.paged_attention(q, kp, vp, table, lengths),
         K.paged_attention_reference(q, kp, vp, table, lengths))
     assert K.launch_counts()["paged_attention"] == before
+
+
+@pytest.fixture(scope="module")
+def chunk_edge_lanes():
+    """Decode lanes (q_len 1, GQA 2:1, hd 64, block 16) whose last row
+    falls just inside, on and past the end of the CUDA ring body's first
+    chunk (``K.PAGED_CHUNK_ROWS`` rows), a lane of length 0 and one at
+    cache_len - 1, through the interpret-mode Pallas kernel and the plain
+    version once: (lengths, plain, pallas)."""
+    C = K.PAGED_CHUNK_ROWS
+    bs, n_blk = 16, C // 16 + 2
+    lengths = [C - 2, C - 1, C, 0, n_blk * bs - 1]
+    args = _paged(len(lengths), 1, 4, 2, hd=64, nb=2 * n_blk, bs=bs,
+                  n_blk=n_blk, lengths=lengths)
+    got, want = _both(*args)
+    return lengths, got, want
+
+
+@pytest.mark.parametrize("lane", range(5))
+def test_paged_attention_chunk_edges_match_pallas(chunk_edge_lanes, lane):
+    lengths, got, want = chunk_edge_lanes
+    assert np.all(np.isfinite(got[lane]))
+    np.testing.assert_allclose(got[lane], want[lane], rtol=2e-5, atol=2e-5,
+                               err_msg=f"lane of length {lengths[lane]}")
 
 
 # -- paged KV gather ----------------------------------------------------------
