@@ -11,13 +11,15 @@
    over 8 lanes, 32 heads (MHA), head_dim 128, block 16, 64 blocks a lane,
    ragged lengths up to 1,024 rows, q_len 1, bf16 and int8 pools, and the
    engine's short lanes (90-130 rows, bf16); the paged KV gather of the
-   same pool.  Prints each kernel's error against its stated tolerance,
+   same pool at all 8 lanes and at the engine's radix hit (one lane's 64
+   blocks), and of the int8 engine's f32 scale pool, bitwise with every
+   body.  Prints each kernel's error against its stated tolerance,
    median time (CUDA events, launches queued back to back behind a device
    sleep so host overhead is not timed), bound, the plain version's time
    and one PyTorch library call's time as a yardstick the port never calls.
-   RMSNorm and paged attention name the body that served them (K1f: warp
-   or block; K4: ring or staged) and time the other body on the same
-   inputs.
+   RMSNorm, paged attention and the gather name the body that served
+   them (K1f: warp or block; K4: ring or staged; K5: bulk or block) and
+   time the other body on the same inputs.
 3. The serving engine on Llama-2-7B at full width and depth (bf16, random
    weights from a seed): 8 slots, chunk 8, cache_len 1024, block 16; a
    dozen greedy requests of 16-300 prompt tokens, two sharing a 64-token
@@ -29,8 +31,10 @@
 4. The same engine with an int8 KV cache at full width and 4 layers.
 5. The training kernels against their plain versions at the training
    path's shapes: RMSNorm forward (writing r; its body named and the
-   block body timed beside it) and backward [16384, 768] bf16, and the
-   forward at mistral_7b_lm's rows [65536, 4096] (phase 10's path);
+   block body timed beside it) and backward (dx and dscale; the block
+   body's backward with the einsum column sum, dx alone and
+   ``F.rms_norm``'s two-gradient backward timed beside it) at [16384,
+   768] bf16 and at mistral_7b_lm's rows [65536, 4096] (phase 10's path);
    cross-entropy
    forward and backward [16384, 32000] f32; flash attention forward and
    backward at llama_125m's B 8, H 12, S 2048, D 64, at Llama-2-7B's
@@ -114,6 +118,7 @@ the repository.
 """
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -135,8 +140,9 @@ _SP = ("jax/experimental/pallas/ops/tpu/splash_attention/"
 # "serve" (phase 3), "train" (phase 6), "moe_train" (phase 8) or
 # "window_train" (phase 10)).
 # RMSNorm's forward is on every path; it has a row for serving, llama_125m
-# training and mistral_7b_lm training, each with that path's launches and
-# shapes (moe_370m's rows are llama_125m's shape).
+# training and mistral_7b_lm training, and its backward one for each
+# training path, each with that path's launches and shapes (moe_370m's
+# rows are llama_125m's shape).
 KERNELS = [
     ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "serve"),
     ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290", "serve"),
@@ -156,6 +162,7 @@ KERNELS = [
     ("splash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _SP + ":1857",
      "window_train"),                                   # and dq, :1405
     ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "window_train"),
+    ("rms_norm_bwd", _CSRC + "rms_norm.cu", _PK + ":429", "window_train"),
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
@@ -204,6 +211,15 @@ def device_ms(fn, *, launches: int = 40, repeats: int = 5,
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
+
+
+def in_turns(fn, other_fn) -> tuple:
+    """``device_ms`` of ``fn`` and of ``other_fn`` taken in turns (fn,
+    other, other, fn), each the mean of its two: for two calls whose
+    times lie within the drift of the card's clock over one timing."""
+    a = device_ms(fn)
+    b = device_ms(other_fn) + device_ms(other_fn)
+    return (a + device_ms(fn)) / 2, b / 2
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -430,28 +446,61 @@ def phase_kernels() -> dict:
                 k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}
 
-    # Gather: the bf16 pool (bitwise) and the f32 scale pool [nb, bs, 32, 1].
-    for kind, pool in (("bf16", kpool), ("f32 scales", ks[..., None])):
-        out = K.paged_kv_gather(pool, table, c)
-        ref = K.paged_kv_gather_reference(pool, table, c)
+    # Gather (K5), bitwise for every body that runs, on the bf16 pool and
+    # the int8 engine's f32 scale pool [nb, bs, 32, 1] (128-byte rows):
+    # all 8 lanes (64 MiB of bf16 rows) and the engine's radix hit, one
+    # lane's [1, 64] table (8 MiB).  The one-lane calls take the lanes in
+    # turn, so each reads blocks the seven calls before it did not (cold
+    # in the 50 MB L2, as the engine's 32-layer pool is).  The bf16 cases
+    # are timed with every body and in turns with index_select over the
+    # same blocks (the two copies run at about the same rate); the
+    # engine's lane is the main path's shape.
+    one_lane = [table[i:i + 1] for i in range(lanes)]
+    for label, pool, tables, timed in (
+            ("bf16, 8 lanes", kpool, [table], True),
+            ("bf16, the engine's lane", kpool, one_lane, True),
+            ("f32 scales, 8 lanes", ks[..., None], [table], False),
+            ("f32 scales, the engine's lane", ks[..., None], one_lane,
+             False)):
+        body = K.paged_kv_gather_body(pool)
+        runs = [b for b in K.PAGED_KV_GATHER_BODIES
+                if b == "block" or body != "block"]
+        for b in runs:
+            for t in tables:
+                out = K.paged_kv_gather(pool, t, c, body=b)
+                if not torch.equal(out, K.paged_kv_gather_reference(pool, t,
+                                                                    c)):
+                    raise AssertionError(f"paged_kv_gather {label}, {b} "
+                                         f"body: not bitwise")
         torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"paged_kv_gather {kind}: not bitwise")
-        log(f"  paged_kv_gather {kind}: bitwise equal ok")
-        if kind != "bf16":
+        log(f"  paged_kv_gather {label}: {body} body; bitwise equal ok "
+            f"(bodies {runs})")
+        if not timed:
             continue
-        ms = device_ms(lambda: K.paged_kv_gather(pool, table, c))
-        plain = device_ms(lambda: K.paged_kv_gather_reference(pool, table,
-                                                              c))
-        flat = table.reshape(-1)
-        lib = device_ms(lambda: pool.index_select(0, flat))
-        bnd = bound(2 * out.numel() * out.element_size() + table.numel() * 4,
-                    0, PEAK_BF16_FLOPS)
-        shape = f"pool [{nb}, {bs}, {heads}, {hd}] bf16 -> [{lanes}, {c}]"
-        _report("paged_kv_gather", shape, ms, plain, lib, bnd)
-        rows["paged_kv_gather"] = dict(
-            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-            bound_by=bnd[1], library_ms=lib)
+        turn = itertools.cycle(tables)
+        flats = itertools.cycle([t.reshape(-1) for t in tables])
+
+        def call(b=None):
+            return K.paged_kv_gather(pool, next(turn), c, body=b)
+
+        ms, lib = in_turns(call, lambda: pool.index_select(0, next(flats)))
+        plain = device_ms(lambda: K.paged_kv_gather_reference(
+            pool, next(turn), c))
+        bnd = bound(2 * out.numel() * out.element_size()
+                    + tables[0].numel() * 4, 0, PEAK_BF16_FLOPS)
+        shape = (f"pool [{nb}, {bs}, {heads}, {hd}] bf16 -> "
+                 f"[{out.shape[0]}, {c}], {label}")
+        _report("paged_kv_gather", shape, ms, plain, lib, bnd, body)
+        row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                   bound_by=bnd[1], library_ms=lib)
+        others = {}
+        for b in runs:
+            if b != body:
+                others.update(_other_body_ms(b, call))
+        CASES.append(dict(row, kernel="paged_kv_gather", case=label,
+                          body=body, **others))
+        if label == "bf16, the engine's lane":
+            rows["paged_kv_gather"] = row
     return rows
 
 
@@ -688,49 +737,101 @@ def _rms_norm_fwd_case(gen, n: int, d: int) -> dict:
     return row
 
 
-def _rms_norm_bwd_case(gen) -> dict:
-    """K1b at the training path's rows: [B*S, d_model] = [16384, 768],
-    bf16 activations and scale (the bf16 policy casts the scale)."""
+def _rms_norm_bwd_case(gen, n: int, d: int) -> dict:
+    """K1b, the whole ``_rms_norm_pallas_bwd`` (dx and dscale), at the
+    training path's rows [B*S, d_model], bf16 activations and scale (the
+    bf16 policy casts the scale): [16384, 768] for llama_125m_lm (and
+    moe_370m), [65536, 4096] for mistral_7b_lm.  Held against f32 and the
+    plain version; timed with its body beside the other body's whole
+    backward (the block body: its dx kernel and the einsum column sum),
+    both bodies' dx alone, the plain version's two-gradient autograd,
+    ``F.rms_norm``'s backward with x and the scale as leaves (the same
+    function) and with x alone (dx only)."""
     import torch
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
 
-    n, d = 16384, 768
     x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
     s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
         torch.bfloat16)
     g = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
     _, r = K.rms_norm_forward(x, s, 1e-5, with_r=True)
-    dx = K.rms_norm_backward(x, s, r, g)
-    (xp,) = _leaf(x)
-    yp = K.rms_norm_reference(xp, s)
-    (plain,) = torch.autograd.grad(yp, xp, g, retain_graph=True)
+    body = K.rms_norm_bwd_body(x, s, g)
+    dx, ds = K.rms_norm_backward(x, s, r, g)
+    xp, sp = _leaf(x, s)
+    yp = K.rms_norm_reference(xp, sp)
+    plain, plain_ds = torch.autograd.grad(yp, (xp, sp), g, retain_graph=True)
     x32, s32, g32 = x.float(), s.float(), g.float()
     (x32l,) = _leaf(x32)
     (ref32,) = torch.autograd.grad(K.rms_norm_reference(x32l, s32), x32l,
                                    g32)
+    del x32l
     rr = torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-5)
     c = (g32 * s32 * x32).mean(-1, keepdim=True)
     terms = (rr * g32 * s32).abs() + (x32 * rr ** 3 * c).abs()
+    ds32 = torch.einsum("nd,nd->d", g32, x32 * rr)
+    mass = torch.einsum("nd,nd->d", g32.abs(), (x32 * rr).abs())
+    del c, x32, g32
     torch.cuda.synchronize()
+    shape = f"[{n}, {d}] bf16"
     # f32 math rounded once to bf16 (one bf16 step, at most 2^-7 of the
     # value), plus 1e-5 of the two terms of r*g*s - x*r^3*mean(g*s*x) for
     # f32 sums in another order.
     allowed = 2 ** -7 * ref32.abs() + 1e-5 * terms
-    _check("rms_norm_bwd [16384, 768] bf16 vs f32", dx, ref32, allowed,
+    del terms
+    _check(f"rms_norm_bwd {shape} dx vs f32", dx, ref32, allowed,
            "2^-7 |ref32| + 1e-5 (|r g s| + |x r^3 c|)")
-    err = _check("rms_norm_bwd vs its plain version", dx, plain,
+    err = _check(f"rms_norm_bwd {shape} dx vs its plain version", dx, plain,
                  (plain.float() - ref32).abs() + allowed,
                  "|plain - ref32| + the above")
-    ms = device_ms(lambda: K.rms_norm_backward(x, s, r, g))
-    plain_ms = _backward_ms(yp, xp, g)
-    (xl,) = _leaf(x)
-    yl = F.rms_norm(xl, (d,), s, 1e-5)
-    lib = _backward_ms(yl, xl, g)
-    bnd = bound(3 * n * d * 2 + n * 4 + d * 2, 8 * n * d, PEAK_F32_FLOPS)
-    _report("rms_norm_bwd", f"[{n}, {d}] bf16", ms, plain_ms, lib, bnd)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=lib)
+    del allowed, ref32, plain
+    # dscale: the f32 column sum rounded once to bf16 (one bf16 step),
+    # plus 1e-5 of sum_rows |g x r| for f32 sums in another order.
+    ds_allowed = 2 ** -7 * ds32.abs() + 1e-5 * mass
+    _check(f"rms_norm_bwd {shape} ds vs the f32 column sum", ds, ds32,
+           ds_allowed, "2^-7 |ref32| + 1e-5 sum_rows |g x r|")
+    err_ds = _check(f"rms_norm_bwd {shape} ds vs its plain version", ds,
+                    plain_ds, (plain_ds.float() - ds32).abs() + ds_allowed,
+                    "|plain - ref32| + the above")
+    torch.cuda.empty_cache()
+
+    def whole(b=None):
+        return K.rms_norm_backward(x, s, r, g, body=b)
+
+    def dx_only(b=None):
+        return K.rms_norm_backward(x, s, r, g, with_ds=False, body=b)
+
+    other = "block" if body == "warp" else "warp"
+    ms = device_ms(whole)
+    other_ms = device_ms(lambda: whole(other))
+    dx_ms = device_ms(dx_only)
+    dx_other_ms = device_ms(lambda: dx_only(other))
+    plain_ms = _backward_ms(yp, [xp, sp], g)
+    del yp
+    xl, sl = _leaf(x, s)
+    yl = F.rms_norm(xl, (d,), sl, 1e-5)
+    lib = _backward_ms(yl, [xl, sl], g)
+    del yl
+    (xl1,) = _leaf(x)
+    yl1 = F.rms_norm(xl1, (d,), s, 1e-5)
+    lib_dx = _backward_ms(yl1, xl1, g)
+    del yl1
+    bnd = bound(3 * n * d * 2 + n * 4 + 2 * d * 2, 10 * n * d,
+                PEAK_F32_FLOPS)
+    _report("rms_norm_bwd", f"{shape} dx + ds", ms, plain_ms, lib, bnd,
+            body)
+    log(f"    the {other} body's whole backward (its dx kernel"
+        f"{' and the einsum column sum' if other == 'block' else ''}): "
+        f"{other_ms * 1e3:.1f} us; dx alone: {body} {dx_ms * 1e3:.1f} us, "
+        f"{other} {dx_other_ms * 1e3:.1f} us, F.rms_norm (x alone a leaf) "
+        f"{lib_dx * 1e3:.1f} us")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+               bound_by=bnd[1], library_ms=lib, max_abs_err_ds=err_ds)
+    CASES.append(dict(row, kernel="rms_norm_bwd", case=f"{shape} dx + ds",
+                      body=body, **{f"{other}_body_ms": other_ms},
+                      dx_only_ms=dx_ms, **{f"{other}_dx_only_ms": dx_other_ms},
+                      library_dx_only_ms=lib_dx))
+    return row
 
 
 def _cross_entropy_cases(gen) -> dict:
@@ -952,13 +1053,13 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main) -> dict:
 def phase_train_kernels() -> dict:
     """The training kernels against their plain versions at the training
     path's shapes; returns their rows of the kernels' JSON line by path:
-    "train" (llama_125m_lm) and "window_train" (K1f at mistral_7b_lm's
-    rows)."""
+    "train" (llama_125m_lm) and "window_train" (K1f and K1b at
+    mistral_7b_lm's rows)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows = {"rms_norm": _rms_norm_fwd_case(gen, 16384, 768),
-            "rms_norm_bwd": _rms_norm_bwd_case(gen)}
+            "rms_norm_bwd": _rms_norm_bwd_case(gen, 16384, 768)}
     torch.cuda.empty_cache()
     rows.update(_cross_entropy_cases(gen))
     torch.cuda.empty_cache()
@@ -973,6 +1074,8 @@ def phase_train_kernels() -> dict:
                 main=False)
     torch.cuda.empty_cache()
     window = {"rms_norm": _rms_norm_fwd_case(gen, 65536, 4096)}
+    torch.cuda.empty_cache()
+    window["rms_norm_bwd"] = _rms_norm_bwd_case(gen, 65536, 4096)
     torch.cuda.empty_cache()
     return {"train": rows, "window_train": window}
 

@@ -1,5 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention kernels: mbarriers,
-// cp.async copies in commit groups (paged attention's ring), TMA tile loads through a tensor map, wgmma over 128-byte-swizzled
+// cp.async copies in commit groups (paged attention's ring), TMA tile
+// loads through a tensor map, bulk copies between global and shared
+// memory (the paged KV gather's ring), wgmma over 128-byte-swizzled
 // shared-memory tiles, register rebalancing between warpgroups, and the
 // host-side encoding of a tensor map for a strided [B, H, S, D] operand.
 //
@@ -140,6 +142,61 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// An L2 cache policy that makes the lines an access touches the first to
+// be evicted (data read or written once, as a copy's).
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// bulk_load under the L2 cache policy ``policy``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)),
+         "l"(policy)
+      : "memory");
+}
+
+// ``bytes`` contiguous bytes (16-byte aligned, a multiple of 16) from
+// shared memory to global memory under the L2 cache policy ``policy``, in
+// this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], "
+      "[%1], %2, %3;\n"
+      :: "l"(dst), "r"(smem_addr(src)), "r"(bytes), "l"(policy) : "memory");
+}
+
+// Closes this thread's bulk group of stores issued since the last commit.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared memory (the stages of the older ones may be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Waits until every bulk group of this thread has completed its writes.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before later ones
+// of the async proxy (bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- warpgroups ------------------------------------------------------------------

@@ -41,8 +41,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ttd_rms_norm_fwd": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _I, _VP],
-    "ttd_rms_norm_fwd_body": [_I, _I, _I, _I, _I],
-    "ttd_rms_norm_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "ttd_rms_norm_body": [_I, _I, _I, _I, _I],
+    "ttd_rms_norm_bwd": [_VP] * 7 + [_I] * 5 + [_VP],
+    "ttd_rms_norm_bwd_partials": [_I, _I, _I, _I],
     "ttd_cross_entropy_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "ttd_cross_entropy_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "ttd_flash_attention_fwd": [_VP] * 7 + [_I] * 5 + [_F, _I, _I, _VP],
@@ -51,7 +52,8 @@ _SIGNATURES = {
     "ttd_splash_attention_bwd": [_VP] * 12 + [_I] * 8 + [_VP],
     "ttd_flash_attention_body": [_I, _I],
     "ttd_paged_kv_gather": [_VP, _VP, _VP, _I, _I, _I, _I,
-                            ctypes.c_longlong, _I, _VP],
+                            ctypes.c_longlong, _I, _I, _VP],
+    "ttd_paged_kv_gather_body": [ctypes.c_longlong, _I],
     "ttd_paged_attention": [_VP] * 10 + [_I] * 9 + [_F, _I, _I, _I, _VP],
     "ttd_paged_attention_smem": [_I, _I, _I],
     "ttd_paged_attention_body": [_I, _I, _I, _I],

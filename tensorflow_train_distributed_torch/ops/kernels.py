@@ -18,9 +18,11 @@ has two faces with one signature and layout (the JAX function's):
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels (``reset_launch_counts`` / ``launch_counts``).  K1f and K4 have
-two bodies each, one launch either way; ``rms_norm_body`` and
-``paged_attention_body`` name the one the library picks for a call.
+kernels (``reset_launch_counts`` / ``launch_counts``).  K1f, K1b, K4 and
+K5 have two bodies each, one launch either way (K1b's warp body sums
+dscale's per-block rows in a second kernel of the same call);
+``rms_norm_body``, ``rms_norm_bwd_body``, ``paged_attention_body`` and
+``paged_kv_gather_body`` name the one the library picks for a call.
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def rms_norm_reference(x: torch.Tensor, scale: torch.Tensor, *,
     return (y * scale.float()).to(x.dtype)
 
 
-RMS_NORM_BODIES = ("block", "warp")     # csrc/rms_norm.cu fwd_body codes
+RMS_NORM_BODIES = ("block", "warp")     # csrc/rms_norm.cu body codes
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
@@ -114,7 +116,7 @@ def rms_norm_body(x: torch.Tensor, scale: torch.Tensor) -> str:
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     d = x.shape[-1]
-    code = library().ttd_rms_norm_fwd_body(
+    code = library().ttd_rms_norm_body(
         x.numel() // d if d else 0, d, _DTYPE_CODES.get(x.dtype, -1),
         _DTYPE_CODES.get(scale.dtype, -1), int(_aligned(x, scale)))
     return RMS_NORM_BODIES[code]
@@ -146,27 +148,90 @@ def rms_norm_forward(x2: torch.Tensor, scale: torch.Tensor,
     return y, r
 
 
+def rms_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor,
+                                r: torch.Tensor, g: torch.Tensor):
+    """Plain version of K1b, the math of the JAX ``_rms_norm_pallas_bwd``
+    in f32: ``dx = r·(g·s) − x·r³·mean((g·s)·x)`` per row, in x's dtype,
+    and ``ds = Σ_rows g·(x·r)``, rounded once to the scale's dtype.
+    ``x``, ``g``: [..., D]; ``r``: rsqrt(mean x² + eps), one per row
+    ([...] or [..., 1]); returns (dx [..., D], ds [D])."""
+    d = x.shape[-1]
+    x32 = x.reshape(-1, d).float()
+    g32 = g.reshape(-1, d).float()
+    r32 = r.reshape(-1, 1).float()
+    gs = g32 * scale.float()
+    c = (gs * x32).mean(-1, keepdim=True)
+    dx = r32 * gs - x32 * (r32 * r32 * r32) * c
+    ds = torch.einsum("nd,nd->d", g32, x32 * r32)
+    return dx.to(x.dtype).reshape(x.shape), ds.to(scale.dtype)
+
+
+def rms_norm_bwd_body(x: torch.Tensor, scale: torch.Tensor,
+                      g: Optional[torch.Tensor] = None) -> str:
+    """The body that serves K1b for rows ``x`` [..., D], ``scale`` and the
+    cotangent ``g``, by K1f's rule (``rms_norm_body``) with g aligned too:
+    "warp" (a warp per row, dx and dscale in one pass) or "block" (a block
+    per row, dx only: dscale is then an einsum's column sum)."""
+    if g is not None and not _aligned(g):
+        return "block"
+    return rms_norm_body(x, scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _rms_norm_partials(device: int, n: int, d: int, x_code: int,
+                       s_code: int) -> int:
+    """Rows of the warp body's f32 workspace (its grid) on ``device``."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    with torch.cuda.device(device):
+        return library().ttd_rms_norm_bwd_partials(n, d, x_code, s_code)
+
+
 def rms_norm_backward(x2: torch.Tensor, scale: torch.Tensor,
-                      r: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K1b on CUDA [N, D] rows: ``dx`` in x's dtype from the forward's
-    ``r`` [N] f32 and the output cotangent ``g`` (x's dtype, contiguous)."""
+                      r: torch.Tensor, g: torch.Tensor, *,
+                      with_ds: bool = True, body: Optional[str] = None):
+    """K1b on CUDA [N, D] rows: (dx, ds) from the forward's ``r`` [N] f32
+    and the output cotangent ``g`` (x's dtype, contiguous); dx in x's
+    dtype, ds [D] in the scale's dtype (None without ``with_ds``).
+    ``body`` None takes the library's choice (``rms_norm_bwd_body``);
+    "block" or "warp" forces one (to time the two side by side), and a
+    forced body that cannot run on these rows raises."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     n, d = x2.shape
+    chosen = body or rms_norm_bwd_body(x2, scale, g)
     dx = torch.empty_like(x2)
+    ds = partial = None
+    if chosen == "warp" and with_ds:
+        parts = _rms_norm_partials(x2.device.index, n, d,
+                                   _DTYPE_CODES[x2.dtype],
+                                   _DTYPE_CODES[scale.dtype])
+        if parts <= 0:
+            raise ValueError(f"rms_norm_bwd: the warp body does not run on "
+                             f"[{n}, {d}] {x2.dtype} rows")
+        partial = torch.empty(parts * d, dtype=torch.float32,
+                              device=x2.device)
+        ds = torch.empty(d, dtype=scale.dtype, device=x2.device)
     rc = library().ttd_rms_norm_bwd(
         x2.data_ptr(), scale.data_ptr(), r.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), n, d, _DTYPE_CODES[x2.dtype],
-        _DTYPE_CODES[scale.dtype], _stream())
+        dx.data_ptr(), None if ds is None else ds.data_ptr(),
+        None if partial is None else partial.data_ptr(), n, d,
+        _DTYPE_CODES[x2.dtype], _DTYPE_CODES[scale.dtype],
+        RMS_NORM_BODIES.index(chosen), _stream())
+    if rc and body is not None:
+        raise ValueError(f"rms_norm_bwd: the {body} body does not run on "
+                         f"these rows (cudaError {rc})")
     _raise_on("rms_norm_bwd", rc)
     LAUNCHES["rms_norm_bwd"] += 1
-    return dx
+    if chosen == "block" and with_ds:   # the JAX function's einsum
+        ds = torch.einsum("nd,nd->d", g.float(),
+                          x2.float() * r[:, None]).to(scale.dtype)
+    return dx, ds
 
 
 class _RmsNormFn(torch.autograd.Function):
-    """K1f forward saving r, K1b backward; ``dscale`` is the plain column
-    reduction the JAX backward leaves outside its kernel, returned in the
-    scale's dtype (``_rms_norm_pallas_bwd``)."""
+    """K1f forward saving r, K1b backward: dx and, where the scale needs
+    a gradient, dscale in the scale's dtype (``_rms_norm_pallas_bwd``)."""
 
     @staticmethod
     def forward(ctx, x2, scale, epsilon):
@@ -177,10 +242,8 @@ class _RmsNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, scale, r = ctx.saved_tensors
-        g = g.to(x2.dtype).contiguous()
-        dx = rms_norm_backward(x2, scale, r, g)
-        ds = torch.einsum("nd,nd->d", g.float(),
-                          x2.float() * r[:, None]).to(scale.dtype)
+        dx, ds = rms_norm_backward(x2, scale, r, g.to(x2.dtype).contiguous(),
+                                   with_ds=ctx.needs_input_grad[1])
         return dx, ds, None
 
 
@@ -634,9 +697,31 @@ def paged_kv_gather_reference(pool: torch.Tensor, table: torch.Tensor,
     return blocks.reshape(table.shape[0], -1, kvh, hd)[:, :cache_len]
 
 
+PAGED_KV_GATHER_BODIES = ("block", "bulk")   # csrc/paged_kv_gather.cu
+
+
+def paged_kv_gather_body(pool: torch.Tensor) -> str:
+    """The body that serves K5 for ``pool`` [nb, bs, kvh, hd], as the
+    library chooses it: "bulk" (TMA bulk copies of 8 KiB chunks over the
+    whole card) where a row is whole 16-byte vectors and the pool is
+    16-byte aligned, else "block" (a block per logical block).  The
+    wrapper's output is a fresh, aligned allocation."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    row_bytes = pool.shape[-2] * pool.shape[-1] * pool.element_size()
+    code = library().ttd_paged_kv_gather_body(row_bytes,
+                                              int(_aligned(pool)))
+    return PAGED_KV_GATHER_BODIES[code]
+
+
 def paged_kv_gather(pool: torch.Tensor, table: torch.Tensor,
-                    cache_len: int) -> torch.Tensor:
-    """Block-table gather, bit-identical to the reference (a copy)."""
+                    cache_len: int, *,
+                    body: Optional[str] = None) -> torch.Tensor:
+    """Block-table gather, bit-identical to the reference (a copy).  On
+    CUDA tensors ``body`` None takes the library's choice
+    (``paged_kv_gather_body``); "block" or "bulk" forces one (to time
+    the two side by side), and a forced body that cannot run on this pool
+    raises."""
     if _on_cpu("paged_kv_gather", pool, table):
         return paged_kv_gather_reference(pool, table, cache_len)
     from tensorflow_train_distributed_torch.ops.cuda_build import library
@@ -656,7 +741,12 @@ def paged_kv_gather(pool: torch.Tensor, table: torch.Tensor,
         return out
     rc = library().ttd_paged_kv_gather(
         pool.data_ptr(), table.data_ptr(), out.data_ptr(), lanes, n_blk,
-        nb, bs, kvh * hd * pool.element_size(), c, _stream())
+        nb, bs, kvh * hd * pool.element_size(), c,
+        -1 if body is None else PAGED_KV_GATHER_BODIES.index(body),
+        _stream())
+    if rc and body is not None:
+        raise ValueError(f"paged_kv_gather: the {body} body does not run on "
+                         f"this pool (cudaError {rc})")
     _raise_on("paged_kv_gather", rc)
     LAUNCHES["paged_kv_gather"] += 1
     return out

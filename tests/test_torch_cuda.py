@@ -9,7 +9,11 @@ card's machine does not have; this file imports only the port.)
 
 Tolerances: gathers bitwise; f32 RMSNorm 1e-5 (rsqrtf against torch's
 rsqrt, other summation order), bf16 one bf16 step, r within 1e-6 of the
-f32 value; f32 paged attention 2e-5 (online softmax against one
+f32 value; K1b's dx within 1e-5 of the f32 value and of its two terms
+(the row mean of g s x counted in absolute values: its terms may cancel)
+plus one bf16 step in bf16, its dscale within 1e-5 of
+sum_rows |g x r| (an f32 column sum in another order) plus one bf16
+step for a bf16 scale; f32 paged attention 2e-5 (online softmax against one
 softmax); bf16 queries 3e-2 against the plain version (it rounds logits
 and weights to bf16, the kernel keeps f32), and K4's ring body within
 2^-8 |ref32| + 2e-5 of the f32 math on the pools as it reads them (one
@@ -378,6 +382,66 @@ def test_paged_kv_gather_kernel_bitwise(gen, shape, dtype):
         assert torch.equal(got, K.paged_kv_gather_reference(pool, table, c))
 
 
+def _gather_ref(pool, table, c):
+    """The reference on the clamped table (the kernels clamp a physical id
+    into the pool; the reference would index past it)."""
+    return K.paged_kv_gather_reference(pool, table.clamp(0, pool.shape[0] - 1),
+                                       c)
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("shape,dtype", [
+    ((129, 16, 32, 128), torch.bfloat16),    # Llama-2-7B's pool rows
+    ((129, 16, 32, 1), torch.float32),       # the int8 engine's scale pool
+    ((129, 16, 8, 64), torch.int8),
+    ((40, 4, 2, 8), torch.float32)])
+def test_paged_kv_gather_bodies_bitwise(gen, lanes, shape, dtype):
+    """Both bodies on an aligned pool of whole 16-byte rows (the
+    library's choice first) are bitwise equal to the reference: whole
+    tables, cache_len off the block size, one row."""
+    nb, bs = shape[0], shape[1]
+    pool = _randn(gen, *shape).mul(40).to(dtype)
+    n_blk = 16
+    table = torch.randint(1, nb, (lanes, n_blk), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    assert K.paged_kv_gather_body(pool) != "block"
+    for body in (None,) + K.PAGED_KV_GATHER_BODIES:
+        for c in (n_blk * bs, n_blk * bs - 3, bs + 1, 1):
+            got = K.paged_kv_gather(pool, table, c, body=body)
+            assert torch.equal(got, _gather_ref(pool, table, c)), (body, c)
+
+
+def test_paged_kv_gather_clamps_repeated_and_out_of_range_ids(gen):
+    pool = _randn(gen, 20, 16, 4, 32).to(torch.bfloat16)
+    table = torch.tensor([[3, 3, -5, 19, 20, 400, 0, 3],
+                          [7, -1, 2, 2, 2, 55, 19, 1]], dtype=torch.int32,
+                         device="cuda")
+    for body in K.PAGED_KV_GATHER_BODIES:
+        for c in (128, 77):
+            got = K.paged_kv_gather(pool, table, c, body=body)
+            assert torch.equal(got, _gather_ref(pool, table, c)), (body, c)
+
+
+def test_paged_kv_gather_odd_rows_and_misaligned_views_take_the_block_body(
+        gen):
+    """Rows that are not whole 16-byte vectors (int8 kvh*hd 35, f32 rows
+    of 3 values) and a pool view at an odd offset take the block body,
+    bitwise; forcing the bulk body on them raises."""
+    table = torch.randint(0, 7, (3, 4), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    odd = _randn(gen, 7, 3, 5, 7).mul(40).to(torch.int8)
+    f3 = _randn(gen, 7, 3, 3, 1)
+    flat = _randn(gen, 7 * 3 * 4 * 8 + 1)
+    view = flat[1:].view(7, 3, 4, 8)
+    for pool in (odd, f3, view):
+        assert pool.is_contiguous()
+        assert K.paged_kv_gather_body(pool) == "block"
+        assert torch.equal(K.paged_kv_gather(pool, table, 10),
+                           _gather_ref(pool, table, 10))
+        with pytest.raises(ValueError, match="body"):
+            K.paged_kv_gather(pool, table, 10, body="bulk")
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     x = _randn(gen, 4, 8)
     with pytest.raises(ValueError, match="contiguous"):
@@ -429,8 +493,9 @@ def _grads(fn, inputs, cotangent):
     (1, 4096, torch.float32), (513, 1000, torch.bfloat16)])
 def test_rms_norm_autograd_matches_plain(gen, rows, d, dtype):
     """K1f with r and K1b through the autograd Function against autograd
-    of the plain version: dx from the kernel, dscale from the shared
-    column reduction, in the scale's dtype."""
+    of the plain version: dx from the kernel, dscale from the kernel (the
+    warp body) or the column sum (the block body), in the scale's
+    dtype."""
     x = _randn(gen, rows, d, dtype=dtype)
     s = (1 + 0.1 * _randn(gen, d)).to(dtype)
     g = _randn(gen, rows, d, dtype=dtype)
@@ -448,6 +513,100 @@ def test_rms_norm_autograd_matches_plain(gen, rows, d, dtype):
     # dscale sums over every row: 1e-4 of the column sums in f32.
     torch.testing.assert_close(ds.float(), ds_ref.float(),
                                rtol=max(tol, 1e-4), atol=max(tol, 1e-4))
+
+
+def _rms_bwd_inputs(gen, rows, d, x_dtype, s_dtype):
+    x = (3 * _randn(gen, rows, d)).to(x_dtype)
+    s = (1 + 0.1 * _randn(gen, d)).to(s_dtype)
+    g = _randn(gen, rows, d).to(x_dtype)
+    _, r = K.rms_norm_forward(x, s, 1e-5, with_r=True)
+    return x, s, r, g
+
+
+def _rms_bwd_checks(x, s, r, g, dx, ds):
+    """dx and ds against ``rms_norm_backward_reference`` on the same r.
+    dx: 1e-5 of the f32 value and of the two terms of r g s - x r^3 c,
+    with c = mean(g s x) counted as mean |g s x| (a row sum in another
+    order, whose terms may cancel), plus one bf16 step of the value in
+    bf16.  ds: 1e-5 of sum_rows |g x r| (an f32 column sum in another
+    order), plus one bf16 step in bf16."""
+    dx_ref, ds_ref = K.rms_norm_backward_reference(x, s, r, g)
+    x32, g32, s32, r32 = x.float(), g.float(), s.float(), r[:, None]
+    dx32 = K.rms_norm_backward_reference(x32, s32, r, g32)[0]
+    c_mass = (g32 * s32 * x32).abs().mean(-1, keepdim=True)
+    terms = (r32 * g32 * s32).abs() + (x32 * r32 ** 3).abs() * c_mass
+    step = 2 ** -7 if x.dtype == torch.bfloat16 else 0.0
+    assert dx.dtype == x.dtype and ds.dtype == s.dtype
+    assert ((dx.float() - dx32).abs()
+            <= step * dx32.abs() + 1e-5 * (dx32.abs() + terms)).all()
+    assert ((dx.float() - dx_ref.float()).abs()
+            <= (dx_ref.float() - dx32).abs() + step * dx32.abs()
+            + 1e-5 * (dx32.abs() + terms)).all()
+    ds32 = torch.einsum("nd,nd->d", g32, x32 * r32)
+    mass = torch.einsum("nd,nd->d", g32.abs(), (x32 * r32).abs())
+    sstep = 2 ** -7 if s.dtype == torch.bfloat16 else 0.0
+    assert ((ds.float() - ds32).abs()
+            <= sstep * ds32.abs() + 1e-5 * mass).all()
+    assert ((ds.float() - ds_ref.float()).abs()
+            <= sstep * ds32.abs() + 1e-5 * mass).all()
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64, 300, 16384])
+@pytest.mark.parametrize("d", [768, 4096])
+@pytest.mark.parametrize("x_dtype,s_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_rms_norm_backward_kernel(gen, rows, d, x_dtype, s_dtype):
+    """K1b's dx and ds from the kernel (the warp body from 64 rows, d 768
+    with the sums in registers and 4096 in shared memory; f32 rows of 4096
+    read x and g again for the write) against the plain version."""
+    x, s, r, g = _rms_bwd_inputs(gen, rows, d, x_dtype, s_dtype)
+    body = K.rms_norm_bwd_body(x, s, g)
+    assert body == ("warp" if rows >= 64 else "block")
+    before = K.launch_counts()["rms_norm_bwd"]
+    dx, ds = K.rms_norm_backward(x, s, r, g)
+    assert K.launch_counts()["rms_norm_bwd"] == before + 1
+    _rms_bwd_checks(x, s, r, g, dx, ds)
+
+
+@pytest.mark.parametrize("d,x_dtype", [(768, torch.bfloat16),
+                                       (4096, torch.bfloat16),
+                                       (4096, torch.float32)])
+def test_rms_norm_backward_is_repeatable_and_ds_optional(gen, d, x_dtype):
+    """The warp body's dx and ds are bitwise repeatable (no atomics), and
+    with no ds it writes the same dx."""
+    x, s, r, g = _rms_bwd_inputs(gen, 5000, d, x_dtype, torch.bfloat16)
+    dx, ds = K.rms_norm_backward(x, s, r, g)
+    dx2, ds2 = K.rms_norm_backward(x, s, r, g)
+    dx3, none = K.rms_norm_backward(x, s, r, g, with_ds=False)
+    assert none is None
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    assert torch.equal(dx, dx3)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_backward_body_choice(gen, x_dtype):
+    """d 1000 and a view at an odd offset take the block body (dscale
+    from the column sum); both bodies forced on the same rows agree; a
+    forced warp body raises where it does not apply."""
+    x, s, r, g = _rms_bwd_inputs(gen, 300, 1000, x_dtype, x_dtype)
+    assert K.rms_norm_bwd_body(x, s, g) == "block"
+    _rms_bwd_checks(x, s, r, g, *K.rms_norm_backward(x, s, r, g))
+    with pytest.raises(ValueError, match="body"):
+        K.rms_norm_backward(x, s, r, g, body="warp")
+    flat = _randn(gen, 300 * 768 + 1, dtype=x_dtype)
+    view = flat[1:].view(300, 768)
+    s = (1 + 0.1 * _randn(gen, 768)).to(x_dtype)
+    g = _randn(gen, 300, 768, dtype=x_dtype)
+    _, r = K.rms_norm_forward(view, s, 1e-5, with_r=True)
+    assert view.is_contiguous() and K.rms_norm_bwd_body(view, s, g) == "block"
+    _rms_bwd_checks(view, s, r, g, *K.rms_norm_backward(view, s, r, g))
+    with pytest.raises(ValueError, match="body"):
+        K.rms_norm_backward(view, s, r, g, body="warp")
+    x, s, r, g = _rms_bwd_inputs(gen, 300, 768, x_dtype, x_dtype)
+    for body in ("warp", "block"):
+        _rms_bwd_checks(x, s, r, g, *K.rms_norm_backward(x, s, r, g,
+                                                         body=body))
 
 
 @pytest.mark.parametrize("n,v,dtype", [

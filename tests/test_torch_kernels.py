@@ -216,16 +216,26 @@ def test_paged_attention_chunk_edges_match_pallas(chunk_edge_lanes, lane):
 # -- paged KV gather ----------------------------------------------------------
 
 
-@pytest.mark.parametrize("cache_len", [16, 14, 9, 1])
-def test_paged_kv_gather_bitwise(cache_len):
+# (lanes, blocks a lane, block size, cache_len); "engine": the serving
+# engine's radix-hit gather, one lane's table of distinct blocks (block 0
+# is its scratch block) at cache_len = blocks x block size.
+@pytest.mark.parametrize("lanes,n_blk,bs,cache_len", [
+    pytest.param(3, 4, 4, 16, id="16"), pytest.param(3, 4, 4, 14, id="14"),
+    pytest.param(3, 4, 4, 9, id="9"), pytest.param(3, 4, 4, 1, id="1"),
+    pytest.param(1, 8, 16, 128, id="engine")])
+def test_paged_kv_gather_bitwise(lanes, n_blk, bs, cache_len):
     rng = np.random.default_rng(0)
-    pool = rng.normal(size=(9, 4, 2, 8)).astype(np.float32)
-    table = rng.integers(0, 9, (3, 4)).astype(np.int32)
+    nb = 9 if lanes > 1 else 1 + 2 * n_blk
+    pool = rng.normal(size=(nb, bs, 2, 8)).astype(np.float32)
+    if lanes > 1:
+        table = rng.integers(0, nb, (lanes, n_blk)).astype(np.int32)
+    else:
+        table = (1 + rng.permutation(nb - 1)[:n_blk])[None].astype(np.int32)
     want = np.asarray(pk.paged_kv_gather(pool, table, cache_len,
                                          interpret=True))
     got = K.paged_kv_gather(torch.from_numpy(pool), torch.from_numpy(table),
                             cache_len)
-    assert got.shape == (3, cache_len, 2, 8)
+    assert got.shape == (lanes, cache_len, 2, 8)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

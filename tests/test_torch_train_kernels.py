@@ -93,6 +93,37 @@ def test_rms_norm_bf16_scale_grad_keeps_the_scale_dtype():
     assert s.grad.dtype == torch.bfloat16 and x.grad.dtype == torch.float32
 
 
+@pytest.mark.parametrize("shape,bf16_scale", [
+    ((6, 256), False), ((300, 128), False), ((2, 9, 64), False),
+    ((300, 128), True)])
+def test_rms_norm_backward_reference_matches_pallas(shape, bf16_scale):
+    """K1b's plain (dx, ds), the oracle of the card's kernel, against the
+    JAX ``_rms_norm_pallas_bwd`` (the interpret-mode Pallas dx and the
+    einsum ds) through ``jax.vjp``; a bf16 scale gives ds in bf16."""
+    x = _rand(shape)
+    s = 1.0 + 0.1 * _rand(shape[-1:], seed=1)
+    g = _rand(shape, seed=2)
+    ts = _t(s)
+    sj = s
+    if bf16_scale:
+        ts = ts.to(torch.bfloat16)
+        sj = jnp.asarray(s, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda x, s: pk.rms_norm(x, s, use_pallas=True,
+                                              interpret=True), x, sj)
+    want_dx, want_ds = vjp(jnp.asarray(g))
+    tx = _t(x)
+    r = torch.rsqrt(tx.square().mean(-1) + 1e-5)
+    dx, ds = K.rms_norm_backward_reference(tx, ts, r, _t(g))
+    assert dx.shape == tx.shape and dx.dtype == torch.float32
+    assert ds.shape == ts.shape and ds.dtype == ts.dtype
+    # dx sums g*s*x over a row, dscale over all rows: 1e-5.
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(ds.float().numpy(),
+                               np.asarray(want_ds, np.float32), rtol=1e-5,
+                               atol=1e-5)
+
+
 # -- K3f, K3b: fused cross-entropy --------------------------------------------
 
 
