@@ -1201,8 +1201,8 @@ def _profile_train_step(trainer, state, batches):
         # K7 is K2's kernels with BAND = true (the di pass has no band and
         # counts as flash_attention_bwd).
         band = "true>" in low or "lb1ee" in low
-        kind = ("tgmm" if "tgmm_kernel" in low
-                else "gmm" if "gmm_kernel" in low
+        kind = ("tgmm" if "ttd_grouped" in low and "tgmm_" in low
+                else "gmm" if "ttd_grouped" in low
                 else ("splash_attention_bwd" if band
                       else "flash_attention_bwd") if "flash_bwd" in low
                 else ("splash_attention" if band
@@ -1468,7 +1468,7 @@ def _library_ms(fn, **timing):
 
 
 def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
-              timed=True) -> dict:
+              timed=True, old_body=False, want_body=None) -> dict:
     """One grouped matmul as the MoE step runs it, for a forward product
     of width k -> n over ``sizes`` (``near``: where ``F.grouped_mm``
     cannot compute the function itself, its nearest call, timed as a
@@ -1487,7 +1487,15 @@ def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
     enough to catch a wrong kernel: the plain result with 32 of one
     group's summed products left out, and, for the f32-math products, the
     kernel run with the cotangent rounded to bf16 (the tensor-core
-    path).  Each must fall outside the bound."""
+    path).  Each must fall outside the bound.
+
+    The bound of the f32 products is that of the route the "wgmma" body
+    takes: three bf16 tensor-core products (the f32 operand split
+    exactly into three bf16 terms), 3 x 2mkn at 989 TFLOP/s, or the
+    bytes; the FMA route's 2mkn at 67 TFLOP/s is logged beside it.
+    ``old_body``: also time, forced, the older body these operands took
+    before the "wgmma" body ("mma.sync" for bf16 x bf16, "FMA" for the
+    f32 products).  ``want_body``: the body the library must choose."""
     import torch
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
@@ -1506,7 +1514,9 @@ def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
         w = randn(e, k, n)
     if kind == "fwd":
         a, depth, out_dtype = randn(m, k), k, torch.float32
-        run = lambda: K.gmm_forward(a, w, sizes, out_dtype, False)
+        run = lambda b=None: K.gmm_forward(a, w, sizes, out_dtype, False,
+                                           body=b)
+        body = K.gmm_body(a, w, False)
         plain = lambda aa, ww, dt: K.gmm_reference(
             aa, ww, sizes, preferred_element_type=dt)
         lib = lambda: F.grouped_mm(a, w, offs=offs, out_dtype=out_dtype)
@@ -1516,7 +1526,9 @@ def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
         bf16_control = None
     elif kind == "grad_lhs":
         a, depth, out_dtype = randn(m, n, dtype=torch.float32), n, bf
-        run = lambda: K.gmm_forward(a, w, sizes, out_dtype, True)
+        run = lambda b=None: K.gmm_forward(a, w, sizes, out_dtype, True,
+                                           body=b)
+        body = K.gmm_body(a, w, True)
         plain = lambda aa, ww, dt: K.gmm_reference(
             aa, ww, sizes, preferred_element_type=dt, transpose_rhs=True)
         lib = lambda: F.grouped_mm(a, w.transpose(1, 2), offs=offs,
@@ -1529,13 +1541,17 @@ def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
         a, out_dtype = x, bf
         depth = torch.tensor([end - start for _, start, end in spans],
                              dtype=torch.float32, device="cuda")[:, None, None]
-        run = lambda: K.tgmm_forward(x, w, sizes, out_dtype)
+        run = lambda b=None: K.tgmm_forward(x, w, sizes, out_dtype, body=b)
+        body = K.tgmm_body(x, w)
         plain = lambda aa, ww, dt: K.tgmm_reference(
             aa.t(), ww, sizes, preferred_element_type=dt)
         lib = lambda: F.grouped_mm(x.t(), w, offs=offs, out_dtype=out_dtype)
         operands, flops = (x, w), 2 * m * k * n
         bf16_control = lambda: K.tgmm_forward(x, w.to(bf), sizes, bf)
     tensor_cores = all(t.dtype == bf for t in operands)
+    if want_body is not None and body != want_body:
+        raise AssertionError(f"{kind} {label}: body {body}, expected "
+                             f"{want_body}")
     got = run()
     ref32 = plain(*operands, torch.float32)
     sumsq32 = plain(*(t.float() ** 2 for t in operands), torch.float32)
@@ -1572,18 +1588,25 @@ def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
     del controls, sumsq32, ref32, allowed
     nbytes = (sum(t.numel() * t.element_size() for t in operands)
               + got.numel() * got.element_size() + 4 * e)
-    bnd = bound(nbytes, flops, PEAK_BF16_FLOPS if tensor_cores
-                else PEAK_F32_FLOPS)
+    # The split route: three bf16 products for an f32 operand.
+    bnd = bound(nbytes, flops * (1 if tensor_cores else 3), PEAK_BF16_FLOPS)
+    fma_bnd = None if tensor_cores else bound(nbytes, flops, PEAK_F32_FLOPS)
     shape = (f"{label}: m {m}, {k} -> {n}, E {e}, "
              f"{' x '.join(str(t.dtype)[6:] for t in operands)} -> "
              f"{str(out_dtype)[6:]}")
-    row = dict(case=label, kind=kind, shape=shape, max_abs_err=err,
-               ms=None, plain_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+    old = "mma.sync" if tensor_cores else "FMA"
+    row = dict(case=label, kind=kind, shape=shape, body=body,
+               max_abs_err=err, ms=None, plain_ms=None, bound_ms=bnd[0],
+               bound_by=bnd[1],
+               fma_bound_ms=None if fma_bnd is None else fma_bnd[0],
                library_ms=None, near_library_ms=None,
+               old_body=old if old_body else None, old_body_ms=None,
                control_worst_ratio=ratios)
     if timed:
         timing = timing or {}
         row.update(ms=device_ms(run, **timing),
+                   old_body_ms=(device_ms(lambda: run(old), **timing)
+                                if old_body else None),
                    plain_ms=device_ms(lambda: plain(*operands, out_dtype),
                                       **timing),
                    library_ms=_library_ms(lib, **timing))
@@ -1594,10 +1617,15 @@ def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
         if row["near_library_ms"] is not None:
             lib_txt += (f"; with a bf16 output "
                         f"{row['near_library_ms'] * 1e3:.1f} us")
-        log(f"  {kind} {shape}: kernel {row['ms'] * 1e3:.1f} us "
-            f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), bound "
-            f"{bnd[0] * 1e3:.1f} us ({bnd[1]}), plain "
-            f"{row['plain_ms'] * 1e3:.1f} us, F.grouped_mm {lib_txt}")
+        old_txt = (f", {old} body {row['old_body_ms'] * 1e3:.1f} us"
+                   if old_body else "")
+        fma_txt = ("" if fma_bnd is None else
+                   f"; the FMA route's bound {fma_bnd[0] * 1e3:.1f} us")
+        log(f"  {kind} {shape}: {body} body {row['ms'] * 1e3:.1f} us "
+            f"({flops / row['ms'] / 1e9:.1f} TFLOP/s){old_txt}, bound "
+            f"{bnd[0] * 1e3:.1f} us ({bnd[1]}"
+            f"{'' if tensor_cores else ', three bf16 products'}{fma_txt}), "
+            f"plain {row['plain_ms'] * 1e3:.1f} us, F.grouped_mm {lib_txt}")
     del got, ref
     torch.cuda.empty_cache()
     return row
@@ -1616,19 +1644,22 @@ def phase_moe_kernels() -> tuple:
     for kind in ("fwd", "grad_lhs", "tgmm"):
         for k, n in ((768, 2048), (2048, 768)):
             cases.append(_gmm_case(gen, f"moe_370m {k}->{n}", kind, 16384,
-                                   k, n, sizes))
+                                   k, n, sizes, old_body=True,
+                                   want_body="wgmma"))
     # Mixtral-8x7B: 4096 tokens x top-2 of 8, 4096 -> 14336 (962 GFLOP a
     # call: few timed launches).
     sizes = _routed_sizes(gen, 4096, 4096, 8, 2)
     for kind in ("fwd", "grad_lhs", "tgmm"):
         cases.append(_gmm_case(gen, "mixtral_8x7b", kind, 8192, 4096, 14336,
                                sizes, timing=dict(launches=2, repeats=3,
-                                                  warmup=1)))
+                                                  warmup=1),
+                               want_body="wgmma"))
     # Qwen1.5-MoE-A2.7B: 2048 tokens x top-4 of 60, 2048 -> 1408.
     sizes = _routed_sizes(gen, 2048, 2048, 60, 4)
     for kind in ("fwd", "grad_lhs", "tgmm"):
         cases.append(_gmm_case(gen, "qwen15_moe_a27b", kind, 8192, 2048,
-                               1408, sizes, timing=dict(launches=10)))
+                               1408, sizes, timing=dict(launches=10),
+                               want_body="wgmma"))
     # Edge cases: empty and ragged groups, k and n off the tiles, rows
     # past the sizes' sum (the kernel writes zeros there).
     for sizes_l, k, n in (([0, 37, 0, 200, 40], 72, 100),

@@ -1,9 +1,15 @@
-// Hopper (sm_90a) building blocks of the attention kernels: mbarriers,
-// cp.async copies in commit groups (paged attention's ring), TMA tile
-// loads through a tensor map, bulk copies between global and shared
-// memory (the paged KV gather's ring), wgmma over 128-byte-swizzled
-// shared-memory tiles, register rebalancing between warpgroups, and the
-// host-side encoding of a tensor map for a strided [B, H, S, D] operand.
+// Hopper (sm_90a) building blocks of the attention kernels and the
+// grouped matmuls: mbarriers, cp.async copies in commit groups (paged
+// attention's ring), TMA tile loads through a tensor map, bulk copies
+// between global and shared memory (the paged KV gather's ring), wgmma
+// over 128-byte-swizzled shared-memory tiles, register rebalancing
+// between warpgroups, and the host-side encoding of tensor maps for a
+// strided [B, H, S, D] operand and for a row-major [rows, cols] one.
+//
+// An f32 tile (the grouped matmuls' f32 operand) sits as TMA writes it
+// with the same swizzle: panels of 32 columns (128 bytes), the 16-byte
+// chunk c of row r at chunk c ^ (r % 8); it is read by threads, not by
+// wgmma.
 //
 // Tile layout.  A tile of R rows x D bf16 columns sits in shared memory
 // as TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B: D / 64 panels, one
@@ -131,6 +137,30 @@ __device__ __forceinline__ void tma_load_rows(bf16* dst, const CUtensorMap* map,
     for (int c = 0; c < R / 64; ++c)
       tma_load_4d(dst + (panel * R + c * 64) * 64, map, bar, panel * 64,
                   row0 + c * 64, h, b);
+}
+
+// One box of a rank-2 map (cols, rows) at (c0, c1), or of a rank-3 map
+// (cols, rows, batch) at (c0, c1, c2), into shared memory at ``dst``,
+// completing on ``bar`` (maps from ``make_map_rows``).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // ``bytes`` contiguous bytes (16-byte aligned, a multiple of 16) from
@@ -261,8 +291,10 @@ __device__ __forceinline__ void reg_fence(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// d[64, 64] (+)= A[64, 16] . B[64, 16]^T, A and B K-major in shared
-// memory (descriptors); ``accumulate`` = 0 overwrites d.
+// d[64, 64] (+)= A[64, 16] . B[16, 64], A and B in shared memory
+// (descriptors), K-major unless TA / TB set the operand's transpose bit
+// (MN-major); ``accumulate`` = 0 overwrites d.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
                                             uint64_t db, int accumulate) {
   asm volatile(
@@ -273,7 +305,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -282,12 +314,12 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB)
       : "memory");
 }
 
-// d[64, 128] (+)= A[64, 16] . B[128, 16]^T, A and B K-major in shared
-// memory (descriptors); ``accumulate`` = 0 overwrites d.
+// d[64, 128] (+)= A[64, 16] . B[16, 128], as wgmma_ss_n64.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
                                             uint64_t db, int accumulate) {
   asm volatile(
@@ -302,7 +334,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -319,14 +351,17 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB)
       : "memory");
 }
 
-// d[64, 64] += A[64, 16] . B[16, 64], A in registers (four bf16x2
-// fragments), B MN-major in shared memory (transpose bit set).
+// d[64, 64] (+)= A[64, 16] . B[16, 64], A in registers (four bf16x2
+// fragments, the layout of mma.sync m16n8k16's A), B in shared memory,
+// MN-major (TB = 1, the transpose bit set) or K-major; ``accumulate`` = 0
+// overwrites d.
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                            uint64_t db) {
+                                            uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -335,7 +370,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -344,14 +379,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TB)
       : "memory");
 }
 
-// d[64, 128] += A[64, 16] . B[16, 128], A in registers (four bf16x2
-// fragments), B MN-major in shared memory (transpose bit set).
+// d[64, 128] (+)= A[64, 16] . B[16, 128], as wgmma_rs_n64.
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                            uint64_t db) {
+                                            uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -364,7 +400,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -381,24 +417,27 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TB)
       : "memory");
 }
 
-template <int N>
+// Both forms at N 64 or 128; the defaults are the attention kernels'
+// (K-major A and B for wgmma_ss, MN-major B accumulating for wgmma_rs).
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int accumulate) {
   static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
-  else wgmma_ss_n128(d, da, db, accumulate);
+  if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, accumulate);
+  else wgmma_ss_n128<TA, TB>(d, da, db, accumulate);
 }
 
-template <int N>
+template <int N, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
+                                         uint64_t db, int accumulate = 1) {
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, accumulate);
+  else wgmma_rs_n128<TB>(d, a, db, accumulate);
 }
 
 // -- host: tensor maps ---------------------------------------------------------
@@ -449,6 +488,37 @@ inline bool make_map(CUtensorMap* map, const void* base, long long sb,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of a row-major [rows, cols] operand (rank 2: (cols, rows)) or,
+// when ``batches`` > 0, of [batches, rows, cols] (rank 3: (cols, rows,
+// batch)), of f32 or bf16
+// (``dtype``: ttd::DType), cols contiguous: boxes of ``box_cols`` x
+// ``box_rows`` (box_cols * element bytes <= 128), 128-byte swizzle;
+// elements past any edge read as zeros.  Needs a 16-byte aligned base
+// and a row of a multiple of 16 bytes.  Returns false where the driver
+// refuses it.
+inline bool make_map_rows(CUtensorMap* map, const void* base, int dtype,
+                          long long batches, long long rows, long long cols,
+                          int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || (dtype != ttd::kF32 && dtype != ttd::kBF16))
+    return false;
+  const int bytes = dtype == ttd::kF32 ? 4 : 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * bytes,
+                                 static_cast<cuuint64_t>(rows * cols) * bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, dtype == ttd::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                batches > 0 ? 3 : 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

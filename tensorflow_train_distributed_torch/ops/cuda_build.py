@@ -60,6 +60,10 @@ _SIGNATURES = {
     "ttd_paged_attention_chunk_rows": [],
     "ttd_gmm": [_VP] * 4 + [_I] * 8 + [_VP],
     "ttd_tgmm": [_VP] * 4 + [_I] * 7 + [_VP],
+    "ttd_gmm_as": [_VP] * 4 + [_I] * 9 + [_VP],
+    "ttd_tgmm_as": [_VP] * 4 + [_I] * 8 + [_VP],
+    "ttd_gmm_body": [_I] * 6,
+    "ttd_tgmm_body": [_I] * 6,
 }
 
 

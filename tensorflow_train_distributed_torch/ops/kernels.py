@@ -19,10 +19,11 @@ has two faces with one signature and layout (the JAX function's):
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
 kernels (``reset_launch_counts`` / ``launch_counts``).  K1f, K1b, K4 and
-K5 have two bodies each, one launch either way (K1b's warp body sums
-dscale's per-block rows in a second kernel of the same call);
-``rms_norm_body``, ``rms_norm_bwd_body``, ``paged_attention_body`` and
-``paged_kv_gather_body`` name the one the library picks for a call.
+K5 have two bodies each and K6 three, one launch either way (K1b's
+warp body sums dscale's per-block rows in a second kernel of the same
+call); ``rms_norm_body``, ``rms_norm_bwd_body``,
+``paged_attention_body``, ``paged_kv_gather_body``, ``gmm_body`` and
+``tgmm_body`` name the one the library picks for a call.
 """
 
 from __future__ import annotations
@@ -921,6 +922,51 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
 # ---------------------------------------------------------------------------
 
 GMM_DTYPES = (torch.float32, torch.bfloat16)
+GMM_BODIES = ("FMA", "mma.sync", "wgmma")   # csrc/grouped_matmul.cu Body
+
+
+def gmm_body(lhs: torch.Tensor, rhs: torch.Tensor,
+             transpose_rhs: bool = False) -> str:
+    """The body that serves K6 ``gmm`` for these operands, as the library
+    chooses it: "wgmma" (a bf16 rhs and a bf16 or f32 lhs that TMA can
+    load: 16-byte aligned, rows of a multiple of 16 bytes; an f32 lhs
+    runs as three bf16 terms), "mma.sync" (other bf16 x bf16) or "FMA"."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    k = lhs.shape[-1]
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[-1]
+    code = library().ttd_gmm_body(
+        k, n, int(transpose_rhs), _DTYPE_CODES.get(lhs.dtype, -1),
+        _DTYPE_CODES.get(rhs.dtype, -1), int(_aligned(lhs, rhs)))
+    return GMM_BODIES[code]
+
+
+def tgmm_body(lhs_mk: torch.Tensor, rhs: torch.Tensor) -> str:
+    """The body that serves K6 ``tgmm`` of ``lhs_mk`` [m, k] (read as its
+    transpose) and ``rhs`` [m, n], as ``gmm_body`` chooses: "wgmma" for a
+    bf16 lhs and a bf16 or f32 rhs that TMA can load."""
+    from tensorflow_train_distributed_torch.ops.cuda_build import library
+
+    (m, k), n = lhs_mk.shape, rhs.shape[-1]
+    code = library().ttd_tgmm_body(
+        m, k, n, _DTYPE_CODES.get(lhs_mk.dtype, -1),
+        _DTYPE_CODES.get(rhs.dtype, -1), int(_aligned(lhs_mk, rhs)))
+    return GMM_BODIES[code]
+
+
+def bf16_split3(t: torch.Tensor) -> tuple:
+    """The exact split the wgmma body makes of an f32 operand: (hi, mid,
+    lo) in bf16 with hi = bf16(t), mid = bf16(t - hi), lo = bf16(t - hi -
+    mid), each rounded to nearest; hi + mid + lo == t in f32 for normal
+    values (the two differences are exact in f32, and three 8-bit
+    significands carry f32's 24).  A plain helper for the tests: the main
+    path splits inside the kernel."""
+    t = t.float()
+    hi = t.to(torch.bfloat16)
+    r = t - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def _group_spans(group_sizes: torch.Tensor, rows: int):
@@ -987,7 +1033,10 @@ def gmm_tolerance(got: torch.Tensor, ref32: torch.Tensor,
 
     - f32 math (any f32 operand; FMAs, rounded to nearest): the rounding
       errors of both sums add up as a random walk, ~0.6·sqrt(depth),
-      allowed 16·sqrt(depth);
+      allowed 16·sqrt(depth).  The "wgmma" body's three-way bf16 split
+      of the f32 operand is held to this too: its products are exact,
+      and each 64-deep stage's truncated tensor-core sum is added to an
+      f32 total rounded to nearest;
     - tensor cores (bf16 x bf16): each 16-deep ``mma`` truncates its f32
       sum, an error that grows linearly with depth: depth/2 more.
 
@@ -1032,45 +1081,77 @@ def _gmm_checks(name: str, lhs, rhs, group_sizes, transpose_rhs: bool):
     return m, k, n
 
 
+def _gmm_body_code(name: str, auto: str, body: Optional[str],
+                   bf16s: bool) -> int:
+    """The body code to launch: ``auto`` (the library's choice) when
+    ``body`` is None; a forced body must be that choice, "FMA", or
+    "mma.sync" for bf16 x bf16 (to time the bodies side by side)."""
+    chosen = body or auto
+    if chosen not in (auto, "FMA") and not (chosen == "mma.sync" and bf16s):
+        raise ValueError(f"{name}: body {body!r} does not serve this call; "
+                         f"the library's choice is {auto!r}")
+    return GMM_BODIES.index(chosen)
+
+
 def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor,
                 group_sizes: torch.Tensor, out_dtype: torch.dtype,
-                transpose_rhs: bool) -> torch.Tensor:
+                transpose_rhs: bool, body: Optional[str] = None
+                ) -> torch.Tensor:
     """K6 ``gmm`` on CUDA tensors: [m, n] in ``out_dtype``.  The group
-    sizes stay on the device: the kernel's blocks read them."""
+    sizes stay on the device: the kernel's blocks read them.  ``body``
+    None takes the library's choice (``gmm_body``); see
+    ``_gmm_body_code`` for a forced one."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     m, k, n = _gmm_checks("gmm", lhs, rhs, group_sizes, transpose_rhs)
+    lib = library()
+    args = [lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), None,
+            m, k, n, rhs.shape[0], int(transpose_rhs),
+            _DTYPE_CODES[lhs.dtype], _DTYPE_CODES[rhs.dtype],
+            _DTYPE_CODES[out_dtype]]
+    launch = lib.ttd_gmm
+    if body is not None:
+        args.append(_gmm_body_code(
+            "gmm", gmm_body(lhs, rhs, transpose_rhs), body,
+            lhs.dtype == rhs.dtype == torch.bfloat16))
+        launch = lib.ttd_gmm_as
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
     if out.numel() == 0:
         return out
-    rc = library().ttd_gmm(
-        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), m, k, n, rhs.shape[0], int(transpose_rhs),
-        _DTYPE_CODES[lhs.dtype], _DTYPE_CODES[rhs.dtype],
-        _DTYPE_CODES[out_dtype], _stream())
+    args[3] = out.data_ptr()
+    rc = launch(*args, _stream())
     _raise_on("gmm", rc)
     LAUNCHES["gmm"] += 1
     return out
 
 
 def tgmm_forward(lhs_mk: torch.Tensor, rhs: torch.Tensor,
-                 group_sizes: torch.Tensor,
-                 out_dtype: torch.dtype) -> torch.Tensor:
+                 group_sizes: torch.Tensor, out_dtype: torch.dtype,
+                 body: Optional[str] = None) -> torch.Tensor:
     """K6 ``tgmm`` on CUDA tensors, reading ``lhs_mk`` [m, k] in place
     (megablox's [k, m] operand is its transpose): [E, k, n] in
-    ``out_dtype``, zero for an empty group."""
+    ``out_dtype``, zero for an empty group.  ``body`` as ``gmm_forward``
+    (the choice is ``tgmm_body``)."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     m, k, n = _gmm_checks("tgmm", lhs_mk, rhs, group_sizes, False)
+    lib = library()
     num_groups = group_sizes.shape[0]
+    args = [lhs_mk.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), None,
+            m, k, n, num_groups, _DTYPE_CODES[lhs_mk.dtype],
+            _DTYPE_CODES[rhs.dtype], _DTYPE_CODES[out_dtype]]
+    launch = lib.ttd_tgmm
+    if body is not None:
+        args.append(_gmm_body_code(
+            "tgmm", tgmm_body(lhs_mk, rhs), body,
+            lhs_mk.dtype == rhs.dtype == torch.bfloat16))
+        launch = lib.ttd_tgmm_as
     out = torch.empty((num_groups, k, n), dtype=out_dtype,
                       device=lhs_mk.device)
     if out.numel() == 0:
         return out
-    rc = library().ttd_tgmm(
-        lhs_mk.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), m, k, n, num_groups, _DTYPE_CODES[lhs_mk.dtype],
-        _DTYPE_CODES[rhs.dtype], _DTYPE_CODES[out_dtype], _stream())
+    args[3] = out.data_ptr()
+    rc = launch(*args, _stream())
     _raise_on("tgmm", rc)
     LAUNCHES["tgmm"] += 1
     return out

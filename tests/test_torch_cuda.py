@@ -927,6 +927,138 @@ def test_tgmm_kernel(gen, case, types):
             assert not got[i].any()          # an empty group writes zeros
 
 
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+def _k6(gen, kind, m, k, n, sizes, types, *, transpose=False, positive=False,
+        out_dtype=None):
+    """One K6 product as the MoE step runs it: ``kind`` "gmm" (lhs [m, k]
+    x rhs [E, k, n], or [E, n, k] with ``transpose``) or "tgmm" (x [m, k]
+    read transposed x rhs [m, n]), operands of ``types``, all positive
+    with ``positive`` (the worst case for the f32 products' rounding).
+    Returns (operands, run, body, plain f32 value, its squared-operand
+    twin, depth, check) where check(got) asserts ``K.gmm_tolerance``."""
+    lt, rt = types
+    e = len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+    def rnd(*shape, dtype):
+        t = _randn(gen, *shape)
+        return (t.abs() if positive else t).to(dtype)
+
+    if kind == "gmm":
+        a = rnd(m, k, dtype=lt)
+        b = rnd(*((e, n, k) if transpose else (e, k, n)), dtype=rt)
+        ot = out_dtype or (_F32 if lt == rt == _BF else _BF)
+        run = lambda: K.gmm_forward(a, b, gs, ot, transpose)
+        body = K.gmm_body(a, b, transpose)
+        plain = lambda x, y: K.gmm_reference(x, y, gs, transpose_rhs=transpose)
+        depth = k
+    else:
+        a, b = rnd(m, k, dtype=lt), rnd(m, n, dtype=rt)
+        ot = out_dtype or _BF
+        run = lambda: K.tgmm_forward(a, b, gs, ot)
+        body = K.tgmm_body(a, b)
+        plain = lambda x, y: K.tgmm_reference(x.t(), y, gs)
+        depth = _group_rows(sizes, m)
+    ref32 = plain(a, b)
+    sumsq32 = plain(a.float() ** 2, b.float() ** 2)
+
+    def check(got, select=lambda t: t):
+        allowed = K.gmm_tolerance(got, ref32, sumsq32, depth,
+                                  lt == rt == _BF)
+        got, want, allowed = (select(t) for t in (got, ref32, allowed))
+        assert bool(torch.isfinite(got).all())
+        err = (got.float() - want).abs()
+        assert bool((err <= allowed).all()), float(
+            (err / allowed.clamp_min(1e-30)).max())
+
+    return (a, b, gs), run, body, check
+
+
+_RAGGED = [1, 63, 65, 127, 129, 0]     # a boundary at every offset mod 64, 128
+
+
+@pytest.mark.parametrize("kind,types,k,transpose,want", [
+    ("gmm", (_BF, _BF), 768, False, "wgmma"),
+    ("gmm", (_BF, _BF), 768, True, "wgmma"),
+    ("gmm", (_F32, _BF), 768, True, "wgmma"),
+    ("gmm", (_F32, _BF), 768, False, "wgmma"),
+    ("gmm", (_BF, _BF), 36, False, "mma.sync"),
+    ("gmm", (_F32, _F32), 768, False, "FMA"),
+    ("gmm", (_BF, _F32), 768, False, "FMA"),
+    ("tgmm", (_BF, _F32), 768, False, "wgmma"),
+    ("tgmm", (_BF, _BF), 768, False, "wgmma"),
+    ("tgmm", (_BF, _BF), 36, False, "mma.sync"),
+    ("tgmm", (_F32, _F32), 768, False, "FMA"),
+])
+def test_gmm_bodies_chosen_by_the_operands(gen, kind, types, k, transpose,
+                                           want):
+    """The body each input reaches (``K.gmm_body`` / ``K.tgmm_body``):
+    "wgmma" where TMA takes the operands (bf16 x bf16, an f32 cotangent
+    against bf16), the older bodies elsewhere (bf16 rows of 72 bytes,
+    f32 x f32, a bf16 lhs against f32 in gmm); each within its bound,
+    over groups with a boundary at every offset mod 64 and 128."""
+    _, run, body, check = _k6(gen, kind, 448, k, 320, _RAGGED, types,
+                              transpose=transpose)
+    assert body == want
+    check(run())
+
+
+@pytest.mark.parametrize("kind,transpose", [("gmm", True), ("tgmm", False)])
+@pytest.mark.parametrize("out_dtype", [_F32, _BF])
+def test_gmm_f32_products_same_sign_at_depth_2048(gen, kind, transpose,
+                                                  out_dtype):
+    """grad_lhs and tgmm with every operand positive at depth 2048: the
+    worst case for the three-way split and for the tensor cores'
+    truncated running sums, held to the f32 rule of ``K.gmm_tolerance``
+    (an f32 output leaves no rounding slack)."""
+    if kind == "gmm":
+        args = (512, 256, 2048, [200, 312])
+    else:
+        args = (2048, 256, 256, [2048])
+    _, run, body, check = _k6(gen, kind, *args, (_BF, _F32) if kind == "tgmm"
+                              else (_F32, _BF), transpose=transpose,
+                              positive=True, out_dtype=out_dtype)
+    assert body == "wgmma"
+    check(run())
+
+
+@pytest.mark.parametrize("kind,types,transpose", [
+    ("gmm", (_BF, _BF), False), ("gmm", (_F32, _BF), True),
+    ("tgmm", (_BF, _F32), False), ("tgmm", (_BF, _BF), False)])
+def test_gmm_other_groups_nan_and_inf_stay_out(gen, kind, types, transpose):
+    """Rows of the other groups filled with Inf (lhs) and NaN (rhs or the
+    cotangent): the checked group's outputs stay finite and within their
+    bound (tgmm zeros the depth rows past its group on both operands
+    before the tensor cores read them: 0 x Inf would be NaN)."""
+    sizes, g = [63, 129, 65, 127], 1
+    (a, b, gs), run, _, check = _k6(gen, kind, 448, 192, 320, sizes, types,
+                                    transpose=transpose)
+    _, lo, hi = K._group_spans(gs, 448)[g]
+    outside = torch.ones(448, dtype=torch.bool, device="cuda")
+    outside[lo:hi] = False
+    a[outside] = float("inf")
+    if kind == "tgmm":
+        b[outside] = float("nan")
+    else:
+        b[torch.arange(len(sizes), device="cuda") != g] = float("nan")
+    # check() holds the result to the plain values of the clean operands.
+    check(run(), lambda t: t[lo:hi] if kind == "gmm" else t[g])
+
+
+@pytest.mark.parametrize("kind,types,transpose", [
+    ("gmm", (_BF, _BF), False), ("gmm", (_F32, _BF), True),
+    ("tgmm", (_BF, _F32), False)])
+def test_gmm_wgmma_is_bitwise_repeatable(gen, kind, types, transpose):
+    """Two launches on the same inputs give the same bits: no atomics,
+    a fixed order of every sum."""
+    _, run, body, _ = _k6(gen, kind, 1024, 768, 512, [300, 0, 277, 447],
+                          types, transpose=transpose)
+    assert body == "wgmma"
+    assert torch.equal(run(), run())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_gmm_fn_matches_autograd_of_the_plain_version(gen, dtype, transpose):

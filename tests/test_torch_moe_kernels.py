@@ -237,3 +237,73 @@ def test_gmm_tolerance_accepts_f32_math_and_rejects_shortcuts(kind, variant):
     allowed = K.gmm_tolerance(got, ref32, sumsq32, depth, False)
     inside = bool(((got.float() - ref32).abs() <= allowed).all())
     assert inside == (variant == "other_f32_order")
+
+
+@pytest.mark.parametrize("values", ["normal_range", "zeros_and_signs"])
+def test_bf16_split3_reconstructs_f32_exactly(values):
+    """The wgmma body's split of an f32 operand into three bf16 terms
+    (``K.bf16_split3``, the kernel's arithmetic in plain PyTorch): hi +
+    mid + lo equals the value bit for bit, and each term is a bf16."""
+    rng = np.random.default_rng(31)
+    if values == "normal_range":
+        t = torch.from_numpy((rng.standard_normal(4096) * 2.0 ** rng.integers(
+            -100, 100, 4096)).astype(np.float32))
+    else:
+        t = torch.tensor([0.0, -0.0, 1.0, -1.0, 3.0, -2.0 ** -60, 2.0 ** 100,
+                          -(1 + 2.0 ** -23), 1 - 2.0 ** -24, 2.0 ** 127])
+    terms = K.bf16_split3(t)
+    assert all(x.dtype == torch.bfloat16 for x in terms)
+    hi, mid, lo = (x.float() for x in terms)
+    assert torch.equal((hi + mid) + lo, t)
+    assert torch.equal(torch.signbit(hi), torch.signbit(t))
+
+
+def _split_case(kind, seed=41):
+    """All-positive operands at depth 2048, the worst case for the split
+    and for the tensor core's truncation: grad_lhs (an f32 cotangent
+    [256, 2048] times bf16 rhs [2, 64, 2048] read transposed) or tgmm (bf16
+    x [2048, 64] against an f32 cotangent [2048, 64], one group).
+    Returns (f32 operand, product of an f32 operand, ref32, sumsq32,
+    depth)."""
+    rng = np.random.default_rng(seed)
+    if kind == "grad_lhs":
+        gs = torch.tensor([100, 156], dtype=torch.int32)
+        cot = _t(np.abs(_rand((256, 2048), seed)))
+        w = _t(np.abs(rng.standard_normal((2, 64, 2048))), torch.bfloat16)
+        prod = lambda c: K.gmm_reference(c, w, gs, transpose_rhs=True)
+        sumsq = K.gmm_reference(cot ** 2, w.float() ** 2, gs,
+                                transpose_rhs=True)
+        depth = 2048
+    else:
+        gs = torch.tensor([2048], dtype=torch.int32)
+        cot = _t(np.abs(_rand((2048, 64), seed)))
+        x = _t(np.abs(rng.standard_normal((2048, 64))), torch.bfloat16)
+        prod = lambda c: K.tgmm_reference(x.t(), c, gs)
+        sumsq = K.tgmm_reference(x.float().t() ** 2, cot ** 2, gs)
+        depth = torch.tensor([2048.0])[:, None, None]
+    return cot, prod, prod(cot), sumsq, depth
+
+
+@pytest.mark.parametrize("kind", ["grad_lhs", "tgmm"])
+@pytest.mark.parametrize("terms", [3, 1])
+def test_split_products_hold_the_f32_tolerance(kind, terms, record_property):
+    """The numeric argument of the wgmma body on the CPU: the product of
+    an f32 operand computed as the sum of the products of its three bf16
+    terms (each exact against a bf16 operand, summed in f32) stays within
+    ``K.gmm_tolerance(..., tensor_cores=False)``; with one term (phase
+    7's bf16-cotangent control) it does not.  How close two terms come
+    is recorded (``two_term_worst_ratio``: about 0.6 here, level with
+    the f32 sums' own rounding, because the dropped third terms have
+    random signs; were they all of one sign, two terms would miss the
+    bound by far).  Sums compared in f32."""
+    cot, prod, ref32, sumsq32, depth = _split_case(kind)
+    parts = [prod(p.float()) for p in K.bf16_split3(cot)]
+    # In f32: a bf16 output's half step would hide the sums' errors.
+    got = sum(parts[:terms])
+    allowed = K.gmm_tolerance(got, ref32, sumsq32, depth, False)
+    ratio = float(((got - ref32).abs() / allowed).max())
+    assert (ratio <= 1) == (terms == 3), ratio
+    if terms == 3:
+        two = parts[0] + parts[1]
+        two_ratio = float(((two - ref32).abs() / allowed).max())
+        record_property("two_term_worst_ratio", two_ratio)
