@@ -112,6 +112,24 @@
    512) on the card (K7) against the same steps on the CPU
    (``local_attention_chunked``).
 
+11. The launcher (``python -m tensorflow_train_distributed_torch``) on
+   llama_125m_lm at full width and depth, as subprocesses: (a) 12 steps
+   with a checkpoint every 4 (keep 2), the last 100 of SyntheticLM's
+   100,000 sequences held out and evaluated for 4 batches every 6 steps
+   and at the end, a JSON-lines log; (b) the same with the step-8 save
+   torn and a kill -9 at step 10 (``--fault-plan``), which must die by
+   SIGKILL; (c) the rerun as supervisor attempt 1, which must quarantine
+   ``corrupt/8``, restore step 4, take the data up mid-epoch and end with
+   a step-12 checkpoint bit for bit equal to (a)'s and the same
+   evaluation; (d) ``--eval-only`` on (a)'s directory, which must report
+   (a)'s final ``loss`` and ``perplexity``.  Run (a) reports its kernel
+   launches, which must be 12 training steps and 12 evaluation batches'
+   worth; each run reports its step time, save, restore and evaluation
+   seconds and bytes; (e) the launcher on phase 6's flags (20 steps, read
+   every 5, ``--log-grad-norm``, no checkpoint or evaluation), whose step
+   time stands beside phase 6's on the same terms.  The checkpoint
+   directories are deleted at the end.
+
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
 the repository.
@@ -120,6 +138,7 @@ the repository.
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -163,8 +182,21 @@ KERNELS = [
      "window_train"),                                   # and dq, :1405
     ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "window_train"),
     ("rms_norm_bwd", _CSRC + "rms_norm.cu", _PK + ":429", "window_train"),
+    # Phase 11: the launcher drives llama_125m_lm's kernels (training and
+    # evaluation) in its own process; the numbers beside them are phase
+    # 5's, at the same shapes.
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "launch"),
+    ("rms_norm_bwd", _CSRC + "rms_norm.cu", _PK + ":429", "launch"),
+    ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "launch"),
+    ("cross_entropy_bwd", _CSRC + "cross_entropy.cu", _PK + ":584",
+     "launch"),
+    ("flash_attention", _CSRC + "flash_attention_fwd.cu", _FA + ":589",
+     "launch"),
+    ("flash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _FA + ":941",
+     "launch"),
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
+LAUNCH_KERNELS = [k[0] for k in KERNELS if k[3] == "launch"]
 TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
 # The MoE trainer runs the training kernels and the grouped matmuls.
 MOE_TRAIN_KERNELS = TRAIN_KERNELS + [k[0] for k in KERNELS
@@ -179,6 +211,25 @@ CASES = []
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _drain_stamps(log_every: int):
+    """A trainer callback holding, in ``times``, the host time at which
+    each ``log_every``-th step's metrics arrive (each drain of the
+    metrics waits for the device)."""
+    from tensorflow_train_distributed_torch.training.callbacks import (
+        Callback,
+    )
+
+    class Stamps(Callback):
+        def __init__(self):
+            self.times = []
+
+        def on_step_end(self, step, metrics):
+            if step % log_every == 0 and "loss" in metrics:
+                self.times.append(time.perf_counter())
+
+    return Stamps()
 
 
 def smi_line() -> str:
@@ -1113,20 +1164,16 @@ def phase_train(steps: int = 20, log_every: int = 5) -> tuple:
          "cuda"])
     entry = registry.get_entry(name)
     cfg = entry["config"]
-    _, trainer, batches = T.make_trainer(args, entry)
+    drains = _drain_stamps(log_every)
+    _, trainer, batches = T.make_trainer(args, entry, callbacks=[drains])
     state = trainer.create_state()
     torch.cuda.synchronize()
-    stamps = []     # host time at each window's drain
-
-    def on_log(step, m):
-        if step % log_every == 0:
-            stamps.append(time.perf_counter())
+    stamps = drains.times
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    state, history = trainer.fit(batches, steps=steps, state=state,
-                                 on_log=on_log)
+    state, history = trainer.fit(batches, steps=steps, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: K.launch_counts()[k] for k in TRAIN_KERNELS}
@@ -1712,27 +1759,24 @@ def phase_moe_train(steps: int = 20, log_every: int = 5) -> tuple:
 
     cfg = dataclasses.replace(MOE_PRESETS["moe_370m"], dispatch="gmm")
     b, s = 8, 1024
+    drains = _drain_stamps(log_every)
     trainer = Trainer(
         MoeLmTask(cfg, device="meta"),
         optimizers.adamw(1e-4, b1=0.9, b2=0.95, weight_decay=0.1),
         policy=Policy.from_name("bfloat16"),
         config=TrainerConfig(seed=SEED, log_every=log_every,
-                             log_grad_norm=True), device="cuda")
+                             log_grad_norm=True), device="cuda",
+        callbacks=[drains])
     state = trainer.create_state()
     batches = HostBatches(SyntheticLM(seq_len=s, vocab_size=cfg.vocab_size),
                           b, seed=SEED)
     torch.cuda.synchronize()
-    stamps = []
-
-    def on_log(step, m):
-        if step % log_every == 0:
-            stamps.append(time.perf_counter())
+    stamps = drains.times
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    state, history = trainer.fit(batches, steps=steps, state=state,
-                                 on_log=on_log)
+    state, history = trainer.fit(batches, steps=steps, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: K.launch_counts()[k] for k in MOE_TRAIN_KERNELS}
@@ -2046,7 +2090,8 @@ def phase_window_train(steps: int = 10, log_every: int = 2,
     entry = registry.get_entry(name)
     cfg = dataclasses.replace(entry["config"], num_layers=num_layers)
     entry = dict(entry, config=cfg)
-    task, trainer, batches = T.make_trainer(args, entry)
+    drains = _drain_stamps(log_every)
+    task, trainer, batches = T.make_trainer(args, entry, callbacks=[drains])
     state = trainer.create_state()
     order = iter(batches)
     first = next(order)
@@ -2062,18 +2107,13 @@ def phase_window_train(steps: int = 10, log_every: int = 2,
 
     unseen_before = batch_loss(unseen)
     torch.cuda.synchronize()
-    stamps = []
-
-    def on_log(step, m):
-        if step % log_every == 0:
-            stamps.append(time.perf_counter())
+    stamps = drains.times
 
     kernels = list(window_launches_per_step(num_layers))
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    state, history = trainer.fit(batches, steps=steps, state=state,
-                                 on_log=on_log)
+    state, history = trainer.fit(batches, steps=steps, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: K.launch_counts()[k] for k in kernels}
@@ -2166,6 +2206,158 @@ def phase_window_card_vs_cpu(steps: int = 5) -> dict:
                         vocab=256, steps=steps)
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+
+LAUNCH_DIR = "_launch_smoke"      # git-ignored; deleted at the phase's end
+LAUNCH_FLAGS = ["--config", "llama_125m_lm", "--steps", "12",
+                "--checkpoint-every", "4", "--max-to-keep", "2",
+                "--eval-split", "0.001", "--eval-steps", "4",
+                "--eval-every", "6", "--log-every", "2", "--seed",
+                str(SEED)]
+CHAOS_PLAN = "ckpt:save:partial:step=8:attempt=0;step:10:kill9:attempt=0"
+# Run (e): phase 6's flags (``phase_train``'s defaults), no checkpoint and
+# no evaluation, so its step time compares with phase 6's.
+PHASE6_FLAGS = ["--config", "llama_125m_lm", "--steps", "20", "--seed",
+                str(SEED), "--log-every", "5", "--log-grad-norm"]
+
+
+def eval_launches_per_batch(num_layers: int) -> dict:
+    """Kernel launches of one evaluation batch: the forward alone."""
+    return {"flash_attention": num_layers, "rms_norm": 2 * num_layers + 1,
+            "cross_entropy": 1}
+
+
+def _launcher(label, *flags, env=None, timeout=600):
+    """One launcher process; (returncode, stdout JSON lines, stderr, the
+    ``launch summary`` of its log or None, wall seconds)."""
+    import os
+
+    e = dict(os.environ)
+    e.pop("TTD_FAULT_PLAN", None)
+    e.pop("TTD_SUPERVISE_ATTEMPT", None)
+    e.update(env or {})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tensorflow_train_distributed_torch",
+         *flags], env=e, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    summary = None
+    for x in proc.stderr.splitlines():
+        if "launch summary: " in x:
+            summary = json.loads(x.split("launch summary: ", 1)[1])
+    log(f"  ({label}) exit {proc.returncode} in {wall:.1f} s")
+    return proc.returncode, lines, proc.stderr, summary, wall
+
+
+def _file_digest(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def phase_launcher() -> tuple:
+    """Phase 11 (the module docstring): the launcher's runs (a)-(e) on
+    llama_125m_lm; returns (run (a)'s kernel launches, the stats)."""
+    import os
+    import shutil
+
+    from tensorflow_train_distributed_torch.models import registry
+
+    cfg = registry.get_entry("llama_125m_lm")["config"]
+    root = os.path.abspath(LAUNCH_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
+    try:
+        ra, la, ea, sa, wa = _launcher(
+            "a: uninterrupted", *LAUNCH_FLAGS, "--checkpoint-dir", a_dir,
+            "--jsonl-log", os.path.join(root, "a.jsonl"))
+        if ra != 0 or sa is None:
+            raise AssertionError(f"launcher (a) failed:\n{ea[-4000:]}")
+        rb, _, eb, _, wb = _launcher(
+            "b: torn save at 8, kill -9 at 10", *LAUNCH_FLAGS,
+            "--checkpoint-dir", b_dir, "--fault-plan", CHAOS_PLAN)
+        if rb != -9:
+            raise AssertionError(f"launcher (b) exited {rb}, not by "
+                                 f"SIGKILL:\n{eb[-4000:]}")
+        rc, lc, ec, sc, wc = _launcher(
+            "c: rerun as attempt 1", *LAUNCH_FLAGS, "--checkpoint-dir",
+            b_dir, "--fault-plan", CHAOS_PLAN,
+            env={"TTD_SUPERVISE_ATTEMPT": "1"})
+        if rc != 0 or sc is None:
+            raise AssertionError(f"launcher (c) failed:\n{ec[-4000:]}")
+        for want in ("restored checkpoint step 4",
+                     "data stream resumed at epoch 0, batch 4"):
+            if want not in ec:
+                raise AssertionError(f"launcher (c) did not log {want!r}")
+        if not os.path.isdir(os.path.join(b_dir, "corrupt", "8")):
+            raise AssertionError("launcher (c) did not quarantine step 8")
+        digests = {}
+        for name in ("tensors.bin", "manifest.json"):
+            da = _file_digest(os.path.join(a_dir, "12", name))
+            dc = _file_digest(os.path.join(b_dir, "12", name))
+            if da != dc:
+                raise AssertionError(f"resumed step-12 {name} differs from "
+                                     f"the uninterrupted run's")
+            digests[name] = da
+        val_a = [x for x in la if "val_loss" in x]
+        val_c = [x for x in lc if "val_loss" in x]
+        if [x["step"] for x in val_a] != [6, 12] or val_c != val_a:
+            raise AssertionError(f"evaluations differ: {val_a} vs {val_c}")
+        if la[-1].get("eval") != lc[-1].get("eval"):
+            raise AssertionError(f"final evaluations differ: {la[-1]} vs "
+                                 f"{lc[-1]}")
+        rd, ld, ed, sd, wd = _launcher(
+            "d: --eval-only on (a)", *LAUNCH_FLAGS, "--checkpoint-dir",
+            a_dir, "--eval-only")
+        if rd != 0 or ld != [{"step": 12, "eval": la[-1]["eval"]}]:
+            raise AssertionError(f"eval-only gave {ld}, (a) "
+                                 f"{la[-1]}:\n{ed[-4000:]}")
+        re_, le, ee, se, we = _launcher("e: phase 6's flags",
+                                        *PHASE6_FLAGS)
+        if re_ != 0 or se is None or se["step"] != 20:
+            raise AssertionError(f"launcher (e) failed:\n{ee[-4000:]}")
+        losses = [x["loss"] for x in la if "loss" in x]
+        losses_e = [x["loss"] for x in le if "loss" in x]
+        if not all(math.isfinite(x) for x in losses + losses_e):
+            raise AssertionError(f"non-finite launcher loss: {losses}, "
+                                 f"{losses_e}")
+        counts = {k: sa["launches"].get(k, 0) for k in LAUNCH_KERNELS}
+        others = {k: v for k, v in sa["launches"].items()
+                  if k not in LAUNCH_KERNELS}
+        want = {k: 12 * v for k, v in
+                train_launches_per_step(cfg.num_layers).items()}
+        for k, v in eval_launches_per_batch(cfg.num_layers).items():
+            want[k] += 3 * 4 * v           # 3 evaluations of 4 batches
+        log(f"  launches {counts} (expected {want}); others {others}")
+        if counts != want or others:
+            raise AssertionError(f"launcher launches {counts}, others "
+                                 f"{others}; expected {want}")
+        stats = dict(
+            card=smi_line(), config="llama_125m_lm", steps=12,
+            step_ms=sa["step_ms"],
+            window_ms_per_step=sa["window_ms_per_step"],
+            resumed_step_ms=sc["step_ms"], eval_s=sa["eval_s"],
+            save_s=sa["save_s"] + sc["save_s"],
+            save_bytes=sa["save_bytes"], restore=sc["restore"],
+            eval_only_restore=sd["restore"], eval_only_eval_s=sd["eval_s"],
+            phase6_flags_step_ms=se["step_ms"],
+            phase6_flags_window_ms_per_step=se["window_ms_per_step"],
+            wall_s=dict(a=wa, b=wb, c=wc, d=wd, e=we), val=val_a,
+            eval=la[-1]["eval"], step12_sha256=digests, losses=losses)
+        log(f"  launcher: {json.dumps(stats)}")
+        return counts, stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2234,9 +2426,16 @@ def main() -> int:
         "vs CPU")
     window_training["grad_check"] = phase_window_grad_check()
     window_training["card_vs_cpu"] = phase_window_card_vs_cpu()
+    torch.cuda.empty_cache()
+    log("== phase 11: the launcher, llama_125m_lm: run, kill -9, resume, "
+        "eval-only, phase 6's flags")
+    launch_counts, launcher = phase_launcher()
+    launcher["trainer_step_ms_phase6"] = training["step_ms"]
+    rows["launch"] = {k: rows["train"][k] for k in LAUNCH_KERNELS}
 
     paths = {"serve": counts, "train": train_counts,
-             "moe_train": moe_counts, "window_train": window_counts}
+             "moe_train": moe_counts, "window_train": window_counts,
+             "launch": launch_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -2247,6 +2446,7 @@ def main() -> int:
     print(json.dumps({"moe_kernel_cases": moe_cases}), flush=True)
     print(json.dumps({"window_training": window_training}), flush=True)
     print(json.dumps({"window_kernel_cases": window_cases}), flush=True)
+    print(json.dumps({"launcher": launcher}), flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

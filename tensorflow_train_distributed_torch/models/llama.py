@@ -13,24 +13,44 @@ The model holds a plain list of layers: the JAX package's scanned versus
 unrolled layouts differ only in its parameter tree, which
 ``convert.params_from_flax`` flattens (so ``scan_layers`` is not a field
 here).  Sequence and pipeline parallelism and LoRA wait for later
-slices, as do the "dots" and "no_ffn" remat policies and the rolling
-KV cache that decodes a sliding-window model.
+slices, as does the rolling KV cache that decodes a sliding-window
+model.
+
+Rematerialisation (``remat``, ``remat_policy``), as the JAX package's:
+
+- "full": each block under ``torch.utils.checkpoint``, only its input
+  saved; the backward runs the block's forward again;
+- "dots": the same checkpoint with a selective policy that saves the
+  outputs of the dense projections (``aten.mm``, the matmuls without
+  batch dims: JAX's ``checkpoint_dots_with_no_batch_dims``) and
+  recomputes everything else;
+- "no_ffn": no block checkpoint; only the gated FFN is checkpointed
+  (its input saved, its [B, S, ffn] hiddens recomputed), as JAX's
+  ``wants_outer_remat`` and the inner nothing-saveable FFN region.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tensorflow_train_distributed_torch.models import layers as L
 from tensorflow_train_distributed_torch.ops.losses import (
     fold_sample_weight,
     softmax_cross_entropy,
 )
+
+
+REMAT_POLICIES = ("full", "dots", "no_ffn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +65,8 @@ class LlamaConfig:
     rope_base: float = 10_000.0
     rms_epsilon: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # Per-block rematerialisation in training: "full" keeps only the
-    # blocks' inputs and recomputes each block in the backward
-    # (torch.utils.checkpoint); "dots" and "no_ffn" are not ported yet.
+    # Rematerialisation in training: "full", "dots" or "no_ffn" (the
+    # module docstring).
     remat: bool = True
     remat_policy: str = "full"
     # Sliding-window attention (Mistral) / StreamingLLM sinks: trained
@@ -74,6 +93,10 @@ class LlamaConfig:
     rope_scaling: Optional[tuple] = None
 
     def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"Unknown remat_policy {self.remat_policy!r}; expected "
+                f"one of {REMAT_POLICIES}")
         if self.mlp_activation not in ("silu", "gelu"):
             raise ValueError(
                 f"mlp_activation must be 'silu' (SwiGLU) or 'gelu' "
@@ -158,6 +181,7 @@ class DecoderBlock(nn.Module):
         self.mlp_norm = L.RMSNorm(cfg.d_model, **norm)
         self.mlp = L.MlpBlock(cfg.d_model, cfg.ffn_size, dtype=cfg.dtype,
                               activation=cfg.mlp_activation, device=device)
+        self.remat_ffn = cfg.remat and cfg.remat_policy == "no_ffn"
 
     def forward(self, x, layer_cache: Optional[dict],
                 cache: Optional[L.KVCache], *, positions, rope,
@@ -165,7 +189,10 @@ class DecoderBlock(nn.Module):
         h = self.attn_norm(x)
         x = x + self.attention(h, layer_cache, cache, positions=positions,
                                rope=rope, segment_ids=segment_ids)
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if self.remat_ffn and cache is None and torch.is_grad_enabled():
+            return x + checkpoint(self.mlp, h, use_reentrant=False)
+        return x + self.mlp(h)
 
 
 def segment_relative_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -181,12 +208,22 @@ def segment_relative_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     return idx - last_restart
 
 
-def refuse_unported_training(cfg: LlamaConfig) -> None:
-    """Raise for the training options not ported yet (the training forward
-    checks; ``CausalLmTask`` checks at construction, before any state)."""
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported yet; 'full' is")
+def _save_dense_projections(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of the matmuls without batch
+    dims (every ``Dense``'s ``aten.mm``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _save_dense_projections)
+
+
+def wants_outer_remat(cfg: LlamaConfig) -> bool:
+    """Whether each block is checkpointed whole ("full" and "dots");
+    "no_ffn" checkpoints the FFN alone, inside the block."""
+    return cfg.remat and cfg.remat_policy != "no_ffn"
 
 
 class LlamaModel(nn.Module):
@@ -241,12 +278,13 @@ class LlamaModel(nn.Module):
                 x = layer(x, lc, cache, positions=positions, rope=rope)
             cache.index += tokens.shape[1]
         else:
-            refuse_unported_training(cfg)
+            extra = ({"context_fn": _DOTS_CONTEXT}
+                     if cfg.remat_policy == "dots" else {})
             for layer in self.layers:
-                if cfg.remat and torch.is_grad_enabled():
+                if wants_outer_remat(cfg) and torch.is_grad_enabled():
                     x = checkpoint(layer, x, None, None, positions=positions,
                                    rope=rope, segment_ids=segment_ids,
-                                   use_reentrant=False)
+                                   use_reentrant=False, **extra)
                 else:
                     x = layer(x, None, None, positions=positions, rope=rope,
                               segment_ids=segment_ids)
@@ -299,8 +337,9 @@ class CausalLmTask:
     task holds.  ``device="meta"`` builds it without storage, for weights
     loaded later (``Trainer.create_state``)."""
 
+    report_perplexity = True   # evaluate() adds exp(mean loss)
+
     def __init__(self, config: LlamaConfig, *, device=None):
-        refuse_unported_training(config)
         self.config = config
         self.model = LlamaModel(config, device=device)
 

@@ -23,5 +23,8 @@ class TrainState:
     opt_state: Any
     loss_scale: Optional[LossScaleState] = None
 
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
+
     def num_params(self) -> int:
         return sum(p.numel() for p in self.params.values())

@@ -13,18 +13,42 @@ lr and, optionally, the pre-clip grad_norm.
 Eager PyTorch replaces ``jit``: a step is a sequence of kernel launches on
 the current stream, and metrics stay device scalars until ``fit`` reads a
 window of them at once.
+
+``fit`` has the JAX signature (``steps_per_epoch``, ``eval_batches``,
+``eval_every``, ``eval_steps``) and drives the callbacks at the JAX
+points: ``train_begin``; after each read window ``step_end`` per step;
+after an evaluation one ``step_end`` of ``val_`` metrics between
+``eval_begin`` and ``eval_end``; ``epoch_end``; ``transform_state``; a
+periodic save through the checkpoint manager; ``train_end`` in a
+``finally``.  The fault plan's step site runs at each step boundary.
+``evaluate`` (weighted ``MetricAccumulator`` means, ``perplexity`` as
+exp of the mean loss) and ``predict`` (pad rows dropped) run the forward
+alone, with the state's params bound to the model (an EMA view too).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
-from tensorflow_train_distributed_torch.data.pipeline import to_device
+from tensorflow_train_distributed_torch.data.pipeline import (
+    prefetch_to_device,
+    to_device,
+)
 from tensorflow_train_distributed_torch.models import layers as L
+from tensorflow_train_distributed_torch.runtime import faults
 from tensorflow_train_distributed_torch.training import mixed_precision as mp
+from tensorflow_train_distributed_torch.training.callbacks import (
+    CallbackList,
+)
+from tensorflow_train_distributed_torch.training.metrics import (
+    MetricAccumulator,
+)
 from tensorflow_train_distributed_torch.training.mixed_precision import Policy
 from tensorflow_train_distributed_torch.training.optimizers import (
     GradientTransformation,
@@ -43,6 +67,12 @@ class TrainerConfig:
     # Adds ``grad_norm``: the global norm of the unscaled, averaged grads,
     # before any clipping in the optimizer chain.
     log_grad_norm: bool = False
+    # Steps between periodic saves (None: only the final save), when the
+    # trainer has a checkpoint manager.
+    checkpoint_every: Optional[int] = None
+    # The state evaluation scores (e.g. ``ema.swap_ema_params``); None
+    # scores the training state itself.
+    eval_state_view: Optional[Callable] = None
 
 
 class Trainer:
@@ -54,7 +84,7 @@ class Trainer:
                  policy: Policy = Policy(),
                  config: TrainerConfig = TrainerConfig(),
                  lr_schedule: Optional[Callable[[int], float]] = None,
-                 device="cuda"):
+                 device="cuda", callbacks=(), checkpoint_manager=None):
         self.task = task
         self.tx = optimizer
         self.policy = policy
@@ -63,6 +93,14 @@ class Trainer:
         # reports ``lr`` beside the loss, as the JAX trainer does.
         self.lr_schedule = lr_schedule
         self.device = torch.device(device)
+        self.callbacks = CallbackList(callbacks, trainer=self)
+        self.checkpoint_manager = checkpoint_manager
+        self.state_poisoned = False
+        self._live_state = None
+        # Host seconds of the last fit: per read window (steps, seconds,
+        # from the end of the previous window's evaluation and save to
+        # the read of this one), per evaluation and per save.
+        self.timing = {"windows": [], "eval_s": [], "save_s": []}
 
     def create_state(self, params: Optional[dict] = None) -> TrainState:
         """Load ``params`` (``{name: tensor}`` as ``convert`` makes them),
@@ -178,24 +216,177 @@ class Trainer:
 
     def fit(self, batches: Iterable[dict], *, steps: int,
             state: Optional[TrainState] = None,
-            on_log: Optional[Callable[[int, dict], None]] = None):
-        """Run ``steps`` optimizer steps over host (numpy) batches.
-        Metrics are read every ``log_every`` steps and at the end; each
-        step's reach ``on_log(step, metrics)`` in order.  Returns
-        ``(state, history)``, history a list of (step, metrics)."""
+            steps_per_epoch: Optional[int] = None, eval_batches=None,
+            eval_every: Optional[int] = None,
+            eval_steps: Optional[int] = None):
+        """Run ``steps`` optimizer steps over host (numpy) batches, from
+        ``state.step`` on.  Metrics are read every ``log_every`` steps,
+        before a save or an evaluation, and at the end; each step's reach
+        the callbacks' ``on_step_end`` in order.
+        ``eval_batches`` (a re-iterable or a zero-argument factory) is
+        evaluated for ``eval_steps`` batches every ``eval_every`` steps
+        (default: each epoch of ``steps_per_epoch``, else at the end).
+        Returns ``(state, history)``, history a list of (step, metrics)."""
+        self.state_poisoned = False
         if state is None:
             state = self.create_state()
-        it = iter(batches)
-        history, pending = [], []
-        for i in range(steps):
-            batch = to_device(next(it), self.device)
+        self.timing = {"windows": [], "eval_s": [], "save_s": []}
+        history = []
+        self.callbacks.train_begin(state)
+        box = [state]
+        device_iter = prefetch_to_device(iter(batches), self.device)
+        try:
+            self._fit_loop(device_iter, box, history, steps,
+                           steps_per_epoch, eval_batches, eval_every,
+                           eval_steps)
+        finally:
+            device_iter.close()
+            self.callbacks.train_end(box[0])
+        return box[0], history
+
+    def _fit_loop(self, device_iter, box, history, steps,
+                  steps_per_epoch, eval_batches, eval_every, eval_steps):
+        state = box[0]
+        ckpt = self.checkpoint_manager
+        every = self.config.checkpoint_every
+        start = state.step
+        done = epoch = 0
+        last_metrics: dict = {}
+        pending: list = []
+        stop = False
+        t_mark = time.perf_counter()
+        for batch in device_iter:
             metrics = self.train_step(state, batch)
-            pending.append((state.step, metrics))
-            if len(pending) >= self.config.log_every or i == steps - 1:
+            cur = state.step
+            # Callbacks that save (the preemption handler) read the live
+            # state from here.
+            self._live_state = state
+            done += 1
+            if faults.ARMED:
+                faults.step_boundary(cur)
+            pending.append((cur, metrics))
+            stop = done >= steps
+            will_ckpt = ckpt is not None and bool(every) and cur % every == 0
+            eval_due = eval_batches is not None and bool(
+                (eval_every and cur % eval_every == 0)
+                or (not eval_every and steps_per_epoch
+                    and done % steps_per_epoch == 0)
+                or (not eval_every and not steps_per_epoch and stop))
+            # Read before a save (a guard callback must see the window
+            # first) and before an evaluation (val_* events follow the
+            # train metrics of their step).
+            drained = (len(pending) >= self.config.log_every or stop
+                       or will_ckpt or eval_due)
+            if drained:
                 for s, m in pending:
                     host = {k: float(v) for k, v in m.items()}
                     history.append((s, host))
-                    if on_log is not None:
-                        on_log(s, host)
+                    stop |= self.callbacks.step_end(s, host)
+                    last_metrics = host
+                self.timing["windows"].append(
+                    (len(pending), time.perf_counter() - t_mark))
                 pending.clear()
-        return state, history
+            if eval_due:
+                src = eval_batches() if callable(eval_batches) \
+                    else eval_batches
+                view = self.config.eval_state_view
+                t0 = time.perf_counter()
+                self.callbacks.eval_begin()
+                try:
+                    val = {f"val_{k}": v for k, v in self.evaluate(
+                        src, view(state) if view else state,
+                        steps=eval_steps).items()}
+                finally:
+                    self.callbacks.eval_end()
+                self.timing["eval_s"].append(time.perf_counter() - t0)
+                last_metrics = dict(last_metrics, **val)
+                stop |= self.callbacks.step_end(cur, val)
+            while steps_per_epoch and done >= (epoch + 1) * steps_per_epoch:
+                epoch += 1
+                stop |= self.callbacks.epoch_end(epoch, last_metrics)
+            state = self.callbacks.apply_state_transforms(state)
+            box[0] = state
+            if will_ckpt and not stop and not self.state_poisoned:
+                self._save(cur, state)
+            if drained:
+                t_mark = time.perf_counter()
+            if stop:
+                break
+        if ckpt is not None and not self.state_poisoned \
+                and state.step > start:
+            self._save(state.step, state)
+
+    def _save(self, step: int, state: TrainState) -> None:
+        t0 = time.perf_counter()
+        # One batch a step: the data position is the step.
+        self.checkpoint_manager.save(
+            step, state,
+            meta={"data_position": {"batches_consumed": int(step)}})
+        self.timing["save_s"].append(time.perf_counter() - t0)
+
+    # -- evaluation and prediction ---------------------------------------
+
+    @contextlib.contextmanager
+    def _bound(self, state: TrainState):
+        """The model runs on ``state.params`` inside: when they are not
+        the model's own parameters (an EMA view), their storage is swapped
+        in for the duration, without copies."""
+        named = dict(self.task.model.named_parameters())
+        swap = {k: v for k, v in state.params.items()
+                if v is not named[k]}
+        old = {k: named[k].data for k in swap}
+        try:
+            for k, v in swap.items():
+                named[k].data = v.detach()
+            yield
+        finally:
+            for k, d in old.items():
+                named[k].data = d
+
+    def evaluate(self, batches: Iterable[dict], state: TrainState, *,
+                 steps: Optional[int] = None) -> dict:
+        """Mean metrics of the forward over ``steps`` batches (all, when
+        None), weighted by each batch's ``loss_weight`` where the task
+        reports one (padded rows weigh 0), plus ``perplexity``."""
+        device_metrics = []
+        it = prefetch_to_device(iter(batches), self.device)
+        try:
+            with torch.no_grad(), self._bound(state):
+                for batch in it:
+                    loss, metrics = self.task.loss_fn(
+                        self.policy.cast_to_compute(batch))
+                    device_metrics.append(dict(metrics, loss=loss.float()))
+                    if steps is not None and len(device_metrics) >= steps:
+                        break
+        finally:
+            it.close()
+        acc = MetricAccumulator()
+        for m in device_metrics:
+            acc.update({k: float(v) for k, v in m.items()})
+        out = acc.result()
+        if getattr(self.task, "report_perplexity", False) and "loss" in out:
+            # exp of the mean loss, not the mean of per-batch exps.
+            out["perplexity"] = float(np.exp(min(out["loss"], 30.0)))
+        return out
+
+    def predict(self, batches: Iterable[dict], state: TrainState, *,
+                steps: Optional[int] = None) -> torch.Tensor:
+        """The task's ``predict_fn`` over the batches, concatenated along
+        the batch on the host; rows with ``sample_weight`` 0 (the padding
+        of an evaluation loader) are dropped."""
+        outs, keeps = [], []
+        with torch.no_grad(), self._bound(state):
+            for host in batches:
+                batch = self.policy.cast_to_compute(
+                    to_device(host, self.device))
+                out = self.task.predict_fn(batch).cpu()
+                outs.append(out)
+                w = host.get("sample_weight")
+                keeps.append(torch.ones(out.shape[0], dtype=torch.bool)
+                             if w is None else torch.from_numpy(
+                                 np.asarray(w) > 0))
+                if steps is not None and len(outs) >= steps:
+                    break
+        if not outs:
+            raise ValueError("predict got an empty batch iterator")
+        return torch.cat(outs)[torch.cat(keeps)]

@@ -1090,3 +1090,37 @@ def test_gmm_fn_matches_autograd_of_the_plain_version(gen, dtype, transpose):
         sumsq_b = sumsq_b.transpose(1, 2)
     _assert_within(ga, ra, sumsq_a, n, (cot,))
     _assert_within(gb, rb, sumsq_b, _group_rows(sizes, m), (cot,))
+
+
+@pytest.mark.parametrize("policy", ["dots", "no_ffn"])
+def test_remat_policies_on_the_card(gen, policy):
+    """llama_125m's block at f32, 2 layers, b 2 x s 256: the selective
+    ("dots") and FFN-only ("no_ffn") checkpoints around the card's
+    kernels give the gradients of no remat (the same kernels run again,
+    or their saved outputs are reused: 1e-5)."""
+    from tensorflow_train_distributed_torch.models.llama import LlamaModel
+
+    base = dataclasses.replace(LLAMA_PRESETS["llama_125m"], num_layers=2,
+                               dtype=torch.float32, remat=False)
+    params = convert.init_params(base, gen, device="cuda",
+                                 dtype=torch.float32)
+    tokens = torch.randint(0, base.vocab_size, (2, 256), device="cuda",
+                           generator=gen)
+    grads = {}
+    for cfg in (base, dataclasses.replace(base, remat=True,
+                                          remat_policy=policy)):
+        model = LlamaModel(cfg, device="meta")
+        model.load_state_dict({k: v.clone() for k, v in params.items()},
+                              strict=True, assign=True)
+        K.reset_launch_counts()
+        model(tokens).float().square().mean().backward()
+        grads[cfg.remat] = ({k: p.grad for k, p in model.named_parameters()},
+                            K.launch_counts())
+    (want, plain), (got, remat) = grads[False], grads[True]
+    assert remat["flash_attention_bwd"] == plain["flash_attention_bwd"] == 2
+    # "dots" reruns each block's forward (its flash attention too);
+    # "no_ffn" reruns only the FFN.
+    assert remat["flash_attention"] == (4 if policy == "dots" else 2)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)

@@ -211,11 +211,15 @@ def test_causal_lm_task_loss_matches_jax():
 
 
 def test_unported_remat_policies_raise():
-    cfg = dataclasses.replace(TLL.LLAMA_PRESETS["llama_tiny_scan"],
-                              remat_policy="dots")
-    model = TLL.LlamaModel(cfg)
-    with pytest.raises(NotImplementedError, match="dots"):
-        model(torch.zeros(1, 4, dtype=torch.long))
+    """"full", "dots" and "no_ffn" are ported (tests/test_torch_launch.py
+    holds their gradients); a policy the JAX package does not know
+    either is refused, as JAX's ``_checkpoint_policy`` refuses it."""
+    with pytest.raises(ValueError, match="remat_policy"):
+        dataclasses.replace(TLL.LLAMA_PRESETS["llama_tiny_scan"],
+                            remat_policy="offload")
+    for policy in TLL.REMAT_POLICIES:
+        dataclasses.replace(TLL.LLAMA_PRESETS["llama_tiny_scan"],
+                            remat_policy=policy)
 
 
 def test_remat_recomputes_each_block_in_the_backward():
@@ -263,12 +267,17 @@ def test_schedules_match_jax(name, kw):
 
 
 def _optax(name, lr, wd, clip):
+    """The optimizer as the JAX launcher builds it (``_make_optimizer``)."""
     if name == "sgd":
         tx = optax.sgd(lr)
     elif name == "momentum":
         tx = optax.sgd(lr, momentum=0.9, nesterov=True)
     elif name == "adam":
         tx = optax.adam(lr)
+    elif name == "lamb":
+        tx = optax.lamb(lr, weight_decay=wd)
+    elif name == "adafactor":
+        tx = optax.adafactor(lr, weight_decay_rate=wd or None)
     else:
         tx = optax.adamw(lr, weight_decay=wd)
     return optax.chain(optax.clip_by_global_norm(clip), tx) if clip else tx
@@ -302,8 +311,8 @@ def test_optimizer_steps_match_optax(name, clip):
 
 
 def test_make_optimizer_rejects_unported_and_negative_clip():
-    with pytest.raises(ValueError, match="lamb"):
-        topt.make_optimizer("lamb", 1e-3)
+    with pytest.raises(ValueError, match="lion"):
+        topt.make_optimizer("lion", 1e-3)
     with pytest.raises(ValueError, match="grad_clip_norm"):
         topt.make_optimizer("adamw", 1e-3, grad_clip_norm=-1.0)
 
@@ -493,9 +502,31 @@ def test_train_cli_rejects_bad_flags():
     with pytest.raises(SystemExit):
         tcli.main(["--config", "llama_tiny_sft", "--steps", "0",
                    "--device", "cpu"])
-    with pytest.raises(SystemExit):     # remat "no_ffn" is not ported
-        tcli.main(["--config", "llama_350m_lm", "--steps", "1",
-                   "--device", "cpu"])
+    with pytest.raises(SystemExit):     # one device: no mesh strategy
+        tcli.main(["--config", "llama_tiny_sft", "--steps", "1",
+                   "--device", "cpu", "--strategy", "fsdp"])
+
+
+def test_train_cli_trains_llama_350m_shape_under_no_ffn(capsys,
+                                                        monkeypatch):
+    """llama_350m_lm's entry (remat no_ffn, its head and ffn ratios) cut
+    to a tiny width and depth trains a step through the CLI."""
+    import json
+
+    from tensorflow_train_distributed_torch.models import registry
+
+    entry = registry.get_entry("llama_350m_lm")
+    cfg = dataclasses.replace(
+        entry["config"], vocab_size=256, d_model=64, num_layers=2,
+        num_heads=4, ffn_size=176, dtype=torch.float32)
+    assert (cfg.remat, cfg.remat_policy) == (True, "no_ffn")
+    monkeypatch.setitem(registry._ENTRIES, "llama_350m_tiny", dict(
+        entry, config=cfg,
+        dataset_kwargs=dict(vocab_size=256, seq_len=32)))
+    assert tcli.main(["--config", "llama_350m_tiny", "--steps", "1",
+                      "--device", "cpu", "--precision", "float32"]) == 0
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert line["step"] == 1 and np.isfinite(line["loss"])
 
 
 def test_registry_training_fields_match_jax():
