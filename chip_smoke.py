@@ -130,6 +130,40 @@
    time stands beside phase 6's on the same terms.  The checkpoint
    directories are deleted at the end.
 
+12. K2's full (non-causal) attention at BERT-base's heads (B 256, H 12,
+   S 128, D 64) and Transformer-big's (B 64, H 16, S 256, D 64), f32 (as
+   both configs compute) and bf16, and causal f32 at the Transformer's;
+   K3f and K3b at BERT's logits [32768, 30522] f32 (V % 4 = 2: the
+   kernels' scalar loads), at V 30,521 and at LeNet's [128, 10].  Each held against an f32
+   computation and the plain version, timed beside its bound, the plain
+   version and SDPA or ``F.cross_entropy``.
+13. bert_base_mlm through the launcher at full width and depth (b 256 x
+   s 128, mixed_bfloat16, 20 steps, a save every 10, 4 held-out
+   evaluation batches); the same killed at step 15 and rerun, whose
+   step-20 checkpoint must equal the uninterrupted run's bit for bit
+   (dropout 0.1 on: the (seed, step) generator).  K2 forward and backward
+   12 a step, K3f and K3b 1, exactly.
+14. transformer_big_wmt through the launcher at full width and depth
+   (seq 256 so attention meets K2's gate, b 64, 20 steps, a save), then
+   ``--eval-only`` beam search (beam 4) of one batch of 8 and its BLEU.
+   K2 18 forward and 18 backward a step, exactly; the beam search's
+   launches counted too.
+15. resnet50_imagenet through the launcher (224², b 256, bf16, SGD with
+   Nesterov momentum, 20 steps, a save every 10), killed at step 15 and
+   rerun, whose step-20 checkpoint must equal the uninterrupted run's
+   bit for bit (the launcher pins cuDNN's deterministic algorithms); 5
+   steps each of the s2d and s2d_bnsub variants; each of the three trainers on one
+   batch already on the card.  No hand kernel runs on this path
+   (cuDNN's convolutions; the label-smoothed loss takes no K3).
+16. mnist (LeNet) through the launcher, 100 steps: the last 10 steps'
+   mean loss at most half the first step's; K3f and K3b once a step.
+17. Five f32 steps on the card against the CPU port: a BERT with 64-wide
+   heads (K2, K3 at vocab 1,001) and resnet_tiny, whose BatchNorm
+   running statistics are held like the params.
+   Each launcher run prints its step time, examples a second, peak
+   memory and the kernels' launches; checkpoints go under the
+   git-ignored ``_family_smoke/``, deleted at the end.
+
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
 the repository.
@@ -147,6 +181,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core bf16
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
+# f32 products as the three bf16 products of an exact split
+PEAK_F32_SPLIT_FLOPS = PEAK_BF16_FLOPS / 3
 
 SEED = 0
 _CSRC = "tensorflow_train_distributed_torch/csrc/"
@@ -194,6 +230,24 @@ KERNELS = [
      "launch"),
     ("flash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _FA + ":941",
      "launch"),
+    # Phases 13 and 14: BERT's full-attention encoder and fused loss at
+    # vocab 30,522, and the Transformer's encoder, causal decoder and
+    # cross-attention, all f32 as the configs compute; the numbers beside
+    # them are phase 12's at the same shapes.
+    ("flash_attention", _CSRC + "flash_attention_fwd.cu", _FA + ":589",
+     "bert"),
+    ("flash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _FA + ":941",
+     "bert"),
+    ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "bert"),
+    ("cross_entropy_bwd", _CSRC + "cross_entropy.cu", _PK + ":584", "bert"),
+    ("flash_attention", _CSRC + "flash_attention_fwd.cu", _FA + ":589",
+     "wmt"),
+    ("flash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _FA + ":941",
+     "wmt"),
+    # Phase 16: LeNet's loss (no label smoothing) at [128, 10].
+    ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "mnist"),
+    ("cross_entropy_bwd", _CSRC + "cross_entropy.cu", _PK + ":584",
+     "mnist"),
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LAUNCH_KERNELS = [k[0] for k in KERNELS if k[3] == "launch"]
@@ -277,6 +331,22 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _fma_note(fma) -> str:
+    return "" if fma is None else f", FMA route's bound {fma[0] * 1e3:.1f} us"
+
+
+def product_bound(nbytes: float, flops: float, f32: bool):
+    """The bound of work that is products (attention, grouped matmuls):
+    bf16 on the tensor cores, f32 as the three bf16 products of an exact
+    split (the route K6 takes), so at three times the bf16 operations.
+    Returns it and, for f32, the FMA route's bound at 67 TFLOP/s (None
+    for bf16), logged beside it."""
+    if not f32:
+        return bound(nbytes, flops, PEAK_BF16_FLOPS), None
+    return (bound(nbytes, 3 * flops, PEAK_BF16_FLOPS),
+            bound(nbytes, flops, PEAK_F32_FLOPS))
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -645,6 +715,10 @@ def _profile_chunk(eng, vocab):
         low = name.lower()
         kind = ("paged_attention" if "paged_attention" in low
                 else "rms_norm" if "rms_norm" in low
+                else "batch_norm" if ("batch_norm" in low or "bn_fw" in low
+                                      or "bn_bw" in low)
+                else "conv" if any(k in low for k in (
+                    "conv", "fprop", "dgrad", "wgrad"))
                 else "matmul" if any(k in low for k in (
                     "gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul"))
                 else "other")
@@ -885,14 +959,14 @@ def _rms_norm_bwd_case(gen, n: int, d: int) -> dict:
     return row
 
 
-def _cross_entropy_cases(gen) -> dict:
-    """K3f and K3b at the training path's logits: [B*S, vocab] =
-    [16384, 32000] f32 (the task casts logits to f32 first)."""
+def _cross_entropy_cases(gen, n: int = 16384, v: int = 32000) -> dict:
+    """K3f and K3b at a training path's logits: [B*S, vocab] f32 (the
+    task casts logits to f32 first): [16384, 32000] for llama_125m_lm,
+    [32768, 30522] for bert_base_mlm (V % 4 = 2: the scalar loads)."""
     import torch
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
 
-    n, v = 16384, 32000
     logits = 3 * torch.randn(n, v, generator=gen, device="cuda")
     labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -902,7 +976,7 @@ def _cross_entropy_cases(gen) -> dict:
     plain = K.cross_entropy_reference(lp, labels)
     torch.cuda.synchronize()
     # One f32 logsumexp over 32,000 columns each, summed in another order.
-    err_f = _check("cross_entropy [16384, 32000] f32 vs plain", loss,
+    err_f = _check(f"cross_entropy [{n}, {v}] f32 vs plain", loss,
                    plain, 2e-5 + 1e-6 * plain.abs(), "2e-5 + 1e-6 |ref|")
     dl = K.cross_entropy_backward(logits, labels, lse, g)
     (dplain,) = torch.autograd.grad(plain, lp, g, retain_graph=True)
@@ -1012,93 +1086,115 @@ def _flash_f32(q, k, v, do, causal, seg, scale, window=None, sinks=0):
     return {nm: torch.stack(v) for nm, v in res.items()}, pairs
 
 
-def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main) -> dict:
+def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main,
+                causal=True, dtype=None) -> dict:
     """K2 forward and backward on [B, H, S, D] views of [B, S, H, D]
-    storage (the model's layout), causal, bf16, against the plain version
-    and an f32 computation of the same function."""
+    storage (the model's layout), causal or full, bf16 (default) or f32,
+    against the plain version and an f32 computation of the same
+    function."""
     import torch
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
 
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+
     def bshd(heads):
         return torch.randn(b, s, heads, d, generator=gen, device="cuda").to(
-            torch.bfloat16).transpose(1, 2)
+            dtype).transpose(1, 2)
 
     q, k, v, do = bshd(h), bshd(kvh), bshd(kvh), bshd(h)
     seg = _segments(gen, b, s) if packed else None
     scale = d ** -0.5
-    o, lse = K.flash_attention_forward(q, k, v, seg, True, scale)
-    dq, dk, dv = K.flash_attention_backward(q, k, v, o, lse, do, seg, True,
-                                            scale)
+    o, lse = K.flash_attention_forward(q, k, v, seg, causal, scale)
+    dq, dk, dv = K.flash_attention_backward(q, k, v, o, lse, do, seg,
+                                            causal, scale)
     qp, kp, vp = _leaf(q, k, v)
-    op = K.flash_attention_reference(qp, kp, vp, causal=True,
+    op = K.flash_attention_reference(qp, kp, vp, causal=causal,
                                      segment_ids=seg, sm_scale=scale)
     gp = torch.autograd.grad(op, (qp, kp, vp), do, retain_graph=True)
-    ref, pairs = _flash_f32(q, k, v, do, True, seg, scale)
+    ref, pairs = _flash_f32(q, k, v, do, causal, seg, scale)
     torch.cuda.synchronize()
     rows, errs = {}, {}
-    # The kernel rounds p to bf16 before p.v and dS before dS.k / dS^T.q,
-    # reads o in bf16 for di, and rounds its outputs once; each rounding
-    # moves a value by at most 2^-8 of itself (bf16 keeps 8 significant
-    # bits).  So it stays within 2^-7 of (|ref32| + the sum of |terms|
-    # those roundings touch), a factor 2 for the f32 sums.  Against the
-    # plain version, its own measured distance from ref32 is allowed on
-    # top.
+    # bf16: the kernel rounds p to bf16 before p.v and dS before dS.k /
+    # dS^T.q, reads o in bf16 for di, and rounds its outputs once; each
+    # rounding moves a value by at most 2^-8 of itself (bf16 keeps 8
+    # significant bits).  So it stays within 2^-7 of (|ref32| + the sum of
+    # |terms| those roundings touch), a factor 2 for the f32 sums.  f32
+    # (the FMA body): only the order of f32 sums differs, at most S terms
+    # deep, so S 2^-24 <= 2^-16 of the same magnitude at S <= 256, times
+    # 4 for the chained products and the exp: 2^-14.  Against the plain
+    # version, its own measured distance from ref32 is allowed on top.
+    rel, rule = (2 ** -14, "2^-14") if f32 else (2 ** -7, "2^-7")
     for name, got, plain in (("out", o, op), ("dq", dq, gp[0]),
                              ("dk", dk, gp[1]), ("dv", dv, gp[2])):
         r32 = ref[name]
-        allowed = 2 ** -7 * (r32.abs() + ref[name + "_t"]) + 1e-6
+        allowed = rel * (r32.abs() + ref[name + "_t"]) + 1e-6
         _check(f"flash {label} {name} vs f32", got, r32, allowed,
-               "2^-7 (|ref32| + |terms|) + 1e-6")
+               f"{rule} (|ref32| + |terms|) + 1e-6")
         errs[name] = _check(f"flash {label} {name} vs plain", got, plain,
                             (plain.float() - r32).abs() + allowed,
                             "|plain - ref32| + the above")
     del ref
-    shape = (f"B {b} H {h} KVH {kvh} S {s} D {d} causal bf16"
+    shape = (f"B {b} H {h} KVH {kvh} S {s} D {d} "
+             f"{'causal' if causal else 'full'} {'f32' if f32 else 'bf16'}"
              + (" packed" if packed else ""))
-    in_bytes = (q.numel() + k.numel() + v.numel()) * 2
-    fwd_bytes = in_bytes + o.numel() * 2 + lse.numel() * 4
-    bwd_bytes = (in_bytes + 2 * o.numel() * 2 + lse.numel() * 4
-                 + (dq.numel() + dk.numel() + dv.numel()) * 2)
+    es = q.element_size()
+    in_bytes = (q.numel() + k.numel() + v.numel()) * es
+    fwd_bytes = in_bytes + o.numel() * es + lse.numel() * 4
+    bwd_bytes = (in_bytes + 2 * o.numel() * es + lse.numel() * 4
+                 + (dq.numel() + dk.numel() + dv.numel()) * es)
     rep = h // kvh
     kr, vr = (t.repeat_interleave(rep, 1) for t in (k, v))
     mask = None
     if seg is not None:
-        mask = ((seg[:, None, :, None] == seg[:, None, None, :])
-                & torch.ones(s, s, dtype=torch.bool, device="cuda").tril())
+        mask = seg[:, None, :, None] == seg[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                     device="cuda").tril()
 
     def lib_fwd(qq, kk, vv):
         if mask is None:
-            return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+            return F.scaled_dot_product_attention(qq, kk, vv,
+                                                  is_causal=causal)
         return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
 
-    ms = device_ms(lambda: K.flash_attention_forward(q, k, v, seg, True,
+    ms = device_ms(lambda: K.flash_attention_forward(q, k, v, seg, causal,
                                                      scale), launches=10)
     plain_ms = device_ms(lambda: K.flash_attention_reference(
-        q, k, v, causal=True, segment_ids=seg, sm_scale=scale), launches=3)
+        q, k, v, causal=causal, segment_ids=seg, sm_scale=scale),
+        launches=3)
     lib = device_ms(lambda: lib_fwd(q, kr, vr), launches=10)
-    bnd = bound(fwd_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)
+    bnd, fma = product_bound(fwd_bytes, 4 * d * pairs, f32)
     _report("flash_attention", shape, ms, plain_ms, lib, bnd)
     body = K.flash_attention_body(q.dtype, d)
     log(f"  flash_attention {shape}: {body} body, "
-        f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s")
+        f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s"
+        + _fma_note(fma))
     rows["flash_attention"] = dict(max_abs_err=errs["out"], ms=ms,
                                    plain_ms=plain_ms, bound_ms=bnd[0],
-                                   bound_by=bnd[1], library_ms=lib)
+                                   bound_by=bnd[1], library_ms=lib,
+                                   fma_bound_ms=fma and fma[0])
     ms = device_ms(lambda: K.flash_attention_backward(
-        q, k, v, o, lse, do, seg, True, scale), launches=10)
+        q, k, v, o, lse, do, seg, causal, scale), launches=10)
     plain_ms = _backward_ms(op, (qp, kp, vp), do, launches=3)
     ql, kl, vl = _leaf(q, kr, vr)
     lib = _backward_ms(lib_fwd(ql, kl, vl), (ql, kl, vl), do, launches=10)
-    bnd = bound(bwd_bytes, 10 * d * pairs, PEAK_BF16_FLOPS)
+    bnd, fma = product_bound(bwd_bytes, 10 * d * pairs, f32)
     _report("flash_attention_bwd", shape, ms, plain_ms, lib, bnd)
     log(f"  flash_attention_bwd {shape}: {body} body, "
-        f"{10 * d * pairs / ms / 1e9:.1f} TFLOP/s")
+        f"{10 * d * pairs / ms / 1e9:.1f} TFLOP/s"
+        + _fma_note(fma))
     rows["flash_attention_bwd"] = dict(
         max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]), ms=ms,
-        plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
+        plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib,
+        fma_bound_ms=fma and fma[0])
     log(f"  flash {label}: {pairs} visible (query, key) pairs")
-    return rows if main else {}
+    if not main:
+        for name, row in rows.items():
+            CASES.append(dict(row, kernel=name, case=f"{label}: {shape}"))
+        return {}
+    return rows
 
 
 def phase_train_kernels() -> dict:
@@ -1234,10 +1330,10 @@ def _profile_train_step(trainer, state, batches):
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = dict.fromkeys(("matmul", "gmm", "tgmm", "flash_attention",
-                           "flash_attention_bwd", "splash_attention",
-                           "splash_attention_bwd", "cross_entropy",
-                           "rms_norm", "other"), 0.0)
+    kinds = dict.fromkeys(("matmul", "conv", "batch_norm", "gmm", "tgmm",
+                           "flash_attention", "flash_attention_bwd",
+                           "splash_attention", "splash_attention_bwd",
+                           "cross_entropy", "rms_norm", "other"), 0.0)
     top, n_kernels = [], 0
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
@@ -1257,6 +1353,10 @@ def _profile_train_step(trainer, state, batches):
                 else "cross_entropy" if ("ce_fwd_kernel" in low
                                          or "ce_bwd_kernel" in low)
                 else "rms_norm" if "rms_norm" in low
+                else "batch_norm" if ("batch_norm" in low or "bn_fw" in low
+                                      or "bn_bw" in low)
+                else "conv" if any(k in low for k in (
+                    "conv", "fprop", "dgrad", "wgrad"))
                 else "matmul" if any(k in low for k in (
                     "gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul"))
                 else "other")
@@ -1388,11 +1488,14 @@ def phase_moe_grad_check() -> dict:
          ("bfloat16", torch.bfloat16, 1e-1)))
 
 
-def _card_vs_cpu(label, make_task, cfg, kernels, *, seq, vocab,
-                 steps) -> dict:
+def _card_vs_cpu(label, make_task, cfg, kernels, *, seq=None, vocab=None,
+                 steps, source=None) -> dict:
     """``steps`` f32 steps of ``make_task()`` on the card against the same
     steps of the port on the CPU, whose plain versions the CPU tests hold
-    to the JAX package; every kernel in ``kernels`` must have run."""
+    to the JAX package, over ``source`` (default: ``SyntheticLM`` rows of
+    ``seq`` tokens); every kernel in ``kernels`` must have run, and the
+    model state (BatchNorm's running statistics) must agree as the
+    params do."""
     import torch
     from tensorflow_train_distributed_torch import convert
     from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
@@ -1419,21 +1522,24 @@ def _card_vs_cpu(label, make_task, cfg, kernels, *, seq, vocab,
         state = trainer.create_state({k: v.clone() for k, v in
                                       params.items()})
         K.reset_launch_counts()
-        src = SyntheticLM(num_examples=64, seq_len=seq, vocab_size=vocab)
+        src = source or SyntheticLM(num_examples=64, seq_len=seq,
+                                    vocab_size=vocab)
         state, history = trainer.fit(HostBatches(src, 8, seed=SEED),
                                      steps=steps, state=state)
         runs[device] = (history, {k: p.detach().cpu() for k, p in
                                   state.params.items()},
-                        K.launch_counts())
+                        K.launch_counts(),
+                        {k: v.cpu() for k, v in state.model_state.items()})
     counts = {k: runs["cuda"][2][k] for k in kernels}
-    if min(counts.values()) <= 0:
+    if counts and min(counts.values()) <= 0:
         raise AssertionError(f"{label}: a kernel did not run: {counts}")
     dl = max(abs(a["loss"] - b["loss"]) for (_, a), (_, b) in
              zip(runs["cpu"][0], runs["cuda"][0]))
     dg = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
              for (_, a), (_, b) in zip(runs["cpu"][0], runs["cuda"][0]))
-    dp = max(((runs["cuda"][1][k] - p).norm() / p.norm()).item()
-             for k, p in runs["cpu"][1].items())
+    card = {**runs["cuda"][1], **runs["cuda"][3]}
+    dp = max(((card[k] - p).norm() / p.norm()).item()
+             for k, p in {**runs["cpu"][1], **runs["cpu"][3]}.items())
     losses = [(a["loss"], b["loss"]) for (_, a), (_, b) in
               zip(runs["cpu"][0], runs["cuda"][0])]
     log(f"  {label} card vs cpu, {steps} steps f32: losses {losses}")
@@ -1441,7 +1547,8 @@ def _card_vs_cpu(label, make_task, cfg, kernels, *, seq, vocab,
     # through five adamw steps.
     ok = dl <= 1e-4 and dg <= 1e-3 and dp <= 1e-4
     log(f"  max |loss diff| {dl:.3e} (bound 1e-4), grad_norm relative "
-        f"{dg:.3e} (1e-3), params relative L2 {dp:.3e} (1e-4); launches "
+        f"{dg:.3e} (1e-3), params and model state relative L2 {dp:.3e} "
+        f"(1e-4); launches "
         f"{counts} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: the card's training run left the "
@@ -1635,9 +1742,7 @@ def _gmm_case(gen, label, kind, m, k, n, sizes, *, timing=None,
     del controls, sumsq32, ref32, allowed
     nbytes = (sum(t.numel() * t.element_size() for t in operands)
               + got.numel() * got.element_size() + 4 * e)
-    # The split route: three bf16 products for an f32 operand.
-    bnd = bound(nbytes, flops * (1 if tensor_cores else 3), PEAK_BF16_FLOPS)
-    fma_bnd = None if tensor_cores else bound(nbytes, flops, PEAK_F32_FLOPS)
+    bnd, fma_bnd = product_bound(nbytes, flops, not tensor_cores)
     shape = (f"{label}: m {m}, {k} -> {n}, E {e}, "
              f"{' x '.join(str(t.dtype)[6:] for t in operands)} -> "
              f"{str(out_dtype)[6:]}")
@@ -1949,10 +2054,8 @@ def _splash_case(gen, label, b, h, kvh, s, d, window, sinks, *, packed,
                                           segment_ids=seg, sinks=sinks,
                                           softmax_scale=1.0)
 
-    fb = bound(fwd_bytes, 4 * d * pairs, PEAK_BF16_FLOPS if bf16
-               else PEAK_F32_FLOPS)
-    bb = bound(bwd_bytes, 10 * d * pairs, PEAK_BF16_FLOPS if bf16
-               else PEAK_F32_FLOPS)
+    fb = product_bound(fwd_bytes, 4 * d * pairs, not bf16)[0]
+    bb = product_bound(bwd_bytes, 10 * d * pairs, not bf16)[0]
     row.update(
         ms=device_ms(lambda: K.splash_attention_forward(
             qs, k, v, seg, window, sinks), launches=10),
@@ -2358,6 +2461,434 @@ def phase_launcher() -> tuple:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phases 12-17: the other model families -----------------------------------
+
+FAMILY_DIR = "_family_smoke"      # git-ignored; deleted at the phases' end
+KILL_AT_15 = "step:15:kill9:attempt=0"
+BERT_FLAGS = ["--config", "bert_base_mlm", "--steps", "20", "--precision",
+              "mixed_bfloat16", "--checkpoint-every", "10", "--max-to-keep",
+              "2", "--eval-split", "0.011", "--eval-steps", "4",
+              "--log-every", "5", "--seed", str(SEED)]
+# Registry batch 512 cut to 64 for one card; seq 256 so that attention
+# meets K2's gate; the noam multiplier and warm-up set so 20 steps train
+# (the registry's warm-up 0 starts Adam at 0.0625).
+WMT_FLAGS = ["--config", "transformer_big_wmt", "--dataset-kwarg",
+             "seq_len=256", "--global-batch-size", "64", "--steps", "20",
+             "--learning-rate", "0.2", "--warmup-steps", "20",
+             "--log-every", "5", "--seed", str(SEED)]
+WMT_BLEU_FLAGS = ["--eval-only", "--eval-steps", "1", "--bleu-eval", "1",
+                  "--beam-size", "4", "--global-batch-size", "8"]
+# Registry batch 1024 cut to 256 for one card; SGD with Nesterov
+# momentum, which the registry's lr 0.4 is for (the launcher's default
+# adamw at 0.4 diverges).
+RESNET_FLAGS = ["--config", "resnet50_imagenet", "--global-batch-size",
+                "256", "--optimizer", "momentum", "--steps", "20",
+                "--checkpoint-every", "10", "--max-to-keep", "2",
+                "--log-every", "5", "--seed", str(SEED)]
+# ResNet-50 v1.5's published forward cost: 4.09e9 multiply-adds a
+# 224x224 image (torchvision's resnet50, which is v1.5), 2 FLOPs each.
+RESNET50_FWD_FLOPS = 2 * 4.09e9
+
+
+def bert_launches(num_layers: int, steps: int, eval_batches: int) -> dict:
+    """K2 and K3 launches of ``steps`` BERT training steps and
+    ``eval_batches`` evaluation batches: one full-attention forward a
+    layer (and its backward in training), one fused loss."""
+    n = num_layers
+    return {"flash_attention": n * (steps + eval_batches),
+            "flash_attention_bwd": n * steps,
+            "cross_entropy": steps + eval_batches,
+            "cross_entropy_bwd": steps}
+
+
+def wmt_launches(cfg, steps: int, eval_batches: int = 0,
+                 bleu_batches: int = 0, max_len: int = 0) -> dict:
+    """K2 launches of the Transformer: a forward is the encoder's
+    full self-attention, the decoder's causal self-attention and its
+    cross-attention, each layer; beam decoding runs the encoder once a
+    batch and the decoder at each of ``max_len`` positions.  The
+    label-smoothed loss takes no K3."""
+    e, d = cfg.num_encoder_layers, cfg.num_decoder_layers
+    fwd = e + 2 * d
+    return {"flash_attention": fwd * (steps + eval_batches)
+            + bleu_batches * (e + 2 * d * max_len),
+            "flash_attention_bwd": fwd * steps}
+
+
+def _non_embedding_params(cfg) -> int:
+    from tensorflow_train_distributed_torch import convert
+
+    return sum(math.prod(shape) for name, shape in
+               convert.expected_shapes(cfg).items()
+               if not name.endswith(("embedding", "pos_embedding"))
+               and "batch_stats" not in name)
+
+
+def _expect_launches(label, summary, want) -> dict:
+    got = {k: summary["launches"].get(k, 0) for k in want}
+    others = {k: v for k, v in summary["launches"].items() if k not in want}
+    log(f"  {label} launches {got} (expected {want}); others {others}")
+    if got != want or others:
+        raise AssertionError(f"{label}: launches {got}, others {others}; "
+                             f"expected {want}")
+    return got
+
+
+def _same_checkpoint(label, a_dir, c_dir, step) -> None:
+    """The rerun's step checkpoint must equal the uninterrupted run's,
+    bit for bit."""
+    import os
+
+    for f in ("tensors.bin", "manifest.json"):
+        if (_file_digest(os.path.join(a_dir, str(step), f))
+                != _file_digest(os.path.join(c_dir, str(step), f))):
+            raise AssertionError(f"{label}: the resumed step-{step} {f} "
+                                 f"differs from the uninterrupted run's")
+    log(f"  {label}: the resumed step-{step} checkpoint equals the "
+        f"uninterrupted run's bit for bit")
+
+
+def _kill_and_resume(label, flags, root) -> tuple:
+    """(a) the run, (b) the same killed at step 15 after the step-10 save,
+    (c) its rerun as supervisor attempt 1, which must restore step 10;
+    returns ((a), (c)) as ``_launcher`` results and the two directories."""
+    import os
+
+    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
+    ra = _launcher(f"{label} a: uninterrupted", *flags, "--checkpoint-dir",
+                   a_dir)
+    if ra[0] != 0 or ra[3] is None:
+        raise AssertionError(f"{label} (a) failed:\n{ra[2][-4000:]}")
+    rb = _launcher(f"{label} b: kill -9 at step 15", *flags,
+                   "--checkpoint-dir", b_dir, "--fault-plan", KILL_AT_15)
+    if rb[0] != -9:
+        raise AssertionError(f"{label} (b) exited {rb[0]}, not by SIGKILL:"
+                             f"\n{rb[2][-4000:]}")
+    rc = _launcher(f"{label} c: rerun as attempt 1", *flags,
+                   "--checkpoint-dir", b_dir, "--fault-plan", KILL_AT_15,
+                   env={"TTD_SUPERVISE_ATTEMPT": "1"})
+    if rc[0] != 0 or rc[3] is None:
+        raise AssertionError(f"{label} (c) failed:\n{rc[2][-4000:]}")
+    if "restored checkpoint step 10" not in rc[2]:
+        raise AssertionError(f"{label} (c) did not restore step 10")
+    return ra, rc, a_dir, b_dir
+
+
+def _losses(label, lines) -> list:
+    losses = [x["loss"] for x in lines if "loss" in x]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    return losses
+
+
+def _run_stats(label, summary, batch, wall) -> dict:
+    step_s = summary["step_ms"] / 1e3
+    stats = dict(step_ms=summary["step_ms"],
+                 window_ms_per_step=summary["window_ms_per_step"],
+                 examples_per_s=batch / step_s,
+                 peak_mem_gib=summary["peak_mem_bytes"] / 2 ** 30,
+                 save_s=summary["save_s"], eval_s=summary["eval_s"],
+                 wall_s=wall)
+    log(f"  {label}: {stats['step_ms']:.1f} ms a step, "
+        f"{stats['examples_per_s']:.1f} examples/s, peak "
+        f"{stats['peak_mem_gib']:.2f} GiB")
+    return stats
+
+
+def phase_family_kernels() -> tuple:
+    """Phase 12: K2 full attention at BERT-base's (B 256, H 12, S 128) and
+    Transformer-big's (B 64, H 16, S 256) heads (D 64), f32 as both
+    models compute and bf16, and causal f32 at the Transformer's; K3f and
+    K3b at BERT's logits [32768, 30522] f32, at an odd vocabulary and at
+    LeNet's [128, 10].  Returns the "bert", "wmt" and "mnist" rows of the
+    kernels' JSON line."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    f32 = torch.float32
+    bert = _flash_case(gen, "bert_base", 256, 12, 12, 128, 64,
+                       packed=False, main=True, causal=False, dtype=f32)
+    torch.cuda.empty_cache()
+    _flash_case(gen, "bert_base bf16", 256, 12, 12, 128, 64, packed=False,
+                main=False, causal=False)
+    torch.cuda.empty_cache()
+    wmt = _flash_case(gen, "transformer_big", 64, 16, 16, 256, 64,
+                      packed=False, main=True, causal=False, dtype=f32)
+    torch.cuda.empty_cache()
+    _flash_case(gen, "transformer_big bf16", 64, 16, 16, 256, 64,
+                packed=False, main=False, causal=False)
+    _flash_case(gen, "transformer_big decoder", 64, 16, 16, 256, 64,
+                packed=False, main=False, causal=True, dtype=f32)
+    torch.cuda.empty_cache()
+    bert.update(_cross_entropy_cases(gen, 32768, 30522))
+    torch.cuda.empty_cache()
+    for name, row in _cross_entropy_cases(gen, 32768, 30521).items():
+        CASES.append(dict(row, kernel=name, case="[32768, 30521] f32"))
+    torch.cuda.empty_cache()
+    return bert, wmt, _cross_entropy_cases(gen, 128, 10)
+
+
+def phase_bert() -> tuple:
+    """Phase 13: bert_base_mlm through the launcher at full width and
+    depth (b 256 x s 128, mixed_bfloat16, 20 steps, a save every 10,
+    4 held-out evaluation batches), then killed at step 15 and rerun: the
+    rerun's step-20 checkpoint must equal the uninterrupted run's bit for
+    bit (dropout 0.1 is on, so this holds the (seed, step) generator)."""
+    import os
+    import shutil
+
+    from tensorflow_train_distributed_torch.models import registry
+
+    entry = registry.get_entry("bert_base_mlm")
+    cfg = entry["config"]
+    root = os.path.abspath(os.path.join(FAMILY_DIR, "bert"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        ra, rc, a_dir, b_dir = _kill_and_resume("bert", BERT_FLAGS, root)
+        _same_checkpoint("bert", a_dir, b_dir, 20)
+        la, lc = ra[1], rc[1]
+        if la[-1].get("eval") != lc[-1].get("eval"):
+            raise AssertionError(f"bert evaluations differ: {la[-1]} vs "
+                                 f"{lc[-1]}")
+        losses = _losses("bert", la)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"bert loss did not fall: {losses}")
+        counts = _expect_launches("bert", ra[3],
+                                  bert_launches(cfg.num_layers, 20, 4))
+        b, s = entry["global_batch_size"], 128
+        stats = _run_stats("bert_base_mlm", ra[3], b, ra[4])
+        n_ne = _non_embedding_params(cfg)
+        flops = (6 * n_ne + 12 * cfg.num_layers * s * cfg.hidden_size) \
+            * b * s
+        step_s = stats["step_ms"] / 1e3
+        stats.update(
+            card=smi_line(), config="bert_base_mlm", batch=b, seq=s,
+            non_embedding_params=n_ne, losses=losses, eval=la[-1]["eval"],
+            resume="bitwise", resumed_step_ms=rc[3]["step_ms"],
+            restore=rc[3]["restore"], save_bytes=ra[3]["save_bytes"],
+            mfu=flops / step_s / PEAK_F32_SPLIT_FLOPS,
+            mfu_fma=flops / step_s / PEAK_F32_FLOPS,
+            mfu_formula="(6 N_non_embedding + 12 L S d) B S / step_s / "
+                        "(989e12 / 3) (the config computes in f32: its "
+                        "products as an exact three-way bf16 split; "
+                        "mfu_fma at 67e12)")
+        stats["device_fed"] = _device_fed(
+            "bert_base_mlm", ["--precision", "mixed_bfloat16"],
+            profile=True)
+        log(f"  bert: {json.dumps(stats)}")
+        return counts, stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_wmt() -> tuple:
+    """Phase 14: transformer_big_wmt through the launcher at full width
+    and depth (b 64 x s 256, bf16 policy over its f32 compute, 20 steps,
+    a save at the end), then ``--eval-only`` beam search (beam 4, GNMT
+    penalty) of one batch of 8 and its BLEU."""
+    import os
+    import shutil
+
+    from tensorflow_train_distributed_torch.models import registry
+
+    cfg = registry.get_entry("transformer_big_wmt")["config"]
+    root = os.path.abspath(os.path.join(FAMILY_DIR, "wmt"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        ra = _launcher("wmt a: 20 steps", *WMT_FLAGS, "--checkpoint-dir",
+                       root)
+        if ra[0] != 0 or ra[3] is None:
+            raise AssertionError(f"wmt (a) failed:\n{ra[2][-4000:]}")
+        counts = _expect_launches("wmt", ra[3], wmt_launches(cfg, 20))
+        losses = _losses("wmt", ra[1])
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"wmt loss did not fall: {losses}")
+        rb = _launcher("wmt b: --eval-only, beam 4 BLEU", *WMT_FLAGS,
+                       *WMT_BLEU_FLAGS, "--checkpoint-dir", root)
+        if rb[0] != 0 or rb[3] is None:
+            raise AssertionError(f"wmt (b) failed:\n{rb[2][-4000:]}")
+        ev = rb[1][-1]["eval"]
+        if not (math.isfinite(ev["loss"]) and 0.0 <= ev["bleu"] <= 100.0):
+            raise AssertionError(f"wmt evaluation: {ev}")
+        bleu_counts = _expect_launches("wmt bleu", rb[3], wmt_launches(
+            cfg, 0, eval_batches=1, bleu_batches=1, max_len=256))
+        b, s = 64, 256
+        stats = _run_stats("transformer_big_wmt", ra[3], b, ra[4])
+        n_ne = _non_embedding_params(cfg)
+        d, le, ld = cfg.d_model, cfg.num_encoder_layers, \
+            cfg.num_decoder_layers
+        # Each parameter meets one token of its stream (source for the
+        # encoder, target for the decoder): 6 N B S; the tied logits 6 d V
+        # a target token; attention 12 S d a layer and token, the
+        # decoder's causal self-attention half of it.
+        flops = (6 * n_ne + 6 * d * cfg.vocab_size
+                 + 12 * s * d * (le + 0.5 * ld + ld)) * b * s
+        step_s = stats["step_ms"] / 1e3
+        stats.update(
+            card=smi_line(), config="transformer_big_wmt", batch=b, seq=s,
+            tokens_per_s=b * s / step_s, non_embedding_params=n_ne,
+            losses=losses, eval=ev, bleu_s=rb[3]["bleu_s"],
+            bleu_launches=bleu_counts, restore=rb[3]["restore"],
+            mfu=flops / step_s / PEAK_F32_SPLIT_FLOPS,
+            mfu_fma=flops / step_s / PEAK_F32_FLOPS,
+            mfu_formula="(6 N_non_embedding + 6 d V + 12 S d (L_enc + "
+                        "1.5 L_dec)) B S / step_s / (989e12 / 3) (f32 "
+                        "compute, as for bert; mfu_fma at 67e12)")
+        stats["device_fed"] = _device_fed(
+            "transformer_big_wmt", WMT_FLAGS[2:12], profile=True)
+        log(f"  wmt: {json.dumps(stats)}")
+        return counts, stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _device_fed(name: str, flags, *, steps: int = 10,
+                profile: bool = False) -> dict:
+    """The trainer of registry entry ``name``, built as the launcher
+    builds it from ``flags``, on one batch already on the card: the step
+    time without the host's data (ResNet's synthetic images take ~1.5 ms
+    each to make); with ``profile``, one more step under torch.profiler."""
+    import torch
+    from tensorflow_train_distributed_torch import launch
+    from tensorflow_train_distributed_torch.data.pipeline import to_device
+    from tensorflow_train_distributed_torch.models import registry
+
+    args = launch.build_parser().parse_args(
+        ["--config", name, *flags, "--device", "cuda"])
+    entry = registry.get_entry(name)
+    torch.backends.cudnn.deterministic = True      # as the launcher runs
+    torch.backends.cudnn.benchmark = False
+    _, trainer, loader = launch.make_trainer(args, entry)
+    state = trainer.create_state()
+    host = next(iter(loader))
+    batch = to_device(host, "cuda")
+    for _ in range(2):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    b = next(iter(host.values())).shape[0]
+    out = dict(step_ms=step_s * 1e3, examples_per_s=b / step_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               loss=float(m["loss"]))
+    if profile:
+        out["profile"] = _profile_train_step(trainer, state, [host])
+    log(f"  {name} device-fed: {json.dumps(out)}")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet() -> dict:
+    """Phase 15: resnet50_imagenet through the launcher (224², b 256,
+    bf16, SGD with momentum, 20 steps, a save every 10), killed at step
+    15 and rerun (the launcher pins cuDNN's deterministic algorithms, so
+    the step-20 checkpoints must be equal bit for bit), 5 steps each of
+    the s2d and s2d_bnsub variants, and each of the three trainers fed
+    one batch already on the card."""
+    import os
+    import shutil
+
+    root = os.path.abspath(os.path.join(FAMILY_DIR, "resnet"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        ra, rc, a_dir, b_dir = _kill_and_resume("resnet", RESNET_FLAGS,
+                                                root)
+        _same_checkpoint("resnet", a_dir, b_dir, 20)
+        _expect_launches("resnet", ra[3], {})
+        losses = _losses("resnet", ra[1])
+        stats = _run_stats("resnet50_imagenet", ra[3], 256, ra[4])
+        stats.update(card=smi_line(), config="resnet50_imagenet", batch=256,
+                     losses=losses, resume="bitwise",
+                     resumed_step_ms=rc[3]["step_ms"],
+                     save_bytes=ra[3]["save_bytes"],
+                     mfu=3 * RESNET50_FWD_FLOPS * 256 / (
+                         stats["step_ms"] / 1e3) / PEAK_BF16_FLOPS,
+                     mfu_formula="3 x 2 x 4.09e9 x B / step_s / 989e12")
+        for name in ("resnet50_imagenet_s2d", "resnet50_imagenet_s2d_bnsub"):
+            r = _launcher(name, "--config", name, *RESNET_FLAGS[2:6],
+                          "--steps", "5", "--log-every", "1", "--seed",
+                          str(SEED))
+            if r[0] != 0 or r[3] is None:
+                raise AssertionError(f"{name} failed:\n{r[2][-4000:]}")
+            _expect_launches(name, r[3], {})
+            stats[name] = dict(_run_stats(name, r[3], 256, r[4]),
+                               losses=_losses(name, r[1]))
+        stats["device_fed"] = {
+            name: _device_fed(name, RESNET_FLAGS[2:6],
+                              profile=name == "resnet50_imagenet")
+            for name in ("resnet50_imagenet", "resnet50_imagenet_s2d",
+                         "resnet50_imagenet_s2d_bnsub")}
+        for row in stats["device_fed"].values():
+            row["mfu"] = (3 * RESNET50_FWD_FLOPS * row["examples_per_s"]
+                          / PEAK_BF16_FLOPS)
+        log(f"  resnet: {json.dumps(stats)}")
+        return stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_mnist() -> dict:
+    """Phase 16: mnist (LeNet) through the launcher, 100 steps of 128:
+    the mean loss of the last 10 steps must be at most half the first
+    step's.  Its loss (no label smoothing) takes K3 at [128, 10], once a
+    step."""
+    r = _launcher("mnist", "--config", "mnist", "--steps", "100",
+                  "--log-every", "1", "--seed", str(SEED))
+    if r[0] != 0 or r[3] is None:
+        raise AssertionError(f"mnist failed:\n{r[2][-4000:]}")
+    counts = _expect_launches("mnist", r[3], {"cross_entropy": 100,
+                                              "cross_entropy_bwd": 100})
+    losses = _losses("mnist", r[1])
+    last = statistics.mean(losses[-10:])
+    log(f"  mnist: loss {losses[0]:.4f} at step 1, mean of the last 10 "
+        f"{last:.4f} (must be <= {losses[0] / 2:.4f})")
+    if not last <= losses[0] / 2:
+        raise AssertionError(f"mnist loss did not halve: {losses}")
+    return counts, dict(_run_stats("mnist", r[3], 128, r[4]),
+                        first_loss=losses[0], last10_mean_loss=last,
+                        card=smi_line())
+
+
+def phase_family_card_vs_cpu(steps: int = 5) -> dict:
+    """Phase 17: five f32 steps on the card against the CPU port: a BERT
+    with 64-wide heads at seq 128 (K2 full attention, K3 at an odd vocab
+    of 1,001) and resnet_tiny (cuDNN convolutions, K3 at its 10 classes;
+    its BatchNorm running statistics held like the params)."""
+    import dataclasses
+
+    from tensorflow_train_distributed_torch.data.datasets import (
+        SyntheticImageNet,
+        SyntheticMLM,
+    )
+    from tensorflow_train_distributed_torch.models import bert, registry
+
+    bcfg = dataclasses.replace(bert.BERT_PRESETS["bert_tiny"],
+                               hidden_size=128, num_heads=2,
+                               intermediate_size=256, max_positions=128,
+                               vocab_size=1001)
+    out = {"bert[hd 64]": _card_vs_cpu(
+        "bert_tiny[hd 64]", lambda: bert.BertMlmTask(bcfg, device="meta"),
+        bcfg, ["flash_attention", "flash_attention_bwd", "cross_entropy",
+               "cross_entropy_bwd"], steps=steps,
+        source=SyntheticMLM(num_examples=64, seq_len=128, vocab_size=1001))}
+    entry = registry.get_entry("resnet_tiny")
+    out["resnet_tiny"] = _card_vs_cpu(
+        "resnet_tiny", lambda: registry.make_task(entry, device="meta"),
+        entry["config"], ["cross_entropy", "cross_entropy_bwd"],
+        steps=steps,
+        source=SyntheticImageNet(num_examples=64, num_classes=10,
+                                 image_size=32))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2432,10 +2963,27 @@ def main() -> int:
     launch_counts, launcher = phase_launcher()
     launcher["trainer_step_ms_phase6"] = training["step_ms"]
     rows["launch"] = {k: rows["train"][k] for k in LAUNCH_KERNELS}
+    torch.cuda.empty_cache()
+    log("== phase 12: K2 full attention and K3 at the new families' shapes")
+    rows["bert"], rows["wmt"], rows["mnist"] = phase_family_kernels()
+    log("== phase 13: the launcher, bert_base_mlm: run, kill -9, resume")
+    families = {}
+    bert_counts, families["bert_base_mlm"] = phase_bert()
+    log("== phase 14: the launcher, transformer_big_wmt: run, beam BLEU")
+    wmt_counts, families["transformer_big_wmt"] = phase_wmt()
+    log("== phase 15: the launcher, resnet50_imagenet (s2d, bnsub): run, "
+        "kill -9, resume")
+    families["resnet50_imagenet"] = phase_resnet()
+    log("== phase 16: the launcher, mnist")
+    mnist_counts, families["mnist"] = phase_mnist()
+    torch.cuda.empty_cache()
+    log("== phase 17: bert and resnet_tiny card vs CPU")
+    families["card_vs_cpu"] = phase_family_card_vs_cpu()
 
     paths = {"serve": counts, "train": train_counts,
              "moe_train": moe_counts, "window_train": window_counts,
-             "launch": launch_counts}
+             "launch": launch_counts, "bert": bert_counts,
+             "wmt": wmt_counts, "mnist": mnist_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -2447,6 +2995,7 @@ def main() -> int:
     print(json.dumps({"window_training": window_training}), flush=True)
     print(json.dumps({"window_kernel_cases": window_cases}), flush=True)
     print(json.dumps({"launcher": launcher}), flush=True)
+    print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -23,13 +23,21 @@ Standard output carries one JSON line per logged step (every
 (``val_*``) and one for the final or ``--eval-only`` evaluation
 (``{"step": N, "eval": {...}}``); the log (standard error) ends with a
 ``launch summary`` JSON line: step time, save and restore seconds and
-bytes, evaluation seconds and the kernels' launch counts.
+bytes, evaluation (and BLEU) seconds, the kernels' launch counts and,
+on CUDA, the peak of allocated device memory.
+
+The WMT configs also beam-decode ``--bleu-eval N`` evaluation batches
+(``--beam-size``, ``--bos-id``, ``--eos-id``) after training, or with
+``--eval-only``, and report corpus BLEU beside the evaluation's metrics.
 
 Flags of the JAX launcher that need what the port does not have yet
-(more than one device or process, LoRA, HF import, BLEU, the data
-service, the supervisor, TensorBoard, the profiler, fused steps) are
-parsed and refused, each with the ROADMAP item that brings it, exit 2.
-``--device`` (default ``cuda``) never falls back to the CPU.
+(more than one device or process, LoRA, HF import, the JPEG image
+transforms, the data service, the supervisor, TensorBoard, the profiler,
+fused steps) are parsed and refused, each with the ROADMAP item that
+brings it, exit 2.  ``--device`` (default ``cuda``) never falls back to
+the CPU; on CUDA the launcher pins cuDNN to its deterministic
+algorithms, so a resumed run of a convolutional model ends where an
+uninterrupted one does.
 """
 
 from __future__ import annotations
@@ -65,10 +73,6 @@ _REFUSED = {
     "lora_alpha": f"{_Q1} item 3 (LoRA)",
     "lora_targets": f"{_Q1} item 3 (LoRA)",
     "init_from_hf": f"{_Q1} item 6 (HF import)",
-    "bleu_eval": f"{_Q1} item 6 (transformer beam search)",
-    "beam_size": f"{_Q1} item 6 (transformer beam search)",
-    "bos_id": f"{_Q1} item 6 (transformer beam search)",
-    "eos_id": f"{_Q1} item 6 (transformer beam search)",
     "data_workers": f"{_Q1} item 3 (the data service)",
     "supervise": f"{_Q1} item 3 (the supervisor)",
     "max_restarts": f"{_Q1} item 3 (the supervisor)",
@@ -139,8 +143,15 @@ def build_parser() -> argparse.ArgumentParser:
     a("--log-every", type=int, default=10)
     a("--log-grad-norm", action="store_true",
       help="add grad_norm (pre-clip global norm) to the logs")
+    a("--bleu-eval", type=int, default=0, metavar="N",
+      help="beam-decode N evaluation batches and report corpus BLEU "
+      "(the wmt configs)")
+    a("--beam-size", type=int, default=4,
+      help="beam width for --bleu-eval (1 = greedy); WMT convention is 4")
+    a("--bos-id", type=int, default=1)
+    a("--eos-id", type=int, default=2)
     a("--seed", type=int, default=0,
-      help="seed of the data order and the random weights")
+      help="seed of the data order, the random weights and dropout")
     a("--eval-steps", type=int, default=0,
       help="evaluate N batches after training")
     a("--eval-only", action="store_true",
@@ -199,8 +210,7 @@ def build_parser() -> argparse.ArgumentParser:
                  "--platform"):
         r(flag, default=None)
     for flag in ("--grad-overlap", "--num-processes", "--process-id",
-                 "--cpu-devices", "--lora-rank", "--bleu-eval",
-                 "--beam-size", "--bos-id", "--eos-id", "--data-workers",
+                 "--cpu-devices", "--lora-rank", "--data-workers",
                  "--max-restarts", "--max-device-losses",
                  "--profiler-port"):
         r(flag, type=int, default=None)
@@ -230,6 +240,10 @@ def refuse_unported(args) -> None:
     if args.steps_per_execution != 1:
         _refuse("--steps-per-execution above 1", f"{_Q1} item 3 (fused "
                 "steps)")
+    if args.data_transform and args.data_transform.startswith("imagenet_"):
+        _refuse(f"--data-transform {args.data_transform} (the JPEG image "
+                "transforms, data/image.py)", f"{_Q1} item 3 (the image "
+                "family of the data path)")
 
 
 def _resolve_schedule(args, entry):
@@ -346,11 +360,7 @@ def make_trainer(args, entry, *, source=None, callbacks=(),
         DataConfig,
         HostDataLoader,
     )
-    from tensorflow_train_distributed_torch.models.llama import CausalLmTask
-    from tensorflow_train_distributed_torch.models.moe import (
-        MoeConfig,
-        MoeLmTask,
-    )
+    from tensorflow_train_distributed_torch.models import registry
     from tensorflow_train_distributed_torch.training.mixed_precision import (
         Policy,
     )
@@ -360,9 +370,7 @@ def make_trainer(args, entry, *, source=None, callbacks=(),
     )
 
     tx, lr = make_optimizer(args, entry)
-    cfg = entry["config"]
-    task_cls = MoeLmTask if isinstance(cfg, MoeConfig) else CausalLmTask
-    task = task_cls(cfg, device="meta")
+    task = registry.make_task(entry, device="meta")
     trainer = Trainer(
         task, tx, policy=Policy.from_name(args.precision),
         config=TrainerConfig(seed=args.seed, grad_accum=args.grad_accum,
@@ -389,6 +397,52 @@ def _eval_view(args, state):
 
         return swap_ema_params(state)
     return state
+
+
+def _bleu_eval(args, trainer, state, loader) -> float:
+    """Beam-decode ``--bleu-eval`` evaluation batches and score corpus
+    BLEU (the JAX ``_bleu_eval``): hypotheses and references cut at their
+    first EOS, padded rows (``sample_weight`` 0) left out."""
+    import numpy as np
+
+    from tensorflow_train_distributed_torch.data.pipeline import to_device
+    from tensorflow_train_distributed_torch.models import transformer as tr
+    from tensorflow_train_distributed_torch.ops.metrics import (
+        corpus_bleu,
+        strip_after_eos,
+    )
+
+    hyps, refs = [], []
+    with trainer.inference(state):
+        for _, host in zip(range(args.bleu_eval), loader):
+            batch = to_device(host, trainer.device)
+            out = tr.beam_translate(
+                trainer.task.model, batch["inputs"],
+                max_len=host["targets_out"].shape[1],
+                beam_size=args.beam_size, bos_id=args.bos_id,
+                eos_id=args.eos_id).cpu().numpy()
+            keep = (np.asarray(host["sample_weight"]) > 0
+                    if "sample_weight" in host else np.ones(len(out), bool))
+            hyps += [strip_after_eos(list(r), args.eos_id)
+                     for r, k in zip(out, keep) if k]
+            refs += [strip_after_eos(list(r), args.eos_id)
+                     for r, k in zip(np.asarray(host["targets_out"]), keep)
+                     if k]
+    return corpus_bleu(hyps, refs)
+
+
+def _with_bleu(args, trainer, state, loader, eval_metrics):
+    """``eval_metrics`` with ``bleu`` added under ``--bleu-eval``."""
+    if args.bleu_eval <= 0:
+        return eval_metrics
+    import time
+
+    t0 = time.perf_counter()
+    bleu = _bleu_eval(args, trainer, state, loader)
+    trainer.timing["bleu_s"] = time.perf_counter() - t0
+    logger.info("BLEU (beam %d, %d batches): %.2f", args.beam_size,
+                args.bleu_eval, bleu)
+    return dict(eval_metrics or {}, bleu=bleu)
 
 
 def _stdout_lines(log_every: int, last_step: int):
@@ -469,6 +523,19 @@ def run(args) -> RunResult:
         entry = registry.get_entry(args.config)
     except ValueError as e:
         raise SystemExit(str(e))
+    if args.bleu_eval > 0:
+        from tensorflow_train_distributed_torch.models.transformer import (
+            TransformerConfig,
+        )
+
+        # Fail at launch, not after the run.
+        if not isinstance(entry["config"], TransformerConfig):
+            raise SystemExit(
+                "--bleu-eval needs a seq2seq config (wmt family); "
+                f"{args.config} does not decode")
+        if args.beam_size < 1:
+            raise SystemExit(f"--beam-size must be >= 1, got "
+                             f"{args.beam_size}")
     if args.reduce_lr_factor is not None:
         if not 0.0 < args.reduce_lr_factor < 1.0:
             raise SystemExit(f"--reduce-lr-factor must be in (0, 1), got "
@@ -477,8 +544,12 @@ def run(args) -> RunResult:
     if args.ema_decay is not None and not 0.0 < args.ema_decay < 1.0:
         raise SystemExit(f"--ema-decay must be in (0, 1), got "
                          f"{args.ema_decay}")
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but no CUDA device is available")
+    if args.device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda but no CUDA device is "
+                             "available")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
 
     global_batch = args.global_batch_size or entry["global_batch_size"]
     source = make_source(args, entry)
@@ -487,7 +558,7 @@ def run(args) -> RunResult:
         source, eval_source = train_val_split(
             source, args.eval_split, min_val=global_batch,
             min_train=global_batch)
-    elif args.eval_steps > 0:
+    elif args.eval_steps > 0 or args.bleu_eval > 0:
         logger.warning(
             "evaluation will run on the TRAINING distribution (no "
             "--eval-split): val_* metrics are not held-out numbers")
@@ -567,8 +638,10 @@ def run(args) -> RunResult:
                 raise SystemExit("--eval-only needs a restorable "
                                  "checkpoint (--checkpoint-dir with a "
                                  "saved state)")
-            eval_metrics = _evaluate(trainer, make_eval_loader(),
-                                     _eval_view(args, state), args)
+            eval_metrics = _with_bleu(
+                args, trainer, _eval_view(args, state), make_eval_loader(),
+                _evaluate(trainer, make_eval_loader(),
+                          _eval_view(args, state), args))
             print(json.dumps({"step": state.step, "eval": eval_metrics}),
                   flush=True)
             return RunResult(state, history.history, eval_metrics,
@@ -600,9 +673,12 @@ def run(args) -> RunResult:
             logger.info("checkpoint already at/past --steps; nothing to "
                         "train")
         preempted = watcher is not None and watcher.preempted
-        if args.eval_steps > 0 and not preempted:
-            eval_metrics = _evaluate(trainer, make_eval_loader(),
-                                     _eval_view(args, state), args)
+        if (args.eval_steps > 0 or args.bleu_eval > 0) and not preempted:
+            if args.eval_steps > 0:
+                eval_metrics = _evaluate(trainer, make_eval_loader(),
+                                         _eval_view(args, state), args)
+            eval_metrics = _with_bleu(args, trainer, _eval_view(args, state),
+                                      make_eval_loader(), eval_metrics)
             print(json.dumps({"step": state.step, "eval": eval_metrics}),
                   flush=True)
     finally:
@@ -629,6 +705,8 @@ def _evaluate(trainer, loader, state, args) -> dict:
 
 def _summary(trainer, ckpt, state, eval_metrics) -> dict:
     """Host timings of the run and the kernels' launch counts."""
+    import torch
+
     from tensorflow_train_distributed_torch.ops import kernels as K
 
     timing = trainer.timing
@@ -640,12 +718,15 @@ def _summary(trainer, ckpt, state, eval_metrics) -> dict:
         "window_ms_per_step": per_step,
         "step_ms": statistics.median(per_step) if per_step else None,
         "eval_s": timing["eval_s"],
+        "bleu_s": timing.get("bleu_s"),
         "save_s": timing["save_s"],
         "save_bytes": None if ckpt is None or ckpt.last_save is None
         else ckpt.last_save["bytes"],
         "restore": None if ckpt is None else ckpt.last_restore,
         "eval": eval_metrics,
         "launches": {k: v for k, v in K.launch_counts().items() if v},
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(trainer.device)
+                           if trainer.device.type == "cuda" else None),
     }
 
 

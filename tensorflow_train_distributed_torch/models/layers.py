@@ -1,9 +1,11 @@
-"""Transformer building blocks for the decoder: training and serving.
+"""Transformer building blocks: training and serving.
 
-Counterpart of the JAX package's ``models/layers.py``: ``Embed``, RoPE
-(with the Llama-3 frequency scaling), the int8 KV recipe, ``RMSNorm``
-over the fused kernel, the gated ``MlpBlock`` and ``MultiHeadAttention``
-in its training branch (self-attention through the kernel dispatch,
+Counterpart of the JAX package's ``models/layers.py``: ``Embed`` (with
+tied logits, ``attend``), RoPE (with the Llama-3 frequency scaling),
+``sinusoidal_positions``, the int8 KV recipe, ``RMSNorm`` over the fused
+kernel, ``LayerNorm``, ``Conv``, the gated and the plain ``MlpBlock``,
+dropout, and ``MultiHeadAttention`` in its training branch (causal or
+full self-attention and cross-attention through the kernel dispatch,
 sliding windows included) and its decode modes (linear and paged KV
 caches; a sliding window's rolling cache is not ported).
 
@@ -33,13 +35,22 @@ in place saves the copy):
 
 Both carry one ``index`` [B] int32: each row's position, advanced by the
 model once per call.
+
+Dropout draws from the ``torch.Generator`` that ``dropout_generator``
+installs (the trainer installs one seeded from (seed, step), as the JAX
+trainer folds the step into its key), and only in a module's training
+mode; the masks differ from JAX's, the rate and scaling do not.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Optional
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -90,24 +101,28 @@ def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
 
 class Dense(_Leaf):
     """``y = x @ kernel (+ bias)``, kernel ``[in, out]`` (flax layout);
-    inputs and weights are promoted to ``dtype`` as flax's Dense does."""
+    inputs and weights are promoted to ``dtype`` as flax's Dense does
+    (``dtype=None``: to the promotion of the input's and the cast
+    kernel's dtypes, flax's default)."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  use_bias: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
+        pdt = dtype or torch.float32
         self.kernel = nn.Parameter(
-            torch.empty(in_features, out_features, dtype=dtype,
+            torch.empty(in_features, out_features, dtype=pdt,
                         device=device))
-        self.bias = (nn.Parameter(torch.empty(out_features, dtype=dtype,
+        self.bias = (nn.Parameter(torch.empty(out_features, dtype=pdt,
                                               device=device))
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype),
-                         self._cast(self.kernel).to(self.dtype))
+        w = self._cast(self.kernel)
+        dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(dt), w.to(dt))
         if self.bias is not None:
-            y = y + self._cast(self.bias).to(self.dtype)
+            y = y + self._cast(self.bias).to(dt)
         return y
 
 
@@ -126,6 +141,82 @@ class Embed(_Leaf):
         # backward then sums repeated tokens' rows in f32 (JAX sums them
         # in the compute dtype before its cast back).
         return self._cast(self.embedding[ids]).to(self.dtype)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied output logits ``x @ Eᵀ`` in x's dtype (BERT's and the
+        Transformer's heads)."""
+        return torch.matmul(x, self._cast(self.embedding).to(x.dtype).t())
+
+
+def sinusoidal_positions(seq_len: int, features: int) -> np.ndarray:
+    """Fixed sin/cos table [seq_len, features] f32 (Transformer-big)."""
+    pos = np.arange(seq_len)[:, None]
+    div = np.exp(np.arange(0, features, 2) / features * -np.log(10000.0))
+    table = np.zeros((seq_len, features), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table
+
+
+_DROPOUT_GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
+    "dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(generator):
+    """Dropout inside draws from ``generator`` (on the tensors' device):
+    a ``torch.Generator``, or a callable that makes one, called at the
+    first draw, so that a model without dropout builds none."""
+    token = _DROPOUT_GENERATOR.set([generator])
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR.reset(token)
+
+
+def _installed_generator() -> Optional[torch.Generator]:
+    box = _DROPOUT_GENERATOR.get()
+    if box is None or box[0] is None:
+        return None
+    if not isinstance(box[0], torch.Generator):
+        box[0] = box[0]()
+    return box[0]
+
+
+def dropout(x: torch.Tensor, rate: float, active: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate,
+    scaled by 1 / (1 - rate) in x's dtype; the identity unless ``active``
+    (a module in training mode) and rate > 0."""
+    if not active or rate <= 0.0:
+        return x
+    gen = _installed_generator()
+    if gen is None:
+        raise RuntimeError("dropout in training mode draws from the "
+                           "generator of layers.dropout_generator(...); "
+                           "none is installed")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def checkpoint_with_dropout(fn, *args):
+    """``torch.utils.checkpoint`` of ``fn(*args)`` whose recompute in the
+    backward draws the forward's dropout masks again: the recompute runs
+    under the forward's generator, rewound to its state at the forward's
+    entry."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen = _installed_generator()
+    state = None if gen is None else gen.get_state()
+
+    def run(*a):
+        if state is not None:
+            gen.set_state(state)
+        with dropout_generator(gen):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def llama3_scaled_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
@@ -205,34 +296,145 @@ class RMSNorm(_Leaf):
         return K.rms_norm(x, scale, epsilon=self.epsilon).to(self.dtype)
 
 
-class MlpBlock(nn.Module):
-    """Gated FFN: SwiGLU (``silu``) or GeGLU with the tanh gelu."""
+class LayerNorm(_Leaf):
+    """flax ``nn.LayerNorm`` (scale and bias): statistics and the affine in
+    f32, the result in ``dtype``."""
 
-    def __init__(self, features: int, hidden: int, *, dtype=torch.float32,
-                 activation: str = "silu", device=None):
+    def __init__(self, features: int, *, epsilon: float = 1e-6,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        if activation not in ("silu", "gelu"):
-            raise ValueError(f"activation must be 'silu' or 'gelu', got "
-                             f"{activation!r}")
-        self.activation = activation
-        self.wi_gate = Dense(features, hidden, dtype=dtype, device=device)
-        self.wi_up = Dense(features, hidden, dtype=dtype, device=device)
-        self.wo = Dense(hidden, features, dtype=dtype, device=device)
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.empty(features, dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.empty(features, dtype=dtype,
+                                             device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate = self.wi_gate(x)
-        act = (F.silu(gate) if self.activation == "silu"
-               else F.gelu(gate, approximate="tanh"))
-        return self.wo(act * self.wi_up(x))
+        y = F.layer_norm(x.float(), (x.shape[-1],),
+                         self._cast(self.scale).float(),
+                         self._cast(self.bias).float(), self.epsilon)
+        return y.to(self.dtype)
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple:
+    """(lo, hi) padding of XLA's "SAME" along one axis: asymmetric, the
+    extra row at the end, e.g. (2, 3) for a 7x7 stride-2 conv on 224."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(_Leaf):
+    """flax ``nn.Conv`` over NCHW tensors (the port's vision layout; a
+    permuted NHWC batch is channels-last in memory).  ``kernel`` is
+    ``[out, in, kh, kw]`` (OIHW; ``convert`` transposes flax's HWIO);
+    ``padding`` "SAME" (XLA's asymmetric split, ``same_padding``),
+    "VALID" or ((lo, hi), (lo, hi)).  The product runs in the promoted
+    dtype of input and (cast) kernel, as flax's ``dtype=None``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int, *,
+                 stride: int = 1, padding="SAME", use_bias: bool = True,
+                 kernel_init=("fan_in", 1.0), device=None):
+        super().__init__()
+        self.kernel_init = kernel_init
+        self.kernel_size = kernel
+        self.stride = stride
+        self.padding = padding
+        self.kernel = nn.Parameter(torch.empty(features, in_features, kernel,
+                                               kernel, device=device))
+        self.bias = (nn.Parameter(torch.empty(features, device=device))
+                     if use_bias else None)
+
+    def init_spec(self) -> dict:
+        """Random kernels N(0, scale / fan) (flax's variance scaling with
+        a normal draw; ``kernel_init`` = (fan mode, scale)): lecun's
+        ("fan_in", 1) by default, ResNet's ("fan_out", 2)."""
+        mode, scale = self.kernel_init
+        o, i, kh, kw = self.kernel.shape
+        fan = (i if mode == "fan_in" else o) * kh * kw
+        return {"kernel": ("normal", math.sqrt(scale / fan))}
+
+    def _pads(self, h: int, w: int) -> tuple:
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
+        if self.padding == "SAME":
+            return (same_padding(h, self.kernel_size, self.stride),
+                    same_padding(w, self.kernel_size, self.stride))
+        return tuple(tuple(p) for p in self.padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self._cast(self.kernel)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+        if x.is_cuda:
+            w = w.contiguous(memory_format=torch.channels_last)
+        (t, b), (lft, r) = self._pads(x.shape[2], x.shape[3])
+        if t == b and lft == r:
+            pad = (t, lft)
+        else:
+            x = F.pad(x, (lft, r, t, b))
+            pad = 0
+        b_ = None if self.bias is None else self._cast(self.bias).to(dt)
+        return F.conv2d(x, w, b_, stride=self.stride, padding=pad)
+
+
+_ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # flax nn.gelu
+    "gelu_exact": F.gelu,                              # erf (HF BERT)
+}
+
+
+class MlpBlock(nn.Module):
+    """Transformer FFN.  Gated (Llama): SwiGLU (``silu``) or GeGLU with the
+    tanh gelu, ``wi_gate``/``wi_up``/``wo`` without biases.  Plain
+    (``gated=False``, BERT and the Transformer): ``wi`` and ``wo`` with
+    biases, the activation (``gelu``: tanh; ``gelu_exact``: erf) and
+    dropout on the hidden activations in training mode."""
+
+    def __init__(self, features: int, hidden: int, *, dtype=torch.float32,
+                 activation: str = "silu", gated: bool = True,
+                 dropout_rate: float = 0.0, device=None):
+        super().__init__()
+        allowed = ("silu", "gelu") if gated else tuple(_ACTIVATIONS)
+        if activation not in allowed:
+            raise ValueError(f"activation must be one of {allowed}, got "
+                             f"{activation!r}")
+        self.activation = activation
+        self.gated = gated
+        self.dropout_rate = dropout_rate
+        if gated:
+            self.wi_gate = Dense(features, hidden, dtype=dtype,
+                                 device=device)
+            self.wi_up = Dense(features, hidden, dtype=dtype, device=device)
+        else:
+            self.wi = Dense(features, hidden, use_bias=True, dtype=dtype,
+                            device=device)
+        self.wo = Dense(hidden, features, use_bias=not gated, dtype=dtype,
+                        device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = _ACTIVATIONS[self.activation]
+        if self.gated:
+            return self.wo(act(self.wi_gate(x)) * self.wi_up(x))
+        h = dropout(act(self.wi(x)), self.dropout_rate, self.training)
+        return self.wo(h)
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA/GQA causal self-attention: training, or decode over a KV cache.
+    """MHA/GQA attention: training, or decode over a KV cache.
 
     Without a cache (training, ``_train_step``) the whole sequence attends
     through ``ops.attention.multihead_attention_kernel``: the flash kernel
-    on CUDA, or with a sliding ``window`` (and ``sinks``) the splash
-    kernel; the reference paths on the CPU.  With one, a call appends this
+    on CUDA (causal, or full for ``causal=False``: BERT's encoder and the
+    Transformer's, its cross-attention over ``x_kv``), or with a sliding
+    ``window`` (and ``sinks``) the splash kernel; the reference paths on
+    the CPU and at the shapes the kernels' gate refuses.  ``use_rope``
+    (the decoders) rotates q and k by the caller's tables; ``use_bias``
+    (BERT) gives every projection a bias; ``dropout_rate`` drops the
+    attention output before the out projection in training mode.  With a
+    cache (causal self-attention with RoPE only), a call appends this
     call's k/v rows at each row's own position (``index``) and attends
     over everything up to it: over a linear cache (``_slot_decode_step``,
     the serving engine's batch-1 prefill) or over the paged pool
@@ -243,8 +445,14 @@ class MultiHeadAttention(nn.Module):
                  num_kv_heads: Optional[int] = None, *, dtype=torch.float32,
                  kv_cache_int8: bool = False, fused_qkv: bool = False,
                  qkv_bias: bool = False, window: Optional[int] = None,
-                 sinks: int = 0, device=None):
+                 sinks: int = 0, causal: bool = True, use_rope: bool = True,
+                 use_bias: bool = False, dropout_rate: float = 0.0,
+                 device=None):
         super().__init__()
+        self.causal = causal
+        self.use_rope = use_rope
+        self.dropout_rate = dropout_rate
+        qkv_bias = qkv_bias or use_bias
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.num_kv_heads = num_kv_heads or num_heads
@@ -264,14 +472,23 @@ class MultiHeadAttention(nn.Module):
                              dtype=dtype, device=device)
             self.value = Dense(features, kvh * head_dim, use_bias=qkv_bias,
                                dtype=dtype, device=device)
-        self.out = Dense(num_heads * head_dim, features, dtype=dtype,
-                         device=device)
+        self.out = Dense(num_heads * head_dim, features, use_bias=use_bias,
+                         dtype=dtype, device=device)
 
-    def _qkv(self, x: torch.Tensor):
-        """q [B, S, H, D], k/v [B, S, KV, D]: three products, or one
-        fused product split head-wise."""
+    def _qkv(self, x: torch.Tensor, x_kv: Optional[torch.Tensor] = None):
+        """q [B, S, H, D], k/v [B, S_kv, KV, D]: three products, or one
+        fused product split head-wise (self-attention only); k and v read
+        ``x_kv`` where it is given (cross-attention)."""
         b, s, _ = x.shape
         h, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        if x_kv is not None:
+            if self.fused_qkv:
+                raise ValueError("fused_qkv is self-attention only (q and "
+                                 "kv read different inputs)")
+            skv = x_kv.shape[1]
+            return (self.query(x).view(b, s, h, hd),
+                    self.key(x_kv).view(b, skv, kvh, hd),
+                    self.value(x_kv).view(b, skv, kvh, hd))
         if not self.fused_qkv:
             return (self.query(x).view(b, s, h, hd),
                     self.key(x).view(b, s, kvh, hd),
@@ -279,19 +496,27 @@ class MultiHeadAttention(nn.Module):
         y = self.qkv(x).view(b, s, h + 2 * kvh, hd)
         return y[:, :, :h], y[:, :, h:h + kvh], y[:, :, h + kvh:]
 
-    def forward(self, x: torch.Tensor, layer_cache: Optional[dict],
-                cache: Optional[KVCache], *, positions: torch.Tensor, rope,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layer_cache: Optional[dict] = None,
+                cache: Optional[KVCache] = None, *,
+                positions: Optional[torch.Tensor] = None, rope=None,
+                segment_ids: Optional[torch.Tensor] = None,
+                x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``layer_cache``: this layer's leaves of ``cache`` (both None for
         training); ``positions`` [B, S] the tokens' positions (decode:
         ``cache.index[:, None] + arange(S)``); ``rope`` the (sin, cos)
-        tables at those positions; ``segment_ids`` [B, S] (training only)
-        the packing restriction."""
-        q, k, v = self._qkv(x)
-        q = rotate(q, *rope)
-        k = rotate(k, *rope)
+        tables at those positions (``use_rope`` only); ``segment_ids``
+        [B, S] (training only) the packing restriction; ``x_kv`` [B, S_kv,
+        features] the keys' and values' input for cross-attention."""
+        q, k, v = self._qkv(x, x_kv)
+        if self.use_rope:
+            if rope is None:
+                raise ValueError("use_rope attention needs the rope tables")
+            q = rotate(q, *rope)
+            k = rotate(k, *rope)
         if cache is None:
             return self._train_step(q, k, v, segment_ids)
+        if x_kv is not None or not (self.causal and self.use_rope):
+            raise ValueError("decode is causal self-attention with RoPE")
         if self.window is not None or self.sinks:
             raise NotImplementedError(
                 "decode with a sliding window or attention sinks (the "
@@ -306,15 +531,16 @@ class MultiHeadAttention(nn.Module):
         return self._attn_epilogue(out)
 
     def _train_step(self, q, k, v, segment_ids):
-        """Causal self-attention over the whole sequence (the JAX
-        ``__call__`` without decode): keys sit at their queries'
-        positions; GQA's kv heads are read, not repeated, by the kernels
-        (the reference paths repeat them)."""
+        """Attention over the whole sequence (the JAX ``__call__`` without
+        decode): causal (keys at their queries' positions) or full; GQA's
+        kv heads are read, not repeated, by the kernels (the reference
+        paths repeat them)."""
         out = multihead_attention_kernel(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, segment_ids=segment_ids, window=self.window,
+            causal=self.causal, segment_ids=segment_ids, window=self.window,
             sinks=self.sinks)
-        return self._attn_epilogue(out.transpose(1, 2))
+        out = dropout(out.transpose(1, 2), self.dropout_rate, self.training)
+        return self._attn_epilogue(out)
 
     def _stored(self, k: torch.Tensor, v: torch.Tensor, cache_dtype):
         """Rows as the cache stores them: int8 + scales, or cast."""

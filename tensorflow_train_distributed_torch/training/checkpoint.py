@@ -21,7 +21,9 @@ step fails with its marker intact, the failure is systemic (a changed
 config, an unreadable disk): it raises and quarantines nothing.
 
 ``restore`` checks every name, dtype, shape and byte range against the
-template before it writes anything, then copies each tensor into the
+template before it writes anything (the train state's ``model_state``,
+BatchNorm's running statistics, as strictly as its params: a checkpoint
+without them is refused, never half-restored), then copies each tensor into the
 template's own tensor (so it lands on the trainer's device and the
 model's parameters stay bound); plain values come back from the
 manifest.  Saves are synchronous: copying a CUDA tensor to the host
@@ -271,6 +273,13 @@ class CheckpointManager:
         saved, saved_values = manifest["tensors"], manifest["values"]
         missing = sorted(set(arrays) - set(saved))
         extra = sorted(set(saved) - set(arrays))
+        lacking = [n for n in missing if n.startswith("model_state/")]
+        if lacking:
+            raise ValueError(
+                f"checkpoint step {step} has no model state for "
+                f"{len(lacking)} buffers the model keeps (e.g. "
+                f"{lacking[0]}: BatchNorm running statistics); refusing a "
+                f"restore that would leave them at their initial values")
         if missing or extra or set(values) != set(saved_values):
             raise ValueError(
                 f"checkpoint step {step} does not match the state: "

@@ -24,12 +24,24 @@ periodic save through the checkpoint manager; ``train_end`` in a
 ``evaluate`` (weighted ``MetricAccumulator`` means, ``perplexity`` as
 exp of the mean loss) and ``predict`` (pad rows dropped) run the forward
 alone, with the state's params bound to the model (an EMA view too).
+
+Modes, as the JAX ``train`` flag: the loss of a training step runs with
+the model in training mode (dropout on, BatchNorm normalising by the
+batch and updating its running statistics, once per microbatch in
+order, as the JAX scan threads ``model_state``); ``evaluate`` and
+``predict`` switch it to eval mode (dropout off, BatchNorm on its running
+averages) and back.  Dropout draws from a ``torch.Generator`` seeded from
+(seed, step), and from (seed, step, microbatch) under ``grad_accum``, as
+the JAX trainer folds the step (and the microbatch) into its key: a
+resumed run draws what the uninterrupted one drew.  The generator is
+built at the step's first draw, so a model without dropout builds none.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Callable, Iterable, Optional
 
@@ -76,9 +88,8 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Owns state creation, the step and the fit loop for one task (a
-    ``models.llama.CausalLmTask`` or ``models.moe.MoeLmTask``) on one
-    device."""
+    """Owns state creation, the step and the fit loop for one task (any
+    of ``models.registry.make_task``'s) on one device."""
 
     def __init__(self, task, optimizer: GradientTransformation, *,
                  policy: Policy = Policy(),
@@ -121,10 +132,21 @@ class Trainer:
         L.set_compute_dtype(model, self.policy.compute_dtype)
         model.train()
         named = dict(model.named_parameters())
+        buffers = dict(model.named_buffers())
         return TrainState(
             step=0, params=named,
             opt_state=self.tx.init(list(named.values())),
-            loss_scale=mp.LossScaleState.create(self.policy, self.device))
+            loss_scale=mp.LossScaleState.create(self.policy, self.device),
+            model_state={k: buffers[b] for k, b in
+                         convert.model_state_names(model).items()})
+
+    def _generator(self, step: int, micro: Optional[int] = None):
+        """The dropout generator of a step (and microbatch): seeded from
+        (seed, step[, micro]) alone."""
+        key = [self.config.seed, step] + ([] if micro is None else [micro])
+        hi, lo = np.random.SeedSequence(key).generate_state(2, np.uint32)
+        return torch.Generator(device=self.device).manual_seed(
+            (int(hi) << 31) ^ int(lo))
 
     # -- the step --------------------------------------------------------
 
@@ -137,10 +159,12 @@ class Trainer:
         return mp.unscale_grads(list(grads), loss_scale), loss.detach(), \
             metrics
 
-    def _accumulated_grads(self, params: list, batch: dict, loss_scale):
+    def _accumulated_grads(self, params: list, batch: dict, loss_scale,
+                           step: int = 0):
         """``grad_accum`` microbatches (rows split in order), their grads
         averaged in f32, weighted by ``loss_weight`` where the task
-        reports one."""
+        reports one; microbatch i draws its dropout from (seed, step,
+        i)."""
         a = self.config.grad_accum
         bsz = next(iter(batch.values())).shape[0]
         if bsz % a:
@@ -151,8 +175,10 @@ class Trainer:
         losses, ws, stacked = [], [], []
         for i in range(a):
             mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-            grads, loss, metrics = self._microbatch_grads(params, mb,
-                                                          loss_scale)
+            with L.dropout_generator(functools.partial(self._generator,
+                                                       step, i)):
+                grads, loss, metrics = self._microbatch_grads(params, mb,
+                                                              loss_scale)
             w = metrics.get("loss_weight",
                             torch.ones((), device=loss.device))
             acc = [s + g.float() * w for s, g in zip(acc, grads)]
@@ -202,12 +228,15 @@ class Trainer:
         step's metrics as device scalars and advances ``state``."""
         params = list(state.params.values())
         batch = self.policy.cast_to_compute(batch)
+        self.task.model.train()
         if self.config.grad_accum > 1:
             grads, loss, metrics = self._accumulated_grads(
-                params, batch, state.loss_scale)
+                params, batch, state.loss_scale, state.step)
         else:
-            grads, loss, metrics = self._microbatch_grads(
-                params, batch, state.loss_scale)
+            with L.dropout_generator(functools.partial(self._generator,
+                                                       state.step)):
+                grads, loss, metrics = self._microbatch_grads(
+                    params, batch, state.loss_scale)
         extra = self._apply_grads(state, params, grads)
         state.step += 1
         return dict(metrics, loss=loss, **extra)
@@ -327,19 +356,25 @@ class Trainer:
     # -- evaluation and prediction ---------------------------------------
 
     @contextlib.contextmanager
-    def _bound(self, state: TrainState):
-        """The model runs on ``state.params`` inside: when they are not
-        the model's own parameters (an EMA view), their storage is swapped
-        in for the duration, without copies."""
-        named = dict(self.task.model.named_parameters())
+    def inference(self, state: TrainState):
+        """The model runs on ``state.params``, in eval mode (dropout off,
+        BatchNorm on its running averages) and without autograd inside;
+        its params that are not the model's own (an EMA view) are swapped
+        in without copies, and its mode restored after."""
+        model = self.task.model
+        named = dict(model.named_parameters())
         swap = {k: v for k, v in state.params.items()
                 if v is not named[k]}
         old = {k: named[k].data for k in swap}
+        was_training = model.training
         try:
             for k, v in swap.items():
                 named[k].data = v.detach()
-            yield
+            model.eval()
+            with torch.no_grad():
+                yield
         finally:
+            model.train(was_training)
             for k, d in old.items():
                 named[k].data = d
 
@@ -351,7 +386,7 @@ class Trainer:
         device_metrics = []
         it = prefetch_to_device(iter(batches), self.device)
         try:
-            with torch.no_grad(), self._bound(state):
+            with self.inference(state):
                 for batch in it:
                     loss, metrics = self.task.loss_fn(
                         self.policy.cast_to_compute(batch))
@@ -375,7 +410,7 @@ class Trainer:
         the batch on the host; rows with ``sample_weight`` 0 (the padding
         of an evaluation loader) are dropped."""
         outs, keeps = [], []
-        with torch.no_grad(), self._bound(state):
+        with self.inference(state):
             for host in batches:
                 batch = self.policy.cast_to_compute(
                     to_device(host, self.device))

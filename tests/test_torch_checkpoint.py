@@ -9,7 +9,10 @@ port's manager; then what the port's format adds: the whole train state
 (Adam and lamb moments, the injected learning rate, the EMA, a float16
 loss scale) restored bit for bit into a fresh template, the
 ``ckpt:save:partial`` fault, a SIGTERM that saves at the step boundary
-and stops, and the step-site fault plan.
+and stops, and the step-site fault plan; BatchNorm's running statistics
+as the state's ``model_state`` (a checkpoint without them refused for a
+BatchNorm model), and a resumed BERT run with dropout 0.1 drawing the
+uninterrupted run's masks (the (seed, step) generator).
 """
 
 import dataclasses
@@ -243,6 +246,98 @@ def test_resume_continues_the_uninterrupted_curve(tmp_path):
     assert [m["loss"] for _, m in first + second] == \
         [m["loss"] for _, m in ref_hist]
     _assert_states_equal(state, ref)
+
+
+def _family_trainer(name, tx, mgr=None, **cfg_knobs):
+    """A trainer on a registry entry (its config with ``cfg_knobs``)."""
+    from tensorflow_train_distributed_torch.models import registry
+
+    entry = registry.get_entry(name)
+    entry = dict(entry, config=dataclasses.replace(entry["config"],
+                                                   **cfg_knobs))
+    return Trainer(registry.make_task(entry, device="meta"), tx,
+                   policy=Policy.from_name("float32"), device="cpu",
+                   config=TrainerConfig(log_every=1),
+                   checkpoint_manager=mgr), entry
+
+
+def _family_batches(entry, seed=0):
+    from tensorflow_train_distributed_torch.data.datasets import get_dataset
+
+    kw = dict(entry["dataset_kwargs"], num_examples=64)
+    return HostBatches(get_dataset(entry["dataset"], **kw), 8, seed=seed)
+
+
+@pytest.mark.parametrize("name,knobs", [
+    ("bert_tiny_mlm", dict(dropout_rate=0.1)),
+    ("resnet_tiny", {}),
+])
+def test_family_resume_is_bitwise(tmp_path, name, knobs):
+    """6 steps straight, or 3, save, restore into a new trainer and 3
+    more: the losses and the final state (BatchNorm's running statistics,
+    and under dropout 0.1 what each step's (seed, step) masks made of the
+    weights) agree bit for bit."""
+    def tx():
+        return topt.make_optimizer("adamw", 1e-3)
+
+    tr, entry = _family_trainer(name, tx(), **knobs)
+    ref, ref_hist = tr.fit(_family_batches(entry), steps=6)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    tr, _ = _family_trainer(name, tx(), mgr, **knobs)
+    _, first = tr.fit(_family_batches(entry), steps=3)
+    tr, _ = _family_trainer(name, tx(), **knobs)
+    state = mgr.restore(tr.create_state())
+    assert state.step == 3
+    state, second = tr.fit(_family_batches(entry).iter_from(3), steps=3,
+                           state=state)
+    assert [m["loss"] for _, m in first + second] == \
+        [m["loss"] for _, m in ref_hist]
+    _assert_states_equal(state, ref)
+    if name == "resnet_tiny":
+        assert "model_state/batch_stats/stem_bn/var" in \
+            CheckpointManager(str(tmp_path / "ck"))._read(3)[0]["tensors"]
+        names = dict(tr.task.model.named_buffers())
+        assert state.model_state["batch_stats/stem_bn/mean"] is \
+            names["stem_bn.mean"]
+
+
+def test_dropout_changes_the_run():
+    """The bitwise resume above is not vacuous: dropout 0.1 moves the
+    losses off the rate-0 run's."""
+    def losses(rate):
+        tr, entry = _family_trainer("bert_tiny_mlm",
+                                    topt.make_optimizer("adamw", 1e-3),
+                                    dropout_rate=rate)
+        return [m["loss"] for _, m in tr.fit(_family_batches(entry),
+                                             steps=2)[1]]
+
+    assert losses(0.1) != losses(0.0)
+
+
+def test_checkpoint_without_model_state_is_refused(tmp_path):
+    """A BatchNorm model's checkpoint that lacks the running statistics is
+    refused before anything is written, not half-restored."""
+    from tensorflow_train_distributed_torch.training.train_state import (
+        TrainState,
+    )
+
+    tr, entry = _family_trainer("resnet_tiny",
+                                topt.make_optimizer("sgd", 1e-2))
+    state, _ = tr.fit(_family_batches(entry), steps=1)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    bare = TrainState(step=state.step, params=state.params,
+                      opt_state=state.opt_state,
+                      loss_scale=state.loss_scale)
+    assert mgr.save(1, bare)
+    tr2, _ = _family_trainer("resnet_tiny",
+                             topt.make_optimizer("sgd", 1e-2))
+    template = tr2.create_state()
+    before = {k: v.clone() for k, v in template.params.items()}
+    with pytest.raises(ValueError, match="model state"):
+        mgr.restore(template)
+    for k, v in template.params.items():
+        assert torch.equal(v, before[k]), k
+    assert mgr.all_steps() == [1]                 # nothing quarantined
 
 
 def test_checkpoint_every_and_the_final_save(tmp_path):

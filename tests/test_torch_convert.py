@@ -131,3 +131,56 @@ def test_init_params_starts_zero_centered_norm_scales_at_zero():
                             device="cpu")
     scales = [v for k, v in p.items() if k.endswith(".scale")]
     assert scales and not any(v.any() for v in scales)
+
+
+@pytest.mark.parametrize("name", ["mnist", "resnet_tiny", "bert_tiny_mlm",
+                                  "transformer_tiny_wmt"])
+def test_init_params_for_the_other_families(name):
+    """Seeded and shaped as the model's state_dict (BatchNorm's running
+    statistics included), with the JAX initialisers: BatchNorm mean 0,
+    var 1, each block's last scale 0, ResNet's head 0 and its convs
+    N(0, 2 / fan_out); BERT's position table N(0, 0.02), its MLM bias 0."""
+    from tensorflow_train_distributed_torch.models import registry
+
+    cfg = registry.get_entry(name)["config"]
+    p = convert.init_params(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
+    assert {k: tuple(v.shape) for k, v in p.items()} == (
+        convert.expected_shapes(cfg))
+    assert all(v.dtype == torch.float32 for v in p.values())
+    if name == "resnet_tiny":
+        assert torch.equal(p["stem_bn.var"], torch.ones(8))
+        assert not p["stem_bn.mean"].any()
+        assert not p["BottleneckBlock_0.BatchNorm_2.scale"].any()
+        assert torch.equal(p["BottleneckBlock_0.BatchNorm_1.scale"],
+                           torch.ones(8))
+        assert not p["Dense_0.kernel"].any()
+        w = p["BottleneckBlock_1.Conv_1.kernel"]          # [16, 16, 3, 3]
+        assert abs(w.std().item() / (2 / (16 * 9)) ** 0.5 - 1) < 0.15
+    if name == "bert_tiny_mlm":
+        assert abs(p["pos_embedding"].std().item() / 0.02 - 1) < 0.1
+        assert not p["mlm_bias"].any()
+
+
+def test_conv_kernels_and_batch_stats_convert():
+    """flax HWIO conv kernels become OIHW and ``batch_stats/…`` keys the
+    BatchNorm buffers; the tree must be complete."""
+    from tensorflow_train_distributed_tpu.models import resnet as JRN
+    from tensorflow_train_distributed_torch.models import resnet as TRN
+
+    variables = JRN.ResNet(JRN.RESNET_PRESETS["resnet_tiny"]).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False)
+    flat = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(
+        fnn.unbox(variables["params"]), sep="/").items()}
+    stats = {f"batch_stats/{k}": np.asarray(v) for k, v in
+             traverse_util.flatten_dict(variables["batch_stats"],
+                                        sep="/").items()}
+    cfg = TRN.RESNET_PRESETS["resnet_tiny"]
+    params = convert.params_from_flax({**flat, **stats}, cfg)
+    assert torch.equal(params["stem_conv.kernel"], torch.from_numpy(
+        flat["stem_conv/kernel"].transpose(3, 2, 0, 1).copy()))
+    assert torch.equal(params["BottleneckBlock_1.proj_bn.var"],
+                       torch.from_numpy(stats[
+                           "batch_stats/BottleneckBlock_1/proj_bn/var"]))
+    with pytest.raises(ValueError, match="missing"):
+        convert.params_from_flax(flat, cfg)

@@ -635,6 +635,56 @@ def test_cross_entropy_autograd_matches_plain(gen, n, v, dtype):
                                atol=tol)
 
 
+@pytest.mark.parametrize("n,v", [(257, 30522), (64, 30521), (5, 1001)])
+def test_cross_entropy_at_odd_vocabularies(gen, n, v):
+    """BERT's vocab 30,522 (V % 4 = 2) and odd ones take the scalar loads:
+    K3f and K3b against the plain version, f32 and bf16 logits."""
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = (4 * _randn(gen, n, v)).to(dtype)
+        labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        labels[0] = v - 1                   # the last column is visited
+        w = torch.rand(n, generator=gen, device="cuda")
+        loss, (dl,) = _grads(lambda lg: K.cross_entropy(lg, labels),
+                             (logits,), w)
+        ref, (dl_ref,) = _grads(
+            lambda lg: K.cross_entropy_reference(lg, labels), (logits,), w)
+        torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-5)
+        tol = 1e-5 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(dl.float(), dl_ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s", [(4, 12, 128), (2, 16, 256)])
+def test_flash_attention_full_at_the_encoders_heads(gen, dtype, b, h, s):
+    """K2 without the causal mask at head_dim 64: BERT-base's S 128 and
+    Transformer-big's S 256 (cut in batch), and through the dispatch the
+    encoders call (``multihead_attention_kernel``, causal=False)."""
+    from tensorflow_train_distributed_torch.ops.attention import (
+        multihead_attention_kernel,
+    )
+
+    q, k, v, do = (_randn(gen, b, s, h, 64, dtype=dtype).transpose(1, 2)
+                   for _ in range(4))
+    kw = dict(causal=False, sm_scale=64 ** -0.5)
+    before = K.launch_counts()["flash_attention"]
+    out, grads = _grads(
+        lambda *t: multihead_attention_kernel(*t, causal=False), (q, k, v),
+        do)
+    assert K.launch_counts()["flash_attention"] == before + 1
+    ref, ref_grads = _grads(
+        lambda *t: K.flash_attention_reference(*t, **kw), (q, k, v), do)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=2e-5 if f32 else 3e-2,
+                               atol=2e-5 if f32 else 3e-2)
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=1e-4 if f32 else 3e-2,
+                                   atol=1e-4 if f32 else 3e-2)
+
+
 def _segments(gen, b, s):
     cuts = torch.sort(torch.randint(1, s, (b, 3), generator=gen,
                                     device="cuda"), dim=1).values

@@ -268,7 +268,8 @@ def test_evaluate_and_predict_match_jax_trainer():
     ["--strategy", "fsdp"], ["--mesh", "data=2"], ["--zero1"],
     ["--grad-quant", "int8"], ["--num-processes", "2"],
     ["--lora-rank", "4"], ["--init-from-hf", "/nowhere"],
-    ["--bleu-eval", "2"], ["--data-workers", "2"], ["--supervise"],
+    ["--data-transform", "imagenet_train_224"], ["--data-workers", "2"],
+    ["--supervise"],
     ["--tensorboard-dir", "tb"], ["--profile-dir", "p"],
     ["--steps-per-execution", "4"], ["--platform", "cpu"]])
 def test_unported_flags_are_refused(flags, capsys):
@@ -303,23 +304,28 @@ def test_flag_conflicts_are_refused_before_setup(flags, match):
 
 def test_list_configs_and_unknown_config(capsys):
     assert tlaunch.main(["--list-configs"]) == 0
-    assert "llama_125m_lm:" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="Unknown decoder config"):
-        tlaunch.main(["--config", "resnet50_imagenet", "--device", "cpu"])
+    out = capsys.readouterr().out
+    for name in ("llama_125m_lm:", "resnet50_imagenet:", "bert_base_mlm:",
+                 "transformer_big_wmt:", "mnist:"):
+        assert name in out
+    with pytest.raises(SystemExit, match="Unknown config"):
+        tlaunch.main(["--config", "vit_b16_imagenet", "--device", "cpu"])
 
 
-def _cli(tmp, *flags, env=None):
+_CHAOS_FLAGS = ["--steps", "12", "--checkpoint-every", "4",
+                "--max-to-keep", "2", "--eval-split", "0.001",
+                "--eval-steps", "4", "--eval-every", "6", "--log-every", "2"]
+
+
+def _cli(tmp, *flags, env=None, config="llama_tiny_sft", base=_CHAOS_FLAGS):
     e = {k: v for k, v in os.environ.items()
          if k not in ("TTD_FAULT_PLAN", "TTD_SUPERVISE_ATTEMPT")}
     e["PYTHONPATH"] = REPO
     e.update(env or {})
     return subprocess.run(
         [sys.executable, "-m", "tensorflow_train_distributed_torch",
-         "--config", "llama_tiny_sft", "--device", "cpu", "--steps", "12",
-         "--checkpoint-every", "4", "--max-to-keep", "2",
-         "--eval-split", "0.001", "--eval-steps", "4", "--eval-every", "6",
-         "--log-every", "2", *flags], cwd=tmp, env=e, capture_output=True,
-        text=True, timeout=180)
+         "--config", config, "--device", "cpu", *base, *flags], cwd=tmp,
+        env=e, capture_output=True, text=True, timeout=180)
 
 
 def _lines(out):
@@ -388,3 +394,123 @@ def test_loss_curve_matches_the_jax_launcher(tmp_path):
     assert len(got) == len(want) == 20
     assert np.max(np.abs(np.array(got) - np.array(want))) <= 1e-4
     assert got[-1] < got[0]
+
+
+# -- the other families -------------------------------------------------------
+
+
+@pytest.mark.parametrize("config", ["bert_tiny_mlm", "resnet_tiny"])
+def test_family_kill_and_resume_through_the_cli(tmp_path, config):
+    """(a) 8 steps with a save every 4; (b) the same killed by the fault
+    plan at step 6; (c) its rerun restores step 4 and ends with a step-8
+    checkpoint bit for bit equal to (a)'s, BatchNorm's running statistics
+    included, and the same evaluation."""
+    base = ["--steps", "8", "--checkpoint-every", "4", "--eval-steps", "1",
+            "--log-every", "2", "--global-batch-size", "8"]
+    plan = ["--fault-plan", "step:6:kill9:attempt=0"]
+    a = _cli(tmp_path, "--checkpoint-dir", "a", config=config, base=base)
+    assert a.returncode == 0, a.stderr[-2000:]
+    b = _cli(tmp_path, "--checkpoint-dir", "b", *plan, config=config,
+             base=base)
+    assert b.returncode == -9, b.stderr[-2000:]
+    c = _cli(tmp_path, "--checkpoint-dir", "b", *plan, config=config,
+             base=base, env={"TTD_SUPERVISE_ATTEMPT": "1"})
+    assert c.returncode == 0, c.stderr[-2000:]
+    assert "restored checkpoint step 4" in c.stderr
+    for f in ("tensors.bin", "manifest.json"):
+        assert (tmp_path / "a" / "8" / f).read_bytes() == \
+            (tmp_path / "b" / "8" / f).read_bytes(), f
+    manifest = json.loads((tmp_path / "a" / "8" / "manifest.json")
+                          .read_text())
+    stats = [k for k in manifest["tensors"] if k.startswith("model_state/")]
+    assert bool(stats) == (config == "resnet_tiny"), stats
+    assert _lines(a.stdout)[-1]["eval"] == _lines(c.stdout)[-1]["eval"]
+
+
+@pytest.mark.parametrize("config", ["mnist", "transformer_tiny_wmt"])
+def test_family_trains_through_the_cli(config, capsys):
+    assert tlaunch.main(["--config", config, "--device", "cpu", "--steps",
+                         "3", "--log-every", "1", "--global-batch-size",
+                         "8", "--precision", "float32"]) == 0
+    lines = _lines(capsys.readouterr().out)
+    assert [x["step"] for x in lines] == [1, 2, 3]
+    assert all(np.isfinite(x["loss"]) for x in lines)
+
+
+def test_bleu_eval_is_for_the_wmt_family():
+    with pytest.raises(SystemExit, match="seq2seq"):
+        tlaunch.run(tlaunch.build_parser().parse_args(
+            ["--config", "llama_tiny_sft", "--device", "cpu",
+             "--bleu-eval", "1"]))
+
+
+def _jax_init(name, batch_size):
+    """The JAX launcher's init for ``name`` at seed 0, flat."""
+    entry = jreg.get_entry(name)
+    mesh = build_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    jtr = JaxTrainer(entry["task_factory"](), optax.sgd(0.1), mesh,
+                     config=JaxTrainerConfig(seed=0))
+    src = jds.get_dataset(entry["dataset"], **entry["dataset_kwargs"])
+    sample = JHostDataLoader(src, JDataConfig(global_batch_size=batch_size),
+                             process_index=0, process_count=1)
+    return jtr.create_state(next(iter(sample))).params
+
+
+def test_bleu_matches_the_jax_launcher(tmp_path):
+    """``transformer_tiny_wmt --bleu-eval 1 --beam-size 2``: three f32
+    steps from the same weights, then beam decoding of one evaluation
+    batch; both launchers print the same BLEU and evaluation loss."""
+    flags = ["--config", "transformer_tiny_wmt", "--steps", "3",
+             "--precision", "float32", "--log-every", "1", "--seed", "0",
+             "--eval-steps", "1", "--bleu-eval", "1", "--beam-size", "2"]
+    want = jlaunch.run(jlaunch.build_parser().parse_args(
+        flags + ["--strategy", "dp"])).eval_metrics
+    np.savez(tmp_path / "init.npz",
+             **_flat(_jax_init("transformer_tiny_wmt", 32)))
+    got = tlaunch.run(tlaunch.build_parser().parse_args(
+        flags + ["--device", "cpu", "--params-npz",
+                 str(tmp_path / "init.npz")])).eval_metrics
+    assert got["bleu"] == want["bleu"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+
+
+def test_bleu_eval_matches_jax_on_overlapping_references():
+    """The launchers' ``_bleu_eval`` on the same weights and a batch whose
+    references are half the JAX greedy outputs (a BLEU well above 0):
+    the same hypotheses, so the same score; padded rows left out."""
+    from tensorflow_train_distributed_tpu.models import transformer as JT
+
+    from tensorflow_train_distributed_torch.models import transformer as TT
+
+    jentry = jreg.get_entry("transformer_tiny_wmt")
+    params = _jax_init("transformer_tiny_wmt", 8)
+    src = np.random.default_rng(3).integers(3, 256, (8, 16)).astype(
+        np.int32)
+    hyp = np.asarray(JT.greedy_translate(
+        jentry["task_factory"]().config, params, src, max_len=16, bos_id=1,
+        eos_id=2))
+    refs = hyp.copy()
+    refs[::2, 8:] = 5                      # half the rows differ at the end
+    batch = {"inputs": src, "targets_out": refs,
+             "sample_weight": np.array([1.0] * 7 + [0.0], np.float32)}
+    args = tlaunch.build_parser().parse_args(
+        ["--config", "transformer_tiny_wmt", "--bleu-eval", "1",
+         "--beam-size", "2"])
+
+    class _State:
+        pass
+
+    jstate = _State()
+    jstate.params = params
+    want = jlaunch._bleu_eval(args, jentry["task_factory"](), jstate,
+                              [batch])
+    tentry = treg.get_entry("transformer_tiny_wmt")
+    ttr = Trainer(treg.make_task(tentry, device="meta"),
+                  topt.make_optimizer("sgd", 0.1),
+                  policy=Policy.from_name("float32"), device="cpu")
+    tstate = ttr.create_state(convert.params_from_flax(_flat(params),
+                                                       tentry["config"]))
+    got = tlaunch._bleu_eval(args, ttr, tstate, [batch])
+    assert want > 10.0
+    assert got == want
+    assert isinstance(ttr.task.model, TT.Seq2SeqTransformer)

@@ -539,11 +539,17 @@ def test_registry_training_fields_match_jax():
                     "learning_rate", "lr_schedule", "warmup_ratio",
                     "grad_clip_norm"):
             assert got[key] == want[key], (name, key)
-        jcfg = want["task_factory"]().config
+        jtask = want["task_factory"]()
+        # The JAX VisionTask keeps its config on the model.
+        jcfg = getattr(jtask, "config", None) or jtask.model.config
         for f in dataclasses.fields(got["config"]):
             if f.name != "dtype":
                 assert getattr(got["config"], f.name) == getattr(
                     jcfg, f.name), (name, f.name)
+        for key in ("label_smoothing", "weight_decay"):
+            if hasattr(jtask, key):
+                tk = treg.make_task(got, device="meta")
+                assert getattr(tk, key) == getattr(jtask, key), (name, key)
 
 
 # -- the flagship -------------------------------------------------------------
