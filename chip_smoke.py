@@ -181,8 +181,12 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core bf16
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
-# f32 products as the three bf16 products of an exact split
+# f32 products as bf16 products of an exact split into hi, mid and lo
+# terms: K6's "wgmma" body splits its one f32 operand, three products an
+# f32 product (hi.b + mid.b + lo.b); K2's and K7's "split" body splits
+# both, six (lo.hi + mid.mid + hi.lo + mid.hi + hi.mid + hi.hi).
 PEAK_F32_SPLIT_FLOPS = PEAK_BF16_FLOPS / 3
+ATTENTION_SPLIT_PRODUCTS = 6
 
 SEED = 0
 _CSRC = "tensorflow_train_distributed_torch/csrc/"
@@ -337,15 +341,17 @@ def _fma_note(fma) -> str:
     return "" if fma is None else f", FMA route's bound {fma[0] * 1e3:.1f} us"
 
 
-def product_bound(nbytes: float, flops: float, f32: bool):
+def product_bound(nbytes: float, flops: float, f32: bool,
+                  products: int = 3):
     """The bound of work that is products (attention, grouped matmuls):
-    bf16 on the tensor cores, f32 as the three bf16 products of an exact
-    split (the route K6 takes), so at three times the bf16 operations.
-    Returns it and, for f32, the FMA route's bound at 67 TFLOP/s (None
-    for bf16), logged beside it."""
+    bf16 on the tensor cores, f32 as the ``products`` bf16 products of an
+    exact split that the split bodies run for each f32 product (K6: 3;
+    K2's and K7's f32 body: ATTENTION_SPLIT_PRODUCTS), so at that many
+    times the bf16 operations.  Returns it and, for f32, the FMA route's
+    bound at 67 TFLOP/s (None for bf16), logged beside it."""
     if not f32:
         return bound(nbytes, flops, PEAK_BF16_FLOPS), None
-    return (bound(nbytes, 3 * flops, PEAK_BF16_FLOPS),
+    return (bound(nbytes, products * flops, PEAK_BF16_FLOPS),
             bound(nbytes, flops, PEAK_F32_FLOPS))
 
 
@@ -962,7 +968,8 @@ def _rms_norm_bwd_case(gen, n: int, d: int) -> dict:
 def _cross_entropy_cases(gen, n: int = 16384, v: int = 32000) -> dict:
     """K3f and K3b at a training path's logits: [B*S, vocab] f32 (the
     task casts logits to f32 first): [16384, 32000] for llama_125m_lm,
-    [32768, 30522] for bert_base_mlm (V % 4 = 2: the scalar loads)."""
+    [32768, 30522] for bert_base_mlm (V % 4 = 2: every other row starts 8
+    bytes off 16-byte alignment, so it takes a 2-element prologue)."""
     import torch
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
@@ -1011,9 +1018,18 @@ def _cross_entropy_cases(gen, n: int = 16384, v: int = 32000) -> dict:
     lib = _backward_ms(lib_out, ll, g, launches=10)
     bnd = bound(nbytes_b, 4 * n * v, PEAK_F32_FLOPS)
     _report("cross_entropy_bwd", f"[{n}, {v}] f32", ms, plain_ms, lib, bnd)
+    # What a plain stream of the same bytes reaches on this card: one
+    # elementwise op reading the logits and writing a tensor of their size.
+    out = torch.empty_like(logits)
+    exp_ms = device_ms(lambda: torch.exp(logits, out=out), launches=20)
+    log(f"    torch.exp over the same bytes: {exp_ms * 1e3:.1f} us "
+        f"({nbytes_b / exp_ms / 1e6:.0f} GB/s; K3b "
+        f"{nbytes_b / ms / 1e6:.0f} GB/s)")
+    del out
     rows["cross_entropy_bwd"] = dict(max_abs_err=err_b, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bnd[0],
-                                     bound_by=bnd[1], library_ms=lib)
+                                     bound_by=bnd[1], library_ms=lib,
+                                     same_bytes_exp_ms=exp_ms)
     return rows
 
 
@@ -1109,6 +1125,13 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main,
     o, lse = K.flash_attention_forward(q, k, v, seg, causal, scale)
     dq, dk, dv = K.flash_attention_backward(q, k, v, o, lse, do, seg,
                                             causal, scale)
+    # No atomics: a second backward on the same inputs is bitwise equal.
+    again = K.flash_attention_backward(q, k, v, o, lse, do, seg, causal,
+                                       scale)
+    if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+        raise AssertionError(f"flash {label}: the backward is not bitwise "
+                             f"repeatable")
+    del again
     qp, kp, vp = _leaf(q, k, v)
     op = K.flash_attention_reference(qp, kp, vp, causal=causal,
                                      segment_ids=seg, sm_scale=scale)
@@ -1121,10 +1144,24 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main,
     # rounding moves a value by at most 2^-8 of itself (bf16 keeps 8
     # significant bits).  So it stays within 2^-7 of (|ref32| + the sum of
     # |terms| those roundings touch), a factor 2 for the f32 sums.  f32
-    # (the FMA body): only the order of f32 sums differs, at most S terms
-    # deep, so S 2^-24 <= 2^-16 of the same magnitude at S <= 256, times
-    # 4 for the chained products and the exp: 2^-14.  Against the plain
-    # version, its own measured distance from ref32 is allowed on top.
+    # (the split body at D 64 and 128): every product a.b runs as six
+    # products of exact bf16 terms, lo.hi + mid.mid + hi.lo + mid.hi +
+    # hi.mid + hi.hi; what it drops, mid.lo + lo.mid + lo.lo, is at most
+    # 3 2^-27 |a||b|, so a score moves by <= 2^-25 of sum |q||k| (a
+    # relative error of p, through the exp) and o, dP, dV, dK, dQ by
+    # 2^-25 of their |terms|.  The tensor core truncates its f32 running
+    # sum, at most one ulp (2^-23) of the magnitudes a 16-deep step, 6 S /
+    # 16 steps deep: 2^-16.4 at S 256 (each tile's products start a fresh
+    # sum, so S is a tile's depth past 256).  The chain (s, p, o, di, dS,
+    # the gradient) at most quadruples these, inside 2^-14;
+    # tests/test_torch_flash_split.py emulates the products on the CPU and
+    # finds them within 0.011 of this rule and 0.08 of the f32 tolerances
+    # of the card's tests (2e-5 / 1e-4 against the plain version), where
+    # three products (hi and mid alone) reach 0.59 of those and bf16 alone
+    # misses the rule 41-86x.  The FMA body (D 256): only the order of f32
+    # sums differs, S 2^-24 <= 2^-16 at S <= 256, the same 2^-14.  Against
+    # the plain version, its own measured distance from ref32 is allowed
+    # on top.
     rel, rule = (2 ** -14, "2^-14") if f32 else (2 ** -7, "2^-7")
     for name, got, plain in (("out", o, op), ("dq", dq, gp[0]),
                              ("dk", dk, gp[1]), ("dv", dv, gp[2])):
@@ -1159,36 +1196,45 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main,
                                                   is_causal=causal)
         return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
 
+    body = K.flash_attention_body(q.dtype, d)
+    # The split body's f32 calls also time the FMA body (PRs 2-10's) on
+    # the same inputs.
+    other = "FMA" if body == "split" else None
     ms = device_ms(lambda: K.flash_attention_forward(q, k, v, seg, causal,
                                                      scale), launches=10)
     plain_ms = device_ms(lambda: K.flash_attention_reference(
         q, k, v, causal=causal, segment_ids=seg, sm_scale=scale),
         launches=3)
     lib = device_ms(lambda: lib_fwd(q, kr, vr), launches=10)
-    bnd, fma = product_bound(fwd_bytes, 4 * d * pairs, f32)
-    _report("flash_attention", shape, ms, plain_ms, lib, bnd)
-    body = K.flash_attention_body(q.dtype, d)
+    bnd, fma = product_bound(fwd_bytes, 4 * d * pairs, f32,
+                             ATTENTION_SPLIT_PRODUCTS)
+    _report("flash_attention", shape, ms, plain_ms, lib, bnd, body)
     log(f"  flash_attention {shape}: {body} body, "
         f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s"
         + _fma_note(fma))
-    rows["flash_attention"] = dict(max_abs_err=errs["out"], ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bnd[0],
-                                   bound_by=bnd[1], library_ms=lib,
-                                   fma_bound_ms=fma and fma[0])
+    rows["flash_attention"] = dict(
+        max_abs_err=errs["out"], ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+        bound_by=bnd[1], library_ms=lib, fma_bound_ms=fma and fma[0],
+        body=body, **(_other_body_ms(other, lambda bd: K.flash_attention_forward(
+            q, k, v, seg, causal, scale, body=bd)) if other else {}))
     ms = device_ms(lambda: K.flash_attention_backward(
         q, k, v, o, lse, do, seg, causal, scale), launches=10)
     plain_ms = _backward_ms(op, (qp, kp, vp), do, launches=3)
     ql, kl, vl = _leaf(q, kr, vr)
     lib = _backward_ms(lib_fwd(ql, kl, vl), (ql, kl, vl), do, launches=10)
-    bnd, fma = product_bound(bwd_bytes, 10 * d * pairs, f32)
-    _report("flash_attention_bwd", shape, ms, plain_ms, lib, bnd)
+    bnd, fma = product_bound(bwd_bytes, 10 * d * pairs, f32,
+                             ATTENTION_SPLIT_PRODUCTS)
+    _report("flash_attention_bwd", shape, ms, plain_ms, lib, bnd, body)
     log(f"  flash_attention_bwd {shape}: {body} body, "
         f"{10 * d * pairs / ms / 1e9:.1f} TFLOP/s"
         + _fma_note(fma))
     rows["flash_attention_bwd"] = dict(
         max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]), ms=ms,
         plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib,
-        fma_bound_ms=fma and fma[0])
+        fma_bound_ms=fma and fma[0], body=body,
+        **(_other_body_ms(other, lambda bd: K.flash_attention_backward(
+            q, k, v, o, lse, do, seg, causal, scale, body=bd))
+           if other else {}))
     log(f"  flash {label}: {pairs} visible (query, key) pairs")
     if not main:
         for name, row in rows.items():
@@ -2054,8 +2100,10 @@ def _splash_case(gen, label, b, h, kvh, s, d, window, sinks, *, packed,
                                           segment_ids=seg, sinks=sinks,
                                           softmax_scale=1.0)
 
-    fb = product_bound(fwd_bytes, 4 * d * pairs, not bf16)[0]
-    bb = product_bound(bwd_bytes, 10 * d * pairs, not bf16)[0]
+    fb = product_bound(fwd_bytes, 4 * d * pairs, not bf16,
+                       ATTENTION_SPLIT_PRODUCTS)[0]
+    bb = product_bound(bwd_bytes, 10 * d * pairs, not bf16,
+                       ATTENTION_SPLIT_PRODUCTS)[0]
     row.update(
         ms=device_ms(lambda: K.splash_attention_forward(
             qs, k, v, seg, window, sinks), launches=10),
@@ -2598,10 +2646,11 @@ def _run_stats(label, summary, batch, wall) -> dict:
 def phase_family_kernels() -> tuple:
     """Phase 12: K2 full attention at BERT-base's (B 256, H 12, S 128) and
     Transformer-big's (B 64, H 16, S 256) heads (D 64), f32 as both
-    models compute and bf16, and causal f32 at the Transformer's; K3f and
-    K3b at BERT's logits [32768, 30522] f32, at an odd vocabulary and at
-    LeNet's [128, 10].  Returns the "bert", "wmt" and "mnist" rows of the
-    kernels' JSON line."""
+    models compute (the split body, timed beside the FMA body on the same
+    inputs) and bf16, and causal f32 at the Transformer's; K3f and K3b at
+    BERT's logits [32768, 30522] f32, at an odd vocabulary and V 32,000
+    (the same rows) and at LeNet's [128, 10].  Returns the "bert", "wmt"
+    and "mnist" rows of the kernels' JSON line."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
@@ -2622,9 +2671,13 @@ def phase_family_kernels() -> tuple:
     torch.cuda.empty_cache()
     bert.update(_cross_entropy_cases(gen, 32768, 30522))
     torch.cuda.empty_cache()
-    for name, row in _cross_entropy_cases(gen, 32768, 30521).items():
-        CASES.append(dict(row, kernel=name, case="[32768, 30521] f32"))
-    torch.cuda.empty_cache()
+    # Beside BERT's V 30,522 (every other row 8 bytes off 16-byte
+    # alignment): an odd V (rows at all four offsets) and V 32,000 (every
+    # row aligned), at the same rows.
+    for v in (30521, 32000):
+        for name, row in _cross_entropy_cases(gen, 32768, v).items():
+            CASES.append(dict(row, kernel=name, case=f"[32768, {v}] f32"))
+        torch.cuda.empty_cache()
     return bert, wmt, _cross_entropy_cases(gen, 128, 10)
 
 

@@ -13,11 +13,13 @@
 //
 // Bound on this card: operations for bf16 at the training shapes (10
 //   S*S*D flops a head for the causal half, against reading q, k, v, o,
-//   dO and writing dq, dk, dv once).
+//   dO and writing dq, dk, dv once); bytes for f32 at BERT's and
+//   Transformer-big's S 128-256, against six bf16 products a product.
 //
 // Design: the library's split, so no atomics and a deterministic result
 //   (two runs give equal gradients bit for bit), in three launches:
-//   (1) flash_bwd_di: one warp per query row computes di in f32.
+//   (1) flash_bwd_di: di = rowsum(dO * O) in f32, 16-byte loads, a group
+//       of lanes a row.
 //   (2) dk/dv: one block per (kv tile, kv head, batch) keeps dK and dV in
 //       f32 registers while it loops over the GQA group's heads and, per
 //       head, over the q tiles from the diagonal on (causal) -- the TPU's
@@ -52,9 +54,27 @@
 //   Left for later: di fused into the dq kernel's prologue, overlap of
 //   one tile's elementwise work with the next tile's products, a deeper
 //   ring.
-// mma.sync body (bf16, D 256) and FMA body (f32): flash_bwd_dkv_kernel,
-//   flash_bwd_dq_kernel, 64-row tiles (32 for f32), one warp per 16 rows,
-//   tiles staged by the whole block, one tile in flight.
+// split body (f32, D 64 and 128; flash_bwd_dkv_split_kernel,
+//   flash_bwd_dq_split_kernel): the wgmma body's roles on the forward's
+//   split (flash_common.cuh: six bf16 term products a product).  The
+//   streamed tiles (dk/dv: Q and dO; dq: K and V) arrive as f32 and
+//   warps 9-11 split each stage in place into hi, mid and lo planes; the
+//   consumer warpgroups split the resident tiles (K and V; Q and dO) once
+//   an item.  S^T, dP^T (S, dP) as six products from shared memory; then
+//   dS^T, and P^T and dS^T split in registers; dV, dK (dQ) by 64-column
+//   halves through a fresh accumulator added with rounded f32 adds, so
+//   the tensor core's truncated sums do not pile up over a long sequence.
+//   At D 64 a block holds 128 resident rows, 64 for each warpgroup, and
+//   the ring two stages.  At D 128 a 128-row resident tile of terms would
+//   not fit beside a stage: a block holds 64 resident rows, both
+//   warpgroups compute the tile's scores and each owns 64 of the output's
+//   128 columns, one stage.  Outputs in f32 straight from registers.  As
+//   in the forward, a block an SM walks the work items with the ring
+//   running on across them.
+// mma.sync body (bf16, D 256) and FMA body (f32 at D 256, or forced):
+//   flash_bwd_dkv_kernel, flash_bwd_dq_kernel, 64-row tiles (32 for f32),
+//   one warp per 16 rows, tiles staged by the whole block, one tile in
+//   flight.
 //
 // K7 replaces: the splash kernel's backward, splash_attention_kernel.py
 //   _splash_attention_bwd_dkv (:1857) and _splash_attention_bwd_dq
@@ -73,27 +93,60 @@
 namespace ttd_flash {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-    flash_bwd_di_kernel(Params p, int d) {
-  const long long rows =
-      static_cast<long long>(p.batch) * p.heads * p.seq;
-  const long long row = static_cast<long long>(blockIdx.x) * 8 +
-                        (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int s = static_cast<int>(row % p.seq);
-  const int h = static_cast<int>((row / p.seq) % p.heads);
-  const int b = static_cast<int>(row / (static_cast<long long>(p.seq) *
-                                        p.heads));
-  const T* o = static_cast<const T*>(p.o) + b * p.so.b + h * p.so.h +
-               s * p.so.s;
-  const T* g = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h +
-               s * p.sdo.s;
+// di = rowsum(dO * O) in f32.  A row's 16-byte chunks are read by a
+// group of up to 32 lanes, one chunk each a step, and summed by shuffles
+// within the group: several rows a warp at D 64 (f32: 16 lanes a row).
+template <typename T, int D>
+struct DiShape {
+  static constexpr int kEpc = 16 / static_cast<int>(sizeof(T));  // a chunk's
+  static constexpr int kChunks = D / kEpc;                        // a row's
+  static constexpr int kLanes = kChunks < 32 ? kChunks : 32;      // a row's
+  static constexpr int kRows = 256 / kLanes;                      // a block's
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256) flash_bwd_di_kernel(Params p) {
+  constexpr int kEpc = DiShape<T, D>::kEpc;
+  constexpr int kChunks = DiShape<T, D>::kChunks;
+  constexpr int kLanes = DiShape<T, D>::kLanes;
+  const long long rows = static_cast<long long>(p.batch) * p.heads * p.seq;
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            DiShape<T, D>::kRows + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
   float acc = 0.f;
-  for (int i = lane; i < d; i += 32) acc += ttd::to_f32(o[i]) * ttd::to_f32(g[i]);
-  acc = ttd::warp_sum(acc);
-  if (lane == 0) p.di[row] = acc;
+  if (row < rows) {
+    const int s = static_cast<int>(row % p.seq);
+    const int h = static_cast<int>((row / p.seq) % p.heads);
+    const int b = static_cast<int>(row / (static_cast<long long>(p.seq) *
+                                          p.heads));
+    const T* o = static_cast<const T*>(p.o) + b * p.so.b + h * p.so.h +
+                 s * p.so.s;
+    const T* g = static_cast<const T*>(p.dout) + b * p.sdo.b +
+                 h * p.sdo.h + s * p.sdo.s;
+    for (int c = lane; c < kChunks; c += kLanes) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + c * kEpc);
+      const uint4 gv = *reinterpret_cast<const uint4*>(g + c * kEpc);
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+      for (int e = 0; e < kEpc; ++e)
+        acc += ttd::to_f32(oe[e]) * ttd::to_f32(ge[e]);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && lane == 0) p.di[row] = acc;
+}
+
+template <typename T, int D>
+cudaError_t launch_di(const Params& p, cudaStream_t stream) {
+  constexpr int kRows = DiShape<T, D>::kRows;
+  const long long rows = static_cast<long long>(p.batch) * p.heads * p.seq;
+  flash_bwd_di_kernel<T, D><<<static_cast<unsigned>((rows + kRows - 1) /
+                                                    kRows),
+                              256, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, bool BAND>
@@ -717,10 +770,7 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
       !hw::make_map(&tdo, p.dout, p.sdo.b, p.sdo.h, p.sdo.s, p.batch,
                     p.heads, p.seq, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(p.batch) * p.heads * p.seq;
-  flash_bwd_di_kernel<bf16><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                              stream>>>(p, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_di<bf16, D>(p, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D, BAND>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -741,13 +791,535 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split body's shapes, tiles of bf16 terms (split_bytes: 1.5x the f32
+// tile).  dk/dv: K and V resident, 64-row Q and dO tiles with their lse
+// and di rows in a ring; dq: Q and dO resident, 64-row K and V tiles in a
+// ring.  At D 64 a block holds 128 resident rows, 64 for each consumer
+// warpgroup, in two stages.  At D 128 a 128-row resident tile would not
+// fit beside a stage: a block holds 64 resident rows, both warpgroups
+// compute the tile's scores, and each owns 64 of the outputs' 128 columns
+// (kColSplit), in one stage.  A block walks several work items (one an
+// SM), the ring running on across them.
+template <int D>
+struct BwdSplit {
+  static constexpr bool kColSplit = D == 128;
+  static constexpr int kRows = kColSplit ? 64 : 128;   // resident, a block
+  static constexpr int kTile = 64;                      // streamed
+  static constexpr int kCols = kColSplit ? 64 : D;      // a warpgroup's
+  static constexpr int kStages = kColSplit ? 1 : 2;
+  static constexpr int kThreads = 384;
+  static constexpr int kResBytes = split_bytes<kRows, D>();
+  static constexpr int kTileBytes = split_bytes<kTile, D>();
+  static constexpr int kBars = 3 * kStages + 2;
+  static constexpr int kDqSmem =
+      1024 + 2 * kResBytes + 2 * kStages * kTileBytes + kBars * 8;
+  static constexpr int kDkvSmem = kDqSmem + 2 * kStages * kTile * 4;
+  // The rows [row0, row0 + 64) of the resident tile warpgroup wg works on,
+  // and the first of its output columns.
+  static __device__ __forceinline__ int row0(int wg) {
+    return kColSplit ? 0 : 64 * wg;
+  }
+  static __device__ __forceinline__ int col0(int wg) {
+    return kColSplit ? 64 * wg : 0;
+  }
+  // Splits this warpgroup's share of a resident tile that has landed and
+  // waits until every warpgroup that reads it has split its share.
+  static __device__ __forceinline__ void split_resident(unsigned char* a,
+                                                        unsigned char* b,
+                                                        int wg, int tid) {
+    const int n = kColSplit ? 32 : 64;
+    split_rows<kRows, D>(a, n * wg, n, tid, 128);
+    split_rows<kRows, D>(b, n * wg, n, tid, 128);
+    if constexpr (kColSplit) ttd_hopper::bar_sync(1, 256);
+    else ttd_hopper::bar_sync(1 + wg, 128);
+  }
+};
+
+template <int D, bool BAND>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dkv_split_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               Params p) {
+  using C = BwdSplit<D>;
+  namespace hw = ttd_hopper;
+  constexpr int kBq = C::kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = base;                // resident K, then V
+  unsigned char* vs = ks + C::kResBytes;
+  unsigned char* qdo = vs + C::kResBytes;  // stage s: Q at 2s, dO at 2s + 1
+  float* stats = reinterpret_cast<float*>(qdo + 2 * C::kStages *
+                                          C::kTileBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * C::kStages * kBq);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* loaded = empty + C::kStages;   // the f32 stage has landed
+  uint64_t* rfull = loaded + C::kStages;   // K and V have landed
+  uint64_t* rempty = rfull + 1;            // ... and are free again
+
+  const int rep = p.heads / p.kv_heads;
+  const int n_kt = (p.seq + C::kRows - 1) / C::kRows;
+  const int n_items = n_kt * p.kv_heads * p.batch;
+  const int n_q = p.seq / kBq;
+  // Work item idx: kv tile (the early keys, which walk the most q tiles,
+  // first), kv head and batch row, and the q tiles it visits.
+  struct Work {
+    int k0, kvh, b, qt_first, qt_end;
+  };
+  auto work = [&](int idx) {
+    const Item it = item_at(idx, n_kt, p.kv_heads);
+    const int k0 = it.x * C::kRows;
+    const int k_last = min(k0 + C::kRows, p.seq) - 1;
+    return Work{k0, it.y, it.z, p.causal ? k0 / kBq : 0,
+                !BAND || k0 < p.sinks
+                    ? n_q
+                    : min(n_q, (k_last + p.window - 1) / kBq + 1)};
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 96);
+      hw::mbar_init(&empty[s], 256);
+      hw::mbar_init(&loaded[s], 1);
+    }
+    hw::mbar_init(rfull, 1);
+    hw::mbar_init(rempty, 256);
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: K and V of each item once, then Q, dO, lse and di of each
+    // (head of the group, q tile) into the ring, landing on ``loaded``;
+    // warps 9-11 split each stage's Q and dO in place, then arrive on
+    // ``full``.
+    hw::regs_dec<40>();
+    if (threadIdx.x == 256) {
+      int i = 0;
+      for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+        const Work w = work(idx);
+        hw::mbar_wait(rempty, (n & 1) ^ 1);
+        hw::mbar_expect_tx(rfull, 2 * C::kRows * D * 4);
+        tma_load_split<C::kRows, D>(ks, &tk, rfull, w.k0, w.kvh, w.b);
+        tma_load_split<C::kRows, D>(vs, &tv, rfull, w.k0, w.kvh, w.b);
+        for (int hh = 0; hh < rep; ++hh) {
+          const int h = w.kvh * rep + hh;
+          const long long stat =
+              (static_cast<long long>(w.b) * p.heads + h) * p.seq;
+          for (int qt = w.qt_first; qt < w.qt_end; ++qt, ++i) {
+            const int s = i % C::kStages;
+            hw::mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+            hw::mbar_expect_tx(&loaded[s], 2 * kBq * D * 4 + 2 * kBq * 4);
+            unsigned char* qs = qdo + 2 * s * C::kTileBytes;
+            tma_load_split<kBq, D>(qs, &tq, &loaded[s], qt * kBq, h, w.b);
+            tma_load_split<kBq, D>(qs + C::kTileBytes, &tdo, &loaded[s],
+                                   qt * kBq, h, w.b);
+            float* st = stats + 2 * s * kBq;
+            hw::bulk_load(st, p.lse + stat + qt * kBq, kBq * 4, &loaded[s]);
+            hw::bulk_load(st + kBq, p.di + stat + qt * kBq, kBq * 4,
+                          &loaded[s]);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      int i = 0;
+      for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+        const Work w = work(idx);
+        const int end = i + rep * (w.qt_end - w.qt_first);
+        for (; i < end; ++i) {
+          const int s = i % C::kStages;
+          hw::mbar_wait(&loaded[s], (i / C::kStages) & 1);
+          unsigned char* qs = qdo + 2 * s * C::kTileBytes;
+          split_rows<kBq, D>(qs, 0, kBq, threadIdx.x - 288, 96);
+          split_rows<kBq, D>(qs + C::kTileBytes, 0, kBq, threadIdx.x - 288,
+                             96);
+          hw::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg works on keys [w0, w0 + 64) of each item and
+  // owns dK and dV there, in columns [c0, c0 + kCols).
+  hw::regs_inc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const bool seg = p.seg != nullptr;
+  const float sl2 = p.scale * kLog2e;
+  const int c0 = C::col0(wg);
+
+  float dk[C::kCols / 2], dv[C::kCols / 2];
+  float pt[kBq / 2], dst[kBq / 2];         // P^T and dP^T, then dS^T
+  SplitFrags<kBq / 16> f;                  // P^T's terms, then dS^T's
+  float chunk[32];                         // one tile's dV or dK, by half
+#pragma unroll
+  for (int j = 0; j < kBq / 2; ++j) pt[j] = dst[j] = 0.f;
+
+  int i = 0;
+  for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+    const Work w = work(idx);
+    const int b = w.b;
+    const int w0 = w.k0 + C::row0(wg);
+    const int kr0 = w0 + 16 * warp + g;      // this thread's keys
+    const int kr1 = kr0 + 8;
+    const int* segb = p.seg + static_cast<long long>(b) * p.seq;
+    const int sk0 = seg ? segb[min(kr0, p.seq - 1)] : 0;
+    const int sk1 = seg ? segb[min(kr1, p.seq - 1)] : 0;
+#pragma unroll
+    for (int j = 0; j < C::kCols / 2; ++j) dk[j] = dv[j] = 0.f;
+
+    hw::mbar_wait(rfull, n & 1);
+    C::split_resident(ks, vs, wg, tid);
+    for (int hh = 0; hh < rep; ++hh) {
+      for (int qt = w.qt_first; qt < w.qt_end; ++qt, ++i) {
+        const int s = i % C::kStages;
+        hw::mbar_wait(&full[s], (i / C::kStages) & 1);
+        const int q0 = qt * kBq;
+        if (!tile_empty<BAND>(p, q0, q0 + kBq - 1, w0, w0 + 63)) {
+          const unsigned char* qs = qdo + 2 * s * C::kTileBytes;
+          const unsigned char* dos = qs + C::kTileBytes;
+          const float* lse_s = stats + 2 * s * kBq;
+          const float* di_s = lse_s + kBq;
+          // S^T and dP^T in two groups: P^T (the exponentials) is computed
+          // while dP^T is on the tensor cores.
+          hw::wgmma_fence();
+          wgmma_ss_split<kBq, D>(
+              pt,
+              [&](int pl, int kk) {
+                return desc_k_split<C::kRows>(ks, pl, C::row0(wg), kk);
+              },
+              [&](int pl, int kk) { return desc_k_split<kBq>(qs, pl, 0, kk); },
+              0);
+          hw::wgmma_commit();
+          wgmma_ss_split<kBq, D>(
+              dst,
+              [&](int pl, int kk) {
+                return desc_k_split<C::kRows>(vs, pl, C::row0(wg), kk);
+              },
+              [&](int pl, int kk) {
+                return desc_k_split<kBq>(dos, pl, 0, kk);
+              },
+              0);
+          hw::wgmma_commit();
+          hw::wgmma_wait<1>();               // S^T is in
+          hw::reg_fence<kBq / 2>(pt);
+          if (tile_masked<BAND>(p, q0, q0 + kBq - 1, w0, w0 + 63)) {
+#pragma unroll
+            for (int j = 0; j < kBq / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qc = 8 * j + 2 * t + (e & 1);   // query in the tile
+                // An invisible pair's probability is exactly 0 (its score
+                // would get + kMaskValue): set, not computed.
+                pt[4 * j + e] =
+                    visible<BAND>(q0 + qc, e < 2 ? kr0 : kr1, p.causal,
+                                  p.window, p.sinks, seg,
+                                  seg ? segb[q0 + qc] : 0, e < 2 ? sk0 : sk1)
+                        ? exp2f(pt[4 * j + e] * sl2 - lse_s[qc] * kLog2e)
+                        : 0.f;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kBq / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qc = 8 * j + 2 * t + (e & 1);
+                pt[4 * j + e] =
+                    exp2f(pt[4 * j + e] * sl2 - lse_s[qc] * kLog2e);
+              }
+            }
+          }
+          hw::wgmma_wait<0>();               // dP^T is in
+          hw::reg_fence<kBq / 2>(dst);
+#pragma unroll
+          for (int j = 0; j < kBq / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = 8 * j + 2 * t + (e & 1);
+              dst[4 * j + e] =
+                  pt[4 * j + e] * (dst[4 * j + e] - di_s[qc]) * p.scale;
+            }
+          }
+          split_frags(pt, f);
+          wgmma_rs_split_add<C::kCols>(dv, chunk, f,
+                                       [&](int pl, int kk, int hf) {
+            return desc_mn_split<kBq>(dos, pl, kk, hf + c0 / 64);
+          });
+          frag_fence(f);
+          split_frags(dst, f);
+          wgmma_rs_split_add<C::kCols>(dk, chunk, f,
+                                       [&](int pl, int kk, int hf) {
+            return desc_mn_split<kBq>(qs, pl, kk, hf + c0 / 64);
+          });
+          frag_fence(f);
+        }
+        hw::mbar_arrive(&empty[s]);
+      }
+    }
+
+    float* dkg = static_cast<float*>(p.dk) + b * p.sdk.b + w.kvh * p.sdk.h;
+    float* dvg = static_cast<float*>(p.dv) + b * p.sdv.b + w.kvh * p.sdv.h;
+    store_rows_f32<C::kCols>(dk, 1.f, 1.f, dkg + c0, p.sdk.s, w0, p.seq);
+    store_rows_f32<C::kCols>(dv, 1.f, 1.f, dvg + c0, p.sdv.s, w0, p.seq);
+    hw::mbar_arrive(rempty);
+  }
+}
+
+template <int D, bool BAND>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              Params p) {
+  using C = BwdSplit<D>;
+  namespace hw = ttd_hopper;
+  constexpr int kBk = C::kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = base;                // resident Q, then dO
+  unsigned char* dos = qs + C::kResBytes;
+  unsigned char* kvs = dos + C::kResBytes;   // stage s: K at 2s, V 2s+1
+  uint64_t* full = reinterpret_cast<uint64_t*>(kvs + 2 * C::kStages *
+                                               C::kTileBytes);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* loaded = empty + C::kStages;   // the f32 stage has landed
+  uint64_t* rfull = loaded + C::kStages;   // Q and dO have landed
+  uint64_t* rempty = rfull + 1;            // ... and are free again
+
+  const int n_qt = (p.seq + C::kRows - 1) / C::kRows;
+  const int n_items = n_qt * p.heads * p.batch;
+  // Work item idx: q tile (the longest first when causal), head and batch
+  // row, its kv tiles.
+  struct Work {
+    int h, b, kvh, q0, n_kv;
+  };
+  auto work = [&](int idx) {
+    const Item it = item_at(idx, n_qt, p.heads);
+    const int qt = p.causal ? n_qt - 1 - it.x : it.x;
+    const int q0 = qt * C::kRows;
+    const int q_end = min(q0 + C::kRows, p.seq);
+    return Work{it.y, it.z, it.y / (p.heads / p.kv_heads), q0,
+                p.causal ? (q_end - 1) / kBk + 1 : p.seq / kBk};
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 96);
+      hw::mbar_init(&empty[s], 256);
+      hw::mbar_init(&loaded[s], 1);
+    }
+    hw::mbar_init(rfull, 1);
+    hw::mbar_init(rempty, 256);
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    hw::regs_dec<40>();
+    if (threadIdx.x == 256) {
+      int i = 0;
+      for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+        const Work w = work(idx);
+        hw::mbar_wait(rempty, (n & 1) ^ 1);
+        hw::mbar_expect_tx(rfull, 2 * C::kRows * D * 4);
+        tma_load_split<C::kRows, D>(qs, &tq, rfull, w.q0, w.h, w.b);
+        tma_load_split<C::kRows, D>(dos, &tdo, rfull, w.q0, w.h, w.b);
+        const KvTiles<BAND, kBk> tiles(p.window, p.sinks, w.q0);
+        for (int kt = tiles.first(); kt < w.n_kv; kt = tiles.next(kt), ++i) {
+          const int s = i % C::kStages;
+          hw::mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+          hw::mbar_expect_tx(&loaded[s], 2 * kBk * D * 4);
+          unsigned char* ks = kvs + 2 * s * C::kTileBytes;
+          tma_load_split<kBk, D>(ks, &tk, &loaded[s], kt * kBk, w.kvh, w.b);
+          tma_load_split<kBk, D>(ks + C::kTileBytes, &tv, &loaded[s],
+                                 kt * kBk, w.kvh, w.b);
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      int i = 0;
+      for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+        const Work w = work(idx);
+        const KvTiles<BAND, kBk> tiles(p.window, p.sinks, w.q0);
+        for (int kt = tiles.first(); kt < w.n_kv; kt = tiles.next(kt), ++i) {
+          const int s = i % C::kStages;
+          hw::mbar_wait(&loaded[s], (i / C::kStages) & 1);
+          unsigned char* ks = kvs + 2 * s * C::kTileBytes;
+          split_rows<kBk, D>(ks, 0, kBk, threadIdx.x - 288, 96);
+          split_rows<kBk, D>(ks + C::kTileBytes, 0, kBk, threadIdx.x - 288,
+                             96);
+          hw::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg works on q rows [w0, w0 + 64) of each item and
+  // owns dQ there, in columns [c0, c0 + kCols).
+  hw::regs_inc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const bool seg = p.seg != nullptr;
+  const float sl2 = p.scale * kLog2e;
+  const int c0 = C::col0(wg);
+
+  float dq[C::kCols / 2];
+  float sc[kBk / 2], dp[kBk / 2];          // S and dP, then dS
+  SplitFrags<kBk / 16> f;                  // dS's terms
+  float chunk[32];                         // one tile's dQ, by half
+#pragma unroll
+  for (int j = 0; j < kBk / 2; ++j) sc[j] = dp[j] = 0.f;
+
+  int i = 0;
+  for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+    const Work w = work(idx);
+    const int w0 = w.q0 + C::row0(wg);
+    const int r0 = w0 + 16 * warp + g;
+    const int r1 = r0 + 8;
+    const int* segb = p.seg + static_cast<long long>(w.b) * p.seq;
+    const int sq0 = seg ? segb[min(r0, p.seq - 1)] : 0;
+    const int sq1 = seg ? segb[min(r1, p.seq - 1)] : 0;
+    const long long stat =
+        (static_cast<long long>(w.b) * p.heads + w.h) * p.seq;
+    const float lse0 = r0 < p.seq ? p.lse[stat + r0] * kLog2e : 0.f;
+    const float lse1 = r1 < p.seq ? p.lse[stat + r1] * kLog2e : 0.f;
+    const float di0 = r0 < p.seq ? p.di[stat + r0] : 0.f;
+    const float di1 = r1 < p.seq ? p.di[stat + r1] : 0.f;
+#pragma unroll
+    for (int j = 0; j < C::kCols / 2; ++j) dq[j] = 0.f;
+
+    hw::mbar_wait(rfull, n & 1);
+    C::split_resident(qs, dos, wg, tid);
+    const KvTiles<BAND, kBk> tiles(p.window, p.sinks, w.q0);
+    for (int kt = tiles.first(); kt < w.n_kv; kt = tiles.next(kt), ++i) {
+      const int s = i % C::kStages;
+      hw::mbar_wait(&full[s], (i / C::kStages) & 1);
+      const int k0 = kt * kBk;
+      if (!tile_empty<BAND>(p, w0, w0 + 63, k0, k0 + kBk - 1)) {
+        const unsigned char* ks = kvs + 2 * s * C::kTileBytes;
+        const unsigned char* vs = ks + C::kTileBytes;
+        hw::wgmma_fence();
+        wgmma_ss_split<kBk, D>(
+            sc,
+            [&](int pl, int kk) {
+              return desc_k_split<C::kRows>(qs, pl, C::row0(wg), kk);
+            },
+            [&](int pl, int kk) { return desc_k_split<kBk>(ks, pl, 0, kk); },
+            0);
+        hw::wgmma_commit();
+        wgmma_ss_split<kBk, D>(
+            dp,
+            [&](int pl, int kk) {
+              return desc_k_split<C::kRows>(dos, pl, C::row0(wg), kk);
+            },
+            [&](int pl, int kk) { return desc_k_split<kBk>(vs, pl, 0, kk); },
+            0);
+        hw::wgmma_commit();
+        hw::wgmma_wait<1>();               // S is in: P while dP runs
+        hw::reg_fence<kBk / 2>(sc);
+        if (tile_masked<BAND>(p, w0, w0 + 63, k0, k0 + kBk - 1)) {
+#pragma unroll
+          for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k0 + 8 * j + 2 * t + (e & 1);
+              sc[4 * j + e] =
+                  visible<BAND>(e < 2 ? r0 : r1, col, p.causal, p.window,
+                                p.sinks, seg, e < 2 ? sq0 : sq1,
+                                seg ? segb[col] : 0)
+                      ? exp2f(sc[4 * j + e] * sl2 - (e < 2 ? lse0 : lse1))
+                      : 0.f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * j + e] =
+                  exp2f(sc[4 * j + e] * sl2 - (e < 2 ? lse0 : lse1));
+          }
+        }
+        hw::wgmma_wait<0>();               // dP is in
+        hw::reg_fence<kBk / 2>(dp);
+#pragma unroll
+        for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = sc[4 * j + e] *
+                            (dp[4 * j + e] - (e < 2 ? di0 : di1)) * p.scale;
+        }
+        split_frags(dp, f);
+        wgmma_rs_split_add<C::kCols>(dq, chunk, f,
+                                     [&](int pl, int kk, int hf) {
+          return desc_mn_split<kBk>(ks, pl, kk, hf + c0 / 64);
+        });
+        frag_fence(f);
+      }
+      hw::mbar_arrive(&empty[s]);
+    }
+
+    float* dqg = static_cast<float*>(p.dq) + w.b * p.sdq.b + w.h * p.sdq.h;
+    store_rows_f32<C::kCols>(dq, 1.f, 1.f, dqg + c0, p.sdq.s, w0, p.seq);
+    hw::mbar_arrive(rempty);
+  }
+}
+
+template <int D, bool BAND>
+int launch_split(const Params& p, cudaStream_t stream) {
+  using C = BwdSplit<D>;
+  namespace hw = ttd_hopper;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hw::make_map(&tq, p.q, p.sq.b, p.sq.h, p.sq.s, p.batch, p.heads,
+                    p.seq, D, ttd::kF32) ||
+      !hw::make_map(&tk, p.k, p.sk.b, p.sk.h, p.sk.s, p.batch, p.kv_heads,
+                    p.seq, D, ttd::kF32) ||
+      !hw::make_map(&tv, p.v, p.sv.b, p.sv.h, p.sv.s, p.batch, p.kv_heads,
+                    p.seq, D, ttd::kF32) ||
+      !hw::make_map(&tdo, p.dout, p.sdo.b, p.sdo.h, p.sdo.s, p.batch,
+                    p.heads, p.seq, D, ttd::kF32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_di<float, D>(p, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_split_kernel<D, BAND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kDkvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long kv_items = static_cast<long long>(
+      (p.seq + C::kRows - 1) / C::kRows) * p.kv_heads * p.batch;
+  flash_bwd_dkv_split_kernel<D, BAND>
+      <<<split_blocks(kv_items), C::kThreads, C::kDkvSmem, stream>>>(
+          tq, tk, tv, tdo, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_split_kernel<D, BAND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long q_items = static_cast<long long>(
+      (p.seq + C::kRows - 1) / C::kRows) * p.heads * p.batch;
+  flash_bwd_dq_split_kernel<D, BAND>
+      <<<split_blocks(q_items), C::kThreads, C::kDqSmem, stream>>>(
+          tq, tk, tv, tdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, bool BAND>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, D>(4);
-  const long long rows = static_cast<long long>(p.batch) * p.heads * p.seq;
-  flash_bwd_di_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                           stream>>>(p, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_di<T, D>(p, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, BAND>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -811,15 +1383,19 @@ Params bwd_params(const void* q, const void* k, const void* v,
 }
 
 template <bool BAND>
-int run(const Params& p, int head_dim, int dtype, void* stream) {
+int run(const Params& p, int head_dim, int dtype, int request,
+        void* stream) {
   if (p.batch <= 0 || p.seq <= 0) return 0;
   if (p.kv_heads <= 0 || p.heads % p.kv_heads || p.seq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (body(head_dim, dtype)) {
+  switch (chosen(head_dim, dtype, request)) {
     case kWgmma:
       return head_dim == 64 ? launch_wgmma<64, BAND>(p, st)
                             : launch_wgmma<128, BAND>(p, st);
+    case kSplit:
+      return head_dim == 64 ? launch_split<64, BAND>(p, st)
+                            : launch_split<128, BAND>(p, st);
     case kMmaSync: return launch<bf16, 256, BAND>(p, st);
     case kFma: return launch_d<float, BAND>(p, head_dim, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -833,20 +1409,20 @@ int run(const Params& p, int head_dim, int dtype, void* stream) {
 // gradients dq [B, H, S, D], dk, dv [B, KVH, S, D] (element strides, D
 // contiguous, 16-byte aligned rows); lse from the forward; di: [B, H, S]
 // f32 scratch.  ``strides`` holds 24 element strides: (b, h, s) of q, k,
-// v, o, dout, dq, dk, dv.  Launches three kernels; returns the first
-// CUDA error (0 on success).
+// v, o, dout, dq, dk, dv.  ``body`` as ttd_flash_attention_fwd's.
+// Launches three kernels; returns the first CUDA error (0 on success).
 extern "C" int ttd_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
     void* di, const void* seg, const long long* strides, int batch,
     int heads, int kv_heads, int seq, int head_dim, float scale, int causal,
-    int dtype, void* stream) {
+    int dtype, int body, void* stream) {
   using namespace ttd_flash;
   Params p = bwd_params(q, k, v, o, lse, dout, dq, dk, dv, di, seg, strides,
                         batch, heads, kv_heads, seq);
   p.scale = scale;
   p.causal = causal;
-  return run<false>(p, head_dim, dtype, stream);
+  return run<false>(p, head_dim, dtype, body, stream);
 }
 
 // K7: operands as ttd_flash_attention_bwd (q pre-scaled, dq the gradient
@@ -866,5 +1442,5 @@ extern "C" int ttd_splash_attention_bwd(
   p.causal = 1;
   p.window = window < seq ? window : seq;
   p.sinks = sinks < seq ? sinks : seq;
-  return run<true>(p, head_dim, dtype, stream);
+  return run<true>(p, head_dim, dtype, -1, stream);
 }

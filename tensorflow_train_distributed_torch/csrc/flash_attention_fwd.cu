@@ -16,6 +16,8 @@
 //   (4*D flops a visible (query, key) pair against 4*S*D elements moved
 //   a head; at the llama_125m shape 51.5 GFLOP against 0.1 GB), bytes
 //   only at short S.  Only wgmma reaches the tensor cores' 989 TFLOP/s.
+//   f32 (BERT's and Transformer-big's heads, S 128-256): bytes, twice
+//   bf16's, against six bf16 products a product on the split body.
 //
 // Bodies, chosen statically by (dtype, head_dim) in ``body()``
 // (flash_common.cuh), the same for K2 and K7 and for the backward:
@@ -50,9 +52,29 @@
 //   and stores it with 16-byte stores; lse from one lane a row.
 //   Left for later: ping-pong ordering of the two warpgroups' products,
 //   a persistent grid, TMA stores.
+// split body (f32, D 64 and 128; flash_fwd_split_kernel): the wgmma
+//   body's roles on exact bf16 terms of the f32 operands (flash_common.cuh:
+//   each product a.b as six products of a's and b's hi, mid and lo terms,
+//   exact to 2^-27 |a||b|).  TMA loads f32 tiles (32-column panels) into
+//   tiles of term planes (1.5x the f32 bytes); warps 9-11 of the producer
+//   warpgroup split each landed K and V stage in place into its hi, mid
+//   and lo planes and arrive on the stage's full barrier after an
+//   async-proxy fence, so the consumers run only products and the
+//   softmax; each consumer warpgroup splits its own 64 rows of Q once.
+//   Scores: the six products from shared memory; P is split in registers;
+//   each tile's P.V goes by 64-column halves into a fresh accumulator
+//   added to o with rounded f32 adds (the tensor core truncates its
+//   running sum).  One 64-row kv tile at a time; two stages at D 64, one
+//   at D 128 (two would not fit); o stored in f32 straight from
+//   registers.  At S 128-256 a q tile meets two to four kv tiles, so a
+//   block of one tile would wait on its loads: a block an SM walks the q
+//   tiles instead (item_index), the ring running on across them, and at
+//   D 64 the next tile's Q loads into a second buffer while the current
+//   one is worked on.
 // mma.sync body (bf16, D 256: its [64, 256] f32 output accumulator alone
 //   takes 128 registers a thread and would not fit beside the scores) and
-//   FMA body (f32: wgmma's tf32 would change the numerics):
+//   FMA body (f32 at D 256, for the same reason; and at D 64 and 128 when
+//   a caller forces it, to time it beside the split body):
 //   flash_fwd_kernel, one block per (64-row q tile, head, batch), the
 //   TPU grid's sequential kv axis a loop inside the block; each warp owns
 //   16 rows, K and V tiles staged by the whole block, one tile in flight.
@@ -489,6 +511,281 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split body's shape: 128 q rows a block (two consumer warpgroups of
+// 64), 64-row kv tiles, one producer warpgroup, tiles of bf16 terms
+// (split_bytes: 1.5x the f32 tile).  At D 64 two stages, and the next
+// item's Q loads into a second buffer (kRes) while the block works on the
+// current one; at D 128 one of each (two would not fit shared memory).
+template <int D>
+struct FwdSplit {
+  static constexpr int kBm = 128;
+  static constexpr int kBn = 64;
+  static constexpr int kStages = D == 64 ? 2 : 1;
+  static constexpr int kRes = D == 64 ? 2 : 1;
+  static constexpr int kThreads = 384;
+  static constexpr int kQBytes = split_bytes<kBm, D>();
+  static constexpr int kKvBytes = split_bytes<kBn, D>();   // K or V
+  static constexpr int kBars = 3 * kStages + 2 * kRes;
+  static constexpr int kSmem = 1024 + kRes * kQBytes +
+                               2 * kStages * kKvBytes + kBars * 8;
+};
+
+template <int D, bool BAND>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_split_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, Params p) {
+  using C = FwdSplit<D>;
+  namespace hw = ttd_hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* res = base;               // buffer r: Q
+  unsigned char* kvs = res + C::kRes * C::kQBytes;   // stage s: K at 2s,
+  uint64_t* full = reinterpret_cast<uint64_t*>(      // V at 2s + 1
+      kvs + 2 * C::kStages * C::kKvBytes);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* loaded = empty + C::kStages;   // the f32 stage has landed
+  uint64_t* rfull = loaded + C::kStages;   // a Q buffer has landed
+  uint64_t* rempty = rfull + C::kRes;      // ... and is free again
+  auto kv = [&](int stage, int which) {    // K (0) or V (1) of a stage
+    return kvs + (2 * stage + which) * C::kKvBytes;
+  };
+
+  const int n_qt = (p.seq + C::kBm - 1) / C::kBm;
+  const int n_items = n_qt * p.heads * p.batch;
+  // Work item idx: q tile (the ones with the most kv tiles first: the
+  // last ones when causal), head and batch row.
+  struct Work {
+    int h, b, kvh, q0, n_kv;
+  };
+  auto work = [&](int idx) {
+    const Item it = item_at(idx, n_qt, p.heads);
+    const int qt = p.causal ? n_qt - 1 - it.x : it.x;
+    const int q0 = qt * C::kBm;
+    const int q_end = min(q0 + C::kBm, p.seq);
+    return Work{it.y, it.z, it.y / (p.heads / p.kv_heads), q0,
+                p.causal ? (q_end - 1) / C::kBn + 1
+                         : (p.seq + C::kBn - 1) / C::kBn};
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 96);
+      hw::mbar_init(&empty[s], 256);
+      hw::mbar_init(&loaded[s], 1);
+    }
+    for (int r = 0; r < C::kRes; ++r) {
+      hw::mbar_init(&rfull[r], 1);
+      hw::mbar_init(&rempty[r], 256);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: one thread loads each item's Q, then K and V of its kv
+    // tiles into the ring, landing on ``loaded``; warps 9-11 split each
+    // stage in place into its bf16 planes, then arrive on ``full``.
+    hw::regs_dec<40>();
+    if (threadIdx.x == 256) {
+      int i = 0;
+      for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+        const Work w = work(idx);
+        const int r = n % C::kRes;
+        hw::mbar_wait(&rempty[r], ((n / C::kRes) & 1) ^ 1);
+        hw::mbar_expect_tx(&rfull[r], C::kBm * D * 4);
+        tma_load_split<C::kBm, D>(res + r * C::kQBytes, &tq, &rfull[r], w.q0,
+                                  w.h, w.b);
+        const KvTiles<BAND, C::kBn> tiles(p.window, p.sinks, w.q0);
+        for (int kt = tiles.first(); kt < w.n_kv; kt = tiles.next(kt), ++i) {
+          const int s = i % C::kStages;
+          hw::mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+          hw::mbar_expect_tx(&loaded[s], 2 * C::kBn * D * 4);
+          tma_load_split<C::kBn, D>(kv(s, 0), &tk, &loaded[s], kt * C::kBn,
+                                    w.kvh, w.b);
+          tma_load_split<C::kBn, D>(kv(s, 1), &tv, &loaded[s], kt * C::kBn,
+                                    w.kvh, w.b);
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      int i = 0;
+      for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+        const Work w = work(idx);
+        const KvTiles<BAND, C::kBn> tiles(p.window, p.sinks, w.q0);
+        for (int kt = tiles.first(); kt < w.n_kv; kt = tiles.next(kt), ++i) {
+          const int s = i % C::kStages;
+          hw::mbar_wait(&loaded[s], (i / C::kStages) & 1);
+          split_rows<C::kBn, D>(kv(s, 0), 0, C::kBn, threadIdx.x - 288, 96);
+          split_rows<C::kBn, D>(kv(s, 1), 0, C::kBn, threadIdx.x - 288, 96);
+          hw::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [w0, w0 + 64) of each item.
+  hw::regs_inc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const bool seg = p.seg != nullptr;
+  const float sl2 = p.scale * kLog2e;      // scores in log2 units
+
+  float o[D / 2];
+  float s[C::kBn / 2];
+  SplitFrags<C::kBn / 16> pf;              // P's terms
+  float chunk[32];                         // one tile's P.V, by half
+#pragma unroll
+  for (int j = 0; j < C::kBn / 2; ++j) s[j] = 0.f;
+
+  int i = 0;                               // the ring's tile
+  for (int n = 0, idx; (idx = item_index(n)) < n_items; ++n) {
+    const Work w = work(idx);
+    const int r = n % C::kRes;
+    unsigned char* qs = res + r * C::kQBytes;
+    const KvTiles<BAND, C::kBn> tiles(p.window, p.sinks, w.q0);
+    const int w0 = w.q0 + 64 * wg;
+    const int r0 = w0 + 16 * warp + g;     // this thread's rows
+    const int r1 = r0 + 8;
+    const int* segb = p.seg + static_cast<long long>(w.b) * p.seq;
+    const int sq0 = seg ? segb[min(r0, p.seq - 1)] : 0;
+    const int sq1 = seg ? segb[min(r1, p.seq - 1)] : 0;
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+    hw::mbar_wait(&rfull[r], (n / C::kRes) & 1);
+    // This warpgroup's 64 rows of Q into their terms, before its first
+    // product reads them.
+    split_rows<C::kBm, D>(qs, 64 * wg, 64, tid, 128);
+    hw::bar_sync(1 + wg, 128);
+    // One tile at a time; the two warpgroups overlap each other.  Tiles
+    // with no visible pair for this warpgroup are skipped (their
+    // probabilities would be exactly 0).
+    for (int kt = tiles.first(); kt < w.n_kv; kt = tiles.next(kt), ++i) {
+      const int st = i % C::kStages;
+      hw::mbar_wait(&full[st], (i / C::kStages) & 1);
+      const int k0 = kt * C::kBn;
+      if (!tile_empty<BAND>(p, w0, w0 + 63, k0, k0 + C::kBn - 1)) {
+        const unsigned char* ks = kv(st, 0);
+        const unsigned char* vs = kv(st, 1);
+        hw::wgmma_fence();
+        wgmma_ss_split<C::kBn, D>(
+            s,
+            [&](int pl, int kk) {
+              return desc_k_split<C::kBm>(qs, pl, 64 * wg, kk);
+            },
+            [&](int pl, int kk) {
+              return desc_k_split<C::kBn>(ks, pl, 0, kk);
+            },
+            0);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::reg_fence<C::kBn / 2>(s);
+        // The online softmax: the running max, this thread's share of the
+        // row sums, the output's rescale, and P's terms.
+        float mx0 = m0, mx1 = m1;
+        if (tile_masked<BAND>(p, w0, w0 + 63, k0, k0 + C::kBn - 1)) {
+#pragma unroll
+          for (int j = 0; j < C::kBn / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k0 + 8 * j + 2 * t + (e & 1);
+              const int row = e < 2 ? r0 : r1;
+              float x = s[4 * j + e] * sl2;
+              if (col >= p.seq ||
+                  !visible<BAND>(row, col, p.causal, p.window, p.sinks, seg,
+                                 e < 2 ? sq0 : sq1, seg ? segb[col] : 0))
+                x += kMaskValue;
+              s[4 * j + e] = x;
+              if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < C::kBn / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[4 * j + e] *= sl2;
+            mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+            mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+          }
+        }
+        mx0 = quad_max(mx0);
+        mx1 = quad_max(mx1);
+        const float a0 = exp2f(m0 - mx0);  // 0 on the first tile
+        const float a1 = exp2f(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < C::kBn / 8; ++j) {
+          s[4 * j] = exp2f(s[4 * j] - m0);
+          s[4 * j + 1] = exp2f(s[4 * j + 1] - m0);
+          s[4 * j + 2] = exp2f(s[4 * j + 2] - m1);
+          s[4 * j + 3] = exp2f(s[4 * j + 3] - m1);
+          ls0 += s[4 * j] + s[4 * j + 1];
+          ls1 += s[4 * j + 2] + s[4 * j + 3];
+        }
+        l0 = l0 * a0 + ls0;
+        l1 = l1 * a1 + ls1;
+        split_frags(s, pf);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= a0;
+          o[4 * j + 1] *= a0;
+          o[4 * j + 2] *= a1;
+          o[4 * j + 3] *= a1;
+        }
+        wgmma_rs_split_add<D>(o, chunk, pf, [&](int pl, int kk, int hf) {
+          return desc_mn_split<C::kBn>(vs, pl, kk, hf);
+        });
+        frag_fence(pf);
+      }
+      hw::mbar_arrive(&empty[st]);
+    }
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    if (t == 0) {
+      float* lse =
+          p.lse + (static_cast<long long>(w.b) * p.heads + w.h) * p.seq;
+      if (r0 < p.seq) lse[r0] = m0 * kLn2 + logf(l0);
+      if (r1 < p.seq) lse[r1] = m1 * kLn2 + logf(l1);
+    }
+    float* og = static_cast<float*>(p.out) + w.b * p.so.b + w.h * p.so.h;
+    store_rows_f32<D>(o, l0 == 0.f ? 1.f : 1.f / l0,
+                      l1 == 0.f ? 1.f : 1.f / l1, og, p.so.s, w0, p.seq);
+    hw::mbar_arrive(&rempty[r]);
+  }
+}
+
+template <int D, bool BAND>
+int launch_split(const Params& p, cudaStream_t stream) {
+  using C = FwdSplit<D>;
+  CUtensorMap tq, tk, tv;
+  if (!ttd_hopper::make_map(&tq, p.q, p.sq.b, p.sq.h, p.sq.s, p.batch,
+                            p.heads, p.seq, D, ttd::kF32) ||
+      !ttd_hopper::make_map(&tk, p.k, p.sk.b, p.sk.h, p.sk.s, p.batch,
+                            p.kv_heads, p.seq, D, ttd::kF32) ||
+      !ttd_hopper::make_map(&tv, p.v, p.sv.b, p.sv.h, p.sv.s, p.batch,
+                            p.kv_heads, p.seq, D, ttd::kF32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_split_kernel<D, BAND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = static_cast<long long>(
+      (p.seq + C::kBm - 1) / C::kBm) * p.heads * p.batch;
+  flash_fwd_split_kernel<D, BAND>
+      <<<split_blocks(items), C::kThreads, C::kSmem, stream>>>(tq, tk, tv,
+                                                               p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, bool BAND>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, D>(3);
@@ -534,15 +831,19 @@ Params fwd_params(const void* q, const void* k, const void* v, void* o,
 }
 
 template <bool BAND>
-int run(const Params& p, int head_dim, int dtype, void* stream) {
+int run(const Params& p, int head_dim, int dtype, int request,
+        void* stream) {
   if (p.batch <= 0 || p.seq <= 0) return 0;
   if (p.kv_heads <= 0 || p.heads % p.kv_heads || p.seq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (body(head_dim, dtype)) {
+  switch (chosen(head_dim, dtype, request)) {
     case kWgmma:
       return head_dim == 64 ? launch_wgmma<64, BAND>(p, st)
                             : launch_wgmma<128, BAND>(p, st);
+    case kSplit:
+      return head_dim == 64 ? launch_split<64, BAND>(p, st)
+                            : launch_split<128, BAND>(p, st);
     case kMmaSync: return launch<bf16, 256, BAND>(p, st);
     case kFma: return launch_d<float, BAND>(p, head_dim, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -556,24 +857,26 @@ int run(const Params& p, int head_dim, int dtype, void* stream) {
 // strides with D contiguous, 16-byte aligned rows); lse: [B, H, S] f32
 // contiguous; seg: [B, S] int32 contiguous or null.  ``strides`` holds
 // 12 element strides: (b, h, s) of q, k, v, o.  S must be a multiple of
-// 64, H a multiple of KVH, D one of 64, 128, 256.  Returns the CUDA error
-// code of the launch (0 on success).
+// 64, H a multiple of KVH, D one of 64, 128, 256.  ``body``: -1 the
+// library's choice (ttd_flash_attention_body), else a Body code that
+// ``chosen`` accepts.  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int ttd_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* seg, const long long* strides, int batch, int heads,
     int kv_heads, int seq, int head_dim, float scale, int causal, int dtype,
-    void* stream) {
+    int body, void* stream) {
   using namespace ttd_flash;
   Params p = fwd_params(q, k, v, o, lse, seg, strides, batch, heads,
                         kv_heads, seq);
   p.scale = scale;
   p.causal = causal;
-  return run<false>(p, head_dim, dtype, stream);
+  return run<false>(p, head_dim, dtype, body, stream);
 }
 
 // Which body serves (dtype, head_dim) in the forward and the backward,
-// K2 and K7 alike: 2 the wgmma body, 1 the mma.sync body, 0 the FMA
-// body, -1 none (the pair is refused).
+// K2 and K7 alike: 3 the split body, 2 the wgmma body, 1 the mma.sync
+// body, 0 the FMA body, -1 none (the pair is refused).
 extern "C" int ttd_flash_attention_body(int head_dim, int dtype) {
   return ttd_flash::body(head_dim, dtype);
 }
@@ -596,5 +899,5 @@ extern "C" int ttd_splash_attention_fwd(
   p.causal = 1;
   p.window = window < seq ? window : seq;
   p.sinks = sinks < seq ? sinks : seq;
-  return run<true>(p, head_dim, dtype, stream);
+  return run<true>(p, head_dim, dtype, -1, stream);
 }

@@ -3,7 +3,8 @@
 // sliding-window band of the splash kernels (K7), which run the same
 // bodies instantiated with BAND = true, and for each body its tiles:
 // the wgmma bodies' masks, register fragments and epilogue (below, on
-// hopper.cuh's TMA ring and wgmma), and the mma.sync / FMA bodies' tile
+// hopper.cuh's TMA ring and wgmma), the split body's bf16 terms of f32
+// tiles and its products (at the end), and the mma.sync / FMA bodies' tile
 // loads and two warp-level tile products with one register layout for
 // both element types (f32 and bf16 at D 256).
 //
@@ -309,17 +310,27 @@ __device__ __forceinline__ int q_tiles_end(int window, int sinks, int k0,
 // the register layout of the mma.sync bodies above, four warps deep.
 
 // The body that serves (head_dim, dtype), chosen statically and the same
-// for the forward and the backward: kWgmma for bf16 at D 64 and 128,
-// kMmaSync for bf16 at D 256 (its [64, 256] f32 accumulators would not
-// fit a warpgroup's registers beside the scores), kFma for f32 (wgmma's
-// tf32 would change its numerics); kNone where the pair is refused.
-enum Body : int { kNone = -1, kFma = 0, kMmaSync = 1, kWgmma = 2 };
+// for the forward and the backward: kWgmma for bf16 at D 64 and 128;
+// kSplit for f32 at D 64 and 128 (the wgmma bodies on exact bf16 terms of
+// the f32 operands, below: wgmma's tf32 would keep 10 bits of each, and
+// takes a transposed operand only for 16-bit types); kMmaSync for bf16 at
+// D 256 and kFma for f32 at D 256 (a [64, 256] f32 accumulator would not
+// fit a warpgroup's registers beside the scores); kNone where the pair is
+// refused.  ``chosen`` resolves a caller's request: -1 takes body(), and
+// kFma may stand in for kSplit (to time the two side by side).
+enum Body : int { kNone = -1, kFma = 0, kMmaSync = 1, kWgmma = 2, kSplit = 3 };
 
 inline Body body(int head_dim, int dtype) {
   if (head_dim != 64 && head_dim != 128 && head_dim != 256) return kNone;
-  if (dtype == ttd::kF32) return kFma;
+  if (dtype == ttd::kF32) return head_dim == 256 ? kFma : kSplit;
   if (dtype == ttd::kBF16) return head_dim == 256 ? kMmaSync : kWgmma;
   return kNone;
+}
+
+inline Body chosen(int head_dim, int dtype, int request) {
+  const Body b = body(head_dim, dtype);
+  if (request < 0 || request == b) return b;
+  return request == kFma && b == kSplit ? kFma : kNone;
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -396,6 +407,281 @@ __device__ __forceinline__ void store_rows(const float* acc, float f0,
     *reinterpret_cast<uint4*>(out + static_cast<long long>(row0 + r) *
                                         row_stride + c8 * 8) = v;
   }
+}
+
+// -- the split body (f32, head_dim 64 and 128) ---------------------------
+//
+// Each f32 value x is the sum hi + mid + lo of bf16 terms: hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid), both differences exact in
+// f32, |mid| <= 2^-9 |x| and |lo| <= 2^-18 |x|; the three carry all 24
+// bits of x's significand.  A product a.b of two f32 operands runs as six
+// bf16 products on wgmma with f32 accumulation, the small ones first:
+// lo(a).hi(b) + mid(a).mid(b) + hi(a).lo(b) + mid(a).hi(b) + hi(a).mid(b)
+// + hi(a).hi(b).  What it drops, mid.lo + lo.mid + lo.lo, is 2^-27 |a||b|
+// and less, below f32's own rounding, so the body is held to the same
+// bounds as the FMA body.  tests/test_torch_flash_split.py emulates the
+// body's arithmetic on the CPU: six products stay within 0.08 of those
+// bounds and 0.011 of the rule 2^-14 (|ref32| + |terms|) + 1e-6; three
+// (hi and mid alone) reach 0.6 of the bounds in exact arithmetic, which
+// the tensor core's truncated sums took past them on the card; one
+// (bf16) misses the rule.
+//
+// A split tile of R rows and D columns sits in shared memory as D / 64
+// groups of three bf16 panels of hopper.cuh's layout (R rows of 128
+// bytes, 128-byte swizzle): group j holds the hi, mid and lo terms of
+// columns [64 j, 64 j + 64), R * D * 6 bytes in all.  TMA lands the f32
+// tile's two 32-column panels of group j where its hi and mid panels go
+// (``tma_load_split``), and ``split_rows`` turns them in place into the
+// group's three planes; wgmma reads each plane through PR 5's descriptors
+// with a panel stride of three panels.
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The exact three-way split of two f32 values into bf16x2 terms (x0 in
+// the low half): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid), each rounded to nearest, as ops/kernels.py's ``bf16_split3``.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(h);
+  const float r1 = x1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m)));
+}
+
+// Bytes of a split tile of R rows and D columns.
+template <int R, int D>
+__host__ __device__ constexpr int split_bytes() {
+  return R * D * 6;
+}
+
+// Rows [row0, row0 + R) of head ``h``, batch row ``b`` of an f32 map from
+// hopper.cuh's ``make_map`` into split tile ``tile`` (R a multiple of 64):
+// f32 panel p (columns [32 p, 32 p + 32)) lands on panel 3 (p / 2) + p % 2.
+// Adds R * D * 4 bytes to ``bar``'s transaction count.
+template <int R, int D>
+__device__ __forceinline__ void tma_load_split(unsigned char* tile,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int row0,
+                                               int h, int b) {
+#pragma unroll
+  for (int panel = 0; panel < D / 32; ++panel)
+#pragma unroll
+    for (int c = 0; c < R / 64; ++c)
+      ttd_hopper::tma_load_4d(
+          tile + ((3 * (panel / 2) + panel % 2) * R + c * 64) * 128, map,
+          bar, panel * 32, row0 + c * 64, h, b);
+}
+
+// Splits rows [row0, row0 + n) (n a multiple of 8) of a split tile whose
+// f32 panels have landed into their hi, mid and lo planes, by thread
+// ``tid`` of ``nthreads`` (a multiple of 32).  Eight lanes of a warp own a
+// row's 64 columns of a group, read all of them, meet at __syncwarp, then
+// write the row's hi and mid terms back over the same bytes and its lo
+// terms into the group's third panel.  Ends with the fence that orders
+// these writes before the async proxy (wgmma, a later TMA load into the
+// tile): the caller's barrier then publishes them.
+template <int R, int D>
+__device__ __forceinline__ void split_rows(unsigned char* tile, int row0,
+                                           int n, int tid, int nthreads) {
+  const int items = n * (D / 64) * 8;
+  for (int i = tid; i < items; i += nthreads) {
+    const int c = i & 7;                   // 16-byte bf16 chunk of the row
+    const int j = (i >> 3) % (D / 64);     // 64-column group
+    const int r = row0 + (i >> 3) / (D / 64);
+    const int sw = r & 7;
+    unsigned char* row = tile + 3 * j * R * 128 + r * 128;
+    const unsigned char* src = row + (c >> 2) * R * 128;
+    const float4 a = *reinterpret_cast<const float4*>(
+        src + (((2 * (c & 3)) ^ sw) << 4));
+    const float4 b = *reinterpret_cast<const float4*>(
+        src + (((2 * (c & 3) + 1) ^ sw) << 4));
+    uint4 hi, mid, lo;
+    split3(a.x, a.y, hi.x, mid.x, lo.x);
+    split3(a.z, a.w, hi.y, mid.y, lo.y);
+    split3(b.x, b.y, hi.z, mid.z, lo.z);
+    split3(b.z, b.w, hi.w, mid.w, lo.w);
+    __syncwarp();
+    const int at = (c ^ sw) << 4;
+    *reinterpret_cast<uint4*>(row + at) = hi;
+    *reinterpret_cast<uint4*>(row + R * 128 + at) = mid;
+    *reinterpret_cast<uint4*>(row + 2 * R * 128 + at) = lo;
+  }
+  ttd_hopper::fence_proxy_async();
+}
+
+// Depth step ``kk`` (16 columns) of rows [row0, row0 + 64) of plane
+// ``pl`` (0 hi, 1 mid, 2 lo) of a split R-row tile, read K-major.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k_split(const unsigned char* tile,
+                                                 int pl, int row0, int kk) {
+  return ttd_hopper::sw128_desc(
+      tile + ((kk / 4) * 3 + pl) * R * 128 + row0 * 128 + (kk % 4) * 32, 16,
+      1024);
+}
+
+// Depth step ``kk`` (16 rows) of plane ``pl`` of a split R-row tile, read
+// MN-major for output columns [64 h, 64 h + 64).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn_split(const unsigned char* tile,
+                                                  int pl, int kk, int h) {
+  return ttd_hopper::sw128_desc(tile + (3 * h + pl) * R * 128 + kk * 2048,
+                                3 * R * 128, 1024);
+}
+
+// frag_a's register-A operand of depth step ``kk``, split into its hi,
+// mid and lo terms.
+__device__ __forceinline__ void frag_split(const float* s, int kk,
+                                           uint32_t* hi, uint32_t* mid,
+                                           uint32_t* lo) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    split3(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1], hi[q], mid[q], lo[q]);
+}
+
+// The split terms of a register-A operand of K depth steps.
+template <int K>
+struct SplitFrags {
+  uint32_t t[3][K][4];   // [hi, mid, lo][depth step][register]
+};
+
+template <int K>
+__device__ __forceinline__ void split_frags(const float* s,
+                                            SplitFrags<K>& f) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+    frag_split(s, kk, f.t[0][kk], f.t[1][kk], f.t[2][kk]);
+}
+
+// Keeps register-A fragments live until the products that read them have
+// completed (after the wgmma wait).
+template <int K>
+__device__ __forceinline__ void frag_fence(SplitFrags<K>& f) {
+#pragma unroll
+  for (int pl = 0; pl < 3; ++pl)
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk)
+      asm volatile("" : "+r"(f.t[pl][kk][0]), "+r"(f.t[pl][kk][1]),
+                   "+r"(f.t[pl][kk][2]), "+r"(f.t[pl][kk][3]) :: "memory");
+}
+
+// Product x of the six, as (plane of a, plane of b): (lo, hi), (mid, mid),
+// (hi, lo), (mid, hi), (hi, mid), (hi, hi), small ones first: the tensor
+// core truncates its running sum, so the large terms arrive last.
+__host__ __device__ constexpr int split_a(int x) {
+  return x == 0 ? 2 : x == 1 || x == 3 ? 1 : 0;
+}
+__host__ __device__ constexpr int split_b(int x) {
+  return x == 2 ? 2 : x == 1 || x == 4 ? 1 : 0;
+}
+
+// The split products of [64, N] (+)= A . B over DEPTH / 16 depth steps,
+// issued (not committed), both operands in shared memory: ``da(pl, kk)``
+// and ``db(pl, kk)`` give plane pl's descriptor at depth step kk.
+// ``accumulate`` = 0 overwrites d.
+template <int N, int DEPTH, typename DA, typename DB>
+__device__ __forceinline__ void wgmma_ss_split(float* d, DA da, DB db,
+                                               int accumulate) {
+#pragma unroll
+  for (int x = 0; x < 6; ++x)
+#pragma unroll
+    for (int kk = 0; kk < DEPTH / 16; ++kk)
+      ttd_hopper::wgmma_ss<N>(d, da(split_a(x), kk), db(split_b(x), kk),
+                              accumulate || x > 0 || kk > 0);
+}
+
+// acc[64, N] += A . B over K depth steps as split products, A in registers
+// (``a``, its split fragments), B MN-major in shared memory (``db(pl, kk,
+// h)``: plane pl's descriptor at depth step kk for output columns [64 h,
+// 64 h + 64)); waits for them.  The tensor core truncates its running f32
+// sum, so an accumulator fed tile after tile over a long sequence would
+// drift toward zero by up to an ulp of itself a step (dK of a 4096-key
+// window over four heads: ~3,000 steps).  So each 64-column part of the
+// tile's products goes into a fresh [64, 64] ``chunk`` (32 registers,
+// this tile's depth only) that is then added to acc with rounded f32 adds,
+// as K6 adds its stages.
+template <int N, int K, typename DB>
+__device__ __forceinline__ void wgmma_rs_split_add(float* acc, float* chunk,
+                                                   SplitFrags<K>& a, DB db) {
+#pragma unroll
+  for (int h = 0; h < N / 64; ++h) {
+    ttd_hopper::wgmma_fence();
+#pragma unroll
+    for (int x = 0; x < 6; ++x)
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        ttd_hopper::wgmma_rs<64>(chunk, a.t[split_a(x)][kk],
+                                 db(split_b(x), kk, h), x > 0 || kk > 0);
+    ttd_hopper::wgmma_commit();
+    ttd_hopper::wgmma_wait<0>();
+    ttd_hopper::reg_fence<32>(chunk);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[32 * h + i] += chunk[i];
+  }
+}
+
+// Writes a warpgroup's [64, D] f32 accumulator (rows of thread-row half 0
+// scaled by ``f0``, half 1 by ``f1``) to rows [row0, row0 + 64) of a
+// strided f32 output with 8-byte stores (four lanes fill a 32-byte
+// sector).  Rows at or past ``seq`` are not written.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const float* acc, float f0,
+                                               float f1, float* out,
+                                               long long row_stride,
+                                               int row0, int seq) {
+  const int tid = threadIdx.x & 127;
+  const int r = row0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const int t = tid & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r + 8 * half;
+    if (row >= seq) continue;
+    const float f = half ? f1 : f0;
+    float* dst = out + static_cast<long long>(row) * row_stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(acc[4 * j + 2 * half] * f,
+                      acc[4 * j + 2 * half + 1] * f);
+  }
+}
+
+// The split body's work items: its kernels launch one block an SM
+// (``split_blocks``), and each block walks several items, so that one
+// item's loads overlap the previous item's products (at S 128-256 a q
+// tile meets one or two kv tiles, and a block of one item would wait on
+// its loads).  Item ``idx`` is (x, y, z) = (idx % nx, (idx / nx) % ny,
+// idx / (nx ny)).
+struct Item {
+  int x, y, z;
+};
+
+__device__ __forceinline__ Item item_at(int idx, int nx, int ny) {
+  return {idx % nx, (idx / nx) % ny, idx / (nx * ny)};
+}
+
+// The idx of this block's n-th item: the blocks take the items in rounds
+// of gridDim.x, every other round in reverse, so that a block's share of
+// a causal grid (whose neighbouring items alternate long and short) evens
+// out.
+__device__ __forceinline__ int item_index(int n) {
+  return n * gridDim.x +
+         (n & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+// The blocks of a grid of ``items`` work items: one an SM, or fewer.
+inline unsigned split_blocks(long long items) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return static_cast<unsigned>(items < sms ? items : sms);
 }
 
 }  // namespace ttd_flash

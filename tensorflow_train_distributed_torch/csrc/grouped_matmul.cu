@@ -91,8 +91,10 @@ namespace ttd_grouped {
 namespace {
 
 using bf16 = __nv_bfloat16;
+using ttd_flash::bits;
 using ttd_flash::ld32;
 using ttd_flash::mma16816;
+using ttd_flash::split3;
 
 constexpr int kTm = 64;         // output rows a block
 constexpr int kTn = 128;        // output columns a block
@@ -551,25 +553,6 @@ struct WgCfg {
 template <typename TA>
 __host__ __device__ constexpr int gmm_bn() {
   return std::is_same<TA, float>::value ? 128 : 256;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The exact three-way split of two f32 values (consecutive depth) into
-// bf16x2 terms: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid);
-// both differences are exact in f32, and hi + mid + lo carries all 24
-// bits of x's significand.
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float r0 = x0 - __low2float(h);
-  const float r1 = x1 - __high2float(h);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  hi = bits(h);
-  mid = bits(m);
-  lo = bits(__floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m)));
 }
 
 // Element (row, col) of an f32 tile of 32-column, 128-byte swizzled panels

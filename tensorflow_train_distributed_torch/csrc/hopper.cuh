@@ -6,10 +6,10 @@
 // between warpgroups, and the host-side encoding of tensor maps for a
 // strided [B, H, S, D] operand and for a row-major [rows, cols] one.
 //
-// An f32 tile (the grouped matmuls' f32 operand) sits as TMA writes it
-// with the same swizzle: panels of 32 columns (128 bytes), the 16-byte
-// chunk c of row r at chunk c ^ (r % 8); it is read by threads, not by
-// wgmma.
+// An f32 tile (the grouped matmuls' f32 operand, the split attention
+// body's operands) sits as TMA writes it with the same swizzle: panels of
+// 32 columns (128 bytes), the 16-byte chunk c of row r at chunk c ^ (r %
+// 8); it is read by threads, not by wgmma.
 //
 // Tile layout.  A tile of R rows x D bf16 columns sits in shared memory
 // as TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B: D / 64 panels, one
@@ -467,24 +467,41 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A rank-4 map (D, S, H, B) of a bf16 [B, H, S, D] operand with element
-// strides (sb, sh, ss) and D contiguous: 64 x 64 x 1 x 1 boxes (64
-// columns of 64 rows), 128-byte swizzle, rows past S read as zeros.
-// Returns false where the driver refuses it.
+// The encoder, with a context current on the calling thread: the driver's
+// encoder needs one, and a thread whose first CUDA call this is (autograd's
+// backward thread) has none until the runtime binds the device's primary
+// context, which setting the device does.
+inline EncodeTiled encoder() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
+  return encode_tiled();
+}
+
+// A rank-4 map (D, S, H, B) of a bf16 or f32 (``dtype``: ttd::DType)
+// [B, H, S, D] operand with element strides (sb, sh, ss) and D
+// contiguous: boxes of 128 bytes (64 bf16 or 32 f32 columns) x 64 rows,
+// 128-byte swizzle, rows past S read as zeros.  Returns false where the
+// driver refuses it.
 inline bool make_map(CUtensorMap* map, const void* base, long long sb,
-                     long long sh, long long ss, int b, int h, int s, int d) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
+                     long long sh, long long ss, int b, int h, int s, int d,
+                     int dtype = ttd::kBF16) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr || (dtype != ttd::kF32 && dtype != ttd::kBF16))
+    return false;
+  const int bytes = dtype == ttd::kF32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * bytes,
+                                 static_cast<cuuint64_t>(sh) * bytes,
+                                 static_cast<cuuint64_t>(sb) * bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / bytes), 64, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encode(map, dtype == ttd::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -502,7 +519,7 @@ inline bool make_map(CUtensorMap* map, const void* base, long long sb,
 inline bool make_map_rows(CUtensorMap* map, const void* base, int dtype,
                           long long batches, long long rows, long long cols,
                           int box_cols, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
+  const EncodeTiled encode = encoder();
   if (encode == nullptr || (dtype != ttd::kF32 && dtype != ttd::kBF16))
     return false;
   const int bytes = dtype == ttd::kF32 ? 4 : 2;

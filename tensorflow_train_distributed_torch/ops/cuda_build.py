@@ -46,8 +46,10 @@ _SIGNATURES = {
     "ttd_rms_norm_bwd_partials": [_I, _I, _I, _I],
     "ttd_cross_entropy_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "ttd_cross_entropy_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    "ttd_flash_attention_fwd": [_VP] * 7 + [_I] * 5 + [_F, _I, _I, _VP],
-    "ttd_flash_attention_bwd": [_VP] * 12 + [_I] * 5 + [_F, _I, _I, _VP],
+    "ttd_flash_attention_fwd": [_VP] * 7 + [_I] * 5 + [_F] + [_I] * 3
+                               + [_VP],
+    "ttd_flash_attention_bwd": [_VP] * 12 + [_I] * 5 + [_F] + [_I] * 3
+                               + [_VP],
     "ttd_splash_attention_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
     "ttd_splash_attention_bwd": [_VP] * 12 + [_I] * 8 + [_VP],
     "ttd_flash_attention_body": [_I, _I],

@@ -19,11 +19,12 @@ has two faces with one signature and layout (the JAX function's):
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
 kernels (``reset_launch_counts`` / ``launch_counts``).  K1f, K1b, K4 and
-K5 have two bodies each and K6 three, one launch either way (K1b's
-warp body sums dscale's per-block rows in a second kernel of the same
-call); ``rms_norm_body``, ``rms_norm_bwd_body``,
-``paged_attention_body``, ``paged_kv_gather_body``, ``gmm_body`` and
-``tgmm_body`` name the one the library picks for a call.
+K5 have two bodies each, K6 three and K2/K7 four, one launch either way
+(K1b's warp body sums dscale's per-block rows in a second kernel of the
+same call); ``rms_norm_body``, ``rms_norm_bwd_body``,
+``paged_attention_body``, ``paged_kv_gather_body``, ``gmm_body``,
+``tgmm_body`` and ``flash_attention_body`` name the one the library
+picks for a call.
 """
 
 from __future__ import annotations
@@ -307,11 +308,17 @@ def cross_entropy_backward(logits2: torch.Tensor, labels: torch.Tensor,
                            lse: torch.Tensor, g: torch.Tensor
                            ) -> torch.Tensor:
     """K3b on CUDA: ``dlogits`` [N, V] in logits' dtype from the forward's
-    ``lse`` and the per-row cotangent ``g`` [N] f32."""
+    ``lse`` and the per-row cotangent ``g`` [N] f32.  dlogits lies as far
+    from a vector boundary (16 bytes f32, 8 bf16) as logits does (a view
+    into a buffer a few elements longer), so the kernel's rows stream at
+    vector width in both."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     n, v = logits2.shape
-    dlogits = torch.empty_like(logits2)
+    es = logits2.element_size()
+    lead = logits2.data_ptr() % (4 * es) // es
+    dlogits = torch.empty(n * v + lead, dtype=logits2.dtype,
+                          device=logits2.device)[lead:].view(n, v)
     rc = library().ttd_cross_entropy_bwd(
         logits2.data_ptr(), labels.data_ptr(), lse.data_ptr(),
         g.data_ptr(), dlogits.data_ptr(), n, v,
@@ -422,24 +429,47 @@ def _bshd(b, s, h, d, like):
                        device=like.device).transpose(1, 2)
 
 
+# csrc/flash_common.cuh Body codes.
+FLASH_BODIES = ("FMA", "mma.sync", "wgmma", "split")
+
+
 def flash_attention_body(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel body that serves K2 and K7 (forward and backward) at
-    ``dtype`` and ``head_dim``, as the library chooses it: "wgmma",
-    "mma.sync" or "FMA" ("none" where the pair is refused)."""
+    ``dtype`` and ``head_dim``, as the library chooses it: "wgmma" (bf16
+    at D 64 and 128), "split" (f32 at D 64 and 128: the wgmma body on
+    exact bf16 terms of the f32 operands, six term products a product),
+    "mma.sync" (bf16 at D 256) or
+    "FMA" (f32 at D 256); "none" where the pair is refused."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     code = library().ttd_flash_attention_body(
         head_dim, _DTYPE_CODES.get(dtype, -1))
-    return {2: "wgmma", 1: "mma.sync", 0: "FMA"}.get(code, "none")
+    return FLASH_BODIES[code] if code >= 0 else "none"
+
+
+def _flash_body_code(name: str, q, body: Optional[str]) -> int:
+    """-1 (the library's choice) for ``body`` None; else the code of a
+    forced body, which must be the library's choice or "FMA" where that
+    is "split" (to time the two side by side)."""
+    if body is None:
+        return -1
+    auto = flash_attention_body(q.dtype, q.shape[-1])
+    if body != auto and not (body == "FMA" and auto == "split"):
+        raise ValueError(f"{name}: body {body!r} does not serve this call; "
+                         f"the library's choice is {auto!r}")
+    return FLASH_BODIES.index(body)
 
 
 def flash_attention_forward(q, k, v, segment_ids, causal: bool,
-                            sm_scale: float):
+                            sm_scale: float, body: Optional[str] = None):
     """K2 forward on CUDA tensors checked by ``flash_attention``: (o, lse),
     o [B, H, S, D] in q's dtype (a view of [B, S, H, D] storage), lse
-    [B, H, S] f32."""
+    [B, H, S] f32.  ``body`` None takes the library's choice
+    (``flash_attention_body``); see ``_flash_body_code`` for a forced
+    one."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
+    code = _flash_body_code("flash_attention", q, body)
     b, h, s, d = q.shape
     o = _bshd(b, s, h, d, q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -448,19 +478,21 @@ def flash_attention_forward(q, k, v, segment_ids, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), seg.data_ptr() if seg is not None else None,
         _strides(q, k, v, o), b, h, k.shape[1], s, d, sm_scale, int(causal),
-        _DTYPE_CODES[q.dtype], _stream())
+        _DTYPE_CODES[q.dtype], code, _stream())
     _raise_on("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return o, lse
 
 
 def flash_attention_backward(q, k, v, o, lse, do, segment_ids, causal: bool,
-                             sm_scale: float):
+                             sm_scale: float, body: Optional[str] = None):
     """K2 backward on CUDA (three kernels: di, dk/dv, dq): (dq, dk, dv) in
     q's dtype from the forward's o and lse and the output cotangent
-    ``do`` (q's dtype, 16-byte aligned rows)."""
+    ``do`` (q's dtype, 16-byte aligned rows); ``body`` as the
+    forward's."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
+    code = _flash_body_code("flash_attention_bwd", q, body)
     b, h, s, d = q.shape
     kvh = k.shape[1]
     dq = _bshd(b, s, h, d, q)
@@ -474,7 +506,7 @@ def flash_attention_backward(q, k, v, o, lse, do, segment_ids, causal: bool,
         dv.data_ptr(), di.data_ptr(),
         seg.data_ptr() if seg is not None else None,
         _strides(q, k, v, o, do, dq, dk, dv), b, h, kvh, s, d, sm_scale,
-        int(causal), _DTYPE_CODES[q.dtype], _stream())
+        int(causal), _DTYPE_CODES[q.dtype], code, _stream())
     _raise_on("flash_attention_bwd", rc)
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -955,7 +987,8 @@ def tgmm_body(lhs_mk: torch.Tensor, rhs: torch.Tensor) -> str:
 
 
 def bf16_split3(t: torch.Tensor) -> tuple:
-    """The exact split the wgmma body makes of an f32 operand: (hi, mid,
+    """The exact split the wgmma bodies make of an f32 operand (K6's f32
+    operand; both operands of K2's and K7's "split" body): (hi, mid,
     lo) in bf16 with hi = bf16(t), mid = bf16(t - hi), lo = bf16(t - hi -
     mid), each rounded to nearest; hi + mid + lo == t in f32 for normal
     values (the two differences are exact in f32, and three 8-bit

@@ -18,9 +18,15 @@ softmax); bf16 queries 3e-2 against the plain version (it rounds logits
 and weights to bf16, the kernel keeps f32), and K4's ring body within
 2^-8 |ref32| + 2e-5 of the f32 math on the pools as it reads them (one
 rounding of the output).  Training kernels: f32 RMSNorm
-and cross-entropy gradients 1e-5 (row sums in another order); f32 flash
-attention 2e-5 in the output and 1e-4 in the gradients (sums over up to
-512 keys or queries, in tiles); bf16 3e-2 (the kernel and the plain
+and cross-entropy gradients 1e-5 (row sums in another order), at every
+offset of a row from a vector boundary; f32 flash attention 2e-5 in the
+output and 1e-4 in the gradients (sums over up to 512 keys or queries,
+in tiles), on the FMA body (D 256) and on the split body (D 64 and 128:
+each f32 product as six bf16 term products on the tensor cores, which
+drop 2^-27 |a||b| and less), the split body also within the rule
+``chip_smoke.py`` holds it to, 2^-14 (|ref| + |terms|) + 1e-6 of f64
+attention (its derivation there and in tests/test_torch_flash_split.py);
+bf16 3e-2 (the kernel and the plain
 version round p, dS and their outputs to bf16 at other places).  The
 splash kernel (K7) to the same tolerances, and bit for bit to the flash
 kernel where its window reaches past the sequence.
@@ -32,6 +38,7 @@ value when the output is bf16.
 """
 
 import dataclasses
+import threading
 
 import pytest
 import torch
@@ -655,6 +662,41 @@ def test_cross_entropy_at_odd_vocabularies(gen, n, v):
                                    atol=tol)
 
 
+@pytest.mark.parametrize("v", [10, 30521, 30522, 30523, 32000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_cross_entropy_at_every_row_offset(gen, v, dtype, offset):
+    """K3 splits each row where it lies: a scalar prologue to its first
+    16-byte (f32) or 8-byte (bf16) boundary, the vector loop, a scalar
+    tail.  Logits as a contiguous view ``offset`` elements into a larger
+    buffer put the rows at every offset (with V odd, at all four in one
+    call); K3f and K3b against the plain version, every column visited
+    (labels at the first and last), dlogits at logits' offset."""
+    n = 33
+    buf = (4 * _randn(gen, n * v + offset)).to(dtype)
+    logits = buf[offset:].view(n, v)
+    assert logits.is_contiguous()
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[0], labels[1] = 0, v - 1
+    w = torch.rand(n, generator=gen, device="cuda")
+    loss, (dl,) = _grads(lambda lg: K.cross_entropy(lg, labels), (logits,),
+                         w)
+    ref, (dl_ref,) = _grads(lambda lg: K.cross_entropy_reference(lg, labels),
+                            (logits,), w)
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(dl.float(), dl_ref.float(), rtol=tol,
+                               atol=tol)
+    # The kernel's own dlogits (not autograd's copy) lie at logits' offset.
+    _, lse = K.cross_entropy_forward(logits, labels)
+    dk = K.cross_entropy_backward(logits, labels, lse, w)
+    vec = 4 * logits.element_size()
+    assert dk.data_ptr() % vec == logits.data_ptr() % vec
+    torch.testing.assert_close(dk.float(), dl_ref.float(), rtol=tol,
+                               atol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,s", [(4, 12, 128), (2, 16, 256)])
 def test_flash_attention_full_at_the_encoders_heads(gen, dtype, b, h, s):
@@ -683,6 +725,9 @@ def test_flash_attention_full_at_the_encoders_heads(gen, dtype, b, h, s):
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=1e-4 if f32 else 3e-2,
                                    atol=1e-4 if f32 else 3e-2)
+    if f32:                                   # the split body
+        _assert_split_rule(q, k, v, do, (out, *grads),
+                           _keep(s, causal=False), kw["sm_scale"])
 
 
 def _segments(gen, b, s):
@@ -690,6 +735,53 @@ def _segments(gen, b, s):
                                     device="cuda"), dim=1).values
     pos = torch.arange(s, device="cuda")
     return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32)
+
+
+def _keep(s, *, causal=True, seg=None, window=None, sinks=0):
+    """[B or 1, 1, S, S] bool: the pairs K2 (causal or full) or K7 (the
+    band) lets a query see."""
+    keep = torch.ones(s, s, dtype=torch.bool, device="cuda")
+    if causal:
+        keep = keep.tril()
+    if window is not None:
+        keep = keep & K.splash_mask(s, window, sinks, "cuda")
+    keep = keep[None, None]
+    if seg is not None:
+        keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
+    return keep
+
+
+def _assert_split_rule(q, k, v, do, got, keep, scale, dq_scale=1.0):
+    """The split body's outputs ``got`` (out, dq, dk, dv) within 2^-14
+    (|ref| + |terms|) + 1e-6 of f64 attention over ``keep`` (terms:
+    ``chip_smoke._flash_f32``'s).  ``q`` is what the kernel attends with
+    and ``dq_scale`` turns its gradient into the caller's (K7's q is
+    pre-scaled)."""
+    rep = q.shape[1] // k.shape[1]
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    kr, vr = (t.repeat_interleave(rep, 1) for t in (k, v))
+    p = torch.softmax((q @ kr.transpose(-1, -2) * scale).masked_fill(
+        ~keep, float("-inf")), -1)
+    out = p @ vr
+    ds = p * (do @ vr.transpose(-1, -2)
+              - (do * out).sum(-1, keepdim=True)) * scale
+    dio = (do.abs() * out.abs()).sum(-1, keepdim=True)
+    pt, dsa = p.transpose(-1, -2), ds.abs()
+
+    def group(t):                          # [B, H, S, D] -> [B, KVH, S, D]
+        return t.view(t.shape[0], -1, rep, *t.shape[2:]).sum(2)
+
+    ref = {"out": (out, p @ vr.abs()),
+           "dq": (dq_scale * ds @ kr,
+                  dq_scale * (dsa @ kr.abs() + scale * dio * (p @ kr.abs()))),
+           "dk": (group(ds.transpose(-1, -2) @ q),
+                  group(dsa.transpose(-1, -2) @ q.abs()
+                        + scale * pt @ (dio * q.abs()))),
+           "dv": (group(pt @ do), group(pt @ do.abs()))}
+    for (name, (want, terms)), g in zip(ref.items(), got):
+        allowed = 2.0 ** -14 * (want.abs() + terms) + 1e-6
+        worst = float(((g.double() - want).abs() / allowed).max())
+        assert worst <= 1, (name, worst)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -718,15 +810,19 @@ def test_flash_attention_matches_plain(gen, dtype, h, kvh, d, causal,
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     ref, ref_grads = _grads(
         lambda *t: K.flash_attention_reference(*t, **kw), (q, k, v), do)
+    for got, want in zip(grads, ref_grads):
+        assert got.shape == want.shape and got.dtype == dtype
     f32 = dtype == torch.float32
     torch.testing.assert_close(out.float(), ref.float(),
                                rtol=2e-5 if f32 else 3e-2,
                                atol=2e-5 if f32 else 3e-2)
     for got, want in zip(grads, ref_grads):
-        assert got.shape == want.shape and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=1e-4 if f32 else 3e-2,
                                    atol=1e-4 if f32 else 3e-2)
+    if K.flash_attention_body(dtype, d) == "split":
+        _assert_split_rule(q, k, v, do, (out, *grads),
+                           _keep(s, causal=causal, seg=seg), d ** -0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -750,6 +846,78 @@ def test_flash_attention_seq_a_multiple_of_64_only(gen, dtype, s, causal, d):
         tol = tol if f32 else 3e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+    if f32:                                   # the split body
+        _assert_split_rule(q, k, v, do, (out, *grads), _keep(s, causal=causal),
+                           d ** -0.5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,packed", [(True, False), (False, False),
+                                           (True, True), (False, True)])
+def test_flash_split_body_on_positive_inputs(gen, d, causal, packed):
+    """The split body (f32 at D 64 and 128) on all-positive inputs, its
+    worst case (no sign cancels the dropped term products: see
+    tests/test_torch_flash_split.py), GQA 2:1 over S 384 (three 128-row
+    tiles): within 2^-14 (|ref| + |terms|) + 1e-6 forward and backward;
+    the FMA body, forced, on the same inputs too."""
+    b, h, kvh, s = 2, 4, 2, 384
+    q, do = (_randn(gen, b, s, h, d).abs().transpose(1, 2) for _ in range(2))
+    k, v = (_randn(gen, b, s, kvh, d).abs().transpose(1, 2)
+            for _ in range(2))
+    seg = _segments(gen, b, s) if packed else None
+    keep, scale = _keep(s, causal=causal, seg=seg), d ** -0.5
+    for body in (None, "FMA"):
+        o, lse = K.flash_attention_forward(q, k, v, seg, causal, scale,
+                                           body=body)
+        grads = K.flash_attention_backward(q, k, v, o, lse, do, seg, causal,
+                                           scale, body=body)
+        _assert_split_rule(q, k, v, do, (o, *grads), keep, scale)
+
+
+@pytest.mark.parametrize("kernel,d,h,kvh", [("flash", 64, 2, 2),
+                                             ("splash", 128, 4, 1)])
+def test_split_body_over_a_long_sequence(gen, kernel, d, h, kvh):
+    """The split body at S 4096 (K2 causal; K7 with a 4096-key window over
+    a GQA group of four, so dK and dV sum 256 q tiles): each tile's
+    products are summed in a fresh accumulator before a rounded f32 add,
+    so the tensor core's truncated sums do not pile up over the tiles;
+    within 2^-14 (|ref| + |terms|) + 1e-6 forward and backward."""
+    b, s = 1, 4096
+    q, do = (_randn(gen, b, s, h, d).transpose(1, 2) for _ in range(2))
+    k, v = (_randn(gen, b, s, kvh, d).transpose(1, 2) for _ in range(2))
+    if kernel == "flash":
+        out, grads = _grads(lambda *t: K.flash_attention(
+            *t, causal=True, sm_scale=d ** -0.5), (q, k, v), do)
+        _assert_split_rule(q, k, v, do, (out, *grads), _keep(s), d ** -0.5)
+        return
+    out, grads = _grads(lambda *t: K.splash_attention(
+        *t, window=4096, sm_scale=d ** -0.5), (q, k, v), do)
+    scale = K.splash_scaled_q(torch.ones(()), d ** -0.5).item()
+    _assert_split_rule(K.splash_scaled_q(q, d ** -0.5), k, v, do,
+                       (out, *grads), _keep(s, window=4096), 1.0,
+                       dq_scale=scale)
+
+
+def test_flash_attention_body_choice(gen):
+    """f32 at D 64 and 128 takes the split body, f32 at D 256 the FMA
+    body; bf16 the wgmma (D 64, 128) and mma.sync (D 256) bodies.  A
+    caller may force the FMA body where the split one serves (to time
+    them side by side), and nothing else."""
+    f32, bf = torch.float32, torch.bfloat16
+    assert [K.flash_attention_body(f32, d) for d in (64, 128, 256)] == [
+        "split", "split", "FMA"]
+    assert [K.flash_attention_body(bf, d) for d in (64, 128, 256)] == [
+        "wgmma", "wgmma", "mma.sync"]
+    assert K.flash_attention_body(torch.float16, 64) == "none"
+    q = _randn(gen, 1, 2, 128, 64)
+    before = K.launch_counts()["flash_attention"]
+    o, _ = K.flash_attention_forward(q, q, q, None, True, 0.125, body="FMA")
+    assert K.launch_counts()["flash_attention"] == before + 1
+    with pytest.raises(ValueError, match="body"):
+        K.flash_attention_forward(q, q, q, None, True, 0.125, body="wgmma")
+    with pytest.raises(ValueError, match="body"):
+        K.flash_attention_forward(q.to(bf), q.to(bf), q.to(bf), None, True,
+                                  0.125, body="FMA")
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(gen):
@@ -814,15 +982,23 @@ def test_splash_attention_matches_plain(gen, dtype, h, kvh, s, d, window,
     assert after["flash_attention"] == before["flash_attention"]
     ref, ref_grads = _grads(
         lambda *t: K.splash_attention_reference(*t, **kw), (q, k, v), do)
+    for got, want in zip(grads, ref_grads):
+        assert got.shape == want.shape and got.dtype == dtype
     f32 = dtype == torch.float32
     torch.testing.assert_close(out.float(), ref.float(),
                                rtol=2e-5 if f32 else 3e-2,
                                atol=2e-5 if f32 else 3e-2)
     for got, want in zip(grads, ref_grads):
-        assert got.shape == want.shape and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=1e-4 if f32 else 3e-2,
                                    atol=1e-4 if f32 else 3e-2)
+    if K.flash_attention_body(dtype, d) == "split":
+        scale = K.splash_scaled_q(torch.ones((), dtype=dtype),
+                                  d ** -0.5).item()
+        _assert_split_rule(K.splash_scaled_q(q, d ** -0.5), k, v, do,
+                           (out, *grads), _keep(s, seg=seg, window=window,
+                                                sinks=sinks), 1.0,
+                           dq_scale=scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -868,6 +1044,32 @@ def test_attention_backward_is_deterministic(gen, dtype, kernel, d):
                 for _ in range(2)]
     for a, b_ in zip(*runs):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_on_a_fresh_thread(gen, dtype):
+    """The backward on a thread whose first CUDA call it is, as autograd's
+    backward thread runs it: the driver encodes the kernels' tensor maps
+    only with a context current on the calling thread, which the launch
+    binds first.  Equal, bit for bit, to the same call on this thread."""
+    q, k, v, do = (_randn(gen, 2, 4, 128, 64, dtype=dtype) for _ in range(4))
+    o, lse = K.flash_attention_forward(q, k, v, None, False, 0.125)
+    want = K.flash_attention_backward(q, k, v, o, lse, do, None, False,
+                                      0.125)
+    got, errors = [], []
+
+    def backward():
+        try:
+            got.append(K.flash_attention_backward(q, k, v, o, lse, do, None,
+                                                  False, 0.125))
+        except RuntimeError as e:
+            errors.append(e)
+
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join()
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want))
 
 
 def test_splash_attention_at_the_mistral_head(gen):
