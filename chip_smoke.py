@@ -127,7 +127,14 @@
    worth; each run reports its step time, save, restore and evaluation
    seconds and bytes; (e) the launcher on phase 6's flags (20 steps, read
    every 5, ``--log-grad-norm``, no checkpoint or evaluation), whose step
-   time stands beside phase 6's on the same terms.  The checkpoint
+   time stands beside phase 6's on the same terms.  The LoRA leg: (f) 8
+   steps with rank-8 adapters on query and value and a save every 4, (g)
+   the same killed at step 6, (h) its rerun, whose step-8 checkpoint
+   must equal (f)'s bit for bit; (f)'s launches must be 8 x
+   ``lora_launches_per_step``; then ``serve --checkpoint-dir`` on (f)'s
+   directory (the adapters merged per its ``lora_spec.json``) answers 4
+   greedy requests on the card with the tokens of ``serve --params-npz``
+   of an npz of ``merge_lora(params)`` the script writes.  The checkpoint
    directories are deleted at the end.
 
 12. K2's full (non-causal) attention at BERT-base's heads (B 256, H 12,
@@ -154,7 +161,14 @@
    bit for bit (the launcher pins cuDNN's deterministic algorithms); 5
    steps each of the s2d and s2d_bnsub variants; each of the three trainers on one
    batch already on the card.  No hand kernel runs on this path
-   (cuDNN's convolutions; the label-smoothed loss takes no K3).
+   (cuDNN's convolutions; the label-smoothed loss takes no K3).  The
+   data-service legs: 20 steps with ``--data-workers W`` (W divides 256
+   and leaves two cores; logged), images/s beside the in-process and
+   card-fed figures and the share of the step the card waits on the
+   host; then 512 JPEGs from seed 0 (around 500 x 375) as a TFRecord
+   corpus, 10 steps on ``imagenet_train_u8_224`` through the workers and
+   2 evaluation batches on ``imagenet_eval_u8_224`` (where PIL is
+   missing, one line says the JPEG leg did not run).
 16. mnist (LeNet) through the launcher, 100 steps: the last 10 steps'
    mean loss at most half the first step's; K3f and K3b once a step.
 17. Five f32 steps on the card against the CPU port: a BERT with 64-wide
@@ -163,6 +177,17 @@
    Each launcher run prints its step time, examples a second, peak
    memory and the kernels' launches; checkpoints go under the
    git-ignored ``_family_smoke/``, deleted at the end.
+18. llama2_7b_sft with LoRA (rank 8, query and value) at full width and
+   depth through the launcher, random weights from seed 0, 10 steps; cut
+   to b 2 x s 4096 with no checkpoint.  Its kernels first, at its shapes
+   (K1f and K1b's dx, the scale being frozen, [8192, 4096] bf16; K3
+   [8192, 32000] f32; K2 B 2, H 32, S 4096, D 128 bf16; and K1b's dx at
+   phase 11's LoRA rows); then the run, whose launches must be 10 x
+   ``lora_launches_per_step``; it logs step time, tokens/s, the MFU of a
+   frozen base (formula beside it), peak memory, the parameter counts and
+   the losses.  Then at the same width cut to 2 layers, in process: after
+   3 steps the base is bitwise unchanged, and the merged model's logits
+   are within one bf16 step (relative L2 2^-7) of the unmerged model's.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -252,6 +277,21 @@ KERNELS = [
     ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "mnist"),
     ("cross_entropy_bwd", _CSRC + "cross_entropy.cu", _PK + ":584",
      "mnist"),
+] + [
+    # Phase 11's LoRA leg (llama_125m_lm, rank 8 on query and value,
+    # through the launcher; the numbers beside them are phase 5's at the
+    # same shapes, K1b's dx alone, as the frozen scale asks) and phase 18
+    # (llama2_7b_sft LoRA at full width and depth; its rows measured at
+    # its shapes).
+    (name, _CSRC + src, where, path)
+    for path in ("lora_launch", "lora_7b")
+    for name, src, where in (
+        ("rms_norm", "rms_norm.cu", _PK + ":396"),
+        ("rms_norm_bwd", "rms_norm.cu", _PK + ":429"),
+        ("cross_entropy", "cross_entropy.cu", _PK + ":545"),
+        ("cross_entropy_bwd", "cross_entropy.cu", _PK + ":584"),
+        ("flash_attention", "flash_attention_fwd.cu", _FA + ":589"),
+        ("flash_attention_bwd", "flash_attention_bwd.cu", _FA + ":941"))
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LAUNCH_KERNELS = [k[0] for k in KERNELS if k[3] == "launch"]
@@ -868,7 +908,8 @@ def _rms_norm_fwd_case(gen, n: int, d: int) -> dict:
     return row
 
 
-def _rms_norm_bwd_case(gen, n: int, d: int) -> dict:
+def _rms_norm_bwd_case(gen, n: int, d: int, *, dx_only: bool = False
+                       ) -> dict:
     """K1b, the whole ``_rms_norm_pallas_bwd`` (dx and dscale), at the
     training path's rows [B*S, d_model], bf16 activations and scale (the
     bf16 policy casts the scale): [16384, 768] for llama_125m_lm (and
@@ -877,7 +918,9 @@ def _rms_norm_bwd_case(gen, n: int, d: int) -> dict:
     backward (the block body: its dx kernel and the einsum column sum),
     both bodies' dx alone, the plain version's two-gradient autograd,
     ``F.rms_norm``'s backward with x and the scale as leaves (the same
-    function) and with x alone (dx only)."""
+    function) and with x alone (dx only).  With ``dx_only`` (a frozen
+    scale: the LoRA paths) the row returned is dx's alone, beside the
+    plain version's and ``F.rms_norm``'s backward with x alone a leaf."""
     import torch
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
@@ -962,7 +1005,17 @@ def _rms_norm_bwd_case(gen, n: int, d: int) -> dict:
                       body=body, **{f"{other}_body_ms": other_ms},
                       dx_only_ms=dx_ms, **{f"{other}_dx_only_ms": dx_other_ms},
                       library_dx_only_ms=lib_dx))
-    return row
+    if not dx_only:
+        return row
+    (xd,) = _leaf(x)
+    plain_dx = _backward_ms(K.rms_norm_reference(xd, s), xd, g)
+    # Reads x, g, r and the scale, writes dx; about 8 operations a value.
+    bnd = bound(3 * n * d * 2 + n * 4 + d * 2, 8 * n * d, PEAK_F32_FLOPS)
+    _report("rms_norm_bwd", f"{shape} dx alone (frozen scale)", dx_ms,
+            plain_dx, lib_dx, bnd, body)
+    return dict(max_abs_err=err, ms=dx_ms, plain_ms=plain_dx,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_dx,
+                what="dx alone: the scale is frozen")
 
 
 def _cross_entropy_cases(gen, n: int = 16384, v: int = 32000) -> dict:
@@ -2509,6 +2562,147 @@ def phase_launcher() -> tuple:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 11, LoRA leg -------------------------------------------------------
+
+LORA_FLAGS = ["--config", "llama_125m_lm", "--steps", "8", "--checkpoint-every",
+              "4", "--max-to-keep", "2", "--lora-rank", "8", "--log-every",
+              "2", "--seed", str(SEED)]
+LORA_KILL = "step:6:kill9:attempt=0"
+SERVE_FLAGS = ["--config", "llama_125m_lm", "--max-new", "16", "--slots",
+               "4", "--cache-len", "256"]
+
+
+def lora_launches_per_step(num_layers: int) -> dict:
+    """``train_launches_per_step`` over a frozen base: the same, less the
+    first block's attention-norm backward (its input, the frozen
+    embedding's output, and its scale need no gradient)."""
+    want = train_launches_per_step(num_layers)
+    want["rms_norm_bwd"] -= 1
+    return want
+
+
+def _flax_flat(params: dict) -> dict:
+    """The port's parameter names as the flat flax dict of an unrolled
+    decoder (``layers.3.x`` → ``layer_3/x``), f32 numpy."""
+    out = {}
+    for name, v in params.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer_{parts[1]}"] + parts[2:]
+        out["/".join(parts)] = v.float().numpy()
+    return out
+
+
+def _serve(label, *flags):
+    """One ``serve`` process on the card: (tokens per request, its
+    summary)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tensorflow_train_distributed_torch.serve",
+         *SERVE_FLAGS, *flags], capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve ({label}) failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stderr.split("serve summary: ", 1)[1]
+                         .splitlines()[0])
+    tokens = [json.loads(x)["tokens"] for x in proc.stdout.splitlines()]
+    log(f"  (serve {label}) {len(tokens)} requests in "
+        f"{time.perf_counter() - t0:.1f} s; launches {summary['launches']}")
+    return tokens, summary
+
+
+def phase_launcher_lora() -> tuple:
+    """Phase 11's LoRA leg: llama_125m_lm with rank-8 adapters on query
+    and value through the launcher, (f) 8 steps with a save every 4, (g)
+    the same killed at step 6, (h) its rerun as supervisor attempt 1,
+    whose step-8 checkpoint must equal (f)'s bit for bit; then ``serve
+    --checkpoint-dir`` on (f)'s directory answers 4 greedy requests on the
+    card, and its tokens must equal ``serve --params-npz`` of an npz of
+    ``merge_lora(params)`` this script writes.  Returns (run (f)'s kernel
+    launches, the stats)."""
+    import os
+    import shutil
+
+    import numpy as np
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.models.lora import (
+        LoraSpec,
+        load_spec,
+        merge_lora,
+    )
+    from tensorflow_train_distributed_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    cfg = registry.get_entry("llama_125m_lm")["config"]
+    root = os.path.abspath(os.path.join(LAUNCH_DIR, "lora"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    f_dir, g_dir = os.path.join(root, "f"), os.path.join(root, "g")
+    try:
+        rf = _launcher("f: LoRA, uninterrupted", *LORA_FLAGS,
+                       "--checkpoint-dir", f_dir)
+        if rf[0] != 0 or rf[3] is None:
+            raise AssertionError(f"LoRA launcher (f) failed:\n"
+                                 f"{rf[2][-4000:]}")
+        rg = _launcher("g: LoRA, kill -9 at 6", *LORA_FLAGS,
+                       "--checkpoint-dir", g_dir, "--fault-plan", LORA_KILL)
+        if rg[0] != -9:
+            raise AssertionError(f"LoRA launcher (g) exited {rg[0]}, not by "
+                                 f"SIGKILL:\n{rg[2][-4000:]}")
+        rh = _launcher("h: LoRA rerun as attempt 1", *LORA_FLAGS,
+                       "--checkpoint-dir", g_dir, "--fault-plan", LORA_KILL,
+                       env={"TTD_SUPERVISE_ATTEMPT": "1"})
+        if rh[0] != 0 or "restored checkpoint step 4" not in rh[2]:
+            raise AssertionError(f"LoRA launcher (h) failed:\n"
+                                 f"{rh[2][-4000:]}")
+        _same_checkpoint("LoRA", f_dir, g_dir, 8)
+        if load_spec(f_dir) != LoraSpec(rank=8):
+            raise AssertionError(f"lora_spec.json: {load_spec(f_dir)}")
+        summary = rf[3]
+        counts = _expect_launches("LoRA", summary, {
+            k: 8 * v for k, v in
+            lora_launches_per_step(cfg.num_layers).items()})
+        losses = _losses("LoRA", rf[1])
+        params = CheckpointManager(f_dir).restore_params()
+        npz = os.path.join(root, "merged.npz")
+        np.savez(npz, **_flax_flat(merge_lora(params, LoraSpec(rank=8))))
+        rng = np.random.default_rng(SEED + 11)
+        prompts = []
+        for n in (5, 17, 40, 90):
+            prompts += ["--prompt", ",".join(
+                str(int(t)) for t in rng.integers(1, cfg.vocab_size, n))]
+        got, serve_summary = _serve("--checkpoint-dir", "--checkpoint-dir",
+                                    f_dir, *prompts)
+        want, _ = _serve("--params-npz of merge_lora", "--params-npz", npz,
+                         *prompts)
+        if got != want or len(got) != 4:
+            raise AssertionError(f"served tokens differ: {got} vs {want}")
+        for k in ("paged_attention", "rms_norm"):
+            if not serve_summary["launches"].get(k):
+                raise AssertionError(f"serving ran no {k}: "
+                                     f"{serve_summary['launches']}")
+        log("  the merged checkpoint's greedy tokens equal the npz's")
+        stats = dict(
+            card=smi_line(), config="llama_125m_lm", lora_rank=8,
+            steps=8, step_ms=summary["step_ms"],
+            resumed_step_ms=rh[3]["step_ms"], params=summary["params"],
+            lora_params=summary["lora_params"],
+            peak_mem_gib=summary["peak_mem_bytes"] / 2 ** 30,
+            save_bytes=summary["save_bytes"], save_s=summary["save_s"],
+            restore=rh[3]["restore"], losses=losses, resume="bitwise",
+            wall_s=dict(f=rf[4], g=rg[4], h=rh[4]),
+            serve=dict(requests=4, tokens_equal=True,
+                       launches=serve_summary["launches"],
+                       decode_s=serve_summary["decode_s"],
+                       prefill_s=serve_summary["prefill_s"]))
+        log(f"  LoRA launcher: {json.dumps(stats)}")
+        return counts, stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # -- phases 12-17: the other model families -----------------------------------
 
 FAMILY_DIR = "_family_smoke"      # git-ignored; deleted at the phases' end
@@ -2888,6 +3082,193 @@ def phase_resnet() -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 15's data-service legs.
+RESNET_SERVICE_FLAGS = ["--config", "resnet50_imagenet", "--global-batch-size",
+                        "256", "--optimizer", "momentum", "--seed", str(SEED)]
+JPEG_COUNT, JPEG_FILES = 512, 8
+
+
+def _service_workers() -> int:
+    """Input workers for b 256: the largest power of two that divides 256
+    and leaves two of the host's cores to the trainer."""
+    import os
+
+    cores = len(os.sched_getaffinity(0))
+    w = 1
+    while 2 * w <= max(1, cores - 2) and 256 % (2 * w) == 0:
+        w *= 2
+    return w
+
+
+def _write_jpeg_corpus(root: str) -> dict:
+    """``JPEG_COUNT`` JPEGs from seed 0, around ImageNet's typical 500 x
+    375 (smooth colour fields plus noise, quality 90), as a TFRecord
+    corpus of ``JPEG_FILES`` files under the reference's keys
+    (``image/encoded``, ``image/class/label``) with the raw-schema
+    sidecar."""
+    import io
+    import os
+
+    import numpy as np
+    from PIL import Image
+    from tensorflow_train_distributed_torch.data.tfrecord import (
+        TFRecordWriter,
+        write_features_sidecar,
+    )
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    nbytes = 0
+    per = JPEG_COUNT // JPEG_FILES
+    for f in range(JPEG_FILES):
+        path = os.path.join(
+            root, f"train-{f:05d}-of-{JPEG_FILES:05d}.tfrecord")
+        with TFRecordWriter(path) as w:
+            for i in range(per):
+                h = int(rng.integers(333, 418))
+                wd = int(rng.integers(444, 557))
+                field = rng.integers(0, 256, (6, 8, 3)).astype(np.uint8)
+                img = np.asarray(Image.fromarray(field).resize(
+                    (wd, h), Image.BILINEAR), np.int16)
+                img = np.clip(img + rng.integers(-12, 13, img.shape), 0,
+                              255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, "JPEG", quality=90)
+                nbytes += buf.tell()
+                w.write_example({"image/encoded": buf.getvalue(),
+                                 "image/class/label": np.asarray(
+                                     [(f * per + i) % 1000], np.int64)})
+    write_features_sidecar(root, None)
+    out = dict(images=JPEG_COUNT, files=JPEG_FILES,
+               mean_jpeg_kib=nbytes / JPEG_COUNT / 1024,
+               write_s=time.perf_counter() - t0)
+    log(f"  JPEG corpus: {json.dumps(out)}")
+    return out
+
+
+def _service_breakdown(workers: int) -> dict:
+    """Where a service batch's time goes, each part alone in this
+    process: one worker's slice of synthetic 224² f32 images built here
+    (``HostDataLoader`` shard 0 of W), the client's batches with the
+    trainer absent (build, transport and concatenation), and one batch's
+    ``to_device`` (pinned copy and transfer, synchronised)."""
+    import torch
+    from tensorflow_train_distributed_torch.data.pipeline import (
+        DataConfig,
+        HostDataLoader,
+        to_device,
+    )
+    from tensorflow_train_distributed_torch.data.service import (
+        DataServiceDispatcher,
+        SourceSpec,
+    )
+
+    spec = SourceSpec("imagenet", {})
+    cfg = DataConfig(global_batch_size=256, seed=SEED)
+
+    def per_item_ms(it, n):
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            item = next(it)
+        return (time.perf_counter() - t0) / n * 1e3, item
+
+    slice_ms, _ = per_item_ms(iter(HostDataLoader(
+        spec.build(), cfg, process_index=0, process_count=workers)), 3)
+    with DataServiceDispatcher(spec, cfg, num_workers=workers) as disp:
+        client_ms, batch = per_item_ms(iter(disp.client()), 5)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    out = dict(worker_slice_ms=slice_ms, client_batch_ms=client_ms,
+               to_device_ms=(time.perf_counter() - t0) / 3 * 1e3,
+               batch_mb=sum(v.nbytes for v in batch.values()) / 1e6)
+    log(f"  one service batch, part by part: {json.dumps(out)}")
+    return out
+
+
+def phase_resnet_service(resnet: dict) -> dict:
+    """Phase 15's data-service legs: resnet50_imagenet through the
+    launcher with ``--data-workers W`` (W divides 256 and fits the cores):
+    20 synthetic steps, its images/s beside phase 15's in-process and
+    card-fed figures and the share of the step the card waits on the
+    host; then, where PIL is installed, 512 JPEGs from seed 0 as a
+    TFRecord corpus, 10 training steps on ``imagenet_train_u8_224``
+    through the workers and an ``--eval-only`` of 2 batches on
+    ``imagenet_eval_u8_224``."""
+    import os
+    import shutil
+
+    workers = _service_workers()
+    log(f"  {len(os.sched_getaffinity(0))} cores: --data-workers {workers}")
+    card_fed = resnet["device_fed"]["resnet50_imagenet"]["step_ms"]
+    r = _launcher("resnet, synthetic, --data-workers", *RESNET_SERVICE_FLAGS,
+                  "--steps", "20", "--log-every", "5", "--data-workers",
+                  str(workers))
+    if r[0] != 0 or r[3] is None:
+        raise AssertionError(f"resnet service run failed:\n{r[2][-4000:]}")
+    _expect_launches("resnet service", r[3], {})
+    step = r[3]["step_ms"]
+    out = dict(_run_stats("resnet50_imagenet --data-workers", r[3], 256,
+                          r[4]),
+               card=smi_line(), workers=workers, losses=_losses(
+                   "resnet service", r[1]),
+               data_service_start_s=r[3]["data_service_start_s"],
+               data_wait_ms_per_step=r[3]["data_wait_ms_per_step"],
+               in_process_images_per_s=256e3 / resnet["step_ms"],
+               card_fed_images_per_s=256e3 / card_fed,
+               card_idle_share=max(0.0, 1 - card_fed / step),
+               card_idle_formula="1 - card-fed step_ms / step_ms")
+    out["breakdown"] = _service_breakdown(workers)
+    log(f"  images/s: workers {out['examples_per_s']:.1f}, in-process "
+        f"{out['in_process_images_per_s']:.1f}, card-fed "
+        f"{out['card_fed_images_per_s']:.1f}; the card waits on the host "
+        f"{out['card_idle_share']:.1%} of the step; workers up in "
+        f"{out['data_service_start_s']:.1f} s")
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        log(f"  JPEG leg did not run: PIL is not installed on this host "
+            f"({e}); tests/test_torch_image.py holds the JPEG path on CPU")
+        out["jpeg"] = "not run: no PIL"
+        return out
+    root = os.path.abspath(os.path.join(FAMILY_DIR, "jpeg"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "data"))
+    try:
+        corpus = _write_jpeg_corpus(os.path.join(root, "data"))
+        data = ["--data-dir", os.path.join(root, "data"), "--checkpoint-dir",
+                os.path.join(root, "ck")]
+        t = _launcher("resnet, JPEG train", *RESNET_SERVICE_FLAGS, *data,
+                      "--steps", "10", "--log-every", "2",
+                      "--data-transform", "imagenet_train_u8_224",
+                      "--data-workers", str(workers))
+        if t[0] != 0 or t[3] is None:
+            raise AssertionError(f"JPEG training failed:\n{t[2][-4000:]}")
+        _expect_launches("resnet JPEG", t[3], {})
+        e = _launcher("resnet, JPEG eval-only", *RESNET_SERVICE_FLAGS, *data,
+                      "--eval-only", "--eval-steps", "2",
+                      "--data-transform", "imagenet_eval_u8_224")
+        if e[0] != 0 or e[3] is None:
+            raise AssertionError(f"JPEG eval failed:\n{e[2][-4000:]}")
+        ev = e[1][-1]["eval"]
+        if not all(math.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"JPEG eval: {ev}")
+        out["jpeg"] = dict(
+            _run_stats("resnet50_imagenet JPEG --data-workers", t[3], 256,
+                       t[4]),
+            corpus=corpus, steps=10, losses=_losses("resnet JPEG", t[1]),
+            data_wait_ms_per_step=t[3]["data_wait_ms_per_step"],
+            data_service_start_s=t[3]["data_service_start_s"],
+            eval=ev, eval_s=e[3]["eval_s"])
+        log(f"  JPEG: {out['jpeg']['examples_per_s']:.1f} images/s through "
+            f"{workers} workers; eval {ev}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_mnist() -> dict:
     """Phase 16: mnist (LeNet) through the launcher, 100 steps of 128:
     the mean loss of the last 10 steps must be at most half the first
@@ -2942,6 +3323,145 @@ def phase_family_card_vs_cpu(steps: int = 5) -> dict:
     return out
 
 
+# -- phase 18: llama2_7b_sft LoRA ---------------------------------------------
+
+# Cuts, each in the phase's log line: the global batch 64 -> 2, sequence
+# 4096 (Llama-2's context), no checkpoint (27 GB of base weights).
+LORA_7B_FLAGS = ["--config", "llama2_7b_sft", "--lora-rank", "8",
+                 "--lora-targets", "query,value", "--global-batch-size", "2",
+                 "--dataset-kwarg", "seq_len=4096", "--steps", "10",
+                 "--log-every", "1", "--seed", str(SEED)]
+LORA_7B_CUTS = {"global_batch": "64 -> 2", "seq_len": "4096 (Llama-2's "
+                "context)", "checkpoint": "none (27 GB of f32 base)"}
+
+
+def phase_lora_kernels(train_rows: dict) -> tuple:
+    """The kernels of the LoRA paths at their shapes.  Phase 18's: K1f
+    at [8192, 4096] bf16, K1b there computing dx alone (the scale is
+    frozen), K3 at [8192, 32000] f32, K2 causal bf16 at B 2, H 32, S
+    4096, D 128.  Phase 11's LoRA leg: phase 5's rows (``train_rows``),
+    K1b's replaced by dx alone at [16384, 768].  Returns the
+    "lora_launch" and "lora_7b" rows of the kernels' JSON line."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    launch = dict({k: train_rows[k] for k in LAUNCH_KERNELS},
+                  rms_norm_bwd=_rms_norm_bwd_case(gen, 16384, 768,
+                                                  dx_only=True))
+    rows = {"rms_norm": _rms_norm_fwd_case(gen, 8192, 4096),
+            "rms_norm_bwd": _rms_norm_bwd_case(gen, 8192, 4096,
+                                               dx_only=True)}
+    rows.update(_cross_entropy_cases(gen, 8192, 32000))
+    torch.cuda.empty_cache()
+    rows.update(_flash_case(gen, "llama2_7b lora", 2, 32, 32, 4096, 128,
+                            packed=False, main=True))
+    torch.cuda.empty_cache()
+    return launch, rows
+
+
+def phase_lora_7b() -> tuple:
+    """Phase 18: llama2_7b_sft at full width and depth (d 4096, 32
+    layers, ffn 11008, vocab 32,000) through the launcher with rank-8
+    adapters on query and value, random weights from seed 0, 10 steps.
+    Logs step time, tokens/s, the MFU of a frozen base, peak memory, the
+    adapter and total parameter counts, the losses and the kernels'
+    launches (10 x ``lora_launches_per_step``, exactly)."""
+    from tensorflow_train_distributed_torch.models import registry
+
+    cfg = registry.get_entry("llama2_7b_sft")["config"]
+    log(f"  cuts: {json.dumps(LORA_7B_CUTS)}")
+    r = _launcher("llama2_7b_sft LoRA", *LORA_7B_FLAGS, timeout=900)
+    if r[0] != 0 or r[3] is None:
+        raise AssertionError(f"llama2_7b_sft LoRA failed:\n{r[2][-4000:]}")
+    summary = r[3]
+    counts = _expect_launches("llama2_7b_sft LoRA", summary, {
+        k: 10 * v for k, v in lora_launches_per_step(cfg.num_layers).items()})
+    losses = _losses("llama2_7b_sft LoRA", r[1])
+    b, s = 2, 4096
+    step_s = summary["step_ms"] / 1e3
+    n_ne = _non_embedding_params(cfg)
+    flops = (4 * n_ne + 8 * cfg.num_layers * s * cfg.d_model) * b * s
+    stats = dict(
+        card=smi_line(), config="llama2_7b_sft", cuts=LORA_7B_CUTS,
+        lora="rank 8, alpha 16, query,value", steps=10, batch=b, seq=s,
+        params=summary["params"], lora_params=summary["lora_params"],
+        step_ms=summary["step_ms"],
+        window_ms_per_step=summary["window_ms_per_step"],
+        tokens_per_s=b * s / step_s,
+        peak_mem_gib=summary["peak_mem_bytes"] / 2 ** 30, losses=losses,
+        mfu=flops / step_s / PEAK_BF16_FLOPS,
+        mfu_formula="(4 N_non_embedding + 8 L S d) tokens / step_s / 989e12"
+                    " (forward and input gradient, no weight gradient; "
+                    "remat not counted)",
+        wall_s=r[4])
+    log(f"  llama2_7b_sft LoRA: {json.dumps(stats)}")
+    return counts, stats
+
+
+def phase_lora_7b_check() -> dict:
+    """At llama2_7b's width cut to 2 layers (b 2 x s 1024, bf16 compute
+    over f32 masters, adamw 1e-3 + clip 1.0 under ``freeze_base``): after
+    3 steps the base parameters are bitwise unchanged and the adapters
+    moved; the merged model's logits equal the unmerged model's within
+    one bf16 step (relative L2 2^-7)."""
+    import dataclasses
+
+    import torch
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
+    from tensorflow_train_distributed_torch.models import layers as L
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS, CausalLmTask, LlamaModel)
+    from tensorflow_train_distributed_torch.models.lora import (
+        LoraSpec, freeze_base, is_lora_param, merge_lora)
+    from tensorflow_train_distributed_torch.training import optimizers
+    from tensorflow_train_distributed_torch.training.mixed_precision import (
+        Policy)
+    from tensorflow_train_distributed_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    spec = LoraSpec(rank=8)
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama2_7b"], num_layers=2,
+                              lora=spec)
+    trainer = Trainer(
+        CausalLmTask(cfg, device="meta"),
+        freeze_base(optimizers.make_optimizer("adamw", 1e-3,
+                                              grad_clip_norm=1.0)),
+        policy=Policy.from_name("bfloat16"),
+        config=TrainerConfig(seed=SEED, log_every=1), device="cuda")
+    state = trainer.create_state()
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    src = SyntheticLM(num_examples=16, seq_len=1024)
+    state, history = trainer.fit(HostBatches(src, 2, seed=SEED), steps=3,
+                                 state=state)
+    frozen = [k for k in before if not is_lora_param(k)]
+    changed = [k for k in frozen if not torch.equal(state.params[k],
+                                                    before[k])]
+    moved = [k for k in before if is_lora_param(k)
+             and not torch.equal(state.params[k], before[k])]
+    tokens = torch.from_numpy(src[0]["tokens"][None]).cuda()
+    with trainer.inference(state):
+        unmerged = trainer.task.model(tokens).float()
+    merged = merge_lora({k: v.detach() for k, v in state.params.items()},
+                        spec)
+    plain = LlamaModel(dataclasses.replace(cfg, lora=None), device="meta")
+    plain.load_state_dict(merged, strict=True, assign=True)
+    L.set_compute_dtype(plain, torch.bfloat16)
+    with torch.no_grad():
+        got = plain(tokens).float()
+    rel = ((got - unmerged).norm() / unmerged.norm()).item()
+    out = dict(frozen_params=len(frozen), frozen_changed=len(changed),
+               adapters_moved=len(moved), merged_vs_unmerged_rel_l2=rel,
+               bound=2 ** -7, losses=[m["loss"] for _, m in history])
+    log(f"  llama2_7b[2 layers] LoRA check: {json.dumps(out)}")
+    if changed or not moved or not rel <= 2 ** -7:
+        raise AssertionError(f"LoRA check failed: {out}; changed "
+                             f"{changed[:3]}")
+    del trainer, state, before, plain, merged
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2960,6 +3480,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     engines = {}
     log("== phase 1: device and build")
     phase_device()
@@ -3016,6 +3537,9 @@ def main() -> int:
     launch_counts, launcher = phase_launcher()
     launcher["trainer_step_ms_phase6"] = training["step_ms"]
     rows["launch"] = {k: rows["train"][k] for k in LAUNCH_KERNELS}
+    log("== phase 11 (LoRA): rank 8 run, kill -9, resume; serve the "
+        "merged checkpoint")
+    lora_counts, launcher["lora"] = phase_launcher_lora()
     torch.cuda.empty_cache()
     log("== phase 12: K2 full attention and K3 at the new families' shapes")
     rows["bert"], rows["wmt"], rows["mnist"] = phase_family_kernels()
@@ -3027,16 +3551,25 @@ def main() -> int:
     log("== phase 15: the launcher, resnet50_imagenet (s2d, bnsub): run, "
         "kill -9, resume")
     families["resnet50_imagenet"] = phase_resnet()
+    log("== phase 15 (data service): --data-workers, synthetic and JPEG")
+    families["resnet50_imagenet"]["data_service"] = phase_resnet_service(
+        families["resnet50_imagenet"])
     log("== phase 16: the launcher, mnist")
     mnist_counts, families["mnist"] = phase_mnist()
     torch.cuda.empty_cache()
     log("== phase 17: bert and resnet_tiny card vs CPU")
     families["card_vs_cpu"] = phase_family_card_vs_cpu()
+    torch.cuda.empty_cache()
+    log("== phase 18: llama2_7b_sft LoRA, full width and depth")
+    rows["lora_launch"], rows["lora_7b"] = phase_lora_kernels(rows["train"])
+    lora_7b_counts, lora_7b = phase_lora_7b()
+    lora_7b["check_2_layers"] = phase_lora_7b_check()
 
     paths = {"serve": counts, "train": train_counts,
              "moe_train": moe_counts, "window_train": window_counts,
              "launch": launch_counts, "bert": bert_counts,
-             "wmt": wmt_counts, "mnist": mnist_counts}
+             "wmt": wmt_counts, "mnist": mnist_counts,
+             "lora_launch": lora_counts, "lora_7b": lora_7b_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -3049,8 +3582,10 @@ def main() -> int:
     print(json.dumps({"window_kernel_cases": window_cases}), flush=True)
     print(json.dumps({"launcher": launcher}), flush=True)
     print(json.dumps({"families": families}), flush=True)
+    print(json.dumps({"lora_7b": lora_7b}), flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ array keeps its flax layout — dense kernels ``[in, out]``, the embedding
 ``bias``, as flax names them), the MoE experts' stacked kernels
 ``[E, in, out]`` (``layer_{i}/moe/experts/wi_gate/kernel`` →
 ``layers.{i}.moe.experts.wi_gate.kernel``) — except conv kernels, which
-go from flax's HWIO to torch's OIHW.  BatchNorm's running statistics
+go from flax's HWIO to torch's OIHW.  A LoRA model (``LlamaConfig.lora``)
+holds its adapters under flax's names too (``…/query/lora_a`` [in, r],
+``…/query/lora_b`` [r, out], f32), so they carry across like any leaf.  BatchNorm's running statistics
 (flax's ``batch_stats`` collection) are the model's buffers: a flat key
 ``batch_stats/a/b/mean`` becomes the buffer ``a.b.mean``, and the train
 state names them back (``model_state_names``).  ``--params-npz`` files
@@ -120,8 +122,8 @@ def init_params(config, generator: torch.Generator, *,
     (zero for a zero-centered norm), and each module's own
     ``init_spec()`` where it has one (conv kernels' variance scaling,
     BatchNorm's statistics and zero-init scales, BERT's 0.02 position
-    tables, ResNet's zero head).  ``generator`` must live on
-    ``device``."""
+    tables, ResNet's zero head, LoRA's normal(0.02) ``lora_a`` and zero
+    ``lora_b``).  ``generator`` must live on ``device``."""
     dtype = dtype or getattr(config, "dtype", torch.float32)
     params = {}
     model = _meta_model(config)

@@ -91,8 +91,12 @@ def resolve_transform(
 ) -> Optional[Callable[[dict], dict]]:
     """Resolve a ``TRANSFORMS`` name (or pass a callable/None through)."""
     if isinstance(transform, str):
-        # The JAX package also registers image decode/augment names on
-        # demand (``data/image.py``); the port has no image family yet.
+        if transform not in TRANSFORMS:
+            # Image decode/augment names register on demand, any size
+            # (``data/image.py``; it does not import PIL at import time).
+            from tensorflow_train_distributed_torch.data import image
+
+            image.ensure_registered(transform)
         if transform not in TRANSFORMS:
             raise ValueError(
                 f"Unknown transform {transform!r}; available: "

@@ -17,9 +17,14 @@ of the JAX package's ``data/pipeline.py``).
   the counterpart of the JAX ``prefetch_to_device``.
 - ``HostBatches`` is the training loader under its earlier name.
 
-One process reads the data: the JAX loader's multi-process sharding
-(index stride, FILE autoshard across hosts) and its native stager are
-not ported.
+Sharding, as the JAX loader's: ``HostDataLoader(process_index=p,
+process_count=P)`` yields ``global_batch_size / P`` rows a step from its
+shard, the index stride ``order[p::P]`` of the epoch's permutation
+(``shard_policy="data"``), or whole files ``f % P == p`` of a
+``ConcatSource`` shuffled within the shard (``"file"``).  The defaults
+(0 of 1) read everything in one process; the data service's workers
+(``data/service.py``) each read one shard.  The JAX loader's native
+stager is not ported.
 """
 
 from __future__ import annotations
@@ -186,37 +191,76 @@ class DataConfig:
     package): ``drop_remainder=False`` pads the final batch and adds a
     ``sample_weight`` key ([B] f32, 1 real / 0 pad) to every batch, so a
     finite split's metrics cover each example once; ``num_epochs`` None
-    repeats forever.  (With one process the JAX FILE autoshard policy
-    orders records as the DATA one does, so there is no policy here.)"""
+    repeats forever; ``shard_policy`` "data" (index stride) or "file"
+    (whole files of a ``ConcatSource`` per process)."""
 
     global_batch_size: int = 32
     shuffle: bool = True
     seed: int = 0
     drop_remainder: bool = True
     num_epochs: Optional[int] = None
+    shard_policy: str = "data"
 
 
 class HostDataLoader:
-    """Iterates the batches of a source for one process (the JAX
-    ``HostDataLoader`` with ``process_count`` 1)."""
+    """Iterates one process's batches of a source: ``global_batch_size /
+    process_count`` rows a step from its shard; together the processes
+    cover each epoch once (the JAX ``HostDataLoader``)."""
 
-    def __init__(self, source: RandomAccessSource, config: DataConfig):
+    def __init__(self, source: RandomAccessSource, config: DataConfig, *,
+                 process_index: int = 0, process_count: int = 1):
         self.source = source
         self.config = config
-        self.host_batch_size = config.global_batch_size
+        self.process_index = process_index
+        self.process_count = process_count
+        if config.global_batch_size % process_count:
+            raise ValueError(
+                f"global_batch_size={config.global_batch_size} not divisible "
+                f"by process_count={process_count}")
+        self.host_batch_size = config.global_batch_size // process_count
+        if config.shard_policy not in ("data", "file"):
+            raise ValueError(f"shard_policy must be data|file, got "
+                             f"{config.shard_policy!r}")
+        if config.shard_policy == "file":
+            if not isinstance(source, ConcatSource):
+                raise ValueError(
+                    "shard_policy='file' needs a ConcatSource (the file "
+                    f"list); got {type(source).__name__}")
+            if len(source.parts) < process_count:
+                raise ValueError(
+                    f"FILE autoshard needs >= one file per process: "
+                    f"{len(source.parts)} files < {process_count} "
+                    "processes")
+            # File f belongs to process f % P; every process sizes every
+            # shard, so steps_per_epoch agrees without communication.
+            self._file_shards = [
+                np.concatenate([source.part_indices(f)
+                                for f in range(q, len(source.parts),
+                                               process_count)])
+                for q in range(process_count)]
         if self.steps_per_epoch() == 0:
             raise ValueError(
-                f"source yields 0 batches/epoch: {len(source)} records < "
-                f"batch size {self.host_batch_size}; shrink the batch or "
-                "grow the source")
+                f"source yields 0 batches/epoch: per-process records < "
+                f"host batch size {self.host_batch_size} ({len(source)} "
+                f"records over {process_count} processes); shrink the "
+                "batch or grow the source")
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
+        def permutation(n):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.config.seed, epoch]))
+            return rng.permutation(n)
+
+        if self.config.shard_policy == "file":
+            # Shuffled within the shard (tf.data's shard-then-shuffle).
+            own = self._file_shards[self.process_index]
+            return own[permutation(len(own))] if self.config.shuffle \
+                else own
         n = len(self.source)
-        if not self.config.shuffle:
-            return np.arange(n)
-        rng = np.random.default_rng(
-            np.random.SeedSequence([self.config.seed, epoch]))
-        return rng.permutation(n)
+        order = permutation(n) if self.config.shuffle else np.arange(n)
+        # Index stride: the same permutation everywhere, process p takes
+        # order[p::P].
+        return order[self.process_index::self.process_count]
 
     def _padded_order(self, epoch: int) -> np.ndarray:
         """The epoch's index stream sized to whole batches: truncated
@@ -237,7 +281,7 @@ class HostDataLoader:
                 "drop_remainder=False pad mask would clobber it")
         b0 = in_epoch_batch * self.host_batch_size
         w = ((np.arange(self.host_batch_size) + b0)
-             < len(self.source)).astype(np.float32)
+             < self._shard_len()).astype(np.float32)
         return dict(batch, sample_weight=w)
 
     def _batches(self, epoch: int, first_batch: int) -> Iterator[dict]:
@@ -271,11 +315,25 @@ class HostDataLoader:
     def __iter__(self) -> Iterator[dict]:
         return self.iter_from(0)
 
+    def _shard_len(self) -> int:
+        """This process's records in one epoch, before padding."""
+        if self.config.shard_policy == "file":
+            return len(self._file_shards[self.process_index])
+        n, p, pc = len(self.source), self.process_index, self.process_count
+        return (n - p + pc - 1) // pc
+
     def steps_per_epoch(self) -> int:
-        n = len(self.source)
+        """The same on every process: whole batches of the smallest shard
+        (drop_remainder), else batches covering the largest."""
+        if self.config.shard_policy == "file":
+            sizes = [len(s) for s in self._file_shards]
+            per = min(sizes) if self.config.drop_remainder else max(sizes)
+        else:
+            n, pc = len(self.source), self.process_count
+            per = n // pc if self.config.drop_remainder else -(-n // pc)
         if self.config.drop_remainder:
-            return n // self.host_batch_size
-        return -(-n // self.host_batch_size)
+            return per // self.host_batch_size
+        return -(-per // self.host_batch_size)
 
 
 def HostBatches(source, global_batch_size: int, *,

@@ -30,14 +30,23 @@ The WMT configs also beam-decode ``--bleu-eval N`` evaluation batches
 (``--beam-size``, ``--bos-id``, ``--eos-id``) after training, or with
 ``--eval-only``, and report corpus BLEU beside the evaluation's metrics.
 
+``--data-workers N`` feeds training from N input-worker processes
+(``data/service.py``, the tf.data service), each building one slice of
+every batch, for the config's synthetic dataset or ``--data-dir``
+(``--data-transform imagenet_train_224`` and the other ``data/image.py``
+names decode and augment JPEG records there).  A worker that dies fails
+the run; the stream restarts at epoch 0 on a resume, which the launcher
+warns about.  ``--lora-rank R`` (``--lora-alpha``, ``--lora-targets``)
+fine-tunes a decoder's adapters over a frozen base (``models/lora.py``)
+and writes ``lora_spec.json`` beside the checkpoints.
+
 Flags of the JAX launcher that need what the port does not have yet
-(more than one device or process, LoRA, HF import, the JPEG image
-transforms, the data service, the supervisor, TensorBoard, the profiler,
-fused steps) are parsed and refused, each with the ROADMAP item that
-brings it, exit 2.  ``--device`` (default ``cuda``) never falls back to
-the CPU; on CUDA the launcher pins cuDNN to its deterministic
-algorithms, so a resumed run of a convolutional model ends where an
-uninterrupted one does.
+(more than one device or process, HF import, the supervisor,
+TensorBoard, the profiler, fused steps) are parsed and refused, each
+with the ROADMAP item that brings it, exit 2.  ``--device`` (default
+``cuda``) never falls back to the CPU; on CUDA the launcher pins cuDNN
+to its deterministic algorithms, so a resumed run of a convolutional
+model ends where an uninterrupted one does.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import logging
 import os
 import statistics
 import sys
+import time
 from typing import Optional, Sequence
 
 logger = logging.getLogger(__name__)
@@ -69,11 +79,7 @@ _REFUSED = {
     "process_id": f"{_Q1} item 5 (multi-GPU)",
     "platform": f"{_Q1} item 5 (multi-GPU); the port takes --device",
     "cpu_devices": f"{_Q1} item 5 (multi-GPU)",
-    "lora_rank": f"{_Q1} item 3 (LoRA)",
-    "lora_alpha": f"{_Q1} item 3 (LoRA)",
-    "lora_targets": f"{_Q1} item 3 (LoRA)",
     "init_from_hf": f"{_Q1} item 6 (HF import)",
-    "data_workers": f"{_Q1} item 3 (the data service)",
     "supervise": f"{_Q1} item 3 (the supervisor)",
     "max_restarts": f"{_Q1} item 3 (the supervisor)",
     "restart_backoff": f"{_Q1} item 3 (the supervisor)",
@@ -165,7 +171,11 @@ def build_parser() -> argparse.ArgumentParser:
       help="train from a corpus on disk: *.tfrecord files (with "
       "features.json) or write_shards part-* directories")
     a("--data-transform", default=None,
-      help="named record transform for --data-dir")
+      help="named record transform for --data-dir (e.g. "
+      "imagenet_train_224, imagenet_eval_u8_224, u8_image_to_f32)")
+    a("--data-workers", type=int, default=0, metavar="N",
+      help="serve training batches from N input-worker processes (the "
+      "tf.data service): record reads, decode and augmentation run there")
     a("--pack-seq", type=int, default=0, metavar="LEN",
       help="pack --data-dir's variable-length TFRecord documents into "
       "LEN-token rows")
@@ -200,21 +210,27 @@ def build_parser() -> argparse.ArgumentParser:
     a("--device", default="cuda",
       help="torch device (default cuda; 'cpu' runs the kernels' plain "
       "versions)")
+    a("--lora-rank", type=int, default=0,
+      help="LoRA: train rank-R adapters on --lora-targets over a frozen "
+      "base (decoder configs; 0 = full fine-tuning)")
+    a("--lora-alpha", type=float, default=16.0,
+      help="LoRA scaling numerator (the delta is alpha/rank x A.B)")
+    a("--lora-targets", default="query,value",
+      help="comma-separated Dense names to adapt: query, key, value, out, "
+      "wi_gate, wi_up, wo, lm_head")
     refused = p.add_argument_group(
         "refused", "JAX launcher flags the port does not implement yet")
     r = refused.add_argument
     for flag in ("--strategy", "--mesh", "--dcn", "--grad-quant",
-                 "--coordinator-address", "--lora-targets",
-                 "--init-from-hf", "--supervisor-journal",
-                 "--tensorboard-dir", "--profile-dir", "--profile-steps",
-                 "--platform"):
+                 "--coordinator-address", "--init-from-hf",
+                 "--supervisor-journal", "--tensorboard-dir", "--profile-dir",
+                 "--profile-steps", "--platform"):
         r(flag, default=None)
     for flag in ("--grad-overlap", "--num-processes", "--process-id",
-                 "--cpu-devices", "--lora-rank", "--data-workers",
-                 "--max-restarts", "--max-device-losses",
+                 "--cpu-devices", "--max-restarts", "--max-device-losses",
                  "--profiler-port"):
         r(flag, type=int, default=None)
-    for flag in ("--lora-alpha", "--restart-backoff",
+    for flag in ("--restart-backoff",
                  "--restart-backoff-max", "--restart-window",
                  "--restart-jitter"):
         r(flag, type=float, default=None)
@@ -240,10 +256,6 @@ def refuse_unported(args) -> None:
     if args.steps_per_execution != 1:
         _refuse("--steps-per-execution above 1", f"{_Q1} item 3 (fused "
                 "steps)")
-    if args.data_transform and args.data_transform.startswith("imagenet_"):
-        _refuse(f"--data-transform {args.data_transform} (the JPEG image "
-                "transforms, data/image.py)", f"{_Q1} item 3 (the image "
-                "family of the data path)")
 
 
 def _resolve_schedule(args, entry):
@@ -286,6 +298,14 @@ def make_optimizer(args, entry):
     tx = build(args.optimizer, lr, weight_decay=args.weight_decay,
                grad_clip_norm=clip, inject_lr=inject,
                ema_decay=args.ema_decay)
+    if args.lora_rank:
+        # Adapters-only updates and state, around the clip chain: the
+        # global norm is the adapters' (``run`` refuses --ema-decay here).
+        from tensorflow_train_distributed_torch.models.lora import (
+            freeze_base,
+        )
+
+        tx = freeze_base(tx)
     return tx, (None if inject else lr)
 
 
@@ -305,28 +325,38 @@ def _dataset_kwargs(entry: dict, args) -> dict:
     return kw
 
 
+def _tfrecords(root) -> list:
+    import pathlib
+
+    root = pathlib.Path(root)
+    return sorted([*root.glob("*.tfrecord"), *root.glob("*.tfrecord.gz")])
+
+
+def source_spec(args, entry):
+    """The ``service.SourceSpec`` the input workers build the training
+    source from: ``--data-dir`` (TFRecord or mmap shards, with
+    ``--data-transform``) or the config's synthetic dataset."""
+    from tensorflow_train_distributed_torch.data.service import SourceSpec
+
+    if args.data_dir:
+        kind = "tfrecord_dir" if _tfrecords(args.data_dir) else "array_dir"
+        return SourceSpec(kind, {"root": args.data_dir,
+                                 "transform": args.data_transform})
+    return SourceSpec(entry["dataset"], _dataset_kwargs(entry, args))
+
+
 def make_source(args, entry):
     """The training source: the config's synthetic dataset, or
     ``--data-dir`` (TFRecord or mmap shards; packed under
     ``--pack-seq``)."""
-    import pathlib
-
-    from tensorflow_train_distributed_torch.data.datasets import get_dataset
-
     if args.pack_seq and not args.data_dir:
         raise SystemExit("--pack-seq needs --data-dir (a varlen TFRecord "
                          "corpus to pack)")
     if args.dataset_kwarg and args.data_dir:
         raise SystemExit("--dataset-kwarg overrides the config's SYNTHETIC "
                          "dataset; it has no effect with --data-dir")
-    if not args.data_dir:
-        return get_dataset(entry["dataset"], **_dataset_kwargs(entry, args))
-    root = pathlib.Path(args.data_dir)
-    records = sorted([*root.glob("*.tfrecord"), *root.glob("*.tfrecord.gz")])
     if not args.pack_seq:
-        kind = "tfrecord_dir" if records else "array_dir"
-        return get_dataset(kind, root=args.data_dir,
-                           transform=args.data_transform)
+        return source_spec(args, entry).build()
     from tensorflow_train_distributed_torch.data.packing import (
         PackedLmSource,
     )
@@ -334,13 +364,14 @@ def make_source(args, entry):
         TFRecordSource,
     )
 
+    records = _tfrecords(args.data_dir)
     if args.data_transform:
         raise SystemExit("--data-transform does not apply under --pack-seq "
                          "(packing consumes raw token documents); drop one "
                          "of the two flags")
     if not records:
         raise SystemExit(f"--pack-seq needs *.tfrecord(.gz) files under "
-                         f"{root}")
+                         f"{args.data_dir}")
     source = PackedLmSource.from_source(TFRecordSource(records),
                                         args.pack_seq, key=args.pack_key)
     vocab = entry["config"].vocab_size
@@ -352,10 +383,30 @@ def make_source(args, entry):
     return source
 
 
+def lora_spec(args):
+    """The ``LoraSpec`` of ``--lora-*``, or None without ``--lora-rank``;
+    exits on a bad value."""
+    if not args.lora_rank:
+        return None
+    from tensorflow_train_distributed_torch.models.lora import (
+        LoraSpec,
+        validate_targets,
+    )
+
+    try:
+        return LoraSpec(rank=args.lora_rank, alpha=args.lora_alpha,
+                        targets=validate_targets(
+                            args.lora_targets.split(",")))
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
 def make_trainer(args, entry, *, source=None, callbacks=(),
-                 checkpoint_manager=None, eval_state_view=None):
+                 checkpoint_manager=None, eval_state_view=None,
+                 with_loader=True):
     """(task, trainer, training loader) for parsed flags and a registry
-    entry."""
+    entry; the loader is None without ``with_loader`` (the data service
+    feeds the run).  Under ``--lora-rank`` the config gains the spec."""
     from tensorflow_train_distributed_torch.data.pipeline import (
         DataConfig,
         HostDataLoader,
@@ -369,6 +420,10 @@ def make_trainer(args, entry, *, source=None, callbacks=(),
         TrainerConfig,
     )
 
+    spec = lora_spec(args)
+    if spec is not None:
+        entry = dict(entry, config=dataclasses.replace(entry["config"],
+                                                       lora=spec))
     tx, lr = make_optimizer(args, entry)
     task = registry.make_task(entry, device="meta")
     trainer = Trainer(
@@ -380,6 +435,8 @@ def make_trainer(args, entry, *, source=None, callbacks=(),
                              eval_state_view=eval_state_view),
         lr_schedule=lr, device=args.device, callbacks=callbacks,
         checkpoint_manager=checkpoint_manager)
+    if not with_loader:
+        return task, trainer, None
     if source is None:
         source = make_source(args, entry)
     loader = HostDataLoader(source, DataConfig(
@@ -435,8 +492,6 @@ def _with_bleu(args, trainer, state, loader, eval_metrics):
     """``eval_metrics`` with ``bleu`` added under ``--bleu-eval``."""
     if args.bleu_eval <= 0:
         return eval_metrics
-    import time
-
     t0 = time.perf_counter()
     bleu = _bleu_eval(args, trainer, state, loader)
     trainer.timing["bleu_s"] = time.perf_counter() - t0
@@ -519,10 +574,40 @@ def run(args) -> RunResult:
                          "--eval-steps (and optionally --eval-every)")
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
+    if args.data_workers < 0:
+        raise SystemExit(f"--data-workers must be >= 0, got "
+                         f"{args.data_workers}")
+    if args.data_workers and args.pack_seq:
+        raise SystemExit("--data-workers does not compose with --pack-seq "
+                         "(packing runs in-process); drop one of the flags")
+    if args.data_workers and args.eval_split:
+        raise SystemExit("--data-workers does not compose with --eval-split: "
+                         "the workers stream the WHOLE dataset, so training "
+                         "would consume the held-out examples; drop one of "
+                         "the flags")
     try:
         entry = registry.get_entry(args.config)
     except ValueError as e:
         raise SystemExit(str(e))
+    global_batch = args.global_batch_size or entry["global_batch_size"]
+    if args.data_workers and global_batch % args.data_workers:
+        raise SystemExit(f"global batch {global_batch} not divisible by "
+                         f"--data-workers={args.data_workers} (each worker "
+                         "serves an equal slice of every batch)")
+    spec = lora_spec(args)
+    if spec is not None:
+        from tensorflow_train_distributed_torch.models.llama import (
+            LlamaConfig,
+        )
+
+        if not isinstance(entry["config"], LlamaConfig):
+            raise SystemExit(f"--lora-rank applies to decoder-LM configs; "
+                             f"{args.config!r} is not one")
+        if args.ema_decay is not None:
+            raise SystemExit(
+                "--ema-decay with --lora-rank is not supported: the EMA "
+                "would keep a full f32 copy of the FROZEN base, defeating "
+                "LoRA's memory saving")
     if args.bleu_eval > 0:
         from tensorflow_train_distributed_torch.models.transformer import (
             TransformerConfig,
@@ -551,8 +636,13 @@ def run(args) -> RunResult:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
 
-    global_batch = args.global_batch_size or entry["global_batch_size"]
-    source = make_source(args, entry)
+    if args.checkpoint_dir:
+        _check_lora_sidecar(args.checkpoint_dir, spec)
+    # With the workers reading every record and no in-process consumer
+    # (evaluation, BLEU), the trainer builds no source at all.
+    service_only = (args.data_workers > 0 and args.eval_steps <= 0
+                    and args.bleu_eval <= 0)
+    source = None if service_only else make_source(args, entry)
     eval_source = source
     if args.eval_split:
         source, eval_source = train_val_split(
@@ -608,12 +698,14 @@ def run(args) -> RunResult:
             args, entry, source=source, callbacks=callbacks,
             checkpoint_manager=ckpt,
             eval_state_view=((lambda s: _eval_view(args, s))
-                             if args.ema_decay is not None else None))
+                             if args.ema_decay is not None else None),
+            with_loader=not service_only)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"{args.config}: {e}")
 
     eval_metrics = None
     preempted = False
+    dispatcher = service_start_s = None
     try:
         params = None
         if args.params_npz:
@@ -650,7 +742,29 @@ def run(args) -> RunResult:
 
         remaining = args.steps - state.step
         if remaining > 0:
-            if state.step:
+            if args.data_workers:
+                from tensorflow_train_distributed_torch.data.service import (
+                    DataServiceDispatcher,
+                )
+
+                if state.step:
+                    logger.warning(
+                        "--data-workers resume: the worker stream restarts "
+                        "from epoch 0 (mid-epoch positioning is the "
+                        "in-process loader's); examples may repeat relative "
+                        "to an uninterrupted run")
+                t0 = time.perf_counter()
+                dispatcher = DataServiceDispatcher(
+                    source_spec(args, entry),
+                    DataConfig(global_batch_size=global_batch,
+                               seed=args.seed),
+                    num_workers=args.data_workers).start()
+                service_start_s = time.perf_counter() - t0
+                logger.info("data service: %d input workers up in %.2f s "
+                            "(ports %s)", args.data_workers, service_start_s,
+                            dispatcher.ports)
+                batches = iter(dispatcher.client())
+            elif state.step:
                 consumed = (ckpt.restored_meta or {}).get(
                     "data_position", {}).get("batches_consumed",
                                              state.step)
@@ -668,7 +782,9 @@ def run(args) -> RunResult:
                                    eval_steps=args.eval_steps)
             state, _ = trainer.fit(
                 batches, steps=remaining, state=state,
-                steps_per_epoch=loader.steps_per_epoch(), **eval_kwargs)
+                steps_per_epoch=(None if loader is None
+                                 else loader.steps_per_epoch()),
+                **eval_kwargs)
         else:
             logger.info("checkpoint already at/past --steps; nothing to "
                         "train")
@@ -682,15 +798,43 @@ def run(args) -> RunResult:
             print(json.dumps({"step": state.step, "eval": eval_metrics}),
                   flush=True)
     finally:
+        if dispatcher is not None:
+            dispatcher.stop()
         if watcher is not None:
             watcher.uninstall()
+    summary = _summary(trainer, ckpt, state, eval_metrics)
+    summary["data_service_start_s"] = service_start_s
     return RunResult(state, history.history, eval_metrics, preempted,
-                     _summary(trainer, ckpt, state, eval_metrics))
+                     summary)
+
+
+def _check_lora_sidecar(checkpoint_dir: str, spec) -> None:
+    """Write ``spec`` as the directory's ``lora_spec.json``; exit when the
+    directory's sidecar disagrees with it, or when it has one and this
+    run has no LoRA."""
+    from tensorflow_train_distributed_torch.models.lora import (
+        load_spec,
+        save_spec,
+    )
+
+    prior = load_spec(checkpoint_dir)
+    if spec is None:
+        if prior is not None:
+            raise SystemExit(
+                f"--checkpoint-dir carries lora_spec.json ({prior}) from a "
+                "LoRA run, but this run has no --lora-rank: pass the "
+                "matching --lora-* flags to resume it, or use a fresh "
+                "checkpoint dir")
+        return
+    if prior is not None and prior != spec:
+        raise SystemExit(
+            f"--lora-* flags {spec} disagree with the existing "
+            f"lora_spec.json {prior} in --checkpoint-dir: fix the flags to "
+            "resume, or use a fresh dir")
+    save_spec(checkpoint_dir, spec)
 
 
 def _evaluate(trainer, loader, state, args) -> dict:
-    import time
-
     n = loader.steps_per_epoch()
     if 0 < n < args.eval_steps:
         logger.warning("--eval-steps=%d exceeds the evaluation source's %d "
@@ -709,12 +853,22 @@ def _summary(trainer, ckpt, state, eval_metrics) -> dict:
 
     from tensorflow_train_distributed_torch.ops import kernels as K
 
+    from tensorflow_train_distributed_torch.models.lora import (
+        count_lora_params,
+    )
+
     timing = trainer.timing
     # Each read window's seconds a step, the first (warm-up) left out.
     per_step = [s / n * 1e3 for n, s in timing["windows"][1:] if n]
+    steps_run = sum(n for n, _ in timing["windows"])
+    adapters, total = count_lora_params(state.params)
     return {
         "step": state.step,
         "device": str(trainer.device),
+        "params": total,
+        "lora_params": adapters,
+        "data_wait_ms_per_step": (timing["data_wait_s"] / steps_run * 1e3
+                                  if steps_run else None),
         "window_ms_per_step": per_step,
         "step_ms": statistics.median(per_step) if per_step else None,
         "eval_s": timing["eval_s"],

@@ -12,9 +12,11 @@ SwiGLU FFN, untied LM head, optional GQA; plus the Gemma and Qwen knobs.
 The model holds a plain list of layers: the JAX package's scanned versus
 unrolled layouts differ only in its parameter tree, which
 ``convert.params_from_flax`` flattens (so ``scan_layers`` is not a field
-here).  Sequence and pipeline parallelism and LoRA wait for later
-slices, as does the rolling KV cache that decodes a sliding-window
-model.
+here).  ``LlamaConfig.lora`` (a ``models.lora.LoraSpec``) builds the
+model with rank-r adapters on the targeted projections and everything
+else frozen (``lora.apply_lora``).  Sequence and pipeline parallelism
+wait for later slices, as does the rolling KV cache that decodes a
+sliding-window model.
 
 Rematerialisation (``remat``, ``remat_policy``), as the JAX package's:
 
@@ -91,6 +93,9 @@ class LlamaConfig:
     # Llama-3.x RoPE scaling: (factor, low_freq_factor, high_freq_factor,
     # original_max_positions); None = plain RoPE.
     rope_scaling: Optional[tuple] = None
+    # LoRA fine-tuning (models.lora.LoraSpec): a frozen base and trainable
+    # adapters on the targeted projections; None = full fine-tuning.
+    lora: object = None
 
     def __post_init__(self):
         if self.remat_policy not in REMAT_POLICIES:
@@ -102,6 +107,18 @@ class LlamaConfig:
                 f"mlp_activation must be 'silu' (SwiGLU) or 'gelu' "
                 f"(GeGLU, tanh approximation), got "
                 f"{self.mlp_activation!r}")
+        if self.fused_qkv and self.lora is not None:
+            attn = ({"query", "key", "value"}
+                    & set(getattr(self.lora, "targets", ())))
+            if attn:
+                # One "qkv" module replaces the three: those targets would
+                # match nothing, and the run would train no attention
+                # adapter.
+                raise ValueError(
+                    f"fused_qkv replaces the q/k/v projections with one "
+                    f"'qkv' module; LoRA targets {sorted(attn)} would "
+                    "match nothing: fine-tune attention with "
+                    "fused_qkv=False")
 
     @property
     def kv_heads(self) -> int:
@@ -246,6 +263,12 @@ class LlamaModel(nn.Module):
             zero_centered=cfg.norm_zero_centered, device=device)
         self.lm_head = L.Dense(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
                                device=device)
+        if cfg.lora is not None:
+            from tensorflow_train_distributed_torch.models.lora import (
+                apply_lora,
+            )
+
+            apply_lora(self, cfg.lora)
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[L.KVCache] = None, *,

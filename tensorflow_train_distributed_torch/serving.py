@@ -58,6 +58,7 @@ from tensorflow_train_distributed_torch.models.generate import (
     validate_sampling,
 )
 from tensorflow_train_distributed_torch.models.layers import KVCache
+from tensorflow_train_distributed_torch.models.lora import has_lora_leaves
 from tensorflow_train_distributed_torch.ops import kernels as K
 
 
@@ -113,6 +114,10 @@ class ServingEngine:
             raise ValueError(
                 "the serving engine's caches hold the full context; "
                 "sliding_window / attention_sinks configs are not served")
+        if has_lora_leaves(params):
+            raise ValueError(
+                "merge LoRA adapters before engine serving: params = "
+                "models.lora.merge_lora(params, spec)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:

@@ -77,12 +77,14 @@ def unscale_grads(grads: list, ls: Optional[LossScaleState]) -> list:
     if ls is None:
         return grads
     inv = 1.0 / ls.scale
-    return [g.float() * inv for g in grads]
+    return [None if g is None else g.float() * inv for g in grads]
 
 
 def grads_finite(grads: list) -> torch.Tensor:
-    """True (a device bool scalar) when every gradient is finite."""
-    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    """True (a device bool scalar) when every gradient is finite (None,
+    a frozen parameter's, counts as finite)."""
+    return torch.stack([torch.isfinite(g).all() for g in grads
+                        if g is not None]).all()
 
 
 def update_loss_scale(ls: Optional[LossScaleState], finite: torch.Tensor,

@@ -35,8 +35,10 @@ class GradientTransformation:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    """sqrt of the sum of squares of every element (optax.global_norm);
+    None entries (frozen parameters' gradients) are left out."""
+    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors
+                          if t is not None))
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:

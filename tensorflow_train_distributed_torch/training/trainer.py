@@ -8,7 +8,10 @@ autograd, so the gradients land on the f32 masters); with ``grad_accum``
 microbatches, the gradients' f32 mean weighted by each microbatch's
 ``loss_weight``; unscale under a loss scale; the optimizer update, skipped
 entirely when a loss-scaled step overflows; the metrics loss, accuracy,
-lr and, optionally, the pre-clip grad_norm.
+lr and, optionally, the pre-clip grad_norm.  Parameters that require no
+gradient (a LoRA base, ``models/lora.py``) get none: autograd skips
+their weight gradients, their gradient is None, and the optimizer
+(``lora.freeze_base``) leaves them unchanged.
 
 Eager PyTorch replaces ``jit``: a step is a sequence of kernel launches on
 the current stream, and metrics stay device scalars until ``fit`` reads a
@@ -110,8 +113,10 @@ class Trainer:
         self._live_state = None
         # Host seconds of the last fit: per read window (steps, seconds,
         # from the end of the previous window's evaluation and save to
-        # the read of this one), per evaluation and per save.
-        self.timing = {"windows": [], "eval_s": [], "save_s": []}
+        # the read of this one), per evaluation, per save, and in all
+        # blocked on the next batch (the input pipeline's share).
+        self.timing = {"windows": [], "eval_s": [], "save_s": [],
+                       "data_wait_s": 0.0}
 
     def create_state(self, params: Optional[dict] = None) -> TrainState:
         """Load ``params`` (``{name: tensor}`` as ``convert`` makes them),
@@ -151,13 +156,19 @@ class Trainer:
     # -- the step --------------------------------------------------------
 
     def _microbatch_grads(self, params: list, batch: dict, loss_scale):
-        """Loss, metrics and unscaled f32 grads of one (micro)batch."""
+        """Loss, metrics and unscaled f32 grads of one (micro)batch; a
+        frozen parameter (``requires_grad`` False: a LoRA base) gets None
+        and autograd computes no gradient for it."""
         loss, metrics = self.task.loss_fn(batch)
         loss = loss.float()
-        grads = torch.autograd.grad(mp.scale_loss(loss, loss_scale), params)
+        idx = [i for i, p in enumerate(params) if p.requires_grad]
+        sub = torch.autograd.grad(mp.scale_loss(loss, loss_scale),
+                                  [params[i] for i in idx])
+        grads = [None] * len(params)
+        for i, g in zip(idx, sub):
+            grads[i] = g
         metrics = {k: v.detach().float() for k, v in metrics.items()}
-        return mp.unscale_grads(list(grads), loss_scale), loss.detach(), \
-            metrics
+        return mp.unscale_grads(grads, loss_scale), loss.detach(), metrics
 
     def _accumulated_grads(self, params: list, batch: dict, loss_scale,
                            step: int = 0):
@@ -171,7 +182,8 @@ class Trainer:
             raise ValueError(f"batch size {bsz} not divisible by "
                              f"grad_accum={a}")
         m = bsz // a
-        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        acc = [torch.zeros_like(p, dtype=torch.float32) if p.requires_grad
+               else None for p in params]
         losses, ws, stacked = [], [], []
         for i in range(a):
             mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
@@ -181,13 +193,15 @@ class Trainer:
                                                               loss_scale)
             w = metrics.get("loss_weight",
                             torch.ones((), device=loss.device))
-            acc = [s + g.float() * w for s, g in zip(acc, grads)]
+            acc = [None if g is None else s + g.float() * w
+                   for s, g in zip(acc, grads)]
             losses.append(loss)
             ws.append(w)
             stacked.append(metrics)
         ws_t = torch.stack(ws)
         w_total = torch.clamp(ws_t.sum(), min=1e-6)
-        grads = [(g / w_total).to(p.dtype) for g, p in zip(acc, params)]
+        grads = [None if g is None else (g / w_total).to(p.dtype)
+                 for g, p in zip(acc, params)]
         metrics = {k: (torch.stack([mm[k] for mm in stacked]) * ws_t).sum()
                    / w_total for k in stacked[0]}
         if "loss_weight" in metrics:
@@ -215,7 +229,8 @@ class Trainer:
                                                       params)
             with torch.no_grad():
                 for p, u in zip(params, updates):
-                    p.add_(u)
+                    if u is not None:       # None: a frozen parameter
+                        p.add_(u)
         if self.config.log_grad_norm:
             metrics["grad_norm"] = global_norm(grads)
         if self.lr_schedule is not None:
@@ -259,7 +274,8 @@ class Trainer:
         self.state_poisoned = False
         if state is None:
             state = self.create_state()
-        self.timing = {"windows": [], "eval_s": [], "save_s": []}
+        self.timing = {"windows": [], "eval_s": [], "save_s": [],
+                       "data_wait_s": 0.0}
         history = []
         self.callbacks.train_begin(state)
         box = [state]
@@ -284,7 +300,12 @@ class Trainer:
         pending: list = []
         stop = False
         t_mark = time.perf_counter()
-        for batch in device_iter:
+        while True:
+            t0 = time.perf_counter()
+            batch = next(device_iter, None)
+            self.timing["data_wait_s"] += time.perf_counter() - t0
+            if batch is None:
+                break
             metrics = self.train_step(state, batch)
             cur = state.step
             # Callbacks that save (the preemption handler) read the live

@@ -267,9 +267,7 @@ def test_evaluate_and_predict_match_jax_trainer():
 @pytest.mark.parametrize("flags", [
     ["--strategy", "fsdp"], ["--mesh", "data=2"], ["--zero1"],
     ["--grad-quant", "int8"], ["--num-processes", "2"],
-    ["--lora-rank", "4"], ["--init-from-hf", "/nowhere"],
-    ["--data-transform", "imagenet_train_224"], ["--data-workers", "2"],
-    ["--supervise"],
+    ["--init-from-hf", "/nowhere"], ["--supervise"],
     ["--tensorboard-dir", "tb"], ["--profile-dir", "p"],
     ["--steps-per-execution", "4"], ["--platform", "cpu"]])
 def test_unported_flags_are_refused(flags, capsys):
