@@ -188,6 +188,29 @@
    the losses.  Then at the same width cut to 2 layers, in process: after
    3 steps the base is bitwise unchanged, and the merged model's logits
    are within one bf16 step (relative L2 2^-7) of the unmerged model's.
+19. Speculative and pipelined serving of Llama-2-7B at full width and
+   depth.  (a) Paged attention at the verify's shapes (8 lanes x 32
+   heads x hd 128, up to 1,024 rows, q_len 5 and 8, bf16 and int8, each
+   beside q_len 1 on the same lanes) and at a llama_125m draft's (12
+   heads x hd 64, q_len 1), the gather on that draft's pool at a radix
+   hit, RMSNorm at the verify's [40, 4096] and the draft's [8, 768]
+   rows, each held and timed as in phase 2; the host time of the ring
+   body's per-call workspace allocation.  (b) Phase 3's requests (#1,
+   which shares #0's prefix, moved last) served with the target as its
+   own draft at depth 4, greedy, synchronous with atomic admission: the
+   consistency check of phase 3 on the verify's logits, acceptance at
+   least 0.9 of the drafted tokens, and paged attention launched exactly
+   (32 + 32 x 5) x rounds times.  (c) The same with llama_125m_lm from
+   random weights as the draft at depths (0, 2, 4): the controller must
+   back off to depth 0 and probe; launches exactly target layers x
+   rounds + 12 x the draft's steps; the consistency check.  (d) The
+   overlap and staged prefill (budget 256) off and on, plain (in turns:
+   off, on, on, off) and with the self draft: greedy tokens bit for bit
+   equal within each pair, an overlap ratio above 0 on.  Each run logs
+   decode time a step (plain) or a round and an emitted token (spec),
+   tokens/s, acceptance, tokens a slot and round, the overlap ratio, the
+   prefill stall and peak memory; the share of positions where the self
+   draft's greedy tokens equal the plain engine's is reported.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -277,6 +300,15 @@ KERNELS = [
     ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "mnist"),
     ("cross_entropy_bwd", _CSRC + "cross_entropy.cu", _PK + ":584",
      "mnist"),
+    # Phase 19: speculative serving with a self draft (both models run
+    # K1f and K4; K5 reads both pools at the radix hit).  K1f's and K4's
+    # numbers are phase 19's at the verify's shapes, K5's phase 2's at
+    # the same lane.
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "spec_serve"),
+    ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290",
+     "spec_serve"),
+    ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121",
+     "spec_serve"),
 ] + [
     # Phase 11's LoRA leg (llama_125m_lm, rank 8 on query and value,
     # through the launcher; the numbers beside them are phase 5's at the
@@ -294,6 +326,7 @@ KERNELS = [
         ("flash_attention_bwd", "flash_attention_bwd.cu", _FA + ":941"))
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
+SPEC_SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "spec_serve"]
 LAUNCH_KERNELS = [k[0] for k in KERNELS if k[3] == "launch"]
 TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
 # The MoE trainer runs the training kernels and the grouped matmuls.
@@ -464,7 +497,7 @@ def _paged_case(label, q, kp, vp, sc, table, lengths, c) -> dict:
     import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
 
-    lanes, _, heads, hd = q.shape
+    lanes, q_len, heads, hd = q.shape
     kw = {} if sc is None else dict(k_scales=sc[0], v_scales=sc[1])
     body = K.paged_attention_body(q, kp, vp)
     out = K.paged_attention(q, kp, vp, table, lengths, **kw)
@@ -509,7 +542,7 @@ def _paged_case(label, q, kp, vp, sc, table, lengths, c) -> dict:
     # SDPA over the rows the lanes can see (whole pool blocks), gathered
     # and dequantised beforehand: the same function on the same inputs.
     bs = kp.shape[1]
-    rows = min(c, -(-(int(lengths.max().item()) + 1) // bs) * bs)
+    rows = min(c, -(-(int(lengths.max().item()) + q_len) // bs) * bs)
     kc = K.paged_kv_gather_reference(kp, table, rows)
     vc = K.paged_kv_gather_reference(vp, table, rows)
     if sc is not None:
@@ -518,17 +551,24 @@ def _paged_case(label, q, kp, vp, sc, table, lengths, c) -> dict:
         vc = vc.to(q.dtype) * K.paged_kv_gather_reference(
             sc[1][..., None], table, rows).to(q.dtype)
     pos = torch.arange(rows, device=q.device)
-    mask = (pos[None, :] <= lengths.long()[:, None])[:, None, None, :]
+    # Query i of a lane sits at lengths + i and sees the rows up to it.
+    at = lengths.long()[:, None] + torch.arange(q_len, device=q.device)
+    mask = (pos[None, None, :] <= at[:, :, None])[:, None]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, kc, vc))
     lib = device_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask))
-    visible = (lengths.long() + 1).clamp(max=c).sum().item()
-    nbytes = (visible * heads * hd * kp.element_size() * 2
+    # Bytes: each lane's rows read once, whatever number of queries reads
+    # them (those the last query sees); operations: every visible pair.
+    visible = (lengths.long() + q_len).clamp(max=c).sum().item()
+    pairs = (at + 1).clamp(max=c).sum().item()
+    kvh = kp.shape[2]
+    nbytes = (visible * kvh * hd * kp.element_size() * 2
               + q.numel() * 2 * 2 + table.numel() * 4 + lanes * 4
-              + (visible * heads * 4 * 2 if sc else 0))
-    bnd = bound(nbytes, 4 * visible * heads * hd, PEAK_BF16_FLOPS)
-    shape = (f"{lanes} lanes x {heads} heads x hd {hd}, bs {bs}, "
-             f"{table.shape[1]} blocks, {visible} visible rows, {label}")
+              + (visible * kvh * 4 * 2 if sc else 0))
+    bnd = bound(nbytes, 4 * pairs * heads * hd, PEAK_BF16_FLOPS)
+    shape = (f"{lanes} lanes x {heads} heads x hd {hd}, q_len {q_len}, "
+             f"bs {bs}, {table.shape[1]} blocks, {visible} visible rows, "
+             f"{label}")
     _report("paged_attention", shape, ms, plain, lib, bnd, body)
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
                bound_by=bnd[1], library_ms=lib)
@@ -540,7 +580,6 @@ def phase_kernels() -> dict:
     """Kernel vs plain version at the slice's shapes; returns the rows of
     the kernels' JSON line (without launch counts)."""
     import torch
-    import torch.nn.functional as F
     from tensorflow_train_distributed_torch.ops import kernels as K
 
     dev = torch.device("cuda")
@@ -552,29 +591,7 @@ def phase_kernels() -> dict:
     scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(
         torch.bfloat16)
     for n in (8, 128):
-        x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
-        y = K.rms_norm(x, scale)
-        ref = K.rms_norm_reference(x, scale)
-        torch.cuda.synchronize()
-        # Both compute in f32 and round once to bf16; f32 results a few
-        # ulps apart may round to neighbouring bf16 values, and one bf16
-        # step is at most 2^-7 of the value.
-        err = _check(f"rms_norm [{n}, {d}] bf16", y, ref,
-                     2 ** -7 * ref.float().abs() + 1e-6,
-                     "one bf16 step: 2^-7 |ref| + 1e-6")
-        body = K.rms_norm_body(x, scale)
-        ms = device_ms(lambda: K.rms_norm(x, scale))
-        plain = device_ms(lambda: K.rms_norm_reference(x, scale))
-        lib = device_ms(lambda: F.rms_norm(x, (d,), scale, 1e-5))
-        bnd = bound(2 * n * d * 2 + d * 2, 4 * n * d, PEAK_F32_FLOPS)
-        _report("rms_norm", f"[{n}, {d}] bf16", ms, plain, lib, bnd, body)
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                   bound_by=bnd[1], library_ms=lib)
-        CASES.append(dict(row, kernel="rms_norm", case=f"[{n}, {d}] bf16",
-                          body=body, **_other_body_ms(
-                              "warp" if body == "block" else "block",
-                              lambda b: K.rms_norm_forward(
-                                  x, scale, 1e-5, with_r=False, body=b))))
+        row = _rms_serve_case(gen, n, scale)
         if n == 8:      # the decode step's shape goes into the JSON line
             rows["rms_norm"] = row
 
@@ -629,46 +646,95 @@ def phase_kernels() -> dict:
             ("f32 scales, 8 lanes", ks[..., None], [table], False),
             ("f32 scales, the engine's lane", ks[..., None], one_lane,
              False)):
-        body = K.paged_kv_gather_body(pool)
-        runs = [b for b in K.PAGED_KV_GATHER_BODIES
-                if b == "block" or body != "block"]
-        for b in runs:
-            for t in tables:
-                out = K.paged_kv_gather(pool, t, c, body=b)
-                if not torch.equal(out, K.paged_kv_gather_reference(pool, t,
-                                                                    c)):
-                    raise AssertionError(f"paged_kv_gather {label}, {b} "
-                                         f"body: not bitwise")
-        torch.cuda.synchronize()
-        log(f"  paged_kv_gather {label}: {body} body; bitwise equal ok "
-            f"(bodies {runs})")
-        if not timed:
-            continue
-        turn = itertools.cycle(tables)
-        flats = itertools.cycle([t.reshape(-1) for t in tables])
-
-        def call(b=None):
-            return K.paged_kv_gather(pool, next(turn), c, body=b)
-
-        ms, lib = in_turns(call, lambda: pool.index_select(0, next(flats)))
-        plain = device_ms(lambda: K.paged_kv_gather_reference(
-            pool, next(turn), c))
-        bnd = bound(2 * out.numel() * out.element_size()
-                    + tables[0].numel() * 4, 0, PEAK_BF16_FLOPS)
-        shape = (f"pool [{nb}, {bs}, {heads}, {hd}] bf16 -> "
-                 f"[{out.shape[0]}, {c}], {label}")
-        _report("paged_kv_gather", shape, ms, plain, lib, bnd, body)
-        row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                   bound_by=bnd[1], library_ms=lib)
-        others = {}
-        for b in runs:
-            if b != body:
-                others.update(_other_body_ms(b, call))
-        CASES.append(dict(row, kernel="paged_kv_gather", case=label,
-                          body=body, **others))
+        row = _gather_case(label, pool, tables, c, timed)
         if label == "bf16, the engine's lane":
             rows["paged_kv_gather"] = row
     return rows
+
+
+def _rms_serve_case(gen, n, scale) -> dict:
+    """K1f at [n, d] bf16 rows: held to one bf16 step of the plain
+    version, timed beside its bound, the plain version, ``F.rms_norm``
+    and the other body; returns the kernels line's row."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    d = scale.shape[0]
+    x = torch.randn(n, d, generator=gen, device=gen.device).to(
+        torch.bfloat16)
+    y = K.rms_norm(x, scale)
+    ref = K.rms_norm_reference(x, scale)
+    torch.cuda.synchronize()
+    # Both compute in f32 and round once to bf16; f32 results a few ulps
+    # apart may round to neighbouring bf16 values, and one bf16 step is
+    # at most 2^-7 of the value.
+    err = _check(f"rms_norm [{n}, {d}] bf16", y, ref,
+                 2 ** -7 * ref.float().abs() + 1e-6,
+                 "one bf16 step: 2^-7 |ref| + 1e-6")
+    body = K.rms_norm_body(x, scale)
+    ms = device_ms(lambda: K.rms_norm(x, scale))
+    plain = device_ms(lambda: K.rms_norm_reference(x, scale))
+    lib = device_ms(lambda: F.rms_norm(x, (d,), scale, 1e-5))
+    bnd = bound(2 * n * d * 2 + d * 2, 4 * n * d, PEAK_F32_FLOPS)
+    _report("rms_norm", f"[{n}, {d}] bf16", ms, plain, lib, bnd, body)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+               bound_by=bnd[1], library_ms=lib)
+    CASES.append(dict(row, kernel="rms_norm", case=f"[{n}, {d}] bf16",
+                      body=body, **_other_body_ms(
+                          "warp" if body == "block" else "block",
+                          lambda b: K.rms_norm_forward(
+                              x, scale, 1e-5, with_r=False, body=b))))
+    return row
+
+
+def _gather_case(label, pool, tables, c, timed):
+    """K5 over ``pool`` through each of ``tables``, bitwise against its
+    plain version with every body that runs; when ``timed``, timed in
+    turns with ``index_select`` over the same blocks (the calls take the
+    tables in turn, so each reads blocks the call before did not) beside
+    its bound, the plain version and the other body.  Returns the row
+    (None untimed)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    body = K.paged_kv_gather_body(pool)
+    runs = [b for b in K.PAGED_KV_GATHER_BODIES
+            if b == "block" or body != "block"]
+    for b in runs:
+        for t in tables:
+            out = K.paged_kv_gather(pool, t, c, body=b)
+            if not torch.equal(out, K.paged_kv_gather_reference(pool, t, c)):
+                raise AssertionError(f"paged_kv_gather {label}, {b} body: "
+                                     f"not bitwise")
+    torch.cuda.synchronize()
+    log(f"  paged_kv_gather {label}: {body} body; bitwise equal ok "
+        f"(bodies {runs})")
+    if not timed:
+        return None
+    turn = itertools.cycle(tables)
+    flats = itertools.cycle([t.reshape(-1) for t in tables])
+
+    def call(b=None):
+        return K.paged_kv_gather(pool, next(turn), c, body=b)
+
+    ms, lib = in_turns(call, lambda: pool.index_select(0, next(flats)))
+    plain = device_ms(lambda: K.paged_kv_gather_reference(
+        pool, next(turn), c))
+    bnd = bound(2 * out.numel() * out.element_size()
+                + tables[0].numel() * 4, 0, PEAK_BF16_FLOPS)
+    shape = (f"pool {list(pool.shape)} {str(pool.dtype)[6:]} -> "
+             f"[{out.shape[0]}, {c}], {label}")
+    _report("paged_kv_gather", shape, ms, plain, lib, bnd, body)
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+               bound_by=bnd[1], library_ms=lib)
+    others = {}
+    for b in runs:
+        if b != body:
+            others.update(_other_body_ms(b, call))
+    CASES.append(dict(row, kernel="paged_kv_gather", case=label,
+                      body=body, **others))
+    return row
 
 
 # -- phases 3 and 4 -----------------------------------------------------------
@@ -796,8 +862,11 @@ def phase_engine(config, *, label, n_requests, max_new, lo, hi,
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = convert.init_params(config, gen, device="cuda")
+    # The synchronous engine with atomic admission, as this phase has
+    # always measured it (phase 19 runs the pipelined one beside it).
     eng = ServingEngine(config, params, slots=8, chunk=8, cache_len=1024,
-                        kv_block_size=16, record_logits=True, device="cuda")
+                        kv_block_size=16, record_logits=True, overlap=False,
+                        prefill_budget=0, device="cuda")
     del params
     torch.cuda.synchronize()
     log(f"{label}: {config.num_layers} layers, d_model {config.d_model}, "
@@ -851,6 +920,302 @@ def phase_engine(config, *, label, n_requests, max_new, lo, hi,
     if profile_chunk:
         stats["profile"] = _profile_chunk(eng, config.vocab_size)
     return counts, stats
+
+
+# -- phase 19 -----------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_DRAFT = "llama_125m_lm"
+SPEC_BUDGET = 256
+
+
+def _spec_kernel_cases() -> tuple:
+    """(a) K4 at the verify's shapes (Llama-2-7B's heads, q_len 5 and 8,
+    bf16 and int8, beside q_len 1 on the same pool) and at the draft's
+    (llama_125m: 12 heads x hd 64, q_len 1), K5 on the draft's pool at a
+    radix hit, K1f at the verify's rows, and the host cost of the ring
+    body's per-call workspace.  Returns (the spec_serve rows, that cost
+    in us an allocation by size)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    rows = {}
+    lanes, bs, n_blk = 8, 16, 64
+    nb, c = 1 + lanes * n_blk, n_blk * bs
+    perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
+    table = perm[:lanes * n_blk].view(lanes, n_blk).to(torch.int32)
+    lengths = torch.randint(16, c - 8, (lanes,), generator=gen, device=dev,
+                            dtype=torch.int32)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def pools(heads, hd):
+        k8, v8 = (torch.randint(-127, 128, (nb, bs, heads, hd),
+                                generator=gen, device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(nb, bs, heads, generator=gen, device=dev) / 127
+                  + 1e-4 for _ in range(2))
+        return {"bf16": (randn(nb, bs, heads, hd), randn(nb, bs, heads, hd),
+                         None),
+                "int8": (k8, v8, (ks, vs))}
+
+    target = pools(32, 128)
+    q1 = randn(lanes, 1, 32, 128)
+    for label, (kp, vp, sc) in target.items():
+        kw = {} if sc is None else dict(k_scales=sc[0], v_scales=sc[1])
+        ms1 = device_ms(lambda: K.paged_attention(q1, kp, vp, table, lengths,
+                                                  **kw))
+        log(f"  paged_attention q_len 1, {label}, the same lanes: "
+            f"{ms1 * 1e3:.1f} us")
+        for q_len in (SPEC_K + 1, 8):
+            case = _paged_case(f"verify q_len {q_len}, {label}",
+                               randn(lanes, q_len, 32, 128), kp, vp, sc,
+                               table, lengths, c)
+            # Near q_len x the q_len-1 time, the body re-reads a lane's
+            # rows for each query row.
+            case.update(q_len=q_len, q_len_1_ms=ms1,
+                        ratio_to_q_len_1=case["ms"] / ms1)
+            log(f"    {case['ratio_to_q_len_1']:.2f} x the q_len-1 time "
+                f"at q_len {q_len}")
+            CASES.append(dict(case, kernel="paged_attention",
+                              path="spec_serve"))
+            if q_len == SPEC_K + 1 and label == "bf16":
+                rows["paged_attention"] = {
+                    k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}
+    del target
+    dk, dv, _ = pools(12, 64)["bf16"]
+    case = _paged_case("the draft llama_125m, bf16", randn(lanes, 1, 12, 64),
+                       dk, dv, None, table, lengths, c)
+    CASES.append(dict(case, kernel="paged_attention", path="spec_serve"))
+    _gather_case("the draft llama_125m's pool, one lane", dk,
+                 [table[i:i + 1] for i in range(lanes)], c, True)
+    scale = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    rows["rms_norm"] = _rms_serve_case(gen, lanes * (SPEC_K + 1), scale)
+    _rms_serve_case(gen, lanes, (1 + 0.1 * torch.randn(
+        768, generator=gen, device=dev)).to(torch.bfloat16))
+    # The ring body allocates its merge workspace on every call (from the
+    # caching allocator): its host time, for the verify's and a draft
+    # step's sizes.
+    chunks = c // K.PAGED_CHUNK_ROWS
+    alloc_us = {}
+    for name, kvh, rows_, hd in (("verify", 32, SPEC_K + 1, 128),
+                                 ("step", 32, 1, 128),
+                                 ("draft_125m_step", 12, 1, 64)):
+        n = kvh * lanes * chunks * rows_ * (hd + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            torch.empty(n, dtype=torch.float32, device=dev)
+        alloc_us[name] = (time.perf_counter() - t0) / 2000 * 1e6
+    log(f"  K4 ring workspace, host time an allocation: "
+        f"{json.dumps(alloc_us)}")
+    CASES.append(dict(kernel="paged_attention", path="spec_serve",
+                      case="ring workspace allocation, host us",
+                      **alloc_us))
+    return rows, alloc_us
+
+
+def _spec_prompts(vocab: int) -> list:
+    """Phase 3's requests with #1, which shares #0's 64-token prefix,
+    moved to the end: admitted after #0's rows are in the radix index
+    under atomic and staged admission alike, so every mode reads it from
+    the pool the same way."""
+    import numpy as np
+
+    prompts = _requests(np.random.default_rng(SEED), 12, 16, 300, vocab, 64)
+    return [prompts[0]] + prompts[2:] + [prompts[1]]
+
+
+def _spec_run(label, config, params, prompts, max_new, *, record=False,
+              **kw):
+    """Serve ``prompts`` through a fresh engine (8 slots, chunk 8,
+    cache_len 1024, block 16); the counts are zeroed just before and read
+    just after.  Returns (engine, outputs, request ids, counts, stats)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.serving import ServingEngine
+
+    eng = ServingEngine(config, params, slots=8, chunk=8, cache_len=1024,
+                        kv_block_size=16, record_logits=record,
+                        device="cuda", **kw)
+    eng._grids()                        # the pools, outside the timing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: K.launch_counts()[k] for k in SPEC_SERVE_KERNELS}
+    for rid, p in zip(rids, prompts):
+        toks = out[rid]
+        if (len(toks) != len(p) + max_new or toks[:len(p)] != p
+                or not all(0 <= t < config.vocab_size for t in toks)):
+            raise AssertionError(f"{label}: request {rid} malformed")
+    generated = len(rids) * max_new
+    st = eng.stats
+    stats = dict(
+        wall_s=wall, tokens_per_s=generated / wall,
+        decode_s=st["decode_s"], decode_forwards=st["decode_steps"],
+        prefill_s=st["prefill_s"], overlap_ratio=eng.overlap_ratio(),
+        prefill_stall_s=eng.prefill_stall_s(),
+        prefill_stats=dict(eng.prefill_stats),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        kv_stats=dict(eng.kv_stats), launches=counts)
+    sp = eng.spec_stats
+    if eng.draft_config is None:
+        # A plain step emits one token a lane.
+        stats["decode_ms_per_step"] = st["decode_s"] / st["decode_steps"] * 1e3
+    else:
+        per_round = sp["emitted"] / sp["slot_rounds"]
+        stats.update(
+            spec_stats=dict(sp), spec_telemetry=eng.spec_telemetry(),
+            acceptance=sp["drafted_accepted"] / max(sp["drafted"], 1),
+            emitted_per_slot_round=per_round,
+            decode_ms_per_round=st["decode_s"] / sp["rounds"] * 1e3,
+            # A round's time over the tokens it gives a lane: the
+            # counterpart of a plain step's time.
+            decode_ms_per_emitted_token=(st["decode_s"] / sp["rounds"]
+                                         / per_round * 1e3))
+    log(f"  {label}: {json.dumps(stats, default=str)}")
+    return eng, out, rids, counts, stats
+
+
+def phase_spec_serve() -> tuple:
+    """Phase 19: speculative and pipelined serving of Llama-2-7B at full
+    width and depth.  (a) ``_spec_kernel_cases``; (b) a self draft at
+    depth 4, greedy, synchronous with atomic admission: the consistency
+    check, acceptance >= 0.9 and K4's launches exactly (target layers +
+    draft layers x (k+1)) x rounds; (c) llama_125m_lm as the draft,
+    random weights, depths (0, 2, 4): the controller backs off to 0 and
+    probes; (d) overlap and interleave (budget 256) off and on, plain and
+    with the self draft: greedy tokens bit for bit equal, overlap_ratio >
+    0.  Returns (the counts of (b), the spec_serve rows, the stats)."""
+    import torch
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS,
+    )
+
+    log(f"  card: {smi_line()}")
+    rows, alloc_us = _spec_kernel_cases()
+    torch.cuda.empty_cache()
+    cfg = LLAMA_PRESETS["llama2_7b"]
+    t0 = time.perf_counter()
+    params = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    log(f"  llama2_7b weights (phase 3's seed) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = _spec_prompts(cfg.vocab_size)
+    max_new, layers = 32, cfg.num_layers
+    self_draft = dict(draft_config=cfg, draft_params=params,
+                      speculative_k=SPEC_K)
+    sync = dict(overlap=False, prefill_budget=0)
+    piped = dict(overlap=True, prefill_budget=SPEC_BUDGET)
+    out = {}
+
+    log(f"  (b) self draft, k {SPEC_K}, greedy, synchronous")
+    eng, spec_out, rids, spec_counts, spec = _spec_run(
+        "self draft", cfg, params, prompts, max_new, record=True,
+        **self_draft, **sync)
+    rounds = spec["spec_stats"]["rounds"]
+    want = layers * rounds + layers * (SPEC_K + 1) * rounds
+    if min(spec_counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never ran: "
+                             f"{spec_counts}")
+    if spec_counts["paged_attention"] != want:
+        raise AssertionError(f"paged_attention launches "
+                             f"{spec_counts['paged_attention']} != (32 + 32 "
+                             f"x {SPEC_K + 1}) x {rounds} rounds = {want}")
+    if spec["acceptance"] < 0.9:
+        raise AssertionError(f"self-draft acceptance {spec['acceptance']}")
+    agree, total = _consistency(eng, spec_out, [(rids[i], prompts[i])
+                                                for i in (1, 5)], max_new,
+                                0.25)
+    spec.update(tokens_agree=agree, tokens_checked=total,
+                ring_workspace_host_us_a_round=(
+                    layers * alloc_us["verify"]
+                    + layers * (SPEC_K + 1) * alloc_us["step"]))
+    out["self_draft"] = spec
+    spec_tokens = [spec_out[r] for r in rids]
+    del eng, spec_out
+    torch.cuda.empty_cache()
+
+    log(f"  (c) {SPEC_DRAFT} as the draft, random weights, depths (0, 2, "
+        f"{SPEC_K})")
+    dcfg = registry.get_config(SPEC_DRAFT)
+    dparams = convert.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(SEED + 1),
+        device="cuda")
+    eng, small_out, rids, counts, small = _spec_run(
+        f"{SPEC_DRAFT} draft", cfg, params, prompts, max_new, record=True,
+        draft_config=dcfg, draft_params=dparams, speculative_k=SPEC_K,
+        spec_depths=(0, 2, SPEC_K), **sync)
+    per_depth = small["spec_telemetry"]["per_depth"]
+    steps = sum(v["rounds"] * (d + 1) for d, v in per_depth.items())
+    want = layers * small["spec_stats"]["rounds"] + dcfg.num_layers * steps
+    if counts["paged_attention"] != want:
+        raise AssertionError(f"paged_attention launches "
+                             f"{counts['paged_attention']} != {want}")
+    if not (per_depth[0]["rounds"] and per_depth[2]["rounds"]
+            and small["spec_telemetry"]["switches"] >= 3):
+        raise AssertionError(f"the controller did not back off to depth 0 "
+                             f"and probe: {small['spec_telemetry']}")
+    agree, total = _consistency(eng, small_out, [(rids[i], prompts[i])
+                                                 for i in (1, 5)], max_new,
+                                0.25)
+    small.update(tokens_agree=agree, tokens_checked=total)
+    out["draft_125m"] = small
+    del eng, small_out, dparams
+    torch.cuda.empty_cache()
+
+    log(f"  (d) overlap and interleave (budget {SPEC_BUDGET}) off and on")
+    toks = {"spec_off": spec_tokens}
+    # The plain pair in turns (off, on, on, off): the host-bound decode
+    # drifts between runs of one process.
+    for name, kw in (("plain_off", sync), ("plain_on", piped),
+                     ("plain_on", piped), ("plain_off", sync),
+                     ("spec_on", dict(self_draft, **piped))):
+        eng, o, rids, _, stats = _spec_run(name, cfg, params, prompts,
+                                           max_new, **kw)
+        got = [o[r] for r in rids]
+        if toks.setdefault(name, got) != got:
+            raise AssertionError(f"{name}: a rerun gave other tokens")
+        out.setdefault(name, []).append(stats)
+        if name.endswith("_on") and not stats["overlap_ratio"] > 0:
+            raise AssertionError(f"{name}: overlap_ratio "
+                                 f"{stats['overlap_ratio']}")
+        del eng
+        torch.cuda.empty_cache()
+    for on, off in (("plain_on", "plain_off"), ("spec_on", "spec_off")):
+        if toks[on] != toks[off]:
+            raise AssertionError(f"{on} tokens differ from {off}")
+    for name in ("plain_off", "plain_on"):
+        runs = out[name]
+        log(f"  {name}, mean of {len(runs)} runs: "
+            f"{statistics.mean(r['tokens_per_s'] for r in runs):.1f} "
+            f"tokens/s, "
+            f"{statistics.mean(r['decode_ms_per_step'] for r in runs):.1f} "
+            f"ms a decode step")
+    same = sum(a == b for s, p, pr in zip(toks["spec_off"],
+                                          toks["plain_off"], prompts)
+               for a, b in zip(s[len(pr):], p[len(pr):]))
+    out["spec_tokens_equal_plain"] = same / (len(prompts) * max_new)
+    log(f"  greedy on/off pairs bitwise equal; the self draft's generated "
+        f"tokens equal the plain engine's at "
+        f"{out['spec_tokens_equal_plain']:.4f} of positions")
+    del params
+    torch.cuda.empty_cache()
+    return spec_counts, rows, out
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -3564,12 +3929,19 @@ def main() -> int:
     rows["lora_launch"], rows["lora_7b"] = phase_lora_kernels(rows["train"])
     lora_7b_counts, lora_7b = phase_lora_7b()
     lora_7b["check_2_layers"] = phase_lora_7b_check()
+    torch.cuda.empty_cache()
+    log("== phase 19: speculative and pipelined serving, llama2_7b full "
+        "width and depth")
+    spec_counts, spec_rows, spec_serving = phase_spec_serve()
+    rows["spec_serve"] = dict(spec_rows,
+                              paged_kv_gather=rows["serve"]["paged_kv_gather"])
 
     paths = {"serve": counts, "train": train_counts,
              "moe_train": moe_counts, "window_train": window_counts,
              "launch": launch_counts, "bert": bert_counts,
              "wmt": wmt_counts, "mnist": mnist_counts,
-             "lora_launch": lora_counts, "lora_7b": lora_7b_counts}
+             "lora_launch": lora_counts, "lora_7b": lora_7b_counts,
+             "spec_serve": spec_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -3583,6 +3955,8 @@ def main() -> int:
     print(json.dumps({"launcher": launcher}), flush=True)
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"lora_7b": lora_7b}), flush=True)
+    print(json.dumps({"spec_serving": spec_serving}, default=str),
+          flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

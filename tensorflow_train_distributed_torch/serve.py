@@ -5,7 +5,22 @@ package's ``tools/serve.py``, with the flags this slice implements):
 every request is collected up front, the engine runs to completion, and
 each result is one JSONL line ``{"id", "prompt", "tokens"}`` (tokens =
 prompt + continuation); standard error ends with a ``serve summary`` JSON
-line (the kernels' launch counts and the engine's host timings).
+line (the kernels' launch counts, the engine's host timings, its
+speculative statistics and acceptance rate, its overlap ratio and its
+staged-prefill statistics).
+
+The engine pipelines by default: the next decode chunk is dispatched
+before the previous one is harvested (``--no-overlap`` turns that off)
+and an admitted prompt's prefill advances ``--prefill-budget`` tokens a
+step between decode chunks (default one prefill piece; ``--no-interleave``
+or ``--prefill-budget 0`` admits atomically).  Outputs are bit for bit
+the same either way.  ``--speculative-draft-config`` with
+``--speculative-draft-checkpoint`` (a checkpoint of the port's launcher)
+serves speculatively: the draft proposes ``--speculative-k`` tokens a slot
+and round, and greedy output stays the target's own; ``--spec-depth
+adaptive[:K1,K2,...]`` lets the depth follow the measured acceptance and
+``--spec-depth fixed:K`` pins it.  With ``--kv-int8`` the draft's KV is
+int8 too.
 
 Weights come from ``--checkpoint-dir`` (the parameters of the newest
 checkpoint the port's launcher wrote there, restored without the rest of
@@ -23,6 +38,10 @@ engine is built.
       --params-npz params.npz --requests reqs.jsonl --device cpu
   python -m tensorflow_train_distributed_torch.serve --config llama_tiny_sft \\
       --checkpoint-dir ck --prompt 1,2,3 --device cpu
+  python -m tensorflow_train_distributed_torch.serve --config llama_tiny_sft \\
+      --checkpoint-dir ck --speculative-draft-config llama_tiny_sft \\
+      --speculative-draft-checkpoint draft_ck --spec-depth adaptive:0,2,4 \\
+      --prompt 1,2,3 --device cpu
 """
 
 from __future__ import annotations
@@ -79,6 +98,58 @@ def read_requests(path: str, max_new: int) -> list:
                          "max_new": rec.get("max_new", max_new),
                          "seed": rec.get("seed")})
     return reqs
+
+
+def parse_spec_depth_arg(arg: str, fixed_k: int):
+    """``--spec-depth`` -> (speculative_k, spec_depths or None): '' keeps
+    ``--speculative-k``; 'fixed:K' pins K; 'adaptive' takes the depths
+    (0, 2, 4, 8); 'adaptive:K1,K2,...' names them."""
+    try:
+        if not arg:
+            return fixed_k, None
+        if arg.startswith("fixed:"):
+            return int(arg.split(":", 1)[1]), None
+        if arg == "adaptive":
+            return fixed_k, (0, 2, 4, 8)
+        if arg.startswith("adaptive:"):
+            return fixed_k, tuple(int(x)
+                                  for x in arg.split(":", 1)[1].split(","))
+    except ValueError:
+        pass
+    raise SystemExit(f"--spec-depth must be 'fixed:K', 'adaptive' or "
+                     f"'adaptive:K1,K2,...', got {arg!r}")
+
+
+def load_draft(args, cfg):
+    """(draft config, draft params) for ``--speculative-draft-*``, or
+    (None, None).  The draft's KV is int8 when the target's is."""
+    from tensorflow_train_distributed_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    if args.speculative_draft_checkpoint and not \
+            args.speculative_draft_config:
+        raise SystemExit("--speculative-draft-checkpoint needs "
+                         "--speculative-draft-config")
+    if not args.speculative_draft_config:
+        return None, None
+    if not args.speculative_draft_checkpoint:
+        raise SystemExit("--speculative-draft-checkpoint is required with "
+                         "--speculative-draft-config")
+    try:
+        draft_cfg = registry.get_config(args.speculative_draft_config)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if not isinstance(draft_cfg, LlamaConfig):
+        raise SystemExit("the draft config must be a llama-family decoder")
+    if cfg.kv_cache_int8:
+        draft_cfg = dataclasses.replace(draft_cfg, kv_cache_int8=True)
+    params = CheckpointManager(
+        args.speculative_draft_checkpoint).restore_params()
+    if params is None:
+        raise SystemExit(f"no checkpoint in "
+                         f"{args.speculative_draft_checkpoint}")
+    return draft_cfg, params
 
 
 def lora_serving_spec(args):
@@ -186,6 +257,33 @@ def main(argv=None) -> int:
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--eos-id", type=int, default=None)
+    p.add_argument("--speculative-draft-config", default=None,
+                   help="serve speculatively with this registry config as "
+                        "the draft (same vocab); greedy output stays the "
+                        "target's, sampled output its distribution")
+    p.add_argument("--speculative-draft-checkpoint", default=None,
+                   help="the draft's weights: a checkpoint directory of "
+                        "the port's launcher (its newest checkpoint)")
+    p.add_argument("--speculative-k", type=int, default=4,
+                   help="draft tokens a slot proposes each round")
+    p.add_argument("--spec-depth", default="",
+                   help="'fixed:K' pins the depth K; 'adaptive' picks "
+                        "among depths 0,2,4,8 each round from the "
+                        "measured acceptance, 'adaptive:K1,K2,...' among "
+                        "these (TTD_NO_ADAPTIVE_SPEC=1 pins "
+                        "--speculative-k)")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="harvest each decode chunk before dispatching the "
+                        "next (TTD_NO_OVERLAP=1 likewise); outputs are "
+                        "the same")
+    p.add_argument("--prefill-budget", type=int, default=None,
+                   help="prefill tokens an admitted prompt advances per "
+                        "engine step between decode chunks (default one "
+                        "prefill piece; 0 admits atomically)")
+    p.add_argument("--no-interleave", action="store_true",
+                   help="atomic admission, as --prefill-budget 0 "
+                        "(TTD_NO_INTERLEAVE=1 likewise); outputs are the "
+                        "same")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the "
                         "kernels' plain versions)")
@@ -211,6 +309,12 @@ def main(argv=None) -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available")
 
+    spec_k, spec_depths = parse_spec_depth_arg(args.spec_depth,
+                                               args.speculative_k)
+    draft_cfg, draft_params = load_draft(args, cfg)
+    if spec_depths is not None and draft_cfg is None:
+        raise SystemExit("--spec-depth adaptive needs "
+                         "--speculative-draft-config")
     params = load_params(args, cfg)
     try:
         eng = ServingEngine(
@@ -218,6 +322,10 @@ def main(argv=None) -> int:
             cache_len=args.cache_len or None, eos_id=args.eos_id,
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, prefill_chunk=args.prefill_chunk,
+            draft_config=draft_cfg, draft_params=draft_params,
+            speculative_k=spec_k if draft_cfg is not None else 0,
+            spec_depths=spec_depths, overlap=not args.no_overlap,
+            prefill_budget=0 if args.no_interleave else args.prefill_budget,
             kv_block_size=args.kv_block_size,
             kv_pool_blocks=args.kv_pool_blocks, device=args.device)
         ids = [eng.submit(r["prompt"], r["max_new"], seed=r["seed"])
@@ -225,9 +333,14 @@ def main(argv=None) -> int:
     except ValueError as e:
         raise SystemExit(str(e))
     out = eng.run()
-    print("serve summary: " + json.dumps({
-        "launches": {k: v for k, v in K.launch_counts().items() if v},
-        **eng.stats}), file=sys.stderr)
+    summary = {"launches": {k: v for k, v in K.launch_counts().items() if v},
+               **eng.stats, "overlap_ratio": eng.overlap_ratio(),
+               "prefill_stats": eng.prefill_stats}
+    if draft_cfg is not None:
+        s = eng.spec_stats
+        summary.update(spec_stats=s, acceptance=(
+            s["drafted_accepted"] / s["drafted"] if s["drafted"] else 0.0))
+    print("serve summary: " + json.dumps(summary), file=sys.stderr)
     lines = [json.dumps({"id": rid, "prompt": r["prompt"],
                          "tokens": out[rid]}) + "\n"
              for rid, r in zip(ids, reqs)]

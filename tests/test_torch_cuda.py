@@ -484,6 +484,108 @@ def test_engine_on_card_matches_engine_on_cpu(gen, kv_int8):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("draft,kw", [
+    ("self", dict(speculative_k=3)),
+    ("scan", dict(speculative_k=3)),
+    ("scan", dict(speculative_k=4, spec_depths=(0, 2, 4))),
+    ("scan", dict(speculative_k=3, overlap=False, prefill_budget=0))])
+def test_spec_engine_on_card_matches_engine_on_cpu(gen, draft, kw):
+    """llama_tiny with a draft (itself, or llama_tiny_scan from another
+    seed) at f32: greedy tokens and spec_stats on the card (K4 at q_len
+    k+1 and on the draft's pool, K5 on both pools, the pipelined
+    scheduler's pinned copies and events) equal the CPU engine's."""
+    cfg = LLAMA_PRESETS["llama_tiny"]
+    dcfg = LLAMA_PRESETS["llama_tiny" if draft == "self" else
+                         "llama_tiny_scan"]
+    params = convert.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    dparams = (params if draft == "self" else convert.init_params(
+        dcfg, torch.Generator().manual_seed(4), device="cpu"))
+    pre = list(range(1, 9))
+    reqs = [(pre + [20], 6), ([5, 6, 7, 8, 9], 9), (pre + [30, 31], 7),
+            (list(range(40, 52)), 8), ([70, 71, 72], 1)]
+    outs, stats = [], []
+    for device in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params, slots=2, cache_len=64, chunk=2,
+                            prompt_buckets=(8, 16), kv_block_size=4,
+                            draft_config=dcfg, draft_params=dparams,
+                            device=device, **kw)
+        K.reset_launch_counts()
+        ids = [eng.submit(p, m) for p, m in reqs]
+        out = eng.run()
+        outs.append([out[i] for i in ids])
+        stats.append(dict(eng.spec_stats))
+        if device == "cuda":
+            counts = K.launch_counts()
+            assert min(counts[k] for k in ("rms_norm", "paged_attention",
+                                           "paged_kv_gather")) > 0
+    assert outs[0] == outs[1]
+    assert stats[0] == stats[1]
+
+
+def test_stream_uniforms_on_card_equal_cpu(gen):
+    from tensorflow_train_distributed_torch.serving import stream_uniforms
+
+    seeds = torch.randint(0, 2 ** 32, (64,), generator=torch.Generator()
+                          .manual_seed(0))
+    counts = torch.arange(64) * 37
+    for draw in (-1, 0, 5):
+        cpu = stream_uniforms(seeds, counts, draw, 1000)
+        card = stream_uniforms(seeds.cuda(), counts.cuda(), draw, 1000)
+        assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("q_len", range(2, 9))
+@pytest.mark.parametrize("hd,q_dtype", [(128, torch.bfloat16),
+                                        (64, torch.float32)])
+def test_paged_attention_verify_q_len_on_ring(gen, q_len, hd, q_dtype):
+    """The speculative verify's shape at Llama-2-7B's one head a kv group:
+    q_len k+1 up to 8 rows a group stays on the ring body; lanes across
+    chunk edges and at the cache's end."""
+    C = K.PAGED_CHUNK_ROWS
+    lengths = [0, C - q_len, C + 3, 2 * C - 1, 40 * 16 - q_len]
+    args, kw = _ring_args(gen, lengths, heads=8, kvh=8, q_len=q_len, hd=hd,
+                          q_dtype=q_dtype)
+    assert K.paged_attention_body(*args[:3]) == "ring"
+    got = K.paged_attention(*args)
+    _assert_ring_close(got, _ring_ref32(args, kw))
+    if q_dtype == torch.bfloat16:   # the plain version's own types
+        want = K.paged_attention_reference(*args)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+@pytest.mark.parametrize("heads,kvh,q_len", [(32, 8, 5), (8, 8, 9),
+                                             (32, 8, 2)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_verify_past_eight_rows_on_staged(gen, heads, kvh,
+                                                          q_len, int8):
+    """More than 8 query rows a kv group (a GQA target's verify, or depth
+    8 and above): the staged body serves them, int8 pools too."""
+    args, kw = _ring_args(gen, [0, 100, 300, 639 - q_len], heads=heads,
+                          kvh=kvh, q_len=q_len, q_dtype=torch.bfloat16,
+                          int8=int8)
+    body = K.paged_attention_body(*args[:3])
+    assert body == ("ring" if heads // kvh * q_len <= 8 else "staged")
+    got = K.paged_attention(*args, **kw)
+    if body == "ring":
+        _assert_ring_close(got, _ring_ref32(args, kw))
+    want = K.paged_attention_reference(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_paged_attention_refuses_a_shape_no_body_serves(gen):
+    """Rows a kv group past the staged body's shared memory raise; no
+    plain fallback runs on the card."""
+    args, _ = _ring_args(gen, [10, 20], heads=64, kvh=1, q_len=16, hd=256,
+                         q_dtype=torch.bfloat16)
+    before = K.launch_counts()["paged_attention"]
+    with pytest.raises(ValueError, match="shared memory"):
+        K.paged_attention(*args)
+    assert K.launch_counts()["paged_attention"] == before
+
+
 # -- training kernels ---------------------------------------------------------
 
 
