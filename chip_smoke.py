@@ -135,7 +135,8 @@
    directory (the adapters merged per its ``lora_spec.json``) answers 4
    greedy requests on the card with the tokens of ``serve --params-npz``
    of an npz of ``merge_lora(params)`` the script writes.  The checkpoint
-   directories are deleted at the end.
+   directories are deleted at the end, but for (a)'s, which phase 21's
+   ``sample.py`` reads and deletes.
 
 12. K2's full (non-causal) attention at BERT-base's heads (B 256, H 12,
    S 128, D 64) and Transformer-big's (B 64, H 16, S 256, D 64), f32 (as
@@ -211,12 +212,53 @@
    tokens/s, acceptance, tokens a slot and round, the overlap ratio, the
    prefill stall and peak memory; the share of positions where the self
    draft's greedy tokens equal the plain engine's is reported.
+20. Lane control of the engine, Llama-2-7B at full width and depth (bf16,
+   random weights from seed 0), phase 3's engine shape.  (a) 12 requests
+   (prefill pieces of 64): after the first step cancel a queued request
+   and a decoding lane (under the overlap its chunk is in flight), after
+   the next a staged prefill, on the synchronous engine with staged
+   prefill and on the pipelined one: the others finish whole with the
+   same tokens on both, and only radix-held blocks stay in use.  (b)
+   ``preload_prefix`` of a 512-token system prompt, then 8 requests that
+   extend it: all 8 hit its 512 tokens in the radix, through K5; time to
+   first token beside an engine without the preload.  (c) A decoding
+   lane exported twice (equal), installed into a second engine, whose
+   pool rows K5 reads back bitwise equal to the blob, bf16 and int8
+   pools; re-admitted with ``resume_from``, the agreement of its greedy
+   tokens after the cut with the exporting engine's own continuation of
+   the lane is a reading, with the teacher-forced logit gap where they
+   first part; on an f32 pool, the witness, they must agree throughout.
+   K1f, K4 and K5 counted on the path's legs only (not the warm-ups,
+   the engine without the preload, the second export, the uninterrupted
+   run or the read-back); the export and the resumed radix hit must
+   each launch K5.
+21. ``generate()`` at full width.  (a) mistral_7b at full width and depth
+   (window 4096) on a 6,000-token prompt, whose fresh prefill pads to
+   6,016 rows for K7, and 256 greedy tokens: the 4,096-row ring wraps.
+   Each decode step's logits against a teacher-forced forward (K7) of
+   prompt + tokens: max |diff| at most 0.25 of max(logit std, 1) at
+   every position and argmax agreement at least 0.9; K7 exactly 32
+   launches, no K2, K1f 65 a forward (256 forwards).  Prefill seconds,
+   ms a token, tokens/s, peak memory beside the ring's memory.  (b) The
+   same at 4 layers with 4 sinks; then the bars' controls, 64 tokens at
+   4 layers: a ring slot off by one, stale ring rows, the sinks dropped
+   and the fresh prefill without its band, each of which must fail the
+   bars at a window of 64 (at 4,096 they are readings).  (c) Llama-2-7B
+   ``generate()`` of 64 tokens on a
+   1,000-token prompt (K2 on 1,024 rows, 32 launches), its tokens against
+   teacher forcing.  (d) ``generate_speculative`` of Llama-2-7B at 4
+   layers with itself as the draft, k 4: acceptance at least 0.9, and
+   the share of its tokens equal to ``generate()``'s.  (e)
+   ``python -m tensorflow_train_distributed_torch.sample`` on phase 11's
+   checkpoint: exit 0 and an in-process ``generate()``'s tokens.  K1f,
+   K2 and K7 counted over (a)-(d).
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
 the repository.
 """
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -309,6 +351,22 @@ KERNELS = [
      "spec_serve"),
     ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121",
      "spec_serve"),
+    # Phase 20: lane control of the engine (cancel, preload, export and
+    # install, resumed lanes) at phase 3's shapes; the numbers beside
+    # them are phase 2's at those shapes.
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "lane_control"),
+    ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290",
+     "lane_control"),
+    ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121",
+     "lane_control"),
+    # Phase 21: generate()'s fresh prefill (K2 for Llama-2-7B's 1,024
+    # padded rows, K7 for mistral_7b's 6,016) and K1f on every forward;
+    # measured at those shapes (K1f at the prefill's [6000, 4096]).
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "generate"),
+    ("flash_attention", _CSRC + "flash_attention_fwd.cu", _FA + ":589",
+     "generate"),
+    ("splash_attention", _CSRC + "flash_attention_fwd.cu", _SP + ":895",
+     "generate"),
 ] + [
     # Phase 11's LoRA leg (llama_125m_lm, rank 8 on query and value,
     # through the launcher; the numbers beside them are phase 5's at the
@@ -326,6 +384,8 @@ KERNELS = [
         ("flash_attention_bwd", "flash_attention_bwd.cu", _FA + ":941"))
 ]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
+LANE_KERNELS = [k[0] for k in KERNELS if k[3] == "lane_control"]
+GENERATE_KERNELS = [k[0] for k in KERNELS if k[3] == "generate"]
 SPEC_SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "spec_serve"]
 LAUNCH_KERNELS = [k[0] for k in KERNELS if k[3] == "launch"]
 TRAIN_KERNELS = [k[0] for k in KERNELS if k[3] == "train"]
@@ -340,7 +400,14 @@ MOE_TRAIN_KERNELS = TRAIN_KERNELS + [k[0] for k in KERNELS
 CASES = []
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's heading ("== ...") also gets the seconds
+    since the script started."""
+    if msg.startswith("=="):
+        msg = f"{msg}  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1216,6 +1283,646 @@ def phase_spec_serve() -> tuple:
     del params
     torch.cuda.empty_cache()
     return spec_counts, rows, out
+
+
+# -- phase 20 -----------------------------------------------------------------
+
+
+def _lane_engine(config, params, **kw):
+    """Phase 3's engine shape (8 slots, chunk 8, cache_len 1024, block 16)
+    on the card."""
+    from tensorflow_train_distributed_torch.serving import ServingEngine
+
+    return ServingEngine(config, params, slots=8, chunk=8, cache_len=1024,
+                         kv_block_size=16, device="cuda", **kw)
+
+
+def _lane_rows(eng, tokens, n):
+    """The first ``n`` pool rows of ``tokens``' radix-held blocks read back
+    by K5, in the wire recipe: the bytes an install must have written."""
+    import torch
+
+    _, shared = eng._radix.match(tokens, allow_full=True, record=False)
+    table = torch.zeros(eng._kv_nblk_lane, dtype=torch.int32)
+    table[:len(shared)] = torch.tensor(shared, dtype=torch.int32)
+    return eng._serialize_rows(table.cuda(), n)[1]
+
+
+def _cancel_leg(label, config, params, prompts, max_new, **kw) -> tuple:
+    """Phase 20(a) on one engine: 12 requests; after the first step (8
+    lanes decoding, 4 queued) cancel #11 (queued) and #1 (decoding: under
+    the overlap its chunk is in flight); the next step stages #8 in the
+    freed lane (pieces of 64 tokens, one a step behind the decoding
+    lanes); cancel it there.  The rest must finish whole, and only
+    radix-held blocks stay in use.  Returns (tokens by index, stats)."""
+    import torch
+
+    eng = _lane_engine(config, params, prefill_chunk=64, **kw)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    out = eng.serve_step()
+    if eng.queue_depth() != 4 or len(eng.progress()) != 8:
+        raise AssertionError(f"{label}: after one step {eng.queue_depth()} "
+                             f"queued, {len(eng.progress())} decoding")
+    inflight = eng._inflight is not None
+    ok = [eng.cancel(rids[11]), eng.cancel(rids[1])]
+    out.update(eng.serve_step())
+    staged = rids[8] in eng.staged_rids()
+    ok.append(eng.cancel(rids[8]))
+    ok.append(eng.cancel(rids[8]))
+    while eng.pending():
+        out.update(eng.serve_step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ok != [True, True, True, False] or not staged:
+        raise AssertionError(f"{label}: cancels returned {ok}, #8 staged "
+                             f"{staged}")
+    gone = {rids[i] for i in (1, 8, 11)}
+    if gone & set(out) or len(out) != 9:
+        raise AssertionError(f"{label}: outputs {sorted(out)}")
+    for i, (rid, p) in enumerate(zip(rids, prompts)):
+        if rid in gone:
+            continue
+        toks = out[rid]
+        if len(toks) != len(p) + max_new or toks[:len(p)] != p:
+            raise AssertionError(f"{label}: request {i} malformed")
+    held = eng._radix.cached_blocks()
+    if eng.kv_blocks_in_use() != held:
+        raise AssertionError(f"{label}: {eng.kv_blocks_in_use()} blocks in "
+                             f"use, {held} radix-held")
+    stats = dict(wall_s=wall, chunk_in_flight_at_cancel=inflight,
+                 kv_blocks_in_use=held, kv_stats=dict(eng.kv_stats),
+                 overlap_ratio=eng.overlap_ratio())
+    log(f"  (a) {label}: cancels {ok}; {json.dumps(stats)}")
+    return {i: out[r] for i, r in enumerate(rids) if r in out}, stats
+
+
+def _ttft(eng, prompts, max_new) -> tuple:
+    """(seconds from submitting ``prompts`` to the end of the step that
+    gave every one its first token — atomic admission prefills them all
+    in the first step, which also decodes one chunk; the prefill's own
+    seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    prefill_s = eng.stats["prefill_s"]
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    done = set()
+    while True:
+        done |= set(eng.serve_step())
+        prog = eng.progress()
+        if all(r in done or prog.get(r, 0) > len(p)
+               for r, p in zip(rids, prompts)):
+            break
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    eng.run()
+    return ttft, eng.stats["prefill_s"] - prefill_s
+
+
+def phase_lane_control() -> tuple:
+    """Phase 20: lane control of the paged engine, Llama-2-7B at full
+    width and depth (bf16, random weights from seed 0).  (a)
+    ``_cancel_leg`` on the synchronous engine with staged prefill and on
+    the pipelined one: the survivors' tokens equal; (b) ``preload_prefix``
+    of a 512-token system prompt, then 8 requests extending it: radix hit
+    tokens, K5 launches and time to first token beside an engine without
+    the preload; (c) ``export_lane`` of a decoding lane twice (bitwise
+    equal), ``install_lane`` into a second engine, the installed rows
+    read back by K5 bitwise equal to the blob, bf16 and int8 pools; the
+    resumed greedy tokens' agreement with the uninterrupted run (a
+    reading: the suffix is re-prefilled, not decoded), and the same leg
+    on an f32 pool as its witness.  K1f, K4 and K5 are counted on the
+    path's own legs only (``leg``): warm-ups, the engine without the
+    preload, the second export, the uninterrupted run and the read-back
+    of installed rows are checks.  Returns (counts, stats)."""
+    import numpy as np
+    import torch
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.models import generate as G
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS,
+    )
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    log(f"  card: {smi_line()}")
+    cfg = LLAMA_PRESETS["llama2_7b"]
+    params = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    rng = np.random.default_rng(SEED + 20)
+    prompts = _requests(rng, 12, 16, 300, cfg.vocab_size, 64)
+    prompts[8] = rng.integers(1, cfg.vocab_size, 280).tolist()
+    max_new = 32
+    out = {}
+    counts = dict.fromkeys(LANE_KERNELS, 0)
+
+    def leg(fn, *a, **kw):
+        """``fn`` as a leg of the path: the counts set to 0 just before
+        it, read just after, and added to the phase's; returns (its
+        result, its launches)."""
+        K.reset_launch_counts()
+        res = fn(*a, **kw)
+        got = {k: K.launch_counts()[k] for k in LANE_KERNELS}
+        for k in counts:
+            counts[k] += got[k]
+        return res, got
+
+    t_leg = time.perf_counter()
+    (sync_toks, out["cancel_sync"]), _ = leg(
+        _cancel_leg, "synchronous, staged", cfg, params, prompts, max_new,
+        overlap=False)
+    torch.cuda.empty_cache()
+    (piped_toks, out["cancel_pipelined"]), _ = leg(
+        _cancel_leg, "pipelined", cfg, params, prompts, max_new)
+    if piped_toks != sync_toks:
+        raise AssertionError("(a) the pipelined engine's tokens differ from "
+                             "the synchronous one's")
+    if not out["cancel_pipelined"]["chunk_in_flight_at_cancel"]:
+        raise AssertionError("(a) no chunk was in flight at the cancel")
+    torch.cuda.empty_cache()
+    out["leg_s"] = {"a": time.perf_counter() - t_leg}
+    t_leg = time.perf_counter()
+
+    system = rng.integers(1, cfg.vocab_size, 512).tolist()
+    asks = [system + rng.integers(1, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(16, 100, 8)]
+    sync = dict(overlap=False, prefill_budget=0)
+    eng = _lane_engine(cfg, params, **sync)
+    eng.submit([1] * 16, 2)                    # warm-up
+    eng.run()
+    plain_ttft, plain_prefill = _ttft(eng, asks, 8)
+    plain_hits = dict(eng.kv_stats)
+    del eng
+    torch.cuda.empty_cache()
+    eng = _lane_engine(cfg, params, **sync)
+    eng.submit([1] * 16, 2)
+    eng.run()
+
+    def preload():
+        t0 = time.perf_counter()
+        eng.preload_prefix(system)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    preload_s, _ = leg(preload)
+    (pre_ttft, pre_prefill), got = leg(_ttft, eng, asks, 8)
+    k5 = got["paged_kv_gather"]
+    hits = dict(eng.kv_stats)
+    if hits["prefix_hit_tokens"] != 8 * 512 or k5 <= 0:
+        raise AssertionError(f"(b) radix hits {hits}, K5 launches {k5}")
+    out["preload"] = dict(prefix_tokens=512, requests=8,
+                          preload_s=preload_s, ttft_s=pre_ttft,
+                          prefill_s=pre_prefill,
+                          ttft_s_without_preload=plain_ttft,
+                          prefill_s_without_preload=plain_prefill,
+                          kv_stats=hits, kv_stats_without=plain_hits,
+                          k5_launches=k5)
+    log(f"  (b) preload: {json.dumps(out['preload'])}")
+    del eng
+    torch.cuda.empty_cache()
+    out["leg_s"]["b"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+
+    prompt = prompts[3]
+    out["migrate"] = {}
+    for pool in ("bf16", "int8", "f32"):
+        if pool == "f32":
+            # The witness: the same leg on an f32 pool, where rounding
+            # leaves no near-tie for a re-prefill to tip.  Both engines
+            # share these weights (cast once, taken by assignment).
+            params = {k: v.float() for k, v in params.items()}
+        c = dataclasses.replace(
+            cfg, kv_cache_int8=pool == "int8",
+            dtype=torch.float32 if pool == "f32" else cfg.dtype)
+        src, dst = _lane_engine(c, params, **sync), _lane_engine(c, params,
+                                                                 **sync)
+        rid = leg(src.submit, prompt, 64)[0]
+        for _ in range(4):
+            leg(src.serve_step)
+
+        def export():
+            t0 = time.perf_counter()
+            return src.export_lane(rid), time.perf_counter() - t0
+
+        ((meta, blob), export_s), got = leg(export)
+        if got["paged_kv_gather"] <= 0:
+            raise AssertionError(f"(c) the export ran no K5: {got}")
+        if src.export_lane(rid) != (meta, blob):
+            raise AssertionError("(c) two exports of one lane differ")
+        full = src.run()[rid]           # the lane, uninterrupted
+
+        def install():
+            t0 = time.perf_counter()
+            warm = dst.install_lane(meta, blob)
+            torch.cuda.synchronize()
+            return warm, time.perf_counter() - t0
+
+        (warm, install_s), _ = leg(install)
+        n = meta["kv"]["n"]
+        if warm != n or _lane_rows(dst, meta["kv"]["tokens"], n) != blob:
+            raise AssertionError(f"(c) installed rows differ from the blob "
+                                 f"({pool} pool, warm {warm} of {n})")
+        done = len(meta["tokens"]) - len(prompt)
+
+        def resume():
+            r = dst.submit(meta["tokens"], meta["remaining"],
+                           resume_from=done)
+            return dst.run()[r]
+
+        got, resumed = leg(resume)
+        if resumed["paged_kv_gather"] <= 0:
+            raise AssertionError(f"(c) the resumed request's radix hit ran "
+                                 f"no K5: {resumed}")
+        cut = len(meta["tokens"])
+        if got[:cut] != full[:cut] or len(got) != len(full):
+            raise AssertionError("(c) the resumed request is malformed")
+        agree = sum(a == b for a, b in zip(got[cut:], full[cut:])) / (
+            len(full) - cut)
+        rec = dict(rows=n, blob_bytes=len(blob), export_s=export_s,
+                   install_s=install_s, resumed_at=done,
+                   resumed_tokens_agree=agree,
+                   radix_hit_tokens=dst.kv_stats["prefix_hit_tokens"],
+                   k5_resumed=resumed["paged_kv_gather"])
+        first = next((i for i in range(cut, len(full))
+                      if got[i] != full[i]), None)
+        if first is not None:
+            # At the first token where the runs part: the two picks'
+            # logits under a teacher-forced forward of the uninterrupted
+            # tokens, over max(std, 1) — a near-tie reads close to 0.
+            model = G._decode_model(c, params, device="cuda")
+            logits = _forced(model, torch.tensor([full[:first]],
+                                                 device="cuda"))[-1]
+            top2 = logits.topk(2).values
+            scale = logits.std().clamp(min=1.0)
+            rec.update(first_divergence=first - cut, divergence_gap=(
+                (logits[full[first]] - logits[got[first]]) / scale).item(),
+                top2_margin=((top2[0] - top2[1]) / scale).item())
+            del model, logits
+        if pool == "f32" and agree != 1.0:
+            raise AssertionError(f"(c) the resumed f32 lane parts from the "
+                                 f"uninterrupted one: {rec}")
+        out["migrate"][pool] = rec
+        log(f"  (c) {pool} pool: installed rows bitwise equal to the blob; "
+            f"{json.dumps(rec)}")
+        del src, dst
+        torch.cuda.empty_cache()
+    out["leg_s"]["c"] = time.perf_counter() - t_leg
+    log(f"  launches {counts}; legs {json.dumps(out['leg_s'])}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never ran: {counts}")
+    del params
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+# -- phase 21 -----------------------------------------------------------------
+
+SAMPLE_DIR = "_sample_smoke"      # phase 11's run (a); deleted by phase 21
+
+
+def _forced(model, tokens):
+    """Logits [S, V] f32 of a causal forward of ``tokens`` (the training
+    path), padded at the end to a multiple of 128 for the kernels."""
+    import torch
+
+    s = tokens.shape[1]
+    n = -(-s // 128) * 128
+    pad = torch.zeros(1, n - s, dtype=tokens.dtype, device=tokens.device)
+    with torch.no_grad():
+        return model(torch.cat([tokens, pad], 1))[0, :s].float()
+
+
+RING_FAULTS = ("slot", "stale", "sinks", "band")
+
+
+@contextlib.contextmanager
+def _ring_fault(kind):
+    """A fault planted in the rolling-window decode, for phase 21's
+    controls (None plants nothing): "slot" writes each token one slot on
+    (the ring step taken at position + 1), "stale" keeps the decode's own
+    rows out of the ring, "sinks" drops the sink columns from the step,
+    "band" drops the window and sinks from the fresh prefill's
+    attention."""
+    from tensorflow_train_distributed_torch.models import layers as L
+
+    cls = L.MultiHeadAttention
+    step, kernel = cls._rolling_step, L.multihead_attention_kernel
+
+    def faulty(self, q, k, v, lc, cur):
+        if kind == "slot":
+            return step(self, q, k, v, lc, cur + 1)
+        if kind == "stale":
+            j = cur % lc["key_cache"].shape[1]
+            return step(self, q, lc["key_cache"][:, j, None].clone(),
+                        lc["value_cache"][:, j, None].clone(), lc, cur)
+        sinks, self.sinks = self.sinks, 0
+        try:
+            return step(self, q, k, v, lc, cur)
+        finally:
+            self.sinks = sinks
+
+    if kind in ("slot", "stale", "sinks"):
+        cls._rolling_step = faulty
+    elif kind == "band":
+        L.multihead_attention_kernel = (
+            lambda *a, window=None, sinks=0, **kw: kernel(*a, **kw))
+    try:
+        yield
+    finally:
+        cls._rolling_step, L.multihead_attention_kernel = step, kernel
+
+
+# Decode logits against teacher forcing: worst max |diff| / max(std, 1)
+# a position, and the least argmax agreement.  Both sit between what the
+# sound decodes read and what the faults of phase 21's controls read at
+# window 64 (PERF.md).
+DECODE_TOL, DECODE_AGREE = 0.25, 0.9
+
+
+def _decode_vs_forced(label, model, prompt, max_new, fault=None) -> dict:
+    """``generate()``'s loop with its decode logits kept, against the
+    teacher-forced forward of prompt + generated tokens at the same
+    positions: worst and median max |diff| / max(std, 1) a position, and
+    the argmax agreement, held to ``DECODE_TOL`` and ``DECODE_AGREE``
+    unless a ``fault`` is planted in the decode (a control: ``within``
+    says whether it passed the bars)."""
+    import torch
+    from tensorflow_train_distributed_torch.models import generate as G
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _ring_fault(fault):
+        out = G._generate(model, prompt, max_new,
+                          G._picker(0.0, None, None, None, 1, "cuda"),
+                          logits_out=logs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    s = prompt.shape[1]
+    forced = _forced(model, out[:, :-1])[s - 1:]
+    dec = torch.cat(logs)
+    ratio = ((forced - dec).abs().amax(-1)
+             / forced.std(-1).clamp(min=1.0))
+    agree = (forced.argmax(-1) == out[0, s:]).float().mean().item()
+    rec = dict(prompt=s, new_tokens=max_new, wall_s=wall,
+               worst_diff_over_std=ratio.max().item(),
+               median_diff_over_std=ratio.median().item(),
+               argmax_agree=agree, peak_mem_gib=peak / 2 ** 30,
+               launches={k: v for k, v in counts.items() if v})
+    rec["within"] = (rec["worst_diff_over_std"] <= DECODE_TOL
+                     and agree >= DECODE_AGREE)
+    log(f"  {label}: {json.dumps(rec)}")
+    if fault is None and not rec["within"]:
+        raise AssertionError(f"{label}: decode against teacher forcing "
+                             f"worst {rec['worst_diff_over_std']:.4f} > "
+                             f"{DECODE_TOL} or argmax agreement {agree:.3f} "
+                             f"< {DECODE_AGREE}")
+    return rec, counts, out
+
+
+def phase_generate() -> tuple:
+    """Phase 21: ``generate()`` at full width.  (a) mistral_7b at full
+    width and depth (32 layers, window 4096): a 6,000-token prompt (the
+    fresh prefill padded to 6,016 for K7) and 256 greedy tokens, so the
+    4,096-row ring wraps; its decode logits against a teacher-forced
+    forward (K7), K7 launched exactly 32 times and K1f 65 a forward;
+    (b) the same width at 4 layers with 4 attention sinks, and the bars'
+    controls: faults planted in the ring (``_ring_fault``), each of which
+    must fail them at a window of 64; (c) Llama-2-7B
+    ``generate()``: a 1,000-token prompt (K2 on 1,024) and 64 tokens,
+    against teacher forcing; (d) ``generate_speculative`` of Llama-2-7B
+    at 4 layers with itself as the draft, k 4, beside ``generate()`` at
+    that depth; (e) ``python -m tensorflow_train_distributed_torch.sample``
+    on phase 11's launcher checkpoint, whose tokens must be an in-process
+    ``generate()``'s.  Returns (counts over (a)-(d), kernel rows,
+    stats)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.models import generate as G
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS,
+    )
+    from tensorflow_train_distributed_torch.models.speculative import (
+        generate_speculative,
+    )
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    log(f"  card: {smi_line()}")
+    out = {"leg_s": {}}
+    t_leg = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    rows = {"rms_norm": _rms_serve_case(gen, 6000, torch.ones(
+        4096, dtype=torch.bfloat16, device="cuda"))}
+    _rms_serve_case(gen, 1, torch.ones(4096, dtype=torch.bfloat16,
+                                       device="cuda"))
+    rows["flash_attention"] = _flash_case(
+        gen, "llama2_7b prefill", 1, 32, 32, 1024, 128, packed=False,
+        main=True)["flash_attention"]
+    main = _splash_case(gen, "mistral_7b prefill", 1, 32, 8, 6016, 128, 4096,
+                        0, packed=False, dtype=torch.bfloat16, timed=True,
+                        flex=False)     # phase 9 times flex at 8192
+    rows["splash_attention"] = {f: main[f] for f in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    torch.cuda.empty_cache()
+    totals = dict.fromkeys(GENERATE_KERNELS, 0)
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    out["leg_s"]["kernels"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    cfg = LLAMA_PRESETS["mistral_7b"]
+    params = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    model = G._decode_model(cfg, params, device="cuda")
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (1, 6000)),
+                          device="cuda")
+    rec, counts, _ = _decode_vs_forced("(a) mistral_7b, 32 layers", model,
+                                       prompt, 256)
+    add(counts)
+    want = dict(splash_attention=cfg.num_layers, flash_attention=0,
+                rms_norm=(2 * cfg.num_layers + 1) * 256)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"(a) launches {got}, expected {want}")
+    kv = cfg.kv_heads * cfg.attn_head_dim * 2 * 2 * cfg.num_layers
+    rec.update(ring_rows=cfg.sliding_window,
+               ring_gib=cfg.sliding_window * kv / 2 ** 30,
+               linear_cache_gib=(6000 + 256) * kv / 2 ** 30)
+    # The prefill alone on a fresh cache; the decode's time a token is
+    # the rest of the run's 255 single-token forwards.
+    with torch.no_grad():
+        cache = model.init_cache(1, 6256, shared=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(prompt, cache)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+    rec["ms_per_token"] = (rec["wall_s"] - rec["prefill_s"]) / 255 * 1e3
+    rec["tokens_per_s"] = 1e3 / rec["ms_per_token"]
+    out["mistral_7b"] = rec
+    log(f"  (a) prefill {rec['prefill_s']:.2f} s, {rec['ms_per_token']:.2f} "
+        f"ms a token, ring {rec['ring_gib']:.3f} GiB (linear would be "
+        f"{rec['linear_cache_gib']:.3f})")
+    del model, cache
+    torch.cuda.empty_cache()
+    out["leg_s"]["a"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+
+    cfg4 = dataclasses.replace(cfg, num_layers=4, attention_sinks=4)
+    p4 = {k: v for k, v in params.items()
+          if not k.startswith("layers.") or int(k.split(".")[1]) < 4}
+    model = G._decode_model(cfg4, p4, device="cuda")
+    rec, counts, _ = _decode_vs_forced("(b) mistral_7b, 4 layers, 4 sinks",
+                                       model, prompt, 256)
+    add(counts)
+    if counts["splash_attention"] != 4:
+        raise AssertionError(f"(b) splash launches "
+                             f"{counts['splash_attention']} != 4")
+    out["mistral_7b_4_layers_sinks_4"] = rec
+    out["leg_s"]["b"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+
+    # The bars against faults planted in the ring, 64 tokens each.  At a
+    # window of 64 (300-token prompt) each key weighs enough that every
+    # fault must fail them; at (b)'s window of 4,096 random weights
+    # attend close to an average, and the faults are readings.
+    out["ring_faults"] = {}
+    for name, c, p in (("window 4096", cfg4, prompt),
+                       ("window 64", dataclasses.replace(
+                           cfg4, sliding_window=64), prompt[:, :300])):
+        m = G._decode_model(c, p4, device="cuda")
+        res = {}
+        for fault in (None, *RING_FAULTS):
+            r = _decode_vs_forced(f"(b) control, {name}, fault {fault}", m,
+                                  p, 64, fault=fault)[0]
+            res[fault or "sound"] = {k: r[k] for k in (
+                "worst_diff_over_std", "median_diff_over_std",
+                "argmax_agree", "within")}
+        out["ring_faults"][name] = res
+        del m
+    passed = [f for f in RING_FAULTS
+              if out["ring_faults"]["window 64"][f]["within"]]
+    if passed:
+        raise AssertionError(f"(b) ring faults {passed} at window 64 pass "
+                             f"the decode bars")
+    out["leg_s"]["ring_faults"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    del model, params, p4
+    torch.cuda.empty_cache()
+
+    cfg = LLAMA_PRESETS["llama2_7b"]
+    params = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (1, 1000)),
+                          device="cuda")
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = G.generate(cfg, params, prompt, 64, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    add(counts)
+    if (counts["flash_attention"] != cfg.num_layers
+            or counts["rms_norm"] != (2 * cfg.num_layers + 1) * 64):
+        raise AssertionError(f"(c) launches {counts}")
+    model = G._decode_model(cfg, params, device="cuda")
+    forced = _forced(model, toks[:, :-1])[999:]
+    agree = (forced.argmax(-1) == toks[0, 1000:]).float().mean().item()
+    out["llama2_7b"] = dict(prompt=1000, new_tokens=64, wall_s=wall,
+                            argmax_agree=agree, launches={
+                                k: v for k, v in counts.items() if v})
+    log(f"  (c) llama2_7b generate(): {json.dumps(out['llama2_7b'])}")
+    if agree < DECODE_AGREE:
+        raise AssertionError(f"(c) teacher-forced argmax agrees on {agree}")
+    del model
+    torch.cuda.empty_cache()
+    out["leg_s"]["c"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    p4 = {k: v for k, v in params.items()
+          if not k.startswith("layers.") or int(k.split(".")[1]) < 4}
+    del params
+    short = prompt[:, :200]
+    plain = G.generate(cfg4, p4, short, 64, device="cuda")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    spec, st = generate_speculative(cfg4, p4, cfg4, p4, short, 64, k=4,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    add(K.launch_counts())
+    same = (spec[0, 200:] == plain[0, 200:]).float().mean().item()
+    out["speculative"] = dict(st, wall_s=wall, acceptance=(
+        st["drafted_accepted"] / (4 * st["rounds"])),
+        tokens_equal_generate=same)
+    log(f"  (d) generate_speculative, llama2_7b at 4 layers, self draft: "
+        f"{json.dumps(out['speculative'])}")
+    if out["speculative"]["acceptance"] < 0.9:
+        raise AssertionError("(d) self-draft acceptance below 0.9")
+    del p4
+    torch.cuda.empty_cache()
+    out["leg_s"]["d"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+
+    ck = os.path.abspath(os.path.join(SAMPLE_DIR, "a"))
+    try:
+        if not os.path.isdir(ck):
+            # Run alone, without phase 11's checkpoint: a short run of its
+            # flags writes one.
+            rc, _, err, _, _ = _launcher(
+                "a checkpoint for sample.py", "--config", "llama_125m_lm",
+                "--steps", "2", "--seed", str(SEED), "--checkpoint-dir", ck)
+            if rc != 0:
+                raise AssertionError(f"(e) launcher failed:\n{err[-4000:]}")
+        cfg = registry.get_config("llama_125m_lm")
+        rows_in = [rng.integers(1, cfg.vocab_size, 24).tolist()
+                   for _ in range(2)]
+        flags = ["--config", "llama_125m_lm", "--checkpoint-dir", ck,
+                 "--max-new", "16"]
+        for r in rows_in:
+            flags += ["--prompt", ",".join(map(str, r))]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tensorflow_train_distributed_torch.sample",
+             *flags], capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"(e) sample failed:\n{proc.stderr[-4000:]}")
+        got = [json.loads(x)["completion"] for x in proc.stdout.splitlines()]
+        want = G.generate(cfg, CheckpointManager(ck).restore_params(),
+                          rows_in, 16, device="cuda")[:, 24:].tolist()
+        out["sample_cli"] = dict(wall_s=time.perf_counter() - t0,
+                                 rows=len(got), equal=got == want)
+        log(f"  (e) sample.py on phase 11's checkpoint: "
+            f"{json.dumps(out['sample_cli'])}")
+        if got != want:
+            raise AssertionError(f"(e) sample.py {got} != generate() {want}")
+    finally:
+        shutil.rmtree(os.path.abspath(SAMPLE_DIR), ignore_errors=True)
+    out["leg_s"]["e"] = time.perf_counter() - t_leg
+    log(f"  launches {totals}; legs {json.dumps(out['leg_s'])}")
+    if min(totals.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never ran: {totals}")
+    return totals, rows, out
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -2432,7 +3139,7 @@ def _flex_ms(q, k, v, window, sinks, do):
 
 
 def _splash_case(gen, label, b, h, kvh, s, d, window, sinks, *, packed,
-                 dtype, timed=False) -> dict:
+                 dtype, timed=False, flex=True) -> dict:
     """K7 forward and backward (the launch functions, on the pre-scaled
     query) on [B, H, S, D] views of [B, S, H, D] storage, held against an
     f32 computation of the same function and against the plain version;
@@ -2547,7 +3254,7 @@ def _splash_case(gen, label, b, h, kvh, s, d, window, sinks, *, packed,
     del ql, kl, vl
     torch.cuda.empty_cache()
     row["flex_ms"], row["flex_bwd_ms"] = (
-        _flex_ms(qs, kr, vr, window, sinks, do) if seg is None
+        _flex_ms(qs, kr, vr, window, sinks, do) if seg is None and flex
         else (None, None))
     shape = (f"B {b} H {h} KVH {kvh} S {s} D {d} window {window} sinks "
              f"{sinks}{' packed' if packed else ''} {row['dtype']}")
@@ -2922,6 +3629,12 @@ def phase_launcher() -> tuple:
             wall_s=dict(a=wa, b=wb, c=wc, d=wd, e=we), val=val_a,
             eval=la[-1]["eval"], step12_sha256=digests, losses=losses)
         log(f"  launcher: {json.dumps(stats)}")
+        # Run (a)'s checkpoints serve phase 21's sample.py, which deletes
+        # them.
+        keep = os.path.abspath(SAMPLE_DIR)
+        shutil.rmtree(keep, ignore_errors=True)
+        os.makedirs(keep)
+        shutil.move(a_dir, os.path.join(keep, "a"))
         return counts, stats
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3935,13 +4648,22 @@ def main() -> int:
     spec_counts, spec_rows, spec_serving = phase_spec_serve()
     rows["spec_serve"] = dict(spec_rows,
                               paged_kv_gather=rows["serve"]["paged_kv_gather"])
+    torch.cuda.empty_cache()
+    log("== phase 20: lane control, llama2_7b full width and depth")
+    lane_counts, lane_control = phase_lane_control()
+    rows["lane_control"] = {k: rows["serve"][k] for k in LANE_KERNELS}
+    torch.cuda.empty_cache()
+    log("== phase 21: generate() (mistral_7b rolling window, llama2_7b), "
+        "generate_speculative, sample.py")
+    generate_counts, rows["generate"], generation = phase_generate()
 
     paths = {"serve": counts, "train": train_counts,
              "moe_train": moe_counts, "window_train": window_counts,
              "launch": launch_counts, "bert": bert_counts,
              "wmt": wmt_counts, "mnist": mnist_counts,
              "lora_launch": lora_counts, "lora_7b": lora_7b_counts,
-             "spec_serve": spec_counts}
+             "spec_serve": spec_counts, "lane_control": lane_counts,
+             "generate": generate_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -3957,6 +4679,8 @@ def main() -> int:
     print(json.dumps({"lora_7b": lora_7b}), flush=True)
     print(json.dumps({"spec_serving": spec_serving}, default=str),
           flush=True)
+    print(json.dumps({"lane_control": lane_control}), flush=True)
+    print(json.dumps({"generation": generation}), flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,28 @@
-"""Decode-model construction and sampling helpers shared by the serving
-engine (counterpart of the first part of the JAX package's
-``models/generate.py``; ``generate()`` itself waits for a later slice)."""
+"""Autoregressive generation over a KV cache, and the decode-model and
+sampling helpers the serving engine shares (counterpart of the JAX
+package's ``models/generate.py``).
+
+``generate()`` runs the shared-index cache (``LlamaModel.init_cache(...,
+shared=True)``): the prompt in one fresh call, whose attention is the
+kernel dispatch (flash, or splash past a sliding window) over the prompt
+zero-padded to a multiple of 128, then one single-token call a new
+token; a sliding window shorter than the sequence decodes over a ring of
+``window`` rows (with the sink buffers for ``attention_sinks``).
+
+Sampling draws each token by Gumbel-max from the serving engine's
+counter streams (``serving.stream_uniforms``): row i of the batch draws
+its t-th new token from stream (``seed`` + i, t), so a seeded call gives
+the same tokens on any device.  ``jax.random``'s draws cannot be
+reproduced: sampled output agrees with the JAX package in law, greedy
+output token for token.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+import numpy as np
 import torch
 
 from tensorflow_train_distributed_torch.models.llama import (
@@ -70,3 +89,133 @@ def filter_logits(logits: torch.Tensor, *, temperature: float,
                              ).amin(dim=-1, keepdim=True)
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     return logits
+
+
+# The ROADMAP item that int8 weight-only and MoE serving wait for.
+_MOE_QUANT_ITEM = ("ROADMAP Queue 1 step 3: MoE decode and serving, with "
+                   "int8 weight-only serving (models/quant.py, --quant, "
+                   "--dispatch)")
+
+
+def serving_params(config, params: dict):
+    """(config, params) to decode with: LoRA adapters folded into their
+    kernels when ``config.lora`` names them (``lora.merge_lora``, checked
+    against the spec first), refused when the adapters come without it."""
+    from tensorflow_train_distributed_torch.models.lora import (
+        check_spec_matches,
+        has_lora_leaves,
+        merge_lora,
+    )
+
+    if config.lora is not None:
+        if has_lora_leaves(params):
+            check_spec_matches(params, config.lora)
+            params = merge_lora(params, config.lora)
+        return dataclasses.replace(config, lora=None), params
+    if has_lora_leaves(params):
+        raise ValueError(
+            "params carry unmerged LoRA adapters but config.lora is not "
+            "set: either serve with the training config (lora=LoraSpec) "
+            "or fold them in first via models.lora.merge_lora")
+    return config, params
+
+
+def generate(config: LlamaConfig, params: dict, prompt, max_new_tokens: int,
+             *, temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None, seed: Optional[int] = None,
+             cast_params: bool = True, quant_scales=None,
+             device="cuda") -> torch.Tensor:
+    """Sample ``max_new_tokens`` continuations of ``prompt`` [B, S] (ids,
+    any integer array); returns [B, S + max_new_tokens] int64 ids on
+    ``device``.
+
+    ``temperature`` 0: greedy argmax of the f32 logits.  > 0: a draw from
+    ``filter_logits`` (``top_k``, then ``top_p``) of the logits, from the
+    counter streams named by ``seed`` (required; the module docstring).
+    Prompt + new tokens must fit ``config.max_positions``; the cache
+    holds exactly that many positions (a ring of ``sliding_window`` rows
+    when the window is shorter).  ``cast_params`` casts floating params
+    to ``config.dtype``.  A LoRA config's adapters are folded in first
+    (``serving_params``).  int8 weights (``quant_scales``) and MoE
+    configs wait for a later slice."""
+    prompt = _ids(prompt)
+    if prompt.dim() != 2 or prompt.shape[0] < 1 or prompt.shape[1] < 1:
+        raise ValueError(f"prompt must be [B >= 1, S >= 1] token ids, got "
+                         f"shape {tuple(prompt.shape)}")
+    b, prompt_len = prompt.shape
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0, got "
+                         f"{max_new_tokens}")
+    if quant_scales is not None or not isinstance(config, LlamaConfig):
+        raise NotImplementedError(
+            f"int8 weights and MoE configs are not decoded yet: "
+            f"{_MOE_QUANT_ITEM}")
+    if max_new_tokens == 0:
+        return prompt.to(device)
+    if prompt_len + max_new_tokens > config.max_positions:
+        raise ValueError(
+            f"prompt {prompt_len} + {max_new_tokens} new tokens exceeds "
+            f"max_positions={config.max_positions} (the KV cache size)")
+    validate_sampling(temperature, top_k, top_p)
+    if temperature > 0 and seed is None:
+        raise ValueError("temperature sampling needs seed=")
+    config, params = serving_params(config, params)
+    if cast_params:
+        params = cast_floating(params, config.dtype)
+    model = _decode_model(config, params, device=device)
+    pick = _picker(temperature, top_k, top_p, seed, b, device)
+    return _generate(model, prompt.to(device), max_new_tokens, pick)
+
+
+def _ids(prompt) -> torch.Tensor:
+    """Token ids as an int64 tensor (from a tensor, array or list)."""
+    if not isinstance(prompt, torch.Tensor):
+        prompt = torch.as_tensor(np.asarray(prompt))
+    return prompt.to(torch.int64)
+
+
+def _picker(temperature, top_k, top_p, seed, batch: int, device):
+    """``pick(logits [B, V], t)``: the t-th new token of every row."""
+    if temperature == 0.0:
+        return lambda logits, t: torch.argmax(logits.float(), dim=-1)
+    from tensorflow_train_distributed_torch.models.speculative import (
+        gumbel_argmax,
+    )
+    from tensorflow_train_distributed_torch.serving import (
+        PICK_DRAW,
+        stream_uniforms,
+    )
+
+    seeds = int(seed) + torch.arange(batch, dtype=torch.int64,
+                                     device=device)
+
+    def pick(logits, t):
+        filt = filter_logits(logits.float(), temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+        counts = torch.full_like(seeds, t)
+        return gumbel_argmax(filt, stream_uniforms(seeds, counts, PICK_DRAW,
+                                                   filt.shape[-1]))
+
+    return pick
+
+
+@torch.no_grad()
+def _generate(model: LlamaModel, prompt: torch.Tensor, max_new: int, pick,
+              logits_out: Optional[list] = None) -> torch.Tensor:
+    """The decode loop: the prompt in one fresh call (the cache sized to
+    prompt + ``max_new``), then ``max_new - 1`` single-token calls (the
+    last token is never fed back).  ``logits_out`` collects each step's
+    f32 logits [B, V] (the seam a teacher-forced check reads)."""
+    b, s = prompt.shape
+    cache = model.init_cache(b, s + max_new, shared=True,
+                             device=prompt.device)
+    logits = model(prompt, cache)[:, -1].float()
+    toks = []
+    for t in range(max_new):
+        if t:
+            logits = model(toks[-1][:, None], cache)[:, -1].float()
+        if logits_out is not None:
+            logits_out.append(logits)
+        toks.append(pick(logits, t))
+    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+

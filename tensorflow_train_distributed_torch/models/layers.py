@@ -6,8 +6,9 @@ tied logits, ``attend``), RoPE (with the Llama-3 frequency scaling),
 kernel, ``LayerNorm``, ``Conv``, the gated and the plain ``MlpBlock``,
 dropout, and ``MultiHeadAttention`` in its training branch (causal or
 full self-attention and cross-attention through the kernel dispatch,
-sliding windows included) and its decode modes (linear and paged KV
-caches; a sliding window's rolling cache is not ported).
+sliding windows included) and its decode modes (the shared-index cache
+of ``generate()``, with a sliding window's rolling ring and the sink
+buffers, and the serving engine's per-row linear and paged caches).
 
 Weights keep the flax layout, so converted checkpoints load verbatim:
 dense kernels are ``[in, out]`` (``y = x @ kernel``), the embedding table
@@ -31,10 +32,16 @@ in place saves the copy):
 - paged (the slot grid): per layer ``key_pool`` / ``value_pool``
   [nb, bs, kvh, hd] and ``kv_pool_scales`` [2, nb, bs, kvh]; plus one
   ``block_table`` [B, n_blk] int32 shared by all layers (the JAX package
-  keeps an identical copy per layer).
+  keeps an identical copy per layer);
+- shared-index (``generate()``, the JAX ``_decode_step``): the linear
+  leaves at ``cache_len`` rows, or for a ``window`` shorter than
+  ``cache_len`` a ring of ``window`` rows (position p in slot p % window)
+  with ``sink_key`` / ``sink_value`` [B, sinks, kvh, hd] buffers for the
+  attention sinks.
 
-Both carry one ``index`` [B] int32: each row's position, advanced by the
-model once per call.
+The linear and paged caches carry one ``index`` [B] int32, each row's
+position; the shared-index cache one host int for every row.  The model
+advances it once per call.
 
 Dropout draws from the ``torch.Generator`` that ``dropout_generator``
 installs (the trainer installs one seeded from (seed, step), as the JAX
@@ -74,10 +81,42 @@ class KVCache:
     index: torch.Tensor
     cache_len: int
     block_table: Optional[torch.Tensor] = None
+    # Shared-index mode: ``index`` is a host int, the position of every
+    # row; ``fresh`` until the first call has written it.
+    shared: bool = False
+    fresh: bool = False
 
     @property
     def paged(self) -> bool:
         return self.block_table is not None
+
+
+def shared_cache_rows(window: Optional[int], sinks: int, kv_int8: bool,
+                      cache_len: int) -> tuple:
+    """(rows, rolling) of a shared-index cache layer, with the JAX
+    ``_decode_step``'s refusals: a window shorter than ``cache_len``
+    rolls a ring of ``window`` rows; sinks need a window at least as
+    long; an int8 cache is linear only."""
+    if cache_len <= 0:
+        raise ValueError("decode=True needs cache_len > 0")
+    if sinks and (window is None or sinks > window):
+        raise ValueError(f"sinks={sinks} needs a sliding window >= sinks, "
+                         f"got window={window}")
+    rolling = window is not None and cache_len > window
+    if kv_int8 and (rolling or sinks):
+        raise ValueError(
+            "kv_cache_int8 supports the LINEAR cache only (the rolling "
+            "window ring / sink buffers would need scale plumbing through "
+            "roll/concat, and the window already bounds cache memory)")
+    return (window if rolling else cache_len), rolling
+
+
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, S, ...] zero-padded along S to ``n`` rows."""
+    if t.shape[1] == n:
+        return t
+    pad = t.new_zeros((t.shape[0], n - t.shape[1], *t.shape[2:]))
+    return torch.cat([t, pad], dim=1)
 
 
 class _Leaf(nn.Module):
@@ -517,13 +556,16 @@ class MultiHeadAttention(nn.Module):
             return self._train_step(q, k, v, segment_ids)
         if x_kv is not None or not (self.causal and self.use_rope):
             raise ValueError("decode is causal self-attention with RoPE")
-        if self.window is not None or self.sinks:
-            raise NotImplementedError(
-                "decode with a sliding window or attention sinks (the "
-                "rolling-cache decode) is not ported yet")
         if segment_ids is not None:
             raise ValueError("decode mode does not take packed segments")
-        if cache.paged:
+        if cache.shared:
+            out = self._decode_step(q, k, v, layer_cache, cache)
+        elif self.window is not None or self.sinks:
+            raise ValueError(
+                "slot_decode (per-slot cache positions) supports the "
+                "LINEAR cache only (full-precision or kv_cache_int8) "
+                "— window/sinks keep the shared-index path")
+        elif cache.paged:
             out = self._paged_decode_step(q, k, v, layer_cache, positions,
                                           cache)
         else:
@@ -602,6 +644,160 @@ class MultiHeadAttention(nn.Module):
         return K.paged_attention(q.contiguous(), kpool, vpool, table,
                                  cache.index, k_scales=ks, v_scales=vs,
                                  cache_len=cache.cache_len)
+
+    # -- the shared-index cache (generate()) ---------------------------------
+
+    def _decode_step(self, q, k, v, lc, cache: KVCache):
+        """Append this call's rows at the shared position ``cache.index``
+        and attend over the cache (the JAX ``_decode_step``).  The first
+        multi-token call on a fresh cache attends the block alone through
+        the attention kernels (``_fresh_block``); later calls take the
+        linear cache's masked attention, or under a rolling window the
+        ring's single-token step or ``_rolling_block``."""
+        cur, q_len = cache.index, q.shape[1]
+        _, rolling = shared_cache_rows(self.window, self.sinks,
+                                       self.kv_cache_int8, cache.cache_len)
+        if cache.fresh and q_len > 1:
+            return self._fresh_block(q, k, v, lc, rolling)
+        if rolling:
+            if q_len > 1:
+                return self._rolling_block(q, k, v, lc, cur)
+            return self._rolling_step(q, k, v, lc, cur)
+        c = lc["key_cache"].shape[1]
+        if cur + q_len > c:
+            raise ValueError(f"decode past the cache: position {cur} + "
+                             f"{q_len} rows > cache_len {c}")
+        k_st, v_st, scales = self._stored(k, v, lc["key_cache"].dtype)
+        lc["key_cache"][:, cur:cur + q_len] = k_st
+        lc["value_cache"][:, cur:cur + q_len] = v_st
+        kc, vc = self._linear_rows(lc, scales, cur, q_len)
+        kv_pos = torch.arange(c, device=q.device)
+        q_pos = cur + torch.arange(q_len, device=q.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]              # [q, C]
+        if self.window is not None:
+            # The last ``window`` positions and the sink prefix.
+            band = kv_pos[None, :] > q_pos[:, None] - self.window
+            if self.sinks:
+                band = band | (kv_pos < self.sinks)[None, :]
+            mask = mask & band
+        return self._cache_attend(q, kc, vc, mask[None, None])
+
+    def _linear_rows(self, lc, scales, cur: int, q_len: int):
+        """The linear cache's rows as attention reads them: dequantized
+        (int8, after storing this call's scales) or as stored."""
+        if scales is None:
+            return lc["key_cache"], lc["value_cache"]
+        lc["kv_scales"][:, :, cur:cur + q_len] = scales
+        sc = lc["kv_scales"].to(self.dtype)
+        return (lc["key_cache"].to(self.dtype) * sc[0][..., None],
+                lc["value_cache"].to(self.dtype) * sc[1][..., None])
+
+    def _fresh_block(self, q, k, v, lc, rolling: bool):
+        """The first multi-token call on a fresh shared-index cache: the
+        block attends to itself alone, causal, with the window band and
+        the sinks' keep-set — the function of the kernel dispatch
+        (``multihead_attention_kernel``: flash, or splash past the
+        window).  Its gate wants lengths that are multiples of 128, so
+        q/k/v are zero-padded at the end: under causal masking no real
+        query sees a pad key, the pad rows' outputs are dropped, and only
+        the real rows are written to the cache, ring or sink buffers.  An
+        int8 cache's rows are attended as stored (dequantized), as the
+        JAX linear path reads them."""
+        b, s = q.shape[:2]
+        kdt = lc["key_cache"].dtype
+        if self.kv_cache_int8:
+            k_st, v_st, scales = self._stored(k, v, kdt)
+            lc["key_cache"][:, :s] = k_st
+            lc["value_cache"][:, :s] = v_st
+            lc["kv_scales"][:, :, :s] = scales
+            sc = scales.to(self.dtype)
+            kk = k_st.to(self.dtype) * sc[0][..., None]
+            vv = v_st.to(self.dtype) * sc[1][..., None]
+        else:
+            kk, vv = k.to(kdt), v.to(kdt)
+            w = lc["key_cache"].shape[1]
+            if not rolling or s < w:
+                lc["key_cache"][:, :s] = kk
+                lc["value_cache"][:, :s] = vv
+            else:
+                # The ring after the block: position p in slot p % w.
+                end = s % w
+                lc["key_cache"].copy_(torch.roll(kk[:, -w:], end, dims=1))
+                lc["value_cache"].copy_(torch.roll(vv[:, -w:], end, dims=1))
+            if "sink_key" in lc:
+                self._write_sinks(lc, k, v, 0)
+        n = -(-s // 128) * 128
+        out = multihead_attention_kernel(
+            _pad_rows(q, n).transpose(1, 2), _pad_rows(kk, n).transpose(1, 2),
+            _pad_rows(vv, n).transpose(1, 2), causal=True, window=self.window,
+            sinks=self.sinks)
+        return out[:, :, :s].transpose(1, 2)
+
+    def _write_sinks(self, lc, k, v, cur: int) -> None:
+        """Copy this call's rows that land in the sink range (positions
+        [cur, cur + q_len) within [0, sinks)) into the sink buffers."""
+        lo, hi = cur, min(cur + k.shape[1], self.sinks)
+        if lo < hi:
+            lc["sink_key"][:, lo:hi] = k[:, :hi - lo].to(lc["sink_key"].dtype)
+            lc["sink_value"][:, lo:hi] = v[:, :hi - lo].to(
+                lc["sink_value"].dtype)
+
+    def _rolling_step(self, q, k, v, lc, cur: int):
+        """A single token under the rolling ring: its row goes to slot
+        cur % w, and slot j then holds position cur - ((cur - j) % w);
+        slots not yet written (negative positions) and those the sink
+        buffers serve (positions < sinks) are masked out."""
+        kc, vc = lc["key_cache"], lc["value_cache"]
+        w = kc.shape[1]
+        slot = cur % w
+        kc[:, slot] = k[:, 0].to(kc.dtype)
+        vc[:, slot] = v[:, 0].to(vc.dtype)
+        j = torch.arange(w, device=q.device)
+        slot_pos = cur - torch.remainder(cur - j, w)
+        mask = slot_pos >= self.sinks
+        if self.sinks:
+            self._write_sinks(lc, k, v, cur)
+            kc = torch.cat([lc["sink_key"], kc], dim=1)
+            vc = torch.cat([lc["sink_value"], vc], dim=1)
+            mask = torch.cat([torch.arange(self.sinks, device=q.device)
+                              <= cur, mask])
+        return self._cache_attend(q, kc, vc, mask[None, None, None])
+
+    def _rolling_block(self, q, k, v, lc, cur: int):
+        """A multi-token call under the rolling ring at any position
+        (chunked prefill, speculative blocks): the ring unrolled into
+        positional order (slot j holds position cur - w + ((j - cur) %
+        w)), the block's rows after it, each query kept to the causal
+        window band over the w + q_len keys (and the sink columns), and
+        the last w rows re-rolled into slot order as the new ring."""
+        kc, vc = lc["key_cache"], lc["value_cache"]
+        w, q_len, sinks, dev = kc.shape[1], q.shape[1], self.sinks, q.device
+        if sinks:
+            # The block's own sink rows first: the sink columns below
+            # read the merged buffer.
+            self._write_sinks(lc, k, v, cur)
+        shift = cur % w
+        kcat = torch.cat([torch.roll(kc, -shift, dims=1), k.to(kc.dtype)],
+                         dim=1)
+        vcat = torch.cat([torch.roll(vc, -shift, dims=1), v.to(vc.dtype)],
+                         dim=1)
+        kv_pos = cur - w + torch.arange(w + q_len, device=dev)
+        q_pos = cur + torch.arange(q_len, device=dev)
+        keep = ((kv_pos[None, :] >= 0) & (kv_pos[None, :] <= q_pos[:, None])
+                & (q_pos[:, None] - kv_pos[None, :] < w))
+        end = (cur + q_len) % w
+        kc.copy_(torch.roll(kcat[:, -w:], end, dims=1))
+        vc.copy_(torch.roll(vcat[:, -w:], end, dims=1))
+        if sinks:
+            # Sink columns serve positions < sinks, ring and block rows
+            # the rest.
+            keep = keep & (kv_pos[None, :] >= sinks)
+            sink_keep = (torch.arange(sinks, device=dev)[None, :]
+                         <= q_pos[:, None])
+            keep = torch.cat([sink_keep, keep], dim=1)
+            kcat = torch.cat([lc["sink_key"], kcat], dim=1)
+            vcat = torch.cat([lc["sink_value"], vcat], dim=1)
+        return self._cache_attend(q, kcat, vcat, keep[None, None])
 
     def _cache_attend(self, q, kc, vc, mask):
         """Masked einsum attention of q over dense cache buffers."""

@@ -11,12 +11,11 @@ SwiGLU FFN, untied LM head, optional GQA; plus the Gemma and Qwen knobs.
 
 The model holds a plain list of layers: the JAX package's scanned versus
 unrolled layouts differ only in its parameter tree, which
-``convert.params_from_flax`` flattens (so ``scan_layers`` is not a field
-here).  ``LlamaConfig.lora`` (a ``models.lora.LoraSpec``) builds the
+``convert.params_from_flax`` flattens (``scan_layers`` only names the
+paths of the serving engine's KV wire manifest).  ``LlamaConfig.lora`` (a ``models.lora.LoraSpec``) builds the
 model with rank-r adapters on the targeted projections and everything
 else frozen (``lora.apply_lora``).  Sequence and pipeline parallelism
-wait for later slices, as does the rolling KV cache that decodes a
-sliding-window model.
+wait for later slices.
 
 Rematerialisation (``remat``, ``remat_policy``), as the JAX package's:
 
@@ -72,8 +71,8 @@ class LlamaConfig:
     remat: bool = True
     remat_policy: str = "full"
     # Sliding-window attention (Mistral) / StreamingLLM sinks: trained
-    # through the splash kernel (K7); decode and the serving engine refuse
-    # them (the rolling cache is not ported).
+    # through the splash kernel (K7), decoded by generate() over the
+    # rolling ring; the serving engine refuses them, as the JAX one does.
     sliding_window: Optional[int] = None
     attention_sinks: int = 0
     # int8 KV cache: rows store int8 with one f32 scale per
@@ -96,6 +95,11 @@ class LlamaConfig:
     # LoRA fine-tuning (models.lora.LoraSpec): a frozen base and trainable
     # adapters on the targeted projections; None = full fine-tuning.
     lora: object = None
+    # The JAX package's layer layout (scanned or unrolled), as its preset
+    # has it.  The port's model is one list of layers either way; the
+    # field names the paths of the KV handoff's wire manifest
+    # (``serving.ServingEngine._serialize_rows``).
+    scan_layers: bool = True
 
     def __post_init__(self):
         if self.remat_policy not in REMAT_POLICIES:
@@ -168,7 +172,7 @@ LLAMA_PRESETS = {
     "llama_tiny": LlamaConfig(vocab_size=256, d_model=64, num_layers=2,
                               num_heads=4, num_kv_heads=2, ffn_size=128,
                               max_positions=128, dtype=torch.float32,
-                              remat=False),
+                              remat=False, scan_layers=False),
     # The JAX preset differs from llama_tiny in its scanned parameter tree
     # and in remat.
     "llama_tiny_scan": LlamaConfig(vocab_size=256, d_model=64, num_layers=2,
@@ -284,7 +288,10 @@ class LlamaModel(nn.Module):
             # Gemma input normalizer, the constant rounded to x's dtype.
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
-        if cache is not None:
+        if cache is not None and cache.shared:
+            positions = (cache.index + torch.arange(
+                tokens.shape[1], device=tokens.device)).expand(tokens.shape)
+        elif cache is not None:
             positions = cache.index[:, None] + torch.arange(
                 tokens.shape[1], device=tokens.device)
         elif positions is None:
@@ -300,6 +307,7 @@ class LlamaModel(nn.Module):
             for layer, lc in zip(self.layers, cache.layers):
                 x = layer(x, lc, cache, positions=positions, rope=rope)
             cache.index += tokens.shape[1]
+            cache.fresh = False
         else:
             extra = ({"context_fn": _DOTS_CONTEXT}
                      if cfg.remat_policy == "dots" else {})
@@ -314,11 +322,16 @@ class LlamaModel(nn.Module):
         return self.lm_head(self.final_norm(x))
 
     def init_cache(self, batch: int, cache_len: int, *, paged_blocks: int = 0,
-                   block_size: int = 0, device=None) -> L.KVCache:
-        """Zeroed cache: linear ([batch, cache_len] rows per layer) or,
-        with ``paged_blocks`` (scratch block 0 included), a pool of
-        ``paged_blocks`` blocks of ``block_size`` rows plus a
-        [batch, ceil(cache_len / block_size)] table pointing at scratch."""
+                   block_size: int = 0, shared: bool = False,
+                   device=None) -> L.KVCache:
+        """Zeroed cache: linear ([batch, cache_len] rows per layer, one
+        position per row) or, with ``paged_blocks`` (scratch block 0
+        included), a pool of ``paged_blocks`` blocks of ``block_size`` rows
+        plus a [batch, ceil(cache_len / block_size)] table pointing at
+        scratch.  ``shared``: the shared-index cache of ``generate()`` —
+        one position for every row; a ring of ``sliding_window`` rows
+        where the window is shorter than ``cache_len``, with sink buffers
+        for ``attention_sinks`` (``layers.shared_cache_rows``)."""
         cfg = self.config
         device = device if device is not None else self.lm_head.kernel.device
         kvh, hd = cfg.kv_heads, cfg.attn_head_dim
@@ -326,6 +339,25 @@ class LlamaModel(nn.Module):
 
         def zeros(*shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=device)
+
+        if shared:
+            rows, rolling = L.shared_cache_rows(
+                cfg.sliding_window, cfg.attention_sinks, cfg.kv_cache_int8,
+                cache_len)
+            layers = []
+            for _ in range(cfg.num_layers):
+                lc = {"key_cache": zeros(batch, rows, kvh, hd),
+                      "value_cache": zeros(batch, rows, kvh, hd)}
+                if cfg.kv_cache_int8:
+                    lc["kv_scales"] = zeros(2, batch, rows, kvh,
+                                            dtype=torch.float32)
+                if rolling and cfg.attention_sinks:
+                    for name in ("sink_key", "sink_value"):
+                        lc[name] = zeros(batch, cfg.attention_sinks, kvh, hd,
+                                         dtype=cfg.dtype)
+                layers.append(lc)
+            return L.KVCache(layers=layers, index=0, cache_len=cache_len,
+                             shared=True, fresh=True)
 
         layers = []
         for _ in range(cfg.num_layers):

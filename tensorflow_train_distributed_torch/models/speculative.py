@@ -1,10 +1,10 @@
 """Speculative decoding's shared rules: a small draft model proposes, the
 target verifies a block of proposals in one forward.
 
-Counterpart of the JAX package's ``models/speculative.py`` without its
-batch-1 library path (``generate_speculative``), which comes with the
-port's ``generate()``.  The serving engine (``serving.ServingEngine`` with
-a draft) runs these rules over all slots at once:
+Counterpart of the JAX package's ``models/speculative.py``.  The serving
+engine (``serving.ServingEngine`` with a draft) runs these rules over all
+slots at once, ``generate_speculative`` over one prompt on the shared-index
+caches of ``generate()``:
 
 - ``accept_block``: the greedy rule (Leviathan et al.).  Each row emits
   its leading drafts that equal the target's argmax, then the target's
@@ -17,6 +17,12 @@ a draft) runs these rules over all slots at once:
   as plain sampling from the target.
 - ``DepthController``: the acceptance-adaptive choice among a fixed set
   of draft depths, a deterministic function of ``observe()`` alone.
+- ``generate_speculative``: the batch-1 library path.  Greedy output is
+  ``generate()``'s token for token; sampled output draws from the counter
+  streams of ``serving.stream_uniforms`` (stream (``seed``, tokens done
+  so far), draw indices 0..k for the draft, k+1 for the acceptance
+  uniforms, k+2 for the replacement or bonus, ``PICK_DRAW`` for the first
+  token), in law the target's.
 """
 
 from __future__ import annotations
@@ -247,3 +253,153 @@ class DepthController:
             "acceptance": self._ewma,
             "per_depth": {d: dict(v) for d, v in self._stats.items()},
         }
+
+
+def generate_speculative(target_config: LlamaConfig, target_params: dict,
+                         draft_config: LlamaConfig, draft_params: dict,
+                         prompt, max_new_tokens: int, *, k: int = 4,
+                         cast_params: bool = True, temperature: float = 0.0,
+                         top_k=None, top_p=None, seed: int = 0,
+                         device="cuda"):
+    """Decode ``max_new_tokens`` of a batch-1 ``prompt`` [1, S] by draft
+    speculation; returns ``(tokens [1, S + max_new], stats)`` with
+    ``stats`` = {"rounds", "drafted_accepted", "tokens"}.  Greedy
+    (``temperature`` 0): the tokens of ``generate(target_config,
+    target_params, prompt, max_new_tokens)``.  Sampling: the draft
+    samples its proposals under the same filters and acceptance takes
+    the rejection rule, so the tokens follow plain sampled decoding of
+    the target; ``seed`` names the streams."""
+    from tensorflow_train_distributed_torch.models.generate import (
+        _ids,
+        cast_floating,
+        validate_sampling,
+    )
+    from tensorflow_train_distributed_torch.models.lora import (
+        has_lora_leaves,
+    )
+
+    validate_sampling(temperature, top_k, top_p)
+    prompt = _ids(prompt)
+    if prompt.dim() != 2 or prompt.shape[0] != 1:
+        raise ValueError(
+            f"speculative decode is batch-1 (per-row acceptance lengths "
+            f"need per-row cache indices); got shape {tuple(prompt.shape)}")
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got "
+                         f"{max_new_tokens}")
+    if k < 1:
+        raise ValueError(f"k (draft block length) must be >= 1, got {k}")
+    if draft_config.vocab_size != target_config.vocab_size:
+        raise ValueError(
+            f"draft vocab {draft_config.vocab_size} != target vocab "
+            f"{target_config.vocab_size}: token ids would not line up")
+    _reject_config("target", target_config)
+    _reject_config("draft", draft_config)
+    total = prompt.shape[1] + max_new_tokens + k + 1
+    for name, cfg in (("target", target_config), ("draft", draft_config)):
+        if total > cfg.max_positions:
+            raise ValueError(
+                f"prompt + max_new + k+1 = {total} exceeds the {name}'s "
+                f"max_positions {cfg.max_positions}")
+    for name, p in (("target", target_params), ("draft", draft_params)):
+        if any(v.dtype == torch.int8 for v in p.values()):
+            raise ValueError(
+                f"{name} params are int8-quantized: speculative decode "
+                "has no dequant path — pass full-precision trees "
+                "(generate() handles int8 serving)")
+        if has_lora_leaves(p):
+            raise ValueError(
+                f"{name} params carry unmerged LoRA adapters — fold them "
+                "in first (models.lora.merge_lora)")
+    if cast_params:
+        target_params = cast_floating(target_params, target_config.dtype)
+        draft_params = cast_floating(draft_params, draft_config.dtype)
+    return _speculate(target_config, draft_config, target_params,
+                      draft_params, prompt.to(device), int(max_new_tokens),
+                      int(k), float(temperature), top_k, top_p, int(seed))
+
+
+@torch.no_grad()
+def _speculate(target_config, draft_config, target_params, draft_params,
+               prompt, max_new: int, k: int, temperature: float, top_k,
+               top_p, seed: int):
+    """The rounds: the draft's k+1 single-token steps (the last only
+    appends, so both caches hold the same rows), the target's verify of
+    [tok, d_0..d_{k-1}] in one call, the acceptance, and both caches
+    rolled back to the accepted context."""
+    from tensorflow_train_distributed_torch.models.generate import (
+        _decode_model,
+        filter_logits,
+    )
+    from tensorflow_train_distributed_torch.serving import (
+        PICK_DRAW,
+        stream_uniforms,
+    )
+
+    dev = prompt.device
+    greedy = temperature == 0.0
+    seeds = torch.tensor([seed], dtype=torch.int64, device=dev)
+
+    def filt(lg):
+        return filter_logits(lg, temperature=temperature, top_k=top_k,
+                             top_p=top_p)
+
+    def uniforms(done: int, draw: int, width: int):
+        counts = torch.tensor([done], dtype=torch.int64, device=dev)
+        return stream_uniforms(seeds, counts, draw, width)
+
+    prompt_len = prompt.shape[1]
+    cache_len = prompt_len + max_new + k + 1
+    target = _decode_model(target_config, target_params, device=dev)
+    draft = _decode_model(draft_config, draft_params, device=dev)
+    t_cache = target.init_cache(1, cache_len, shared=True, device=dev)
+    d_cache = draft.init_cache(1, cache_len, shared=True, device=dev)
+    last = target(prompt, t_cache)[:, -1].float()
+    draft(prompt, d_cache)
+    if greedy:
+        tok = torch.argmax(last, dim=-1)
+    else:
+        f = filt(last)
+        tok = gumbel_argmax(f, uniforms(0, PICK_DRAW, f.shape[-1]))
+    out = [int(tok)]
+    rounds = accepted = 0
+    while len(out) < max_new:
+        done = len(out)
+        ctx = prompt_len + done - 1      # rows both caches hold
+        drafts, qs = [], []
+        t = tok
+        for j in range(k + 1):
+            lg = draft(t[:, None], d_cache)[:, -1].float()
+            if j == k:
+                break                      # append-only step
+            if greedy:
+                t = torch.argmax(lg, dim=-1)
+            else:
+                f = filt(lg)
+                t = gumbel_argmax(f, uniforms(done, j, f.shape[-1]))
+                qs.append(torch.softmax(f, dim=-1))
+            drafts.append(t)
+        d_block = torch.stack(drafts, dim=1)                  # [1, k]
+        block = torch.cat([tok[:, None], d_block], dim=1)
+        logits = target(block, t_cache).float()               # [1, k+1, V]
+        if greedy:
+            emit, emitted, acc, nxt = accept_block(
+                d_block, torch.argmax(logits, dim=-1))
+        else:
+            p = torch.softmax(filt(logits), dim=-1)
+            emit, emitted, acc, nxt = sampled_accept(
+                d_block, torch.stack(qs, dim=1), p,
+                uniforms(done, k + 1, k), uniforms(done, k + 2, p.shape[-1]))
+        n = int(emitted[0])
+        out.extend(int(x) for x in emit[0, :n])
+        rounds += 1
+        accepted += int(acc[0])
+        # Roll both caches back to the emitted tokens: rows past them are
+        # rewritten before anything attends them.
+        d_cache.index = t_cache.index = ctx + n
+        tok = nxt.reshape(1)
+    gen = torch.tensor(out[:max_new], dtype=torch.int64, device=dev)
+    stats = {"rounds": rounds, "drafted_accepted": accepted,
+             "tokens": max_new}
+    return torch.cat([prompt, gen[None]], dim=1), stats
+

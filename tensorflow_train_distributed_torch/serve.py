@@ -20,7 +20,8 @@ serves speculatively: the draft proposes ``--speculative-k`` tokens a slot
 and round, and greedy output stays the target's own; ``--spec-depth
 adaptive[:K1,K2,...]`` lets the depth follow the measured acceptance and
 ``--spec-depth fixed:K`` pins it.  With ``--kv-int8`` the draft's KV is
-int8 too.
+int8 too.  ``--prefix IDS`` preloads a shared system prompt once
+(``preload_prefix``); requests that extend it prefill only their suffix.
 
 Weights come from ``--checkpoint-dir`` (the parameters of the newest
 checkpoint the port's launcher wrote there, restored without the rest of
@@ -60,14 +61,14 @@ from tensorflow_train_distributed_torch.models.llama import LlamaConfig
 from tensorflow_train_distributed_torch.ops import kernels as K
 
 
-def parse_prompt(spec: str) -> list:
+def parse_prompt(spec: str, flag: str = "--prompt") -> list:
     try:
         ids = [int(t) for t in spec.split(",") if t.strip()]
     except ValueError:
-        raise SystemExit(f"--prompt must be comma-separated token ids, got "
+        raise SystemExit(f"{flag} must be comma-separated token ids, got "
                          f"{spec!r}")
     if not ids:
-        raise SystemExit("--prompt needs at least one token id")
+        raise SystemExit(f"{flag} needs at least one token id")
     return ids
 
 
@@ -238,6 +239,11 @@ def main(argv=None) -> int:
                    help="seed of the random weights without --params-npz")
     p.add_argument("--prompt", action="append", default=[], metavar="IDS",
                    help="comma-separated token ids; repeat per request")
+    p.add_argument("--prefix", default="", metavar="IDS",
+                   help="comma-separated token ids of a shared prompt "
+                        "prefix (a system prompt): prefilled once before "
+                        "the requests, and every request that extends it "
+                        "prefills only its suffix (preload_prefix)")
     p.add_argument("--requests", default="",
                    help="JSONL file: {'prompt': [ids], 'max_new': N, "
                         "'seed': S} per line")
@@ -300,6 +306,11 @@ def main(argv=None) -> int:
                          f"(it comes with the MoE serving slice)")
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_cache_int8=True)
+    prefix = parse_prompt(args.prefix, "--prefix") if args.prefix else []
+    bad = sorted({t for t in prefix if not 0 <= t < cfg.vocab_size})
+    if bad:
+        raise SystemExit(f"--prefix ids outside vocab [0, "
+                         f"{cfg.vocab_size}): {bad[:8]}")
     reqs = [{"prompt": parse_prompt(s), "max_new": args.max_new,
              "seed": None} for s in args.prompt]
     if args.requests:
@@ -328,6 +339,8 @@ def main(argv=None) -> int:
             prefill_budget=0 if args.no_interleave else args.prefill_budget,
             kv_block_size=args.kv_block_size,
             kv_pool_blocks=args.kv_pool_blocks, device=args.device)
+        if prefix:
+            eng.preload_prefix(prefix)
         ids = [eng.submit(r["prompt"], r["max_new"], seed=r["seed"])
                for r in reqs]
     except ValueError as e:
@@ -335,7 +348,8 @@ def main(argv=None) -> int:
     out = eng.run()
     summary = {"launches": {k: v for k, v in K.launch_counts().items() if v},
                **eng.stats, "overlap_ratio": eng.overlap_ratio(),
-               "prefill_stats": eng.prefill_stats}
+               "prefill_stats": eng.prefill_stats,
+               "kv_stats": eng.kv_stats}
     if draft_cfg is not None:
         s = eng.spec_stats
         summary.update(spec_stats=s, acceptance=(

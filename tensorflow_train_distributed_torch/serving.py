@@ -56,20 +56,42 @@ neighbours, chunk boundaries or the overlap.  The JAX engine's threefry
 bits cannot be reproduced, so sampled output agrees with it in
 distribution, not token for token.
 
+Lane control, as the JAX engine's:
+
+- ``cancel`` drops a queued request, a staged partial prefill (its
+  blocks free at once) or a decoding lane (its prompt blocks stay
+  radix-held, the generated tail goes; a chunk in flight is trimmed at
+  its harvest and the lane is flushed before the next dispatch).
+- ``submit(..., resume_from=g)`` declares the prompt's last ``g`` tokens
+  the request's own earlier output: the first pick draws at stream
+  counter ``g``, so a resumed seeded stream continues where the
+  uninterrupted one would have been.
+- ``preload_prefix`` prefills a shared prefix once into a batch-1 cache
+  pair (kept in an LRU of ``prefix_cache_limit`` entries) and seeds the
+  radix index with its full blocks; later requests that extend it copy
+  those blocks with the paged KV gather and take the sub-block tail from
+  the pair.
+- ``export_prefix_kv``/``install_prefix_kv`` and ``export_lane``/
+  ``install_lane`` move a prefix's or a lane's full-block KV rows in the
+  JAX engine's wire recipe (``_serialize_rows``): a manifest of flax
+  cache paths, numpy dtype strings and shapes in path-sorted order, and
+  the rows' bytes verbatim (int8 rows with their f32 scales), so either
+  package installs what the other exports.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain versions run (``ops.kernels``).
 
-Waiting for later slices: ``preload_prefix``, lane and prefix
-export/install, cancellation and resume-from-token, HBM autosizing, the
-linear-cache engine, int8 weights and MoE.
+Waiting for later slices: HBM autosizing, the linear-cache engine, int8
+weights and MoE.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Optional
 
 import numpy as np
@@ -86,6 +108,8 @@ from tensorflow_train_distributed_torch.models.generate import (
 from tensorflow_train_distributed_torch.models.layers import KVCache
 from tensorflow_train_distributed_torch.models.lora import has_lora_leaves
 from tensorflow_train_distributed_torch.ops import kernels as K
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -122,6 +146,8 @@ class _PrefillTask:
     first_host: Optional[int] = None
     d_cursor: int = 0              # draft pieces completed
     d_cache_1: Optional[KVCache] = None
+    resume: int = 0                # the first pick's stream counter
+    pre_pair: Optional[tuple] = None   # a preloaded prefix's caches
 
 
 def _killed(switch: str) -> bool:
@@ -132,12 +158,31 @@ def _killed(switch: str) -> bool:
     return os.environ.get(switch, "0") not in ("", "0")
 
 
+def _pool_bytes(config, n_blocks: int, block_size: int) -> int:
+    """Bytes of one model's paged pools: key and value rows per layer,
+    plus the f32 scale pool of an int8 cache."""
+    rows = config.num_layers * n_blocks * block_size * config.kv_heads
+    if config.kv_cache_int8:
+        return rows * (2 * config.attn_head_dim + 2 * 4)
+    item = torch.empty((), dtype=config.dtype).element_size()
+    return rows * 2 * config.attn_head_dim * item
+
+
 def _bucket_len(n: int, buckets) -> int:
     for b in buckets:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds the largest prefill "
                      f"bucket {buckets[-1]}")
+
+
+# torch dtype -> (numpy's dtype string on the wire, the name the JAX
+# engine's errors print): JAX writes ``np.dtype(...).str``, and numpy's
+# bfloat16 (ml_dtypes) is a two-byte void there.
+_WIRE_DTYPES = {torch.float32: ("<f4", "float32"),
+                torch.bfloat16: ("<V2", "bfloat16"),
+                torch.float16: ("<f2", "float16"),
+                torch.int8: ("|i1", "int8")}
 
 
 # -- sampling streams ---------------------------------------------------------
@@ -212,6 +257,7 @@ class ServingEngine:
                  prefill_budget: Optional[int] = None,
                  kv_block_size: int = 16,
                  kv_pool_blocks: Optional[int] = None,
+                 prefix_cache_limit: int = 32,
                  record_logits: bool = False, device="cuda"):
         if (config.sliding_window is not None or config.attention_sinks):
             raise ValueError(
@@ -295,6 +341,22 @@ class ServingEngine:
         self._kv_pool = serving_kv.KVBlockPool(kv_pool_blocks,
                                                self.kv_block_size)
         self._radix = serving_kv.RadixPrefixIndex(self._kv_pool)
+        # Device bytes the pools pin (target and draft, int8 scale pools
+        # included, the scratch block too), from the shapes alone.
+        self._kv_pool_bytes = sum(
+            _pool_bytes(c, 1 + kv_pool_blocks, self.kv_block_size)
+            for c in (config, draft_config) if c is not None)
+        self._kv_pool.bytes_per_block = (self._kv_pool_bytes
+                                         // (1 + kv_pool_blocks))
+        # Preloaded prefixes: tuple(tokens) -> (target, draft) batch-1
+        # caches, least recently matched first.  Validation reads them
+        # (``_match_prefix`` without touching the order), never the radix
+        # index, which may evict.
+        if prefix_cache_limit < 1:
+            raise ValueError(f"prefix_cache_limit must be >= 1, got "
+                             f"{prefix_cache_limit}")
+        self.prefix_cache_limit = prefix_cache_limit
+        self._prefix_caches: OrderedDict = OrderedDict()
         self.overlap = ((True if overlap is None else bool(overlap))
                         and not _killed("TTD_NO_OVERLAP"))
         if prefill_budget is not None and prefill_budget < 0:
@@ -389,14 +451,15 @@ class ServingEngine:
             seeds, counts, PICK_DRAW, filt.shape[-1]))
 
     def _prefill_piece(self, cache_1: KVCache, tokens_1xl: torch.Tensor,
-                       local_idx: int, seed: int):
+                       local_idx: int, seed: int, rng0: int = 0):
         """One batch-1 prefill piece appended to ``cache_1``; returns the
-        pick at ``local_idx`` (the last real row of this piece).  Pad rows
-        of a final piece sit after every real row, so causal masking
-        keeps them invisible, and decode rewrites each before any query
-        can attend it."""
+        pick at ``local_idx`` (the last real row of this piece), drawn at
+        stream counter ``rng0`` (0 for a fresh request, the resumed
+        count for a resumed one).  Pad rows of a final piece sit after
+        every real row, so causal masking keeps them invisible, and
+        decode rewrites each before any query can attend it."""
         logits = self._model(tokens_1xl, cache_1)
-        return self._pick(logits[:, local_idx], [seed], [0])[0]
+        return self._pick(logits[:, local_idx], [seed], [rng0])[0]
 
     def _decode_chunk(self, tok: torch.Tensor, seeds: torch.Tensor,
                       counts: torch.Tensor):
@@ -484,43 +547,51 @@ class ServingEngine:
                     block_table=self._cache.block_table)
         return [c for c in (self._cache, self._d_cache) if c is not None]
 
-    def _paged_insert(self, caches_1: list, slot: int,
-                      table_row: torch.Tensor, start: int,
-                      true_len: int) -> None:
-        """Scatter each batch-1 cache's rows [start, true_len) into the
-        lane's blocks of its grid's pool, install the table row and pin
-        the lane's positions to the true prompt length (rows below
-        ``start`` live in radix-shared blocks and are already there —
-        shared blocks are never written)."""
-        grids = self._grids()
+    def _scatter_rows(self, caches_1: list, table_row: torch.Tensor,
+                      start: int, end: int) -> None:
+        """Scatter each batch-1 cache's rows [start, end) into the blocks
+        ``table_row`` names in its grid's pool (rows below ``start`` live
+        in radix-shared blocks and are already there — shared blocks are
+        never written).  Tables and positions are untouched."""
         bs = self.kv_block_size
-        pos = torch.arange(start, true_len, device=self.device)
+        pos = torch.arange(start, end, device=self.device)
         dest = table_row[pos // bs].long() * bs + pos % bs
-        for grid, cache_1 in zip(grids, caches_1):
+        for grid, cache_1 in zip(self._grids(), caches_1):
             for pool, lin in zip(grid.layers, cache_1.layers):
                 for p_name, l_name in (("key_pool", "key_cache"),
                                        ("value_pool", "value_cache")):
                     leaf = pool[p_name]
                     leaf.view(-1, *leaf.shape[2:])[dest] = (
-                        lin[l_name][0, start:true_len])
+                        lin[l_name][0, start:end])
                 if "kv_pool_scales" in pool:
                     sp = pool["kv_pool_scales"]
                     sp.view(2, -1, sp.shape[-1])[:, dest] = (
-                        lin["kv_scales"][:, 0, start:true_len])
+                        lin["kv_scales"][:, 0, start:end])
+
+    def _paged_insert(self, caches_1: list, slot: int,
+                      table_row: torch.Tensor, start: int,
+                      true_len: int) -> None:
+        """Scatter the prefilled rows [start, true_len) into the lane's
+        blocks, install its table row and pin its positions to the true
+        prompt length."""
+        self._scatter_rows(caches_1, table_row, start, true_len)
+        grids = self._grids()
+        for grid in grids:
             grid.index[slot] = true_len
         grids[0].block_table[slot] = table_row
 
     def _gather_prefix(self, table_row: torch.Tensor, matched: int,
-                       draft: bool) -> KVCache:
+                       draft: bool, rows: Optional[int] = None) -> KVCache:
         """A fresh batch-1 LINEAR cache holding the lane's rows read out
         of the target's (or the draft's) pool through its table by the
         paged KV gather kernel, position pinned to ``matched`` — a prefix
         hit replaces recompute with this copy.  Rows past ``matched`` hold
         whatever the lane's blocks hold: garbage the write-before-read
-        rule keeps invisible."""
+        rule keeps invisible.  ``rows`` (default ``cache_len``) bounds the
+        rows read (an export reads only what it ships)."""
         grid = self._grids()[1 if draft else 0]
         table = table_row[None]
-        c = self.cache_len
+        c = self.cache_len if rows is None else rows
         layers = []
         for pool in grid.layers:
             lc = {"key_cache": K.paged_kv_gather(pool["key_pool"], table, c),
@@ -552,7 +623,8 @@ class ServingEngine:
     # -- requests ----------------------------------------------------------
 
     def validate_request(self, prompt, max_new_tokens: int,
-                         seed: Optional[int] = None) -> list:
+                         seed: Optional[int] = None,
+                         resume_from: int = 0) -> list:
         """All of ``submit()``'s checks without queuing; returns the
         prompt as a list of ints."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
@@ -560,6 +632,12 @@ class ServingEngine:
             raise ValueError(f"seed must be a uint32, got {seed}")
         if not prompt:
             raise ValueError("empty prompt")
+        if resume_from < 0 or resume_from >= len(prompt):
+            # The resumed tail is part of the prompt, and at least one
+            # original prompt token must remain under it.
+            raise ValueError(
+                f"resume_from must be in [0, len(prompt)), got "
+                f"{resume_from} for a {len(prompt)}-token prompt")
         if max_new_tokens < 0:
             raise ValueError(f"max_new_tokens must be >= 0, got "
                              f"{max_new_tokens}")
@@ -576,28 +654,87 @@ class ServingEngine:
                 f"request needs {need} KV blocks (block_size="
                 f"{self.kv_block_size}) but the pool has "
                 f"{self._kv_pool.n_blocks}")
-        if (self.prefill_chunk is None
-                and len(prompt) > self.prompt_buckets[-1]):
-            raise ValueError(
-                f"prompt length {len(prompt)} exceeds the largest prefill "
-                f"bucket {self.prompt_buckets[-1]}")
+        if self.prefill_chunk is None and not resume_from:
+            # Only the suffix after the longest preloaded prefix needs a
+            # bucket; a resumed request already passed this bound once,
+            # and its pieces chunk any span.
+            work = len(prompt) - self._match_prefix(prompt)[0]
+            if work > self.prompt_buckets[-1]:
+                raise ValueError(
+                    f"prompt length {len(prompt)} (suffix {work} after "
+                    f"the longest preloaded prefix) exceeds the largest "
+                    f"prefill bucket {self.prompt_buckets[-1]}")
         return prompt
 
     def submit(self, prompt, max_new_tokens: int,
-               seed: Optional[int] = None) -> int:
+               seed: Optional[int] = None, resume_from: int = 0) -> int:
         """Queue a request; returns its id (resolved by ``run()``).
-        ``seed`` names its sampling stream (default: the request id)."""
-        prompt = self.validate_request(prompt, max_new_tokens, seed)
+        ``seed`` names its sampling stream (default: the request id).
+        ``resume_from=g`` declares the prompt's last ``g`` tokens the
+        request's own earlier output: its first pick draws at stream
+        counter ``g``, so a seeded continuation is the uninterrupted
+        stream's (greedy resumes for free)."""
+        prompt = self.validate_request(prompt, max_new_tokens, seed,
+                                       resume_from)
         rid = self._next_id
         self._next_id += 1
         self._queue.append((rid, prompt, max_new_tokens,
-                            rid if seed is None else seed))
+                            rid if seed is None else seed, resume_from))
         return rid
+
+    def cancel(self, request_id: int) -> bool:
+        """Abandon a live request: drop it from the queue, discard its
+        staged partial prefill (its claim's blocks free at once: the
+        batch-1 caches never touched the pool), or release its decoding
+        lane (its prompt blocks stay radix-held, the generated tail is
+        dropped; a chunk in flight is trimmed at its harvest, and the
+        lane is pointed at scratch in both pools before the next
+        dispatch).  False when the id is unknown or already finished."""
+        for i, item in enumerate(self._queue):
+            if item[0] == request_id:
+                del self._queue[i]
+                return True
+        for slot, task in self._staging.items():
+            if task.request_id == request_id:
+                self._kv_release(task.kv)
+                del self._staging[slot]
+                return True
+        for slot, state in enumerate(self._slot_states):
+            if state is not None and state.request_id == request_id:
+                self._lane_release(slot)
+                self._slot_states[slot] = None
+                return True
+        return False
 
     def pending(self) -> int:
         """Requests not yet finished (queued + staged + decoding)."""
         return (len(self._queue) + len(self._staging)
                 + sum(s is not None for s in self._slot_states))
+
+    def active_slots(self) -> int:
+        """Slots occupied by a request, decoding or staged mid-prefill."""
+        return (sum(s is not None for s in self._slot_states)
+                + len(self._staging))
+
+    def staged_rids(self) -> tuple:
+        """Request ids whose prefill is staged in a reserved lane."""
+        return tuple(t.request_id for t in self._staging.values())
+
+    def queue_depth(self) -> int:
+        """Requests accepted but not yet in a slot."""
+        return len(self._queue)
+
+    def progress(self) -> dict:
+        """``{request_id: len(prompt + generated)}`` of every decoding
+        request."""
+        return {s.request_id: len(s.tokens)
+                for s in self._slot_states if s is not None}
+
+    def snapshot(self) -> dict:
+        """``{request_id: prompt + generated so far}`` of every decoding
+        request (copies)."""
+        return {s.request_id: list(s.tokens)
+                for s in self._slot_states if s is not None}
 
     def _active(self) -> bool:
         return any(s is not None for s in self._slot_states)
@@ -651,24 +788,56 @@ class ServingEngine:
         table = kv.table(self._kv_nblk_lane)
         self._radix.insert(prompt, lambda j: table[j])
 
-    def _lane_release(self, slot: int, tokens) -> None:
-        """Retire a lane: cache its generated full blocks in the radix
-        index (rows are valid up to ``len(tokens) - 1``: the last token
-        was never fed back), drop its references, mark it stale."""
+    def _lane_release(self, slot: int, tokens=None) -> None:
+        """Retire or cancel a lane: with ``tokens``, cache its generated
+        full blocks in the radix index (rows are valid up to
+        ``len(tokens) - 1``: the last token was never fed back); drop its
+        references, mark it stale."""
         kv = self._lane_kv[slot]
         if kv is None:
             return
-        bs = self.kv_block_size
-        keep = tokens[:((len(tokens) - 1) // bs) * bs]
-        table = kv.table(self._kv_nblk_lane)
-        self._radix.insert(keep, lambda j: table[j])
+        if tokens is not None:
+            bs = self.kv_block_size
+            keep = tokens[:((len(tokens) - 1) // bs) * bs]
+            table = kv.table(self._kv_nblk_lane)
+            self._radix.insert(keep, lambda j: table[j])
         self._kv_release(kv)
         self._lane_kv[slot] = None
         self._stale_slots.add(slot)
 
-    def _admission_cache_1(self, kv, table_row, draft: bool) -> KVCache:
-        """The batch-1 cache a request's suffix prefill appends to: fresh
-        when nothing matched, else the pool gather of the shared rows."""
+    def _match_prefix(self, prompt, touch: bool = False):
+        """Longest preloaded prefix the prompt strictly extends ->
+        (its length, its (target, draft) caches), (0, None) when none.
+        ``touch`` makes the winner the most recently used: admission
+        passes True, validation False."""
+        best, best_key, best_pair = 0, None, None
+        for toks, pair in self._prefix_caches.items():
+            m = len(toks)
+            if best < m < len(prompt) and prompt[:m] == list(toks):
+                best, best_key, best_pair = m, toks, pair
+        if touch and best_key is not None:
+            self._prefix_caches.move_to_end(best_key)
+        return best, best_pair
+
+    def _admission_match(self, kv, prompt):
+        """(pre_len, pre_pair): the radix match, unless a preloaded pair
+        covers more (a sub-block tail only the pair holds)."""
+        pre_len, pre_pair = kv.matched, None
+        lin_len, lin_pair = self._match_prefix(prompt, touch=True)
+        if lin_len > pre_len:
+            pre_len, pre_pair = lin_len, lin_pair
+        return pre_len, pre_pair
+
+    def _admission_cache_1(self, pre_pair, kv, table_row,
+                           draft: bool) -> KVCache:
+        """The batch-1 cache a request's suffix prefill appends to: a copy
+        of the preloaded pair's cache when it won the match, fresh when
+        nothing matched, else the pool gather of the shared rows."""
+        if pre_pair is not None:
+            c = pre_pair[1 if draft else 0]
+            return KVCache(layers=[{k: v.clone() for k, v in lc.items()}
+                                   for lc in c.layers],
+                           index=c.index.clone(), cache_len=c.cache_len)
         if kv.matched == 0:
             return self._fresh_cache(draft)
         return self._gather_prefix(table_row, kv.matched, draft)
@@ -689,28 +858,29 @@ class ServingEngine:
         return padded, piece, n_pieces
 
     def _run_piece(self, cache_1: KVCache, padded: np.ndarray, piece: int,
-                   i: int, m: int, seed: int, draft: bool):
+                   i: int, m: int, seed: int, draft: bool, rng0: int = 0):
         """Piece ``i`` of a prefill — the one per-piece rule of atomic
         and staged admission alike.  The target returns the pick at the
-        last real row (meaningful on the last piece); the draft only
-        needs its rows, over the same piece grid."""
+        last real row (meaningful on the last piece), drawn at stream
+        counter ``rng0``; the draft only needs its rows, over the same
+        piece grid."""
         toks = self._to_device(padded[:, i * piece:(i + 1) * piece])
         if draft:
             self._draft(toks, cache_1)
             return None
         local = min(m - 1 - i * piece, piece - 1)
-        return self._prefill_piece(cache_1, toks, max(local, 0), seed)
+        return self._prefill_piece(cache_1, toks, max(local, 0), seed, rng0)
 
     def _prefill_tokens(self, work, *, seed: int, cache_1: KVCache,
-                        draft: bool = False):
-        """Append ``work`` to ``cache_1`` in pieces; returns the target's
-        pick at the last real row (a device scalar; None for the
-        draft)."""
+                        draft: bool = False, rng0: int = 0):
+        """Append ``work`` to ``cache_1`` in pieces (request suffixes and
+        preloaded prefixes alike); returns the target's pick at the last
+        real row (a device scalar; None for the draft)."""
         padded, piece, n_pieces = self._padded(work)
         first = None
         for i in range(n_pieces):
             first = self._run_piece(cache_1, padded, piece, i, len(work),
-                                    seed, draft)
+                                    seed, draft, rng0)
         return first
 
     def _fill_free_slots(self) -> None:
@@ -724,25 +894,30 @@ class ServingEngine:
         prefilled = 0
         for slot in range(self.slots):
             while self._slot_states[slot] is None and self._queue:
-                rid, prompt, max_new, seed = self._queue.popleft()
+                item = self._queue.popleft()
+                rid, prompt, max_new, seed, resume = item
                 if max_new == 0:
                     self._outputs[rid] = list(prompt)
                     continue
                 kv = self._kv_claim(rid, prompt, max_new)
                 if kv is None:
                     # Refused: keep FIFO order; blocks free as lanes retire.
-                    self._queue.appendleft((rid, prompt, max_new, seed))
+                    self._queue.appendleft(item)
                     self._note_prefill(t0, prefilled, stalled)
                     return
                 table_row = self._kv_table(kv)
-                work = prompt[kv.matched:]
+                pre_len, pre_pair = self._admission_match(kv, prompt)
+                work = prompt[pre_len:]
                 prefilled += len(work)
-                cache_1 = self._admission_cache_1(kv, table_row, False)
+                cache_1 = self._admission_cache_1(pre_pair, kv, table_row,
+                                                  False)
                 first = int(self._prefill_tokens(work, seed=seed,
-                                                 cache_1=cache_1))
+                                                 cache_1=cache_1,
+                                                 rng0=resume))
                 state = _SlotState(request_id=rid, remaining=max_new - 1,
                                    tokens=list(prompt) + [first],
-                                   last_token=first, seed=seed, count=1)
+                                   last_token=first, seed=seed,
+                                   count=resume + 1)
                 if max_new == 1 or (self.eos_id is not None
                                     and first == self.eos_id):
                     # Resolved before the draft's prefill, which it would
@@ -752,7 +927,8 @@ class ServingEngine:
                     continue
                 caches_1 = [cache_1]
                 if self._draft is not None:
-                    d_cache_1 = self._admission_cache_1(kv, table_row, True)
+                    d_cache_1 = self._admission_cache_1(pre_pair, kv,
+                                                        table_row, True)
                     self._prefill_tokens(work, seed=seed, cache_1=d_cache_1,
                                          draft=True)
                     caches_1.append(d_cache_1)
@@ -785,21 +961,24 @@ class ServingEngine:
             if self._slot_states[slot] is not None or slot in self._staging:
                 continue
             while self._queue:
-                rid, prompt, max_new, seed = self._queue.popleft()
+                item = self._queue.popleft()
+                rid, prompt, max_new, seed, resume = item
                 if max_new == 0:
                     self._outputs[rid] = list(prompt)
                     continue
                 kv = self._kv_claim(rid, prompt, max_new)
                 if kv is None:
                     # FIFO: nothing behind the refused head may jump it.
-                    self._queue.appendleft((rid, prompt, max_new, seed))
+                    self._queue.appendleft(item)
                     return
-                work = prompt[kv.matched:]
+                pre_len, pre_pair = self._admission_match(kv, prompt)
+                work = prompt[pre_len:]
                 padded, piece, n_pieces = self._padded(work)
                 self._staging[slot] = _PrefillTask(
                     request_id=rid, prompt=list(prompt), max_new=max_new,
                     seed=seed, work=work, padded=padded, piece=piece,
-                    n_pieces=n_pieces, kv=kv, table=self._kv_table(kv))
+                    n_pieces=n_pieces, kv=kv, table=self._kv_table(kv),
+                    resume=resume, pre_pair=pre_pair)
                 self.prefill_stats["staged_requests"] += 1
                 self.stats["prefill_tokens"] += len(work)
                 break
@@ -817,7 +996,7 @@ class ServingEngine:
         self._slot_states[slot] = _SlotState(
             request_id=task.request_id, remaining=task.max_new - 1,
             tokens=list(task.prompt) + [first], last_token=first,
-            seed=task.seed, count=1)
+            seed=task.seed, count=task.resume + 1)
         self._refills.add(slot)
 
     def _advance_piece(self, slot: int, task: _PrefillTask) -> int:
@@ -827,11 +1006,12 @@ class ServingEngine:
         the last; returns its token cost."""
         if task.cursor < task.n_pieces:
             if task.cache_1 is None:
-                task.cache_1 = self._admission_cache_1(task.kv, task.table,
-                                                       False)
+                task.cache_1 = self._admission_cache_1(
+                    task.pre_pair, task.kv, task.table, False)
             task.first = self._run_piece(task.cache_1, task.padded,
                                          task.piece, task.cursor,
-                                         len(task.work), task.seed, False)
+                                         len(task.work), task.seed, False,
+                                         task.resume)
             task.cursor += 1
             if task.cursor == task.n_pieces:
                 # Reading the first token waits for this piece; the chunk
@@ -848,8 +1028,8 @@ class ServingEngine:
                     self._finalize_prefill(slot, task)
             return task.piece
         if task.d_cache_1 is None:
-            task.d_cache_1 = self._admission_cache_1(task.kv, task.table,
-                                                     True)
+            task.d_cache_1 = self._admission_cache_1(
+                task.pre_pair, task.kv, task.table, True)
         self._run_piece(task.d_cache_1, task.padded, task.piece,
                         task.d_cursor, len(task.work), task.seed, True)
         task.d_cursor += 1
@@ -1157,3 +1337,334 @@ class ServingEngine:
     def kv_blocks_in_use(self) -> int:
         """Blocks referenced by live lanes and the radix cache."""
         return self._kv_pool.blocks_in_use()
+
+    def kv_blocks_total(self) -> int:
+        """Allocatable physical blocks in the paged pool."""
+        return self._kv_pool.n_blocks
+
+    def kv_bytes_in_use(self) -> int:
+        """Referenced pool blocks in device bytes (live lanes and the
+        radix cache, target and draft pools)."""
+        return self._kv_pool.bytes_in_use()
+
+    def kv_pool_bytes(self) -> int:
+        """Device bytes the paged pools pin (target and draft, int8 scale
+        pools included); constant per engine."""
+        return self._kv_pool_bytes
+
+    # -- preloaded prefixes ------------------------------------------------
+
+    @torch.no_grad()
+    def preload_prefix(self, tokens) -> None:
+        """Prefill a shared prompt prefix once; every later request whose
+        prompt strictly extends it prefills only the suffix.  The batch-1
+        cache (and the draft's, under speculation) is kept, position
+        pinned to the prefix's true length, in an LRU of
+        ``prefix_cache_limit`` entries; the prefix's full blocks seed the
+        radix index (``_seed_radix_from_cache``), so a later request
+        copies them out of the pool with the paged KV gather and takes a
+        sub-block tail from the stored cache."""
+        tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        if not tokens:
+            raise ValueError("empty prefix")
+        n = len(tokens)
+        if n >= self.cache_len:
+            raise ValueError(f"prefix length {n} must leave cache room "
+                             f"(cache_len={self.cache_len})")
+        cache_1 = self._fresh_cache(False)
+        self._prefill_tokens(tokens, seed=0, cache_1=cache_1)
+        cache_1.index.fill_(n)
+        d_cache_1 = None
+        if self._draft is not None:
+            d_cache_1 = self._fresh_cache(True)
+            self._prefill_tokens(tokens, seed=0, cache_1=d_cache_1,
+                                 draft=True)
+            d_cache_1.index.fill_(n)
+        key = tuple(tokens)
+        self._prefix_caches[key] = (cache_1, d_cache_1)
+        self._prefix_caches.move_to_end(key)
+        while len(self._prefix_caches) > self.prefix_cache_limit:
+            self._prefix_caches.popitem(last=False)
+        self._seed_radix_from_cache(tokens, cache_1, d_cache_1)
+
+    def _seed_radix_from_cache(self, tokens, cache_1: KVCache,
+                               d_cache_1: Optional[KVCache]) -> None:
+        """Scatter a prefix's full blocks from its batch-1 caches into
+        freshly allocated pool blocks and hand them to the radix index
+        (tree-held: shared by every later matching request, evicted only
+        under pressure).  Blocks the radix already holds are pinned and
+        skipped; a pool too busy to supply the rest leaves the prefix to
+        its batch-1 caches alone."""
+        bs = self.kv_block_size
+        m = len(tokens) // bs
+        if m == 0:
+            return                        # sub-block prefix: pair only
+        matched, shared = self._radix.match(tokens[:m * bs],
+                                            allow_full=True)
+        if matched >= m * bs:
+            return
+        # Pin the cached leading blocks against the eviction our own
+        # allocation may trigger.
+        for b in shared:
+            self._kv_pool.ref(b)
+        try:
+            n_new = m - len(shared)
+            fresh = self._kv_pool.alloc(n_new)
+            if fresh is None:
+                self.kv_stats["evictions"] += self._radix.evict_for(n_new)
+                fresh = self._kv_pool.alloc(n_new)
+            if fresh is None:
+                logger.warning(
+                    "preload_prefix: KV pool too busy to share the "
+                    "prefix's %d blocks (%d free); the batch-1 cache "
+                    "still serves it", n_new, self._kv_pool.free_blocks())
+                return
+            row = shared + fresh
+            table = np.zeros((self._kv_nblk_lane,), np.int32)
+            table[:len(row)] = row
+            caches_1 = [cache_1] + ([] if self._draft is None
+                                    else [d_cache_1])
+            self._scatter_rows(caches_1, self._to_device(table), matched,
+                               m * bs)
+            self._radix.insert(tokens[:m * bs], lambda j: row[j])
+            # The tree took one reference per new node; release the
+            # allocation's own.
+            for b in fresh:
+                self._kv_pool.deref(b)
+        finally:
+            for b in shared:
+                self._kv_pool.deref(b)
+
+    # -- KV handoff: the JAX engine's wire recipe ----------------------------
+
+    def _wire_leaves(self, draft: bool, n: int) -> list:
+        """[(path, layer, leaf name, shape)] of the row-holding leaves the
+        JAX engine's batch-1 cache tree has for the target (or the
+        draft), in its path-sorted order: flax module paths
+        (``layer_{i}/attention/...`` unrolled, ``layers/stack/block/
+        attention/...`` with a leading layer axis when scanned), shapes
+        with the row axis cut to ``n``."""
+        cfg = self.draft_config if draft else self.config
+        kvh, hd = cfg.kv_heads, cfg.attn_head_dim
+        names = ["key_cache", "value_cache"] + (
+            ["kv_scales"] if cfg.kv_cache_int8 else [])
+        shape = {"key_cache": [1, n, kvh, hd], "value_cache": [1, n, kvh, hd],
+                 "kv_scales": [2, 1, n, kvh]}
+        if cfg.scan_layers:
+            out = [(("layers", "stack", "block", "attention", name), None,
+                    name, [cfg.num_layers] + shape[name]) for name in names]
+        else:
+            out = [((f"layer_{i}", "attention", name), i, name, shape[name])
+                   for i in range(cfg.num_layers) for name in names]
+        return sorted(out, key=lambda leaf: leaf[0])
+
+    def _serialize_rows(self, table_row: torch.Tensor, n: int):
+        """The one wire byte recipe of every KV-bearing frame: gather the
+        first ``n`` pool rows reachable through ``table_row`` into
+        batch-1 linear caches (the paged KV gather kernel), cut each
+        row-holding leaf to them, and concatenate their bytes in the
+        manifest's order.  Returns ``(leaves, blob)``; the caller holds
+        references on (or owns) the table's blocks."""
+        pairs = [(False, self._gather_prefix(table_row, n, False, rows=n))]
+        if self._draft is not None:
+            pairs.append((True, self._gather_prefix(table_row, n, True,
+                                                    rows=n)))
+        leaves, chunks = [], []
+        for draft, cache_1 in pairs:
+            for path, layer, name, shape in self._wire_leaves(draft, n):
+                if layer is None:
+                    t = torch.stack([lc[name] for lc in cache_1.layers])
+                else:
+                    t = cache_1.layers[layer][name]
+                t = t.narrow(t.dim() + (-2 if name == "kv_scales" else -3),
+                             0, n).contiguous()
+                assert list(t.shape) == shape
+                leaves.append({"path": list(path), "draft": draft,
+                               "dtype": _WIRE_DTYPES[t.dtype][0],
+                               "shape": shape})
+                chunks.append(t.view(torch.uint8).cpu().numpy().tobytes())
+        return leaves, b"".join(chunks)
+
+    @torch.no_grad()
+    def export_prefix_kv(self, tokens):
+        """Serialize the KV of ``tokens``' full leading blocks for a
+        prefill-to-decode handoff: ``(meta, blob)``, or None when nothing
+        is exportable (a sub-block prompt, a pool too busy to share).
+        The head is preloaded when the radix does not hold it, then read
+        back out of the pool and shipped verbatim; at least one suffix
+        token stays unexported (its logit picks the first token on the
+        receiving side)."""
+        tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        bs = self.kv_block_size
+        m = max(0, (len(tokens) - 1) // bs)
+        if m == 0:
+            return None
+        head = tokens[:m * bs]
+        matched, shared = self._radix.match(head, allow_full=True,
+                                            record=False)
+        if matched < m * bs:
+            self.preload_prefix(head)
+            matched, shared = self._radix.match(head, allow_full=True,
+                                                record=False)
+        if matched < m * bs:
+            return None
+        for b in shared:
+            self._kv_pool.ref(b)
+        try:
+            table = np.zeros((self._kv_nblk_lane,), np.int32)
+            table[:len(shared)] = shared
+            leaves, blob = self._serialize_rows(self._to_device(table),
+                                                m * bs)
+        finally:
+            for b in shared:
+                self._kv_pool.deref(b)
+        return {"tokens": head, "n": m * bs, "draft": self._draft is not None,
+                "leaves": leaves}, blob
+
+    @torch.no_grad()
+    def install_prefix_kv(self, meta, blob) -> int:
+        """Install handed-off KV rows into the pool and the radix index;
+        returns the warm-token count (0: refused, benign — the request
+        prefills locally with the same output).  The wire bytes rebuild
+        batch-1 caches in their exact dtypes, which seed the radix
+        through ``_seed_radix_from_cache``, the path ``preload_prefix``
+        takes.  A torn or lying manifest raises ValueError."""
+        tokens = [int(t) for t in meta.get("tokens", ())]
+        n = int(meta.get("n", 0))
+        bs = self.kv_block_size
+        if n <= 0 or n % bs or n != len(tokens):
+            raise ValueError(f"bad handoff span: n={n} over "
+                             f"{len(tokens)} tokens (block_size={bs})")
+        if n >= self.cache_len:
+            raise ValueError(f"handoff span {n} exceeds "
+                             f"cache_len={self.cache_len}")
+        matched, _ = self._radix.match(tokens, allow_full=True,
+                                       record=False)
+        if matched >= n:
+            return n                      # already warm
+        if bool(meta.get("draft")) != (self._draft is not None):
+            return 0    # both caches must hold the same rows: prefill
+        arrays, off = {}, 0
+        for leaf in meta.get("leaves", ()):
+            dtype = np.dtype(leaf["dtype"])
+            shape = tuple(int(d) for d in leaf["shape"])
+            count = int(np.prod(shape)) if shape else 1
+            end = off + count * dtype.itemsize
+            if end > len(blob):
+                raise ValueError(
+                    f"handoff blob truncated: leaf {leaf['path']} needs "
+                    f"bytes [{off}, {end}) of {len(blob)}")
+            arrays[(bool(leaf.get("draft")), tuple(leaf["path"]))] = (
+                str(leaf["dtype"]), shape, bytes(blob[off:end]))
+            off = end
+        if off != len(blob):
+            raise ValueError(f"handoff blob has {len(blob) - off} "
+                             f"trailing bytes")
+
+        def build(draft: bool) -> KVCache:
+            cache_1 = self._fresh_cache(draft)
+            for path, layer, name, shape in self._wire_leaves(draft, n):
+                got = arrays.get((draft, path))
+                if got is None:
+                    continue
+                dtype, a_shape, raw = got
+                layers = (cache_1.layers if layer is None
+                          else [cache_1.layers[layer]])
+                leaf_dtype = layers[0][name].dtype
+                wire, label = _WIRE_DTYPES[leaf_dtype]
+                # The manifest's own string: numpy reads "<V2" back as
+                # "|V2".
+                if list(a_shape) != shape or dtype != wire:
+                    raise ValueError(
+                        f"handoff leaf {path} is {np.dtype(dtype)}"
+                        f"{list(a_shape)}, this engine needs {label}{shape}")
+                t = torch.frombuffer(bytearray(raw), dtype=torch.uint8).view(
+                    leaf_dtype).reshape(shape).to(self.device)
+                if layer is not None:
+                    t = t[None]
+                axis = -2 if name == "kv_scales" else -3
+                for i, lc in enumerate(layers):
+                    lc[name].narrow(lc[name].dim() + axis, 0, n).copy_(t[i])
+            cache_1.index.fill_(n)
+            return cache_1
+
+        cache_1 = build(False)
+        d_cache_1 = build(True) if self._draft is not None else None
+        self._seed_radix_from_cache(tokens, cache_1, d_cache_1)
+        matched, _ = self._radix.match(tokens, allow_full=True,
+                                       record=False)
+        return matched
+
+    def _settle(self) -> None:
+        """Harvest the chunk in flight (the pipelined engine), so the host
+        state holds every token already generated on the device."""
+        if self._inflight is not None:
+            inf, self._inflight = self._inflight, None
+            self._harvest_prev(inf, overlapped=False)
+
+    @torch.no_grad()
+    def export_lane(self, request_id: int):
+        """Serialize a live request's migration state, ``(meta, blob)``,
+        or None when the id is unknown or finished.  ``meta["kind"]``:
+
+        - ``"lane"``: a decoding slot — its tokens (prompt + generated),
+          ``remaining``, ``last_token``, ``seed``, ``count``, ``done``,
+          and under ``meta["kv"]`` with ``blob`` the lane's full-block
+          rows below ``len(tokens) - 1`` in the wire recipe
+          (``_serialize_rows``; ``kv`` None for a sub-block lane);
+        - ``"staged"``: mid-admission (parameters and the staged cursor;
+          the partial prefill is not shipped);
+        - ``"queued"``: parameters only.
+
+        A chunk in flight is harvested first, so the tokens are all those
+        generated so far.  Otherwise read-only: two calls between steps
+        give equal ``meta`` and ``blob``; the caller decides whether the
+        move committed and then ``cancel()``s here."""
+        self._settle()
+        for item in self._queue:
+            if item[0] == request_id:
+                _, prompt, max_new, seed, resume = item
+                return {"kind": "queued", "prompt": list(prompt),
+                        "max_new": int(max_new), "seed": int(seed),
+                        "resume_from": int(resume), "kv": None}, b""
+        for task in self._staging.values():
+            if task.request_id == request_id:
+                return {"kind": "staged", "prompt": list(task.prompt),
+                        "max_new": int(task.max_new), "seed": int(task.seed),
+                        "resume_from": int(task.resume),
+                        "cursor": int(task.cursor), "kv": None}, b""
+        for slot, state in enumerate(self._slot_states):
+            if state is None or state.request_id != request_id:
+                continue
+            meta = {"kind": "lane", "tokens": [int(t) for t in state.tokens],
+                    "remaining": int(state.remaining),
+                    "last_token": int(state.last_token),
+                    "seed": int(state.seed), "count": int(state.count),
+                    "done": bool(state.done), "kv": None}
+            blob = b""
+            bs = self.kv_block_size
+            m = max(0, (len(state.tokens) - 1) // bs)
+            kv = self._lane_kv[slot]
+            if kv is not None and m > 0:
+                # The lane's claim holds a reference on every block of its
+                # table; nothing runs between here and the gather.
+                leaves, blob = self._serialize_rows(self._kv_table(kv),
+                                                    m * bs)
+                meta["kv"] = {"tokens": [int(t) for t in
+                                         state.tokens[:m * bs]],
+                              "n": m * bs, "draft": self._draft is not None,
+                              "leaves": leaves}
+            return meta, blob
+        return None
+
+    def install_lane(self, meta, blob) -> int:
+        """Install a migrated lane's KV rows into the pool and the radix
+        index; returns the warm-token count (0: nothing to install or
+        refused — the re-admitted request prefills locally).  The request
+        itself is re-admitted with ``submit(..., resume_from=)``, which
+        radix-hits the rows seeded here."""
+        kv = meta.get("kv") if isinstance(meta, dict) else None
+        if not kv or not blob:
+            return 0
+        return self.install_prefix_kv(dict(kv), blob)
+

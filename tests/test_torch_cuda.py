@@ -1540,3 +1540,129 @@ def test_lora_step_on_the_card_matches_the_cpu(gen):
     for k in ("rms_norm", "rms_norm_bwd", "cross_entropy",
               "cross_entropy_bwd"):
         assert counts[k] > 0, counts
+
+
+# -- generate() and lane control (the shared-index cache, KV handoff) --------
+
+
+def _small_decoder(dtype, **kw):
+    """A decoder with 64-wide heads (the attention kernels' gate), GQA."""
+    return dataclasses.replace(
+        LLAMA_PRESETS["llama_tiny"], vocab_size=512, d_model=256,
+        num_heads=4, num_kv_heads=2, ffn_size=512, max_positions=1024,
+        dtype=dtype, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window,sinks", [
+    (129, None, 0), (200, None, 0), (300, 128, 0), (300, 128, 4),
+    (100, 128, 4)])
+def test_fresh_prefill_padded_through_the_kernels(gen, dtype, s, window,
+                                                  sinks):
+    """The fresh prefill of ``generate()``'s cache at an odd length, padded
+    to 128 for the kernels (K2, or K7 past the window), against the same
+    prompt fed as a single token and then one plain multi-token block
+    (the linear path or ``_rolling_block``): logits within 2e-4 (f32) or
+    3e-2 (bf16), and the next decode step's too."""
+    from tensorflow_train_distributed_torch.models.generate import (
+        _decode_model,
+    )
+
+    cfg = _small_decoder(dtype, sliding_window=window, attention_sinks=sinks)
+    params = convert.init_params(cfg, gen, device="cuda")
+    model = _decode_model(cfg, params, device="cuda")
+    prompt = torch.randint(1, 512, (2, s), generator=gen, device="cuda")
+    K.reset_launch_counts()
+    with torch.no_grad():
+        fresh_c = model.init_cache(2, s + 8, shared=True)
+        fresh = model(prompt, fresh_c).float()
+        counts = K.launch_counts()
+        plain_c = model.init_cache(2, s + 8, shared=True)
+        plain = torch.cat([model(prompt[:, :1], plain_c),
+                           model(prompt[:, 1:], plain_c)], 1).float()
+        tok = prompt[:, -1:]
+        nxt = (model(tok, fresh_c).float(), model(tok, plain_c).float())
+    name = ("splash_attention" if window is not None
+            and -(-s // 128) * 128 > window else "flash_attention")
+    assert counts[name] == cfg.num_layers, counts
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(fresh, plain, rtol=tol, atol=tol)
+    torch.testing.assert_close(nxt[0], nxt[1], rtol=tol, atol=tol)
+
+
+def test_generate_on_the_card_matches_the_cpu(gen):
+    """f32 greedy ``generate()`` of a windowed decoder whose ring wraps:
+    the card's tokens are the CPU's."""
+    from tensorflow_train_distributed_torch.models.generate import generate
+
+    cfg = _small_decoder(torch.float32, sliding_window=128,
+                         attention_sinks=4)
+    params = convert.init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(1, 512, (2, 150), generator=gen, device="cuda")
+    card = generate(cfg, params, prompt, 40, device="cuda")
+    cpu = generate(cfg, {k: v.cpu() for k, v in params.items()},
+                   prompt.cpu(), 40, device="cpu")
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_lane_export_install_rows_bitwise_on_the_card(gen, kv_int8):
+    """A bf16 (or int8) lane exported twice gives the same bytes; installed
+    in a second engine, its pool rows read back by K5 are the blob; the
+    resumed request's greedy tokens are the uninterrupted ones."""
+    cfg = _small_decoder(torch.bfloat16, kv_cache_int8=kv_int8)
+    params = convert.init_params(cfg, gen, device="cuda")
+    kw = dict(slots=2, cache_len=128, chunk=4, kv_block_size=16,
+              device="cuda")
+    src, dst = ServingEngine(cfg, params, **kw), ServingEngine(cfg, params,
+                                                               **kw)
+    prompt = torch.randint(1, 512, (40,), generator=gen,
+                           device="cuda").tolist()
+    rid = src.submit(prompt, 30)
+    full = src.run()[rid]
+    rid = src.submit(prompt, 30)
+    for _ in range(4):
+        src.serve_step()
+    meta, blob = src.export_lane(rid)
+    assert src.export_lane(rid) == (meta, blob)
+    K.reset_launch_counts()
+    assert dst.install_lane(meta, blob) == meta["kv"]["n"] >= 48
+    _, shared = dst._radix.match(meta["kv"]["tokens"], allow_full=True,
+                                 record=False)
+    table = torch.zeros(dst._kv_nblk_lane, dtype=torch.int32)
+    table[:len(shared)] = torch.tensor(shared, dtype=torch.int32)
+    assert dst._serialize_rows(table.cuda(), meta["kv"]["n"])[1] == blob
+    assert K.launch_counts()["paged_kv_gather"] > 0
+    assert src.cancel(rid)
+    rid = dst.submit(meta["tokens"], meta["remaining"],
+                     resume_from=len(meta["tokens"]) - len(prompt))
+    got = dst.run()[rid]
+    agree = sum(a == b for a, b in zip(got, full)) / len(full)
+    assert got[:len(meta["tokens"])] == full[:len(meta["tokens"])]
+    assert agree >= 0.9
+
+
+def test_cancel_under_the_overlap_on_the_card(gen):
+    """A lane cancelled with its chunk in flight on the pipelined
+    speculative engine: nothing of it is emitted, and the other requests'
+    tokens are the synchronous engine's."""
+    cfg = _small_decoder(torch.float32)
+    params = convert.init_params(cfg, gen, device="cuda")
+    kw = dict(slots=2, cache_len=128, chunk=4, kv_block_size=16,
+              draft_config=cfg, draft_params=params, speculative_k=3,
+              device="cuda")
+    piped = ServingEngine(cfg, params, **kw)
+    sync = ServingEngine(cfg, params, overlap=False, prefill_budget=0, **kw)
+    prompts = [torch.randint(1, 512, (n,), generator=gen,
+                             device="cuda").tolist() for n in (20, 33, 9)]
+    a, b = (piped.submit(p, 40) for p in prompts[:2])
+    piped.serve_step()
+    piped.serve_step()
+    assert piped._inflight is not None and piped.cancel(b)
+    c = piped.submit(prompts[2], 12)
+    out = piped.run()
+    assert b not in out
+    ids = [sync.submit(prompts[0], 40), sync.submit(prompts[2], 12)]
+    want = sync.run()
+    assert out[a] == want[ids[0]] and out[c] == want[ids[1]]
+    assert piped.kv_blocks_in_use() == piped._radix.cached_blocks()

@@ -319,6 +319,11 @@ def _cli(tmp, *flags, env=None, config="llama_tiny_sft", base=_CHAOS_FLAGS):
     e = {k: v for k, v in os.environ.items()
          if k not in ("TTD_FAULT_PLAN", "TTD_SUPERVISE_ATTEMPT")}
     e["PYTHONPATH"] = REPO
+    # One intra-op thread a child: beside the suite's parallel workers a
+    # pool as wide as the machine oversubscribes the cores, which made a
+    # child three times slower than with one thread and can carry it
+    # past the timeout below.
+    e["OMP_NUM_THREADS"] = e["MKL_NUM_THREADS"] = "1"
     e.update(env or {})
     return subprocess.run(
         [sys.executable, "-m", "tensorflow_train_distributed_torch",

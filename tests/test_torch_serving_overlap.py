@@ -1,7 +1,8 @@
 """The port's pipelined serving engine on the CPU: the one-chunk overlap
 and staged interleaved prefill (counterpart of the JAX package's
-``tests/test_serving_overlap.py``, without its cancel and gateway cases,
-which wait with lane control).
+``tests/test_serving_overlap.py``; its cancel cases are in
+``tests/test_torch_lane_control.py``, its gateway cases wait with the
+serving fleet).
 
 The contract: pipelining changes when the host learns about tokens and
 when prefill pieces run, never the tokens.  Overlap and interleave on

@@ -279,9 +279,10 @@ def test_multihead_attention_kernel_matches_jax_on_cpu(packed):
 
 
 def test_windowed_attention_is_not_ported_yet():
-    """Windowed training is ported (the splash kernel, the chunked path);
-    decoding a windowed model is not: the decode modes refuse a sliding
-    window rather than attend without it."""
+    """Windowed training is ported (the splash kernel, the chunked path),
+    and so is windowed decoding on the shared-index cache of
+    ``generate()``; the serving engine's per-row decode modes refuse a
+    sliding window (JAX's error) rather than attend without it."""
     import dataclasses
 
     from tensorflow_train_distributed_torch.models import llama as TLL
@@ -292,5 +293,8 @@ def test_windowed_attention_is_not_ported_yet():
     model = TLL.LlamaModel(cfg)
     tokens = torch.zeros(1, 8, dtype=torch.long)
     assert model(tokens).shape == (1, 8, cfg.vocab_size)
-    with pytest.raises(NotImplementedError, match="sliding window"):
+    with pytest.raises(ValueError, match="window/sinks keep the "
+                       "shared-index path"):
         model(tokens, model.init_cache(1, 16))
+    assert model(tokens, model.init_cache(1, 16, shared=True)).shape == (
+        1, 8, cfg.vocab_size)

@@ -358,13 +358,16 @@ def test_train_cli_trains_mistral_tiny(capsys):
 
 
 def test_windowed_decode_raises_instead_of_ignoring_the_window():
-    """The decode modes keep the full context; a windowed model refuses
-    them (the rolling cache is not ported), leaving the cache as it was."""
+    """The serving engine's per-row decode modes keep the full context; a
+    windowed model refuses them with the JAX engine's error (the rolling
+    ring is the shared-index cache's, ``generate()``), leaving the cache
+    as it was."""
     tcfg = treg.get_config("mistral_tiny_lm")
     for cfg in (tcfg, dataclasses.replace(tcfg, attention_sinks=0),
                 dataclasses.replace(tcfg, sliding_window=None)):
         model = TLL.LlamaModel(cfg)
         cache = model.init_cache(1, 32)
-        with pytest.raises(NotImplementedError, match="rolling-cache"):
+        with pytest.raises(ValueError, match="window/sinks keep the "
+                           "shared-index path"):
             model(torch.zeros(1, 4, dtype=torch.long), cache)
         assert int(cache.index[0]) == 0
