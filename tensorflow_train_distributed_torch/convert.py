@@ -17,6 +17,8 @@ holds its adapters under flax's names too (``…/query/lora_a`` [in, r],
 state names them back (``model_state_names``).  ``--params-npz`` files
 hold the flat flax dict (``flax.traverse_util.flatten_dict(params,
 sep="/")`` saved with ``np.savez``, plus any ``batch_stats/…`` keys).
+int8 serving's scales (JAX's ``quant`` collection) carry across with
+``scales_from_flax``.
 """
 
 from __future__ import annotations
@@ -71,19 +73,7 @@ def params_from_flax(flat: dict, config) -> dict:
             key = key[len(BATCH_STATS):]
         elif key.endswith("kernel") and arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
-        if key.startswith(_SCANNED):
-            rest = key[len(_SCANNED):].replace("/", ".")
-            if arr.shape[:1] != (config.num_layers,):
-                raise ValueError(f"scanned leaf {key} has leading axis "
-                                 f"{arr.shape[:1]}, expected "
-                                 f"({config.num_layers},)")
-            for i in range(config.num_layers):
-                out[f"layers.{i}.{rest}"] = arr[i]
-            continue
-        m = _UNROLLED.match(key)
-        name = (f"layers.{m.group(1)}.{m.group(2).replace('/', '.')}" if m
-                else key.replace("/", "."))
-        out[name] = arr
+        out.update(_port_leaves(key, arr, config))
     missing = sorted(set(want) - set(out))
     extra = sorted(set(out) - set(want))
     if missing or extra:
@@ -93,6 +83,45 @@ def params_from_flax(flat: dict, config) -> dict:
         if tuple(arr.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
                              f"{want[name]}")
+    return {name: _to_torch(arr) for name, arr in out.items()}
+
+
+def _port_leaves(key: str, arr: np.ndarray, config):
+    """``(port name, array)`` of one flat flax leaf: the unrolled
+    ``layer_{i}/…`` as ``layers.{i}.…``, a scanned ``layers/stack/block/…``
+    leaf split along its leading layer axis."""
+    if key.startswith(_SCANNED):
+        rest = key[len(_SCANNED):].replace("/", ".")
+        if arr.shape[:1] != (config.num_layers,):
+            raise ValueError(f"scanned leaf {key} has leading axis "
+                             f"{arr.shape[:1]}, expected "
+                             f"({config.num_layers},)")
+        return [(f"layers.{i}.{rest}", arr[i])
+                for i in range(config.num_layers)]
+    m = _UNROLLED.match(key)
+    name = (f"layers.{m.group(1)}.{m.group(2).replace('/', '.')}" if m
+            else key.replace("/", "."))
+    return [(name, arr)]
+
+
+def scales_from_flax(flat: dict, config) -> dict:
+    """A JAX ``quant`` scale tree (``models.quant.quantize_params``'
+    second result) flattened as ``{"a/b/scale": array}`` → the port's
+    ``quant_scales`` (``{"a.b.scale": f32 tensor}``), mapped as
+    ``params_from_flax`` maps kernels: scanned ``[L, out]`` scales split
+    per layer, expert-stacked ``[E, out]`` ones kept.  Raises where a
+    scale has no kernel of the model beside it, or the wrong shape."""
+    want = expected_shapes(config)
+    out = {}
+    for key, arr in flat.items():
+        out.update(_port_leaves(key, np.asarray(arr), config))
+    for name, arr in out.items():
+        kernel = want.get(name.rsplit(".", 1)[0] + ".kernel")
+        if not name.endswith(".scale") or kernel is None:
+            raise ValueError(f"quant scale {name} has no kernel beside it")
+        if tuple(arr.shape) != kernel[:-2] + kernel[-1:]:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
+                             f"{kernel[:-2] + kernel[-1:]}")
     return {name: _to_torch(arr) for name, arr in out.items()}
 
 
@@ -112,6 +141,13 @@ def load_npz(path: str, config) -> dict:
 
 def init_params(config, generator: torch.Generator, *,
                 device="cuda", dtype=None) -> dict:
+    """``{name: tensor}`` of ``iter_init_params``."""
+    return dict(iter_init_params(config, generator, device=device,
+                                 dtype=dtype))
+
+
+def iter_init_params(config, generator: torch.Generator, *,
+                     device="cuda", dtype=None):
     """Random weights (and initial buffers) made from ``generator``
     directly on ``device``, in ``dtype`` (default ``config.dtype``, f32
     for the vision models), with the JAX package's initialisers:
@@ -123,9 +159,10 @@ def init_params(config, generator: torch.Generator, *,
     ``init_spec()`` where it has one (conv kernels' variance scaling,
     BatchNorm's statistics and zero-init scales, BERT's 0.02 position
     tables, ResNet's zero head, LoRA's normal(0.02) ``lora_a`` and zero
-    ``lora_b``).  ``generator`` must live on ``device``."""
+    ``lora_b``).  ``generator`` must live on ``device``.  Yields ``(name,
+    tensor)`` one tensor at a time, so a caller can transform each
+    (``models.quant.quantize_tensor``) before the next is drawn."""
     dtype = dtype or getattr(config, "dtype", torch.float32)
-    params = {}
     model = _meta_model(config)
     # A zero-centered norm computes x̂·(1 + scale): its scale starts at 0.
     spec = {f"{name}.scale": ("fill", 0.0)
@@ -151,5 +188,4 @@ def init_params(config, generator: torch.Generator, *,
         else:
             t = torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32).mul_(rule[1]).to(dtype)
-        params[name] = t
-    return params
+        yield name, t

@@ -9,6 +9,10 @@ zero-padded to a multiple of 128, then one single-token call a new
 token; a sliding window shorter than the sequence decodes over a ring of
 ``window`` rows (with the sink buffers for ``attention_sinks``).
 
+The family dispatch (``_decode_model``) serves the Llama decoders and
+the MoE ones (``MoeLmModel``), in full precision or with int8 weights
+(``quant_scales``, ``models.quant``), as the JAX ``generate()`` does.
+
 Sampling draws each token by Gumbel-max from the serving engine's
 counter streams (``serving.stream_uniforms``): row i of the batch draws
 its t-th new token from stream (``seed`` + i, t), so a seeded call gives
@@ -29,23 +33,40 @@ from tensorflow_train_distributed_torch.models.llama import (
     LlamaConfig,
     LlamaModel,
 )
+from tensorflow_train_distributed_torch.models.quant import (
+    attach_scales,
+    check_quant_pairing,
+)
 
 
-def _decode_model(config: LlamaConfig, params: dict, *,
-                  device) -> LlamaModel:
+def _decode_model(config, params: dict, *, quant_scales=None, device):
     """The decoder for ``config`` holding ``params`` (a flat
-    ``{name: tensor}`` dict in the port's layout — ``convert``).  The
-    family-dispatch point (MoE joins with its slice).  The module is built
-    on the meta device and takes the tensors by assignment, so weights
-    are never allocated twice; serving takes no gradients, so they are
-    frozen."""
-    if not isinstance(config, LlamaConfig):
-        raise TypeError(f"no decoder for config type {type(config).__name__}"
-                        " yet (the port serves the Llama family)")
-    model = LlamaModel(config, device="meta")
+    ``{name: tensor}`` dict in the port's layout — ``convert``): a
+    ``MoeLmModel`` for a ``MoeConfig``, a ``LlamaModel`` for a
+    ``LlamaConfig`` — the one family-dispatch point, shared by
+    ``generate()`` and the serving engine.  The module is built on the
+    meta device, frozen (serving takes no gradients, and an int8 kernel
+    cannot be a parameter that requires one), and takes the tensors by
+    assignment, so weights are never allocated twice; ``quant_scales``
+    go to their int8 kernels' modules (``quant.attach_scales``)."""
+    from tensorflow_train_distributed_torch.models.moe import (
+        MoeConfig,
+        MoeLmModel,
+    )
+
+    if isinstance(config, MoeConfig):
+        model = MoeLmModel(config, device="meta")
+    elif isinstance(config, LlamaConfig):
+        model = LlamaModel(config, device="meta")
+    else:
+        raise TypeError(f"no decoder for config type "
+                        f"{type(config).__name__}")
+    model.requires_grad_(False)
     model.load_state_dict({k: v.to(device) for k, v in params.items()},
                           strict=True, assign=True)
-    return model.requires_grad_(False).eval()
+    if quant_scales is not None:
+        attach_scales(model, quant_scales, device)
+    return model.eval()
 
 
 def cast_floating(params: dict, dtype: torch.dtype) -> dict:
@@ -91,12 +112,6 @@ def filter_logits(logits: torch.Tensor, *, temperature: float,
     return logits
 
 
-# The ROADMAP item that int8 weight-only and MoE serving wait for.
-_MOE_QUANT_ITEM = ("ROADMAP Queue 1 step 3: MoE decode and serving, with "
-                   "int8 weight-only serving (models/quant.py, --quant, "
-                   "--dispatch)")
-
-
 def serving_params(config, params: dict):
     """(config, params) to decode with: LoRA adapters folded into their
     kernels when ``config.lora`` names them (``lora.merge_lora``, checked
@@ -107,7 +122,7 @@ def serving_params(config, params: dict):
         merge_lora,
     )
 
-    if config.lora is not None:
+    if getattr(config, "lora", None) is not None:
         if has_lora_leaves(params):
             check_spec_matches(params, config.lora)
             params = merge_lora(params, config.lora)
@@ -120,7 +135,7 @@ def serving_params(config, params: dict):
     return config, params
 
 
-def generate(config: LlamaConfig, params: dict, prompt, max_new_tokens: int,
+def generate(config, params: dict, prompt, max_new_tokens: int,
              *, temperature: float = 0.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None, seed: Optional[int] = None,
              cast_params: bool = True, quant_scales=None,
@@ -136,8 +151,11 @@ def generate(config: LlamaConfig, params: dict, prompt, max_new_tokens: int,
     holds exactly that many positions (a ring of ``sliding_window`` rows
     when the window is shorter).  ``cast_params`` casts floating params
     to ``config.dtype``.  A LoRA config's adapters are folded in first
-    (``serving_params``).  int8 weights (``quant_scales``) and MoE
-    configs wait for a later slice."""
+    (``serving_params``).  ``config`` is a Llama or an MoE decoder's.
+    ``quant_scales``: the scales of ``models.quant.quantize_params``,
+    passed with the int8 ``params`` that call returned (every quantized
+    kernel then runs the int8 product); int8 kernels and the scales are
+    untouched by ``cast_params``."""
     prompt = _ids(prompt)
     if prompt.dim() != 2 or prompt.shape[0] < 1 or prompt.shape[1] < 1:
         raise ValueError(f"prompt must be [B >= 1, S >= 1] token ids, got "
@@ -146,10 +164,6 @@ def generate(config: LlamaConfig, params: dict, prompt, max_new_tokens: int,
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0, got "
                          f"{max_new_tokens}")
-    if quant_scales is not None or not isinstance(config, LlamaConfig):
-        raise NotImplementedError(
-            f"int8 weights and MoE configs are not decoded yet: "
-            f"{_MOE_QUANT_ITEM}")
     if max_new_tokens == 0:
         return prompt.to(device)
     if prompt_len + max_new_tokens > config.max_positions:
@@ -159,10 +173,17 @@ def generate(config: LlamaConfig, params: dict, prompt, max_new_tokens: int,
     validate_sampling(temperature, top_k, top_p)
     if temperature > 0 and seed is None:
         raise ValueError("temperature sampling needs seed=")
+    if getattr(config, "lora", None) is not None and quant_scales is not None:
+        raise ValueError(
+            "int8 serving of a LoRA model needs the adapters folded in "
+            "first: params = models.lora.merge_lora(params, spec), then "
+            "quantize the merged tree with a lora=None config")
     config, params = serving_params(config, params)
+    check_quant_pairing(params, quant_scales)
     if cast_params:
         params = cast_floating(params, config.dtype)
-    model = _decode_model(config, params, device=device)
+    model = _decode_model(config, params, quant_scales=quant_scales,
+                          device=device)
     pick = _picker(temperature, top_k, top_p, seed, b, device)
     return _generate(model, prompt.to(device), max_new_tokens, pick)
 

@@ -142,7 +142,15 @@ class Dense(_Leaf):
     """``y = x @ kernel (+ bias)``, kernel ``[in, out]`` (flax layout);
     inputs and weights are promoted to ``dtype`` as flax's Dense does
     (``dtype=None``: to the promotion of the input's and the cast
-    kernel's dtypes, flax's default)."""
+    kernel's dtypes, flax's default).
+
+    int8 weight-only serving (``models.quant``): the kernel is then an
+    int8 ``Parameter`` that requires no gradient (the decode model is
+    frozen before ``load_state_dict(assign=True)`` takes it) and
+    ``scale`` [out] f32 a non-persistent buffer (``quant.attach_scales``;
+    None otherwise, and never in the state dict).  The product is the
+    JAX interceptor's, in its order: ``(x @ q) * scale`` in ``dtype`` (or
+    x's), then ``+ bias``, so the f32 router stays f32."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  use_bias: bool = False, dtype=torch.float32, device=None):
@@ -155,8 +163,15 @@ class Dense(_Leaf):
         self.bias = (nn.Parameter(torch.empty(out_features, dtype=pdt,
                                               device=device))
                      if use_bias else None)
+        self.register_buffer("scale", None, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.scale is not None:
+            dt = self.dtype or x.dtype
+            y = torch.matmul(x.to(dt), self.kernel.to(dt)) * self.scale.to(dt)
+            if self.bias is not None:
+                y = y + self._cast(self.bias).to(dt)
+            return y
         w = self._cast(self.kernel)
         dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
         y = torch.matmul(x.to(dt), w.to(dt))

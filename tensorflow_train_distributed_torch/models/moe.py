@@ -20,9 +20,15 @@ are returned by each block, not collected as a side effect: a block that
 is rematerialised runs its forward twice, and a side channel would
 record the second run too.
 
-Decode modes (KV-cached serving) and expert parallelism (``group_offset``
-with a ``shard_map`` psum) wait for later slices; a decode call raises
-``NotImplementedError``.
+Decode (``model(tokens, cache)``, as ``LlamaModel``'s: ``generate()``'s
+shared-index cache, the engine's linear and paged caches) routes each
+call's tokens as the training forward does, one routing group a row, so
+a decode step is a group of one token whose capacity never binds.  int8
+weight-only serving (``models.quant``) scales each expert's product in
+the dense dispatch, as the JAX ``nn.vmap`` over ``_ExpertFfn`` carries
+the ``quant`` collection; the gmm dispatch refuses int8 experts, as
+JAX's does.  Expert parallelism (``group_offset`` with a ``shard_map``
+psum) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tensorflow_train_distributed_torch.models import layers as L
 from tensorflow_train_distributed_torch.models.llama import (
+    LlamaModel,
     segment_relative_positions,
 )
 from tensorflow_train_distributed_torch.ops import kernels as K
@@ -77,6 +84,23 @@ class MoeConfig:
     # Mixtral); False keeps the raw softmax probabilities (Qwen2-MoE).
     norm_topk_prob: bool = True
     qkv_bias: bool = False
+
+    # The decode-side knobs of ``LlamaConfig`` that an MoE config lacks,
+    # at their off values, so that the caches and the serving engine
+    # read one interface.  The JAX MoeLmModel is a Python loop of layers
+    # (``layer_{i}``), never depth-scanned.
+    kv_cache_int8 = False
+    sliding_window = None
+    attention_sinks = 0
+    scan_layers = False
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def attn_head_dim(self) -> int:
+        return self.d_model // self.num_heads
 
 
 MOE_PRESETS = {
@@ -165,12 +189,15 @@ def _router_one_hot(probs: torch.Tensor, top_k: int, capacity: int,
 class _StackedKernel(L._Leaf):
     """One expert-stacked kernel ``[E, in, out]`` (flax's
     ``experts/<name>/kernel``), cast to the compute dtype on use like
-    every other parameter."""
+    every other parameter.  Under int8 serving the kernel holds the codes
+    and ``scale`` [E, out] their scales (held as ``layers.Dense`` holds
+    them)."""
 
     def __init__(self, *shape, dtype=torch.float32, device=None):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(shape, dtype=dtype,
                                                device=device))
+        self.register_buffer("scale", None, persistent=False)
 
     def forward(self) -> torch.Tensor:
         return self._cast(self.kernel)
@@ -249,6 +276,18 @@ class MoEMlpBlock(nn.Module):
         return (self.experts.wi_gate().to(dt), self.experts.wi_up().to(dt),
                 self.experts.wo().to(dt))
 
+    def _expert_product(self, name: str, eq: str, h: torch.Tensor):
+        """One product of the dense dispatch's expert FFN over the
+        [E, G, C, ·] buffer; an int8 stack's scale [E, out] multiplies
+        each expert's output after its product (the JAX interceptor's
+        order, per expert)."""
+        stack = getattr(self.experts, name)
+        dt = self.config.dtype
+        y = torch.einsum(eq, h, stack().to(dt))
+        if stack.scale is not None:
+            y = y * stack.scale.to(dt)[:, None, None, :]
+        return y
+
     def forward(self, x: torch.Tensor):
         cfg = self.config
         groups, group_size, d = x.shape
@@ -277,16 +316,22 @@ class MoEMlpBlock(nn.Module):
         total = torch.sum(routed)
         stats = (1.0 - total / desired,
                  torch.sum(routed, dim=(0, 1)) / torch.clamp(total, min=1.0))
-        wi_gate, wi_up, wo = self._weights()
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cfg.dtype), x)
-        gate = torch.einsum("egcd,edf->egcf", expert_in, wi_gate)
-        up = torch.einsum("egcd,edf->egcf", expert_in, wi_up)
-        expert_out = torch.einsum("egcf,efd->egcd", F.silu(gate) * up, wo)
+        gate = self._expert_product("wi_gate", "egcd,edf->egcf", expert_in)
+        up = self._expert_product("wi_up", "egcd,edf->egcf", expert_in)
+        expert_out = self._expert_product("wo", "egcf,efd->egcd",
+                                          F.silu(gate) * up)
         y = torch.einsum("gsec,egcd->gsd", combine.to(cfg.dtype), expert_out)
         return y, lb, stats
 
     def _gmm_moe(self, x, probs):
         cfg = self.config
+        if self.experts.wi_gate.scale is not None:
+            # The grouped matmuls would read int8 codes with no scale.
+            raise NotImplementedError(
+                "int8 weight-only serving is not wired for the gmm "
+                "dispatch path — serve quantized MoE checkpoints with "
+                "dispatch='dense', or dequantize_params() first")
         groups, group_size, d = x.shape
         n_tokens, k = groups * group_size, cfg.top_k
         flat = x.reshape(n_tokens, d)
@@ -342,10 +387,12 @@ class MoeDecoderBlock(nn.Module):
             self.mlp = L.MlpBlock(cfg.d_model, cfg.ffn_size, dtype=cfg.dtype,
                                   device=device)
 
-    def forward(self, x, *, positions, rope, segment_ids=None):
+    def forward(self, x, layer_cache: Optional[dict] = None,
+                cache: Optional[L.KVCache] = None, *, positions, rope,
+                segment_ids=None):
         h = self.attn_norm(x)
-        x = x + self.attention(h, None, None, positions=positions, rope=rope,
-                               segment_ids=segment_ids)
+        x = x + self.attention(h, layer_cache, cache, positions=positions,
+                               rope=rope, segment_ids=segment_ids)
         h = self.mlp_norm(x)
         if not self.use_moe:
             return x + self.mlp(h), (), ()
@@ -359,7 +406,10 @@ class MoeLmModel(nn.Module):
     stats)``: logits [B, S, vocab] in ``config.dtype``, ``aux`` the list
     of every MoE layer's weighted aux terms, ``stats`` a list of each MoE
     layer's (dropped fraction, expert load).  Each block is
-    rematerialised under ``config.remat``."""
+    rematerialised under ``config.remat``.  Decode, ``model(tokens,
+    cache)`` over a ``layers.KVCache`` (``init_cache``, as
+    ``LlamaModel``'s), returns the logits alone, as the JAX model's
+    decode apply does, and advances the cache's index by S."""
 
     def __init__(self, config: MoeConfig, *, device=None):
         super().__init__()
@@ -381,9 +431,7 @@ class MoeLmModel(nn.Module):
                 positions: Optional[torch.Tensor] = None):
         cfg = self.config
         if cache is not None:
-            raise NotImplementedError(
-                "MoE decode (KV-cached serving) is not ported yet; it "
-                "comes with the MoE serving slice")
+            return self._decode(tokens, cache, segment_ids, positions)
         if positions is None:
             if segment_ids is not None:
                 positions = segment_relative_positions(segment_ids)
@@ -405,6 +453,31 @@ class MoeLmModel(nn.Module):
             if s:
                 stats.append(s)
         return self.lm_head(self.final_norm(x)), aux, stats
+
+    def _decode(self, tokens, cache: L.KVCache, segment_ids, positions):
+        """The decode forward: positions from the cache (one host int for
+        the shared-index cache, each row's ``index`` otherwise), every
+        layer appending its rows in place, no remat."""
+        cfg = self.config
+        if segment_ids is not None or positions is not None:
+            raise ValueError("decode mode takes its positions from the "
+                             "cache and no packed segments")
+        offsets = torch.arange(tokens.shape[1], device=tokens.device)
+        if cache.shared:
+            positions = (cache.index + offsets).expand(tokens.shape)
+        else:
+            positions = cache.index[:, None] + offsets
+        rope = L.rope_sin_cos(positions, cfg.attn_head_dim,
+                              base=cfg.rope_base)
+        x = self.token_embed(tokens)
+        for layer, lc in zip(self.layers, cache.layers):
+            x = layer(x, lc, cache, positions=positions, rope=rope)[0]
+        cache.index += tokens.shape[1]
+        cache.fresh = False
+        return self.lm_head(self.final_norm(x))
+
+    # The caches are the Llama decoder's: one attention layout per layer.
+    init_cache = LlamaModel.init_cache
 
 
 def _routing_metrics(stats: list) -> dict:

@@ -36,7 +36,8 @@ def _reject_config(name: str, cfg) -> None:
     if not isinstance(cfg, LlamaConfig):
         raise ValueError(
             f"{name} config is {type(cfg).__name__}; speculative decode "
-            "supports the Llama family only")
+            "supports the Llama family only (MoE decode serves through "
+            "generate(), but draft/verify rollback is untested there)")
     if cfg.sliding_window is not None:
         raise ValueError(
             f"{name} config uses sliding_window={cfg.sliding_window}: "

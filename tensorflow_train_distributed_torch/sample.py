@@ -9,14 +9,16 @@ of ``models.generate`` (greedy, or ``--temperature`` with ``--top-k`` /
 ``--top-p``, from the counter streams ``--seed`` names), or with
 ``--speculative-draft-config`` / ``--speculative-draft-checkpoint`` the
 batch-1 ``generate_speculative``.  A sliding-window config decodes over
-its rolling ring.
+its rolling ring.  MoE configs sample too: ``--dispatch {dense,gmm}``
+overrides the expert dispatch (one parameter tree serves both), and
+``--quant int8`` samples with int8 weight-only kernels
+(``models.quant``).
 
 Prompts are token ids, ``--prompt 1,15043,29892``, repeatable for a batch
 of equal-length rows.  Each row prints one JSON line ``{"prompt": [...],
 "completion": [...]}`` (speculation prints ``{"speculative_stats": ...}``
-first), as the JAX CLI does.  ``--quant``, ``--dispatch`` and
-``--init-from-hf`` are not ported: they exit 2 naming the ROADMAP item
-that brings them.
+first), as the JAX CLI does.  ``--init-from-hf`` is not ported: it
+exits 2 naming the ROADMAP item that brings it.
 
   python -m tensorflow_train_distributed_torch.sample \\
       --config llama_tiny_sft --checkpoint-dir ck --prompt 1,2,3 \\
@@ -32,14 +34,11 @@ import sys
 import numpy as np
 import torch
 
-from tensorflow_train_distributed_torch.models import registry
-from tensorflow_train_distributed_torch.models.llama import LlamaConfig
+from tensorflow_train_distributed_torch.models.moe import MoeConfig
 
 # Flags of the JAX CLI the port refuses, with the ROADMAP item that
 # brings each.
 _REFUSED = {
-    "quant": "ROADMAP Queue 1 step 3 (int8 weight-only serving)",
-    "dispatch": "ROADMAP Queue 1 step 3 (MoE decode and serving)",
     "init_from_hf": "ROADMAP Queue 1 item 6 (HF import)",
 }
 
@@ -47,7 +46,8 @@ _REFUSED = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", required=True,
-                   help="registry config name (a llama-family preset)")
+                   help="registry config name (a llama- or moe-family "
+                        "preset)")
     p.add_argument("--checkpoint-dir", default="",
                    help="the newest checkpoint the launcher wrote here")
     p.add_argument("--params-npz", default="",
@@ -75,11 +75,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "the port's launcher")
     p.add_argument("--speculative-k", type=int, default=4,
                    help="draft block length per round")
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="'int8': post-training weight-only quantization "
+                        "(models.quant) before sampling")
+    p.add_argument("--dispatch", default="", choices=["", "dense", "gmm"],
+                   help="MoE expert-dispatch override (MoE configs "
+                        "only). 'gmm' is DROPLESS — routing, and "
+                        "therefore outputs, legitimately differ from "
+                        "capacity-dropped 'dense'. Default: the "
+                        "config's own setting")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the "
                         "kernels' plain versions)")
-    for flag in ("--quant", "--dispatch", "--init-from-hf"):
-        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--init-from-hf", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -89,8 +97,11 @@ def main(argv=None) -> int:
         generate_speculative,
     )
     from tensorflow_train_distributed_torch.serve import (
+        apply_dispatch_arg,
+        decoder_config,
         load_draft,
         load_params,
+        lora_serving_spec,
         parse_prompt,
     )
 
@@ -101,14 +112,7 @@ def main(argv=None) -> int:
             print(f"sample: {flag} is not ported; {item} brings it",
                   file=sys.stderr)
             return 2
-    try:
-        cfg = registry.get_config(args.config)
-    except ValueError as e:
-        raise SystemExit(str(e))
-    if not isinstance(cfg, LlamaConfig):
-        raise SystemExit(f"--config {args.config} is not a llama-family "
-                         f"decoder; {_REFUSED['dispatch']} brings MoE "
-                         f"sampling")
+    cfg = apply_dispatch_arg(args, decoder_config(args.config, "sampling"))
     if not (args.checkpoint_dir or args.params_npz):
         raise SystemExit("the weights: --checkpoint-dir or --params-npz")
     rows = [parse_prompt(spec) for spec in args.prompt]
@@ -135,11 +139,29 @@ def main(argv=None) -> int:
             f"config's max_positions={cfg.max_positions} (the KV cache)")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available")
-    if args.speculative_draft_config and len(rows) != 1:
-        raise SystemExit("speculative decoding is batch-1: pass ONE "
-                         "--prompt")
+    if args.speculative_draft_config:
+        if args.quant or lora_serving_spec(args, cfg) is not None:
+            raise SystemExit(
+                "--speculative-draft-config does not compose with "
+                "--quant or LoRA serving (merge first).  Sampling DOES "
+                "compose: with --temperature the draft samples its "
+                "proposals and acceptance uses the rejection rule, so "
+                "outputs follow the same law as plain sampled decoding")
+        if isinstance(cfg, MoeConfig):
+            raise SystemExit("speculative decoding needs a llama-family "
+                             "TARGET --config")
+        if len(rows) != 1:
+            raise SystemExit("speculative decoding is batch-1: pass ONE "
+                             "--prompt")
     draft_cfg, draft_params = load_draft(args, cfg)
     params = load_params(args, cfg)     # LoRA adapters merged
+    quant_scales = None
+    if args.quant:
+        from tensorflow_train_distributed_torch.models.quant import (
+            quantize_params,
+        )
+
+        params, quant_scales = quantize_params(params)
     prompt = np.asarray(rows, np.int64)
     try:
         if draft_cfg is not None:
@@ -153,7 +175,7 @@ def main(argv=None) -> int:
             out = generate(cfg, params, prompt, args.max_new,
                            temperature=args.temperature, top_k=args.top_k,
                            top_p=args.top_p, seed=args.seed,
-                           device=args.device)
+                           quant_scales=quant_scales, device=args.device)
     except ValueError as e:
         raise SystemExit(str(e))
     for row_in, row_out in zip(rows, out.cpu().tolist()):

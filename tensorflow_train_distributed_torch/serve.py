@@ -23,6 +23,16 @@ adaptive[:K1,K2,...]`` lets the depth follow the measured acceptance and
 int8 too.  ``--prefix IDS`` preloads a shared system prompt once
 (``preload_prefix``); requests that extend it prefill only their suffix.
 
+Both decoder families serve.  ``--dispatch {dense,gmm}`` overrides an MoE
+config's expert dispatch (one parameter tree serves both): the dropless
+``gmm`` keeps bucketed and chunked prefill and prefix caching, while
+``dense`` prefills each prompt at its exact length and refuses
+``--prefix`` and ``--prefill-chunk`` (``serving``'s docstring; the JAX
+CLI's hint about one XLA prefill program per prompt length has no
+counterpart in this eager engine).  ``--quant int8`` serves int8
+weight-only kernels (``models.quant``), the draft's too.  ``--kv-int8``
+is for Llama-family configs.
+
 Weights come from ``--checkpoint-dir`` (the parameters of the newest
 checkpoint the port's launcher wrote there, restored without the rest of
 the train state), ``--params-npz`` (an ``np.savez`` of the flat flax
@@ -39,6 +49,8 @@ engine is built.
       --params-npz params.npz --requests reqs.jsonl --device cpu
   python -m tensorflow_train_distributed_torch.serve --config llama_tiny_sft \\
       --checkpoint-dir ck --prompt 1,2,3 --device cpu
+  python -m tensorflow_train_distributed_torch.serve --config mixtral_8x7b \\
+      --quant int8 --dispatch dense --prompt 1,2,3 --cache-len 1024
   python -m tensorflow_train_distributed_torch.serve --config llama_tiny_sft \\
       --checkpoint-dir ck --speculative-draft-config llama_tiny_sft \\
       --speculative-draft-checkpoint draft_ck --spec-depth adaptive:0,2,4 \\
@@ -58,6 +70,7 @@ import torch
 from tensorflow_train_distributed_torch import convert
 from tensorflow_train_distributed_torch.models import registry
 from tensorflow_train_distributed_torch.models.llama import LlamaConfig
+from tensorflow_train_distributed_torch.models.moe import MoeConfig
 from tensorflow_train_distributed_torch.ops import kernels as K
 
 
@@ -121,6 +134,31 @@ def parse_spec_depth_arg(arg: str, fixed_k: int):
                      f"'adaptive:K1,K2,...', got {arg!r}")
 
 
+def decoder_config(name: str, verb: str):
+    """The registry config of a decoder (Llama or MoE family), or
+    SystemExit."""
+    try:
+        cfg = registry.get_config(name)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if not isinstance(cfg, (LlamaConfig, MoeConfig)):
+        raise SystemExit(f"--config {name} is not a decoder LM; {verb} "
+                         "needs a llama- or moe-family config")
+    return cfg
+
+
+def apply_dispatch_arg(args, cfg):
+    """``--dispatch``, applied to the config before the weights load
+    (dense and gmm share one parameter tree)."""
+    if not getattr(args, "dispatch", None):
+        return cfg
+    if not isinstance(cfg, MoeConfig):
+        raise SystemExit("--dispatch selects the MoE expert-dispatch "
+                         "formulation; it does not apply to dense "
+                         "decoder configs")
+    return dataclasses.replace(cfg, dispatch=args.dispatch)
+
+
 def load_draft(args, cfg):
     """(draft config, draft params) for ``--speculative-draft-*``, or
     (None, None).  The draft's KV is int8 when the target's is."""
@@ -153,7 +191,7 @@ def load_draft(args, cfg):
     return draft_cfg, params
 
 
-def lora_serving_spec(args):
+def lora_serving_spec(args, cfg):
     """The LoRA spec to merge with: the checkpoint's ``lora_spec.json``,
     or the ``--lora-*`` flags, which must agree with it; None for a
     checkpoint without LoRA.  Exits on a contradiction."""
@@ -164,8 +202,15 @@ def lora_serving_spec(args):
     )
 
     sidecar = load_spec(args.checkpoint_dir) if args.checkpoint_dir else None
-    if (args.lora_alpha is not None or args.lora_targets is not None) \
-            and not args.lora_rank:
+    flags_given = args.lora_alpha is not None or args.lora_targets is not None
+    if isinstance(cfg, MoeConfig) and (flags_given or args.lora_rank
+                                       or sidecar is not None):
+        raise SystemExit(
+            "--lora-* applies to llama-family configs only (and this "
+            "checkpoint dir carries a lora_spec.json sidecar, which a "
+            "MoE config cannot serve)" if sidecar is not None else
+            "--lora-* applies to llama-family configs only")
+    if flags_given and not args.lora_rank:
         raise SystemExit("--lora-alpha/--lora-targets need --lora-rank too "
                          "(a lone flag would be dropped in favour of the "
                          "checkpoint's lora_spec.json)")
@@ -208,7 +253,7 @@ def load_params(args, cfg) -> dict:
     else:
         gen = torch.Generator(device=args.device).manual_seed(args.seed)
         params = convert.init_params(cfg, gen, device=args.device)
-    spec = lora_serving_spec(args)
+    spec = lora_serving_spec(args, cfg)
     if spec is not None:
         try:
             check_spec_matches(params, spec)
@@ -257,7 +302,18 @@ def main(argv=None) -> int:
                    help="physical KV blocks (default: slots * "
                         "ceil(cache_len / block_size))")
     p.add_argument("--kv-int8", action="store_true",
-                   help="int8 KV cache (per-row f32 scales)")
+                   help="int8 KV cache (per-row f32 scales; llama-family "
+                        "configs)")
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="'int8': int8 weight-only kernels with per-channel "
+                        "scales (models.quant), the draft's too")
+    p.add_argument("--dispatch", default="", choices=["", "dense", "gmm"],
+                   help="MoE expert-dispatch override (MoE configs only): "
+                        "'gmm' is dropless, so its outputs legitimately "
+                        "differ from capacity-dropped 'dense', and keeps "
+                        "bucketed/chunked prefill and prefix caching; "
+                        "'dense' prefills at the exact prompt length and "
+                        "refuses --prefix. Default: the config's own")
     p.add_argument("--prefill-chunk", type=int, default=None)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=None)
@@ -297,14 +353,11 @@ def main(argv=None) -> int:
                    help="output JSONL path ('-' = stdout)")
     args = p.parse_args(argv)
 
-    try:
-        cfg = registry.get_config(args.config)
-    except ValueError as e:
-        raise SystemExit(str(e))
-    if not isinstance(cfg, LlamaConfig):
-        raise SystemExit(f"{args.config}: MoE serving is not ported yet "
-                         f"(it comes with the MoE serving slice)")
+    cfg = apply_dispatch_arg(args, decoder_config(args.config, "serving"))
     if args.kv_int8:
+        if isinstance(cfg, MoeConfig):
+            raise SystemExit("--kv-int8 applies to llama-family configs "
+                             "only (MoeConfig has no kv_cache_int8 knob)")
         cfg = dataclasses.replace(cfg, kv_cache_int8=True)
     prefix = parse_prompt(args.prefix, "--prefix") if args.prefix else []
     bad = sorted({t for t in prefix if not 0 <= t < cfg.vocab_size})
@@ -327,6 +380,16 @@ def main(argv=None) -> int:
         raise SystemExit("--spec-depth adaptive needs "
                          "--speculative-draft-config")
     params = load_params(args, cfg)
+    quant_scales = draft_quant_scales = None
+    if args.quant == "int8":
+        from tensorflow_train_distributed_torch.models.quant import (
+            quantize_params,
+        )
+
+        # Both models: decode streams both models' weights.
+        params, quant_scales = quantize_params(params)
+        if draft_params is not None:
+            draft_params, draft_quant_scales = quantize_params(draft_params)
     try:
         eng = ServingEngine(
             cfg, params, slots=args.slots, chunk=args.chunk,
@@ -334,6 +397,7 @@ def main(argv=None) -> int:
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, prefill_chunk=args.prefill_chunk,
             draft_config=draft_cfg, draft_params=draft_params,
+            quant_scales=quant_scales, draft_quant_scales=draft_quant_scales,
             speculative_k=spec_k if draft_cfg is not None else 0,
             spec_depths=spec_depths, overlap=not args.no_overlap,
             prefill_budget=0 if args.no_interleave else args.prefill_budget,

@@ -78,11 +78,24 @@ Lane control, as the JAX engine's:
   the rows' bytes verbatim (int8 rows with their f32 scales), so either
   package installs what the other exports.
 
+Both decoder families serve (``models.generate._decode_model``), in full
+precision or with int8 weights (``quant_scales``, and
+``draft_quant_scales`` for the draft; ``models.quant``).  A
+dense-dispatch MoE prefills each prompt whole at its exact length: the
+router's per-group capacity depends on the group's length, so bucket
+padding or chunking would change which tokens drop against
+``generate()``'s prefill.  Such an engine therefore refuses
+``prefill_chunk`` and ``preload_prefix``, matches no radix prefix and
+exports no KV rows.  The dropless gmm dispatch routes every token on its
+own and keeps bucketed and chunked prefill, prefix caching and lane
+export and install.  (The JAX engine warns at each new prompt length
+because each is a new XLA program; this eager engine compiles nothing
+per length, so it has no such warning.)
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain versions run (``ops.kernels``).
 
-Waiting for later slices: HBM autosizing, the linear-cache engine, int8
-weights and MoE.
+Waiting for later slices: HBM autosizing and the linear-cache engine.
 """
 
 from __future__ import annotations
@@ -107,6 +120,10 @@ from tensorflow_train_distributed_torch.models.generate import (
 )
 from tensorflow_train_distributed_torch.models.layers import KVCache
 from tensorflow_train_distributed_torch.models.lora import has_lora_leaves
+from tensorflow_train_distributed_torch.models.moe import MoeConfig
+from tensorflow_train_distributed_torch.models.quant import (
+    check_quant_pairing,
+)
 from tensorflow_train_distributed_torch.ops import kernels as K
 
 logger = logging.getLogger(__name__)
@@ -237,7 +254,8 @@ class ServingEngine:
 
     ``params``: the port's flat weights (``convert.params_from_flax`` or
     ``convert.init_params``), served in ``config.dtype``; ``draft_params``
-    likewise for ``draft_config``.  ``record_logits=True`` keeps, per
+    likewise for ``draft_config``.  int8 weights come with their scales
+    (``quant_scales``, ``draft_quant_scales``: ``models.quant``).  ``record_logits=True`` keeps, per
     request, the f32 logits that produced each of its generated tokens
     after the first (``decode_logits[request_id]``, a list of [vocab]
     tensors: a decode step's, or the verify forward's row under
@@ -252,6 +270,8 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  draft_config=None, draft_params: Optional[dict] = None,
                  speculative_k: int = 0, spec_depths=None,
+                 quant_scales: Optional[dict] = None,
+                 draft_quant_scales: Optional[dict] = None,
                  prompt_buckets=(32, 64, 128, 256, 512, 1024),
                  overlap: Optional[bool] = None,
                  prefill_budget: Optional[int] = None,
@@ -271,6 +291,10 @@ class ServingEngine:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        # Dense-dispatch MoE prefills at the exact prompt length (the
+        # module docstring); the dropless gmm dispatch need not.
+        self._exact_prefill = (isinstance(config, MoeConfig)
+                               and config.dispatch != "gmm")
         validate_sampling(temperature, top_k, top_p)
         self.temperature = float(temperature)
         self.top_k = top_k
@@ -288,11 +312,21 @@ class ServingEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
+        if prefill_chunk is not None and self._exact_prefill:
+            raise ValueError(
+                "prefill_chunk is unsupported for dense-dispatch "
+                "MoE configs: the router's per-group capacity "
+                "depends on the prefill length, so chunking would "
+                "change routing vs generate() (dense MoE prefills "
+                "at the exact length; dispatch='gmm' is dropless "
+                "and supports chunked/bucketed prefill)")
         self.prefill_chunk = prefill_chunk
         self.prompt_buckets = tuple(
             b for b in sorted(prompt_buckets) if b <= self.cache_len)
-        if not self.prompt_buckets and prefill_chunk is None:
+        if (not self.prompt_buckets and not self._exact_prefill
+                and prefill_chunk is None):
             raise ValueError("no prompt bucket fits cache_len")
+        check_quant_pairing(params, quant_scales)
         if kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, got "
                              f"{kv_block_size}")
@@ -308,6 +342,8 @@ class ServingEngine:
         self._spec_k = int(speculative_k)
         if (draft_config is None) != (draft_params is None):
             raise ValueError("draft_config and draft_params come together")
+        if draft_quant_scales is not None and draft_config is None:
+            raise ValueError("draft_quant_scales needs draft_config/params")
         if self._spec_k and draft_config is None:
             raise ValueError("speculative_k needs draft_config/params")
         if spec_depths is not None and draft_config is None:
@@ -327,6 +363,7 @@ class ServingEngine:
                                  f"!= target vocab {config.vocab_size}")
             if has_lora_leaves(draft_params):
                 raise ValueError("merge the draft's LoRA adapters first")
+            check_quant_pairing(draft_params, draft_quant_scales)
         self.draft_config = draft_config
         # The controller only selects among depths; it never changes a
         # round's math (a pinned depth replays the fixed engine bitwise).
@@ -334,10 +371,11 @@ class ServingEngine:
                            if spec_depths is not None
                            and not _killed("TTD_NO_ADAPTIVE_SPEC") else None)
         self._model = _decode_model(
-            config, cast_floating(params, config.dtype), device=self.device)
+            config, cast_floating(params, config.dtype),
+            quant_scales=quant_scales, device=self.device)
         self._draft = (None if draft_config is None else _decode_model(
             draft_config, cast_floating(draft_params, draft_config.dtype),
-            device=self.device))
+            quant_scales=draft_quant_scales, device=self.device))
         self._kv_pool = serving_kv.KVBlockPool(kv_pool_blocks,
                                                self.kv_block_size)
         self._radix = serving_kv.RadixPrefixIndex(self._kv_pool)
@@ -654,7 +692,8 @@ class ServingEngine:
                 f"request needs {need} KV blocks (block_size="
                 f"{self.kv_block_size}) but the pool has "
                 f"{self._kv_pool.n_blocks}")
-        if self.prefill_chunk is None and not resume_from:
+        if (not self._exact_prefill and self.prefill_chunk is None
+                and not resume_from):
             # Only the suffix after the longest preloaded prefix needs a
             # bucket; a resumed request already passed this bound once,
             # and its pieces chunk any span.
@@ -750,7 +789,8 @@ class ServingEngine:
         bs = self.kv_block_size
         need = -(-min(len(prompt) + max_new, self.cache_len) // bs)
         retry = rid == self._kv_refused_rid
-        matched, shared = self._radix.match(prompt, record=not retry)
+        matched, shared = ((0, []) if self._exact_prefill
+                           else self._radix.match(prompt, record=not retry))
         for b in shared:
             self._kv_pool.ref(b)
         n_owned = need - len(shared)
@@ -785,8 +825,9 @@ class ServingEngine:
         prompt's full blocks, so later requests share them at once."""
         self._lane_kv[slot] = kv
         self._stale_slots.discard(slot)
-        table = kv.table(self._kv_nblk_lane)
-        self._radix.insert(prompt, lambda j: table[j])
+        if not self._exact_prefill:
+            table = kv.table(self._kv_nblk_lane)
+            self._radix.insert(prompt, lambda j: table[j])
 
     def _lane_release(self, slot: int, tokens=None) -> None:
         """Retire or cancel a lane: with ``tokens``, cache its generated
@@ -796,7 +837,7 @@ class ServingEngine:
         kv = self._lane_kv[slot]
         if kv is None:
             return
-        if tokens is not None:
+        if tokens is not None and not self._exact_prefill:
             bs = self.kv_block_size
             keep = tokens[:((len(tokens) - 1) // bs) * bs]
             table = kv.table(self._kv_nblk_lane)
@@ -843,7 +884,10 @@ class ServingEngine:
         return self._gather_prefix(table_row, kv.matched, draft)
 
     def _pieces_for(self, m: int):
-        """(piece_len, n_pieces) for prefilling an m-token span."""
+        """(piece_len, n_pieces) for prefilling an m-token span: one
+        exact-length piece for a dense-dispatch MoE."""
+        if self._exact_prefill:
+            return m, 1
         if self.prefill_chunk is not None:
             return self.prefill_chunk, -(-m // self.prefill_chunk)
         piece = _bucket_len(min(m, self.prompt_buckets[-1]),
@@ -1367,6 +1411,11 @@ class ServingEngine:
         tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
         if not tokens:
             raise ValueError("empty prefix")
+        if self._exact_prefill:
+            raise ValueError(
+                "prefix caching needs length-independent routing; "
+                "dense-dispatch MoE prefills at the exact prompt length "
+                "(dispatch='gmm' supports prefix caching)")
         n = len(tokens)
         if n >= self.cache_len:
             raise ValueError(f"prefix length {n} must leave cache room "
@@ -1493,7 +1542,9 @@ class ServingEngine:
         The head is preloaded when the radix does not hold it, then read
         back out of the pool and shipped verbatim; at least one suffix
         token stays unexported (its logit picks the first token on the
-        receiving side)."""
+        receiving side).  A dense-dispatch MoE engine exports nothing."""
+        if self._exact_prefill:
+            return None
         tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
         bs = self.kv_block_size
         m = max(0, (len(tokens) - 1) // bs)
@@ -1528,7 +1579,10 @@ class ServingEngine:
         prefills locally with the same output).  The wire bytes rebuild
         batch-1 caches in their exact dtypes, which seed the radix
         through ``_seed_radix_from_cache``, the path ``preload_prefix``
-        takes.  A torn or lying manifest raises ValueError."""
+        takes.  A torn or lying manifest raises ValueError.  A
+        dense-dispatch MoE engine installs nothing (0)."""
+        if self._exact_prefill:
+            return 0
         tokens = [int(t) for t in meta.get("tokens", ())]
         n = int(meta.get("n", 0))
         bs = self.kv_block_size
@@ -1644,7 +1698,7 @@ class ServingEngine:
             blob = b""
             bs = self.kv_block_size
             m = max(0, (len(state.tokens) - 1) // bs)
-            kv = self._lane_kv[slot]
+            kv = None if self._exact_prefill else self._lane_kv[slot]
             if kv is not None and m > 0:
                 # The lane's claim holds a reference on every block of its
                 # table; nothing runs between here and the gather.

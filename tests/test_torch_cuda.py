@@ -1666,3 +1666,147 @@ def test_cancel_under_the_overlap_on_the_card(gen):
     want = sync.run()
     assert out[a] == want[ids[0]] and out[c] == want[ids[1]]
     assert piped.kv_blocks_in_use() == piped._radix.cached_blocks()
+
+
+# -- MoE decode and int8 weight-only serving ----------------------------------
+
+
+@pytest.mark.parametrize("experts,k,n", [(8, 1024, 2048), (60, 2048, 1408)])
+@pytest.mark.parametrize("layout", ["routed", "one_group", "all_in_last"])
+def test_gmm_at_decode_shapes(gen, experts, k, n, layout):
+    """K6 at a decode step's shapes: 8 slots' 32 token copies padded to
+    128 rows, most groups empty, the 96 pad rows in the last group (the
+    MoE block's rule): a top-4 routing, all 32 rows in one group, or all
+    128 rows in the last.  bf16 x bf16 -> f32 within ``K.gmm_tolerance``;
+    the pad rows' zero inputs give zero outputs."""
+    sizes = [0] * experts
+    if layout == "routed":
+        for e in torch.randint(0, experts, (32,), generator=gen,
+                               device="cuda").tolist():
+            sizes[e] += 1
+    elif layout == "one_group":
+        sizes[experts // 3] = 32
+    else:
+        sizes[-1] = 32
+    sizes[-1] += 96
+    lhs = _randn(gen, 128, k, dtype=torch.bfloat16)
+    lhs[32:] = 0
+    rhs = _randn(gen, experts, k, n, dtype=torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    before = K.launch_counts()["gmm"]
+    got = K.gmm(lhs, rhs, gs)
+    assert K.launch_counts()["gmm"] == before + 1
+    ref32 = K.gmm_reference(lhs, rhs, gs)
+    sumsq32 = K.gmm_reference(lhs.float() ** 2, rhs.float() ** 2, gs)
+    _assert_within(got, ref32, sumsq32, k, (lhs, rhs))
+    assert not got[32:].any()
+
+
+def _small_moe(dtype, **kw):
+    """An MoE decoder with 64-wide heads (the attention kernels' gate),
+    GQA, the gated shared expert and qkv biases (Qwen's knobs)."""
+    from tensorflow_train_distributed_torch.models.moe import MOE_PRESETS
+
+    return dataclasses.replace(
+        MOE_PRESETS["qwen_moe_tiny"], vocab_size=512, d_model=256,
+        num_heads=4, num_kv_heads=2, ffn_size=192, num_experts=6, top_k=2,
+        capacity_factor=3.0, shared_expert_size=256, max_positions=512,
+        dtype=dtype, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_dense_matches_its_dequantized_version(gen, dtype):
+    """``layers.Dense`` with an int8 kernel and its scale against the same
+    layer holding ``q * scale``: f32 within 1e-5 (the scale applied after
+    the product instead of before), bf16 within 3e-2 (two bf16
+    roundings); the bias after the scale."""
+    from tensorflow_train_distributed_torch.models import layers as L
+    from tensorflow_train_distributed_torch.models import quant
+
+    w = _randn(gen, 512, 384) / 512 ** 0.5
+    q, s = quant.quantize_tensor(w)
+    bias = _randn(gen, 384, dtype=dtype)
+    x = _randn(gen, 8, 3, 512, dtype=dtype)
+    layers = []
+    for kernel, scale in ((q, s), ((q.float() * s).to(dtype), None)):
+        layer = L.Dense(512, 384, use_bias=True, dtype=dtype,
+                        device="meta").requires_grad_(False)
+        layer.load_state_dict({"kernel": kernel, "bias": bias},
+                              assign=True)
+        if scale is not None:
+            layer.scale = scale
+        layers.append(layer)
+    got, want = (layer(x) for layer in layers)
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_moe_matches_its_dequantized_version(gen, dtype):
+    """A whole int8 MoE decoder (dense dispatch: every expert's product
+    scaled per expert; the f32 router and shared gate quantized too)
+    against the same decoder on ``dequantize_params``' weights, at a
+    decode step's groups of one token and at a prefill's one group:
+    logits within 1e-4 (f32) or 5e-2 of max(std, 1) (bf16)."""
+    from tensorflow_train_distributed_torch.models import quant
+    from tensorflow_train_distributed_torch.models.generate import (
+        _decode_model,
+        cast_floating,
+    )
+
+    cfg = _small_moe(dtype)
+    q, s = quant.quantize_params(convert.init_params(cfg, gen,
+                                                     device="cuda"))
+    int8 = _decode_model(cfg, q, quant_scales=s, device="cuda")
+    deq = _decode_model(cfg, cast_floating(quant.dequantize_params(q, s),
+                                           dtype), device="cuda")
+    for shape in ((8, 1), (1, 40)):
+        tokens = torch.randint(1, 512, shape, generator=gen, device="cuda")
+        with torch.no_grad():
+            got, want = (m(tokens)[0].float() for m in (int8, deq))
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            gap = (got - want).abs().amax(-1) / want.std(-1).clamp(min=1)
+            assert float(gap.max()) <= 5e-2
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "gmm"])
+def test_moe_decode_matches_forced_forward_on_the_card(gen, dispatch):
+    """f32 MoE decode on the card (K1f, the fresh prefill through K2, the
+    single-token steps; gmm through K6) against the forced forward of
+    prompt + tokens padded to 128 rows: each step's logits within 2e-4;
+    then the engine (K4, K5 at a radix hit under gmm) gives
+    ``generate()``'s tokens."""
+    from tensorflow_train_distributed_torch.models import generate as G
+
+    cfg = _small_moe(torch.float32, dispatch=dispatch)
+    params = convert.init_params(cfg, gen, device="cuda")
+    model = G._decode_model(cfg, params, device="cuda")
+    prompt = torch.randint(1, 512, (1, 100), generator=gen, device="cuda")
+    logs = []
+    K.reset_launch_counts()
+    out = G._generate(model, prompt, 20, G._picker(0.0, None, None, None, 1,
+                                                   "cuda"), logits_out=logs)
+    counts = K.launch_counts()
+    assert counts["rms_norm"] > 0 and counts["flash_attention"] == 2
+    assert (counts["gmm"] > 0) == (dispatch == "gmm")
+    seq = out[:, :-1]
+    pad = torch.zeros(1, 128 - seq.shape[1], dtype=seq.dtype, device="cuda")
+    with torch.no_grad():
+        forced = model(torch.cat([seq, pad], 1))[0][0, 99:119].float()
+    torch.testing.assert_close(torch.cat(logs), forced, rtol=2e-4, atol=2e-4)
+    eng = ServingEngine(cfg, params, slots=2, cache_len=256, chunk=4,
+                        kv_block_size=16, device="cuda")
+    prompts = [prompt[0].tolist(), prompt[0, :64].tolist() + [5, 6, 7]]
+    K.reset_launch_counts()
+    got = {}
+    for p in prompts:     # the second after the first retired: a radix hit
+        rid = eng.submit(p, 12)
+        got[rid] = (p, eng.run()[rid])
+    assert K.launch_counts()["paged_attention"] > 0
+    assert (K.launch_counts()["paged_kv_gather"] > 0) == (dispatch == "gmm")
+    for p, toks in got.values():
+        assert toks == G.generate(cfg, params, [p], 12,
+                                  device="cuda")[0].tolist()

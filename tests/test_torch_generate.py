@@ -20,8 +20,8 @@ package on the CPU (f32, the same weights through ``convert``).
 - ``generate_speculative`` gives ``generate()``'s greedy tokens with a
   self draft and a disagreeing one, and JAX's ``stats``.
 - ``sample.py`` on a checkpoint of the port's launcher prints the JAX
-  ``tools/sample.py`` lines on the same weights; its unported flags exit
-  2.
+  ``tools/sample.py`` lines on the same weights; ``--init-from-hf``, not
+  ported, exits 2; ``--quant int8`` samples.
 """
 
 import dataclasses
@@ -230,13 +230,16 @@ def test_refusals_match_jax():
             tgen.generate(tcfg, params, *args, device="cpu", **kw)
         errs.append(str(e.value))
         assert errs[0] == errs[1], kw
-    with pytest.raises(NotImplementedError, match="Queue 1 step 3"):
-        tgen.generate(tcfg, params, prompt, 4, quant_scales={},
-                      device="cpu")
-    from tensorflow_train_distributed_torch.models.moe import MOE_PRESETS
+    # Scales without int8 kernels (and the reverse) raise JAX's message.
+    from tensorflow_train_distributed_torch.models import quant as tquant
 
-    with pytest.raises(NotImplementedError, match="MoE decode"):
-        tgen.generate(MOE_PRESETS["moe_tiny"], {}, prompt, 4, device="cpu")
+    qparams, scales = tquant.quantize_params(params)
+    for p, s in ((params, scales), (qparams, None)):
+        with pytest.raises(ValueError, match="must be passed together"):
+            tgen.generate(tcfg, p, prompt, 4, quant_scales=s, device="cpu")
+    assert tgen.generate(tcfg, qparams, prompt, 4, quant_scales=scales,
+                         device="cpu").shape == (prompt.shape[0],
+                                                 prompt.shape[1] + 4)
     assert tgen.generate(tcfg, params, prompt, 0, device="cpu").tolist() == (
         prompt.tolist())
     with pytest.raises(ValueError, match="shared-index"):
@@ -360,20 +363,25 @@ def test_sample_cli_prints_the_jax_cli_lines(tmp_path, capsys, monkeypatch):
             1 if extra else 0)
     base = ["--config", "llama_tiny_sft", "--checkpoint-dir", ck,
             "--prompt", "1,2", "--device", "cpu"]
-    for flag in (["--quant", "int8"], ["--dispatch", "gmm"],
-                 ["--init-from-hf", "hf"]):
-        assert tsample.main(base + flag) == 2
-        assert "is not ported" in capsys.readouterr().err
+    assert tsample.main(base + ["--init-from-hf", "hf"]) == 2
+    assert "is not ported" in capsys.readouterr().err
+    assert tsample.main(base + ["--quant", "int8"]) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 1
     for flags, match in (
             (["--prompt", "1,2,3"], "equal length"),
             (["--top-k", "3"], "temperature"),
             (["--max-new", "0"], "max-new"),
             (["--prompt", "1,999"], "outside vocab"),
             (["--lora-alpha", "8"], "lora-rank"),
+            (["--dispatch", "gmm"], "dispatch"),
+            (["--quant", "int8", *spec], "does not compose with --quant"),
             (spec[:2], "required")):
         with pytest.raises(SystemExit, match=match):
             tsample.main(base + flags)
-    with pytest.raises(SystemExit, match="llama-family"):
+    with pytest.raises(SystemExit, match="llama-family TARGET"):
         tsample.main(["--config", "moe_tiny_lm", "--params-npz", "x",
+                      "--prompt", "1", "--device", "cpu", *spec])
+    with pytest.raises(SystemExit, match="not a decoder LM"):
+        tsample.main(["--config", "bert_tiny_mlm", "--params-npz", "x",
                       "--prompt", "1", "--device", "cpu"])
     assert json.loads(got.splitlines()[0])["speculative_stats"]["tokens"] == 12

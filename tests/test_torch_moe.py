@@ -282,12 +282,6 @@ def test_remat_records_each_aux_term_once():
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-7)
 
 
-def test_decode_is_not_ported_yet():
-    model = TM.MoeLmModel(TM.MOE_PRESETS["moe_tiny"])
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        model(torch.zeros(1, 4, dtype=torch.long), cache=object())
-
-
 # -- weights ------------------------------------------------------------------
 
 
@@ -381,8 +375,14 @@ def test_train_cli_moe_tiny_lm_gmm_on_cpu(capsys):
 
 
 def test_serve_cli_refuses_moe_configs():
+    """MoE configs serve (``tests/test_torch_moe_serving.py``); what the
+    JAX CLI refuses them is refused here too, in its words: an int8 KV
+    cache, and a prefix under the dense dispatch's exact-length
+    prefill."""
     from tensorflow_train_distributed_torch import serve
 
-    with pytest.raises(SystemExit, match="MoE serving"):
-        serve.main(["--config", "moe_tiny_lm", "--prompt", "1,2",
-                    "--device", "cpu"])
+    base = ["--config", "moe_tiny_lm", "--prompt", "1,2", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="MoeConfig has no kv_cache_int8"):
+        serve.main(base + ["--kv-int8"])
+    with pytest.raises(SystemExit, match="length-independent routing"):
+        serve.main(base + ["--prefix", "1"])
