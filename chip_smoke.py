@@ -27,7 +27,19 @@
    before and read just after; every kernel must have run, and paged
    attention exactly layers x decode steps.  Prints decode ms/step,
    tokens/s and peak memory, and checks the engine against a re-prefill of
-   prompt + generated tokens in a fresh cache.
+   prompt + generated tokens in a fresh cache.  The linear leg: the same
+   weights and requests on the linear engine (``paged=False``: per-slot
+   strips, decode through the masked einsum), held by the same check at
+   the same bars; RMSNorm must run and neither paged attention nor the
+   gather; its tokens' agreement with the paged run and its decode ms a
+   step beside the paged one are logged.  The autosize leg, once both
+   engines are freed: ``serve.py --kv-pool-blocks auto --hbm-headroom
+   0.3`` under ``TTD_MEMCHECK=1`` in its own process on phase 3's
+   requests: its pool's block count and budget must be the solve's
+   (recomputed here from the config and the card's total), the
+   sanitizer's peak pool and prefill bytes within the budget, no
+   ``MemoryBudgetError``, the peak of allocated memory under the card's
+   total, and its greedy tokens phase 3's paged engine's.
 4. The same engine with an int8 KV cache at full width and 4 layers.
 5. The training kernels against their plain versions at the training
    path's shapes: RMSNorm forward (writing r; its body named and the
@@ -113,28 +125,39 @@
    (``local_attention_chunked``).
 
 11. The launcher (``python -m tensorflow_train_distributed_torch``) on
-   llama_125m_lm at full width and depth, as subprocesses: (a) 12 steps
-   with a checkpoint every 4 (keep 2), the last 100 of SyntheticLM's
-   100,000 sequences held out and evaluated for 4 batches every 6 steps
-   and at the end, a JSON-lines log; (b) the same with the step-8 save
-   torn and a kill -9 at step 10 (``--fault-plan``), which must die by
-   SIGKILL; (c) the rerun as supervisor attempt 1, which must quarantine
-   ``corrupt/8``, restore step 4, take the data up mid-epoch and end with
-   a step-12 checkpoint bit for bit equal to (a)'s and the same
-   evaluation; (d) ``--eval-only`` on (a)'s directory, which must report
-   (a)'s final ``loss`` and ``perplexity``.  Run (a) reports its kernel
-   launches, which must be 12 training steps and 12 evaluation batches'
-   worth; each run reports its step time, save, restore and evaluation
-   seconds and bytes; (e) the launcher on phase 6's flags (20 steps, read
-   every 5, ``--log-grad-norm``, no checkpoint or evaluation), whose step
-   time stands beside phase 6's on the same terms.  The LoRA leg: (f) 8
-   steps with rank-8 adapters on query and value and a save every 4, (g)
-   the same killed at step 6, (h) its rerun, whose step-8 checkpoint
-   must equal (f)'s bit for bit; (f)'s launches must be 8 x
-   ``lora_launches_per_step``; then ``serve --checkpoint-dir`` on (f)'s
-   directory (the adapters merged per its ``lora_spec.json``) answers 4
-   greedy requests on the card with the tokens of ``serve --params-npz``
-   of an npz of ``merge_lora(params)`` the script writes.  The checkpoint
+   llama_125m_lm at full width and depth.  A run that is killed, or whose
+   process is the point, is a subprocess; the others call ``launch.run``
+   in this process under the backend switches a fresh process has (a
+   process spends ~9 s importing torch on the card's machine): (a) 12
+   steps with a checkpoint every 4 (keep 2), the last 100 of
+   SyntheticLM's 100,000 sequences held out and evaluated for 4 batches
+   every 6 steps and at the end, a JSON-lines log and
+   ``--tensorboard-dir``, whose scalars, read back with the port's own
+   reader, must be every step's loss and (a)'s logged losses and
+   evaluations; (b+c) one ``--supervise`` command with the step-8 save
+   torn and a kill -9 at step 10 (``--fault-plan``, attempt 0): the
+   journal must read one crash by SIGKILL, a clean exit and ``done``,
+   and the relaunch must quarantine ``corrupt/8``, restore step 4, take
+   the data up mid-epoch and end with a step-12 checkpoint bit for bit
+   equal to (a)'s and the same evaluations; (d) ``--eval-only`` on (a)'s
+   directory, which must report (a)'s final ``loss`` and ``perplexity``;
+   (k) (a)'s run with ``--steps-per-execution 4`` (a save every 6, which
+   lands at the dispatch boundary 8) and ``--profile-dir`` over steps
+   4-8: its step-12 checkpoint must equal (a)'s bit for bit, its launches
+   (a)'s, and its trace must hold the port's kernels.  Runs (a) and (k)
+   report kernel launches, which must be 12 training steps and 12
+   evaluation batches' worth; each run reports its step time, save,
+   restore and evaluation seconds and bytes; (e) the launcher on phase
+   6's flags (20 steps, read every 5, ``--log-grad-norm``, no checkpoint
+   or evaluation), whose step time stands beside phase 6's.  The LoRA
+   leg: (f) 8 steps with rank-8 adapters on query and value and a save
+   every 4, (g+h) the same under ``--supervise`` killed at step 6, whose
+   relaunch's step-8 checkpoint must equal (f)'s bit for bit; (f)'s
+   launches must be 8 x ``lora_launches_per_step``; then ``serve
+   --checkpoint-dir`` on (f)'s directory (the adapters merged per its
+   ``lora_spec.json``, ``serve.main`` in this process) answers 4 greedy
+   requests on the card with the tokens of ``serve --params-npz`` of an
+   npz of ``merge_lora(params)`` the script writes.  The checkpoint
    directories are deleted at the end, but for (a)'s, which phase 21's
    ``sample.py`` reads and deletes.
 
@@ -147,21 +170,23 @@
    version and SDPA or ``F.cross_entropy``.
 13. bert_base_mlm through the launcher at full width and depth (b 256 x
    s 128, mixed_bfloat16, 20 steps, a save every 10, 4 held-out
-   evaluation batches); the same killed at step 15 and rerun, whose
+   evaluation batches; in this process); the same killed at step 15 and
+   rerun (subprocesses), whose
    step-20 checkpoint must equal the uninterrupted run's bit for bit
    (dropout 0.1 on: the (seed, step) generator).  K2 forward and backward
    12 a step, K3f and K3b 1, exactly.
 14. transformer_big_wmt through the launcher at full width and depth
    (seq 256 so attention meets K2's gate, b 64, 20 steps, a save), then
-   ``--eval-only`` beam search (beam 4) of one batch of 8 and its BLEU.
+   ``--eval-only`` (both in this process) beam search (beam 4) of one batch of 8 and its BLEU.
    K2 18 forward and 18 backward a step, exactly; the beam search's
    launches counted too.
 15. resnet50_imagenet through the launcher (224², b 256, bf16, SGD with
    Nesterov momentum, 20 steps, a save every 10), killed at step 15 and
    rerun, whose step-20 checkpoint must equal the uninterrupted run's
-   bit for bit (the launcher pins cuDNN's deterministic algorithms); 5
-   steps each of the s2d and s2d_bnsub variants; each of the three trainers on one
-   batch already on the card.  No hand kernel runs on this path
+   bit for bit (the launcher pins cuDNN's deterministic algorithms; the
+   uninterrupted run is in this process, as in phase 13); 5 steps each
+   of the s2d and s2d_bnsub variants (in this process); each of the
+   three trainers on one batch already on the card.  No hand kernel runs on this path
    (cuDNN's convolutions; the label-smoothed loss takes no K3).  The
    data-service legs: 20 steps with ``--data-workers W`` (W divides 256
    and leaves two cores; logged), images/s beside the in-process and
@@ -169,9 +194,10 @@
    host; then 512 JPEGs from seed 0 (around 500 x 375) as a TFRecord
    corpus, 10 steps on ``imagenet_train_u8_224`` through the workers and
    2 evaluation batches on ``imagenet_eval_u8_224`` (where PIL is
-   missing, one line says the JPEG leg did not run).
-16. mnist (LeNet) through the launcher, 100 steps: the last 10 steps'
-   mean loss at most half the first step's; K3f and K3b once a step.
+   missing, one line says the JPEG leg did not run); the launcher runs in
+   this process, its input workers in theirs.
+16. mnist (LeNet) through the launcher (in this process), 100 steps: the
+   last 10 steps' mean loss at most half the first step's; K3f and K3b once a step.
 17. Five f32 steps on the card against the CPU port: a BERT with 64-wide
    heads (K2, K3 at vocab 1,001) and resnet_tiny, whose BatchNorm
    running statistics are held like the params.
@@ -326,6 +352,15 @@ KERNELS = [
     ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "serve"),
     ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290", "serve"),
     ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121", "serve"),
+    # Phase 3's legs: the linear engine runs K1f alone (K4 and K5 must not
+    # run); the autosized pool serves through all three.  The numbers
+    # beside them are phase 2's at those shapes.
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "linear_serve"),
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "autosize_serve"),
+    ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290",
+     "autosize_serve"),
+    ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121",
+     "autosize_serve"),
     ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "train"),
     ("rms_norm_bwd", _CSRC + "rms_norm.cu", _PK + ":429", "train"),
     ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "train"),
@@ -354,6 +389,7 @@ KERNELS = [
      "launch"),
     ("flash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _FA + ":941",
      "launch"),
+] + [
     # Phases 13 and 14: BERT's full-attention encoder and fused loss at
     # vocab 30,522, and the Transformer's encoder, causal decoder and
     # cross-attention, all f32 as the configs compute; the numbers beside
@@ -430,6 +466,9 @@ KERNELS = [
         ("flash_attention", "flash_attention_fwd.cu", _FA + ":589"),
         ("flash_attention_bwd", "flash_attention_bwd.cu", _FA + ":941"))
 ]
+# Phase 11's run (k): the launcher's kernels, 4 steps a trainer call.
+KERNELS += [(name, source, where, "launch_fused")
+            for name, source, where, path in KERNELS if path == "launch"]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LANE_KERNELS = [k[0] for k in KERNELS if k[3] == "lane_control"]
 GENERATE_KERNELS = [k[0] for k in KERNELS if k[3] == "generate"]
@@ -1014,8 +1053,150 @@ def _profile_chunk(eng, vocab):
     return out
 
 
+def _linear_leg(eng, prompts, paged_out, rids, paged_stats, check_requests,
+                tol) -> tuple:
+    """Phase 3's linear leg: ``eng``'s weights (shared, not copied) on the
+    linear engine (``paged=False``) at its shape, the same requests;
+    returns (its launches, its stats)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.serving import ServingEngine
+
+    max_new = len(paged_out[rids[0]]) - len(prompts[0])
+    lin = ServingEngine(eng.config, dict(eng._model.state_dict()),
+                        slots=eng.slots, chunk=eng.chunk,
+                        cache_len=eng.cache_len, paged=False,
+                        record_logits=True, overlap=False, prefill_budget=0,
+                        device="cuda")
+    lin.submit([1] * 16, 2)
+    lin.run()
+    lin.stats.update(decode_steps=0, decode_s=0.0, prefill_s=0.0,
+                     prefill_tokens=0)
+    lin.decode_logits.clear()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    lids = [lin.submit(p, max_new) for p in prompts]
+    out = lin.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
+    log(f"  linear engine launches {counts}")
+    if (counts["rms_norm"] <= 0 or counts["paged_attention"]
+            or counts["paged_kv_gather"]):
+        raise AssertionError(f"the linear engine's launches: {counts}")
+    gen = [(out[a][len(p):], paged_out[b][len(p):])
+           for a, b, p in zip(lids, rids, prompts)]
+    same = sum(x == y for g in gen for x, y in zip(*g))
+    total = sum(len(g[0]) for g in gen)
+    steps = lin.stats["decode_steps"]
+    stats = dict(
+        requests=len(lids), wall_s=wall,
+        tokens_per_s=len(lids) * max_new / wall,
+        decode_ms_per_step=lin.stats["decode_s"] / steps * 1e3,
+        paged_decode_ms_per_step=paged_stats["decode_ms_per_step"],
+        decode_steps=steps, tokens_equal_paged=same, tokens=total,
+        requests_equal_paged=sum(g[0] == g[1] for g in gen),
+        kv_blocks_total=lin.kv_blocks_total())
+    log(f"  linear engine: {json.dumps(stats)}")
+    c = _consistency(lin, out, [(lids[i], prompts[i])
+                                for i in check_requests], max_new, tol)
+    stats.update(tokens_agree=c["agree"], tokens_checked=c["total"])
+    return counts, stats
+
+
+def phase_autosize(run: dict, headroom: float = 0.3) -> tuple:
+    """Phase 3's autosize leg (the module docstring), ``serve.py`` in its
+    own process under ``TTD_MEMCHECK=1`` (the sanitizer arms at import);
+    ``run`` holds phase 3's config, requests and paged tokens.  Returns
+    (its launches, its stats)."""
+    import os
+    import shutil
+
+    config, prompts, want = run["config"], run["prompts"], run["tokens"]
+    root = os.path.abspath("_serve_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        reqs = os.path.join(root, "requests.jsonl")
+        with open(reqs, "w") as f:
+            for p in prompts:
+                f.write(json.dumps({"prompt": p}) + "\n")
+        env = dict(os.environ, TTD_MEMCHECK="1")
+        env.pop("TTD_NO_MEMCHECK", None)
+        env.pop("TTD_HBM_BYTES", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tensorflow_train_distributed_torch.serve",
+             "--config", run["name"], "--requests", reqs, "--max-new",
+             str(run["max_new"]), "--slots", "8", "--chunk", "8",
+             "--cache-len", "1024", "--kv-block-size", "16",
+             "--kv-pool-blocks", "auto", "--hbm-headroom", str(headroom),
+             "--no-overlap", "--no-interleave", "--seed", str(SEED)],
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if proc.returncode != 0 or "MemoryBudgetError" in proc.stderr:
+        raise AssertionError(f"autosized serve exited {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stderr.split("serve summary: ", 1)[1]
+                         .splitlines()[0])
+    got = [json.loads(x)["tokens"] for x in proc.stdout.splitlines()]
+    # The solve, recomputed from the config and the card's total: a block
+    # is every layer's key and value rows of 16 positions; the grid's
+    # constant part the scratch block, the [8, 64] table and 8 positions;
+    # the transient a batch-1 linear cache of 1,024 rows and its position.
+    import torch
+
+    item = torch.empty((), dtype=config.dtype).element_size()
+    block = (config.num_layers * 16 * config.kv_heads
+             * config.attn_head_dim * 2 * item)
+    intercept = block + 8 * 64 * 4 + 8 * 4
+    trans = block * 1024 // 16 + 4
+    total = summary["device_total_bytes"]
+    usable = int(total * (1.0 - headroom))
+    n = (usable - intercept - trans) // block
+    mc = summary["memcheck"]
+    peaks = mc["peak_by_pool"]
+    pooled = peaks.get("kv_pool", 0) + peaks.get("prefill_cache", 0)
+    counts = {k: summary["launches"].get(k, 0) for k in SERVE_KERNELS}
+    stats = dict(
+        card=smi_line(), headroom=headroom, device_total_bytes=total,
+        hbm_budget_bytes=summary["hbm_budget_bytes"],
+        kv_pool_blocks=summary["kv_pool_blocks"], solve_blocks=n,
+        kv_pool_bytes=summary["kv_pool_bytes"],
+        memcheck_peak_by_pool=peaks, pool_and_prefill_bytes=pooled,
+        peak_mem_bytes=summary["peak_mem_bytes"],
+        peak_mem_gib=summary["peak_mem_bytes"] / 2 ** 30,
+        tokens_equal_phase3=got == want, launches=counts,
+        decode_ms_per_step=summary["decode_s"]
+        / summary["decode_steps"] * 1e3,
+        prefix_hits=summary["kv_stats"]["prefix_hits"], wall_s=wall)
+    log(f"  autosize: {json.dumps(stats)}")
+    if (summary["hbm_budget_bytes"] != usable
+            or summary["hbm_autosized_bytes"] != usable
+            or summary["kv_pool_blocks"] != n):
+        raise AssertionError(f"the pool ({summary['kv_pool_blocks']} "
+                             f"blocks, budget {summary['hbm_budget_bytes']})"
+                             f" is not the solve's ({n}, {usable})")
+    if not 0 < pooled <= usable:
+        raise AssertionError(f"pool and prefill bytes {pooled} against "
+                             f"the budget {usable}")
+    if not summary["peak_mem_bytes"] <= total:
+        raise AssertionError(f"peak {summary['peak_mem_bytes']} over the "
+                             f"card's {total}")
+    if min(counts.values()) <= 0 or counts["paged_attention"] != (
+            config.num_layers * summary["decode_steps"]):
+        raise AssertionError(f"autosized serve's launches {counts}")
+    if got != want:
+        raise AssertionError("autosized greedy tokens differ from phase "
+                             "3's paged engine's")
+    return counts, stats
+
+
 def phase_engine(config, *, label, n_requests, max_new, lo, hi,
-                 check_requests, tol, profile_chunk=False):
+                 check_requests, tol, profile_chunk=False,
+                 linear_leg=False):
     import numpy as np
     import torch
     from tensorflow_train_distributed_torch import convert
@@ -1079,9 +1260,15 @@ def phase_engine(config, *, label, n_requests, max_new, lo, hi,
     c = _consistency(eng, out, [(rids[i], prompts[i])
                                 for i in check_requests], max_new, tol)
     stats.update(tokens_agree=c["agree"], tokens_checked=c["total"])
+    run = dict(name=label.split()[0], config=config, prompts=prompts,
+               max_new=max_new,
+               tokens=[out[r] for r in rids])
+    if linear_leg:
+        run["linear_counts"], stats["linear"] = _linear_leg(
+            eng, prompts, out, rids, stats, check_requests, tol)
     if profile_chunk:
         stats["profile"] = _profile_chunk(eng, config.vocab_size)
-    return counts, stats
+    return counts, stats, run
 
 
 # -- phase 19 -----------------------------------------------------------------
@@ -4251,6 +4438,103 @@ def _launcher(label, *flags, env=None, timeout=600):
     return proc.returncode, lines, proc.stderr, summary, wall
 
 
+# Torch's process-wide backend switches as a fresh process has them
+# (``main`` records them before it turns TF32 off for the kernel checks).
+_FRESH_FLAGS: dict = {}
+
+
+def _backend_flags() -> dict:
+    import torch
+
+    b = torch.backends
+    return dict(matmul_tf32=b.cuda.matmul.allow_tf32,
+                cudnn_tf32=b.cudnn.allow_tf32,
+                deterministic=b.cudnn.deterministic,
+                benchmark=b.cudnn.benchmark)
+
+
+def _set_backend_flags(f: dict) -> None:
+    import torch
+
+    b = torch.backends
+    b.cuda.matmul.allow_tf32 = f["matmul_tf32"]
+    b.cudnn.allow_tf32 = f["cudnn_tf32"]
+    b.cudnn.deterministic = f["deterministic"]
+    b.cudnn.benchmark = f["benchmark"]
+
+
+@contextlib.contextmanager
+def _fresh_process_flags():
+    """The backend switches of a fresh process for the block, this
+    script's after it (the launcher also pins cuDNN's)."""
+    old = _backend_flags()
+    _set_backend_flags(_FRESH_FLAGS or old)
+    try:
+        yield
+    finally:
+        _set_backend_flags(old)
+
+
+def _in_process(label, *flags):
+    """``_launcher``'s (0, stdout JSON lines, log, summary, wall) of
+    ``launch.run`` called in this process, which saves the ~9 s a
+    launcher process spends importing torch on the card's machine: under
+    a fresh process's backend switches, its stdout and its package's log
+    captured, the kernel counts and the peak memory from 0.  A failure
+    raises."""
+    import io
+    import logging
+
+    import torch
+    from tensorflow_train_distributed_torch import launch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    out, text = io.StringIO(), io.StringIO()
+    handler = logging.StreamHandler(text)
+    handler.setFormatter(logging.Formatter(
+        "%(name)s %(levelname)s %(message)s"))
+    pkg = logging.getLogger("tensorflow_train_distributed_torch")
+    level = pkg.level
+    pkg.addHandler(handler)
+    pkg.setLevel(logging.INFO)
+    _free()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with _fresh_process_flags(), contextlib.redirect_stdout(out):
+            res = launch.run(launch.build_parser().parse_args(list(flags)))
+        summary = res.summary
+        del res
+    finally:
+        pkg.removeHandler(handler)
+        pkg.setLevel(level)
+        _free()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in out.getvalue().splitlines()
+             if x.startswith("{")]
+    log(f"  ({label}) in process in {wall:.1f} s")
+    return 0, lines, text.getvalue(), summary, wall
+
+
+def _journal(path: str) -> list:
+    """The supervisor journal's events as (event, class, rc)."""
+    with open(path) as f:
+        recs = [json.loads(x) for x in f if x.strip()]
+    return [(r["event"], r.get("class"), r.get("rc")) for r in recs]
+
+
+def _last_attempt(lines: list) -> list:
+    """The JSON lines of a supervised command's last attempt: its stdout
+    carries every attempt's, and a relaunch's steps restart below the
+    killed attempt's last."""
+    start = 0
+    for i in range(1, len(lines)):
+        if lines[i]["step"] < lines[i - 1]["step"]:
+            start = i
+    return lines[start:]
+
+
 def _file_digest(path: str) -> str:
     import hashlib
 
@@ -4261,9 +4545,58 @@ def _file_digest(path: str) -> str:
     return h.hexdigest()
 
 
+def _tensorboard_check(tb_dir: str, lines: list) -> dict:
+    """The TensorBoard scalars of run (a), read back with the port's
+    reader: a loss at every step 1..12, equal to each logged loss, and
+    the evaluations' ``val_loss`` (rounded to f32) at theirs."""
+    from tensorflow_train_distributed_torch.training.callbacks import (
+        read_scalars,
+    )
+
+    import numpy as np
+
+    scalars = read_scalars(tb_dir)
+    loss = dict(scalars.get("loss", []))
+    if sorted(loss) != list(range(1, 13)):
+        raise AssertionError(f"TensorBoard loss steps {sorted(loss)}")
+    # Event files hold f32; evaluations average in f64.
+    logged = [(x["step"], x["loss"]) for x in lines if "loss" in x]
+    val = [(x["step"], float(np.float32(x["val_loss"]))) for x in lines
+           if "val_loss" in x]
+    if ([(st, loss[st]) for st, _ in logged] != logged
+            or scalars.get("val_loss") != val):
+        raise AssertionError(f"TensorBoard scalars {scalars} differ from "
+                             f"the logged {logged}, {val}")
+    log(f"  TensorBoard: {len(loss)} losses, {len(val)} evaluations, "
+        f"equal to the logged ones; tags {sorted(scalars)}")
+    return dict(tags=sorted(scalars), losses=len(loss), equal=True)
+
+
+def _profile_check(prof_dir: str) -> dict:
+    """The ``--profile-dir`` trace must hold the port's kernels."""
+    import os
+
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"--profile-dir holds {files}")
+    with open(os.path.join(prof_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events
+             if e.get("cat") == "kernel"}
+    found = {k: sum(k in n.lower() for n in names)
+             for k in ("rms_norm", "flash", "ce_fwd", "ce_bwd")}
+    log(f"  profile trace {files[0]}: {len(events)} events, "
+        f"{len(names)} kernel names; port kernels {found}")
+    if not all(found.values()):
+        raise AssertionError(f"the trace lacks a port kernel: {found}")
+    return dict(events=len(events), kernel_names=len(names),
+                port_kernels=found)
+
+
 def phase_launcher() -> tuple:
-    """Phase 11 (the module docstring): the launcher's runs (a)-(e) on
-    llama_125m_lm; returns (run (a)'s kernel launches, the stats)."""
+    """Phase 11 (the module docstring): the launcher's runs on
+    llama_125m_lm; returns (run (a)'s kernel launches, run (k)'s, the
+    stats)."""
     import os
     import shutil
 
@@ -4273,39 +4606,37 @@ def phase_launcher() -> tuple:
     root = os.path.abspath(LAUNCH_DIR)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
+    a_dir, b_dir, k_dir = (os.path.join(root, x) for x in "abk")
     try:
-        ra, la, ea, sa, wa = _launcher(
+        ra, la, ea, sa, wa = _in_process(
             "a: uninterrupted", *LAUNCH_FLAGS, "--checkpoint-dir", a_dir,
-            "--jsonl-log", os.path.join(root, "a.jsonl"))
-        if ra != 0 or sa is None:
-            raise AssertionError(f"launcher (a) failed:\n{ea[-4000:]}")
-        rb, _, eb, _, wb = _launcher(
-            "b: torn save at 8, kill -9 at 10", *LAUNCH_FLAGS,
-            "--checkpoint-dir", b_dir, "--fault-plan", CHAOS_PLAN)
-        if rb != -9:
-            raise AssertionError(f"launcher (b) exited {rb}, not by "
-                                 f"SIGKILL:\n{eb[-4000:]}")
-        rc, lc, ec, sc, wc = _launcher(
-            "c: rerun as attempt 1", *LAUNCH_FLAGS, "--checkpoint-dir",
-            b_dir, "--fault-plan", CHAOS_PLAN,
-            env={"TTD_SUPERVISE_ATTEMPT": "1"})
-        if rc != 0 or sc is None:
-            raise AssertionError(f"launcher (c) failed:\n{ec[-4000:]}")
+            "--jsonl-log", os.path.join(root, "a.jsonl"),
+            "--tensorboard-dir", os.path.join(root, "tb"))
+        tensorboard = _tensorboard_check(os.path.join(root, "tb"), la)
+        rb, lb, eb, sc, wb = _launcher(
+            "b+c: --supervise, torn save at 8, kill -9 at 10",
+            *LAUNCH_FLAGS, "--checkpoint-dir", b_dir, "--fault-plan",
+            CHAOS_PLAN, "--supervise", "--restart-backoff", "0")
+        if rb != 0 or sc is None:
+            raise AssertionError(f"supervised run failed:\n{eb[-4000:]}")
+        journal = _journal(os.path.join(b_dir, "supervisor.jsonl"))
+        if journal != [("exit", "crash", -9), ("exit", "clean", 0),
+                       ("done", None, None)]:
+            raise AssertionError(f"supervisor journal {journal}")
         for want in ("restored checkpoint step 4",
                      "data stream resumed at epoch 0, batch 4"):
-            if want not in ec:
-                raise AssertionError(f"launcher (c) did not log {want!r}")
+            if want not in eb:
+                raise AssertionError(f"the relaunch did not log {want!r}")
         if not os.path.isdir(os.path.join(b_dir, "corrupt", "8")):
-            raise AssertionError("launcher (c) did not quarantine step 8")
+            raise AssertionError("the relaunch did not quarantine step 8")
         digests = {}
         for name in ("tensors.bin", "manifest.json"):
             da = _file_digest(os.path.join(a_dir, "12", name))
-            dc = _file_digest(os.path.join(b_dir, "12", name))
-            if da != dc:
-                raise AssertionError(f"resumed step-12 {name} differs from "
-                                     f"the uninterrupted run's")
+            if _file_digest(os.path.join(b_dir, "12", name)) != da:
+                raise AssertionError(f"resumed step-12 {name} differs "
+                                     f"from the uninterrupted run's")
             digests[name] = da
+        lc = _last_attempt(lb)
         val_a = [x for x in la if "val_loss" in x]
         val_c = [x for x in lc if "val_loss" in x]
         if [x["step"] for x in val_a] != [6, 12] or val_c != val_a:
@@ -4313,32 +4644,46 @@ def phase_launcher() -> tuple:
         if la[-1].get("eval") != lc[-1].get("eval"):
             raise AssertionError(f"final evaluations differ: {la[-1]} vs "
                                  f"{lc[-1]}")
-        rd, ld, ed, sd, wd = _launcher(
+        log(f"  journal {journal}; the relaunch's step-12 checkpoint and "
+            f"evaluations equal (a)'s")
+        rd, ld, ed, sd, wd = _in_process(
             "d: --eval-only on (a)", *LAUNCH_FLAGS, "--checkpoint-dir",
             a_dir, "--eval-only")
-        if rd != 0 or ld != [{"step": 12, "eval": la[-1]["eval"]}]:
-            raise AssertionError(f"eval-only gave {ld}, (a) "
-                                 f"{la[-1]}:\n{ed[-4000:]}")
-        re_, le, ee, se, we = _launcher("e: phase 6's flags",
-                                        *PHASE6_FLAGS)
-        if re_ != 0 or se is None or se["step"] != 20:
-            raise AssertionError(f"launcher (e) failed:\n{ee[-4000:]}")
+        if ld != [{"step": 12, "eval": la[-1]["eval"]}]:
+            raise AssertionError(f"eval-only gave {ld}, (a) {la[-1]}")
+        prof_dir = os.path.join(root, "prof")
+        every = LAUNCH_FLAGS.index("--checkpoint-every") + 1
+        fused_flags = [*LAUNCH_FLAGS[:every], "6", *LAUNCH_FLAGS[every + 1:]]
+        rk, lk, ek, sk, wk = _in_process(
+            "k: --steps-per-execution 4, --profile-dir", *fused_flags,
+            "--checkpoint-dir", k_dir, "--steps-per-execution", "4",
+            "--profile-dir", prof_dir, "--profile-steps", "4,8")
+        if sorted(os.listdir(k_dir)) != ["12", "8"]:
+            raise AssertionError(f"fused run's checkpoints "
+                                 f"{os.listdir(k_dir)}, not 8 and 12")
+        for name, da in digests.items():
+            if _file_digest(os.path.join(k_dir, "12", name)) != da:
+                raise AssertionError(f"the fused run's step-12 {name} "
+                                     f"differs from (a)'s")
+        if [x["step"] for x in lk if "loss" in x] != [4, 8, 12]:
+            raise AssertionError(f"fused run's logged steps {lk}")
+        log("  the fused run's step-12 checkpoint equals (a)'s bit for bit")
+        profile = _profile_check(prof_dir)
+        re_, le, ee, se, we = _in_process("e: phase 6's flags",
+                                          *PHASE6_FLAGS)
+        if se["step"] != 20:
+            raise AssertionError(f"launcher (e) ended at {se['step']}")
         losses = [x["loss"] for x in la if "loss" in x]
         losses_e = [x["loss"] for x in le if "loss" in x]
         if not all(math.isfinite(x) for x in losses + losses_e):
             raise AssertionError(f"non-finite launcher loss: {losses}, "
                                  f"{losses_e}")
-        counts = {k: sa["launches"].get(k, 0) for k in LAUNCH_KERNELS}
-        others = {k: v for k, v in sa["launches"].items()
-                  if k not in LAUNCH_KERNELS}
         want = {k: 12 * v for k, v in
                 train_launches_per_step(cfg.num_layers).items()}
         for k, v in eval_launches_per_batch(cfg.num_layers).items():
             want[k] += 3 * 4 * v           # 3 evaluations of 4 batches
-        log(f"  launches {counts} (expected {want}); others {others}")
-        if counts != want or others:
-            raise AssertionError(f"launcher launches {counts}, others "
-                                 f"{others}; expected {want}")
+        counts = _expect_launches("launcher (a)", sa, want)
+        fused_counts = _expect_launches("launcher (k)", sk, want)
         stats = dict(
             card=smi_line(), config="llama_125m_lm", steps=12,
             step_ms=sa["step_ms"],
@@ -4349,7 +4694,12 @@ def phase_launcher() -> tuple:
             eval_only_restore=sd["restore"], eval_only_eval_s=sd["eval_s"],
             phase6_flags_step_ms=se["step_ms"],
             phase6_flags_window_ms_per_step=se["window_ms_per_step"],
-            wall_s=dict(a=wa, b=wb, c=wc, d=wd, e=we), val=val_a,
+            fused=dict(steps_per_execution=4, step_ms=sk["step_ms"],
+                       window_ms_per_step=sk["window_ms_per_step"],
+                       save_s=sk["save_s"], step12="bitwise (a)'s",
+                       profile=profile),
+            supervisor_journal=journal, tensorboard=tensorboard,
+            wall_s=dict(a=wa, bc=wb, d=wd, k=wk, e=we), val=val_a,
             eval=la[-1]["eval"], step12_sha256=digests, losses=losses)
         log(f"  launcher: {json.dumps(stats)}")
         # Run (a)'s checkpoints serve phase 21's sample.py, which deletes
@@ -4358,7 +4708,7 @@ def phase_launcher() -> tuple:
         shutil.rmtree(keep, ignore_errors=True)
         os.makedirs(keep)
         shutil.move(a_dir, os.path.join(keep, "a"))
-        return counts, stats
+        return counts, fused_counts, stats
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4395,19 +4745,29 @@ def _flax_flat(params: dict) -> dict:
 
 
 def _serve(label, *flags):
-    """One ``serve`` process on the card: (tokens per request, its
+    """``serve.main`` in this process on the card, its stdout and stderr
+    captured, the kernel counts from 0: (tokens per request, its
     summary)."""
+    import io
+
+    from tensorflow_train_distributed_torch import serve
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    out, err = io.StringIO(), io.StringIO()
+    K.reset_launch_counts()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tensorflow_train_distributed_torch.serve",
-         *SERVE_FLAGS, *flags], capture_output=True, text=True,
-        timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"serve ({label}) failed:\n"
-                             f"{proc.stderr[-4000:]}")
-    summary = json.loads(proc.stderr.split("serve summary: ", 1)[1]
+    try:
+        with (_fresh_process_flags(), contextlib.redirect_stdout(out),
+              contextlib.redirect_stderr(err)):
+            rc = serve.main([*SERVE_FLAGS, *flags])
+    finally:
+        _free()
+    if rc != 0:
+        raise AssertionError(f"serve ({label}) exited {rc}:\n"
+                             f"{err.getvalue()[-4000:]}")
+    summary = json.loads(err.getvalue().split("serve summary: ", 1)[1]
                          .splitlines()[0])
-    tokens = [json.loads(x)["tokens"] for x in proc.stdout.splitlines()]
+    tokens = [json.loads(x)["tokens"] for x in out.getvalue().splitlines()]
     log(f"  (serve {label}) {len(tokens)} requests in "
         f"{time.perf_counter() - t0:.1f} s; launches {summary['launches']}")
     return tokens, summary
@@ -4415,9 +4775,10 @@ def _serve(label, *flags):
 
 def phase_launcher_lora() -> tuple:
     """Phase 11's LoRA leg: llama_125m_lm with rank-8 adapters on query
-    and value through the launcher, (f) 8 steps with a save every 4, (g)
-    the same killed at step 6, (h) its rerun as supervisor attempt 1,
-    whose step-8 checkpoint must equal (f)'s bit for bit; then ``serve
+    and value through the launcher, (f) 8 steps with a save every 4 (in
+    this process), (g+h) the same under ``--supervise`` killed at step 6,
+    whose relaunch's step-8 checkpoint must equal (f)'s bit for bit;
+    then ``serve
     --checkpoint-dir`` on (f)'s directory answers 4 greedy requests on the
     card, and its tokens must equal ``serve --params-npz`` of an npz of
     ``merge_lora(params)`` this script writes.  Returns (run (f)'s kernel
@@ -4442,22 +4803,17 @@ def phase_launcher_lora() -> tuple:
     os.makedirs(root)
     f_dir, g_dir = os.path.join(root, "f"), os.path.join(root, "g")
     try:
-        rf = _launcher("f: LoRA, uninterrupted", *LORA_FLAGS,
-                       "--checkpoint-dir", f_dir)
-        if rf[0] != 0 or rf[3] is None:
-            raise AssertionError(f"LoRA launcher (f) failed:\n"
-                                 f"{rf[2][-4000:]}")
-        rg = _launcher("g: LoRA, kill -9 at 6", *LORA_FLAGS,
-                       "--checkpoint-dir", g_dir, "--fault-plan", LORA_KILL)
-        if rg[0] != -9:
-            raise AssertionError(f"LoRA launcher (g) exited {rg[0]}, not by "
-                                 f"SIGKILL:\n{rg[2][-4000:]}")
-        rh = _launcher("h: LoRA rerun as attempt 1", *LORA_FLAGS,
+        rf = _in_process("f: LoRA, uninterrupted", *LORA_FLAGS,
+                         "--checkpoint-dir", f_dir)
+        rh = _launcher("g+h: LoRA, --supervise, kill -9 at 6", *LORA_FLAGS,
                        "--checkpoint-dir", g_dir, "--fault-plan", LORA_KILL,
-                       env={"TTD_SUPERVISE_ATTEMPT": "1"})
-        if rh[0] != 0 or "restored checkpoint step 4" not in rh[2]:
-            raise AssertionError(f"LoRA launcher (h) failed:\n"
-                                 f"{rh[2][-4000:]}")
+                       "--supervise", "--restart-backoff", "0")
+        journal = _journal(os.path.join(g_dir, "supervisor.jsonl"))
+        if (rh[0] != 0 or "restored checkpoint step 4" not in rh[2]
+                or journal != [("exit", "crash", -9), ("exit", "clean", 0),
+                               ("done", None, None)]):
+            raise AssertionError(f"LoRA supervised run failed ({journal})"
+                                 f":\n{rh[2][-4000:]}")
         _same_checkpoint("LoRA", f_dir, g_dir, 8)
         if load_spec(f_dir) != LoraSpec(rank=8):
             raise AssertionError(f"lora_spec.json: {load_spec(f_dir)}")
@@ -4493,7 +4849,7 @@ def phase_launcher_lora() -> tuple:
             peak_mem_gib=summary["peak_mem_bytes"] / 2 ** 30,
             save_bytes=summary["save_bytes"], save_s=summary["save_s"],
             restore=rh[3]["restore"], losses=losses, resume="bitwise",
-            wall_s=dict(f=rf[4], g=rg[4], h=rh[4]),
+            supervisor_journal=journal, wall_s=dict(f=rf[4], gh=rh[4]),
             serve=dict(requests=4, tokens_equal=True,
                        launches=serve_summary["launches"],
                        decode_s=serve_summary["decode_s"],
@@ -4592,16 +4948,15 @@ def _same_checkpoint(label, a_dir, c_dir, step) -> None:
 
 
 def _kill_and_resume(label, flags, root) -> tuple:
-    """(a) the run, (b) the same killed at step 15 after the step-10 save,
-    (c) its rerun as supervisor attempt 1, which must restore step 10;
-    returns ((a), (c)) as ``_launcher`` results and the two directories."""
+    """(a) the run (in this process), (b) the same killed at step 15 after
+    the step-10 save, (c) its rerun as supervisor attempt 1, which must
+    restore step 10; returns ((a), (c)) as ``_launcher`` results and the
+    two directories."""
     import os
 
     a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
-    ra = _launcher(f"{label} a: uninterrupted", *flags, "--checkpoint-dir",
-                   a_dir)
-    if ra[0] != 0 or ra[3] is None:
-        raise AssertionError(f"{label} (a) failed:\n{ra[2][-4000:]}")
+    ra = _in_process(f"{label} a: uninterrupted", *flags,
+                     "--checkpoint-dir", a_dir)
     rb = _launcher(f"{label} b: kill -9 at step 15", *flags,
                    "--checkpoint-dir", b_dir, "--fault-plan", KILL_AT_15)
     if rb[0] != -9:
@@ -4745,18 +5100,14 @@ def phase_wmt() -> tuple:
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     try:
-        ra = _launcher("wmt a: 20 steps", *WMT_FLAGS, "--checkpoint-dir",
-                       root)
-        if ra[0] != 0 or ra[3] is None:
-            raise AssertionError(f"wmt (a) failed:\n{ra[2][-4000:]}")
+        ra = _in_process("wmt a: 20 steps", *WMT_FLAGS, "--checkpoint-dir",
+                         root)
         counts = _expect_launches("wmt", ra[3], wmt_launches(cfg, 20))
         losses = _losses("wmt", ra[1])
         if not losses[-1] < losses[0]:
             raise AssertionError(f"wmt loss did not fall: {losses}")
-        rb = _launcher("wmt b: --eval-only, beam 4 BLEU", *WMT_FLAGS,
-                       *WMT_BLEU_FLAGS, "--checkpoint-dir", root)
-        if rb[0] != 0 or rb[3] is None:
-            raise AssertionError(f"wmt (b) failed:\n{rb[2][-4000:]}")
+        rb = _in_process("wmt b: --eval-only, beam 4 BLEU", *WMT_FLAGS,
+                         *WMT_BLEU_FLAGS, "--checkpoint-dir", root)
         ev = rb[1][-1]["eval"]
         if not (math.isfinite(ev["loss"]) and 0.0 <= ev["bleu"] <= 100.0):
             raise AssertionError(f"wmt evaluation: {ev}")
@@ -4861,11 +5212,9 @@ def phase_resnet() -> dict:
                          stats["step_ms"] / 1e3) / PEAK_BF16_FLOPS,
                      mfu_formula="3 x 2 x 4.09e9 x B / step_s / 989e12")
         for name in ("resnet50_imagenet_s2d", "resnet50_imagenet_s2d_bnsub"):
-            r = _launcher(name, "--config", name, *RESNET_FLAGS[2:6],
-                          "--steps", "5", "--log-every", "1", "--seed",
-                          str(SEED))
-            if r[0] != 0 or r[3] is None:
-                raise AssertionError(f"{name} failed:\n{r[2][-4000:]}")
+            r = _in_process(name, "--config", name, *RESNET_FLAGS[2:6],
+                            "--steps", "5", "--log-every", "1", "--seed",
+                            str(SEED))
             _expect_launches(name, r[3], {})
             stats[name] = dict(_run_stats(name, r[3], 256, r[4]),
                                losses=_losses(name, r[1]))
@@ -5004,11 +5353,9 @@ def phase_resnet_service(resnet: dict) -> dict:
     workers = _service_workers()
     log(f"  {len(os.sched_getaffinity(0))} cores: --data-workers {workers}")
     card_fed = resnet["device_fed"]["resnet50_imagenet"]["step_ms"]
-    r = _launcher("resnet, synthetic, --data-workers", *RESNET_SERVICE_FLAGS,
-                  "--steps", "20", "--log-every", "5", "--data-workers",
-                  str(workers))
-    if r[0] != 0 or r[3] is None:
-        raise AssertionError(f"resnet service run failed:\n{r[2][-4000:]}")
+    r = _in_process("resnet, synthetic, --data-workers",
+                    *RESNET_SERVICE_FLAGS, "--steps", "20", "--log-every",
+                    "5", "--data-workers", str(workers))
     _expect_launches("resnet service", r[3], {})
     step = r[3]["step_ms"]
     out = dict(_run_stats("resnet50_imagenet --data-workers", r[3], 256,
@@ -5041,18 +5388,14 @@ def phase_resnet_service(resnet: dict) -> dict:
         corpus = _write_jpeg_corpus(os.path.join(root, "data"))
         data = ["--data-dir", os.path.join(root, "data"), "--checkpoint-dir",
                 os.path.join(root, "ck")]
-        t = _launcher("resnet, JPEG train", *RESNET_SERVICE_FLAGS, *data,
-                      "--steps", "10", "--log-every", "2",
-                      "--data-transform", "imagenet_train_u8_224",
-                      "--data-workers", str(workers))
-        if t[0] != 0 or t[3] is None:
-            raise AssertionError(f"JPEG training failed:\n{t[2][-4000:]}")
+        t = _in_process("resnet, JPEG train", *RESNET_SERVICE_FLAGS,
+                        *data, "--steps", "10", "--log-every", "2",
+                        "--data-transform", "imagenet_train_u8_224",
+                        "--data-workers", str(workers))
         _expect_launches("resnet JPEG", t[3], {})
-        e = _launcher("resnet, JPEG eval-only", *RESNET_SERVICE_FLAGS, *data,
-                      "--eval-only", "--eval-steps", "2",
-                      "--data-transform", "imagenet_eval_u8_224")
-        if e[0] != 0 or e[3] is None:
-            raise AssertionError(f"JPEG eval failed:\n{e[2][-4000:]}")
+        e = _in_process("resnet, JPEG eval-only", *RESNET_SERVICE_FLAGS,
+                        *data, "--eval-only", "--eval-steps", "2",
+                        "--data-transform", "imagenet_eval_u8_224")
         ev = e[1][-1]["eval"]
         if not all(math.isfinite(v) for v in ev.values()):
             raise AssertionError(f"JPEG eval: {ev}")
@@ -5075,10 +5418,8 @@ def phase_mnist() -> dict:
     the mean loss of the last 10 steps must be at most half the first
     step's.  Its loss (no label smoothing) takes K3 at [128, 10], once a
     step."""
-    r = _launcher("mnist", "--config", "mnist", "--steps", "100",
-                  "--log-every", "1", "--seed", str(SEED))
-    if r[0] != 0 or r[3] is None:
-        raise AssertionError(f"mnist failed:\n{r[2][-4000:]}")
+    r = _in_process("mnist", "--config", "mnist", "--steps", "100",
+                    "--log-every", "1", "--seed", str(SEED))
     counts = _expect_launches("mnist", r[3], {"cross_entropy": 100,
                                               "cross_entropy_bwd": 100})
     losses = _losses("mnist", r[1])
@@ -5278,6 +5619,7 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    _FRESH_FLAGS.update(_backend_flags())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5288,16 +5630,19 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions")
     rows = {"serve": phase_kernels()}
     log("== phase 3: serving engine, llama2_7b full width and depth")
-    counts, stats = phase_engine(
-        LLAMA_PRESETS["llama2_7b"], label="llama2_7b bf16",
+    counts, stats, run3 = phase_engine(
+        LLAMA_PRESETS["llama2_7b"], label="llama2_7b_sft bf16",
         n_requests=12, max_new=32, lo=16, hi=300, check_requests=[1, 5],
-        tol=0.25, profile_chunk=True)
+        tol=0.25, profile_chunk=True, linear_leg=True)
     engines["llama2_7b_bf16"] = stats
-    torch.cuda.empty_cache()
+    _free()
+    log("== phase 3 (autosize): serve.py --kv-pool-blocks auto under "
+        "TTD_MEMCHECK=1")
+    autosize_counts, engines["llama2_7b_autosize"] = phase_autosize(run3)
     log("== phase 4: int8 KV cache, full width, 4 layers")
     cfg = dataclasses.replace(LLAMA_PRESETS["llama2_7b"], num_layers=4,
                               kv_cache_int8=True)
-    _, stats = phase_engine(cfg, label="llama2_7b[4 layers] kv int8",
+    _, stats, _ = phase_engine(cfg, label="llama2_7b[4 layers] kv int8",
                             n_requests=6, max_new=16, lo=16, hi=200,
                             check_requests=[1], tol=0.25)
     engines["llama2_7b_4layers_kv_int8"] = stats
@@ -5335,9 +5680,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== phase 11: the launcher, llama_125m_lm: run, kill -9, resume, "
         "eval-only, phase 6's flags")
-    launch_counts, launcher = phase_launcher()
+    launch_counts, fused_counts, launcher = phase_launcher()
     launcher["trainer_step_ms_phase6"] = training["step_ms"]
-    rows["launch"] = {k: rows["train"][k] for k in LAUNCH_KERNELS}
+    rows["launch"] = rows["launch_fused"] = {k: rows["train"][k]
+                                             for k in LAUNCH_KERNELS}
+    rows["linear_serve"] = {"rms_norm": rows["serve"]["rms_norm"]}
+    rows["autosize_serve"] = rows["serve"]
     log("== phase 11 (LoRA): rank 8 run, kill -9, resume; serve the "
         "merged checkpoint")
     lora_counts, launcher["lora"] = phase_launcher_lora()
@@ -5385,7 +5733,9 @@ def main() -> int:
     moe_counts22, moe_rows22, moe_serving = phase_moe_serve()
     rows.update(moe_rows22)
 
-    paths = {"serve": counts, "train": train_counts,
+    paths = {"serve": counts, "linear_serve": run3["linear_counts"],
+             "autosize_serve": autosize_counts, "launch_fused": fused_counts,
+             "train": train_counts,
              "moe_train": moe_counts, "window_train": window_counts,
              "launch": launch_counts, "bert": bert_counts,
              "wmt": wmt_counts, "mnist": mnist_counts,

@@ -40,13 +40,29 @@ warns about.  ``--lora-rank R`` (``--lora-alpha``, ``--lora-targets``)
 fine-tunes a decoder's adapters over a frozen base (``models/lora.py``)
 and writes ``lora_spec.json`` beside the checkpoints.
 
+``--supervise`` runs the launcher (less the supervisor's flags) as a
+child process under ``runtime.supervisor.TrainSupervisor``: a crash is
+relaunched under jittered exponential backoff within ``--max-restarts``
+(in a ``--restart-window``), a preemption (exit 143) is relaunched free
+of that budget, and every attempt is journaled to
+``--supervisor-journal`` (default ``<checkpoint-dir>/supervisor.jsonl``);
+each relaunch resumes from the newest good checkpoint.  A device loss
+(``mesh:device_lost`` in the fault plan, or a runtime error that reads
+as one) exits 113 after writing the survivors to the elastic sidecar;
+the relaunch comes back on the same device (the resharded restore onto
+fewer devices waits for multi-GPU).  ``--steps-per-execution k`` fuses
+k optimizer steps into one trainer call (``Trainer.train_steps``); a
+resume whose remaining steps are not a multiple of k rounds them up.
+``--tensorboard-dir`` writes the logged metrics as TensorBoard scalars,
+and ``--profile-dir`` captures a ``torch.profiler`` trace of the
+``--profile-steps START,STOP`` window.
+
 Flags of the JAX launcher that need what the port does not have yet
-(more than one device or process, HF import, the supervisor,
-TensorBoard, the profiler, fused steps) are parsed and refused, each
-with the ROADMAP item that brings it, exit 2.  ``--device`` (default
-``cuda``) never falls back to the CPU; on CUDA the launcher pins cuDNN
-to its deterministic algorithms, so a resumed run of a convolutional
-model ends where an uninterrupted one does.
+(more than one device or process, HF import, the profiler server) are
+parsed and refused, each with the ROADMAP item that brings it, exit 2.
+``--device`` (default ``cuda``) never falls back to the CPU; on CUDA the
+launcher pins cuDNN to its deterministic algorithms, so a resumed run of
+a convolutional model ends where an uninterrupted one does.
 """
 
 from __future__ import annotations
@@ -80,35 +96,31 @@ _REFUSED = {
     "platform": f"{_Q1} item 5 (multi-GPU); the port takes --device",
     "cpu_devices": f"{_Q1} item 5 (multi-GPU)",
     "init_from_hf": f"{_Q1} item 6 (HF import)",
-    "supervise": f"{_Q1} item 3 (the supervisor)",
-    "max_restarts": f"{_Q1} item 3 (the supervisor)",
-    "restart_backoff": f"{_Q1} item 3 (the supervisor)",
-    "restart_backoff_max": f"{_Q1} item 3 (the supervisor)",
-    "restart_window": f"{_Q1} item 3 (the supervisor)",
-    "restart_jitter": f"{_Q1} item 3 (the supervisor)",
-    "no_elastic": f"{_Q1} item 3 (the supervisor)",
-    "max_device_losses": f"{_Q1} item 3 (the supervisor)",
-    "no_restart_on_preemption": f"{_Q1} item 3 (the supervisor)",
-    "supervisor_journal": f"{_Q1} item 3 (the supervisor)",
-    "tensorboard_dir": f"{_Q1} item 3 (TensorBoard)",
-    "profile_dir": f"{_Q1} item 3 (the profiler)",
-    "profile_steps": f"{_Q1} item 3 (the profiler)",
-    "profiler_port": f"{_Q1} item 3 (the profiler)",
+    # jax.profiler's remote-capture server has no PyTorch counterpart;
+    # --profile-dir captures a step window instead.
+    "profiler_port": f"{_Q1} item 7 (tooling, step 8: PyTorch has no "
+                     "remote-capture profiler server; use --profile-dir)",
 }
 
 
-def build_parser() -> argparse.ArgumentParser:
-    from tensorflow_train_distributed_torch.models import registry
-    from tensorflow_train_distributed_torch.training.optimizers import (
-        OPTIMIZERS,
-    )
+def build_parser(light: bool = False) -> argparse.ArgumentParser:
+    """The launcher's flags.  ``light`` skips what needs torch (the
+    config names in the help, the optimizer choices): the supervisor's
+    relaunch loop parses with it and imports no torch, and its child
+    checks those two flags."""
+    configs, optimizers = "see --list-configs", None
+    if not light:
+        from tensorflow_train_distributed_torch.models import registry
+        from tensorflow_train_distributed_torch.training.optimizers import (
+            OPTIMIZERS as optimizers,
+        )
 
+        configs = f"one of {registry.available()}"
     p = argparse.ArgumentParser(
         prog="train_distributed",
         description="Training launcher of the PyTorch port (one device)")
     a = p.add_argument
-    a("--config", default=None,
-      help=f"model config; one of {registry.available()}")
+    a("--config", default=None, help=f"model config; {configs}")
     a("--list-configs", action="store_true",
       help="print available configs and exit")
     a("--steps", type=int, default=100,
@@ -117,7 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
       type=int, default=None, help="global batch size (default: the "
       "config's)")
     a("--learning-rate", type=float, default=None)
-    a("--optimizer", default="adamw", choices=OPTIMIZERS)
+    a("--optimizer", default="adamw", choices=optimizers)
     a("--weight-decay", type=float, default=0.0,
       help="decoupled weight decay (adamw, lamb; adafactor's "
       "weight_decay_rate)")
@@ -143,7 +155,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--precision", "--mixed-precision", dest="precision",
       default="bfloat16", help="float32 | bfloat16 | float16")
     a("--steps-per-execution", type=int, default=1,
-      help="only 1 is ported")
+      help="optimizer steps fused into one trainer call over a stacked "
+      "super-batch (callbacks and saves see every k-th step)")
     a("--grad-accum", type=int, default=1,
       help="microbatches per optimizer step")
     a("--log-every", type=int, default=10)
@@ -201,6 +214,44 @@ def build_parser() -> argparse.ArgumentParser:
       "TTD_FAULT_PLAN) — chaos testing only")
     a("--jsonl-log", default=None,
       help="append per-step metrics as JSON lines to this file")
+    a("--tensorboard-dir", default=None,
+      help="write the logged metrics as TensorBoard scalars here")
+    a("--profile-dir", default=None,
+      help="capture a torch.profiler trace (Chrome JSON) into this "
+      "directory (reference: TensorBoard callback profile_batch)")
+    a("--profile-steps", default="10,20", metavar="START,STOP",
+      help="step window for --profile-dir")
+    # Self-healing supervision (runtime.supervisor): the launcher runs as
+    # a child process, its exit is classified (clean / preemption /
+    # device loss / crash) and relaunched under a restart budget; the
+    # relaunch resumes through the normal restore path.
+    a("--supervise", action="store_true",
+      help="run training under the self-healing supervisor (relaunch on "
+      "crash/preemption)")
+    a("--max-restarts", type=int, default=3,
+      help="crash restart budget under --supervise (preemption exits "
+      "never consume it)")
+    a("--restart-backoff", type=float, default=1.0,
+      help="base crash-relaunch delay; doubles per consecutive crash")
+    a("--restart-backoff-max", type=float, default=60.0,
+      help="cap on the crash-relaunch delay")
+    a("--restart-window", type=float, default=0.0,
+      help="rolling window (seconds) for the crash budget: only crashes "
+      "within it count against --max-restarts (0 = lifetime accounting)")
+    a("--restart-jitter", type=float, default=0.1,
+      help="jitter the crash backoff UP by up to this fraction of itself "
+      "(0 disables)")
+    a("--no-elastic", action="store_true",
+      help="treat device-loss exits as plain crashes (TTD_NO_ELASTIC=1 "
+      "is the env equivalent)")
+    a("--max-device-losses", type=int, default=16,
+      help="give up after this many device-loss relaunches")
+    a("--no-restart-on-preemption", action="store_true",
+      help="hand the preemption exit code to the caller instead of "
+      "relaunching")
+    a("--supervisor-journal", default=None,
+      help="JSON-lines attempt journal (default: "
+      "<checkpoint-dir>/supervisor.jsonl)")
     a("--stall-timeout", type=float, default=0.0,
       help="warn and dump stacks when no step completes in this many "
       "seconds; 0 disables")
@@ -222,20 +273,12 @@ def build_parser() -> argparse.ArgumentParser:
         "refused", "JAX launcher flags the port does not implement yet")
     r = refused.add_argument
     for flag in ("--strategy", "--mesh", "--dcn", "--grad-quant",
-                 "--coordinator-address", "--init-from-hf",
-                 "--supervisor-journal", "--tensorboard-dir", "--profile-dir",
-                 "--profile-steps", "--platform"):
+                 "--coordinator-address", "--init-from-hf", "--platform"):
         r(flag, default=None)
     for flag in ("--grad-overlap", "--num-processes", "--process-id",
-                 "--cpu-devices", "--max-restarts", "--max-device-losses",
-                 "--profiler-port"):
+                 "--cpu-devices", "--profiler-port"):
         r(flag, type=int, default=None)
-    for flag in ("--restart-backoff",
-                 "--restart-backoff-max", "--restart-window",
-                 "--restart-jitter"):
-        r(flag, type=float, default=None)
-    for flag in ("--zero1", "--sharded-update", "--supervise",
-                 "--no-elastic", "--no-restart-on-preemption"):
+    for flag in ("--zero1", "--sharded-update"):
         r(flag, action="store_true")
     return p
 
@@ -253,9 +296,16 @@ def refuse_unported(args) -> None:
         v = getattr(args, dest)
         if v is not None and v is not False:
             _refuse("--" + dest.replace("_", "-"), item)
-    if args.steps_per_execution != 1:
-        _refuse("--steps-per-execution above 1", f"{_Q1} item 3 (fused "
-                "steps)")
+
+
+def _parse_profile_steps(spec: str) -> tuple:
+    try:
+        start, stop = (int(p) for p in spec.split(","))
+        return start, stop
+    except ValueError:
+        raise SystemExit(
+            f"--profile-steps expects START,STOP (two integers), got "
+            f"{spec!r}") from None
 
 
 def _resolve_schedule(args, entry):
@@ -432,7 +482,8 @@ def make_trainer(args, entry, *, source=None, callbacks=(),
                              log_every=args.log_every,
                              log_grad_norm=args.log_grad_norm,
                              checkpoint_every=args.checkpoint_every,
-                             eval_state_view=eval_state_view),
+                             eval_state_view=eval_state_view,
+                             steps_per_execution=args.steps_per_execution),
         lr_schedule=lr, device=args.device, callbacks=callbacks,
         checkpoint_manager=checkpoint_manager)
     if not with_loader:
@@ -546,6 +597,7 @@ def run(args) -> RunResult:
         JsonlLogger,
         ReduceLROnPlateau,
         StallWatchdog,
+        TensorBoardScalars,
     )
     from tensorflow_train_distributed_torch.training.checkpoint import (
         CheckpointManager,
@@ -574,6 +626,11 @@ def run(args) -> RunResult:
                          "--eval-steps (and optionally --eval-every)")
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
+    if args.steps_per_execution < 1:
+        raise SystemExit(f"--steps-per-execution must be >= 1, got "
+                         f"{args.steps_per_execution}")
+    profile_window = (_parse_profile_steps(args.profile_steps)
+                      if args.profile_dir else None)
     if args.data_workers < 0:
         raise SystemExit(f"--data-workers must be >= 0, got "
                          f"{args.data_workers}")
@@ -671,8 +728,18 @@ def run(args) -> RunResult:
             monitor=monitor, factor=args.reduce_lr_factor,
             patience=args.reduce_lr_patience, min_lr=args.reduce_lr_min,
             cooldown=args.reduce_lr_cooldown))
+    if args.tensorboard_dir:
+        callbacks.append(TensorBoardScalars(args.tensorboard_dir))
     if args.jsonl_log:
         callbacks.append(JsonlLogger(args.jsonl_log))
+    if profile_window is not None:
+        from tensorflow_train_distributed_torch.runtime.profiling import (
+            ProfileCallback,
+        )
+
+        callbacks.append(ProfileCallback(
+            args.profile_dir, start_step=profile_window[0],
+            stop_step=profile_window[1]))
     if args.stall_timeout > 0:
         callbacks.append(StallWatchdog(args.stall_timeout))
     ckpt = watcher = None
@@ -741,6 +808,16 @@ def run(args) -> RunResult:
                                               eval_metrics))
 
         remaining = args.steps - state.step
+        k = args.steps_per_execution
+        if remaining > 0 and remaining % k:
+            # An off-cycle resume, or --steps not a multiple of k: round
+            # up rather than refuse (the JAX launcher's rule).
+            rounded = -(-remaining // k) * k
+            logger.warning(
+                "remaining steps %d not a multiple of "
+                "steps_per_execution=%d; training %d steps",
+                remaining, k, rounded)
+            remaining = rounded
         if remaining > 0:
             if args.data_workers:
                 from tensorflow_train_distributed_torch.data.service import (
@@ -884,11 +961,41 @@ def _summary(trainer, ckpt, state, eval_metrics) -> dict:
     }
 
 
+def _handle_device_loss(args, dl) -> int:
+    """Record the surviving device count in the elastic sidecar (the path
+    the supervisor exported, else ``<checkpoint-dir>/elastic.json``) and
+    return ``DEVICE_LOSS_EXIT_CODE``, so a supervisor relaunches instead
+    of spending its crash budget."""
+    from tensorflow_train_distributed_torch.runtime.supervisor import (
+        DEVICE_LOSS_EXIT_CODE,
+        ENV_ELASTIC_STATE,
+    )
+
+    path = os.environ.get(ENV_ELASTIC_STATE)
+    if not path and args.checkpoint_dir:
+        path = os.path.join(args.checkpoint_dir, "elastic.json")
+    if path:
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
+            with open(path, "w") as f:
+                json.dump({"survivors": dl.survivors, "time": time.time(),
+                           "error": str(dl)[:500]}, f)
+        except OSError:
+            logger.error("could not write elastic sidecar %s", path,
+                         exc_info=True)
+    logger.error("DEVICE LOSS: %s — exiting %d (surviving devices: %s)",
+                 dl, DEVICE_LOSS_EXIT_CODE,
+                 "unknown" if dl.survivors is None else dl.survivors)
+    return DEVICE_LOSS_EXIT_CODE
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    args = build_parser().parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser(light="--supervise" in argv).parse_args(argv)
     if args.list_configs:
         from tensorflow_train_distributed_torch.models import registry
 
@@ -897,11 +1004,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"{name}: dataset={e['dataset']} "
                   f"batch={e['global_batch_size']} lr={e['learning_rate']}")
         return 0
+    if args.supervise:
+        # This process becomes the relaunch loop over a child running
+        # this CLI minus the supervisor's flags; it builds no kernel and
+        # touches no device.
+        from tensorflow_train_distributed_torch.runtime.supervisor import (
+            supervise_cli,
+        )
+
+        return supervise_cli(argv, args)
+    from tensorflow_train_distributed_torch.runtime import faults
     from tensorflow_train_distributed_torch.runtime.preemption import (
         PREEMPTION_EXIT_CODE,
     )
 
-    result = run(args)
+    try:
+        result = run(args)
+    except Exception as e:
+        # An injected DeviceLost, or a runtime error that reads as a
+        # device failure, exits with the device-loss contract; every
+        # other error crashes (the supervisor's crash budget applies).
+        dl = faults.as_device_loss(e)
+        if dl is None:
+            raise
+        return _handle_device_loss(args, dl)
     logger.info("launch summary: %s", json.dumps(result.summary))
     if result.preempted:
         logger.warning("exiting after a preemption checkpoint")

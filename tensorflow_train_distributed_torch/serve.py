@@ -43,6 +43,17 @@ flags that contradict it exit non-zero), the adapters are checked
 against it and folded into their kernels (``lora.merge_lora``) before the
 engine is built.
 
+``--no-paged-kv`` serves on the per-slot linear cache (same tokens).
+``--kv-pool-blocks auto`` solves the pool's size and the engine's
+budget from the card's memory less ``--hbm-headroom`` (``serving``'s
+docstring); as in the JAX CLI the headroom must also hold the weights and
+the CUDA context, which the default 0.1 does not for Llama-2-7B on an
+80-GB card.  ``--hbm-budget-bytes`` declares a budget by hand.  Under
+``TTD_MEMCHECK=1`` (set before the process starts) the budget is
+enforced, and the summary carries the sanitizer's live and peak bytes by
+pool beside the pool's size, the budget and, on CUDA, the peak of
+allocated memory and the card's total.
+
   python -m tensorflow_train_distributed_torch.serve --config llama2_7b_sft \\
       --prompt 1,2,3 --prompt 4,5,6,7,8 --max-new 32 --cache-len 1024
   python -m tensorflow_train_distributed_torch.serve --config llama_tiny_sft \\
@@ -72,6 +83,12 @@ from tensorflow_train_distributed_torch.models import registry
 from tensorflow_train_distributed_torch.models.llama import LlamaConfig
 from tensorflow_train_distributed_torch.models.moe import MoeConfig
 from tensorflow_train_distributed_torch.ops import kernels as K
+from tensorflow_train_distributed_torch.runtime.lint import memcheck
+
+
+def _int_or_auto(v: str):
+    """``--kv-pool-blocks`` values: an int, or the literal 'auto'."""
+    return v if v == "auto" else int(v)
 
 
 def parse_prompt(spec: str, flag: str = "--prompt") -> list:
@@ -298,9 +315,46 @@ def main(argv=None) -> int:
     p.add_argument("--cache-len", type=int, default=0,
                    help="0 -> config.max_positions")
     p.add_argument("--kv-block-size", type=int, default=16)
-    p.add_argument("--kv-pool-blocks", type=int, default=None,
-                   help="physical KV blocks (default: slots * "
-                        "ceil(cache_len / block_size))")
+    p.add_argument("--kv-pool-blocks", type=_int_or_auto, default=None,
+                   help="paged KV cache: total physical blocks in the "
+                        "pool (default: slots * ceil(cache_len / "
+                        "block_size) — the linear cache's exact "
+                        "memory). Admission is keyed on free blocks: "
+                        "shrink to trade memory for queueing, grow to "
+                        "serve more/longer shared prefixes warm. "
+                        "'auto' solves the pool size AND "
+                        "--hbm-budget-bytes exactly from the device's "
+                        "reported memory (pool rows + prefill "
+                        "transients + draft pools + --hbm-headroom), "
+                        "so one binary lands correctly sized on any "
+                        "chip; TTD_NO_HBM_AUTOSIZE=1 restores the "
+                        "default heuristic")
+    p.add_argument("--hbm-headroom", type=float, default=0.1,
+                   help="fraction of device memory the autosize solve "
+                        "leaves free; only meaningful with "
+                        "--kv-pool-blocks auto. The weights, the CUDA "
+                        "context and activations live outside the solved "
+                        "pools, so the headroom must hold them: the "
+                        "default 0.1 of an 80-GB card leaves 8 GB, less "
+                        "than Llama-2-7B's 13.5 GB of bf16 weights "
+                        "(pass e.g. 0.3 there)")
+    p.add_argument("--no-paged-kv", action="store_true",
+                   help="serve on the per-slot LINEAR KV cache instead "
+                        "of the paged block pool (no cross-request "
+                        "prefix sharing beyond --prefix); "
+                        "TTD_NO_PAGED_KV=1 is the no-redeploy "
+                        "equivalent. Outputs are bitwise-identical "
+                        "either way — this is a memory-layout kill "
+                        "switch")
+    p.add_argument("--hbm-budget-bytes", type=int, default=None,
+                   help="declared device-memory budget for the engine's "
+                        "memory pools (memcheck): with TTD_MEMCHECK=1, "
+                        "the allocation that would exceed it raises "
+                        "MemoryBudgetError with the live set diffed "
+                        "(instead of an opaque CUDA OOM later), and "
+                        "admission refuses requests whose projected "
+                        "bytes cannot fit. Default: track-only, no "
+                        "enforcement")
     p.add_argument("--kv-int8", action="store_true",
                    help="int8 KV cache (per-row f32 scales; llama-family "
                         "configs)")
@@ -401,8 +455,10 @@ def main(argv=None) -> int:
             speculative_k=spec_k if draft_cfg is not None else 0,
             spec_depths=spec_depths, overlap=not args.no_overlap,
             prefill_budget=0 if args.no_interleave else args.prefill_budget,
-            kv_block_size=args.kv_block_size,
-            kv_pool_blocks=args.kv_pool_blocks, device=args.device)
+            paged=not args.no_paged_kv, kv_block_size=args.kv_block_size,
+            kv_pool_blocks=args.kv_pool_blocks,
+            hbm_budget_bytes=args.hbm_budget_bytes,
+            hbm_headroom=args.hbm_headroom, device=args.device)
         if prefix:
             eng.preload_prefix(prefix)
         ids = [eng.submit(r["prompt"], r["max_new"], seed=r["seed"])
@@ -413,7 +469,19 @@ def main(argv=None) -> int:
     summary = {"launches": {k: v for k, v in K.launch_counts().items() if v},
                **eng.stats, "overlap_ratio": eng.overlap_ratio(),
                "prefill_stats": eng.prefill_stats,
-               "kv_stats": eng.kv_stats}
+               "kv_stats": eng.kv_stats, "paged": eng.paged,
+               "kv_pool_blocks": eng.kv_blocks_total(),
+               "kv_pool_bytes": eng.kv_pool_bytes(),
+               "prefill_pair_bytes": eng._prefill_pair_bytes(),
+               "hbm_budget_bytes": eng.hbm_budget_bytes,
+               "hbm_autosized_bytes": eng.hbm_autosized_bytes(),
+               "memcheck": memcheck.armed() and {
+                   "live_by_pool": memcheck.live_by_pool(),
+                   "peak_by_pool": memcheck.peak_by_pool()}}
+    if eng.device.type == "cuda":
+        summary.update(
+            peak_mem_bytes=torch.cuda.max_memory_allocated(eng.device),
+            device_total_bytes=torch.cuda.mem_get_info(eng.device)[1])
     if draft_cfg is not None:
         s = eng.spec_stats
         summary.update(spec_stats=s, acceptance=(

@@ -1,7 +1,7 @@
-"""Continuous-batching serving engine over a paged KV cache.
+"""Continuous-batching serving engine over a paged (or linear) KV cache.
 
-Counterpart of the JAX package's ``serving.ServingEngine`` in its paged
-mode, with its speculative decoding and its pipelined scheduler:
+Counterpart of the JAX package's ``serving.ServingEngine``, with its
+speculative decoding and its pipelined scheduler:
 
 - ``submit`` queues requests; ``run`` loops ``serve_step`` to the end.
 - **Admission** claims a lane's physical blocks from the pool
@@ -92,14 +92,41 @@ export and install.  (The JAX engine warns at each new prompt length
 because each is a new XLA program; this eager engine compiles nothing
 per length, so it has no such warning.)
 
+**The linear engine** (``paged=False``, ``TTD_NO_PAGED_KV=1``, the CLI's
+``--no-paged-kv``): each slot owns a strip of ``cache_len`` rows in a
+[slots, cache_len] cache, a prefilled request's rows are copied into its
+slot's strip, and decode attends over the strip with the masked einsum
+(``layers._cache_attend``): neither the paged-attention kernel nor the
+paged KV gather runs.  Prefix reuse is manual (``preload_prefix``'s
+LRU of batch-1 caches; there is no radix index), and what needs the pool
+answers as the JAX linear engine does: ``export_prefix_kv`` None,
+``install_prefix_kv`` 0, ``export_lane`` a lane with ``kv`` None, the
+block and byte counters 0.  Greedy output equals the paged engine's.
+
+**HBM autosizing** (``kv_pool_blocks="auto"``; ``TTD_NO_HBM_AUTOSIZE=1``
+falls back to the default pool with no budget): the pool's block count
+and the engine's ``hbm_budget_bytes`` are solved from the device's
+memory (``torch.cuda.mem_get_info``'s total, or ``TTD_HBM_BYTES``) less
+``hbm_headroom``: the largest pool whose slot grids (target and draft)
+plus one batch-1 prefill cache pair fit, the grids' bytes linear in the
+block count and read off two meta-device probes.  As in the JAX package
+the weights, the CUDA context and whatever the process already holds
+must fit in the headroom.  A budget (solved or given) is enforced by the
+memory sanitizer (``TTD_MEMCHECK=1``, ``runtime.lint.memcheck``) on the
+grids, the prefill caches and the stored prefixes, and admission refuses
+a request whose projected bytes would not fit.
+
+The engine records the JAX engine's flight-recorder spans and instants
+(``runtime.events``: ``engine/*``, ``kv/*``, ``prefill/*``, ``slot/*``,
+``decode/dispatch``, ``decode/wait``, ``decode/harvest``).
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain versions run (``ops.kernels``).
-
-Waiting for later slices: HBM autosizing and the linear-cache engine.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -125,6 +152,11 @@ from tensorflow_train_distributed_torch.models.quant import (
     check_quant_pairing,
 )
 from tensorflow_train_distributed_torch.ops import kernels as K
+from tensorflow_train_distributed_torch.runtime import events
+from tensorflow_train_distributed_torch.runtime.lint import memcheck
+from tensorflow_train_distributed_torch.runtime.lint.registry import (
+    memory_budget,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -155,8 +187,8 @@ class _PrefillTask:
     padded: np.ndarray             # [1, piece * n_pieces] token ids
     piece: int
     n_pieces: int
-    kv: serving_kv.LaneKV
-    table: torch.Tensor            # the lane's device block-table row
+    kv: Optional[serving_kv.LaneKV]    # the paged claim (None: linear)
+    table: Optional[torch.Tensor]      # its device block-table row
     cursor: int = 0                # target pieces completed
     cache_1: Optional[KVCache] = None
     first: Optional[torch.Tensor] = None   # pick after the last piece
@@ -169,10 +201,24 @@ class _PrefillTask:
 
 def _killed(switch: str) -> bool:
     """A kill switch (``TTD_NO_OVERLAP``, ``TTD_NO_INTERLEAVE``,
-    ``TTD_NO_ADAPTIVE_SPEC``) set in the environment: it wins over the
+    ``TTD_NO_ADAPTIVE_SPEC``, ``TTD_NO_PAGED_KV``,
+    ``TTD_NO_HBM_AUTOSIZE``) set in the environment: it wins over the
     constructor's arguments, so a deployment flips it without touching
     its callers.  Read at construction."""
     return os.environ.get(switch, "0") not in ("", "0")
+
+
+def _device_hbm_bytes(device: torch.device) -> Optional[int]:
+    """The device's memory in bytes, for the autosize solve:
+    ``TTD_HBM_BYTES=<bytes>`` overrides (tests, CPU hosts); else a CUDA
+    device's total (``torch.cuda.mem_get_info``, the counterpart of the
+    JAX ``bytes_limit``); None otherwise (the caller refuses)."""
+    env = os.environ.get("TTD_HBM_BYTES", "")
+    if env not in ("", "0"):
+        return int(env)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[1])
 
 
 def _pool_bytes(config, n_blocks: int, block_size: int) -> int:
@@ -275,9 +321,12 @@ class ServingEngine:
                  prompt_buckets=(32, 64, 128, 256, 512, 1024),
                  overlap: Optional[bool] = None,
                  prefill_budget: Optional[int] = None,
+                 paged: Optional[bool] = None,
                  kv_block_size: int = 16,
-                 kv_pool_blocks: Optional[int] = None,
+                 kv_pool_blocks=None,
                  prefix_cache_limit: int = 32,
+                 hbm_budget_bytes: Optional[int] = None,
+                 hbm_headroom: float = 0.1,
                  record_logits: bool = False, device="cuda"):
         if (config.sliding_window is not None or config.attention_sinks):
             raise ValueError(
@@ -309,6 +358,16 @@ class ServingEngine:
                              f"max_positions {config.max_positions}")
         self.eos_id = eos_id
         self.chunk = chunk
+        # The byte ceiling of the engine's declared pools (the grids, the
+        # prefill caches, the stored prefixes), enforced by the memory
+        # sanitizer; None tracks only.  Admission refuses a request whose
+        # projected bytes do not fit it.
+        if hbm_budget_bytes is not None and hbm_budget_bytes < 1:
+            raise ValueError(
+                f"hbm_budget_bytes must be >= 1, got {hbm_budget_bytes}")
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self._prefill_bytes_memo: Optional[int] = None
+        self._cache_shapes: dict = {}  # (draft, batch, grid) -> meta cache
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
@@ -332,11 +391,36 @@ class ServingEngine:
                              f"{kv_block_size}")
         self.kv_block_size = int(kv_block_size)
         self._kv_nblk_lane = -(-self.cache_len // self.kv_block_size)
-        if kv_pool_blocks is None:
-            kv_pool_blocks = slots * self._kv_nblk_lane
-        if kv_pool_blocks < 1:
-            raise ValueError(f"kv_pool_blocks must be >= 1, got "
-                             f"{kv_pool_blocks}")
+        self.paged = ((True if paged is None else bool(paged))
+                      and not _killed("TTD_NO_PAGED_KV"))
+        # ``kv_pool_blocks="auto"`` solves the pool and the budget from
+        # the device's memory once both models exist (below);
+        # TTD_NO_HBM_AUTOSIZE or a linear engine (no pool) falls back to
+        # the default pool with no budget.
+        if not 0.0 <= hbm_headroom < 1.0:
+            raise ValueError(
+                f"hbm_headroom must be in [0, 1), got {hbm_headroom}")
+        self._hbm_headroom = float(hbm_headroom)
+        self._hbm_autosized = 0
+        autosize = kv_pool_blocks == "auto"
+        if autosize:
+            if hbm_budget_bytes is not None:
+                raise ValueError(
+                    "kv_pool_blocks='auto' solves hbm_budget_bytes "
+                    "itself; pass one or the other")
+            if _killed("TTD_NO_HBM_AUTOSIZE") or not self.paged:
+                autosize = False
+                kv_pool_blocks = None
+        elif isinstance(kv_pool_blocks, str):
+            raise ValueError(
+                f"kv_pool_blocks must be an int or 'auto', got "
+                f"{kv_pool_blocks!r}")
+        if not autosize:
+            if kv_pool_blocks is None:
+                kv_pool_blocks = slots * self._kv_nblk_lane
+            if kv_pool_blocks < 1:
+                raise ValueError(f"kv_pool_blocks must be >= 1, got "
+                                 f"{kv_pool_blocks}")
         # Speculative decoding across all slots: the per-slot cache index
         # makes each slot's rollback its own index decrement.
         self._spec_k = int(speculative_k)
@@ -376,16 +460,22 @@ class ServingEngine:
         self._draft = (None if draft_config is None else _decode_model(
             draft_config, cast_floating(draft_params, draft_config.dtype),
             quant_scales=draft_quant_scales, device=self.device))
-        self._kv_pool = serving_kv.KVBlockPool(kv_pool_blocks,
-                                               self.kv_block_size)
-        self._radix = serving_kv.RadixPrefixIndex(self._kv_pool)
-        # Device bytes the pools pin (target and draft, int8 scale pools
-        # included, the scratch block too), from the shapes alone.
-        self._kv_pool_bytes = sum(
-            _pool_bytes(c, 1 + kv_pool_blocks, self.kv_block_size)
-            for c in (config, draft_config) if c is not None)
-        self._kv_pool.bytes_per_block = (self._kv_pool_bytes
-                                         // (1 + kv_pool_blocks))
+        if autosize:
+            kv_pool_blocks, budget = self._solve_hbm_autosize()
+            self.hbm_budget_bytes = self._hbm_autosized = budget
+        self._kv_pool = self._radix = None
+        self._kv_pool_bytes = 0
+        if self.paged:
+            self._kv_pool = serving_kv.KVBlockPool(kv_pool_blocks,
+                                                   self.kv_block_size)
+            self._radix = serving_kv.RadixPrefixIndex(self._kv_pool)
+            # Device bytes the pools pin (target and draft, int8 scale
+            # pools included, the scratch block too), from the shapes.
+            self._kv_pool_bytes = sum(
+                _pool_bytes(c, 1 + kv_pool_blocks, self.kv_block_size)
+                for c in (config, draft_config) if c is not None)
+            self._kv_pool.bytes_per_block = (self._kv_pool_bytes
+                                             // (1 + kv_pool_blocks))
         # Preloaded prefixes: tuple(tokens) -> (target, draft) batch-1
         # caches, least recently matched first.  Validation reads them
         # (``_match_prefix`` without touching the order), never the radix
@@ -445,6 +535,8 @@ class ServingEngine:
         # the next dispatch without a host copy.
         self._carry: Optional[tuple] = None
         self._refills: set = set()     # slots refilled since the dispatch
+        if self.hbm_budget_bytes is not None:
+            self._prefill_pair_bytes()     # admission reads the memo
 
     # -- host <-> device ---------------------------------------------------
 
@@ -562,28 +654,91 @@ class ServingEngine:
         return (emit, emitted, nxt, acc, counts + emitted,
                 logits if self.record_logits else None)
 
-    def _fresh_cache(self, draft: bool = False) -> KVCache:
-        """A zeroed batch-1 linear cache of the target or the draft."""
+    def _init_cache(self, batch: int, draft: bool, grid: bool,
+                    device, n_blocks: Optional[int] = None) -> KVCache:
+        """A zeroed cache of the target or the draft: a slot grid
+        (``grid``: the paged pool of ``n_blocks`` blocks plus scratch, or
+        the linear [slots, cache_len] strips) or a batch-1 linear
+        prefill cache."""
         model = self._draft if draft else self._model
-        return model.init_cache(1, self.cache_len, device=self.device)
+        if grid and self.paged:
+            blocks = 1 + (self._kv_pool.n_blocks if n_blocks is None
+                          else n_blocks)
+            return model.init_cache(batch, self.cache_len,
+                                    paged_blocks=blocks,
+                                    block_size=self.kv_block_size,
+                                    device=device)
+        return model.init_cache(batch, self.cache_len, device=device)
+
+    def _cache_struct(self, batch: int, draft: bool = False,
+                      grid: bool = False) -> KVCache:
+        """The cache ``_fresh_cache`` mints, on the meta device (shapes
+        and dtypes, nothing allocated), memoized: what the budget
+        projects and the autosize solve reads."""
+        key = (draft, batch, grid)
+        if key not in self._cache_shapes:
+            self._cache_shapes[key] = self._init_cache(batch, draft, grid,
+                                                       "meta")
+        return self._cache_shapes[key]
+
+    # The engine's allocator: every cache it mints comes through here or
+    # through ``_admission_cache_1``.  The grids are owner-lifetime pools
+    # ("kv_pool", "draft_pool"), the batch-1 prefill caches transients
+    # released as their tensors die; the projection is the meta cache's,
+    # so an over-budget allocation raises before any buffer exists.
+    @memory_budget(
+        pool=lambda self, batch=1, draft=False, grid=False:
+            (("draft_pool" if draft else "kv_pool") if grid
+             else ("draft_prefill" if draft else "prefill_cache")),
+        budget_fn=lambda self, *a, **k: self.hbm_budget_bytes,
+        project_fn=lambda self, batch=1, draft=False, grid=False:
+            memcheck.tree_bytes(self._cache_struct(batch, draft, grid)),
+        lifetime=lambda self, batch=1, draft=False, grid=False:
+            ("owner" if grid else "leaf"))
+    def _fresh_cache(self, batch: int = 1, draft: bool = False,
+                     grid: bool = False) -> KVCache:
+        """A zeroed cache of the target or the draft (``_init_cache``) on
+        the engine's device."""
+        return self._init_cache(batch, draft, grid, self.device)
 
     def _grids(self) -> list:
         """The slot grids (target, then the draft's), built on first use.
-        The draft's pool has the target's block count and shares its
+        A paged draft pool has the target's block count and shares its
         block table: one claim and one table row cover both."""
         if self._cache is None:
-            blocks = 1 + self._kv_pool.n_blocks
-            self._cache = self._model.init_cache(
-                self.slots, self.cache_len, paged_blocks=blocks,
-                block_size=self.kv_block_size, device=self.device)
+            self._cache = self._fresh_cache(self.slots, grid=True)
             if self._draft is not None:
-                d = self._draft.init_cache(
-                    self.slots, self.cache_len, paged_blocks=blocks,
-                    block_size=self.kv_block_size, device=self.device)
-                self._d_cache = KVCache(
+                d = self._fresh_cache(self.slots, draft=True, grid=True)
+                self._d_cache = (d if not self.paged else KVCache(
                     layers=d.layers, index=d.index, cache_len=d.cache_len,
-                    block_table=self._cache.block_table)
+                    block_table=self._cache.block_table))
         return [c for c in (self._cache, self._d_cache) if c is not None]
+
+    def _insert(self, caches_1: list, slot: int, true_len: int) -> None:
+        """The linear engine's insert: copy each batch-1 cache's rows
+        [0, true_len) into ``slot``'s strip and pin its position to the
+        true prompt length.  Rows past it hold the previous tenant's,
+        which the position masks hide and decode rewrites before any
+        query reads them (the JAX ``_insert`` copies the whole strip, pad
+        rows included, which are hidden the same way)."""
+        for grid, cache_1 in zip(self._grids(), caches_1):
+            for lc, lin in zip(grid.layers, cache_1.layers):
+                for name in ("key_cache", "value_cache"):
+                    lc[name][slot, :true_len] = lin[name][0, :true_len]
+                if "kv_scales" in lc:
+                    lc["kv_scales"][:, slot, :true_len] = (
+                        lin["kv_scales"][:, 0, :true_len])
+            grid.index[slot] = true_len
+
+    def _install(self, caches_1: list, slot: int, kv, table_row,
+                 true_len: int) -> None:
+        """Insert a prefilled request into ``slot``: scattered into its
+        blocks past the shared ones (paged), or copied into its strip."""
+        if self.paged:
+            self._paged_insert(caches_1, slot, table_row, kv.matched,
+                               true_len)
+        else:
+            self._insert(caches_1, slot, true_len)
 
     def _scatter_rows(self, caches_1: list, table_row: torch.Tensor,
                       start: int, end: int) -> None:
@@ -686,12 +841,28 @@ class ServingEngine:
         if not all(0 <= t < self.config.vocab_size for t in prompt):
             raise ValueError(f"prompt token ids must lie in [0, "
                              f"{self.config.vocab_size})")
-        need = -(-(len(prompt) + max_new_tokens) // self.kv_block_size)
-        if need > self._kv_pool.n_blocks:
-            raise ValueError(
-                f"request needs {need} KV blocks (block_size="
-                f"{self.kv_block_size}) but the pool has "
-                f"{self._kv_pool.n_blocks}")
+        if self.paged:
+            need = -(-(len(prompt) + max_new_tokens) // self.kv_block_size)
+            if need > self._kv_pool.n_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks (block_size="
+                    f"{self.kv_block_size}) but the pool has "
+                    f"{self._kv_pool.n_blocks}")
+        if self.hbm_budget_bytes is not None:
+            # Projected bytes beside the free-blocks check: an admission
+            # mints one batch-1 prefill cache pair.  A pool that alone
+            # exceeds the budget is not screened here: its allocation
+            # raises MemoryBudgetError with the live set listed.
+            live = (memcheck.live_bytes(owner=self)
+                    if memcheck.armed() else 0)
+            projected = live + self._prefill_pair_bytes()
+            if projected > self.hbm_budget_bytes:
+                raise ValueError(
+                    f"admission needs a projected {projected} bytes "
+                    f"(live pools + one prefill cache pair) but "
+                    f"hbm_budget_bytes={self.hbm_budget_bytes} — "
+                    f"shrink --kv-pool-blocks/slots or raise the "
+                    f"budget")
         if (not self._exact_prefill and self.prefill_chunk is None
                 and not resume_from):
             # Only the suffix after the longest preloaded prefix needs a
@@ -719,6 +890,8 @@ class ServingEngine:
         self._next_id += 1
         self._queue.append((rid, prompt, max_new_tokens,
                             rid if seed is None else seed, resume_from))
+        events.instant("engine/queued", rid=rid, prompt_len=len(prompt),
+                       max_new=max_new_tokens)
         return rid
 
     def cancel(self, request_id: int) -> bool:
@@ -732,16 +905,26 @@ class ServingEngine:
         for i, item in enumerate(self._queue):
             if item[0] == request_id:
                 del self._queue[i]
+                events.instant("engine/cancel", rid=request_id,
+                               where="queued")
                 return True
         for slot, task in self._staging.items():
             if task.request_id == request_id:
-                self._kv_release(task.kv)
+                if task.kv is not None:
+                    self._kv_release(task.kv)
                 del self._staging[slot]
+                events.instant("engine/cancel", rid=request_id,
+                               where="staged")
                 return True
         for slot, state in enumerate(self._slot_states):
             if state is not None and state.request_id == request_id:
+                # Paged: the prompt blocks stay radix-held.  Linear: the
+                # strip's rows go stale-but-invisible until the next
+                # insert pins the slot again.
                 self._lane_release(slot)
                 self._slot_states[slot] = None
+                events.instant("engine/cancel", rid=request_id,
+                               where="slot")
                 return True
         return False
 
@@ -794,22 +977,35 @@ class ServingEngine:
         for b in shared:
             self._kv_pool.ref(b)
         n_owned = need - len(shared)
-        owned = self._kv_pool.alloc(n_owned)
-        if owned is None:
-            self.kv_stats["evictions"] += self._radix.evict_for(n_owned)
+        # A starved queue head retries every step: one span per request.
+        with (contextlib.nullcontext() if retry
+              else events.span("kv/alloc", rid=rid, blocks=n_owned,
+                               shared=len(shared))):
             owned = self._kv_pool.alloc(n_owned)
+            if owned is None:
+                self._evict_for(n_owned)
+                owned = self._kv_pool.alloc(n_owned)
         if owned is None:
             for b in shared:
                 self._kv_pool.deref(b)
             if self._kv_refused_rid != rid:
                 self._kv_refused_rid = rid
                 self.kv_stats["alloc_refusals"] += 1
+                events.instant("kv/refused", rid=rid, blocks=n_owned)
             return None
         if matched:
             self.kv_stats["prefix_hits"] += 1
             self.kv_stats["prefix_hit_tokens"] += matched
+            events.instant("kv/prefix_hit", rid=rid, tokens=matched)
         return serving_kv.LaneKV(request_id=rid, matched=matched,
                                  shared=shared, owned=owned)
+
+    def _evict_for(self, n: int) -> None:
+        """LRU-evict retired radix blocks until ``n`` are free."""
+        evicted = self._radix.evict_for(n)
+        if evicted:
+            self.kv_stats["evictions"] += evicted
+            events.instant("kv/evict", blocks=evicted)
 
     def _kv_release(self, kv) -> None:
         for b in kv.blocks():
@@ -862,13 +1058,21 @@ class ServingEngine:
 
     def _admission_match(self, kv, prompt):
         """(pre_len, pre_pair): the radix match, unless a preloaded pair
-        covers more (a sub-block tail only the pair holds)."""
-        pre_len, pre_pair = kv.matched, None
+        covers more (a sub-block tail only the pair holds); the linear
+        engine has the pairs alone."""
+        pre_len, pre_pair = (0 if kv is None else kv.matched), None
         lin_len, lin_pair = self._match_prefix(prompt, touch=True)
         if lin_len > pre_len:
             pre_len, pre_pair = lin_len, lin_pair
         return pre_len, pre_pair
 
+    @memory_budget(
+        pool=lambda self, pre_pair, kv, table_row, draft:
+            ("draft_prefill" if draft else "prefill_cache"),
+        budget_fn=lambda self, *a, **k: self.hbm_budget_bytes,
+        project_fn=lambda self, pre_pair, kv, table_row, draft:
+            memcheck.tree_bytes(self._cache_struct(1, draft=draft)),
+        lifetime="leaf")
     def _admission_cache_1(self, pre_pair, kv, table_row,
                            draft: bool) -> KVCache:
         """The batch-1 cache a request's suffix prefill appends to: a copy
@@ -879,8 +1083,8 @@ class ServingEngine:
             return KVCache(layers=[{k: v.clone() for k, v in lc.items()}
                                    for lc in c.layers],
                            index=c.index.clone(), cache_len=c.cache_len)
-        if kv.matched == 0:
-            return self._fresh_cache(draft)
+        if kv is None or kv.matched == 0:
+            return self._fresh_cache(draft=draft)
         return self._gather_prefix(table_row, kv.matched, draft)
 
     def _pieces_for(self, m: int):
@@ -939,51 +1143,66 @@ class ServingEngine:
         for slot in range(self.slots):
             while self._slot_states[slot] is None and self._queue:
                 item = self._queue.popleft()
-                rid, prompt, max_new, seed, resume = item
+                rid, prompt, max_new = item[:3]
                 if max_new == 0:
                     self._outputs[rid] = list(prompt)
                     continue
-                kv = self._kv_claim(rid, prompt, max_new)
-                if kv is None:
-                    # Refused: keep FIFO order; blocks free as lanes retire.
+                n = self._admit(slot, item)
+                if n is None:
+                    # Refused: keep FIFO order; blocks free as lanes
+                    # retire.
                     self._queue.appendleft(item)
                     self._note_prefill(t0, prefilled, stalled)
                     return
-                table_row = self._kv_table(kv)
-                pre_len, pre_pair = self._admission_match(kv, prompt)
-                work = prompt[pre_len:]
-                prefilled += len(work)
-                cache_1 = self._admission_cache_1(pre_pair, kv, table_row,
-                                                  False)
-                first = int(self._prefill_tokens(work, seed=seed,
-                                                 cache_1=cache_1,
-                                                 rng0=resume))
-                state = _SlotState(request_id=rid, remaining=max_new - 1,
-                                   tokens=list(prompt) + [first],
-                                   last_token=first, seed=seed,
-                                   count=resume + 1)
-                if max_new == 1 or (self.eos_id is not None
-                                    and first == self.eos_id):
-                    # Resolved before the draft's prefill, which it would
-                    # waste; its blocks were never written.
-                    self._kv_release(kv)
-                    self._outputs[rid] = state.tokens
-                    continue
-                caches_1 = [cache_1]
-                if self._draft is not None:
-                    d_cache_1 = self._admission_cache_1(pre_pair, kv,
-                                                        table_row, True)
-                    self._prefill_tokens(work, seed=seed, cache_1=d_cache_1,
-                                         draft=True)
-                    caches_1.append(d_cache_1)
-                self._paged_insert(caches_1, slot, table_row, kv.matched,
-                                   len(prompt))
-                self._lane_claim(slot, kv, prompt)
-                self._slot_states[slot] = state
-                # The next dispatch splices this slot's host token and
-                # counter over the device carry (the previous tenant's).
-                self._refills.add(slot)
+                prefilled += n
         self._note_prefill(t0, prefilled, stalled)
+
+    def _admit(self, slot: int, item) -> Optional[int]:
+        """Claim, prefill and insert one queued request into ``slot`` (or
+        resolve it at prefill); returns the tokens prefilled, None when
+        the pool refuses its blocks.  Its batch-1 caches die at the
+        return, so the next admission's are not held beside them (the
+        budget counts one prefill pair)."""
+        rid, prompt, max_new, seed, resume = item
+        kv = table_row = None
+        if self.paged:
+            kv = self._kv_claim(rid, prompt, max_new)
+            if kv is None:
+                return None
+            table_row = self._kv_table(kv)
+        pre_len, pre_pair = self._admission_match(kv, prompt)
+        work = prompt[pre_len:]
+        with events.span("prefill/request", rid=rid, tokens=len(work)):
+            caches_1 = [self._admission_cache_1(pre_pair, kv, table_row,
+                                                False)]
+            first = int(self._prefill_tokens(work, seed=seed,
+                                             cache_1=caches_1[0],
+                                             rng0=resume))
+        state = _SlotState(request_id=rid, remaining=max_new - 1,
+                           tokens=list(prompt) + [first], last_token=first,
+                           seed=seed, count=resume + 1)
+        if max_new == 1 or (self.eos_id is not None and first == self.eos_id):
+            # Resolved before the draft's prefill, which it would waste;
+            # its blocks were never written.
+            if kv is not None:
+                self._kv_release(kv)
+            self._outputs[rid] = state.tokens
+            return len(work)
+        with events.span("prefill/insert", rid=rid):
+            if self._draft is not None:
+                caches_1.append(self._admission_cache_1(pre_pair, kv,
+                                                        table_row, True))
+                self._prefill_tokens(work, seed=seed, cache_1=caches_1[1],
+                                     draft=True)
+            self._install(caches_1, slot, kv, table_row, len(prompt))
+        if kv is not None:
+            self._lane_claim(slot, kv, prompt)
+        self._slot_states[slot] = state
+        # The next dispatch splices this slot's host token and counter
+        # over the device carry (the previous tenant's).
+        self._refills.add(slot)
+        events.instant("slot/insert", rid=rid, slot=slot)
+        return len(work)
 
     def _note_prefill(self, t0: float, tokens: int, stalled: bool) -> None:
         if tokens:
@@ -1010,18 +1229,22 @@ class ServingEngine:
                 if max_new == 0:
                     self._outputs[rid] = list(prompt)
                     continue
-                kv = self._kv_claim(rid, prompt, max_new)
-                if kv is None:
-                    # FIFO: nothing behind the refused head may jump it.
-                    self._queue.appendleft(item)
-                    return
+                kv = None
+                if self.paged:
+                    kv = self._kv_claim(rid, prompt, max_new)
+                    if kv is None:
+                        # FIFO: nothing behind the refused head may jump
+                        # it.
+                        self._queue.appendleft(item)
+                        return
                 pre_len, pre_pair = self._admission_match(kv, prompt)
                 work = prompt[pre_len:]
                 padded, piece, n_pieces = self._padded(work)
                 self._staging[slot] = _PrefillTask(
                     request_id=rid, prompt=list(prompt), max_new=max_new,
                     seed=seed, work=work, padded=padded, piece=piece,
-                    n_pieces=n_pieces, kv=kv, table=self._kv_table(kv),
+                    n_pieces=n_pieces, kv=kv,
+                    table=None if kv is None else self._kv_table(kv),
                     resume=resume, pre_pair=pre_pair)
                 self.prefill_stats["staged_requests"] += 1
                 self.stats["prefill_tokens"] += len(work)
@@ -1033,53 +1256,57 @@ class ServingEngine:
         first = task.first_host
         caches_1 = [task.cache_1] + (
             [] if self._draft is None else [task.d_cache_1])
-        self._paged_insert(caches_1, slot, task.table, task.kv.matched,
-                           len(task.prompt))
-        self._lane_claim(slot, task.kv, task.prompt)
+        self._install(caches_1, slot, task.kv, task.table, len(task.prompt))
+        if task.kv is not None:
+            self._lane_claim(slot, task.kv, task.prompt)
         del self._staging[slot]
         self._slot_states[slot] = _SlotState(
             request_id=task.request_id, remaining=task.max_new - 1,
             tokens=list(task.prompt) + [first], last_token=first,
             seed=task.seed, count=task.resume + 1)
         self._refills.add(slot)
+        events.instant("slot/insert", rid=task.request_id, slot=slot)
 
     def _advance_piece(self, slot: int, task: _PrefillTask) -> int:
         """Run one installment of ``task`` — its next target piece, or
         once those are done its next draft piece, exactly the program
         atomic admission runs at this position — plus the insert after
         the last; returns its token cost."""
-        if task.cursor < task.n_pieces:
-            if task.cache_1 is None:
-                task.cache_1 = self._admission_cache_1(
-                    task.pre_pair, task.kv, task.table, False)
-            task.first = self._run_piece(task.cache_1, task.padded,
-                                         task.piece, task.cursor,
-                                         len(task.work), task.seed, False,
-                                         task.resume)
-            task.cursor += 1
-            if task.cursor == task.n_pieces:
-                # Reading the first token waits for this piece; the chunk
-                # queued ahead of it keeps the device busy meanwhile.
-                first = int(task.first)
-                task.first_host = first
-                if task.max_new == 1 or (self.eos_id is not None
-                                         and first == self.eos_id):
-                    self._kv_release(task.kv)   # blocks never written
-                    self._outputs[task.request_id] = (
-                        list(task.prompt) + [first])
-                    del self._staging[slot]
-                elif self._draft is None:
-                    self._finalize_prefill(slot, task)
+        with events.span("prefill/piece", rid=task.request_id,
+                         piece=task.cursor + task.d_cursor,
+                         n_pieces=task.n_pieces):
+            if task.cursor < task.n_pieces:
+                if task.cache_1 is None:
+                    task.cache_1 = self._admission_cache_1(
+                        task.pre_pair, task.kv, task.table, False)
+                task.first = self._run_piece(
+                    task.cache_1, task.padded, task.piece, task.cursor,
+                    len(task.work), task.seed, False, task.resume)
+                task.cursor += 1
+                if task.cursor == task.n_pieces:
+                    # Reading the first token waits for this piece; the
+                    # chunk queued ahead keeps the device busy meanwhile.
+                    first = int(task.first)
+                    task.first_host = first
+                    if task.max_new == 1 or (self.eos_id is not None
+                                             and first == self.eos_id):
+                        if task.kv is not None:    # blocks never written
+                            self._kv_release(task.kv)
+                        self._outputs[task.request_id] = (
+                            list(task.prompt) + [first])
+                        del self._staging[slot]
+                    elif self._draft is None:
+                        self._finalize_prefill(slot, task)
+                return task.piece
+            if task.d_cache_1 is None:
+                task.d_cache_1 = self._admission_cache_1(
+                    task.pre_pair, task.kv, task.table, True)
+            self._run_piece(task.d_cache_1, task.padded, task.piece,
+                            task.d_cursor, len(task.work), task.seed, True)
+            task.d_cursor += 1
+            if task.d_cursor == task.n_pieces:
+                self._finalize_prefill(slot, task)
             return task.piece
-        if task.d_cache_1 is None:
-            task.d_cache_1 = self._admission_cache_1(
-                task.pre_pair, task.kv, task.table, True)
-        self._run_piece(task.d_cache_1, task.padded, task.piece,
-                        task.d_cursor, len(task.work), task.seed, True)
-        task.d_cursor += 1
-        if task.d_cursor == task.n_pieces:
-            self._finalize_prefill(slot, task)
-        return task.piece
 
     def _advance_prefills(self, hidden: bool) -> None:
         """Advance staged prefills by at most ``prefill_budget`` tokens
@@ -1140,6 +1367,8 @@ class ServingEngine:
             self._lane_release(slot, state.tokens)
             self._outputs[state.request_id] = state.tokens
             self._slot_states[slot] = None
+            events.instant("slot/retire", rid=state.request_id, slot=slot,
+                           tokens=len(state.tokens))
 
     def _live(self, rids):
         """(slot, state) of each slot still held by the request it held at
@@ -1241,25 +1470,28 @@ class ServingEngine:
                 seeds[slot] = state.seed
                 rids[slot] = state.request_id
         k = self.spec_depth()
-        self._flush_stale_lanes()
-        tok, counts = self._carry_arrays()
-        seeds_d = self._to_device(seeds)
-        if self._draft is not None:
-            emit, emitted, nxt, acc, counts_next, logits = self._spec_round(
-                tok, seeds_d, counts, k)
-            # A continuing slot took exactly ``emitted`` tokens, so the
-            # device advances its counter itself: round N+1 needs no copy
-            # of round N.
-            self._carry = (nxt, counts_next)
-            inflight = {"spec": True, "k": k,
-                        "host": self._to_host(emit, emitted, acc)}
-            self.stats["decode_steps"] += 1
-        else:
-            toks, last, counts_next, logits = self._decode_chunk(
-                tok, seeds_d, counts)
-            self._carry = (last, counts_next)
-            inflight = {"spec": False, "host": self._to_host(toks)}
-            self.stats["decode_steps"] += self.chunk
+        with events.span("decode/dispatch",
+                         active=sum(r is not None for r in rids),
+                         fused=int(self.paged), spec_k=k):
+            self._flush_stale_lanes()
+            tok, counts = self._carry_arrays()
+            seeds_d = self._to_device(seeds)
+            if self._draft is not None:
+                (emit, emitted, nxt, acc, counts_next,
+                 logits) = self._spec_round(tok, seeds_d, counts, k)
+                # A continuing slot took exactly ``emitted`` tokens, so
+                # the device advances its counter itself: round N+1 needs
+                # no copy of round N.
+                self._carry = (nxt, counts_next)
+                inflight = {"spec": True, "k": k,
+                            "host": self._to_host(emit, emitted, acc)}
+                self.stats["decode_steps"] += 1
+            else:
+                toks, last, counts_next, logits = self._decode_chunk(
+                    tok, seeds_d, counts)
+                self._carry = (last, counts_next)
+                inflight = {"spec": False, "host": self._to_host(toks)}
+                self.stats["decode_steps"] += self.chunk
         self._inflight = dict(inflight, rids=rids, logits=logits)
         self.overlap_stats["chunks"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
@@ -1283,15 +1515,18 @@ class ServingEngine:
         ``overlap_stats``."""
         t0 = time.perf_counter()
         host, event = inf["host"]
-        if event is not None:
-            event.synchronize()
-        arrays = [h.numpy() for h in host]
+        with events.span("decode/wait", overlapped=overlapped):
+            if event is not None:
+                event.synchronize()
+            arrays = [h.numpy() for h in host]
         t1 = time.perf_counter()
         self.stats["decode_s"] += t1 - t0
-        if inf["spec"]:
-            self._harvest_spec(*arrays, inf["k"], inf["rids"], inf["logits"])
-        else:
-            self._harvest(arrays[0], inf["rids"], inf["logits"])
+        with events.span("decode/harvest", overlapped=overlapped):
+            if inf["spec"]:
+                self._harvest_spec(*arrays, inf["k"], inf["rids"],
+                                   inf["logits"])
+            else:
+                self._harvest(arrays[0], inf["rids"], inf["logits"])
         dt = time.perf_counter() - t1
         self.overlap_stats["harvest_s"] += dt
         if overlapped:
@@ -1379,22 +1614,82 @@ class ServingEngine:
         return out
 
     def kv_blocks_in_use(self) -> int:
-        """Blocks referenced by live lanes and the radix cache."""
-        return self._kv_pool.blocks_in_use()
+        """Blocks referenced by live lanes and the radix cache (0 on the
+        linear engine)."""
+        return self._kv_pool.blocks_in_use() if self.paged else 0
 
     def kv_blocks_total(self) -> int:
-        """Allocatable physical blocks in the paged pool."""
-        return self._kv_pool.n_blocks
+        """Allocatable physical blocks in the paged pool (0 on the linear
+        engine)."""
+        return self._kv_pool.n_blocks if self.paged else 0
 
     def kv_bytes_in_use(self) -> int:
         """Referenced pool blocks in device bytes (live lanes and the
-        radix cache, target and draft pools)."""
-        return self._kv_pool.bytes_in_use()
+        radix cache, target and draft pools; 0 on the linear engine)."""
+        return self._kv_pool.bytes_in_use() if self.paged else 0
 
     def kv_pool_bytes(self) -> int:
         """Device bytes the paged pools pin (target and draft, int8 scale
-        pools included); constant per engine."""
+        pools included; 0 on the linear engine); constant per engine."""
         return self._kv_pool_bytes
+
+    # -- HBM autosizing ----------------------------------------------------
+
+    def _prefill_pair_bytes(self) -> int:
+        """Bytes of one batch-1 prefill cache pair (target and draft):
+        what an admission mints (memoized, from the meta caches)."""
+        if self._prefill_bytes_memo is None:
+            n = memcheck.tree_bytes(self._cache_struct(1))
+            if self._draft is not None:
+                n += memcheck.tree_bytes(self._cache_struct(1, draft=True))
+            self._prefill_bytes_memo = n
+        return self._prefill_bytes_memo
+
+    def hbm_autosized_bytes(self) -> int:
+        """The budget the autosize solve installed (0 when the engine was
+        sized by hand or the solve was switched off)."""
+        return self._hbm_autosized
+
+    def _solve_hbm_autosize(self) -> tuple:
+        """``kv_pool_blocks='auto'``: (kv_pool_blocks, hbm_budget_bytes).
+        The grids' bytes are linear in the block count (the pools' rows
+        scale; the block table, the positions and the scratch block do
+        not), so two probes (n = 1, 2) of the grids built on the meta
+        device give the slope and the intercept, and the solve takes the
+        largest n with
+
+            grid_bytes(n) + one batch-1 prefill pair
+                <= device bytes * (1 - hbm_headroom)
+
+        The right side becomes the budget, which the sanitizer then
+        enforces: the engine's own pools and admissions fit by
+        construction.  Nothing is allocated."""
+        avail = _device_hbm_bytes(self.device)
+        if avail is None:
+            raise ValueError(
+                "kv_pool_blocks='auto' needs a device memory report "
+                "(torch.cuda.mem_get_info) or TTD_HBM_BYTES=<bytes>")
+
+        def grid_bytes(n):
+            return sum(memcheck.tree_bytes(self._init_cache(
+                self.slots, draft, True, "meta", n_blocks=n))
+                for draft in ((False, True) if self._draft is not None
+                              else (False,)))
+
+        trans = self._prefill_pair_bytes()
+        b1, b2 = grid_bytes(1), grid_bytes(2)
+        slope, intercept = b2 - b1, 2 * b1 - b2
+        usable = int(avail * (1.0 - self._hbm_headroom))
+        n = (usable - intercept - trans) // slope
+        if n < 1:
+            raise ValueError(
+                f"kv_pool_blocks='auto': no pool fits — device HBM "
+                f"{avail} bytes minus {self._hbm_headroom:.0%} headroom "
+                f"leaves {usable}, but one block of pools plus batch-1 "
+                f"prefill transients needs "
+                f"{intercept + slope + trans} (shrink hbm_headroom, "
+                f"slots, or cache_len)")
+        return int(n), usable
 
     # -- preloaded prefixes ------------------------------------------------
 
@@ -1404,10 +1699,11 @@ class ServingEngine:
         prompt strictly extends it prefills only the suffix.  The batch-1
         cache (and the draft's, under speculation) is kept, position
         pinned to the prefix's true length, in an LRU of
-        ``prefix_cache_limit`` entries; the prefix's full blocks seed the
-        radix index (``_seed_radix_from_cache``), so a later request
-        copies them out of the pool with the paged KV gather and takes a
-        sub-block tail from the stored cache."""
+        ``prefix_cache_limit`` entries.  A later request starts from a
+        copy of it (the linear engine), or (paged) the prefix's full
+        blocks seed the radix index (``_seed_radix_from_cache``), so the
+        request copies them out of the pool with the paged KV gather and
+        takes a sub-block tail from the stored cache."""
         tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
         if not tokens:
             raise ValueError("empty prefix")
@@ -1420,21 +1716,28 @@ class ServingEngine:
         if n >= self.cache_len:
             raise ValueError(f"prefix length {n} must leave cache room "
                              f"(cache_len={self.cache_len})")
-        cache_1 = self._fresh_cache(False)
-        self._prefill_tokens(tokens, seed=0, cache_1=cache_1)
-        cache_1.index.fill_(n)
-        d_cache_1 = None
-        if self._draft is not None:
-            d_cache_1 = self._fresh_cache(True)
-            self._prefill_tokens(tokens, seed=0, cache_1=d_cache_1,
-                                 draft=True)
-            d_cache_1.index.fill_(n)
+        with events.span("prefill/prefix", tokens=n):
+            cache_1 = self._fresh_cache()
+            self._prefill_tokens(tokens, seed=0, cache_1=cache_1)
+            cache_1.index.fill_(n)
+            d_cache_1 = None
+            if self._draft is not None:
+                d_cache_1 = self._fresh_cache(draft=True)
+                self._prefill_tokens(tokens, seed=0, cache_1=d_cache_1,
+                                     draft=True)
+                d_cache_1.index.fill_(n)
         key = tuple(tokens)
         self._prefix_caches[key] = (cache_1, d_cache_1)
         self._prefix_caches.move_to_end(key)
         while len(self._prefix_caches) > self.prefix_cache_limit:
             self._prefix_caches.popitem(last=False)
-        self._seed_radix_from_cache(tokens, cache_1, d_cache_1)
+        # The stored pair lives until LRU eviction: the ledger charges it
+        # until its tensors die, so an unbounded preload pattern trips
+        # the budget here.
+        memcheck.track(self, "prefix_cache", (cache_1, d_cache_1),
+                       label=f"prefix{n}", budget=self.hbm_budget_bytes)
+        if self.paged:
+            self._seed_radix_from_cache(tokens, cache_1, d_cache_1)
 
     def _seed_radix_from_cache(self, tokens, cache_1: KVCache,
                                d_cache_1: Optional[KVCache]) -> None:
@@ -1460,7 +1763,7 @@ class ServingEngine:
             n_new = m - len(shared)
             fresh = self._kv_pool.alloc(n_new)
             if fresh is None:
-                self.kv_stats["evictions"] += self._radix.evict_for(n_new)
+                self._evict_for(n_new)
                 fresh = self._kv_pool.alloc(n_new)
             if fresh is None:
                 logger.warning(
@@ -1542,8 +1845,9 @@ class ServingEngine:
         The head is preloaded when the radix does not hold it, then read
         back out of the pool and shipped verbatim; at least one suffix
         token stays unexported (its logit picks the first token on the
-        receiving side).  A dense-dispatch MoE engine exports nothing."""
-        if self._exact_prefill:
+        receiving side).  A dense-dispatch MoE engine and the linear
+        engine export nothing."""
+        if not self.paged or self._exact_prefill:
             return None
         tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
         bs = self.kv_block_size
@@ -1564,8 +1868,9 @@ class ServingEngine:
         try:
             table = np.zeros((self._kv_nblk_lane,), np.int32)
             table[:len(shared)] = shared
-            leaves, blob = self._serialize_rows(self._to_device(table),
-                                                m * bs)
+            with events.span("kv/export", tokens=m * bs):
+                leaves, blob = self._serialize_rows(self._to_device(table),
+                                                    m * bs)
         finally:
             for b in shared:
                 self._kv_pool.deref(b)
@@ -1580,8 +1885,9 @@ class ServingEngine:
         batch-1 caches in their exact dtypes, which seed the radix
         through ``_seed_radix_from_cache``, the path ``preload_prefix``
         takes.  A torn or lying manifest raises ValueError.  A
-        dense-dispatch MoE engine installs nothing (0)."""
-        if self._exact_prefill:
+        dense-dispatch MoE engine and the linear engine install nothing
+        (0)."""
+        if not self.paged or self._exact_prefill:
             return 0
         tokens = [int(t) for t in meta.get("tokens", ())]
         n = int(meta.get("n", 0))
@@ -1616,7 +1922,7 @@ class ServingEngine:
                              f"trailing bytes")
 
         def build(draft: bool) -> KVCache:
-            cache_1 = self._fresh_cache(draft)
+            cache_1 = self._fresh_cache(draft=draft)
             for path, layer, name, shape in self._wire_leaves(draft, n):
                 got = arrays.get((draft, path))
                 if got is None:
@@ -1642,9 +1948,10 @@ class ServingEngine:
             cache_1.index.fill_(n)
             return cache_1
 
-        cache_1 = build(False)
-        d_cache_1 = build(True) if self._draft is not None else None
-        self._seed_radix_from_cache(tokens, cache_1, d_cache_1)
+        with events.span("kv/install", tokens=n):
+            cache_1 = build(False)
+            d_cache_1 = build(True) if self._draft is not None else None
+            self._seed_radix_from_cache(tokens, cache_1, d_cache_1)
         matched, _ = self._radix.match(tokens, allow_full=True,
                                        record=False)
         return matched
@@ -1665,7 +1972,8 @@ class ServingEngine:
           ``remaining``, ``last_token``, ``seed``, ``count``, ``done``,
           and under ``meta["kv"]`` with ``blob`` the lane's full-block
           rows below ``len(tokens) - 1`` in the wire recipe
-          (``_serialize_rows``; ``kv`` None for a sub-block lane);
+          (``_serialize_rows``; ``kv`` None for a sub-block lane and on
+          the linear engine, whose target re-prefills);
         - ``"staged"``: mid-admission (parameters and the staged cursor;
           the partial prefill is not shipped);
         - ``"queued"``: parameters only.
@@ -1702,8 +2010,9 @@ class ServingEngine:
             if kv is not None and m > 0:
                 # The lane's claim holds a reference on every block of its
                 # table; nothing runs between here and the gather.
-                leaves, blob = self._serialize_rows(self._kv_table(kv),
-                                                    m * bs)
+                with events.span("kv/export", tokens=m * bs):
+                    leaves, blob = self._serialize_rows(
+                        self._kv_table(kv), m * bs)
                 meta["kv"] = {"tokens": [int(t) for t in
                                          state.tokens[:m * bs]],
                               "n": m * bs, "draft": self._draft is not None,

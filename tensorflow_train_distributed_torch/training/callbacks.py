@@ -8,8 +8,11 @@ seam that may replace the state between steps.  ``ReduceLROnPlateau``
 needs the learning rate in the optimizer state
 (``optimizers.inject_learning_rate``, the launcher's
 ``--reduce-lr-factor``).  One process runs the port, so the JAX
-package's chief-only gating is gone; ``TensorBoardScalars`` is not
-ported.
+package's chief-only gating is gone.  ``TensorBoardScalars`` writes the
+event files the JAX callback's writer writes, for the same viewer,
+without the ``tensorboard`` package: TFRecord framing
+(``data/tfrecord.py``) around hand-encoded ``Event`` / ``Summary``
+protos of scalars; ``read_scalars`` reads them back.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
+import socket
+import struct
 import sys
 import time
 from typing import Mapping, Optional
@@ -395,6 +401,117 @@ class TerminateOnNaN(Callback):
             if getattr(self, "trainer", None) is not None:
                 self.trainer.state_poisoned = True
             return True
+
+
+# -- TensorBoard event files ---------------------------------------------------
+# Event: wall_time = 1 (double), step = 2 (int64), file_version = 3
+# (string), summary = 5; Summary: value = 1 (repeated); Summary.Value:
+# tag = 1 (string), simple_value = 2 (float).
+
+
+def _encode_event(wall_time: float, step: int, *, file_version=None,
+                  scalars=()) -> bytes:
+    from tensorflow_train_distributed_torch.data import tfrecord as tfr
+
+    out = bytearray()
+    tfr._write_varint(out, tfr._tag(1, 1))
+    out += struct.pack("<d", wall_time)
+    tfr._write_varint(out, tfr._tag(2, 0))
+    tfr._write_varint(out, step & ((1 << 64) - 1))
+    if file_version is not None:
+        tfr._write_len_delimited(out, 3, file_version.encode())
+    if scalars:
+        summary = bytearray()
+        for tag, value in scalars:
+            v = bytearray()
+            tfr._write_len_delimited(v, 1, tag.encode())
+            tfr._write_varint(v, tfr._tag(2, 5))
+            v += struct.pack("<f", value)
+            tfr._write_len_delimited(summary, 1, bytes(v))
+        tfr._write_len_delimited(out, 5, bytes(summary))
+    return bytes(out)
+
+
+def _fields(buf: bytes):
+    """(field, wire type, value) of a proto message: varints as ints,
+    fixed widths and length-delimited fields as their bytes."""
+    from tensorflow_train_distributed_torch.data import tfrecord as tfr
+
+    pos = 0
+    while pos < len(buf):
+        key, pos = tfr._read_varint(buf, pos)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, pos = tfr._read_varint(buf, pos)
+        else:
+            end = tfr._skip_field(buf, pos, wire)
+            if wire == 2:
+                _, pos = tfr._read_varint(buf, pos)
+            value, pos = buf[pos:end], end
+        yield field, wire, value
+
+
+def read_scalars(logdir: str) -> dict:
+    """``{tag: [(step, value), ...]}`` of every simple-value scalar in the
+    event files under ``logdir``, in file and write order (the reader
+    of ``TensorBoardScalars``' files; crcs are checked)."""
+    from tensorflow_train_distributed_torch.data.tfrecord import read_records
+
+    out: dict = {}
+    names = sorted(n for n in os.listdir(logdir) if "tfevents" in n)
+    for name in names:
+        for record in read_records(os.path.join(logdir, name)):
+            step = 0
+            values = []
+            for field, _, value in _fields(record):
+                if field == 2:
+                    step = value - (1 << 64) if value >> 63 else value
+                elif field == 5:
+                    for f, _, v in _fields(value):
+                        if f == 1:
+                            values.append(dict(
+                                (ff, vv) for ff, _, vv in _fields(v)))
+            for v in values:
+                if 2 in v:
+                    out.setdefault(v[1].decode(), []).append(
+                        (step, struct.unpack("<f", v[2])[0]))
+    return out
+
+
+class TensorBoardScalars(Callback):
+    """Write every step event's metrics as TensorBoard scalars under
+    ``logdir`` (one event file a run, named as TensorBoard names them,
+    flushed at the end of training)."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self._writer = None
+
+    def on_train_begin(self, state):
+        from tensorflow_train_distributed_torch.data.tfrecord import (
+            TFRecordWriter,
+        )
+
+        os.makedirs(self.logdir, exist_ok=True)
+        name = (f"events.out.tfevents.{int(time.time()):010d}."
+                f"{socket.gethostname()}.{os.getpid()}.v2")
+        self._writer = TFRecordWriter(os.path.join(self.logdir, name),
+                                      compress=False)
+        self._writer.write(_encode_event(time.time(), 0,
+                                         file_version="brain.Event:2"))
+
+    def on_step_end(self, step, metrics):
+        if self._writer is None:
+            return
+        now = time.time()
+        for k, v in metrics.items():
+            self._writer.write(_encode_event(now, step,
+                                             scalars=[(k, float(v))]))
+
+    def on_train_end(self, state):
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
 
 
 class StallWatchdog(Callback):

@@ -24,6 +24,14 @@ after an evaluation one ``step_end`` of ``val_`` metrics between
 ``eval_begin`` and ``eval_end``; ``epoch_end``; ``transform_state``; a
 periodic save through the checkpoint manager; ``train_end`` in a
 ``finally``.  The fault plan's step site runs at each step boundary.
+``steps_per_execution = k`` fuses k optimizer steps into one call
+(``train_steps``, the JAX ``lax.scan`` over a stacked super-batch): the
+loop stacks k host batches into one [k, ...] batch, the k steps run back
+to back with no host sync between them, and the call returns the last
+step's metrics; callbacks, logging, evaluations, saves and the fault
+plan's step site see steps at dispatch boundaries (every k-th step), as
+in the JAX trainer, and ``steps`` must be a multiple of k.  The steps
+themselves are ``train_step``'s, so k = 4 trains bit for bit as k = 1.
 ``evaluate`` (weighted ``MetricAccumulator`` means, ``perplexity`` as
 exp of the mean loss) and ``predict`` (pad rows dropped) run the forward
 alone, with the state's params bound to the model (an EMA view too).
@@ -72,6 +80,19 @@ from tensorflow_train_distributed_torch.training.optimizers import (
 from tensorflow_train_distributed_torch.training.train_state import TrainState
 
 
+def _stack_batches(it, k: int):
+    """Group k host batches into one super-batch stacked on a new leading
+    axis (a short tail is dropped: ``fit`` takes a multiple of k)."""
+    while True:
+        group = []
+        for _ in range(k):
+            b = next(it, None)
+            if b is None:
+                return
+            group.append(b)
+        yield {n: np.stack([b[n] for b in group]) for n in group[0]}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     seed: int = 0
@@ -88,6 +109,8 @@ class TrainerConfig:
     # The state evaluation scores (e.g. ``ema.swap_ema_params``); None
     # scores the training state itself.
     eval_state_view: Optional[Callable] = None
+    # Optimizer steps per call over a stacked [k, ...] super-batch.
+    steps_per_execution: int = 1
 
 
 class Trainer:
@@ -256,6 +279,17 @@ class Trainer:
         state.step += 1
         return dict(metrics, loss=loss, **extra)
 
+    def train_steps(self, state: TrainState, batch: dict) -> dict:
+        """``steps_per_execution`` optimizer steps over a super-batch of
+        device tensors stacked on a leading axis of k, back to back with
+        no host sync between them; returns the last step's metrics (the
+        JAX scan's ``m[-1]``)."""
+        k = next(iter(batch.values())).shape[0]
+        for i in range(k):
+            metrics = self.train_step(state, {n: v[i]
+                                              for n, v in batch.items()})
+        return metrics
+
     # -- the loop --------------------------------------------------------
 
     def fit(self, batches: Iterable[dict], *, steps: int,
@@ -271,6 +305,12 @@ class Trainer:
         evaluated for ``eval_steps`` batches every ``eval_every`` steps
         (default: each epoch of ``steps_per_epoch``, else at the end).
         Returns ``(state, history)``, history a list of (step, metrics)."""
+        k = self.config.steps_per_execution
+        if steps % k:
+            raise ValueError(
+                f"steps={steps} must be a multiple of "
+                f"steps_per_execution={k} (each dispatch runs exactly k "
+                "optimizer steps)")
         self.state_poisoned = False
         if state is None:
             state = self.create_state()
@@ -279,7 +319,10 @@ class Trainer:
         history = []
         self.callbacks.train_begin(state)
         box = [state]
-        device_iter = prefetch_to_device(iter(batches), self.device)
+        it = iter(batches)
+        if k > 1:
+            it = _stack_batches(it, k)
+        device_iter = prefetch_to_device(it, self.device)
         try:
             self._fit_loop(device_iter, box, history, steps,
                            steps_per_epoch, eval_batches, eval_every,
@@ -292,6 +335,7 @@ class Trainer:
     def _fit_loop(self, device_iter, box, history, steps,
                   steps_per_epoch, eval_batches, eval_every, eval_steps):
         state = box[0]
+        k = self.config.steps_per_execution
         ckpt = self.checkpoint_manager
         every = self.config.checkpoint_every
         start = state.step
@@ -306,26 +350,29 @@ class Trainer:
             self.timing["data_wait_s"] += time.perf_counter() - t0
             if batch is None:
                 break
-            metrics = self.train_step(state, batch)
+            metrics = (self.train_step(state, batch) if k == 1
+                       else self.train_steps(state, batch))
             cur = state.step
             # Callbacks that save (the preemption handler) read the live
             # state from here.
             self._live_state = state
-            done += 1
+            done += k
             if faults.ARMED:
                 faults.step_boundary(cur)
             pending.append((cur, metrics))
             stop = done >= steps
-            will_ckpt = ckpt is not None and bool(every) and cur % every == 0
+            # A dispatch boundary stands for the k steps it closes: an
+            # event due at any of them happens here.
+            will_ckpt = ckpt is not None and bool(every) and cur % every < k
             eval_due = eval_batches is not None and bool(
-                (eval_every and cur % eval_every == 0)
+                (eval_every and cur % eval_every < k)
                 or (not eval_every and steps_per_epoch
-                    and done % steps_per_epoch == 0)
+                    and done % steps_per_epoch < k)
                 or (not eval_every and not steps_per_epoch and stop))
             # Read before a save (a guard callback must see the window
             # first) and before an evaluation (val_* events follow the
             # train metrics of their step).
-            drained = (len(pending) >= self.config.log_every or stop
+            drained = (len(pending) * k >= self.config.log_every or stop
                        or will_ckpt or eval_due)
             if drained:
                 for s, m in pending:
@@ -334,7 +381,7 @@ class Trainer:
                     stop |= self.callbacks.step_end(s, host)
                     last_metrics = host
                 self.timing["windows"].append(
-                    (len(pending), time.perf_counter() - t_mark))
+                    (len(pending) * k, time.perf_counter() - t_mark))
                 pending.clear()
             if eval_due:
                 src = eval_batches() if callable(eval_batches) \

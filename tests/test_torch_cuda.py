@@ -484,6 +484,116 @@ def test_engine_on_card_matches_engine_on_cpu(gen, kv_int8):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_linear_engine_on_card(gen, kv_int8):
+    """llama_tiny at f32 on the linear engine (``paged=False``): greedy
+    tokens on the card equal the CPU linear engine's and the card's paged
+    engine's; RMSNorm runs, paged attention and the gather never do."""
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama_tiny"],
+                              kv_cache_int8=kv_int8)
+    params = convert.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    pre = list(range(1, 9))
+    reqs = [(pre + [20], 6), ([5, 6, 7, 8, 9], 5), (pre + [30, 31], 4),
+            (list(range(40, 52)), 7), ([70, 71, 72], 1)]
+    outs = []
+    for device, paged in (("cpu", False), ("cuda", False), ("cuda", True)):
+        eng = ServingEngine(cfg, params, slots=2, cache_len=64, chunk=2,
+                            prompt_buckets=(8, 16), kv_block_size=4,
+                            paged=paged, device=device)
+        eng.preload_prefix(pre)
+        K.reset_launch_counts()
+        ids = [eng.submit(p, m) for p, m in reqs]
+        out = eng.run()
+        outs.append([out[i] for i in ids])
+        counts = K.launch_counts()
+        if device == "cuda" and not paged:
+            assert counts["rms_norm"] > 0
+            assert counts["paged_attention"] == counts[
+                "paged_kv_gather"] == 0
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_autosize_solve_against_the_cards_memory(gen, monkeypatch):
+    """``kv_pool_blocks='auto'`` on the card reads the total of
+    ``torch.cuda.mem_get_info``: the budget is it less the headroom, the
+    pool the largest whose grids and one prefill pair fit (the meta
+    probes), and the engine serves the default engine's tokens."""
+    from tensorflow_train_distributed_torch import serving
+
+    monkeypatch.delenv("TTD_HBM_BYTES", raising=False)
+    monkeypatch.delenv("TTD_NO_HBM_AUTOSIZE", raising=False)
+    total = torch.cuda.mem_get_info()[1]
+    assert serving._device_hbm_bytes(torch.device("cuda")) == total
+    cfg = LLAMA_PRESETS["llama_tiny"]
+    params = convert.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    kw = dict(slots=2, cache_len=64, chunk=2, prompt_buckets=(8, 16),
+              kv_block_size=4, device="cuda")
+    auto = ServingEngine(cfg, params, kv_pool_blocks="auto",
+                         hbm_headroom=0.99, **kw)
+    usable = int(total * (1 - 0.99))
+    n = auto.kv_blocks_total()
+    assert auto.hbm_budget_bytes == auto.hbm_autosized_bytes() == usable
+    assert auto._solve_hbm_autosize() == (n, usable)
+
+    def ledger(m):
+        from tensorflow_train_distributed_torch.runtime.lint import memcheck
+
+        return memcheck.tree_bytes(auto._init_cache(
+            2, False, True, "meta", n_blocks=m)) + auto._prefill_pair_bytes()
+
+    assert ledger(n) <= usable < ledger(n + 1)
+    reqs = [([5, 6, 7, 8, 9], 6), (list(range(40, 52)), 7)]
+    outs = []
+    for eng in (auto, ServingEngine(cfg, params, **kw)):
+        ids = [eng.submit(p, m) for p, m in reqs]
+        out = eng.run()
+        outs.append([out[i] for i in ids])
+    assert outs[0] == outs[1]
+
+
+def test_memcheck_ledger_against_memory_allocated(gen, monkeypatch):
+    """A pool the sanitizer tracks (a paged grid on the card, charged
+    when minted, released when its tensors die): the ledger's bytes are
+    the allocator's to its 512-byte rounding, a view counts once, and
+    both go back to where they were."""
+    monkeypatch.setenv("TTD_MEMCHECK", "1")
+    monkeypatch.delenv("TTD_NO_MEMCHECK", raising=False)
+    from tensorflow_train_distributed_torch.models.llama import LlamaModel
+    from tensorflow_train_distributed_torch.runtime.lint import memcheck
+    from tensorflow_train_distributed_torch.runtime.lint.registry import (
+        memory_budget,
+    )
+
+    model = LlamaModel(LLAMA_PRESETS["llama_tiny"], device="meta")
+
+    class Owner:
+        @memory_budget(pool="kv_pool", budget_bytes=1 << 30,
+                       lifetime="leaf")
+        def grid(self, blocks):
+            c = model.init_cache(4, 64, paged_blocks=blocks, block_size=16,
+                                 device="cuda")
+            return dict(cache=c, view=c.layers[0]["key_pool"][1:])
+
+    memcheck.reset()
+    owner = Owner()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = owner.grid(257)
+    torch.cuda.synchronize()
+    used = torch.cuda.memory_allocated() - before
+    charged = memcheck.live_bytes(owner=owner)
+    tensors = 2 * len(out["cache"].layers) + 2
+    assert charged == memcheck.tree_bytes(out)
+    assert charged <= used <= charged + 512 * tensors
+    del out
+    torch.cuda.synchronize()
+    assert memcheck.live_bytes(owner=owner) == 0
+    assert torch.cuda.memory_allocated() == before
+    memcheck.reset()
+
+
 @pytest.mark.parametrize("draft,kw", [
     ("self", dict(speculative_k=3)),
     ("scan", dict(speculative_k=3)),
