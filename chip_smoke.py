@@ -205,7 +205,8 @@
    memory and the kernels' launches; checkpoints go under the
    git-ignored ``_family_smoke/``, deleted at the end.
 18. llama2_7b_sft with LoRA (rank 8, query and value) at full width and
-   depth through the launcher, random weights from seed 0, 10 steps; cut
+   depth through the launcher (in this process), random weights from seed
+   0, 10 steps; cut
    to b 2 x s 4096 with no checkpoint.  Its kernels first, at its shapes
    (K1f and K1b's dx, the scale being frozen, [8192, 4096] bf16; K3
    [8192, 32000] f32; K2 B 2, H 32, S 4096, D 128 bf16; and K1b's dx at
@@ -275,8 +276,8 @@
    teacher forcing.  (d) ``generate_speculative`` of Llama-2-7B at 4
    layers with itself as the draft, k 4: acceptance at least 0.9, and
    the share of its tokens equal to ``generate()``'s.  (e)
-   ``python -m tensorflow_train_distributed_torch.sample`` on phase 11's
-   checkpoint: exit 0 and an in-process ``generate()``'s tokens.  K1f,
+   ``sample.py``'s ``main`` (in this process) on phase 11's checkpoint:
+   exit 0 and ``generate()``'s tokens.  K1f,
    K2 and K7 counted over (a)-(d).
 22. MoE decode and serving, and int8 weight-only serving, at full width
    and depth (random weights from seed 0).  First the kernels at the
@@ -308,6 +309,37 @@
    dense`` on a 2-step launcher checkpoint of moe_tiny_lm_gmm, tokens
    equal to ``generate()``'s.  K1f, K4, K5 and K6 counted over (a)-(d),
    K1f, K2 and K6 over (e).
+23. The serving fleet on Llama-2-7B at full width and depth (bf16, random
+   weights from seed 0), phase 3's 12 requests (16-300 tokens, #0 and #1
+   sharing a 64-token prefix, 32 new, greedy), every engine built from
+   ``serve_http.py``'s parsed flags (phase 3's shape: 8 slots, chunk 8,
+   cache_len 1024, block 16; the default pipelined engine).  (a)
+   ``ServingGateway`` over two in-process replicas on the card: #0 first,
+   then the other 11 concurrently over HTTP, 4 of them streaming; every
+   stream concatenates to its reply, ``/metrics`` parses and its request
+   and token counters equal what was sent, #1 lands on #0's replica
+   (KV affinity) and reads its prefix back through K5; K1f, K4 and K5
+   counted across both driver threads (``fleet_serve``), K4 at layers x
+   the decode steps of both engines.  (b) ``serve_http --replica-procs
+   --replicas 2`` as a process (workers built by
+   ``serve.worker_engine_factory``; the parent must not initialise CUDA):
+   the 12 requests, one worker SIGKILLed once a stream on it has begun;
+   every request answers 200, ``/healthz`` shows the corpse "killed", the
+   failover counter moves, the pool respawns it within its restart
+   budget; then 8 long streams on both workers and SIGTERM with
+   ``--drain-timeout``: the draining worker's lanes migrate (the final
+   metrics' migration counter >= 1, each migration installing KV rows,
+   no re-prefill), every stream answers whole.  (c) ``serve_http
+   --listen 127.0.0.1:0`` with one ``serve_worker --role prefill`` and one
+   ``--role decode`` (the same factory): the 12 requests through the KV
+   handoff, its bytes and tokens read from each request's timeline.
+   Every leg's tokens are held by teacher forcing through replica 0's
+   model at phase 3's bars: each generated token within 2 x 0.25 of
+   max(std, 1) of the re-prefill's best logit (what phase 3's gap bar
+   allows between two argmaxes), at least half of them its argmax; their
+   agreement with phase 3's batch run is logged, and the fleet's mean
+   inter-token time (``ttd_gateway_inter_token_seconds``) beside phase
+   3's decode step.  Each leg logs its seconds.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -450,6 +482,14 @@ KERNELS = [
     ("flash_attention", _CSRC + "flash_attention_fwd.cu", _FA + ":589",
      "moe_generate"),
     ("gmm", _CSRC + "grouped_matmul.cu", _MB + ":314", "moe_generate"),
+    # Phase 23 (a): the fleet's two in-process replicas, counted across
+    # both driver threads; the numbers beside them are phase 2's at phase
+    # 3's shapes.
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "fleet_serve"),
+    ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290",
+     "fleet_serve"),
+    ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121",
+     "fleet_serve"),
 ] + [
     # Phase 11's LoRA leg (llama_125m_lm, rank 8 on query and value,
     # through the launcher; the numbers beside them are phase 5's at the
@@ -471,6 +511,7 @@ KERNELS += [(name, source, where, "launch_fused")
             for name, source, where, path in KERNELS if path == "launch"]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LANE_KERNELS = [k[0] for k in KERNELS if k[3] == "lane_control"]
+FLEET_KERNELS = [k[0] for k in KERNELS if k[3] == "fleet_serve"]
 GENERATE_KERNELS = [k[0] for k in KERNELS if k[3] == "generate"]
 SPEC_SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "spec_serve"]
 LAUNCH_KERNELS = [k[0] for k in KERNELS if k[3] == "launch"]
@@ -2180,17 +2221,8 @@ def phase_generate() -> tuple:
         cfg = registry.get_config("llama_125m_lm")
         rows_in = [rng.integers(1, cfg.vocab_size, 24).tolist()
                    for _ in range(2)]
-        flags = ["--config", "llama_125m_lm", "--checkpoint-dir", ck,
-                 "--max-new", "16"]
-        for r in rows_in:
-            flags += ["--prompt", ",".join(map(str, r))]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tensorflow_train_distributed_torch.sample",
-             *flags], capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"(e) sample failed:\n{proc.stderr[-4000:]}")
-        got = [json.loads(x)["completion"] for x in proc.stdout.splitlines()]
+        got = _sample_leg(ck, rows_in, 16, [], config="llama_125m_lm")
         want = G.generate(cfg, CheckpointManager(ck).restore_params(),
                           rows_in, 16, device="cuda")[:, 24:].tolist()
         out["sample_cli"] = dict(wall_s=time.perf_counter() - t0,
@@ -2555,22 +2587,24 @@ def _moe_generate_leg(label, cfg, params, prompt, max_new, scales=None):
     return rec, counts
 
 
-def _sample_leg(ck, rows_in, max_new, flags) -> list:
-    """``sample.py``'s ``main`` in this process; its completions."""
+def _sample_leg(ck, rows_in, max_new, flags,
+                config="moe_tiny_lm_gmm") -> list:
+    """``sample.py``'s ``main`` in this process (a process would spend ~9
+    s importing torch); its completions."""
     import contextlib
     import io
 
     from tensorflow_train_distributed_torch import sample
 
     buf = io.StringIO()
-    args = ["--config", "moe_tiny_lm_gmm", "--checkpoint-dir", ck,
+    args = ["--config", config, "--checkpoint-dir", ck,
             "--max-new", str(max_new), *flags]
     for r in rows_in:
         args += ["--prompt", ",".join(map(str, r))]
     with contextlib.redirect_stdout(buf):
         rc = sample.main(args)
     if rc != 0:
-        raise AssertionError(f"(f) sample.py {flags} exit {rc}")
+        raise AssertionError(f"sample.py {config} {flags} exit {rc}")
     return [json.loads(x)["completion"] for x in buf.getvalue().splitlines()]
 
 
@@ -2793,12 +2827,10 @@ def phase_moe_serve() -> tuple:
         t_leg = time.perf_counter()
 
         ck = os.path.abspath(os.path.join(MOE_DIR, "ck"))
-        rc, _, err, _, _ = _launcher(
+        _in_process(
             "a moe_tiny_lm_gmm checkpoint for sample.py", "--config",
             "moe_tiny_lm_gmm", "--steps", "2", "--seed", str(SEED),
             "--checkpoint-dir", ck)
-        if rc != 0:
-            raise AssertionError(f"(f) launcher failed:\n{err[-4000:]}")
         tcfg = registry.get_config("moe_tiny_lm_gmm")
         rows_in = np.random.default_rng(SEED + 25).integers(
             1, tcfg.vocab_size, (2, 24)).tolist()
@@ -5512,7 +5544,7 @@ def phase_lora_7b() -> tuple:
 
     cfg = registry.get_entry("llama2_7b_sft")["config"]
     log(f"  cuts: {json.dumps(LORA_7B_CUTS)}")
-    r = _launcher("llama2_7b_sft LoRA", *LORA_7B_FLAGS, timeout=900)
+    r = _in_process("llama2_7b_sft LoRA", *LORA_7B_FLAGS)
     if r[0] != 0 or r[3] is None:
         raise AssertionError(f"llama2_7b_sft LoRA failed:\n{r[2][-4000:]}")
     summary = r[3]
@@ -5602,6 +5634,532 @@ def phase_lora_7b_check() -> dict:
     del trainer, state, before, plain, merged
     torch.cuda.empty_cache()
     return out
+
+
+# -- phase 23: the serving fleet ----------------------------------------------
+
+FLEET_DIR = "_fleet_smoke"        # git-ignored; deleted at the phase's end
+FLEET_CONFIG = "llama2_7b_sft"
+FLEET_DEVICE = "cuda"
+FLEET_FLAGS = ["--slots", "8", "--chunk", "8", "--cache-len", "1024",
+               "--kv-block-size", "16", "--seed", str(SEED)]
+FLEET_TOL = 0.25                  # phase 3's gap bar
+FLEET_STREAMS = (0, 3, 6, 9)      # the requests that stream
+FLEET_DRAIN_NEW = 64              # tokens of the drain's long streams
+# One frame carries a migrated lane or a KV handoff: a Llama-2-7B bf16
+# block of 16 rows is 8 MiB, a 400-token lane 200 MiB.
+FLEET_MAX_FRAME = 512 << 20
+
+
+def _fleet_args(*extra):
+    from tensorflow_train_distributed_torch import serve_http
+
+    return serve_http.build_parser().parse_args(
+        ["--config", FLEET_CONFIG, "--device", FLEET_DEVICE, *FLEET_FLAGS,
+         *extra])
+
+
+def _get(port, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _prom(text: str) -> dict:
+    out = {}
+    for line in text.strip().splitlines():
+        if not line.startswith("#"):
+            key, val = line.rsplit(" ", 1)
+            out[key] = float(val)
+    return out
+
+
+def _fleet_request(port, prompt, max_new, stream, on_chunk=None) -> dict:
+    """One /v1/generate: {"id", "tokens" (prompt + generated), "status",
+    "chunks"}; a stream's tokens are the prompt and its chunks."""
+    import urllib.request
+
+    body = {"prompt": prompt, "max_new": max_new, "stream": stream}
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not stream:
+            obj = json.loads(r.read())
+            return dict(id=obj["id"], tokens=obj["tokens"], status=r.status,
+                        chunks=1)
+        rid, toks, chunks, err = None, list(prompt), 0, None
+        for raw in r:
+            obj = json.loads(raw)
+            if "id" in obj:
+                rid = obj["id"]
+            if "tokens" in obj:
+                toks += obj["tokens"]
+                chunks += 1
+                if on_chunk is not None:
+                    on_chunk(rid)
+            if "error" in obj:
+                err = obj["error"]
+        if err is not None:
+            raise AssertionError(f"stream {rid} ended with {err}")
+        return dict(id=rid, tokens=toks, status=r.status, chunks=chunks)
+
+
+def _fleet_send(port, prompts, max_new, *, first_alone=True,
+                streams=FLEET_STREAMS, on_chunk=None) -> list:
+    """The requests over HTTP: #0 alone to its first token (its prefix
+    blocks in a radix before #1 routes), then the rest at once."""
+    import threading
+
+    out = [None] * len(prompts)
+    errors = []
+    first = threading.Event()
+
+    def first_chunk(rid):
+        first.set()
+        if on_chunk is not None:
+            on_chunk(rid)
+
+    def client(i):
+        try:
+            cb = first_chunk if i == 0 and first_alone else on_chunk
+            out[i] = _fleet_request(port, prompts[i], max_new,
+                                    i in streams, cb)
+        except BaseException as e:       # noqa: BLE001 — raised below
+            errors.append(e)
+        finally:
+            first.set()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    start = 1 if first_alone else 0
+    if first_alone:
+        threads[0].start()
+        first.wait(600)
+    for t in threads[start:]:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for i, (o, p) in enumerate(zip(out, prompts)):
+        if (o["status"] != 200 or len(o["tokens"]) != len(p) + max_new
+                or o["tokens"][:len(p)] != p):
+            raise AssertionError(f"request {i}: malformed reply {o}")
+    return out
+
+
+def _stream_whole(port, outs, prompts, max_new) -> None:
+    """Each streamed reply concatenates to its full reply: prompt + its
+    chunks is prompt + max_new tokens, and the gateway's timeline retired
+    the request with that many generated tokens."""
+    for i in FLEET_STREAMS:
+        status, text = _get(port, f"/v1/requests/{outs[i]['id']}")
+        if status != 200:
+            raise AssertionError(f"no timeline for request {i}: {text}")
+        tl = json.loads(text)
+        retire = [e for e in tl["timeline"]
+                  if e["name"] == "request/retire"][-1]["args"]
+        if (retire.get("status") != "ok" or retire["tokens"] != max_new
+                or outs[i]["chunks"] < 2):
+            raise AssertionError(f"stream {i}: {retire}, "
+                                 f"{outs[i]['chunks']} chunks")
+
+
+def _fleet_consistency(eng, label, prompts, outs, batch_tokens) -> dict:
+    """Teacher-force each reply (prompt + generated, all but the last)
+    through ``eng``'s model in a fresh cache: every generated token's
+    logit within 2 x FLEET_TOL of max(std, 1) of that position's best
+    (two argmaxes of logits within FLEET_TOL of each other, phase 3's gap
+    bar, can part by no more), and at least half the generated tokens the
+    argmax.  Agreement with phase 3's batch tokens is logged."""
+    import torch
+
+    worst = 0.0
+    agree = total = same = batch_pos = 0
+    for p, o, b in zip(prompts, outs, batch_tokens):
+        toks = o["tokens"]
+        logits = _teacher_forced(eng, toks, len(p))[len(p) - 1:]
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{label}: non-finite logits")
+        gen = torch.tensor(toks[len(p):], device=logits.device)
+        best = logits.max(-1).values
+        picked = logits.gather(1, gen[:, None])[:, 0]
+        scale = logits.std(-1).clamp(min=1.0)
+        worst = max(worst, ((best - picked) / scale).max().item())
+        agree += int((logits.argmax(-1) == gen).sum())
+        total += len(gen)
+        same += int(toks == b)
+        batch_pos += sum(int(x == y) for x, y in zip(toks[len(p):],
+                                                     b[len(p):]))
+    res = dict(worst_margin=worst, bar=2 * FLEET_TOL, agree=agree,
+               total=total, requests_equal_batch=same,
+               tokens_equal_batch=batch_pos)
+    log(f"  {label}: worst margin below the re-prefill's best "
+        f"{worst:.4f} of max(std, 1) (bar {2 * FLEET_TOL}); argmax agrees "
+        f"{agree}/{total}; phase 3's batch tokens: {same}/{len(outs)} "
+        f"requests whole, {batch_pos}/{total} tokens")
+    if worst > 2 * FLEET_TOL or agree < 0.5 * total:
+        raise AssertionError(f"{label}: fleet tokens fail phase 3's bars: "
+                             f"{res}")
+    return res
+
+
+def _mean_inter_token_ms(metrics: dict):
+    n = metrics.get("ttd_gateway_inter_token_seconds_count", 0)
+    return (metrics["ttd_gateway_inter_token_seconds_sum"] / n * 1e3
+            if n else None)
+
+
+def _fleet_in_process(prompts, max_new) -> tuple:
+    """(a): two in-process replicas behind ``ServingGateway``."""
+    import torch
+
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.serve import (
+        build_engine,
+        engine_config,
+    )
+    from tensorflow_train_distributed_torch.server import ServingGateway
+
+    t0 = time.perf_counter()
+    args = _fleet_args("--replicas", "2")
+    cfg = engine_config(args)
+    engines = [build_engine(args, cfg, []) for _ in range(2)]
+    for e in engines:
+        e.submit([1], 1)
+        e.run()
+        e.stats["decode_steps"] = 0
+    built = time.perf_counter() - t0
+    gw = ServingGateway(engines, host="127.0.0.1", port=0,
+                        max_queue=64).start()
+    try:
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        outs = _fleet_send(gw.port, prompts, max_new)
+        wall = time.perf_counter() - t1
+        if FLEET_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        counts = {k: K.launch_counts()[k] for k in FLEET_KERNELS}
+        _stream_whole(gw.port, outs, prompts, max_new)
+        metrics = _prom(_get(gw.port, "/metrics")[1])
+    finally:
+        gw.drain(timeout=120)
+    served = (metrics.get('ttd_gateway_requests_total{status="ok"}'),
+              metrics.get("ttd_gateway_tokens_generated_total"))
+    if served != (len(prompts), len(prompts) * max_new):
+        raise AssertionError(f"(a) /metrics counted {served} requests and "
+                             f"tokens; {len(prompts)} and "
+                             f"{len(prompts) * max_new} were served")
+    steps = [e.stats["decode_steps"] for e in engines]
+    hits = [e.kv_stats["prefix_hits"] for e in engines]
+    log(f"  (a) launches {counts} over both driver threads; decode steps "
+        f"{steps}; radix hits {hits}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"(a) a kernel of the path never ran: {counts}")
+    if counts["paged_attention"] != cfg.num_layers * sum(steps):
+        raise AssertionError(
+            f"(a) paged_attention launches {counts['paged_attention']} != "
+            f"layers x decode steps {cfg.num_layers * sum(steps)}")
+    if min(steps) <= 0 or max(hits) < 1:
+        raise AssertionError(f"(a) a replica idle ({steps}) or no radix "
+                             f"hit behind the affinity ({hits})")
+    stats = dict(build_s=built, wall_s=wall, decode_steps=steps,
+                 radix_hits=hits,
+                 tokens_per_s=len(prompts) * max_new / wall,
+                 mean_inter_token_ms=_mean_inter_token_ms(metrics),
+                 ttft_mean_s=(metrics["ttd_gateway_ttft_seconds_sum"]
+                              / metrics["ttd_gateway_ttft_seconds_count"]))
+    log(f"  (a) {json.dumps(stats)}")
+    # Replica 0 stays for the teacher forcing of every leg.
+    keep = engines[0]
+    del engines, gw
+    _free()
+    return counts, stats, outs, keep
+
+
+def _fleet_cmd(*flags) -> list:
+    """``serve_http`` with the fleet's engine flags, as a user types it."""
+    return [sys.executable, "-m",
+            "tensorflow_train_distributed_torch.serve_http", "--config",
+            FLEET_CONFIG, "--device", FLEET_DEVICE, *FLEET_FLAGS,
+            "--host", "127.0.0.1", "--port", "0", *[str(f) for f in flags]]
+
+
+def _launch_gateway(*flags, log_name):
+    """``serve_http`` as a process, its stderr (and its workers') to
+    FLEET_DIR/<log_name>."""
+    import os
+
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    with open(os.path.join(FLEET_DIR, log_name), "w") as err:
+        return subprocess.Popen(
+            _fleet_cmd(*flags), stdout=subprocess.PIPE, stderr=err,
+            text=True, env=dict(os.environ, PYTHONPATH=os.getcwd()))
+
+
+def _port_line(proc, prefix: str) -> int:
+    """The port of the first stdout line that starts with ``prefix``
+    ("gateway listening on HOST:PORT ...", "worker listener on
+    HOST:PORT; ...")."""
+    lines = []
+    for line in proc.stdout:
+        lines.append(line.rstrip())
+        if line.startswith(prefix):
+            return int(line.split()[3].rstrip(";").rsplit(":", 1)[1])
+    raise AssertionError(f"serve_http printed no {prefix!r}: {lines}")
+
+
+def _final_metrics(log_path: str) -> tuple:
+    """The drained gateway's final metrics (logged at its drain) and its
+    migration log lines."""
+    text = open(log_path).read()
+    if "final metrics:" not in text:
+        raise AssertionError(f"no final metrics in {log_path}")
+    tail = text.split("final metrics:", 1)[1]
+    metrics = {}
+    for line in tail.splitlines()[1:]:
+        if not line.startswith(("#", "ttd_")):
+            if line.strip():
+                break
+            continue
+        if line.startswith("ttd_"):
+            key, val = line.rsplit(" ", 1)
+            metrics[key] = float(val)
+    migrations = [line for line in text.splitlines()
+                  if " migrated replica " in line]
+    return metrics, migrations
+
+
+def _fleet_procs(prompts, max_new) -> tuple:
+    """(b): ``serve_http --replica-procs --replicas 2``; SIGKILL, respawn,
+    then SIGTERM's drain with live migration."""
+    import os
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    log_path = os.path.join(FLEET_DIR, "procs.log")
+    proc = _launch_gateway(
+        "--replica-procs", "--replicas", "2", "--restart-budget", "2",
+        "--watchdog-timeout", "120", "--drain-timeout", "120",
+        "--max-frame", FLEET_MAX_FRAME, log_name="procs.log")
+    try:
+        port = _port_line(proc, "gateway listening on")
+        res = {"ready_s": time.perf_counter() - t0}
+        killed = {}
+
+        def kill_once():
+            # SIGKILL the worker holding the most lanes, mid-decode.
+            if killed:
+                return
+            h = json.loads(_get(port, "/healthz")[1])
+            live = [r for r in h["replicas"] if r["state"] == "alive"
+                    and r.get("slots_in_use", 0) > 0]
+            if not live:
+                return
+            victim = max(live, key=lambda r: r["slots_in_use"])
+            killed.update(replica=victim["replica"], pid=victim["pid"])
+            os.kill(victim["pid"], signal.SIGKILL)
+
+        lock = threading.Lock()
+        begun = set()
+
+        def on_chunk(rid):
+            # Two streams under way: both workers hold lanes.
+            with lock:
+                begun.add(rid)
+                if len(begun) >= 2:
+                    kill_once()
+
+        t1 = time.perf_counter()
+        outs = _fleet_send(port, prompts, max_new, first_alone=False,
+                           on_chunk=on_chunk)
+        res["serve_s"] = time.perf_counter() - t1
+        if not killed:
+            raise AssertionError("(b) no worker was killed mid-stream")
+        health = json.loads(_get(port, "/healthz")[1])
+        dead = [r for r in health["replicas"] if r["state"] == "dead"]
+        metrics = _prom(_get(port, "/metrics")[1])
+        res.update(killed=killed, failovers=metrics.get(
+            "ttd_gateway_failovers_total", 0), healthz=health["status"],
+            dead=dead)
+        if (len(dead) != 1 or dead[0]["pid"] != killed["pid"]
+                or dead[0].get("failure_class") != "killed"
+                or res["failovers"] < 1):
+            raise AssertionError(f"(b) failover not seen: {res}")
+        # The pool respawns the corpse within its restart budget; the new
+        # worker is ready once its HELLO gave it slots.
+        t2 = time.perf_counter()
+        deadline = t2 + 180
+        while time.perf_counter() < deadline:
+            h = json.loads(_get(port, "/healthz")[1])
+            if sum(r["state"] == "alive" and r["slots_total"] > 0
+                   for r in h["replicas"]) >= 2:
+                break
+            time.sleep(0.5)
+        metrics = _prom(_get(port, "/metrics")[1])
+        res.update(respawn_s=time.perf_counter() - t2,
+                   restarts=metrics.get(
+                       "ttd_gateway_replica_restarts_total", 0),
+                   replicas_alive=metrics.get("ttd_gateway_replicas_alive"))
+        if not 1 <= res["restarts"] <= 2 or res["replicas_alive"] < 2:
+            raise AssertionError(f"(b) no respawn within the budget: {res}")
+        res["mean_inter_token_ms"] = _mean_inter_token_ms(metrics)
+        # The drain: long streams on both workers, then SIGTERM.
+        started = set()
+        term = threading.Event()
+
+        def on_drain_chunk(rid):
+            with lock:
+                started.add(rid)
+                if len(started) >= len(drain_prompts) and not term.is_set():
+                    term.set()
+                    proc.send_signal(signal.SIGTERM)
+
+        drain_prompts = prompts[2:10]
+        t3 = time.perf_counter()
+        drained = _fleet_send(port, drain_prompts, FLEET_DRAIN_NEW,
+                              first_alone=False,
+                              streams=range(len(drain_prompts)),
+                              on_chunk=on_drain_chunk)
+        rc = proc.wait(timeout=300)
+        res["drain_s"] = time.perf_counter() - t3
+        if not term.is_set() or rc != 0:
+            raise AssertionError(f"(b) SIGTERM drain: sent "
+                                 f"{term.is_set()}, exit {rc}")
+        final, migrations = _final_metrics(log_path)
+        warm = [int(m.split("(")[-1].split(" warm")[0]) for m in migrations]
+        res.update(migrations=final.get("ttd_gateway_migrations_total", 0),
+                   migrated_kv_bytes=final.get(
+                       "ttd_gateway_migrated_kv_bytes_total", 0),
+                   migrated_warm_tokens=warm)
+        if res["migrations"] < 1 or not warm or min(warm) <= 0:
+            raise AssertionError(f"(b) the drain migrated no lane with its "
+                                 f"KV: {res}, {migrations}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  (b) {json.dumps(res)}")
+    return res, outs, drain_prompts, drained
+
+
+def _fleet_disagg(prompts, max_new) -> tuple:
+    """(c): ``serve_http --listen`` with a prefill and a decode worker,
+    all three started at once (the workers build their engines while the
+    gateway imports, then dial it, re-dialing until it listens)."""
+    import os
+    import signal
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        listen = sock.getsockname()[1]
+    proc = _launch_gateway(
+        "--listen", f"127.0.0.1:{listen}", "--replicas", "2",
+        "--watchdog-timeout", "120", "--drain-timeout", "120",
+        "--max-frame", FLEET_MAX_FRAME, log_name="disagg.log")
+    err = open(os.path.join(FLEET_DIR, "disagg.log"), "a")
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    workers = []
+    res = {}
+    try:
+        spec = json.dumps(vars(_fleet_args()))
+        for i, role in enumerate(("prefill", "decode")):
+            workers.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "tensorflow_train_distributed_torch.serve_worker",
+                 "--dial", f"127.0.0.1:{listen}", "--factory",
+                 "tensorflow_train_distributed_torch.serve:"
+                 "worker_engine_factory", "--json", spec,
+                 "--replica-id", str(i), "--role", role,
+                 "--max-frame", str(FLEET_MAX_FRAME), "--redials", "30"],
+                stdout=subprocess.DEVNULL, stderr=err, env=env))
+        port = _port_line(proc, "gateway listening on")
+        res["ready_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        outs = _fleet_send(port, prompts, max_new)
+        res["serve_s"] = time.perf_counter() - t1
+        handoffs = []
+        for o in outs:
+            tl = json.loads(_get(port, f"/v1/requests/{o['id']}")[1])
+            handoffs += [e["args"] for e in tl["timeline"]
+                         if e["name"] == "request/kv_handoff"]
+        metrics = _prom(_get(port, "/metrics")[1])
+        health = json.loads(_get(port, "/healthz")[1])
+        res.update(handoffs=len(handoffs),
+                   handoff_bytes=sum(h["bytes"] for h in handoffs),
+                   handoff_tokens=sum(h["tokens"] for h in handoffs),
+                   roles=sorted(r.get("role", "both")
+                                for r in health["replicas"]),
+                   mean_inter_token_ms=_mean_inter_token_ms(metrics))
+        if (not handoffs or res["handoff_bytes"] <= 0
+                or res["roles"] != ["decode", "prefill"]
+                or any(h["prefill_replica"] == h["decode_replica"]
+                       for h in handoffs)):
+            raise AssertionError(f"(c) no KV handoff: {res}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        wrc = [w.wait(timeout=120) for w in workers]
+        if rc != 0 or wrc != [0, 0]:
+            raise AssertionError(f"(c) drain exits: gateway {rc}, workers "
+                                 f"{wrc}")
+    finally:
+        err.close()
+        for p in [proc, *workers]:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  (c) {json.dumps(res)}")
+    return res, outs
+
+
+def phase_fleet(run3: dict) -> tuple:
+    """Phase 23 (the module docstring): (launch counts of (a), readings)."""
+    import shutil
+
+    prompts, max_new = run3["prompts"], run3["max_new"]
+    fleet = {}
+    t0 = time.perf_counter()
+    counts, fleet["in_process"], outs_a, eng = _fleet_in_process(prompts,
+                                                                max_new)
+    fleet["in_process"]["seconds"] = time.perf_counter() - t0
+    log(f"  (a) {fleet['in_process']['seconds']:.1f} s")
+    try:
+        fleet["procs"], outs_b, drain_prompts, drained = _fleet_procs(
+            prompts, max_new)
+        fleet["disagg"], outs_c = _fleet_disagg(prompts, max_new)
+        t1 = time.perf_counter()
+        checks = {
+            "in_process": _fleet_consistency(eng, "(a) in process", prompts,
+                                             outs_a, run3["tokens"]),
+            "procs": _fleet_consistency(eng, "(b) worker processes",
+                                        prompts, outs_b, run3["tokens"]),
+            "procs_drain": _fleet_consistency(
+                eng, "(b) drained streams", drain_prompts, drained,
+                [o["tokens"] for o in drained]),
+            "disagg": _fleet_consistency(eng, "(c) disaggregated", prompts,
+                                         outs_c, run3["tokens"])}
+        fleet["consistency"] = checks
+        fleet["check_s"] = time.perf_counter() - t1
+    finally:
+        del eng
+        _free()
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    fleet["seconds"] = time.perf_counter() - t0
+    log(f"  phase 23: {fleet['seconds']:.1f} s")
+    return counts, fleet
 
 
 def main() -> int:
@@ -5732,6 +6290,13 @@ def main() -> int:
         "(qwen15_moe_a27b, mixtral_8x7b)")
     moe_counts22, moe_rows22, moe_serving = phase_moe_serve()
     rows.update(moe_rows22)
+    torch.cuda.empty_cache()
+    log("== phase 23: the serving fleet (in process, worker processes, "
+        "disaggregated), llama2_7b full width and depth")
+    fleet_counts, fleet = phase_fleet(run3)
+    fleet["phase3_decode_ms_per_step"] = engines["llama2_7b_bf16"][
+        "decode_ms_per_step"]
+    rows["fleet_serve"] = {k: rows["serve"][k] for k in FLEET_KERNELS}
 
     paths = {"serve": counts, "linear_serve": run3["linear_counts"],
              "autosize_serve": autosize_counts, "launch_fused": fused_counts,
@@ -5741,7 +6306,8 @@ def main() -> int:
              "wmt": wmt_counts, "mnist": mnist_counts,
              "lora_launch": lora_counts, "lora_7b": lora_7b_counts,
              "spec_serve": spec_counts, "lane_control": lane_counts,
-             "generate": generate_counts, **moe_counts22}
+             "generate": generate_counts, "fleet_serve": fleet_counts,
+             **moe_counts22}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -5760,6 +6326,7 @@ def main() -> int:
     print(json.dumps({"lane_control": lane_control}), flush=True)
     print(json.dumps({"generation": generation}), flush=True)
     print(json.dumps({"moe_serving": moe_serving}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

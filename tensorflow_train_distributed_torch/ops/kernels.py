@@ -16,7 +16,8 @@ has two faces with one signature and layout (the JAX function's):
 - ``*_reference``: plain PyTorch, the oracle the kernels are held against
   on the card and the math the CPU path runs.
 
-Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
+Every wrapper adds one to ``LAUNCHES[name]`` (``_count``, under a lock: a
+fleet's driver threads launch concurrently) where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
 kernels (``reset_launch_counts`` / ``launch_counts``).  K1f, K1b, K4 and
 K5 have two bodies each, K6 three and K2/K7 four, one launch either way
@@ -30,6 +31,7 @@ picks for a call.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -49,13 +51,25 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
 
 
+# Engines of a serving fleet launch from their own driver threads: the
+# counts are bumped under one lock, so no increment is lost between them.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(LAUNCHES)
 
 
 def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
@@ -146,7 +160,7 @@ def rms_norm_forward(x2: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"rms_norm: the {body} body does not run on these "
                          f"rows (cudaError {rc})")
     _raise_on("rms_norm", rc)
-    LAUNCHES["rms_norm"] += 1
+    _count("rms_norm")
     return y, r
 
 
@@ -224,7 +238,7 @@ def rms_norm_backward(x2: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"rms_norm_bwd: the {body} body does not run on "
                          f"these rows (cudaError {rc})")
     _raise_on("rms_norm_bwd", rc)
-    LAUNCHES["rms_norm_bwd"] += 1
+    _count("rms_norm_bwd")
     if chosen == "block" and with_ds:   # the JAX function's einsum
         ds = torch.einsum("nd,nd->d", g.float(),
                           x2.float() * r[:, None]).to(scale.dtype)
@@ -300,7 +314,7 @@ def cross_entropy_forward(logits2: torch.Tensor, labels: torch.Tensor):
         logits2.data_ptr(), labels.data_ptr(), loss.data_ptr(),
         lse.data_ptr(), n, v, _DTYPE_CODES[logits2.dtype], _stream())
     _raise_on("cross_entropy", rc)
-    LAUNCHES["cross_entropy"] += 1
+    _count("cross_entropy")
     return loss, lse
 
 
@@ -324,7 +338,7 @@ def cross_entropy_backward(logits2: torch.Tensor, labels: torch.Tensor,
         g.data_ptr(), dlogits.data_ptr(), n, v,
         _DTYPE_CODES[logits2.dtype], _stream())
     _raise_on("cross_entropy_bwd", rc)
-    LAUNCHES["cross_entropy_bwd"] += 1
+    _count("cross_entropy_bwd")
     return dlogits
 
 
@@ -480,7 +494,7 @@ def flash_attention_forward(q, k, v, segment_ids, causal: bool,
         _strides(q, k, v, o), b, h, k.shape[1], s, d, sm_scale, int(causal),
         _DTYPE_CODES[q.dtype], code, _stream())
     _raise_on("flash_attention", rc)
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     return o, lse
 
 
@@ -508,7 +522,7 @@ def flash_attention_backward(q, k, v, o, lse, do, segment_ids, causal: bool,
         _strides(q, k, v, o, do, dq, dk, dv), b, h, kvh, s, d, sm_scale,
         int(causal), _DTYPE_CODES[q.dtype], code, _stream())
     _raise_on("flash_attention_bwd", rc)
-    LAUNCHES["flash_attention_bwd"] += 1
+    _count("flash_attention_bwd")
     return dq, dk, dv
 
 
@@ -637,7 +651,7 @@ def splash_attention_forward(qs, k, v, segment_ids, window: int, sinks: int):
         _strides(qs, k, v, o), b, h, k.shape[1], s, d, window, sinks,
         _DTYPE_CODES[qs.dtype], _stream())
     _raise_on("splash_attention", rc)
-    LAUNCHES["splash_attention"] += 1
+    _count("splash_attention")
     return o, lse
 
 
@@ -662,7 +676,7 @@ def splash_attention_backward(qs, k, v, o, lse, do, segment_ids,
         _strides(qs, k, v, o, do, dq, dk, dv), b, h, kvh, s, d, window,
         sinks, _DTYPE_CODES[qs.dtype], _stream())
     _raise_on("splash_attention_bwd", rc)
-    LAUNCHES["splash_attention_bwd"] += 1
+    _count("splash_attention_bwd")
     return dq, dk, dv
 
 
@@ -781,7 +795,7 @@ def paged_kv_gather(pool: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"paged_kv_gather: the {body} body does not run on "
                          f"this pool (cudaError {rc})")
     _raise_on("paged_kv_gather", rc)
-    LAUNCHES["paged_kv_gather"] += 1
+    _count("paged_kv_gather")
     return out
 
 
@@ -945,7 +959,7 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *,
         _rounded_scale(hd, q.dtype), _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_pool.dtype], PAGED_BODIES.index(chosen), _stream())
     _raise_on("paged_attention", rc)
-    LAUNCHES["paged_attention"] += 1
+    _count("paged_attention")
     return out
 
 
@@ -1154,7 +1168,7 @@ def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor,
     args[3] = out.data_ptr()
     rc = launch(*args, _stream())
     _raise_on("gmm", rc)
-    LAUNCHES["gmm"] += 1
+    _count("gmm")
     return out
 
 
@@ -1186,7 +1200,7 @@ def tgmm_forward(lhs_mk: torch.Tensor, rhs: torch.Tensor,
     args[3] = out.data_ptr()
     rc = launch(*args, _stream())
     _raise_on("tgmm", rc)
-    LAUNCHES["tgmm"] += 1
+    _count("tgmm")
     return out
 
 

@@ -1,13 +1,12 @@
 """Batch-serve mixed-length requests through the port's serving engine.
 
 The offline CLI of ``serving.ServingEngine`` (counterpart of the JAX
-package's ``tools/serve.py``, with the flags this slice implements):
-every request is collected up front, the engine runs to completion, and
-each result is one JSONL line ``{"id", "prompt", "tokens"}`` (tokens =
-prompt + continuation); standard error ends with a ``serve summary`` JSON
-line (the kernels' launch counts, the engine's host timings, its
-speculative statistics and acceptance rate, its overlap ratio and its
-staged-prefill statistics).
+package's ``tools/serve.py``): every request is collected up front, the
+engine runs to completion, and each result is one JSONL line ``{"id",
+"prompt", "tokens"}`` (tokens = prompt + continuation); standard error
+ends with a ``serve summary`` JSON line (the kernels' launch counts, the
+engine's host timings, its speculative statistics and acceptance rate,
+its overlap ratio and its staged-prefill statistics).
 
 The engine pipelines by default: the next decode chunk is dispatched
 before the previous one is harvested (``--no-overlap`` turns that off)
@@ -22,6 +21,12 @@ adaptive[:K1,K2,...]`` lets the depth follow the measured acceptance and
 ``--spec-depth fixed:K`` pins it.  With ``--kv-int8`` the draft's KV is
 int8 too.  ``--prefix IDS`` preloads a shared system prompt once
 (``preload_prefix``); requests that extend it prefill only their suffix.
+
+For online serving (HTTP, admission control, deadlines, streaming,
+``/metrics``, replicas) use ``serve_http.py``; its engine flags are this
+CLI's (``add_engine_args``, ``build_engine``), and its subprocess and
+dial-in workers rebuild the engine from them (``worker_engine_factory``),
+so the same requests answer with the same tokens online and offline.
 
 Both decoder families serve.  ``--dispatch {dense,gmm}`` overrides an MoE
 config's expert dispatch (one parameter tree serves both): the dropless
@@ -280,10 +285,11 @@ def load_params(args, cfg) -> dict:
     return params
 
 
-def main(argv=None) -> int:
-    from tensorflow_train_distributed_torch.serving import ServingEngine
-
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def add_engine_args(p) -> None:
+    """The model and engine flags, shared by this CLI, ``serve_http.py``
+    and ``serve_worker.py``'s factory (``worker_engine_factory``): one
+    definition, so the offline CLI, the online gateway and every worker
+    load and configure the engine alike."""
     p.add_argument("--config", required=True,
                    help=f"decoder config: {', '.join(registry.available())}")
     p.add_argument("--params-npz", default="",
@@ -299,16 +305,11 @@ def main(argv=None) -> int:
     p.add_argument("--lora-targets", default=None)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights without --params-npz")
-    p.add_argument("--prompt", action="append", default=[], metavar="IDS",
-                   help="comma-separated token ids; repeat per request")
     p.add_argument("--prefix", default="", metavar="IDS",
                    help="comma-separated token ids of a shared prompt "
                         "prefix (a system prompt): prefilled once before "
                         "the requests, and every request that extends it "
                         "prefills only its suffix (preload_prefix)")
-    p.add_argument("--requests", default="",
-                   help="JSONL file: {'prompt': [ids], 'max_new': N, "
-                        "'seed': S} per line")
     p.add_argument("--max-new", type=int, default=32)
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--chunk", type=int, default=8)
@@ -403,30 +404,39 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the "
                         "kernels' plain versions)")
-    p.add_argument("--output", default="-",
-                   help="output JSONL path ('-' = stdout)")
-    args = p.parse_args(argv)
 
+
+def engine_config(args):
+    """The served config: ``--config`` with ``--dispatch`` and
+    ``--kv-int8`` applied."""
     cfg = apply_dispatch_arg(args, decoder_config(args.config, "serving"))
     if args.kv_int8:
         if isinstance(cfg, MoeConfig):
             raise SystemExit("--kv-int8 applies to llama-family configs "
                              "only (MoeConfig has no kv_cache_int8 knob)")
         cfg = dataclasses.replace(cfg, kv_cache_int8=True)
+    return cfg
+
+
+def parse_prefix_arg(args, cfg) -> list:
+    """``--prefix`` ids, screened against the vocabulary before any
+    weights load."""
     prefix = parse_prompt(args.prefix, "--prefix") if args.prefix else []
     bad = sorted({t for t in prefix if not 0 <= t < cfg.vocab_size})
     if bad:
         raise SystemExit(f"--prefix ids outside vocab [0, "
                          f"{cfg.vocab_size}): {bad[:8]}")
-    reqs = [{"prompt": parse_prompt(s), "max_new": args.max_new,
-             "seed": None} for s in args.prompt]
-    if args.requests:
-        reqs += read_requests(args.requests, args.max_new)
-    if not reqs:
-        raise SystemExit("no requests (--prompt or --requests)")
+    return prefix
+
+
+def build_engine(args, cfg, prefix: list):
+    """Load the weights (and the draft's), quantize, build the engine and
+    preload ``prefix``: shared by this CLI, ``serve_http.py`` and the
+    fleet's workers.  A ValueError exits with its message."""
+    from tensorflow_train_distributed_torch.serving import ServingEngine
+
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available")
-
     spec_k, spec_depths = parse_spec_depth_arg(args.spec_depth,
                                                args.speculative_k)
     draft_cfg, draft_params = load_draft(args, cfg)
@@ -461,6 +471,51 @@ def main(argv=None) -> int:
             hbm_headroom=args.hbm_headroom, device=args.device)
         if prefix:
             eng.preload_prefix(prefix)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return eng
+
+
+def worker_engine_factory(spec: dict):
+    """The fleet's production engine factory (``server.worker`` resolves
+    ``tensorflow_train_distributed_torch.serve:worker_engine_factory``):
+    ``spec`` is the launcher's parsed flags, serialized (``vars(args)``),
+    so every worker replays the flag set the parent screened with.  The
+    warm pass (one request of one token) runs before the worker's HELLO:
+    the parent's ``wait_ready`` covers it, and the pool's hung-dispatch
+    watchdog never times a cold first step (cuBLAS handles, the kernels'
+    first load).  Requests are seeded on their own, so the warm pass
+    changes no later output."""
+    args = argparse.Namespace(**spec)
+    cfg = engine_config(args)
+    eng = build_engine(args, cfg, parse_prefix_arg(args, cfg))
+    eng.submit([1], 1)
+    eng.run()
+    return eng
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    add_engine_args(p)
+    p.add_argument("--prompt", action="append", default=[], metavar="IDS",
+                   help="comma-separated token ids; repeat per request")
+    p.add_argument("--requests", default="",
+                   help="JSONL file: {'prompt': [ids], 'max_new': N, "
+                        "'seed': S} per line")
+    p.add_argument("--output", default="-",
+                   help="output JSONL path ('-' = stdout)")
+    args = p.parse_args(argv)
+
+    cfg = engine_config(args)
+    prefix = parse_prefix_arg(args, cfg)
+    reqs = [{"prompt": parse_prompt(s), "max_new": args.max_new,
+             "seed": None} for s in args.prompt]
+    if args.requests:
+        reqs += read_requests(args.requests, args.max_new)
+    if not reqs:
+        raise SystemExit("no requests (--prompt or --requests)")
+    eng = build_engine(args, cfg, prefix)
+    try:
         ids = [eng.submit(r["prompt"], r["max_new"], seed=r["seed"])
                for r in reqs]
     except ValueError as e:
@@ -482,7 +537,7 @@ def main(argv=None) -> int:
         summary.update(
             peak_mem_bytes=torch.cuda.max_memory_allocated(eng.device),
             device_total_bytes=torch.cuda.mem_get_info(eng.device)[1])
-    if draft_cfg is not None:
+    if eng.draft_config is not None:
         s = eng.spec_stats
         summary.update(spec_stats=s, acceptance=(
             s["drafted_accepted"] / s["drafted"] if s["drafted"] else 0.0))

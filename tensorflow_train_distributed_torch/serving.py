@@ -130,6 +130,7 @@ import contextlib
 import dataclasses
 import logging
 import os
+import threading
 import time
 from collections import OrderedDict, deque
 from typing import Optional
@@ -155,7 +156,9 @@ from tensorflow_train_distributed_torch.ops import kernels as K
 from tensorflow_train_distributed_torch.runtime import events
 from tensorflow_train_distributed_torch.runtime.lint import memcheck
 from tensorflow_train_distributed_torch.runtime.lint.registry import (
+    concurrency_guarded,
     memory_budget,
+    thread_role,
 )
 
 logger = logging.getLogger(__name__)
@@ -295,6 +298,7 @@ def stream_uniforms(seeds: torch.Tensor, counts: torch.Tensor, draw: int,
     return (_shr(z, 12).double() + 0.5) * 2.0 ** -52
 
 
+@concurrency_guarded
 class ServingEngine:
     """Continuous-batching decoder over a fixed slot grid and block pool.
 
@@ -307,6 +311,26 @@ class ServingEngine:
     tensors: a decode step's, or the verify forward's row under
     speculation) — the seam a consistency check re-derives them
     through."""
+
+    # The engine is single-threaded (the serving fleet's driver thread
+    # makes every mutating call) except for these cross-thread surfaces,
+    # declared as the JAX engine declares them.  The prefix store:
+    # handler threads validate while the driver LRU-touches it, so every
+    # access holds ``_prefix_lock``.  The stats dicts: one writer (the
+    # driver, or the main thread of an offline run), which reads its own
+    # writes lock-free; scrape threads (``/metrics``) read them under
+    # ``_stats_lock`` and every write takes it, so a scrape never sees
+    # half of one update (hits beside hit tokens, harvest seconds beside
+    # overlapped seconds).  The JAX engine's ``_preloaded`` store has no
+    # counterpart here: the port validates against ``_prefix_caches``.
+    _GUARDED_BY = {
+        "_prefix_caches": ("_prefix_lock",),
+        "kv_stats": ("_stats_lock", "driver", "main"),
+        "prefill_stats": ("_stats_lock", "driver", "main"),
+        "overlap_stats": ("_stats_lock", "driver", "main"),
+        "spec_stats": ("_stats_lock", "driver", "main"),
+        "_spec_ctrl": ("_stats_lock", "driver", "main"),
+    }
 
     def __init__(self, config, params: dict, *, slots: int = 8,
                  cache_len: Optional[int] = None,
@@ -351,6 +375,11 @@ class ServingEngine:
         self._greedy = temperature == 0.0
         self.config = config
         self.device = torch.device(device)
+        # The card's index ("cuda" names the current one): the driver
+        # thread that launches this engine's work pins it (bind_thread).
+        self._card = (None if self.device.type != "cuda"
+                      else self.device.index if self.device.index is not None
+                      else torch.cuda.current_device())
         self.slots = slots
         self.cache_len = cache_len or config.max_positions
         if self.cache_len > config.max_positions:
@@ -421,6 +450,10 @@ class ServingEngine:
             if kv_pool_blocks < 1:
                 raise ValueError(f"kv_pool_blocks must be >= 1, got "
                                  f"{kv_pool_blocks}")
+        # The locks of ``_GUARDED_BY`` (held for dict walks and counter
+        # bumps only, never across device work).
+        self._prefix_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
         # Speculative decoding across all slots: the per-slot cache index
         # makes each slot's rollback its own index decrement.
         self._spec_k = int(speculative_k)
@@ -539,6 +572,17 @@ class ServingEngine:
             self._prefill_pair_bytes()     # admission reads the memo
 
     # -- host <-> device ---------------------------------------------------
+
+    def bind_thread(self) -> None:
+        """Make the calling thread launch on the engine's card (torch's
+        current device is per thread): a serving fleet's driver thread
+        calls this before its first step.  The thread then launches on
+        the card's default stream, where the engine's tensors, its
+        pipelined chunk's event and the kernels (``ops.kernels`` launches
+        on the current stream) all live; replicas that share a card share
+        that stream, so their steps serialize on the card."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self._card)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device; on CUDA through pinned
@@ -815,6 +859,7 @@ class ServingEngine:
 
     # -- requests ----------------------------------------------------------
 
+    @thread_role("handler", "driver", "main")
     def validate_request(self, prompt, max_new_tokens: int,
                          seed: Optional[int] = None,
                          resume_from: int = 0) -> list:
@@ -876,6 +921,7 @@ class ServingEngine:
                     f"prefill bucket {self.prompt_buckets[-1]}")
         return prompt
 
+    @thread_role("driver", "main")
     def submit(self, prompt, max_new_tokens: int,
                seed: Optional[int] = None, resume_from: int = 0) -> int:
         """Queue a request; returns its id (resolved by ``run()``).
@@ -894,6 +940,7 @@ class ServingEngine:
                        max_new=max_new_tokens)
         return rid
 
+    @thread_role("driver", "main")
     def cancel(self, request_id: int) -> bool:
         """Abandon a live request: drop it from the queue, discard its
         staged partial prefill (its claim's blocks free at once: the
@@ -990,12 +1037,14 @@ class ServingEngine:
                 self._kv_pool.deref(b)
             if self._kv_refused_rid != rid:
                 self._kv_refused_rid = rid
-                self.kv_stats["alloc_refusals"] += 1
+                with self._stats_lock:
+                    self.kv_stats["alloc_refusals"] += 1
                 events.instant("kv/refused", rid=rid, blocks=n_owned)
             return None
         if matched:
-            self.kv_stats["prefix_hits"] += 1
-            self.kv_stats["prefix_hit_tokens"] += matched
+            with self._stats_lock:
+                self.kv_stats["prefix_hits"] += 1
+                self.kv_stats["prefix_hit_tokens"] += matched
             events.instant("kv/prefix_hit", rid=rid, tokens=matched)
         return serving_kv.LaneKV(request_id=rid, matched=matched,
                                  shared=shared, owned=owned)
@@ -1004,7 +1053,8 @@ class ServingEngine:
         """LRU-evict retired radix blocks until ``n`` are free."""
         evicted = self._radix.evict_for(n)
         if evicted:
-            self.kv_stats["evictions"] += evicted
+            with self._stats_lock:
+                self.kv_stats["evictions"] += evicted
             events.instant("kv/evict", blocks=evicted)
 
     def _kv_release(self, kv) -> None:
@@ -1047,14 +1097,15 @@ class ServingEngine:
         (its length, its (target, draft) caches), (0, None) when none.
         ``touch`` makes the winner the most recently used: admission
         passes True, validation False."""
-        best, best_key, best_pair = 0, None, None
-        for toks, pair in self._prefix_caches.items():
-            m = len(toks)
-            if best < m < len(prompt) and prompt[:m] == list(toks):
-                best, best_key, best_pair = m, toks, pair
-        if touch and best_key is not None:
-            self._prefix_caches.move_to_end(best_key)
-        return best, best_pair
+        with self._prefix_lock:     # handler threads validate meanwhile
+            best, best_key, best_pair = 0, None, None
+            for toks, pair in self._prefix_caches.items():
+                m = len(toks)
+                if best < m < len(prompt) and prompt[:m] == list(toks):
+                    best, best_key, best_pair = m, toks, pair
+            if touch and best_key is not None:
+                self._prefix_caches.move_to_end(best_key)
+            return best, best_pair
 
     def _admission_match(self, kv, prompt):
         """(pre_len, pre_pair): the radix match, unless a preloaded pair
@@ -1210,7 +1261,8 @@ class ServingEngine:
             self.stats["prefill_s"] += dt
             self.stats["prefill_tokens"] += tokens
             if stalled:
-                self.prefill_stats["stall_s"] += dt
+                with self._stats_lock:
+                    self.prefill_stats["stall_s"] += dt
 
     # -- staged prefill (decode-priority interleaving) -----------------------
 
@@ -1246,7 +1298,8 @@ class ServingEngine:
                     n_pieces=n_pieces, kv=kv,
                     table=None if kv is None else self._kv_table(kv),
                     resume=resume, pre_pair=pre_pair)
-                self.prefill_stats["staged_requests"] += 1
+                with self._stats_lock:
+                    self.prefill_stats["staged_requests"] += 1
                 self.stats["prefill_tokens"] += len(work)
                 break
 
@@ -1323,7 +1376,8 @@ class ServingEngine:
         while self._staging:
             slot = next(iter(self._staging))
             spent += self._advance_piece(slot, self._staging[slot])
-            self.prefill_stats["installments"] += 1
+            with self._stats_lock:
+                self.prefill_stats["installments"] += 1
             if slot not in self._staging:
                 # Resolved or inserted: restage so the freed budget flows
                 # to the next queued request.
@@ -1334,13 +1388,17 @@ class ServingEngine:
         dt = time.perf_counter() - t0
         self.stats["prefill_s"] += dt
         if decoding and not hidden:
-            self.prefill_stats["stall_s"] += dt
+            with self._stats_lock:
+                self.prefill_stats["stall_s"] += dt
 
+    @thread_role("handler", "driver")
     def prefill_stall_s(self) -> float:
         """Seconds decoding lanes spent blocked behind admission prefill
         (prefill run while a lane decoded with no chunk in flight to
-        hide it)."""
-        return self.prefill_stats["stall_s"]
+        hide it); ``ttd_engine_prefill_stall_seconds``, scraped from
+        handler threads, so the read locks."""
+        with self._stats_lock:
+            return self.prefill_stats["stall_s"]
 
     # -- harvest -----------------------------------------------------------
 
@@ -1396,32 +1454,76 @@ class ServingEngine:
         is the last, so a surviving slot's ``last_token`` is the next
         round's input) and count acceptance at the depth ``k`` the round
         was dispatched at; the controller observes the round once."""
-        self.spec_stats["rounds"] += 1
         n_slots = acc_sum = 0
+        slot_rounds = drafted = accepted_n = emitted_n = 0
         for slot, state in self._live(rids):
             taken = self._consume(state, emit[slot, :int(emitted[slot])])
             self._record(state, logits, slot, taken)
             n_slots += 1
             acc_sum += int(accepted[slot])
-            self.spec_stats["slot_rounds"] += 1
-            self.spec_stats["drafted"] += k
-            self.spec_stats["drafted_accepted"] += int(accepted[slot])
-            self.spec_stats["emitted"] += taken
+            slot_rounds += 1
+            drafted += k
+            accepted_n += int(accepted[slot])
+            emitted_n += taken
             self._retire_if_done(slot, state)
-        if self._spec_ctrl is not None:
-            # Every harvested round is observed, a fully trimmed one too:
-            # the controller's decisions stay a function of the requests.
-            self._spec_ctrl.observe(k * n_slots, acc_sum)
+        with self._stats_lock:
+            s = self.spec_stats
+            s["rounds"] += 1
+            s["slot_rounds"] += slot_rounds
+            s["drafted"] += drafted
+            s["drafted_accepted"] += accepted_n
+            s["emitted"] += emitted_n
+            if self._spec_ctrl is not None:
+                # Every harvested round is observed, a fully trimmed one
+                # too: the controller's decisions stay a function of the
+                # requests.
+                self._spec_ctrl.observe(k * n_slots, acc_sum)
 
-    def spec_depth(self) -> int:
+    def _spec_depth(self) -> int:
         """Depth of the next round: the controller's pick, else the fixed
         ``speculative_k`` (0 on a plain engine)."""
-        return (self._spec_k if self._spec_ctrl is None
-                else self._spec_ctrl.depth())
+        with self._stats_lock:
+            ctrl = self._spec_ctrl
+            return self._spec_k if ctrl is None else ctrl.depth()
+
+    @thread_role("handler", "driver")
+    def spec_depth(self) -> int:
+        """Scrape face of ``_spec_depth`` (``ttd_engine_spec_depth``)."""
+        return self._spec_depth()
+
+    @thread_role("handler", "driver")
+    def spec_accepted_tokens(self) -> int:
+        """Draft tokens the target accepted, over all rounds
+        (``ttd_engine_spec_accepted_tokens_total``)."""
+        with self._stats_lock:
+            return self.spec_stats["drafted_accepted"]
+
+    @thread_role("handler", "driver")
+    def spec_drafted_tokens(self) -> int:
+        """Draft tokens proposed, over all rounds
+        (``ttd_engine_spec_drafted_tokens_total``)."""
+        with self._stats_lock:
+            return self.spec_stats["drafted"]
 
     def spec_telemetry(self) -> dict:
         """The depth controller's telemetry ({} at a fixed depth)."""
-        return {} if self._spec_ctrl is None else self._spec_ctrl.telemetry()
+        with self._stats_lock:
+            ctrl = self._spec_ctrl
+            return {} if ctrl is None else ctrl.telemetry()
+
+    @thread_role("handler", "driver")
+    def kv_prefix_hit_tokens(self) -> int:
+        """Prompt tokens whose prefill a radix hit skipped
+        (``ttd_engine_prefix_hit_tokens_total``; scraped, so it locks)."""
+        with self._stats_lock:
+            return self.kv_stats["prefix_hit_tokens"]
+
+    @thread_role("handler", "driver")
+    def kv_evictions(self) -> int:
+        """Radix blocks LRU-evicted under pressure
+        (``ttd_engine_kv_evictions_total``)."""
+        with self._stats_lock:
+            return self.kv_stats["evictions"]
 
     # -- dispatch: the one-chunk overlap -------------------------------------
 
@@ -1469,7 +1571,7 @@ class ServingEngine:
             if state is not None:
                 seeds[slot] = state.seed
                 rids[slot] = state.request_id
-        k = self.spec_depth()
+        k = self._spec_depth()
         with events.span("decode/dispatch",
                          active=sum(r is not None for r in rids),
                          fused=int(self.paged), spec_k=k):
@@ -1493,7 +1595,8 @@ class ServingEngine:
                 inflight = {"spec": False, "host": self._to_host(toks)}
                 self.stats["decode_steps"] += self.chunk
         self._inflight = dict(inflight, rids=rids, logits=logits)
-        self.overlap_stats["chunks"] += 1
+        with self._stats_lock:
+            self.overlap_stats["chunks"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
 
     def _skip_eager_dispatch(self) -> bool:
@@ -1528,19 +1631,26 @@ class ServingEngine:
             else:
                 self._harvest(arrays[0], inf["rids"], inf["logits"])
         dt = time.perf_counter() - t1
-        self.overlap_stats["harvest_s"] += dt
-        if overlapped:
-            self.overlap_stats["overlapped_harvests"] += 1
-            self.overlap_stats["overlapped_harvest_s"] += dt
+        with self._stats_lock:
+            o = self.overlap_stats
+            o["harvest_s"] += dt
+            if overlapped:
+                o["overlapped_harvests"] += 1
+                o["overlapped_harvest_s"] += dt
 
+    @thread_role("handler", "driver")
     def overlap_ratio(self) -> float:
         """Share of the harvests' host time spent with a successor chunk
-        in flight (0.0 on the synchronous path)."""
-        total = self.overlap_stats["harvest_s"]
+        in flight (0.0 on the synchronous path); ``ttd_engine_overlap_ratio``,
+        read under ``_stats_lock`` so a scrape never sees a torn pair."""
+        with self._stats_lock:
+            num = self.overlap_stats["overlapped_harvest_s"]
+            total = self.overlap_stats["harvest_s"]
         if total <= 0.0:
             return 0.0
-        return min(1.0, self.overlap_stats["overlapped_harvest_s"] / total)
+        return min(1.0, num / total)
 
+    @thread_role("driver", "main")
     @torch.no_grad()
     def serve_step(self) -> dict:
         """One iteration; returns the requests that finished,
@@ -1605,6 +1715,7 @@ class ServingEngine:
         out, self._outputs = self._outputs, {}
         return out
 
+    @thread_role("main", "driver")
     def run(self) -> dict:
         """Serve every submitted request to completion; returns
         ``{request_id: prompt + generated tokens}``."""
@@ -1693,6 +1804,7 @@ class ServingEngine:
 
     # -- preloaded prefixes ------------------------------------------------
 
+    @thread_role("main", "driver")
     @torch.no_grad()
     def preload_prefix(self, tokens) -> None:
         """Prefill a shared prompt prefix once; every later request whose
@@ -1727,10 +1839,11 @@ class ServingEngine:
                                      draft=True)
                 d_cache_1.index.fill_(n)
         key = tuple(tokens)
-        self._prefix_caches[key] = (cache_1, d_cache_1)
-        self._prefix_caches.move_to_end(key)
-        while len(self._prefix_caches) > self.prefix_cache_limit:
-            self._prefix_caches.popitem(last=False)
+        with self._prefix_lock:
+            self._prefix_caches[key] = (cache_1, d_cache_1)
+            self._prefix_caches.move_to_end(key)
+            while len(self._prefix_caches) > self.prefix_cache_limit:
+                self._prefix_caches.popitem(last=False)
         # The stored pair lives until LRU eviction: the ledger charges it
         # until its tensors die, so an unbounded preload pattern trips
         # the budget here.
@@ -1837,6 +1950,7 @@ class ServingEngine:
                 chunks.append(t.view(torch.uint8).cpu().numpy().tobytes())
         return leaves, b"".join(chunks)
 
+    @thread_role("main", "driver")
     @torch.no_grad()
     def export_prefix_kv(self, tokens):
         """Serialize the KV of ``tokens``' full leading blocks for a
@@ -1877,6 +1991,7 @@ class ServingEngine:
         return {"tokens": head, "n": m * bs, "draft": self._draft is not None,
                 "leaves": leaves}, blob
 
+    @thread_role("main", "driver")
     @torch.no_grad()
     def install_prefix_kv(self, meta, blob) -> int:
         """Install handed-off KV rows into the pool and the radix index;
@@ -1963,6 +2078,7 @@ class ServingEngine:
             inf, self._inflight = self._inflight, None
             self._harvest_prev(inf, overlapped=False)
 
+    @thread_role("main", "driver")
     @torch.no_grad()
     def export_lane(self, request_id: int):
         """Serialize a live request's migration state, ``(meta, blob)``,
@@ -2020,6 +2136,7 @@ class ServingEngine:
             return meta, blob
         return None
 
+    @thread_role("main", "driver")
     def install_lane(self, meta, blob) -> int:
         """Install a migrated lane's KV rows into the pool and the radix
         index; returns the warm-token count (0: nothing to install or

@@ -1920,3 +1920,141 @@ def test_moe_decode_matches_forced_forward_on_the_card(gen, dispatch):
     for p, toks in got.values():
         assert toks == G.generate(cfg, params, [p], 12,
                                   device="cuda")[0].tolist()
+
+
+# -- the serving fleet ----------------------------------------------------------
+
+
+def _fleet_requests(gen, n=6):
+    lens = (20, 33, 9, 48, 17, 26)[:n]
+    prefix = torch.randint(1, 512, (32,), generator=gen,
+                           device="cuda").tolist()
+    out = []
+    for i, m in enumerate(lens):
+        body = torch.randint(1, 512, (m,), generator=gen,
+                             device="cuda").tolist()
+        out.append((prefix + body if i < 2 else body, 16))
+    return out
+
+
+def test_two_replicas_on_the_card_give_the_batch_tokens(gen):
+    """A gateway over two in-process f32 replicas on the card (each
+    driver thread pins the card and launches on its default stream)
+    serves concurrent HTTP requests with a batch engine's greedy tokens;
+    the two requests sharing a 32-token prefix land on one replica and
+    the second reads it back through K5; K4's launches over both driver
+    threads are layers x decode steps of both engines."""
+    import json
+    import urllib.request
+
+    from tensorflow_train_distributed_torch.server import ServingGateway
+
+    cfg = _small_decoder(torch.float32)
+    params = convert.init_params(cfg, gen, device="cuda")
+    kw = dict(slots=2, cache_len=128, chunk=4, kv_block_size=16,
+              device="cuda")
+    reqs = _fleet_requests(gen)
+    ref = ServingEngine(cfg, params, **kw)
+    ids = [ref.submit(p, m) for p, m in reqs]
+    out = ref.run()
+    want = [out[i] for i in ids]
+    engines = [ServingEngine(cfg, params, **kw) for _ in range(2)]
+    for e in engines:
+        e.submit([1], 1)
+        e.run()
+        e.stats["decode_steps"] = 0
+    gw = ServingGateway(engines, host="127.0.0.1", port=0).start()
+    got = [None] * len(reqs)
+
+    def post(i):
+        p, m = reqs[i]
+        r = urllib.request.Request(
+            f"http://127.0.0.1:{gw.port}/v1/generate",
+            data=json.dumps({"prompt": p, "max_new": m}).encode())
+        got[i] = json.loads(urllib.request.urlopen(r, timeout=120).read())
+
+    try:
+        K.reset_launch_counts()
+        post(0)                 # its blocks in the radix before #1 routes
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(1, len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        counts = K.launch_counts()
+    finally:
+        gw.drain(timeout=60)
+    assert [g["tokens"] for g in got] == want
+    steps = sum(e.stats["decode_steps"] for e in engines)
+    assert counts["paged_attention"] == cfg.num_layers * steps
+    assert counts["rms_norm"] > 0 and counts["paged_kv_gather"] > 0
+    assert sum(e.kv_prefix_hit_tokens() for e in engines) >= 32
+
+
+def test_launch_counts_from_two_driver_threads_add_up(gen):
+    """Two engines stepped from two threads at once on the card: the K4
+    launches counted are exactly layers x the decode steps of both."""
+    cfg = _small_decoder(torch.bfloat16)
+    params = convert.init_params(cfg, gen, device="cuda")
+    kw = dict(slots=2, cache_len=128, chunk=4, kv_block_size=16,
+              device="cuda")
+    engines = [ServingEngine(cfg, params, **kw) for _ in range(2)]
+    for e in engines:
+        e.submit([1], 1)
+        e.run()
+        e.stats["decode_steps"] = 0
+    prompts = [torch.randint(1, 512, (n,), generator=gen,
+                             device="cuda").tolist() for n in (30, 45)]
+    K.reset_launch_counts()
+
+    def work(eng):
+        eng.bind_thread()
+        for _ in range(3):
+            for p in prompts:
+                eng.submit(p, 40)
+            eng.run()
+
+    threads = [threading.Thread(target=work, args=(e,)) for e in engines]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    steps = sum(e.stats["decode_steps"] for e in engines)
+    assert steps > 0
+    assert K.launch_counts()["paged_attention"] == cfg.num_layers * steps
+
+
+def test_subprocess_worker_on_the_card_answers(gen):
+    """A worker process on the card (the llama builtin on ``cuda``)
+    answers HELLO with its engine's shape and serves one request with
+    the tokens of the same engine built here."""
+    import os
+
+    from tensorflow_train_distributed_torch.server import (
+        ProcPool,
+        WorkerSpec,
+    )
+    from tensorflow_train_distributed_torch.server.worker import (
+        llama_params,
+    )
+
+    spec = dict(preset="llama_tiny", init_seed=0, device="cuda", slots=2,
+                cache_len=64, chunk=4)
+    cfg, params = llama_params("llama_tiny", 0, "cuda")
+    ref = ServingEngine(cfg, params, slots=2, cache_len=64, chunk=4,
+                        device="cuda")
+    rid = ref.submit([5, 9, 2, 7], 12)
+    want = ref.run()[rid]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pool = ProcPool(WorkerSpec(factory="llama", factory_json=spec,
+                               pythonpath=(repo,)),
+                    replicas=1, watchdog_timeout_s=120.0).start()
+    try:
+        assert pool.wait_ready(300)
+        eng = pool.replicas[0].engine
+        assert eng.slots == 2 and eng.paged and eng.pid != os.getpid()
+        assert eng.pool_blocks == ref.kv_blocks_total()
+        assert pool.submit([5, 9, 2, 7], 12).result(timeout=120) == want
+    finally:
+        pool.join(timeout=60)
