@@ -169,10 +169,10 @@
    computation and the plain version, timed beside its bound, the plain
    version and SDPA or ``F.cross_entropy``.
 13. bert_base_mlm through the launcher at full width and depth (b 256 x
-   s 128, mixed_bfloat16, 20 steps, a save every 10, 4 held-out
-   evaluation batches; in this process); the same killed at step 15 and
+   s 128, mixed_bfloat16, 12 steps, a save every 6, 4 held-out
+   evaluation batches; in this process); the same killed at step 9 and
    rerun (subprocesses), whose
-   step-20 checkpoint must equal the uninterrupted run's bit for bit
+   step-12 checkpoint must equal the uninterrupted run's bit for bit
    (dropout 0.1 on: the (seed, step) generator).  K2 forward and backward
    12 a step, K3f and K3b 1, exactly.
 14. transformer_big_wmt through the launcher at full width and depth
@@ -181,14 +181,14 @@
    K2 18 forward and 18 backward a step, exactly; the beam search's
    launches counted too.
 15. resnet50_imagenet through the launcher (224², b 256, bf16, SGD with
-   Nesterov momentum, 20 steps, a save every 10), killed at step 15 and
-   rerun, whose step-20 checkpoint must equal the uninterrupted run's
+   Nesterov momentum, 12 steps, a save every 6), killed at step 9 and
+   rerun, whose step-12 checkpoint must equal the uninterrupted run's
    bit for bit (the launcher pins cuDNN's deterministic algorithms; the
    uninterrupted run is in this process, as in phase 13); 5 steps each
    of the s2d and s2d_bnsub variants (in this process); each of the
    three trainers on one batch already on the card.  No hand kernel runs on this path
    (cuDNN's convolutions; the label-smoothed loss takes no K3).  The
-   data-service legs: 20 steps with ``--data-workers W`` (W divides 256
+   data-service legs: 10 steps with ``--data-workers W`` (W divides 256
    and leaves two cores; logged), images/s beside the in-process and
    card-fed figures and the share of the step the card waits on the
    host; then 512 JPEGs from seed 0 (around 500 x 375) as a TFRecord
@@ -340,6 +340,36 @@
    agreement with phase 3's batch run is logged, and the fleet's mean
    inter-token time (``ttd_gateway_inter_token_seconds``) beside phase
    3's decode step.  Each leg logs its seconds.
+24. ViT and HuggingFace interop.  (a) vit_b16_imagenet through the
+   launcher (in this process) at full width and depth, 224², batch 256
+   (the registry's 1024 cut for one card, as phase 15 cuts ResNet's),
+   f32 compute (VitConfig's dtype: the launcher's bfloat16 policy rounds
+   each weight to bf16 on use, the products run in f32), 12 steps with
+   the final save and evaluation, then
+   ``--eval-only`` of the checkpoint, which must equal the run's final
+   evaluation; no kernel may run (S 196 is not a multiple of 128, so
+   attention takes the dense path, as the JAX gate sends it on a TPU; the
+   label-smoothed loss is plain PyTorch); step ms, images/s and peak
+   memory, and the trainer fed one batch already on the card.  vit_tiny
+   (label smoothing 0, K3 at [8, 10]) five f32 steps on the card against
+   the CPU port, its zero-gradient parameters (the key biases) found from
+   the CPU's gradient and the card's held to round-off.  (b)
+   llama_125m_lm at full width and depth: phase 11's
+   run (a) checkpoint exported with ``export_hf_checkpoint`` (f32
+   ``pytorch_model.bin``), ``--eval-only --init-from-hf`` of it equal bit
+   for bit to phase 11's evaluation, 4 ``--init-from-hf`` steps (each
+   training kernel counted, path ``hf_train``), and ``sample.py`` and
+   ``serve.py`` with ``--init-from-hf`` giving the ``--checkpoint-dir``
+   runs' greedy tokens.  (c) Llama-2-7B at full width, 2 of 32 layers,
+   random bf16 weights: ``export_llama`` (one 2.7-GB
+   ``pytorch_model.bin``; ``hf_export_full_depth()``, not in the default
+   run, writes all 32 layers' 5-GB shards) and ``import_llama`` back
+   onto the card (seconds and bytes of each), phase 3's requests on the
+   paged engine with the imported weights (path ``hf_serve``: K1f, K4 at
+   layers x decode steps, K5 at the shared prefix), tokens equal to the
+   same engine's on the source weights.  (d) ``export_program`` of phase
+   16's mnist checkpoint (traced on the CPU), loaded and run on the card
+   at two batch sizes against ``predict_fn`` on the restored weights.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -506,6 +536,17 @@ KERNELS = [
         ("flash_attention", "flash_attention_fwd.cu", _FA + ":589"),
         ("flash_attention_bwd", "flash_attention_bwd.cu", _FA + ":941"))
 ]
+# Phase 24: vit_tiny's loss (label smoothing 0) at [8, 10], measured there;
+# (b)'s 4 --init-from-hf steps of llama_125m_lm (phase 5's shapes) and
+# (c)'s engine on the imported Llama-2-7B-width weights (phase 2's).
+KERNELS += [
+    ("cross_entropy", _CSRC + "cross_entropy.cu", _PK + ":545", "vit_tiny"),
+    ("cross_entropy_bwd", _CSRC + "cross_entropy.cu", _PK + ":584",
+     "vit_tiny"),
+] + [(name, source, where, "hf_train")
+     for name, source, where, path in KERNELS if path == "launch"] + [
+    (name, source, where, "hf_serve")
+    for name, source, where, path in KERNELS if path == "serve"]
 # Phase 11's run (k): the launcher's kernels, 4 steps a trainer call.
 KERNELS += [(name, source, where, "launch_fused")
             for name, source, where, path in KERNELS if path == "launch"]
@@ -1899,7 +1940,7 @@ def phase_lane_control() -> tuple:
 
 # -- phase 21 -----------------------------------------------------------------
 
-SAMPLE_DIR = "_sample_smoke"      # phase 11's run (a); deleted by phase 21
+SAMPLE_DIR = "_sample_smoke"      # phase 11's run (a); deleted by phase 24
 
 
 def _forced(model, tokens):
@@ -2231,8 +2272,9 @@ def phase_generate() -> tuple:
             f"{json.dumps(out['sample_cli'])}")
         if got != want:
             raise AssertionError(f"(e) sample.py {got} != generate() {want}")
-    finally:
+    except BaseException:
         shutil.rmtree(os.path.abspath(SAMPLE_DIR), ignore_errors=True)
+        raise
     out["leg_s"]["e"] = time.perf_counter() - t_leg
     log(f"  launches {totals}; legs {json.dumps(out['leg_s'])}")
     if min(totals.values()) <= 0:
@@ -3597,18 +3639,66 @@ def phase_moe_grad_check() -> dict:
          ("bfloat16", torch.bfloat16, 1e-1)))
 
 
+ZERO_GRAD_RATIO = 1e-6     # |a zero gradient| over its layer's largest
+
+
+def _layer_of(name: str) -> str:
+    """``layers.<i>`` for a parameter of block i, else the name itself."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "layers" else name
+
+
+def _step_grads(trainer, state, batch) -> dict:
+    """The f32 gradients of ``trainer``'s next step on ``batch`` (device
+    tensors; that step's dropout draw), on the host, with no update."""
+    import functools
+
+    from tensorflow_train_distributed_torch.models import layers as L
+
+    if state.model_state:
+        raise ValueError("a training forward would move the running "
+                         "statistics the comparison holds")
+    trainer.task.model.train()
+    with L.dropout_generator(functools.partial(trainer._generator,
+                                               state.step)):
+        grads, _, _ = trainer._microbatch_grads(
+            list(state.params.values()), trainer.policy.cast_to_compute(
+                batch), state.loss_scale)
+    return {k: g.detach().float().cpu() for k, g in zip(state.params, grads)}
+
+
+def _zero_grad_ratios(grads: dict) -> dict:
+    """Each parameter's largest |gradient| over its layer's largest."""
+    peak = {}
+    for k, g in grads.items():
+        peak[_layer_of(k)] = max(peak.get(_layer_of(k), 0.0),
+                                 g.abs().max().item())
+    return {k: g.abs().max().item() / max(peak[_layer_of(k)], 1e-30)
+            for k, g in grads.items()}
+
+
 def _card_vs_cpu(label, make_task, cfg, kernels, *, seq=None, vocab=None,
-                 steps, source=None) -> dict:
+                 steps, source=None, zero_grad=False) -> dict:
     """``steps`` f32 steps of ``make_task()`` on the card against the same
     steps of the port on the CPU, whose plain versions the CPU tests hold
     to the JAX package, over ``source`` (default: ``SyntheticLM`` rows of
     ``seq`` tokens); every kernel in ``kernels`` must have run, and the
     model state (BatchNorm's running statistics) must agree as the
-    params do."""
+    params do.  With ``zero_grad``, the parameters whose exact gradient
+    is 0 (an attention key bias: softmax ignores a shift along the keys)
+    are found from the CPU's gradient on the first batch at the run's end
+    (at its start a zero-initialised head leaves every other gradient
+    exactly 0), every entry within ``ZERO_GRAD_RATIO`` of its layer's
+    largest; there must be some.  Adam turns their round-off gradients
+    into steps of up to ~lr, which two CPU runs at 1 and 8 threads already
+    part on, so they are left out of the parameters' relative L2, and the
+    card's gradient of each at its own run's end is held to the same
+    round-off bound instead."""
     import torch
     from tensorflow_train_distributed_torch import convert
     from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
-    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
+    from tensorflow_train_distributed_torch.data.pipeline import (
+        HostBatches, to_device)
     from tensorflow_train_distributed_torch.ops import kernels as K
     from tensorflow_train_distributed_torch.training import (
         optimizers, schedules)
@@ -3619,7 +3709,9 @@ def _card_vs_cpu(label, make_task, cfg, kernels, *, seq=None, vocab=None,
 
     params = convert.init_params(cfg, torch.Generator().manual_seed(SEED),
                                  device="cpu", dtype=torch.float32)
-    runs = {}
+    runs, ratios = {}, {}
+    src = source or SyntheticLM(num_examples=64, seq_len=seq,
+                                vocab_size=vocab)
     for device in ("cpu", "cuda"):
         lr = schedules.by_name("warmup_cosine", 3e-3, steps, warmup_steps=1)
         tx = optimizers.make_optimizer("adamw", lr, weight_decay=0.01,
@@ -3631,14 +3723,16 @@ def _card_vs_cpu(label, make_task, cfg, kernels, *, seq=None, vocab=None,
         state = trainer.create_state({k: v.clone() for k, v in
                                       params.items()})
         K.reset_launch_counts()
-        src = source or SyntheticLM(num_examples=64, seq_len=seq,
-                                    vocab_size=vocab)
         state, history = trainer.fit(HostBatches(src, 8, seed=SEED),
                                      steps=steps, state=state)
         runs[device] = (history, {k: p.detach().cpu() for k, p in
                                   state.params.items()},
                         K.launch_counts(),
                         {k: v.cpu() for k, v in state.model_state.items()})
+        if zero_grad:
+            first = next(iter(HostBatches(src, 8, seed=SEED)))
+            ratios[device] = _zero_grad_ratios(_step_grads(
+                trainer, state, to_device(first, trainer.device)))
     counts = {k: runs["cuda"][2][k] for k in kernels}
     if counts and min(counts.values()) <= 0:
         raise AssertionError(f"{label}: a kernel did not run: {counts}")
@@ -3647,23 +3741,38 @@ def _card_vs_cpu(label, make_task, cfg, kernels, *, seq=None, vocab=None,
     dg = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
              for (_, a), (_, b) in zip(runs["cpu"][0], runs["cuda"][0]))
     card = {**runs["cuda"][1], **runs["cuda"][3]}
+    zeros = sorted(k for k, r in ratios.get("cpu", {}).items()
+                   if r <= ZERO_GRAD_RATIO)
+    if zero_grad and not zeros:
+        raise AssertionError(f"{label}: no parameter has a zero gradient")
     dp = max(((card[k] - p).norm() / p.norm()).item()
-             for k, p in {**runs["cpu"][1], **runs["cpu"][3]}.items())
+             for k, p in {**runs["cpu"][1], **runs["cpu"][3]}.items()
+             if k not in zeros)
+    zg_cpu = max((ratios["cpu"][k] for k in zeros), default=0.0)
+    zg_card = max((ratios["cuda"][k] for k in zeros), default=0.0)
     losses = [(a["loss"], b["loss"]) for (_, a), (_, b) in
               zip(runs["cpu"][0], runs["cuda"][0])]
     log(f"  {label} card vs cpu, {steps} steps f32: losses {losses}")
     # f32 on both sides, other kernels and summation orders, carried
     # through five adamw steps.
-    ok = dl <= 1e-4 and dg <= 1e-3 and dp <= 1e-4
+    ok = (dl <= 1e-4 and dg <= 1e-3 and dp <= 1e-4
+          and zg_card <= ZERO_GRAD_RATIO)
+    zg = (f"; {len(zeros)} zero-gradient params ({zeros[0]}, ...): their "
+          f"largest gradient at the end {zg_card:.3e} of its layer's on "
+          f"the card, {zg_cpu:.3e} on the CPU (bound {ZERO_GRAD_RATIO})"
+          if zeros else "")
     log(f"  max |loss diff| {dl:.3e} (bound 1e-4), grad_norm relative "
         f"{dg:.3e} (1e-3), params and model state relative L2 {dp:.3e} "
-        f"(1e-4); launches "
+        f"(1e-4){zg}; launches "
         f"{counts} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: the card's training run left the "
                              f"CPU's")
     return dict(max_loss_diff=dl, grad_norm_rel=dg, params_rel_l2=dp,
-                launches=counts)
+                launches=counts, **({"zero_grad_params": zeros,
+                                     "zero_grad_ratio_card": zg_card,
+                                     "zero_grad_ratio_cpu": zg_cpu}
+                                    if zero_grad else {}))
 
 
 def phase_card_vs_cpu(steps: int = 5) -> dict:
@@ -4734,8 +4843,8 @@ def phase_launcher() -> tuple:
             wall_s=dict(a=wa, bc=wb, d=wd, k=wk, e=we), val=val_a,
             eval=la[-1]["eval"], step12_sha256=digests, losses=losses)
         log(f"  launcher: {json.dumps(stats)}")
-        # Run (a)'s checkpoints serve phase 21's sample.py, which deletes
-        # them.
+        # Run (a)'s checkpoints serve phase 21's sample.py and phase 24's
+        # HF export, which deletes them.
         keep = os.path.abspath(SAMPLE_DIR)
         shutil.rmtree(keep, ignore_errors=True)
         os.makedirs(keep)
@@ -4895,9 +5004,14 @@ def phase_launcher_lora() -> tuple:
 # -- phases 12-17: the other model families -----------------------------------
 
 FAMILY_DIR = "_family_smoke"      # git-ignored; deleted at the phases' end
-KILL_AT_15 = "step:15:kill9:attempt=0"
-BERT_FLAGS = ["--config", "bert_base_mlm", "--steps", "20", "--precision",
-              "mixed_bfloat16", "--checkpoint-every", "10", "--max-to-keep",
+# The kill-and-resume runs (phases 13 and 15): 12 steps, a save every 6,
+# killed at 9 (cut from 20, 10 and 15 to leave phase 24 room in the
+# script's time limit).
+KILL_STEP, SAVE_EVERY, KILLED_STEPS = 9, 6, 12
+KILL_AT = f"step:{KILL_STEP}:kill9:attempt=0"
+BERT_FLAGS = ["--config", "bert_base_mlm", "--steps", str(KILLED_STEPS),
+              "--precision", "mixed_bfloat16", "--checkpoint-every",
+              str(SAVE_EVERY), "--max-to-keep",
               "2", "--eval-split", "0.011", "--eval-steps", "4",
               "--log-every", "5", "--seed", str(SEED)]
 # Registry batch 512 cut to 64 for one card; seq 256 so that attention
@@ -4913,8 +5027,9 @@ WMT_BLEU_FLAGS = ["--eval-only", "--eval-steps", "1", "--bleu-eval", "1",
 # momentum, which the registry's lr 0.4 is for (the launcher's default
 # adamw at 0.4 diverges).
 RESNET_FLAGS = ["--config", "resnet50_imagenet", "--global-batch-size",
-                "256", "--optimizer", "momentum", "--steps", "20",
-                "--checkpoint-every", "10", "--max-to-keep", "2",
+                "256", "--optimizer", "momentum", "--steps",
+                str(KILLED_STEPS), "--checkpoint-every", str(SAVE_EVERY),
+                "--max-to-keep", "2",
                 "--log-every", "5", "--seed", str(SEED)]
 # ResNet-50 v1.5's published forward cost: 4.09e9 multiply-adds a
 # 224x224 image (torchvision's resnet50, which is v1.5), 2 FLOPs each.
@@ -4980,27 +5095,28 @@ def _same_checkpoint(label, a_dir, c_dir, step) -> None:
 
 
 def _kill_and_resume(label, flags, root) -> tuple:
-    """(a) the run (in this process), (b) the same killed at step 15 after
-    the step-10 save, (c) its rerun as supervisor attempt 1, which must
-    restore step 10; returns ((a), (c)) as ``_launcher`` results and the
-    two directories."""
+    """(a) the run (in this process), (b) the same killed at step
+    ``KILL_STEP`` after the step-``SAVE_EVERY`` save, (c) its rerun as
+    supervisor attempt 1, which must restore that step; returns ((a),
+    (c)) as ``_launcher`` results and the two directories."""
     import os
 
     a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
     ra = _in_process(f"{label} a: uninterrupted", *flags,
                      "--checkpoint-dir", a_dir)
-    rb = _launcher(f"{label} b: kill -9 at step 15", *flags,
-                   "--checkpoint-dir", b_dir, "--fault-plan", KILL_AT_15)
+    rb = _launcher(f"{label} b: kill -9 at step {KILL_STEP}", *flags,
+                   "--checkpoint-dir", b_dir, "--fault-plan", KILL_AT)
     if rb[0] != -9:
         raise AssertionError(f"{label} (b) exited {rb[0]}, not by SIGKILL:"
                              f"\n{rb[2][-4000:]}")
     rc = _launcher(f"{label} c: rerun as attempt 1", *flags,
-                   "--checkpoint-dir", b_dir, "--fault-plan", KILL_AT_15,
+                   "--checkpoint-dir", b_dir, "--fault-plan", KILL_AT,
                    env={"TTD_SUPERVISE_ATTEMPT": "1"})
     if rc[0] != 0 or rc[3] is None:
         raise AssertionError(f"{label} (c) failed:\n{rc[2][-4000:]}")
-    if "restored checkpoint step 10" not in rc[2]:
-        raise AssertionError(f"{label} (c) did not restore step 10")
+    if f"restored checkpoint step {SAVE_EVERY}" not in rc[2]:
+        raise AssertionError(f"{label} (c) did not restore step "
+                             f"{SAVE_EVERY}")
     return ra, rc, a_dir, b_dir
 
 
@@ -5065,9 +5181,9 @@ def phase_family_kernels() -> tuple:
 
 def phase_bert() -> tuple:
     """Phase 13: bert_base_mlm through the launcher at full width and
-    depth (b 256 x s 128, mixed_bfloat16, 20 steps, a save every 10,
-    4 held-out evaluation batches), then killed at step 15 and rerun: the
-    rerun's step-20 checkpoint must equal the uninterrupted run's bit for
+    depth (b 256 x s 128, mixed_bfloat16, 12 steps, a save every 6,
+    4 held-out evaluation batches), then killed at step 9 and rerun: the
+    rerun's step-12 checkpoint must equal the uninterrupted run's bit for
     bit (dropout 0.1 is on, so this holds the (seed, step) generator)."""
     import os
     import shutil
@@ -5081,7 +5197,7 @@ def phase_bert() -> tuple:
     os.makedirs(root)
     try:
         ra, rc, a_dir, b_dir = _kill_and_resume("bert", BERT_FLAGS, root)
-        _same_checkpoint("bert", a_dir, b_dir, 20)
+        _same_checkpoint("bert", a_dir, b_dir, KILLED_STEPS)
         la, lc = ra[1], rc[1]
         if la[-1].get("eval") != lc[-1].get("eval"):
             raise AssertionError(f"bert evaluations differ: {la[-1]} vs "
@@ -5090,7 +5206,8 @@ def phase_bert() -> tuple:
         if not losses[-1] < losses[0]:
             raise AssertionError(f"bert loss did not fall: {losses}")
         counts = _expect_launches("bert", ra[3],
-                                  bert_launches(cfg.num_layers, 20, 4))
+                                  bert_launches(cfg.num_layers,
+                                                KILLED_STEPS, 4))
         b, s = entry["global_batch_size"], 128
         stats = _run_stats("bert_base_mlm", ra[3], b, ra[4])
         n_ne = _non_embedding_params(cfg)
@@ -5175,7 +5292,7 @@ def phase_wmt() -> tuple:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _device_fed(name: str, flags, *, steps: int = 10,
+def _device_fed(name: str, flags, *, steps: int = 5,
                 profile: bool = False) -> dict:
     """The trainer of registry entry ``name``, built as the launcher
     builds it from ``flags``, on one batch already on the card: the step
@@ -5218,9 +5335,9 @@ def _device_fed(name: str, flags, *, steps: int = 10,
 
 def phase_resnet() -> dict:
     """Phase 15: resnet50_imagenet through the launcher (224², b 256,
-    bf16, SGD with momentum, 20 steps, a save every 10), killed at step
-    15 and rerun (the launcher pins cuDNN's deterministic algorithms, so
-    the step-20 checkpoints must be equal bit for bit), 5 steps each of
+    bf16, SGD with momentum, 12 steps, a save every 6), killed at step 9
+    and rerun (the launcher pins cuDNN's deterministic algorithms, so the
+    step-12 checkpoints must be equal bit for bit), 5 steps each of
     the s2d and s2d_bnsub variants, and each of the three trainers fed
     one batch already on the card."""
     import os
@@ -5232,7 +5349,7 @@ def phase_resnet() -> dict:
     try:
         ra, rc, a_dir, b_dir = _kill_and_resume("resnet", RESNET_FLAGS,
                                                 root)
-        _same_checkpoint("resnet", a_dir, b_dir, 20)
+        _same_checkpoint("resnet", a_dir, b_dir, KILLED_STEPS)
         _expect_launches("resnet", ra[3], {})
         losses = _losses("resnet", ra[1])
         stats = _run_stats("resnet50_imagenet", ra[3], 256, ra[4])
@@ -5373,7 +5490,7 @@ def _service_breakdown(workers: int) -> dict:
 def phase_resnet_service(resnet: dict) -> dict:
     """Phase 15's data-service legs: resnet50_imagenet through the
     launcher with ``--data-workers W`` (W divides 256 and fits the cores):
-    20 synthetic steps, its images/s beside phase 15's in-process and
+    10 synthetic steps, its images/s beside phase 15's in-process and
     card-fed figures and the share of the step the card waits on the
     host; then, where PIL is installed, 512 JPEGs from seed 0 as a
     TFRecord corpus, 10 training steps on ``imagenet_train_u8_224``
@@ -5386,7 +5503,7 @@ def phase_resnet_service(resnet: dict) -> dict:
     log(f"  {len(os.sched_getaffinity(0))} cores: --data-workers {workers}")
     card_fed = resnet["device_fed"]["resnet50_imagenet"]["step_ms"]
     r = _in_process("resnet, synthetic, --data-workers",
-                    *RESNET_SERVICE_FLAGS, "--steps", "20", "--log-every",
+                    *RESNET_SERVICE_FLAGS, "--steps", "10", "--log-every",
                     "5", "--data-workers", str(workers))
     _expect_launches("resnet service", r[3], {})
     step = r[3]["step_ms"]
@@ -5449,9 +5566,15 @@ def phase_mnist() -> dict:
     """Phase 16: mnist (LeNet) through the launcher, 100 steps of 128:
     the mean loss of the last 10 steps must be at most half the first
     step's.  Its loss (no label smoothing) takes K3 at [128, 10], once a
-    step."""
+    step.  Its final checkpoint (``MNIST_DIR``) is phase 24 (d)'s."""
+    import os
+    import shutil
+
+    ck = os.path.abspath(MNIST_DIR)
+    shutil.rmtree(ck, ignore_errors=True)
     r = _in_process("mnist", "--config", "mnist", "--steps", "100",
-                    "--log-every", "1", "--seed", str(SEED))
+                    "--log-every", "1", "--seed", str(SEED),
+                    "--checkpoint-dir", ck)
     counts = _expect_launches("mnist", r[3], {"cross_entropy": 100,
                                               "cross_entropy_bwd": 100})
     losses = _losses("mnist", r[1])
@@ -6162,6 +6285,475 @@ def phase_fleet(run3: dict) -> tuple:
     return counts, fleet
 
 
+# -- phase 24: ViT and HF interop -----------------------------------------------
+
+INTEROP_DIR = "_interop_smoke"    # git-ignored; deleted at the phase's end
+MNIST_DIR = INTEROP_DIR + "/mnist"    # phase 16's checkpoint, for (d)
+# Registry batch 1024 cut to 256 for one card (phase 15's cut of ResNet's).
+VIT_FLAGS = ["--config", "vit_b16_imagenet", "--global-batch-size", "256",
+             "--steps", "12", "--eval-split", "0.001", "--eval-steps", "2",
+             "--log-every", "2", "--seed", str(SEED)]
+HF_TRAIN_FLAGS = ["--config", "llama_125m_lm", "--steps", "4",
+                  "--eval-split", "0.001", "--eval-steps", "4",
+                  "--log-every", "1", "--seed", str(SEED)]
+HF_SERVE_LAYERS = 2               # of Llama-2-7B's 32, at full width
+
+
+def vit_forward_flops(cfg) -> float:
+    """FLOPs (2 per multiply-add) of one image's ViT forward: the patch
+    projection, per block the q/k/v/out and MLP products over every token
+    and the two attention products, and the head."""
+    d, n = cfg.hidden_size, cfg.num_patches
+    seq = n + (cfg.pooling == "cls")
+    block = seq * (4 * d * d + 2 * d * cfg.mlp_dim) + 2 * seq * seq * d
+    macs = (n * 3 * cfg.patch_size ** 2 * d + cfg.num_layers * block
+            + d * cfg.num_classes)
+    return 2.0 * macs
+
+
+def _vit_leg(root: str) -> tuple:
+    """(a): vit_b16_imagenet through the launcher and its --eval-only;
+    vit_tiny card vs CPU.  Returns (vit_tiny's launches, stats)."""
+    import os
+
+    from tensorflow_train_distributed_torch.data.datasets import (
+        SyntheticImageNet,
+    )
+    from tensorflow_train_distributed_torch.models import registry
+
+    ck = os.path.join(root, "vit")
+    ra = _in_process("vit_b16_imagenet", *VIT_FLAGS, "--checkpoint-dir", ck)
+    # S 196 misses K2's gate (a multiple of 128) and the label-smoothed
+    # loss is plain PyTorch: no kernel of the port runs.
+    _expect_launches("vit_b16_imagenet", ra[3], {})
+    losses = _losses("vit_b16_imagenet", ra[1])
+    rd = _in_process("vit_b16_imagenet --eval-only", *VIT_FLAGS,
+                     "--checkpoint-dir", ck, "--eval-only")
+    if rd[1] != [{"step": 12, "eval": ra[1][-1]["eval"]}]:
+        raise AssertionError(f"ViT eval-only gave {rd[1]}, the run "
+                             f"{ra[1][-1]}")
+    cfg = registry.get_config("vit_b16_imagenet")
+    fwd = vit_forward_flops(cfg)
+    stats = _run_stats("vit_b16_imagenet", ra[3], 256, ra[4])
+    stats.update(card=smi_line(), config="vit_b16_imagenet", batch=256,
+                 batch_cut="1024 -> 256", steps=12, losses=losses,
+                 eval=ra[1][-1]["eval"], eval_only="equal to the run's",
+                 save_bytes=ra[3]["save_bytes"],
+                 forward_gflops_per_image=fwd / 1e9)
+    dev = _device_fed("vit_b16_imagenet", VIT_FLAGS[2:4], steps=5,
+                      profile=True)
+    dev["mfu"] = 3 * fwd * dev["examples_per_s"] / PEAK_BF16_FLOPS
+    dev["mfu_formula"] = "3 x forward FLOPs x images/s / 989e12"
+    stats["device_fed"] = dev
+    log(f"  vit_b16_imagenet: {json.dumps(stats)}")
+    entry = registry.get_entry("vit_tiny")
+    tiny = _card_vs_cpu(
+        "vit_tiny", lambda: registry.make_task(entry, device="meta"),
+        entry["config"], ["cross_entropy", "cross_entropy_bwd"], steps=5,
+        source=SyntheticImageNet(num_examples=64, num_classes=10,
+                                 image_size=32), zero_grad=True)
+    stats["vit_tiny_card_vs_cpu"] = tiny
+    return tiny["launches"], stats
+
+
+def _sample_cli(source_flags, rows_in, max_new) -> list:
+    """``sample.py`` on llama_125m_lm in this process; its completions."""
+    import io
+
+    from tensorflow_train_distributed_torch import sample
+
+    args = ["--config", "llama_125m_lm", *source_flags, "--max-new",
+            str(max_new)]
+    for r in rows_in:
+        args += ["--prompt", ",".join(map(str, r))]
+    buf = io.StringIO()
+    with _fresh_process_flags(), contextlib.redirect_stdout(buf):
+        rc = sample.main(args)
+    if rc != 0:
+        raise AssertionError(f"sample.py {source_flags} exit {rc}")
+    return [json.loads(x)["completion"] for x in buf.getvalue().splitlines()]
+
+
+def _hf_launcher_leg(root: str, phase11_eval) -> tuple:
+    """(b): llama_125m_lm's checkpoint exported as HF and read back by the
+    launcher, sample.py and serve.py.  Returns (the 4 --init-from-hf
+    steps' launches, stats)."""
+    import io
+    import os
+
+    import numpy as np
+    from tensorflow_train_distributed_torch import export_hf_checkpoint
+    from tensorflow_train_distributed_torch.models import hf_io, registry
+
+    ck = os.path.abspath(os.path.join(SAMPLE_DIR, "a"))
+    if not os.path.isdir(ck):
+        # Run alone, without phase 11's checkpoint: 2 steps of its flags.
+        rc, _, err, _, _ = _launcher(
+            "a checkpoint to export", *LAUNCH_FLAGS[:2], "--steps", "2",
+            "--seed", str(SEED), "--checkpoint-dir", ck)
+        if rc != 0:
+            raise AssertionError(f"(b) launcher failed:\n{err[-4000:]}")
+    hf = os.path.join(root, "hf_125m")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if export_hf_checkpoint.main(["--config", "llama_125m_lm",
+                                      "--checkpoint-dir", ck, "--out",
+                                      hf]) != 0:
+            raise AssertionError("export_hf_checkpoint failed")
+    export_s = time.perf_counter() - t0
+    ref = _in_process("eval-only --checkpoint-dir", *LAUNCH_FLAGS,
+                      "--checkpoint-dir", ck, "--eval-only")[1][0]["eval"]
+    got = _in_process("eval-only --init-from-hf", *LAUNCH_FLAGS,
+                      "--init-from-hf", hf, "--eval-only")[1]
+    if got != [{"step": 0, "eval": ref}]:
+        raise AssertionError(f"--init-from-hf eval {got} != the "
+                             f"checkpoint's {ref}")
+    if phase11_eval is not None and ref != phase11_eval:
+        raise AssertionError(f"eval {ref} != phase 11's {phase11_eval}")
+    log(f"  (b) eval of the HF export equals the checkpoint's bit for bit"
+        f"{' and phase 11 (d)' if phase11_eval is not None else ''}: {ref}")
+    r = _in_process("4 --init-from-hf steps", *HF_TRAIN_FLAGS,
+                    "--init-from-hf", hf)
+    cfg = registry.get_config("llama_125m_lm")
+    want = {k: 4 * v for k, v in
+            train_launches_per_step(cfg.num_layers).items()}
+    for k, v in eval_launches_per_batch(cfg.num_layers).items():
+        want[k] += 4 * v                      # the final evaluation
+    counts = _expect_launches("hf_train", r[3], want)
+    losses = _losses("hf_train", r[1])
+    rng = np.random.default_rng(SEED + 24)
+    rows_in = [rng.integers(1, cfg.vocab_size, 24).tolist()
+               for _ in range(2)]
+    s_ck = _sample_cli(["--checkpoint-dir", ck], rows_in, 16)
+    s_hf = _sample_cli(["--init-from-hf", hf], rows_in, 16)
+    if s_hf != s_ck:
+        raise AssertionError(f"sample.py --init-from-hf {s_hf} != "
+                             f"--checkpoint-dir {s_ck}")
+    prompts = []
+    for r_ in _requests(rng, 4, 8, 40, cfg.vocab_size, 8):
+        prompts += ["--prompt", ",".join(map(str, r_))]
+    t_ck, _ = _serve("--checkpoint-dir", "--checkpoint-dir", ck, *prompts)
+    t_hf, sum_hf = _serve("--init-from-hf", "--init-from-hf", hf, *prompts)
+    if t_hf != t_ck:
+        raise AssertionError(f"serve.py --init-from-hf {t_hf} != "
+                             f"--checkpoint-dir {t_ck}")
+    stats = dict(card=smi_line(), config="llama_125m_lm",
+                 export_s=export_s, export_bytes=hf_io.checkpoint_bytes(hf),
+                 eval=ref, eval_equal_phase11=phase11_eval is not None,
+                 train_step_ms=r[3]["step_ms"], train_losses=losses,
+                 sample_equal=True, serve_equal=True,
+                 serve_launches=sum_hf["launches"])
+    log(f"  (b) llama_125m_lm HF interop: {json.dumps(stats)}")
+    return counts, stats
+
+
+def _engine_tokens(cfg, params, prompts, max_new) -> tuple:
+    """Phase 3's engine on ``params``: (tokens, launches of the requests'
+    run, decode steps, prefix hits)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, slots=8, chunk=8, cache_len=1024,
+                        kv_block_size=16, overlap=False, prefill_budget=0,
+                        device="cuda")
+    eng.submit([1] * 16, 2)
+    eng.run()
+    eng.stats.update(decode_steps=0, decode_s=0.0)
+    K.reset_launch_counts()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    counts = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
+    res = ([out[r] for r in rids], counts, eng.stats["decode_steps"],
+           eng.kv_stats["prefix_hits"])
+    del eng
+    _free()
+    return res
+
+
+def _hf_engine_leg(root: str) -> tuple:
+    """(c): Llama-2-7B at full width, 2 layers, through export_llama and
+    import_llama onto the card; returns (the imported engine's launches,
+    stats)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.models import hf_io
+    from tensorflow_train_distributed_torch.models.export_hf import (
+        export_llama,
+    )
+    from tensorflow_train_distributed_torch.models.import_hf import (
+        import_llama,
+    )
+    from tensorflow_train_distributed_torch.models.llama import LLAMA_PRESETS
+
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama2_7b"],
+                              num_layers=HF_SERVE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    src = convert.init_params(cfg, gen, device="cuda")
+    out = os.path.join(root, "hf_7b")
+    t0 = time.perf_counter()
+    export_llama(cfg, src, out)
+    export_s = time.perf_counter() - t0
+    nbytes = hf_io.checkpoint_bytes(out)
+    t0 = time.perf_counter()
+    _, imported = import_llama(out, cfg, device="cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    same = all(torch.equal(imported[k], v) for k, v in src.items())
+    if not same or set(imported) != set(src):
+        raise AssertionError("(c) the import differs from the exported "
+                             "weights")
+    # Phase 3's requests (the same draw): 12 prompts, #0 and #1 sharing a
+    # 64-token prefix, 32 new tokens.
+    prompts = _requests(np.random.default_rng(SEED), 12, 16, 300,
+                        cfg.vocab_size, 64)
+    want, _, _, _ = _engine_tokens(cfg, src, prompts, 32)
+    del src
+    _free()
+    got, counts, steps, hits = _engine_tokens(cfg, imported, prompts, 32)
+    del imported
+    _free()
+    log(f"  (c) hf_serve launches {counts}; decode steps {steps}; prefix "
+        f"hits {hits}")
+    if got != want:
+        raise AssertionError("(c) the imported engine's tokens differ from "
+                             "the source weights'")
+    if min(counts.values()) <= 0 or hits < 1:
+        raise AssertionError(f"(c) a kernel of the path never ran: "
+                             f"{counts}, prefix hits {hits}")
+    if counts["paged_attention"] != cfg.num_layers * steps:
+        raise AssertionError(f"(c) paged_attention {counts} != layers x "
+                             f"decode steps {cfg.num_layers * steps}")
+    stats = dict(card=smi_line(), config=f"llama2_7b[{cfg.num_layers} of "
+                 f"32 layers]", export_s=export_s, export_bytes=nbytes,
+                 export_gb_per_s=nbytes / export_s / 1e9, import_s=import_s,
+                 import_gb_per_s=nbytes / import_s / 1e9,
+                 tokens_equal=True, requests=len(prompts),
+                 decode_steps=steps)
+    log(f"  (c) Llama-2-7B width export/import: {json.dumps(stats)}")
+    shutil.rmtree(out, ignore_errors=True)
+    return counts, stats
+
+
+def _rss() -> dict:
+    """This process's resident memory now, in bytes, from
+    ``/proc/self/status``: ``VmRSS`` and, where the kernel reports them,
+    its anonymous and file-backed parts ``RssAnon`` and ``RssFile``."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            k, _, v = line.partition(":")
+            if k in ("VmRSS", "RssAnon", "RssFile"):
+                out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+@contextlib.contextmanager
+def _host_memory_peaks(every_s: float = 0.02):
+    """Peaks of ``_rss()`` sampled every ``every_s`` seconds while the
+    block runs; yields the dict of peaks, filled at the block's end, with
+    each field's value at the start beside it (``<field>_at_start``)."""
+    import threading
+
+    start = _rss()
+    peaks = dict(start)
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(every_s):
+            for k, v in _rss().items():
+                peaks[k] = max(peaks[k], v)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield peaks
+    finally:
+        done.set()
+        t.join()
+        for k, v in _rss().items():
+            peaks[k] = max(peaks[k], v)
+        peaks.update({f"{k}_at_start": v for k, v in start.items()})
+
+
+def hf_export_full_depth(root: str = INTEROP_DIR) -> dict:
+    """Not in the default run (~45 GB of disk, a few minutes): Llama-2-7B
+    at full depth, random bf16 weights from SEED on the card, saved as a
+    params-only port checkpoint, exported by ``export_hf_checkpoint``'s
+    function (the checkpoint's file mapped, f32 written a layer at a time
+    into 5-GB shards) and imported back onto the card, every tensor equal
+    to the source; then exported again from the card's weights, where no
+    file is mapped.  Logs the seconds and bytes of each step and the
+    host's peak resident memory in each (its anonymous and file-backed
+    parts where ``/proc`` reports them).
+
+      python3 -c "import chip_smoke as c; c.hf_export_full_depth()"
+    """
+    import os
+    import shutil
+
+    import torch
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.models import hf_io, registry
+    from tensorflow_train_distributed_torch.models.export_hf import (
+        export_hf_from_registry,
+        export_llama,
+    )
+    from tensorflow_train_distributed_torch.models.import_hf import (
+        import_llama,
+    )
+    from tensorflow_train_distributed_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < 45e9:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free under {root}; the "
+                           "checkpoint and its export need ~45")
+    cfg = registry.get_config("llama2_7b_sft")
+    src = convert.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(SEED), device="cuda")
+    ck, out = os.path.join(root, "ck_7b"), os.path.join(root, "hf_7b_full")
+    shutil.rmtree(ck, ignore_errors=True)
+    stats = dict(card=smi_line(),
+                 config=f"llama2_7b_sft ({cfg.num_layers} layers)",
+                 params=sum(v.numel() for v in src.values()))
+    t0 = time.perf_counter()
+    with _host_memory_peaks() as save_peaks:
+        CheckpointManager(ck).save(0, {"params": src})
+    stats.update(save_s=time.perf_counter() - t0,
+                 checkpoint_bytes=hf_io.checkpoint_bytes(
+                     os.path.join(ck, "0")), save_host_peaks=save_peaks)
+    log(f"  saved: {json.dumps(stats)}")
+    t0 = time.perf_counter()
+    with _host_memory_peaks() as export_peaks:
+        export_hf_from_registry("llama2_7b_sft", ck, out)
+    stats.update(export_s=time.perf_counter() - t0,
+                 export_bytes=hf_io.checkpoint_bytes(out),
+                 export_shards=len([f for f in os.listdir(out)
+                                    if f.endswith(".bin")]),
+                 export_host_peaks=export_peaks)
+    log(f"  exported: {json.dumps(stats)}")
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    with _host_memory_peaks() as import_peaks:
+        _, imported = import_llama(out, cfg, device="cuda")
+        torch.cuda.synchronize()
+    stats.update(import_s=time.perf_counter() - t0,
+                 import_host_peaks=import_peaks)
+    same = set(imported) == set(src) and all(
+        torch.equal(imported[k], v) for k, v in src.items())
+    del imported
+    _free()
+    shutil.rmtree(out, ignore_errors=True)
+    # From the card's weights: no file is mapped, so the resident growth
+    # is the writer's own memory.
+    t0 = time.perf_counter()
+    with _host_memory_peaks() as card_peaks:
+        export_llama(cfg, src, out)
+    stats.update(export_from_card_s=time.perf_counter() - t0,
+                 export_from_card_host_peaks=card_peaks)
+    del src
+    _free()
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"  Llama-2-7B HF export at full depth: {json.dumps(stats)}")
+    if not same:
+        raise AssertionError("the full-depth import differs from the "
+                             "exported weights")
+    return stats
+
+
+def _program_leg(root: str) -> dict:
+    """(d): export_program of phase 16's mnist checkpoint, run on the
+    card against predict_fn on the restored weights."""
+    import os
+
+    import numpy as np
+    import torch
+    from tensorflow_train_distributed_torch import export_program as EP
+    from tensorflow_train_distributed_torch.data.datasets import (
+        SyntheticMNIST,
+    )
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    ck = os.path.abspath(MNIST_DIR)
+    if not os.path.isdir(ck):
+        # Run alone, without phase 16: its checkpoint takes ~3 s.
+        phase_mnist()
+    path = os.path.join(root, "mnist.pt2")
+    t0 = time.perf_counter()
+    EP.export_from_registry("mnist", ck, path)
+    export_s = time.perf_counter() - t0
+    served = EP.load_program(path, "cuda")
+    task = registry.make_task(registry.get_entry("mnist"), device="meta")
+    params = CheckpointManager(ck).restore_params()
+    task.model.load_state_dict({k: v.to("cuda") for k, v in params.items()},
+                               strict=True, assign=True)
+    task.model.eval()
+    src = SyntheticMNIST(num_examples=256)
+    errs = {}
+    for n in (128, 37):
+        batch = {k: torch.as_tensor(np.stack([src[i][k] for i in range(n)]),
+                                    device="cuda") for k in src[0]}
+        with torch.no_grad():
+            want = task.predict_fn(batch)
+        got = served(batch)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"(d) the program at batch {n} is not "
+                                 f"predict_fn's")
+        errs[n] = (got - want).abs().max().item()
+    stats = dict(card=smi_line(), export_s=export_s,
+                 program_bytes=os.path.getsize(path),
+                 max_abs_err_by_batch=errs, tolerance="1e-5 (rtol, atol)")
+    log(f"  (d) export_program mnist: {json.dumps(stats)}")
+    return stats
+
+
+def phase_interop(phase11_eval=None) -> tuple:
+    """Phase 24 (the module docstring): returns ({path: launches} of
+    vit_tiny, hf_train and hf_serve; the vit_tiny row of the kernels'
+    line, K3 measured at its [8, 10]; the stats)."""
+    import os
+    import shutil
+
+    import torch
+
+    root = os.path.abspath(INTEROP_DIR)
+    os.makedirs(root, exist_ok=True)
+    legs, stats, counts = {}, {}, {}
+    try:
+        row = _cross_entropy_cases(
+            torch.Generator(device="cuda").manual_seed(SEED + 24), 8, 10)
+        for leg, fn in (("a", lambda: _vit_leg(root)),
+                        ("b", lambda: _hf_launcher_leg(root, phase11_eval)),
+                        ("c", lambda: _hf_engine_leg(root))):
+            t0 = time.perf_counter()
+            path = {"a": "vit_tiny", "b": "hf_train", "c": "hf_serve"}[leg]
+            counts[path], stats[leg] = fn()
+            legs[leg] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["d"] = _program_leg(root)
+        legs["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.abspath(SAMPLE_DIR), ignore_errors=True)
+    stats["leg_s"] = legs
+    log(f"  legs {json.dumps(legs)}")
+    return counts, row, stats
+
+
+
 def main() -> int:
     import torch
 
@@ -6297,6 +6889,15 @@ def main() -> int:
     fleet["phase3_decode_ms_per_step"] = engines["llama2_7b_bf16"][
         "decode_ms_per_step"]
     rows["fleet_serve"] = {k: rows["serve"][k] for k in FLEET_KERNELS}
+    torch.cuda.empty_cache()
+    log("== phase 24: ViT-B/16 through the launcher; HF export and "
+        "--init-from-hf (llama_125m_lm, Llama-2-7B width); export_program")
+    interop_counts, rows["vit_tiny"], interop = phase_interop(
+        launcher["eval"])
+    # (b)'s kernels at phase 5's shapes, (c)'s at phase 2's (the same
+    # per-layer shapes as phase 3).
+    rows["hf_train"] = {k: rows["train"][k] for k in LAUNCH_KERNELS}
+    rows["hf_serve"] = {k: rows["serve"][k] for k in SERVE_KERNELS}
 
     paths = {"serve": counts, "linear_serve": run3["linear_counts"],
              "autosize_serve": autosize_counts, "launch_fused": fused_counts,
@@ -6307,7 +6908,7 @@ def main() -> int:
              "lora_launch": lora_counts, "lora_7b": lora_7b_counts,
              "spec_serve": spec_counts, "lane_control": lane_counts,
              "generate": generate_counts, "fleet_serve": fleet_counts,
-             **moe_counts22}
+             **moe_counts22, **interop_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -6327,6 +6928,7 @@ def main() -> int:
     print(json.dumps({"generation": generation}), flush=True)
     print(json.dumps({"moe_serving": moe_serving}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"interop": interop}), flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

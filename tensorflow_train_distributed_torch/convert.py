@@ -8,8 +8,10 @@ array keeps its flax layout — dense kernels ``[in, out]``, the embedding
 ``[vocab, d_model]``, norm scales and biases ``[d]`` (named ``scale`` and
 ``bias``, as flax names them), the MoE experts' stacked kernels
 ``[E, in, out]`` (``layer_{i}/moe/experts/wi_gate/kernel`` →
-``layers.{i}.moe.experts.wi_gate.kernel``) — except conv kernels, which
-go from flax's HWIO to torch's OIHW.  A LoRA model (``LlamaConfig.lora``)
+``layers.{i}.moe.experts.wi_gate.kernel``), ViT's ``cls_token`` [1, 1,
+d] and ``pos_embedding`` [seq, d] as they are — except conv kernels
+(ViT's ``patch_embed`` among them), which go from flax's HWIO to torch's
+OIHW.  A LoRA model (``LlamaConfig.lora``)
 holds its adapters under flax's names too (``…/query/lora_a`` [in, r],
 ``…/query/lora_b`` [r, out], f32), so they carry across like any leaf.  BatchNorm's running statistics
 (flax's ``batch_stats`` collection) are the model's buffers: a flat key

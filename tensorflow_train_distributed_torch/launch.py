@@ -14,9 +14,14 @@ learning rate, schedule, warmup ratio and global-norm clip unless a flag
 overrides them.  Weights come from the newest good checkpoint in
 ``--checkpoint-dir`` (unless ``--no-resume``), else from ``--params-npz``
 (an ``np.savez`` of the flat flax parameter dict), else at random from
-``--seed``.  A resumed run takes the data stream up mid-epoch where the
-checkpoint left it, so a run that was killed and resumed ends where an
-uninterrupted one does.
+``--seed``; ``--init-from-hf DIR`` starts from a local HuggingFace
+checkpoint instead (``models/import_hf.py``: Llama-family and sparse-MoE
+decoders into the config's model, a BERT masked-LM checkpoint into a
+task rebuilt around its own config), and a later resume from
+``--checkpoint-dir`` takes precedence over the import; ``--eval-only``
+evaluates an import too.  A resumed run takes the data stream up
+mid-epoch where the checkpoint left it, so a run that was killed and
+resumed ends where an uninterrupted one does.
 
 Standard output carries one JSON line per logged step (every
 ``--log-every`` steps and the last), one per evaluation event
@@ -58,7 +63,7 @@ and ``--profile-dir`` captures a ``torch.profiler`` trace of the
 ``--profile-steps START,STOP`` window.
 
 Flags of the JAX launcher that need what the port does not have yet
-(more than one device or process, HF import, the profiler server) are
+(more than one device or process, the profiler server) are
 parsed and refused, each with the ROADMAP item that brings it, exit 2.
 ``--device`` (default ``cuda``) never falls back to the CPU; on CUDA the
 launcher pins cuDNN to its deterministic algorithms, so a resumed run of
@@ -95,7 +100,6 @@ _REFUSED = {
     "process_id": f"{_Q1} item 5 (multi-GPU)",
     "platform": f"{_Q1} item 5 (multi-GPU); the port takes --device",
     "cpu_devices": f"{_Q1} item 5 (multi-GPU)",
-    "init_from_hf": f"{_Q1} item 6 (HF import)",
     # jax.profiler's remote-capture server has no PyTorch counterpart;
     # --profile-dir captures a step window instead.
     "profiler_port": f"{_Q1} item 7 (tooling, step 8: PyTorch has no "
@@ -258,6 +262,10 @@ def build_parser(light: bool = False) -> argparse.ArgumentParser:
     a("--params-npz", default="",
       help="np.savez of the flat flax params (default: random weights "
       "from --seed)")
+    a("--init-from-hf", default=None, metavar="DIR",
+      help="start from a local HuggingFace checkpoint directory "
+      "(Llama-family, Mixtral / Qwen2-MoE or BERT masked-LM); a resume "
+      "from --checkpoint-dir takes precedence")
     a("--device", default="cuda",
       help="torch device (default cuda; 'cpu' runs the kernels' plain "
       "versions)")
@@ -273,7 +281,7 @@ def build_parser(light: bool = False) -> argparse.ArgumentParser:
         "refused", "JAX launcher flags the port does not implement yet")
     r = refused.add_argument
     for flag in ("--strategy", "--mesh", "--dcn", "--grad-quant",
-                 "--coordinator-address", "--init-from-hf", "--platform"):
+                 "--coordinator-address", "--platform"):
         r(flag, default=None)
     for flag in ("--grad-overlap", "--num-processes", "--process-id",
                  "--cpu-devices", "--profiler-port"):
@@ -626,6 +634,16 @@ def run(args) -> RunResult:
                          "--eval-steps (and optionally --eval-every)")
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
+    if args.init_from_hf is not None:
+        if args.params_npz:
+            raise SystemExit("--init-from-hf and --params-npz both name "
+                             "the weights; pass one")
+        if args.lora_rank:
+            raise SystemExit("--init-from-hf with --lora-rank is not "
+                             "supported: the import carries no adapters")
+        if not os.path.isdir(args.init_from_hf):
+            raise SystemExit(f"--init-from-hf: no HuggingFace checkpoint "
+                             f"directory at {args.init_from_hf}")
     if args.steps_per_execution < 1:
         raise SystemExit(f"--steps-per-execution must be >= 1, got "
                          f"{args.steps_per_execution}")
@@ -696,9 +714,10 @@ def run(args) -> RunResult:
     if args.checkpoint_dir:
         _check_lora_sidecar(args.checkpoint_dir, spec)
     # With the workers reading every record and no in-process consumer
-    # (evaluation, BLEU), the trainer builds no source at all.
+    # (evaluation, BLEU, the HF import's sample batch), the trainer builds
+    # no source at all.
     service_only = (args.data_workers > 0 and args.eval_steps <= 0
-                    and args.bleu_eval <= 0)
+                    and args.bleu_eval <= 0 and args.init_from_hf is None)
     source = None if service_only else make_source(args, entry)
     eval_source = source
     if args.eval_split:
@@ -775,13 +794,16 @@ def run(args) -> RunResult:
     dispatcher = service_start_s = None
     try:
         params = None
+        resuming = (ckpt is not None and not args.no_resume
+                    and ckpt.latest_step() is not None)
         if args.params_npz:
             from tensorflow_train_distributed_torch import convert
 
             params = convert.load_npz(args.params_npz, entry["config"])
+        elif args.init_from_hf is not None and not resuming:
+            task, params = _init_from_hf(args, trainer, loader)
         state = trainer.create_state(params)
-        if (ckpt is not None and not args.no_resume
-                and ckpt.latest_step() is not None):
+        if resuming:
             # The manager checks a step before it writes into the
             # template, so a failed restore leaves the fresh state whole.
             restored = ckpt.restore(state)
@@ -793,10 +815,11 @@ def run(args) -> RunResult:
                 state = restored
                 logger.info("resumed from step %d", state.step)
         if args.eval_only:
-            if ckpt is None or ckpt.last_restore is None:
+            restored = ckpt is not None and ckpt.last_restore is not None
+            if not restored and (args.init_from_hf is None or resuming):
                 raise SystemExit("--eval-only needs a restorable "
                                  "checkpoint (--checkpoint-dir with a "
-                                 "saved state)")
+                                 "saved state) or --init-from-hf")
             eval_metrics = _with_bleu(
                 args, trainer, _eval_view(args, state), make_eval_loader(),
                 _evaluate(trainer, make_eval_loader(),
@@ -883,6 +906,52 @@ def run(args) -> RunResult:
     summary["data_service_start_s"] = service_start_s
     return RunResult(state, history.history, eval_metrics, preempted,
                      summary)
+
+
+def _init_from_hf(args, trainer, loader) -> tuple:
+    """(task, params) of ``--init-from-hf``: a Llama-family or sparse-MoE
+    checkpoint into the config's own model (whose config the importer's
+    guards hold to the checkpoint's); a BERT checkpoint with the task
+    rebuilt around its HF-compat config, which must still cover the data
+    pipeline's vocabulary and sequence length.  Parameters land on the
+    device in the policy's parameter dtype."""
+    from tensorflow_train_distributed_torch.models import import_hf, registry
+    from tensorflow_train_distributed_torch.models.bert import BertConfig
+    from tensorflow_train_distributed_torch.models.llama import LlamaConfig
+    from tensorflow_train_distributed_torch.models.moe import MoeConfig
+
+    path, task = args.init_from_hf, trainer.task
+    cfg = task.config
+    kw = dict(device=args.device, dtype=trainer.policy.param_dtype)
+    try:
+        if isinstance(cfg, MoeConfig):
+            # Mixtral or Qwen2-MoE, as the checkpoint's model_type says.
+            hf_cfg, params = import_hf.import_moe(path, config=cfg, **kw)
+        elif isinstance(cfg, LlamaConfig):
+            hf_cfg, params = import_hf.import_llama(path, config=cfg, **kw)
+        elif isinstance(cfg, BertConfig):
+            hf_cfg, params = import_hf.import_bert(path, **kw)
+            seq = next(iter(loader))["input_ids"].shape[1]
+            if hf_cfg.vocab_size < cfg.vocab_size:
+                raise SystemExit(
+                    f"HF checkpoint vocab ({hf_cfg.vocab_size}) is smaller "
+                    f"than the config's ({cfg.vocab_size}) — token ids "
+                    "would index past the embedding table")
+            if hf_cfg.max_positions < seq:
+                raise SystemExit(
+                    f"HF checkpoint max_positions ({hf_cfg.max_positions}) "
+                    f"< the pipeline's sequence length ({seq})")
+            task = registry.make_task({"config": hf_cfg}, device="meta")
+            trainer.task = task
+        else:
+            raise SystemExit(
+                f"--init-from-hf supports Llama-, Mixtral- and "
+                f"BERT-family --config; {args.config!r} is none of these")
+    except ValueError as e:
+        raise SystemExit(f"--init-from-hf {path}: {e}")
+    logger.info("initialized from HF checkpoint %s (%d layers)", path,
+                hf_cfg.num_layers)
+    return task, params
 
 
 def _check_lora_sidecar(checkpoint_dir: str, spec) -> None:

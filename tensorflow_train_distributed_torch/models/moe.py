@@ -503,10 +503,13 @@ class MoeLmTask:
         self.config = config
         self.model = MoeLmModel(config, device=device)
 
-    def loss_fn(self, batch: dict, train: bool = True):
+    def loss_fn(self, batch: dict, train: Optional[bool] = None):
         """(loss, metrics) of one batch: the cross-entropy plus, in
         training, the aux terms (in evaluation they stay a metric, as
-        they cover pad rows the weights cannot mask)."""
+        they cover pad rows the weights cannot mask).  ``train`` defaults
+        to the model's mode (``Trainer.evaluate`` runs it in eval mode)."""
+        if train is None:
+            train = self.model.training
         logits, aux, stats = self.model(
             batch["tokens"], segment_ids=batch.get("segment_ids"))
         logits = logits.float()

@@ -4,7 +4,7 @@ keyword arguments where they differ from its defaults (``task_kwargs``:
 ResNet's label smoothing and weight decay), and the training
 conventions of the JAX entry (dataset and its kwargs, global batch,
 peak learning rate, schedule, warmup ratio, global-norm clip).
-``make_task`` builds the entry's task.  ViT waits for its slice."""
+``make_task`` builds the entry's task."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from tensorflow_train_distributed_torch.models.resnet import RESNET_PRESETS
 from tensorflow_train_distributed_torch.models.transformer import (
     TRANSFORMER_PRESETS,
 )
+from tensorflow_train_distributed_torch.models.vit import VIT_PRESETS
 
 _SFT = dict(dataset="lm", dataset_kwargs={}, global_batch_size=64,
             learning_rate=2e-5, lr_schedule="warmup_cosine",
@@ -58,6 +59,16 @@ _ENTRIES = {
         dataset_kwargs=dict(num_classes=10, image_size=32),
         global_batch_size=64, learning_rate=1e-3,
         task_kwargs=dict(label_smoothing=0.0, weight_decay=0.0)),
+    # ViT: ResNet's ImageNet pipeline under an encoder stack, trained the
+    # AugReg way (warmup + cosine, global-norm clip 1.0).
+    "vit_b16_imagenet": dict(
+        _RESNET, config=VIT_PRESETS["vit_b16"], learning_rate=3e-3,
+        lr_schedule="warmup_cosine", warmup_ratio=0.03, grad_clip_norm=1.0),
+    "vit_tiny": dict(
+        _DEFAULTS, config=VIT_PRESETS["vit_tiny"], dataset="imagenet",
+        dataset_kwargs=dict(num_classes=10, image_size=32),
+        global_batch_size=64, learning_rate=1e-3,
+        task_kwargs=dict(label_smoothing=0.0)),
     # Reference config[2]: BERT-base MLM.
     "bert_base_mlm": dict(
         _DEFAULTS, config=BERT_PRESETS["bert_base"], dataset="mlm",
@@ -128,6 +139,7 @@ def make_task(entry: dict, *, device=None):
         moe,
         resnet,
         transformer,
+        vit,
     )
 
     cfg, kw = entry["config"], entry.get("task_kwargs", {})
@@ -137,6 +149,7 @@ def make_task(entry: dict, *, device=None):
             (bert.BertConfig, bert.BertMlmTask),
             (transformer.TransformerConfig, transformer.Seq2SeqTask),
             (resnet.ResNetConfig, resnet.make_task),
+            (vit.VitConfig, vit.make_task),
             (lenet.LeNetConfig, lenet.make_task)):
         if isinstance(cfg, cfg_type):
             return make(cfg, device=device, **kw)

@@ -17,8 +17,8 @@ overrides the expert dispatch (one parameter tree serves both), and
 Prompts are token ids, ``--prompt 1,15043,29892``, repeatable for a batch
 of equal-length rows.  Each row prints one JSON line ``{"prompt": [...],
 "completion": [...]}`` (speculation prints ``{"speculative_stats": ...}``
-first), as the JAX CLI does.  ``--init-from-hf`` is not ported: it
-exits 2 naming the ROADMAP item that brings it.
+first), as the JAX CLI does.  ``--init-from-hf DIR`` samples a local
+HuggingFace checkpoint (``serve.py``'s loader, ``models/import_hf.py``).
 
   python -m tensorflow_train_distributed_torch.sample \\
       --config llama_tiny_sft --checkpoint-dir ck --prompt 1,2,3 \\
@@ -36,22 +36,20 @@ import torch
 
 from tensorflow_train_distributed_torch.models.moe import MoeConfig
 
-# Flags of the JAX CLI the port refuses, with the ROADMAP item that
-# brings each.
-_REFUSED = {
-    "init_from_hf": "ROADMAP Queue 1 item 6 (HF import)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", required=True,
                    help="registry config name (a llama- or moe-family "
                         "preset)")
-    p.add_argument("--checkpoint-dir", default="",
-                   help="the newest checkpoint the launcher wrote here")
-    p.add_argument("--params-npz", default="",
-                   help="np.savez of the flat flax params")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--checkpoint-dir", default="",
+                     help="the newest checkpoint the launcher wrote here")
+    src.add_argument("--params-npz", default="",
+                     help="np.savez of the flat flax params")
+    src.add_argument("--init-from-hf", default="", metavar="DIR",
+                     help="local HuggingFace checkpoint (llama-family or "
+                          "sparse-MoE)")
     p.add_argument("--prompt", action="append", required=True,
                    metavar="IDS", help="comma-separated token ids; repeat "
                    "for a batch (rows of one length)")
@@ -87,7 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the "
                         "kernels' plain versions)")
-    p.add_argument("--init-from-hf", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -106,15 +103,10 @@ def main(argv=None) -> int:
     )
 
     args = build_parser().parse_args(argv)
-    for dest, item in _REFUSED.items():
-        if getattr(args, dest):
-            flag = "--" + dest.replace("_", "-")
-            print(f"sample: {flag} is not ported; {item} brings it",
-                  file=sys.stderr)
-            return 2
     cfg = apply_dispatch_arg(args, decoder_config(args.config, "sampling"))
-    if not (args.checkpoint_dir or args.params_npz):
-        raise SystemExit("the weights: --checkpoint-dir or --params-npz")
+    if not (args.checkpoint_dir or args.params_npz or args.init_from_hf):
+        raise SystemExit("the weights: --checkpoint-dir, --params-npz or "
+                         "--init-from-hf")
     rows = [parse_prompt(spec) for spec in args.prompt]
     if len({len(r) for r in rows}) != 1:
         raise SystemExit(
@@ -154,7 +146,7 @@ def main(argv=None) -> int:
             raise SystemExit("speculative decoding is batch-1: pass ONE "
                              "--prompt")
     draft_cfg, draft_params = load_draft(args, cfg)
-    params = load_params(args, cfg)     # LoRA adapters merged
+    cfg, params = load_params(args, cfg)     # LoRA adapters merged
     quant_scales = None
     if args.quant:
         from tensorflow_train_distributed_torch.models.quant import (

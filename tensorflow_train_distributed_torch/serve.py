@@ -41,12 +41,15 @@ is for Llama-family configs.
 Weights come from ``--checkpoint-dir`` (the parameters of the newest
 checkpoint the port's launcher wrote there, restored without the rest of
 the train state), ``--params-npz`` (an ``np.savez`` of the flat flax
-parameter dict, ``convert.load_npz``) or, without either, are made at
-random from ``--seed`` on the device.  A LoRA checkpoint is served
-merged: its ``lora_spec.json`` gives rank, alpha and targets (``--lora-*``
-flags that contradict it exit non-zero), the adapters are checked
-against it and folded into their kernels (``lora.merge_lora``) before the
-engine is built.
+parameter dict, ``convert.load_npz``), ``--init-from-hf`` (a local
+HuggingFace checkpoint directory, Llama-family or sparse-MoE, read by
+``models/import_hf.py`` straight onto the device in the config's dtype;
+an MoE import serves at capacity E / k, HF's routing) or, without any of
+them, are made at random from ``--seed`` on the device.  A LoRA
+checkpoint is served merged: its ``lora_spec.json`` gives rank, alpha and
+targets (``--lora-*`` flags that contradict it exit non-zero), the
+adapters are checked against it and folded into their kernels
+(``lora.merge_lora``) before the engine is built.
 
 ``--no-paged-kv`` serves on the per-slot linear cache (same tokens).
 ``--kv-pool-blocks auto`` solves the pool's size and the engine's
@@ -253,8 +256,23 @@ def lora_serving_spec(args, cfg):
     return spec
 
 
-def load_params(args, cfg) -> dict:
-    """The served weights (the module docstring), LoRA adapters merged."""
+def _import_hf(args, cfg) -> tuple:
+    """(config, params) of ``--init-from-hf``, on ``--device`` in the
+    config's dtype; an importer's refusal exits with its message."""
+    from tensorflow_train_distributed_torch.models import import_hf
+
+    importer = (import_hf.import_moe if isinstance(cfg, MoeConfig)
+                else import_hf.import_llama)
+    try:
+        return importer(args.init_from_hf, cfg, device=args.device)
+    except (ValueError, FileNotFoundError) as e:
+        raise SystemExit(str(e))
+
+
+def load_params(args, cfg) -> tuple:
+    """(config, the served weights) (the module docstring), LoRA adapters
+    merged; the config is ``cfg``, or the import's for ``--init-from-hf``
+    (an MoE import's capacity E / k)."""
     from tensorflow_train_distributed_torch.models.lora import (
         check_spec_matches,
         merge_lora,
@@ -263,10 +281,13 @@ def load_params(args, cfg) -> dict:
         CheckpointManager,
     )
 
-    if args.checkpoint_dir and args.params_npz:
-        raise SystemExit("--checkpoint-dir and --params-npz both name the "
-                         "weights; pass one")
-    if args.checkpoint_dir:
+    if sum(map(bool, (args.checkpoint_dir, args.params_npz,
+                      args.init_from_hf))) > 1:
+        raise SystemExit("--checkpoint-dir, --params-npz and "
+                         "--init-from-hf each name the weights; pass one")
+    if args.init_from_hf:
+        cfg, params = _import_hf(args, cfg)
+    elif args.checkpoint_dir:
         params = CheckpointManager(args.checkpoint_dir).restore_params()
         if params is None:
             raise SystemExit(f"no checkpoint in {args.checkpoint_dir}")
@@ -282,7 +303,7 @@ def load_params(args, cfg) -> dict:
         except ValueError as e:
             raise SystemExit(str(e))
         params = merge_lora(params, spec)
-    return params
+    return cfg, params
 
 
 def add_engine_args(p) -> None:
@@ -292,12 +313,17 @@ def add_engine_args(p) -> None:
     load and configure the engine alike."""
     p.add_argument("--config", required=True,
                    help=f"decoder config: {', '.join(registry.available())}")
-    p.add_argument("--params-npz", default="",
-                   help="np.savez of the flat flax params (default: random "
-                        "weights from --seed)")
-    p.add_argument("--checkpoint-dir", default="",
-                   help="serve the newest checkpoint the launcher wrote "
-                        "here (LoRA adapters merged per its lora_spec.json)")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--params-npz", default="",
+                     help="np.savez of the flat flax params (default: "
+                          "random weights from --seed)")
+    src.add_argument("--checkpoint-dir", default="",
+                     help="serve the newest checkpoint the launcher wrote "
+                          "here (LoRA adapters merged per its "
+                          "lora_spec.json)")
+    src.add_argument("--init-from-hf", default="", metavar="DIR",
+                     help="local HuggingFace checkpoint (llama-family or "
+                          "sparse-MoE) to serve directly")
     p.add_argument("--lora-rank", type=int, default=0,
                    help="the rank the checkpoint's adapters were trained "
                         "with (default: its lora_spec.json)")
@@ -443,7 +469,7 @@ def build_engine(args, cfg, prefix: list):
     if spec_depths is not None and draft_cfg is None:
         raise SystemExit("--spec-depth adaptive needs "
                          "--speculative-draft-config")
-    params = load_params(args, cfg)
+    cfg, params = load_params(args, cfg)
     quant_scales = draft_quant_scales = None
     if args.quant == "int8":
         from tensorflow_train_distributed_torch.models.quant import (

@@ -235,10 +235,11 @@ class CheckpointManager:
 
     # -- restore ---------------------------------------------------------
 
-    def _read(self, step: int) -> tuple:
+    def _read(self, step: int, mmap: bool = False) -> tuple:
         """(manifest, tensor bytes) of a committed step, validated: a
         missing marker, an unreadable manifest or short tensor bytes
-        raise."""
+        raise.  With ``mmap`` the bytes are the file mapped copy-on-write
+        (read as they are touched, never written back), not a copy."""
         d = self._step_dir(step)
         if not os.path.exists(os.path.join(d, COMMIT_MARKER)):
             raise ValueError(
@@ -250,7 +251,10 @@ class CheckpointManager:
             raise ValueError(f"checkpoint step {step}: format "
                              f"{manifest.get('format')!r}, expected "
                              f"{FORMAT}")
-        blob = np.fromfile(os.path.join(d, TENSORS), dtype=np.uint8)
+        path = os.path.join(d, TENSORS)
+        blob = (np.memmap(path, dtype=np.uint8, mode="c")
+                if mmap and os.path.getsize(path)      # (none maps empty)
+                else np.fromfile(path, dtype=np.uint8))
         for name, e in manifest["tensors"].items():
             if e["offset"] + e["nbytes"] > blob.size:
                 raise ValueError(
@@ -369,15 +373,26 @@ class CheckpointManager:
                        ) -> Optional[dict]:
         """The ``params`` subtree as host tensors ``{name: tensor}``,
         with no template (for tools that need only the weights); None
-        when no checkpoint exists."""
+        when no checkpoint exists.  The tensors view the step's file
+        mapped copy-on-write: nothing else of the step (the optimizer
+        state) is read, and a page is read when a tensor touches it."""
+        return self._restore_subtree("params/", step)
+
+    def restore_model_state(self, step: Optional[int] = None
+                            ) -> Optional[dict]:
+        """The ``model_state`` subtree (BatchNorm's running statistics,
+        ``{"batch_stats/…": tensor}``; empty for a model without any) as
+        ``restore_params`` reads the weights."""
+        return self._restore_subtree("model_state/", step)
+
+    def _restore_subtree(self, prefix: str, step: Optional[int]
+                         ) -> Optional[dict]:
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        manifest, blob = self._read(step)
-        return {name[len("params/"):]: self._tensor(manifest, blob,
-                                                    name).clone()
-                for name in manifest["tensors"]
-                if name.startswith("params/")}
+        manifest, blob = self._read(step, mmap=True)
+        return {name[len(prefix):]: self._tensor(manifest, blob, name)
+                for name in manifest["tensors"] if name.startswith(prefix)}
 
 
 def _rebuild(template, leaves: dict, path: str = ""):

@@ -363,8 +363,23 @@ def test_sample_cli_prints_the_jax_cli_lines(tmp_path, capsys, monkeypatch):
             1 if extra else 0)
     base = ["--config", "llama_tiny_sft", "--checkpoint-dir", ck,
             "--prompt", "1,2", "--device", "cpu"]
-    assert tsample.main(base + ["--init-from-hf", "hf"]) == 2
-    assert "is not ported" in capsys.readouterr().err
+    # --init-from-hf: the checkpoint exported as an HF directory samples
+    # the same tokens; it names the weights alone.
+    from tensorflow_train_distributed_torch.models.export_hf import (
+        export_hf_from_registry,
+    )
+
+    hf = str(export_hf_from_registry("llama_tiny_sft", ck, tmp_path / "hf"))
+    hf_args = ["--config", "llama_tiny_sft", "--max-new", "12", *rows,
+               "--device", "cpu"]
+    assert tsample.main(hf_args + ["--checkpoint-dir", ck]) == 0
+    want_hf = capsys.readouterr().out
+    assert tsample.main(hf_args + ["--init-from-hf", hf]) == 0
+    assert capsys.readouterr().out == want_hf
+    with pytest.raises(SystemExit) as e:
+        tsample.main(base + ["--init-from-hf", hf])
+    assert e.value.code == 2
+    assert "not allowed with argument" in capsys.readouterr().err
     assert tsample.main(base + ["--quant", "int8"]) == 0
     assert len(capsys.readouterr().out.splitlines()) == 1
     for flags, match in (
