@@ -370,6 +370,35 @@
    same engine's on the source weights.  (d) ``export_program`` of phase
    16's mnist checkpoint (traced on the CPU), loaded and run on the card
    at two batch sizes against ``predict_fn`` on the restored weights.
+25. Multi-GPU code paths on one card (the card's machine has one GPU, so
+   no collective crosses two cards here).  (a) K6 with ``group_offset``
+   (K6-EP: an expert shard's rows, zeros elsewhere) at Qwen1.5-MoE-A2.7B's
+   width (E 60, D 2048, F 1408, 4,096 tokens x top-4, 4 shards of 15
+   experts) and at moe_370m's training shapes (16,384 rows, 2 and 4
+   shards): each shard's forward (bf16 -> f32), grad_lhs (f32 x bf16 ->
+   bf16) and tgmm against ``gmm_reference``/``tgmm_reference`` with the
+   offset within ``K.gmm_tolerance``, every row outside the shard exactly
+   0, the shards' outputs summed equal to the unsharded kernel's bit for
+   bit and each tgmm shard equal to its slice of the unsharded one bit
+   for bit; shard 0 timed beside the unsharded kernel at the same width,
+   its bound (the live groups' bytes and products) and ``F.grouped_mm``
+   over the same local groups.  (b) moe_370m's MoE block (gmm, b 8 x s
+   1024, bf16 over f32) with its expert group emulated in this process:
+   E/4 experts a shard through ``moe.expert_rows(..., group_offset=e0)``,
+   the rows summed where the expert-parallel path all-reduces them, then
+   ``combine_rows``; against the unsharded block the output bit for bit,
+   the tokens' gradient within relative L2 1e-4 and each shard's stack
+   gradients its slice bit for bit; the K6-EP launches counted over this
+   drive alone.  (c) The launcher through ``init_process_group("nccl")``
+   at world size 1 (``--num-processes 1 --process-id 0
+   --coordinator-address``), in this process: llama2_7b_sft LoRA under
+   its registry strategy fsdp_tp (a 1x1 mesh here), phase 18's flags, its
+   losses equal to phase 18's bit for bit; moe_370m (gmm) under
+   ``--strategy dp_ep --zero1 --grad-quant int8`` for 5 steps, with the
+   JAX data=1 warning, its losses equal to the plain single-process run's
+   bit for bit.  At world size 1 the expert axis is 1: (c) runs the
+   unsharded gmm dispatch and checks the NCCL init, the mesh knobs'
+   no-op and the warning, not ``group_offset`` (which (a) and (b) do).
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -550,6 +579,13 @@ KERNELS += [
 # Phase 11's run (k): the launcher's kernels, 4 steps a trainer call.
 KERNELS += [(name, source, where, "launch_fused")
             for name, source, where, path in KERNELS if path == "launch"]
+# Phase 25 (b): K6 with a group_offset (K6-EP), counted apart, over the
+# one-card expert-parallel decomposition of moe_370m's block; measured in
+# (a) at that block's shapes (4 shards of 2 experts).
+KERNELS += [
+    ("gmm_ep", _CSRC + "grouped_matmul.cu", _MB + ":314", "ep_block"),
+    ("tgmm_ep", _CSRC + "grouped_matmul.cu", _MB + ":573", "ep_block"),
+]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LANE_KERNELS = [k[0] for k in KERNELS if k[3] == "lane_control"]
 FLEET_KERNELS = [k[0] for k in KERNELS if k[3] == "fleet_serve"]
@@ -605,22 +641,31 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+# The H100's top SM clock, cycles a second (sizes the device sleep).
+SM_HZ = 1.98e9
+
+
 def device_ms(fn, *, launches: int = 40, repeats: int = 5,
               warmup: int = 3) -> float:
     """Median over ``repeats`` of the mean device time of ``launches``
     back-to-back calls, timed with CUDA events.  A device sleep queued
     first keeps the stream busy while the host enqueues, so the events
-    bracket device work only."""
+    bracket device work only: twice the host's time for the launches
+    (a warmup call's, the first included), within 5e6 and 5e7 cycles."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / max(warmup, 1)
     torch.cuda.synchronize()
+    cycles = int(min(max(2 * launches * host_s * SM_HZ, 5e6), 5e7))
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(launches):
             fn()
@@ -6235,8 +6280,11 @@ def _fleet_disagg(prompts, max_new) -> tuple:
         rc = proc.wait(timeout=300)
         wrc = [w.wait(timeout=120) for w in workers]
         if rc != 0 or wrc != [0, 0]:
+            err.flush()
+            with open(os.path.join(FLEET_DIR, "disagg.log")) as f:
+                tail = f.read()[-3000:]
             raise AssertionError(f"(c) drain exits: gateway {rc}, workers "
-                                 f"{wrc}")
+                                 f"{wrc}; the log's tail:\n{tail}")
     finally:
         err.close()
         for p in [proc, *workers]:
@@ -6754,6 +6802,391 @@ def phase_interop(phase11_eval=None) -> tuple:
 
 
 
+# -- phase 25: multi-GPU code paths on one card -------------------------------
+
+EP_KERNELS = ["gmm_ep", "tgmm_ep"]
+
+
+def _gmm_ep_case(gen, label, kind, m, k, n, sizes, n_shards, *,
+                 timing) -> dict:
+    """K6-EP for one product of the MoE step (``kind`` as ``_gmm_case``)
+    over ``n_shards`` expert shards of E / n_shards groups: each shard
+    against the plain version with its offset within ``K.gmm_tolerance``,
+    its rows outside the shard exactly 0; the shards' outputs summed
+    (gmm) or concatenated (tgmm) against the unsharded kernel bit for
+    bit.  Shard 0 is timed beside the unsharded kernel, its bound (the
+    local rows' bytes and products, all m output rows written), the
+    plain version and ``F.grouped_mm`` over the same local groups."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    e = sizes.shape[0]
+    local = e // n_shards
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    if kind == "fwd":
+        a, w, out_dtype, depth = randn(m, k), randn(e, k, n), torch.float32, k
+        operands, tensor_cores = (a, w), True
+
+        def run(off=None, w_=w):
+            return K.gmm_forward(a, w_, sizes, out_dtype, False,
+                                 group_offset=off)
+
+        def plain(aa, ww, dt, off):
+            return K.gmm_reference(aa, ww, sizes, preferred_element_type=dt,
+                                   group_offset=off)
+    elif kind == "grad_lhs":
+        a, w = randn(m, n, dtype=torch.float32), randn(e, k, n)
+        out_dtype, depth, tensor_cores = bf, n, False
+        operands = (a, w)
+
+        def run(off=None, w_=w):
+            return K.gmm_forward(a, w_, sizes, out_dtype, True,
+                                 group_offset=off)
+
+        def plain(aa, ww, dt, off):
+            return K.gmm_reference(aa, ww, sizes, preferred_element_type=dt,
+                                   transpose_rhs=True, group_offset=off)
+    else:
+        a, c = randn(m, k), randn(m, n, dtype=torch.float32)
+        out_dtype, tensor_cores = bf, False
+        operands = (a, c)
+
+        def run(off=None, w_=None):
+            return K.tgmm_forward(a, c, sizes, out_dtype, group_offset=off,
+                                  num_actual_groups=None if off is None
+                                  else local)
+
+        def plain(aa, cc, dt, off):
+            return K.tgmm_reference(aa.t(), cc, sizes,
+                                    preferred_element_type=dt,
+                                    group_offset=off,
+                                    num_actual_groups=local)
+    body = (K.gmm_body(a, w, kind == "grad_lhs") if kind != "tgmm"
+            else K.tgmm_body(a, c))
+    full = run()
+    spans = K._group_spans(sizes, m)
+    parts, errs = [], []
+    for s in range(n_shards):
+        off = s * local
+        w_local = None if kind == "tgmm" else w[off:off + local].contiguous()
+        got = run(off, w_local)
+        ops = (a, w_local) if kind != "tgmm" else (a, c)
+        ref32 = plain(*ops, torch.float32, off)
+        sumsq32 = plain(*(t.float() ** 2 for t in ops), torch.float32, off)
+        ref = plain(*ops, out_dtype, off)
+        if kind == "tgmm":
+            d = torch.tensor([end - start for g, start, end in spans
+                              if off <= g < off + local],
+                             dtype=torch.float32, device="cuda")[:, None, None]
+        else:
+            d = depth
+        allowed = K.gmm_tolerance(got, ref32, sumsq32, d, tensor_cores)
+        what = f"{kind} {label} shard {s}/{n_shards} (experts {off}-" \
+               f"{off + local - 1})"
+        _check(f"{what} vs f32", got, ref32, allowed,
+               f"K.gmm_tolerance, {'tensor cores' if tensor_cores else 'f32'}")
+        errs.append(_check(f"{what} vs its plain version", got, ref,
+                           (ref.float() - ref32).abs() + allowed,
+                           "|plain - ref32| + the above"))
+        if kind != "tgmm":
+            r0, r1 = spans[off][1], spans[off + local - 1][2]
+            outside = torch.cat([got[:r0], got[r1:]])
+            if outside.any():
+                raise AssertionError(f"{what}: {int((outside != 0).sum())} "
+                                     f"values outside the shard's rows "
+                                     f"[{r0}, {r1}) are not 0 ({body} body)")
+            parts.append(got)
+        else:
+            if not torch.equal(got, full[off:off + local]):
+                raise AssertionError(
+                    f"{what}: not its slice of the unsharded tgmm bit for "
+                    f"bit ({body} body)")
+        del ref32, sumsq32, ref, allowed
+    if kind != "tgmm":
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        if not torch.equal(total, full):
+            raise AssertionError(
+                f"{kind} {label}: the {n_shards} shards summed differ from "
+                f"the unsharded kernel ({int((total != full).sum())} values; "
+                f"{body} body)")
+        log(f"  {kind} {label}: {n_shards} shards summed equal the unsharded "
+            f"kernel bit for bit ({body} body); rows outside each shard 0")
+    else:
+        log(f"  {kind} {label}: each of {n_shards} shards equals its slice "
+            f"of the unsharded tgmm bit for bit ({body} body)")
+    del parts
+    # Shard 0: timed, with its bound and the library over its groups.
+    off, r0 = 0, spans[0][1]
+    r1 = spans[local - 1][2]
+    rows = r1 - r0
+    local_offs = torch.cumsum(sizes[:local], 0).to(torch.int32)
+    w0 = None if kind == "tgmm" else w[:local].contiguous()
+    el = 2 if out_dtype == bf else 4
+    if kind == "fwd":
+        nbytes = rows * k * 2 + local * k * n * 2 + m * n * el
+        lib = lambda: F.grouped_mm(a[r0:r1], w0, offs=local_offs,
+                                   out_dtype=out_dtype)
+        near = lambda: F.grouped_mm(a[r0:r1], w0, offs=local_offs)
+    elif kind == "grad_lhs":
+        nbytes = rows * n * 4 + local * k * n * 2 + m * k * el
+        lib = lambda: F.grouped_mm(a[r0:r1], w0.transpose(1, 2),
+                                   offs=local_offs, out_dtype=out_dtype)
+        near = None
+    else:
+        nbytes = rows * (k * 2 + n * 4) + local * k * n * el
+        lib = lambda: F.grouped_mm(a[r0:r1].t(), c[r0:r1], offs=local_offs,
+                                   out_dtype=out_dtype)
+        near = None
+    flops = 2 * rows * k * n
+    bnd, _ = product_bound(nbytes + 4 * e, flops, not tensor_cores)
+    row = dict(case=label, kind=kind, shards=n_shards, local_experts=local,
+               local_rows=rows, body=body, max_abs_err=max(errs),
+               ms=device_ms(lambda: run(0, w0), **timing),
+               unsharded_ms=device_ms(run, **timing),
+               plain_ms=device_ms(lambda: plain(
+                   *((a, w0) if kind != "tgmm" else (a, c)), out_dtype, 0),
+                   **timing),
+               bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=_library_ms(lib, **timing), near_library_ms=None)
+    if near is not None and row["library_ms"] is None:
+        row["near_library_ms"] = _library_ms(near, **timing)
+    lib_txt = ("refused" if row["library_ms"] is None
+               else f"{row['library_ms'] * 1e3:.1f} us")
+    if row["near_library_ms"] is not None:
+        lib_txt += f"; with a bf16 output {row['near_library_ms'] * 1e3:.1f} us"
+    log(f"  {kind} {label} shard 0 of {n_shards} ({local} experts, {rows} of "
+        f"{m} rows): {body} body {row['ms'] * 1e3:.1f} us, unsharded "
+        f"{row['unsharded_ms'] * 1e3:.1f} us, bound {bnd[0] * 1e3:.1f} us "
+        f"({bnd[1]}), plain {row['plain_ms'] * 1e3:.1f} us, F.grouped_mm "
+        f"over its groups {lib_txt}")
+    del full
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ep_kernels() -> tuple:
+    """25 (a): K6-EP at Qwen1.5-MoE-A2.7B's width (4 shards of 15 of 60
+    experts, 4,096 tokens x top-4) and at moe_370m's training shapes (2
+    and 4 shards of 8).  Returns (the kernels' JSON-line rows, measured at
+    moe_370m's 4 shards, the shapes phase 25 (b) runs, and every case)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    cases = []
+    timing = dict(launches=10, repeats=3, warmup=2)
+    sizes = _routed_sizes(gen, 4096, 2048, 60, 4)
+    for kind, k, n in (("fwd", 2048, 1408), ("grad_lhs", 2048, 1408),
+                       ("tgmm", 2048, 1408)):
+        cases.append(_gmm_ep_case(gen, "qwen15_moe_a27b", kind, 16384, k, n,
+                                  sizes, 4, timing=timing))
+    sizes = _routed_sizes(gen, 8 * 1024, 768, 8, 2)
+    for shards in (2, 4):
+        for kind in ("fwd", "grad_lhs", "tgmm"):
+            cases.append(_gmm_ep_case(gen, "moe_370m 768->2048", kind, 16384,
+                                      768, 2048, sizes, shards,
+                                      timing=timing))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    at = [c for c in cases if c["case"].startswith("moe_370m")
+          and c["shards"] == 4]
+    rows = {"gmm_ep": next(c for c in at if c["kind"] == "fwd"),
+            "tgmm_ep": next(c for c in at if c["kind"] == "tgmm")}
+    return {k: {f: v[f] for f in keys} for k, v in rows.items()}, cases
+
+
+def phase_ep_block(shards: int = 4) -> tuple:
+    """25 (b): moe_370m's MoE block (gmm dispatch, b 8 x s 1024, bf16
+    compute over f32 stacks) forward and backward, unsharded and with its
+    expert group emulated in this process (E / ``shards`` experts a shard
+    through ``moe.expert_rows(..., group_offset=e0)``, the rows summed
+    where the expert-parallel path all-reduces them, ``combine_rows``).
+    The output bit for bit, the tokens' gradient within relative L2 1e-4
+    (phase 8b's f32 bound), each shard's stack gradients its slice bit
+    for bit.  The K6-EP launch counts are zeroed just before the sharded
+    drive and read just after.  Returns (counts, record)."""
+    import dataclasses
+
+    import torch
+    from tensorflow_train_distributed_torch.models import moe
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    cfg = dataclasses.replace(moe.MOE_PRESETS["moe_370m"], dispatch="gmm")
+    e, d, f, top_k = cfg.num_experts, cfg.d_model, cfg.ffn_size, cfg.top_k
+    local = e // shards
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    tokens = 8 * 1024
+    x = torch.randn(tokens, d, generator=gen, device="cuda").to(cfg.dtype)
+    router = torch.randn(d, e, generator=gen, device="cuda") / d ** 0.5
+    probs = torch.softmax(x.float() @ router, -1)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1)
+    gate_w = top_p / top_p.sum(-1, keepdim=True) if cfg.norm_topk_prob \
+        else top_p
+    stacks = [torch.randn(e, *shape, generator=gen, device="cuda")
+              / shape[0] ** 0.5 for shape in ((d, f), (d, f), (f, d))]
+    cot = torch.randn(tokens, d, generator=gen, device="cuda").to(cfg.dtype)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    flat, ws = leaf(x), [leaf(s) for s in stacks]
+    want = moe._routed_ffn_rows(flat, top_e, gate_w, e,
+                                *(w.to(cfg.dtype) for w in ws),
+                                dtype=cfg.dtype)
+    want.backward(cot)
+    torch.cuda.synchronize()
+    flat2 = leaf(x)
+    locs = [[leaf(s[i * local:(i + 1) * local]) for s in stacks]
+            for i in range(shards)]
+    K.reset_launch_counts()
+    outs = [moe.expert_rows(flat2, top_e, e, *(w.to(cfg.dtype) for w in lw),
+                            dtype=cfg.dtype, group_offset=i * local)
+            for i, lw in enumerate(locs)]
+    rows = outs[0][0]
+    for o, _ in outs[1:]:
+        rows = rows + o
+    got = moe.combine_rows(rows, outs[0][1], gate_w, dtype=cfg.dtype)
+    got.backward(cot)
+    torch.cuda.synchronize()
+    counts = {k: K.launch_counts()[k] for k in EP_KERNELS}
+    others = {k: v for k, v in K.launch_counts().items()
+              if k not in EP_KERNELS and v}
+    want_counts = {"gmm_ep": 6 * shards, "tgmm_ep": 3 * shards}
+    log(f"  (b) launches {counts} (expected {want_counts}); others {others}")
+    if counts != want_counts or others:
+        raise AssertionError(f"(b) K6-EP launches {counts}, others {others}")
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"(b) the {shards} shards' block output differs from the "
+            f"unsharded block ({int((got != want).sum())} values)")
+    rel = ((flat2.grad.float() - flat.grad.float()).norm()
+           / flat.grad.float().norm()).item()
+    log(f"  (b) output bit for bit; tokens' gradient relative L2 "
+        f"{rel:.3e} (bound 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"(b) tokens' gradient relative L2 {rel}")
+    for i, lw in enumerate(locs):
+        for name, w, l in zip(("wi_gate", "wi_up", "wo"), ws, lw):
+            if not torch.equal(l.grad, w.grad[i * local:(i + 1) * local]):
+                raise AssertionError(f"(b) shard {i} {name} gradient is not "
+                                     "its slice of the unsharded one")
+    log(f"  (b) each shard's stack gradients equal their slices bit for bit")
+    n_moe = -(-cfg.num_layers // cfg.moe_every)
+    per_step = {k + "_ep": v for k, v in moe_launches_per_step(cfg).items()
+                if k in ("gmm", "tgmm")}
+    rec = dict(config="moe_370m block", tokens=tokens, shards=shards,
+               local_experts=local, launches=counts, tokens_grad_rel_l2=rel,
+               derived_launches_per_rank_per_training_step_at_dp_ep=per_step,
+               moe_layers=n_moe)
+    log(f"  (b) K6-EP launches a rank would make per training step at "
+        f"dp_ep (expert 2 or 4 alike), derived by moe_launches_per_step, "
+        f"not counted: {per_step}")
+    del flat, flat2, ws, locs, outs, rows, got, want
+    _free()
+    return counts, rec
+
+
+def _moe_370m_entry() -> dict:
+    """The launcher's entry for moe_370m with the gmm dispatch (phase 8's
+    model, ``SyntheticLM`` 8 x 1024 at vocab 32,000, adamw 1e-4 constant),
+    strategy dp_ep as the JAX MoE entries."""
+    import dataclasses
+
+    from tensorflow_train_distributed_torch.models.moe import MOE_PRESETS
+
+    return dict(config=dataclasses.replace(MOE_PRESETS["moe_370m"],
+                                           dispatch="gmm"),
+                dataset="lm",
+                dataset_kwargs=dict(vocab_size=32_000, seq_len=1024),
+                global_batch_size=8, learning_rate=1e-4,
+                lr_schedule="constant", warmup_ratio=0.0, grad_clip_norm=1.0,
+                strategy="dp_ep")
+
+
+def _nccl_flags() -> list:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return ["--num-processes", "1", "--process-id", "0",
+            "--coordinator-address", f"127.0.0.1:{port}"]
+
+
+def phase_nccl_launcher(lora_losses: list) -> tuple:
+    """25 (c): the launcher through ``init_process_group("nccl")`` at world
+    size 1, in this process.  Returns (counts, record)."""
+    from tensorflow_train_distributed_torch.models import registry
+
+    import torch.distributed as dist
+
+    rec = {}
+    r = _in_process("llama2_7b_sft LoRA, nccl world 1, fsdp_tp",
+                    *LORA_7B_FLAGS, *_nccl_flags())
+    if "torch.distributed (nccl) initialized" not in r[2]:
+        raise AssertionError("(c) the launcher did not join an nccl group:\n"
+                             + r[2][-3000:])
+    if dist.is_initialized():
+        raise AssertionError("(c) the launcher left its process group up")
+    losses = _losses("(c) llama2_7b_sft LoRA nccl", r[1])
+    if losses != lora_losses:
+        raise AssertionError(f"(c) llama2_7b_sft LoRA losses at nccl world 1 "
+                             f"{losses} differ from phase 18's {lora_losses}")
+    log(f"  (c) llama2_7b_sft LoRA under fsdp_tp at nccl world 1: "
+        f"{len(losses)} losses equal phase 18's bit for bit")
+    rec["llama2_7b_sft_lora"] = dict(losses=losses, step_ms=r[3]["step_ms"],
+                                     wall_s=r[4])
+    # The smoke's own entry lives in the registry for this leg only.
+    registry._ENTRIES["moe_370m_lm_gmm"] = _moe_370m_entry()
+    flags = ["--config", "moe_370m_lm_gmm", "--steps", "5", "--log-every",
+             "1", "--seed", str(SEED), "--weight-decay", "0.1"]
+    try:
+        plain = _in_process("moe_370m plain", *flags)
+        ep = _in_process("moe_370m nccl world 1, dp_ep, zero1, int8",
+                         *flags, "--strategy", "dp_ep", "--zero1",
+                         "--grad-quant", "int8", *_nccl_flags())
+    finally:
+        del registry._ENTRIES["moe_370m_lm_gmm"]
+    if "no-op on a data=1 mesh" not in ep[2]:
+        raise AssertionError("(c) no grad_quant data=1 warning:\n"
+                             + ep[2][-3000:])
+    a, b = _losses("(c) moe plain", plain[1]), _losses("(c) moe ep", ep[1])
+    if a != b:
+        raise AssertionError(f"(c) moe_370m losses at nccl world 1 {b} "
+                             f"differ from the plain run's {a}")
+    cfg = _moe_370m_entry()["config"]
+    counts = _expect_launches("(c) moe_370m dp_ep", ep[3], {
+        k: 5 * v for k, v in moe_launches_per_step(cfg).items()})
+    log(f"  (c) moe_370m under dp_ep --zero1 --grad-quant int8 at nccl "
+        f"world 1: 5 losses equal the plain run's bit for bit, the JAX "
+        f"data=1 warning logged")
+    rec["moe_370m_dp_ep"] = dict(losses=b, step_ms=ep[3]["step_ms"],
+                                 plain_step_ms=plain[3]["step_ms"])
+    return counts, rec
+
+
+def phase_multi_gpu(lora_losses: list) -> tuple:
+    """Phase 25: (a), (b), (c).  Returns (the ep_block path's counts, its
+    kernel rows, the record)."""
+    t0 = time.perf_counter()
+    rows, cases = phase_ep_kernels()
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+    counts, block = phase_ep_block()
+    _, launcher = phase_nccl_launcher(lora_losses)
+    rec = dict(card=smi_line(), ep_kernel_cases=cases, ep_block=block,
+               nccl_world_1=launcher, seconds=time.perf_counter() - t0,
+               unverified="multi-rank NCCL (dp/fsdp/tp/EP across cards, the "
+                          "bus-bandwidth bench): this machine has one GPU")
+    return counts, rows, rec
+
+
 def main() -> int:
     import torch
 
@@ -6898,6 +7331,11 @@ def main() -> int:
     # per-layer shapes as phase 3).
     rows["hf_train"] = {k: rows["train"][k] for k in LAUNCH_KERNELS}
     rows["hf_serve"] = {k: rows["serve"][k] for k in SERVE_KERNELS}
+    torch.cuda.empty_cache()
+    log("== phase 25: multi-GPU code paths on one card (K6-EP, the "
+        "expert-parallel block, the launcher at nccl world size 1)")
+    ep_counts, rows["ep_block"], multi_gpu = phase_multi_gpu(
+        lora_7b["losses"])
 
     paths = {"serve": counts, "linear_serve": run3["linear_counts"],
              "autosize_serve": autosize_counts, "launch_fused": fused_counts,
@@ -6908,7 +7346,7 @@ def main() -> int:
              "lora_launch": lora_counts, "lora_7b": lora_7b_counts,
              "spec_serve": spec_counts, "lane_control": lane_counts,
              "generate": generate_counts, "fleet_serve": fleet_counts,
-             **moe_counts22, **interop_counts}
+             "ep_block": ep_counts, **moe_counts22, **interop_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -6929,6 +7367,7 @@ def main() -> int:
     print(json.dumps({"moe_serving": moe_serving}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"interop": interop}), flush=True)
+    print(json.dumps({"multi_gpu": multi_gpu}), flush=True)
     print(json.dumps({"kernel_cases": CASES}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

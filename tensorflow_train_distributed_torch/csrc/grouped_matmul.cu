@@ -83,6 +83,13 @@
 //   place (megablox's lhs.swapaxes(0, 1) is never built).
 // Every body keeps the group sizes on the device: warp 0 of a block
 //   walks them 32 at a time (find_row_tile, group_span).
+// Expert parallelism (megablox's group_offset, moe.py:248-265): rhs
+//   holds only the groups [goff, goff + glocal) of the groups the sizes
+//   count.  gmm: a row tile of any other group (and of the zero tail)
+//   runs no mainloop, reads nothing of rhs and stores zeros; a local
+//   group's tile reads rhs[g - goff].  tgmm: the grid's groups are the
+//   glocal local ones, block z computing group goff + z into out[z].
+//   goff 0 with glocal = groups is the unsharded call, unchanged.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -449,7 +456,8 @@ __device__ __forceinline__ void group_span(const int* sizes, int g, int m,
 template <typename TA, typename TB, typename TO, bool kMma>
 __global__ void __launch_bounds__(kThreads)
     gmm_kernel(const TA* lhs, const TB* rhs, const int* sizes, TO* out, int m,
-               int k, int n, int groups, int transpose_rhs) {
+               int k, int n, int groups, int transpose_rhs, int goff,
+               int glocal) {
   __shared__ int tile[3];               // group (groups: zero tail), row, rows
   __shared__ __align__(16) unsigned char smem[kSmem];
   if (threadIdx.x < 32) find_row_tile<kTm>(sizes, groups, m, blockIdx.x, tile);
@@ -462,9 +470,9 @@ __global__ void __launch_bounds__(kThreads)
   const int nj = min(kTn, n - j0);
   Core<kMma> core;
   core.zero();
-  if (g < groups) {
+  if (g >= goff && g < goff + glocal) {
     const Operand<TA> a{lhs + static_cast<long long>(r0) * k, k, 1, rows};
-    const TB* w = rhs + static_cast<long long>(g) * k * n;
+    const TB* w = rhs + static_cast<long long>(g - goff) * k * n;
     const Operand<TB> b =
         transpose_rhs
             ? Operand<TB>{w + static_cast<long long>(j0) * k, k, 1, nj}
@@ -477,10 +485,10 @@ __global__ void __launch_bounds__(kThreads)
 template <typename TA, typename TB, typename TO, bool kMma>
 __global__ void __launch_bounds__(kThreads)
     tgmm_kernel(const TA* lhs, const TB* rhs, const int* sizes, TO* out, int m,
-                int k, int n) {
+                int k, int n, int goff) {
   __shared__ int span[2];               // the group's first row, rows
   __shared__ __align__(16) unsigned char smem[kSmem];
-  const int g = blockIdx.z;
+  const int g = goff + blockIdx.z;
   if (threadIdx.x < 32) group_span(sizes, g, m, span);
   __syncthreads();
   const int start = span[0];
@@ -493,31 +501,31 @@ __global__ void __launch_bounds__(kThreads)
   const Operand<TA> a{lhs + static_cast<long long>(start) * k + i0, 1, k, ni};
   const Operand<TB> b{rhs + static_cast<long long>(start) * n + j0, 1, n, nj};
   core.run(a, b, span[1], smem);
-  core.store(out + static_cast<long long>(g) * k * n +
+  core.store(out + static_cast<long long>(blockIdx.z) * k * n +
                  static_cast<long long>(i0) * n + j0,
              n, ni, nj);
 }
 
 template <typename TA, typename TB, typename TO, bool kMma>
 int launch_gmm(const void* lhs, const void* rhs, const void* sizes, void* out,
-               int m, int k, int n, int groups, int transpose_rhs,
-               cudaStream_t stream) {
+               int m, int k, int n, int groups, int transpose_rhs, int goff,
+               int glocal, cudaStream_t stream) {
   const dim3 grid((m + kTm - 1) / kTm + groups + 1, (n + kTn - 1) / kTn);
   gmm_kernel<TA, TB, TO, kMma><<<grid, kThreads, 0, stream>>>(
       static_cast<const TA*>(lhs), static_cast<const TB*>(rhs),
       static_cast<const int*>(sizes), static_cast<TO*>(out), m, k, n, groups,
-      transpose_rhs);
+      transpose_rhs, goff, glocal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TA, typename TB, typename TO, bool kMma>
 int launch_tgmm(const void* lhs, const void* rhs, const void* sizes,
-                void* out, int m, int k, int n, int groups,
+                void* out, int m, int k, int n, int groups, int goff,
                 cudaStream_t stream) {
   const dim3 grid((k + kTm - 1) / kTm, (n + kTn - 1) / kTn, groups);
   tgmm_kernel<TA, TB, TO, kMma><<<grid, kThreads, 0, stream>>>(
       static_cast<const TA*>(lhs), static_cast<const TB*>(rhs),
-      static_cast<const int*>(sizes), static_cast<TO*>(out), m, k, n);
+      static_cast<const int*>(sizes), static_cast<TO*>(out), m, k, n, goff);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -812,7 +820,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     gmm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tb,
                      const int* sizes, TO* out, int m, int k, int n,
-                     int groups, int vec) {
+                     int groups, int vec, int goff, int glocal) {
   constexpr int BN = gmm_bn<TA>();
   using C = WgCfg<TA, BN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -826,7 +834,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int r0 = tile[1];
   const int rows = tile[2];
   const int j0 = blockIdx.x * BN;
-  const int stages = g < groups ? (k + kWgBk - 1) / kWgBk : 0;
+  const int stages =
+      g >= goff && g < goff + glocal ? (k + kWgBk - 1) / kWgBk : 0;
+  const int gl = g - goff;              // the group's place in rhs
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     hw::regs_dec<40>();
@@ -845,12 +855,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
         unsigned char* bs = st + C::kABytes;
         if constexpr (TRANS_B) {
-          hw::tma_load_3d(bs, &tb, &full[s], d0, j0, g);
+          hw::tma_load_3d(bs, &tb, &full[s], d0, j0, gl);
         } else {
 #pragma unroll
           for (int p = 0; p < BN / 64; ++p)
             hw::tma_load_3d(bs + p * kWgBk * 128, &tb, &full[s], j0 + 64 * p,
-                            d0, g);
+                            d0, gl);
         }
       }
     }
@@ -879,11 +889,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     tgmm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                       const __grid_constant__ CUtensorMap tb,
                       const int* sizes, TO* out, int m, int k, int n,
-                      int vec) {
+                      int vec, int goff) {
   using C = WgCfg<TA, 128>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int span[2];               // the group's first row, rows
-  const int g = blockIdx.z;
+  const int g = goff + blockIdx.z;
   if (threadIdx.x < 32) group_span(sizes, g, m, span);
   uint64_t *full, *empty;
   unsigned char* base = ring_setup<C>(smem_raw, full, empty);
@@ -922,7 +932,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   consume<TA, false, 1, 128>(acc, base, full, empty, stages, wg,
                              j0 + 64 * wg < n, rows - (stages - 1) * kWgBk);
   store_tile<true, TO, 128>(acc, base,
-                            out + static_cast<long long>(g) * k * n +
+                            out + static_cast<long long>(blockIdx.z) * k * n +
                                 static_cast<long long>(i0) * n + j0,
                             n, min(128, k - i0), min(kWgBm, n - j0),
                             vec != 0, wg);
@@ -936,14 +946,14 @@ bool vec_ok(const void* out, int ld) {
 
 template <typename TA, typename TO, bool TRANS_B>
 int launch_gmm_wgmma(const void* lhs, const void* rhs, const void* sizes,
-                     void* out, int m, int k, int n, int groups,
-                     cudaStream_t stream) {
+                     void* out, int m, int k, int n, int groups, int goff,
+                     int glocal, cudaStream_t stream) {
   constexpr int BN = gmm_bn<TA>();
   using C = WgCfg<TA, BN>;
   CUtensorMap ta, tb;
   const int da = C::kSplit ? ttd::kF32 : ttd::kBF16;
   if (!hw::make_map_rows(&ta, lhs, da, 0, m, k, C::kSplit ? 32 : 64, kWgBm) ||
-      !hw::make_map_rows(&tb, rhs, ttd::kBF16, groups, TRANS_B ? n : k,
+      !hw::make_map_rows(&tb, rhs, ttd::kBF16, glocal, TRANS_B ? n : k,
                          TRANS_B ? k : n, 64, TRANS_B ? BN : kWgBk))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = gmm_wgmma_kernel<TA, TO, TRANS_B>;
@@ -953,13 +963,13 @@ int launch_gmm_wgmma(const void* lhs, const void* rhs, const void* sizes,
   const dim3 grid((n + BN - 1) / BN, (m + kWgBm - 1) / kWgBm + groups + 1);
   kernel<<<grid, kWgThreads, C::kSmem, stream>>>(
       ta, tb, static_cast<const int*>(sizes), static_cast<TO*>(out), m, k, n,
-      groups, vec_ok<TO>(out, n));
+      groups, vec_ok<TO>(out, n), goff, glocal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TA, typename TO>
 int launch_tgmm_wgmma(const void* lhs, const void* rhs, const void* sizes,
-                      void* out, int m, int k, int n, int groups,
+                      void* out, int m, int k, int n, int groups, int goff,
                       cudaStream_t stream) {
   using C = WgCfg<TA, 128>;
   CUtensorMap ta, tb;
@@ -974,7 +984,7 @@ int launch_tgmm_wgmma(const void* lhs, const void* rhs, const void* sizes,
   const dim3 grid((k + 127) / 128, (n + kWgBm - 1) / kWgBm, groups);
   kernel<<<grid, kWgThreads, C::kSmem, stream>>>(
       ta, tb, static_cast<const int*>(sizes), static_cast<TO*>(out), m, k, n,
-      vec_ok<TO>(out, n));
+      vec_ok<TO>(out, n), goff);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1053,14 +1063,20 @@ extern "C" int ttd_tgmm_body(int m, int k, int n, int lhs_dtype,
 }
 
 // ttd_gmm with the body given (to time the bodies side by side):
-// ttd_gmm_body's choice, "mma.sync" for bf16 x bf16, or "FMA".
+// ttd_gmm_body's choice, "mma.sync" for bf16 x bf16, or "FMA".  With
+// expert parallelism rhs holds the ``rhs_groups`` groups from
+// ``group_offset`` of the ``groups`` the sizes count; the rows of every
+// other group come back zero (0 and groups: the unsharded call).
 extern "C" int ttd_gmm_as(const void* lhs, const void* rhs,
                           const void* group_sizes, void* out, int m, int k,
                           int n, int groups, int transpose_rhs, int lhs_dtype,
                           int rhs_dtype, int out_dtype, int body,
-                          void* stream) {
+                          int group_offset, int rhs_groups, void* stream) {
   using namespace ttd_grouped;
   if (m <= 0 || n <= 0) return 0;
+  if (group_offset < 0 || rhs_groups < 0 ||
+      group_offset + rhs_groups > groups)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int chosen = gmm_body(k, n, transpose_rhs, lhs_dtype, rhs_dtype,
                               aligned16(lhs, rhs));
   const bool bf16s = lhs_dtype == ttd::kBF16 && rhs_dtype == ttd::kBF16;
@@ -1077,32 +1093,38 @@ extern "C" int ttd_gmm_as(const void* lhs, const void* rhs,
           if (body == kWgmma)
             return transpose_rhs
                        ? launch_gmm_wgmma<TA, TO, true>(
-                             lhs, rhs, group_sizes, out, m, k, n, groups, st)
+                             lhs, rhs, group_sizes, out, m, k, n, groups,
+                             group_offset, rhs_groups, st)
                        : launch_gmm_wgmma<TA, TO, false>(
-                             lhs, rhs, group_sizes, out, m, k, n, groups, st);
+                             lhs, rhs, group_sizes, out, m, k, n, groups,
+                             group_offset, rhs_groups, st);
           if constexpr (std::is_same<TA, bf16>::value) {
             if (body == kMmaSync)
               return launch_gmm<TA, TB, TO, true>(lhs, rhs, group_sizes, out,
                                                   m, k, n, groups,
-                                                  transpose_rhs, st);
+                                                  transpose_rhs, group_offset,
+                                                  rhs_groups, st);
           }
         }
         return launch_gmm<TA, TB, TO, false>(lhs, rhs, group_sizes, out, m,
-                                             k, n, groups, transpose_rhs, st);
+                                             k, n, groups, transpose_rhs,
+                                             group_offset, rhs_groups, st);
       });
 }
 
-// ttd_tgmm with the body given, as ttd_gmm_as.
+// ttd_tgmm with the body given, as ttd_gmm_as: out [groups, k, n] holds
+// the groups from ``group_offset`` of the sizes (0: the unsharded call).
 extern "C" int ttd_tgmm_as(const void* lhs, const void* rhs,
                            const void* group_sizes, void* out, int m, int k,
                            int n, int groups, int lhs_dtype, int rhs_dtype,
-                           int out_dtype, int body, void* stream) {
+                           int out_dtype, int body, int group_offset,
+                           void* stream) {
   using namespace ttd_grouped;
   if (k <= 0 || n <= 0 || groups <= 0) return 0;
   const int chosen = tgmm_body(m, k, n, lhs_dtype, rhs_dtype,
                                aligned16(lhs, rhs));
   const bool bf16s = lhs_dtype == ttd::kBF16 && rhs_dtype == ttd::kBF16;
-  if (m < 0 || chosen < 0 ||
+  if (m < 0 || chosen < 0 || group_offset < 0 ||
       !(body == chosen || body == kFma || (body == kMmaSync && bf16s)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1114,15 +1136,16 @@ extern "C" int ttd_tgmm_as(const void* lhs, const void* rhs,
         if constexpr (std::is_same<TA, bf16>::value) {
           if (body == kWgmma)
             return launch_tgmm_wgmma<TB, TO>(lhs, rhs, group_sizes, out, m,
-                                             k, n, groups, st);
+                                             k, n, groups, group_offset, st);
           if constexpr (std::is_same<TB, bf16>::value) {
             if (body == kMmaSync)
               return launch_tgmm<TA, TB, TO, true>(lhs, rhs, group_sizes, out,
-                                                   m, k, n, groups, st);
+                                                   m, k, n, groups,
+                                                   group_offset, st);
           }
         }
         return launch_tgmm<TA, TB, TO, false>(lhs, rhs, group_sizes, out, m,
-                                              k, n, groups, st);
+                                              k, n, groups, group_offset, st);
       });
 }
 
@@ -1139,8 +1162,8 @@ extern "C" int ttd_gmm(const void* lhs, const void* rhs,
                                          rhs_dtype,
                                          ttd_grouped::aligned16(lhs, rhs));
   return ttd_gmm_as(lhs, rhs, group_sizes, out, m, k, n, groups,
-                    transpose_rhs, lhs_dtype, rhs_dtype, out_dtype, body,
-                    stream);
+                    transpose_rhs, lhs_dtype, rhs_dtype, out_dtype, body, 0,
+                    groups, stream);
 }
 
 // lhs [m, k] (read as its transpose, [k, m]); rhs [m, n]; group_sizes
@@ -1154,5 +1177,5 @@ extern "C" int ttd_tgmm(const void* lhs, const void* rhs,
   const int body = ttd_grouped::tgmm_body(m, k, n, lhs_dtype, rhs_dtype,
                                           ttd_grouped::aligned16(lhs, rhs));
   return ttd_tgmm_as(lhs, rhs, group_sizes, out, m, k, n, groups, lhs_dtype,
-                     rhs_dtype, out_dtype, body, stream);
+                     rhs_dtype, out_dtype, body, 0, stream);
 }

@@ -1,6 +1,7 @@
-"""The ``train_distributed`` launcher on one device: flags → data →
+"""The ``train_distributed`` launcher: flags → cluster → mesh → data →
 trainer → fit / evaluate, with checkpoints and resume (the counterpart
-of the JAX package's ``launch.py``, with its flag names, for one GPU).
+of the JAX package's ``launch.py``, with its flag names), on one GPU or
+on many, one process a device.
 
     python -m tensorflow_train_distributed_torch --config llama_125m_lm \\
         --steps 1000 --checkpoint-dir /ckpt --checkpoint-every 200 \\
@@ -8,6 +9,27 @@ of the JAX package's ``launch.py``, with its flag names, for one GPU).
     python -m tensorflow_train_distributed_torch --config llama_tiny_sft \\
         --steps 20 --device cpu
     python -m tensorflow_train_distributed_torch --list-configs
+    # two ranks on the CPU (gloo), data × tensor:
+    python -m tensorflow_train_distributed_torch --config llama_tiny_sft \
+        --steps 20 --device cpu --cpu-devices 2 --strategy dp_tp
+    # one process of an N-process job (NCCL on CUDA):
+    python -m tensorflow_train_distributed_torch --config llama2_7b_sft \
+        --num-processes N --process-id I --coordinator-address host:port
+
+The cluster resolves from ``--coordinator-address``/``--num-processes``/
+``--process-id``, else the ``TTD_*`` env, ``TF_CONFIG``, Slurm,
+Kubernetes or GCE metadata (``runtime/distributed.py``); the mesh from
+``--strategy`` (default: the config's registry strategy, shrunk to fit
+the world) with ``--mesh`` axis overrides and ``--dcn`` node placement
+(``runtime/mesh.py``).  ``--cpu-devices N`` starts N local gloo ranks on
+the CPU.  ``--zero1``, ``--sharded-update``, ``--grad-quant`` and
+``--grad-overlap`` are the JAX trainer's (``training/trainer.py``).  Each
+rank reads its rows of every global batch; rank 0 prints and writes the
+checkpoints, which hold the whole state and restore at any world size
+(a device-loss relaunch with ``TTD_ELASTIC_DEVICES`` restores onto the
+survivors).  A mesh with ``seq`` or ``pipeline`` above 1 waits for slice
+20 (``runtime.mesh.SLICE_20``); one with ``tensor`` or ``fsdp`` above 1
+logs what those axes do not split yet (``runtime.mesh.UNSPLIT_COMPUTE``).
 
 The config's registry entry supplies the dataset, global batch, peak
 learning rate, schedule, warmup ratio and global-norm clip unless a flag
@@ -54,17 +76,17 @@ of that budget, and every attempt is journaled to
 each relaunch resumes from the newest good checkpoint.  A device loss
 (``mesh:device_lost`` in the fault plan, or a runtime error that reads
 as one) exits 113 after writing the survivors to the elastic sidecar;
-the relaunch comes back on the same device (the resharded restore onto
-fewer devices waits for multi-GPU).  ``--steps-per-execution k`` fuses
+the relaunch comes back on the survivors (``--cpu-devices`` shrunk to
+``TTD_ELASTIC_DEVICES``, the mesh degraded to fit), restoring the
+checkpoint resharded.  ``--steps-per-execution k`` fuses
 k optimizer steps into one trainer call (``Trainer.train_steps``); a
 resume whose remaining steps are not a multiple of k rounds them up.
 ``--tensorboard-dir`` writes the logged metrics as TensorBoard scalars,
 and ``--profile-dir`` captures a ``torch.profiler`` trace of the
 ``--profile-steps START,STOP`` window.
 
-Flags of the JAX launcher that need what the port does not have yet
-(more than one device or process, the profiler server) are
-parsed and refused, each with the ROADMAP item that brings it, exit 2.
+``--profiler-port`` (the JAX profiler server) is parsed and refused with
+the ROADMAP item that brings it, exit 2.
 ``--device`` (default ``cuda``) never falls back to the CPU; on CUDA the
 launcher pins cuDNN to its deterministic algorithms, so a resumed run of
 a convolutional model ends where an uninterrupted one does.
@@ -88,23 +110,16 @@ _Q1 = "ROADMAP Queue 1"
 # Flags of the JAX launcher the port refuses: (dest, what brings it).
 # Each defaults to None (or False), so any use of it is refused.
 _REFUSED = {
-    "strategy": f"{_Q1} item 5 (multi-GPU)",
-    "mesh": f"{_Q1} item 5 (multi-GPU)",
-    "dcn": f"{_Q1} item 5 (multi-GPU)",
-    "zero1": f"{_Q1} item 5 (multi-GPU)",
-    "grad_quant": f"{_Q1} item 5 (multi-GPU)",
-    "grad_overlap": f"{_Q1} item 5 (multi-GPU)",
-    "sharded_update": f"{_Q1} item 5 (multi-GPU)",
-    "coordinator_address": f"{_Q1} item 5 (multi-GPU)",
-    "num_processes": f"{_Q1} item 5 (multi-GPU)",
-    "process_id": f"{_Q1} item 5 (multi-GPU)",
-    "platform": f"{_Q1} item 5 (multi-GPU); the port takes --device",
-    "cpu_devices": f"{_Q1} item 5 (multi-GPU)",
     # jax.profiler's remote-capture server has no PyTorch counterpart;
     # --profile-dir captures a step window instead.
     "profiler_port": f"{_Q1} item 7 (tooling, step 8: PyTorch has no "
                      "remote-capture profiler server; use --profile-dir)",
 }
+
+
+from tensorflow_train_distributed_torch.runtime.mesh import (  # noqa: E402
+    STRATEGY_PRESETS,
+)
 
 
 def build_parser(light: bool = False) -> argparse.ArgumentParser:
@@ -122,7 +137,7 @@ def build_parser(light: bool = False) -> argparse.ArgumentParser:
         configs = f"one of {registry.available()}"
     p = argparse.ArgumentParser(
         prog="train_distributed",
-        description="Training launcher of the PyTorch port (one device)")
+        description="Training launcher of the PyTorch port")
     a = p.add_argument
     a("--config", default=None, help=f"model config; {configs}")
     a("--list-configs", action="store_true",
@@ -277,17 +292,45 @@ def build_parser(light: bool = False) -> argparse.ArgumentParser:
     a("--lora-targets", default="query,value",
       help="comma-separated Dense names to adapt: query, key, value, out, "
       "wi_gate, wi_up, wo, lm_head")
+    d = p.add_argument_group(
+        "distributed", "the cluster, the mesh and the gradient sync (the "
+        "JAX launcher's flags)").add_argument
+    d("--strategy", default=None,
+      help="mesh preset (default: the config's); one of "
+      f"{sorted(STRATEGY_PRESETS)}; the reference names (mirrored, "
+      "multi_worker_mirrored, horovod, tpu, dtensor) are accepted, "
+      "ps/parameter_server refused")
+    d("--mesh", default=None, metavar="AXIS=N,...",
+      help="mesh axis sizes overriding the preset, e.g. data=4,tensor=2 "
+      "(one axis may be -1)")
+    d("--dcn", default=None, metavar="AXIS=N,...",
+      help="multi-node placement: how many nodes divide each axis, e.g. "
+      "data=4 (ranks numbered node by node)")
+    d("--zero1", action="store_true",
+      help="ZeRO-1: optimizer state split over the data axis")
+    d("--sharded-update", action="store_true",
+      help="cross-replica sharded weight update: each data rank updates "
+      "its piece, then the params are all-gathered (implies --zero1's "
+      "split)")
+    d("--grad-quant", default="none", choices=["none", "f32", "int8"],
+      help="quantized gradient sync over data (int8 with an error-"
+      "feedback residual in the train state; f32 the exact explicit "
+      "baseline); TTD_NO_GRAD_QUANT=1 forces none")
+    d("--grad-overlap", type=int, default=4, metavar="K",
+      help="with --grad-quant: K byte-balanced buckets in reverse-"
+      "backward order, each its own sync (0/1: one sync); "
+      "TTD_NO_GRAD_OVERLAP=1 forces 0")
+    d("--coordinator-address", default=None, metavar="HOST:PORT",
+      help="rank 0's TCP store (with --num-processes, --process-id)")
+    d("--num-processes", type=int, default=None)
+    d("--process-id", type=int, default=None)
+    d("--platform", default=None, choices=["cpu", "cuda", "gpu"],
+      help="the JAX flag: picks --device (cpu, or cuda for cuda/gpu)")
+    d("--cpu-devices", type=int, default=None, metavar="N",
+      help="start N local ranks on the CPU (gloo), one process each")
     refused = p.add_argument_group(
         "refused", "JAX launcher flags the port does not implement yet")
-    r = refused.add_argument
-    for flag in ("--strategy", "--mesh", "--dcn", "--grad-quant",
-                 "--coordinator-address", "--platform"):
-        r(flag, default=None)
-    for flag in ("--grad-overlap", "--num-processes", "--process-id",
-                 "--cpu-devices", "--profiler-port"):
-        r(flag, type=int, default=None)
-    for flag in ("--zero1", "--sharded-update"):
-        r(flag, action="store_true")
+    refused.add_argument("--profiler-port", type=int, default=None)
     return p
 
 
@@ -461,10 +504,12 @@ def lora_spec(args):
 
 def make_trainer(args, entry, *, source=None, callbacks=(),
                  checkpoint_manager=None, eval_state_view=None,
-                 with_loader=True):
+                 with_loader=True, mesh=None):
     """(task, trainer, training loader) for parsed flags and a registry
     entry; the loader is None without ``with_loader`` (the data service
-    feeds the run).  Under ``--lora-rank`` the config gains the spec."""
+    feeds the run).  Under ``--lora-rank`` the config gains the spec.
+    On ``mesh`` the trainer trains on it and the loader yields this
+    rank's rows (its index along the batch axes)."""
     from tensorflow_train_distributed_torch.data.pipeline import (
         DataConfig,
         HostDataLoader,
@@ -491,17 +536,153 @@ def make_trainer(args, entry, *, source=None, callbacks=(),
                              log_grad_norm=args.log_grad_norm,
                              checkpoint_every=args.checkpoint_every,
                              eval_state_view=eval_state_view,
-                             steps_per_execution=args.steps_per_execution),
+                             steps_per_execution=args.steps_per_execution,
+                             zero1=args.zero1, grad_quant=args.grad_quant,
+                             grad_overlap=args.grad_overlap,
+                             sharded_update=args.sharded_update),
         lr_schedule=lr, device=args.device, callbacks=callbacks,
-        checkpoint_manager=checkpoint_manager)
+        checkpoint_manager=checkpoint_manager, mesh=mesh)
     if not with_loader:
         return task, trainer, None
     if source is None:
         source = make_source(args, entry)
     loader = HostDataLoader(source, DataConfig(
         global_batch_size=args.global_batch_size
-        or entry["global_batch_size"], seed=args.seed))
+        or entry["global_batch_size"], seed=args.seed),
+        **_shard_of(mesh))
     return task, trainer, loader
+
+
+def _shard_of(mesh) -> dict:
+    """The loader's process index and count: this rank's place along the
+    batch axes (ranks that differ only along tensor or expert read the
+    same rows)."""
+    if mesh is None:
+        return {}
+    axes = ("data", "fsdp")
+    return dict(process_index=mesh.index(axes),
+                process_count=mesh.group_size(axes))
+
+
+def _parse_mesh_overrides(spec: str) -> dict:
+    from tensorflow_train_distributed_torch.runtime.mesh import AXES
+
+    sizes: dict = {}
+    for part in spec.split(","):
+        if not part:
+            continue
+        axis, _, val = part.partition("=")
+        axis = axis.strip()
+        if axis not in AXES:
+            raise SystemExit(f"Unknown mesh axis {axis!r}; axes: {AXES}")
+        try:
+            sizes[axis] = int(val)
+        except ValueError:
+            raise SystemExit(f"--mesh/--dcn: {part!r} is not AXIS=N")
+    return sizes
+
+
+def _check_mesh_flags(args) -> None:
+    """The mesh flags' refusals, before any setup: an unknown or
+    parameter-server strategy, and a seq or pipeline axis above 1 (exit
+    2, naming the slice that brings them)."""
+    from tensorflow_train_distributed_torch.runtime.mesh import (
+        SLICE_20,
+        strategy_preset,
+    )
+
+    if args.strategy is not None:
+        try:
+            strategy_preset(args.strategy)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    for axis, n in (_parse_mesh_overrides(args.mesh) if args.mesh
+                    else {}).items():
+        if axis in ("seq", "pipeline") and n > 1:
+            _refuse(f"--mesh {axis}={n}", SLICE_20)
+
+
+def _build_mesh(args, entry, cluster):
+    """The run's mesh: the strategy preset (the flag, else the config's)
+    shrunk to the world, ``--mesh`` overrides, the elastic degrade,
+    ``--dcn`` placement."""
+    from tensorflow_train_distributed_torch.runtime.mesh import (
+        SLICE_20,
+        UNSPLIT_COMPUTE,
+        MeshConfig,
+        build_mesh,
+        degrade_to_fit,
+        strategy_preset,
+    )
+    from tensorflow_train_distributed_torch.runtime.supervisor import (
+        ENV_ELASTIC_DEVICES,
+    )
+
+    strategy = args.strategy or entry.get("strategy", "dp")
+    n = cluster.num_processes
+    cfg = strategy_preset(strategy, n)
+    if args.mesh:
+        sizes = cfg.axis_sizes()
+        overrides = _parse_mesh_overrides(args.mesh)
+        sizes.update(overrides)
+        if -1 not in sizes.values() and "data" not in overrides:
+            sizes["data"] = -1
+        cfg = MeshConfig(strategy=strategy, **sizes)
+    if os.environ.get(ENV_ELASTIC_DEVICES):
+        fitted = degrade_to_fit(cfg, n)
+        if fitted.axis_sizes() != cfg.axis_sizes():
+            logger.warning("elastic relaunch: mesh %s does not fit %d "
+                           "device(s); degraded to %s", cfg.axis_sizes(),
+                           n, fitted.axis_sizes())
+        cfg = fitted
+    dcn = _parse_mesh_overrides(args.dcn) if args.dcn else None
+    try:
+        sizes = cfg.resolve(n)
+    except ValueError as e:
+        raise SystemExit(f"--strategy {strategy}: {e}")
+    for axis in ("seq", "pipeline"):
+        if sizes[axis] > 1:
+            _refuse(f"--strategy {strategy} ({axis}={sizes[axis]})",
+                    SLICE_20)
+    try:
+        mesh = build_mesh(cfg, world_size=n, rank=cluster.process_id,
+                          device_type=("cuda" if args.device.startswith(
+                              "cuda") else "cpu"), dcn_axes=dcn)
+    except ValueError as e:
+        raise SystemExit(f"--strategy {strategy}: {e}")
+    logger.info("mesh: %s (strategy=%s, %d process(es))", mesh.shape,
+                strategy, n)
+    if mesh.shape["tensor"] > 1:
+        logger.warning(
+            "tensor=%d: every tensor rank runs the whole forward and "
+            "backward on the same rows; the axis splits only the optimizer "
+            "state and update, as --zero1 over data would, and saves no "
+            "parameter or activation memory (%s)", mesh.shape["tensor"],
+            UNSPLIT_COMPUTE)
+    if mesh.shape["fsdp"] > 1:
+        logger.warning(
+            "fsdp=%d: the parameters stay whole on every rank between "
+            "steps; the optimizer state and gradients are split (%s)",
+            mesh.shape["fsdp"], UNSPLIT_COMPUTE)
+    return mesh
+
+
+def _agree(args, mesh) -> None:
+    """Every rank runs the same job: its flags' digest and the mesh are
+    all-gathered and compared (a collective on the job's group, one
+    process included)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return
+    mine = json.dumps({k: v for k, v in sorted(vars(args).items())
+                       if k not in ("process_id", "fault_plan")},
+                      sort_keys=True, default=str)
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, (mine, mesh.shape))
+    if any(x != seen[0] for x in seen):
+        raise SystemExit("the job's processes disagree on their flags or "
+                         "mesh; launch every process with the same flags")
 
 
 def _eval_view(args, state):
@@ -559,17 +740,19 @@ def _with_bleu(args, trainer, state, loader, eval_metrics):
     return dict(eval_metrics or {}, bleu=bleu)
 
 
-def _stdout_lines(log_every: int, last_step: int):
+def _stdout_lines(log_every: int, last_step: int, enabled: bool = True):
     """A callback printing one JSON line per logged step (every
-    ``log_every`` and the last) and per evaluation event."""
+    ``log_every`` and the last) and per evaluation event (rank 0's only:
+    ``enabled``)."""
     from tensorflow_train_distributed_torch.training.callbacks import (
         Callback,
     )
 
     class StdoutLines(Callback):
         def on_step_end(self, step, metrics):
-            if (any(k.startswith("val_") for k in metrics)
-                    or step % max(1, log_every) == 0 or step == last_step):
+            if enabled and (any(k.startswith("val_") for k in metrics)
+                            or step % max(1, log_every) == 0
+                            or step == last_step):
                 print(json.dumps({"step": step, **metrics}), flush=True)
 
     return StdoutLines()
@@ -587,7 +770,19 @@ class RunResult:
 
 
 def run(args) -> RunResult:
-    """Build the stack from parsed flags; train and/or evaluate."""
+    """Build the stack from parsed flags; train and/or evaluate.  A
+    process group the run joins is left at its end."""
+    from tensorflow_train_distributed_torch.runtime import distributed
+
+    joined: list = []
+    try:
+        return _run(args, joined)
+    finally:
+        if joined:
+            distributed.shutdown_distributed()
+
+
+def _run(args, joined: list) -> RunResult:
     import torch
 
     from tensorflow_train_distributed_torch.data.datasets import (
@@ -614,6 +809,9 @@ def run(args) -> RunResult:
     refuse_unported(args)
     if args.config is None:
         raise SystemExit("--config is required")
+    _check_mesh_flags(args)
+    if args.platform:
+        args.device = "cpu" if args.platform == "cpu" else "cuda"
     # Arm the fault plan first (the flag wins over TTD_FAULT_PLAN), so a
     # typo'd spec dies before any setup.
     if args.fault_plan:
@@ -710,6 +908,46 @@ def run(args) -> RunResult:
                              "available")
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+    # The cluster (flags, then the TTD_*/TF_CONFIG/Slurm/Kubernetes/GCE
+    # env) and the mesh.
+    import torch.distributed as dist
+
+    from tensorflow_train_distributed_torch.runtime.distributed import (
+        initialize_distributed,
+        resolve_cluster,
+    )
+
+    try:
+        cluster = resolve_cluster(args.coordinator_address,
+                                  args.num_processes, args.process_id)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    was_up = dist.is_available() and dist.is_initialized()
+    try:
+        initialize_distributed(cluster, device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if not was_up and dist.is_initialized():
+        joined.append(True)
+    if cluster.is_multiprocess and args.data_workers:
+        raise SystemExit("--data-workers runs in one process; a "
+                         "multi-process job reads with the in-process "
+                         "loader")
+    mesh = _build_mesh(args, entry, cluster)
+    _agree(args, mesh)
+    writer = mesh.rank == 0
+    split = (mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1
+             or ((args.zero1 or args.sharded_update)
+                 and mesh.shape["data"] > 1))
+    if split and (args.optimizer in ("lamb", "adafactor")
+                  or args.ema_decay is not None):
+        what = ("--ema-decay" if args.ema_decay is not None
+                else f"--optimizer {args.optimizer}")
+        raise SystemExit(
+            f"{what} needs whole parameters in the optimizer: a mesh "
+            "that splits the optimizer state (fsdp, tensor, --zero1 or "
+            "--sharded-update over data) runs sgd, momentum, adam and "
+            "adamw; use --strategy dp")
 
     if args.checkpoint_dir:
         _check_lora_sidecar(args.checkpoint_dir, spec)
@@ -734,14 +972,15 @@ def run(args) -> RunResult:
         # the pad rows) so a finite split counts every example once.
         return HostDataLoader(eval_source, DataConfig(
             global_batch_size=global_batch, seed=args.seed + 1,
-            num_epochs=1, drop_remainder=False))
+            num_epochs=1, drop_remainder=False), **_shard_of(mesh))
 
     # val_loss reaches step events only under periodic eval; it is what
     # ReduceLROnPlateau and BestCheckpoint watch then.
     monitor = "val_loss" if args.eval_every and args.eval_steps > 0 \
         else "loss"
     history = History()
-    callbacks = [history, _stdout_lines(args.log_every, args.steps)]
+    callbacks = [history, _stdout_lines(args.log_every, args.steps,
+                                        enabled=writer)]
     if args.reduce_lr_factor is not None:
         callbacks.append(ReduceLROnPlateau(
             monitor=monitor, factor=args.reduce_lr_factor,
@@ -785,7 +1024,7 @@ def run(args) -> RunResult:
             checkpoint_manager=ckpt,
             eval_state_view=((lambda s: _eval_view(args, s))
                              if args.ema_decay is not None else None),
-            with_loader=not service_only)
+            with_loader=not service_only, mesh=mesh)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"{args.config}: {e}")
 
@@ -806,7 +1045,7 @@ def run(args) -> RunResult:
         if resuming:
             # The manager checks a step before it writes into the
             # template, so a failed restore leaves the fresh state whole.
-            restored = ckpt.restore(state)
+            restored = trainer.restore(ckpt, state)
             if restored is None:
                 logger.error("no restorable checkpoint in %s (every "
                              "retained step quarantined); starting fresh",
@@ -824,8 +1063,9 @@ def run(args) -> RunResult:
                 args, trainer, _eval_view(args, state), make_eval_loader(),
                 _evaluate(trainer, make_eval_loader(),
                           _eval_view(args, state), args))
-            print(json.dumps({"step": state.step, "eval": eval_metrics}),
-                  flush=True)
+            if writer:
+                print(json.dumps({"step": state.step, "eval": eval_metrics}),
+                      flush=True)
             return RunResult(state, history.history, eval_metrics,
                              summary=_summary(trainer, ckpt, state,
                                               eval_metrics))
@@ -895,8 +1135,9 @@ def run(args) -> RunResult:
                                          _eval_view(args, state), args)
             eval_metrics = _with_bleu(args, trainer, _eval_view(args, state),
                                       make_eval_loader(), eval_metrics)
-            print(json.dumps({"step": state.step, "eval": eval_metrics}),
-                  flush=True)
+            if writer:
+                print(json.dumps({"step": state.step, "eval": eval_metrics}),
+                      flush=True)
     finally:
         if dispatcher is not None:
             dispatcher.stop()
@@ -1059,12 +1300,75 @@ def _handle_device_loss(args, dl) -> int:
     return DEVICE_LOSS_EXIT_CODE
 
 
+def _without(argv: list, flag: str) -> list:
+    """``argv`` less ``flag`` and its value (either spelling)."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a == flag:
+            skip = True
+            continue
+        if a.startswith(flag + "="):
+            continue
+        out.append(a)
+    return out
+
+
+def _spawn_cpu_ranks(argv: list, n: int) -> int:
+    """``--cpu-devices N``: run this launcher as N gloo ranks on the CPU,
+    one process each (the JAX flag's N devices on one host), and wait;
+    the first rank to fail ends the others, and its exit code is the
+    job's."""
+    import socket
+    import subprocess
+
+    base = _without(_without(argv, "--cpu-devices"), "--platform")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    for rank in range(n):
+        cmd = [sys.executable, "-m", "tensorflow_train_distributed_torch",
+               *base, "--device", "cpu", "--num-processes", str(n),
+               "--process-id", str(rank), "--coordinator-address",
+               f"127.0.0.1:{port}"]
+        procs.append(subprocess.Popen(cmd))
+    rc = 0
+    try:
+        live = list(procs)
+        while live:
+            for p in list(live):
+                code = p.poll()
+                if code is None:
+                    continue
+                live.remove(p)
+                if code and not rc:
+                    rc = code
+                    for q in live:
+                        q.terminate()
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rc
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     argv = list(sys.argv[1:] if argv is None else argv)
-    args = build_parser(light="--supervise" in argv).parse_args(argv)
+    # The supervisor and the --cpu-devices parent only start children,
+    # which parse the flags in full: neither imports torch.
+    light = "--supervise" in argv or any(
+        a == "--cpu-devices" or a.startswith("--cpu-devices=")
+        for a in argv)
+    args = build_parser(light=light).parse_args(argv)
     if args.list_configs:
         from tensorflow_train_distributed_torch.models import registry
 
@@ -1073,6 +1377,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"{name}: dataset={e['dataset']} "
                   f"batch={e['global_batch_size']} lr={e['learning_rate']}")
         return 0
+    if args.cpu_devices is not None and not args.supervise:
+        from tensorflow_train_distributed_torch.runtime.supervisor import (
+            ENV_ELASTIC_DEVICES,
+        )
+
+        n = args.cpu_devices
+        survivors = os.environ.get(ENV_ELASTIC_DEVICES)
+        if survivors and int(survivors) < n:
+            logger.warning("elastic relaunch: %d CPU rank(s) of %d (%s)",
+                           int(survivors), n, ENV_ELASTIC_DEVICES)
+            n = int(survivors)
+        if n < 1:
+            raise SystemExit(f"--cpu-devices must be >= 1, got {n}")
+        if args.num_processes is not None or args.process_id is not None \
+                or args.coordinator_address is not None:
+            raise SystemExit("--cpu-devices starts its own ranks; drop "
+                             "--num-processes/--process-id/"
+                             "--coordinator-address")
+        return _spawn_cpu_ranks(argv, n)
     if args.supervise:
         # This process becomes the relaunch loop over a child running
         # this CLI minus the supervisor's flags; it builds no kernel and

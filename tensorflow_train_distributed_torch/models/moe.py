@@ -27,8 +27,19 @@ a decode step is a group of one token whose capacity never binds.  int8
 weight-only serving (``models.quant``) scales each expert's product in
 the dense dispatch, as the JAX ``nn.vmap`` over ``_ExpertFfn`` carries
 the ``quant`` collection; the gmm dispatch refuses int8 experts, as
-JAX's does.  Expert parallelism (``group_offset`` with a ``shard_map``
-psum) waits for a later slice.
+JAX's does.
+
+Expert parallelism (``set_expert_parallel``, a mesh whose ``expert``
+axis is above 1): each block holds only its rank's E/ep experts' stacks
+(the trainer loads them, ``training/trainer.py``); tokens stay sharded
+over the batch axes and replicated over ``expert``.  The gmm dispatch
+sorts its tokens locally and computes only its experts' rows through
+``gmm(..., group_offset=e0)`` (zeros elsewhere); one ``all_reduce`` over
+the expert group assembles the rows, where JAX uses
+``psum("expert")``, and its backward passes the cotangent through, while
+the tokens' gradient is summed over the group (each rank's covers its
+rows only).  The dense dispatch computes its experts' slice of the
+``[E, G, C, ·]`` buffers the same way.
 """
 
 from __future__ import annotations
@@ -47,10 +58,39 @@ from tensorflow_train_distributed_torch.models.llama import (
     segment_relative_positions,
 )
 from tensorflow_train_distributed_torch.ops import kernels as K
+from tensorflow_train_distributed_torch.parallel import collectives as C
 from tensorflow_train_distributed_torch.ops.losses import (
     fold_sample_weight,
     softmax_cross_entropy,
 )
+
+
+class _SumOverExperts(torch.autograd.Function):
+    """Forward: the sum over the expert group (``psum("expert")``);
+    backward: the cotangent, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return C.all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToExperts(torch.autograd.Function):
+    """Forward: the identity on a tensor every expert rank holds whole;
+    backward: the sum of the ranks' cotangents (each covers the rows of
+    its own experts)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.all_reduce(g.contiguous(), ctx.group), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,15 +255,36 @@ class _Experts(nn.Module):
 
 
 def _routed_ffn_rows(flat, top_e, gate_w, num_experts, wi_gate, wi_up, wo,
-                     *, dtype):
+                     *, dtype, group_offset=None, ep_group=None):
     """The dropless routed FFN over ``flat`` [T, d] tokens with the
     router's choices ``top_e`` and gates ``gate_w`` [T, k]: sort token
     copies by expert (stable, as ``jnp.argsort``), count each expert's
     rows on the device, pad the rows to ``GMM_ROW_PAD`` (zero rows added
     to the last expert: silu(0)·0 = 0, sliced off before the combine),
     run the SwiGLU as three grouped matmuls with f32 outputs, unsort and
-    gate-combine."""
-    t, d = flat.shape
+    gate-combine (``expert_rows``, then ``combine_rows``).
+
+    With ``group_offset`` the stacks hold experts [offset, offset +
+    E_local) and this is one expert rank's share: only its experts' rows
+    are computed (zeros elsewhere), and the sum over ``ep_group``
+    assembles every row, each computed by exactly one rank, before the
+    combine."""
+    if ep_group is not None:
+        flat = _CopyToExperts.apply(flat, ep_group)
+    out, order = expert_rows(flat, top_e, num_experts, wi_gate, wi_up, wo,
+                             dtype=dtype, group_offset=group_offset)
+    if ep_group is not None:
+        out = _SumOverExperts.apply(out, ep_group)
+    return combine_rows(out, order, gate_w, dtype=dtype)
+
+
+def expert_rows(flat, top_e, num_experts, wi_gate, wi_up, wo, *, dtype,
+                group_offset=None):
+    """The expert FFN's rows: ([m_pad, d] f32 in expert order, the
+    sort order).  With ``group_offset``, one expert shard's rows (zeros
+    elsewhere): a sum over the shards' is the unsharded result bit for
+    bit, since each row is one shard's product plus zeros."""
+    t = flat.shape[0]
     top_k = top_e.shape[-1]
     e_flat = top_e.reshape(-1)                          # [T*k] token-major
     order = torch.argsort(e_flat, stable=True)
@@ -237,13 +298,20 @@ def _routed_ffn_rows(flat, top_e, gate_w, num_experts, wi_gate, wi_up, wo,
         xs = F.pad(xs, (0, 0, 0, m_pad - m))
         sizes[num_experts - 1] += m_pad - m
     sizes = sizes.to(torch.int32)
-    gate = K.gmm(xs, wi_gate, sizes)
-    up = K.gmm(xs, wi_up, sizes)
+    gate = K.gmm(xs, wi_gate, sizes, group_offset=group_offset)
+    up = K.gmm(xs, wi_up, sizes, group_offset=group_offset)
     h = (F.silu(gate) * up).to(dtype)
-    out = K.gmm(h, wo, sizes)                           # [m_pad, d] f32
+    return K.gmm(h, wo, sizes, group_offset=group_offset), order
+
+
+def combine_rows(out, order, gate_w, *, dtype):
+    """Unsort ``out`` (``expert_rows``'s) and gate-combine each token's
+    k rows: [T, d] in ``dtype``."""
+    t, top_k = gate_w.shape
+    m = t * top_k
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(m, device=flat.device)
-    y = out[:m][inv].reshape(t, top_k, d)
+    inv[order] = torch.arange(m, device=order.device)
+    y = out[:m][inv].reshape(t, top_k, out.shape[-1])
     return torch.sum(y * gate_w[..., None], dim=1).to(dtype)
 
 
@@ -260,6 +328,9 @@ class MoEMlpBlock(nn.Module):
             raise ValueError(f"unknown MoeConfig.dispatch {cfg.dispatch!r} "
                              "(expected 'dense' or 'gmm')")
         self.config = cfg
+        # (process group, ranks, this rank's index) of the expert axis;
+        # None without expert parallelism (``set_expert_parallel``).
+        self.expert_parallel = None
         self.router = L.Dense(cfg.d_model, cfg.num_experts,
                               dtype=torch.float32, device=device)
         self.experts = _Experts(cfg.num_experts, cfg.d_model, cfg.ffn_size,
@@ -316,12 +387,24 @@ class MoEMlpBlock(nn.Module):
         total = torch.sum(routed)
         stats = (1.0 - total / desired,
                  torch.sum(routed, dim=(0, 1)) / torch.clamp(total, min=1.0))
+        ep = self.expert_parallel
+        if ep is not None:
+            # This rank's experts' slice of the buffers; the full tensors
+            # it is cut from are held whole by every expert rank.
+            group, n, ix = ep
+            e_local = cfg.num_experts // n
+            local = slice(ix * e_local, (ix + 1) * e_local)
+            x = _CopyToExperts.apply(x, group)
+            combine = _CopyToExperts.apply(combine, group)[:, :, local]
+            dispatch = dispatch[:, :, local]
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cfg.dtype), x)
         gate = self._expert_product("wi_gate", "egcd,edf->egcf", expert_in)
         up = self._expert_product("wi_up", "egcd,edf->egcf", expert_in)
         expert_out = self._expert_product("wo", "egcf,efd->egcd",
                                           F.silu(gate) * up)
         y = torch.einsum("gsec,egcd->gsd", combine.to(cfg.dtype), expert_out)
+        if ep is not None:
+            y = _SumOverExperts.apply(y, ep[0])
         return y, lb, stats
 
     def _gmm_moe(self, x, probs):
@@ -347,8 +430,12 @@ class MoEMlpBlock(nn.Module):
             routed.mean(0) * p2.mean(0)) / k
         stats = (torch.zeros((), device=x.device),
                  routed.sum(0) / float(n_tokens * k))
+        ep = self.expert_parallel
+        offset = None if ep is None else ep[2] * (cfg.num_experts // ep[1])
         y = _routed_ffn_rows(flat, top_e, gate_w, cfg.num_experts,
-                             *self._weights(), dtype=cfg.dtype)
+                             *self._weights(), dtype=cfg.dtype,
+                             group_offset=offset,
+                             ep_group=None if ep is None else ep[0])
         return y.reshape(groups, group_size, d), lb, stats
 
     def _add_shared(self, x, routed):
@@ -362,6 +449,39 @@ class MoEMlpBlock(nn.Module):
             g = torch.sigmoid(self.shared_gate(x.float()))
             shared = shared * g.to(shared.dtype)
         return routed + shared
+
+
+def set_expert_parallel(model: nn.Module, mesh) -> int:
+    """Shard every ``MoEMlpBlock`` of ``model`` over the mesh's ``expert``
+    axis: each block keeps its rank's E/ep experts' stacks (fresh
+    storage on the stacks' device, to be loaded by the caller) and runs
+    the expert-parallel dispatch.  Refuses ``num_experts % expert`` and,
+    for ``dispatch="gmm"``, an expert × tensor mesh (the JAX package's
+    refusals).  Returns the number of blocks sharded."""
+    n = mesh.shape["expert"]
+    blocks = [m for m in model.modules() if isinstance(m, MoEMlpBlock)]
+    if n <= 1:
+        return 0
+    for b in blocks:
+        cfg = b.config
+        if cfg.num_experts % n:
+            raise ValueError(
+                f"num_experts={cfg.num_experts} not divisible by the "
+                f"expert mesh axis ({n})")
+        if cfg.dispatch == "gmm" and mesh.shape["tensor"] > 1:
+            raise ValueError(
+                "dispatch='gmm' supports data×fsdp×expert meshes; an "
+                "expert×tensor mesh keeps dispatch='dense'")
+    for b in blocks:
+        e_local = b.config.num_experts // n
+        b.expert_parallel = (mesh.group("expert"), n, mesh.index("expert"))
+        for name in ("wi_gate", "wi_up", "wo"):
+            stack = getattr(b.experts, name)
+            k = stack.kernel
+            stack.kernel = nn.Parameter(torch.empty(
+                (e_local,) + tuple(k.shape[1:]), dtype=k.dtype,
+                device=k.device))
+    return len(blocks)
 
 
 class MoeDecoderBlock(nn.Module):

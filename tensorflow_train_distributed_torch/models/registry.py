@@ -3,8 +3,9 @@ package's ``models/registry.py``): name → the model config, the task's
 keyword arguments where they differ from its defaults (``task_kwargs``:
 ResNet's label smoothing and weight decay), and the training
 conventions of the JAX entry (dataset and its kwargs, global batch,
-peak learning rate, schedule, warmup ratio, global-norm clip).
-``make_task`` builds the entry's task."""
+peak learning rate, schedule, warmup ratio, global-norm clip) and its
+mesh preset (``strategy``, ``runtime.mesh.STRATEGY_PRESETS``; "dp" where
+the JAX entry names none).  ``make_task`` builds the entry's task."""
 
 from __future__ import annotations
 
@@ -119,6 +120,19 @@ _ENTRIES = {
     "moe_tiny_lm_gmm": dict(_TINY, config=dataclasses.replace(
         MOE_PRESETS["moe_tiny"], dispatch="gmm")),
 }
+
+
+# The JAX entries' strategies where they are not "dp".
+_STRATEGIES = {
+    "gemma_7b_sft": "fsdp_tp", "llama2_7b_sft": "fsdp_tp",
+    "llama31_8b_sft": "fsdp_tp", "qwen25_7b_sft": "fsdp_tp",
+    "mistral_7b_lm": "fsdp_tp", "llama_tiny_pp": "dp_pp",
+    "llama_tiny_sft": "dp_tp", "mixtral_8x7b": "dp_ep",
+    "moe_tiny_lm": "dp_ep", "moe_tiny_shared_lm": "dp_ep",
+    "qwen15_moe_a27b": "dp_ep", "qwen_moe_tiny_lm": "dp_ep",
+}
+for _name, _entry in _ENTRIES.items():
+    _entry.setdefault("strategy", _STRATEGIES.get(_name, "dp"))
 
 
 def get_entry(name: str) -> dict:

@@ -19,7 +19,9 @@ has two faces with one signature and layout (the JAX function's):
 Every wrapper adds one to ``LAUNCHES[name]`` (``_count``, under a lock: a
 fleet's driver threads launch concurrently) where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels (``reset_launch_counts`` / ``launch_counts``).  K1f, K1b, K4 and
+kernels (``reset_launch_counts`` / ``launch_counts``); K6 with a
+``group_offset`` (an expert shard's groups) counts as ``gmm_ep`` /
+``tgmm_ep``.  K1f, K1b, K4 and
 K5 have two bodies each, K6 three and K2/K7 four, one launch either way
 (K1b's warp body sums dscale's per-block rows in a second kernel of the
 same call); ``rms_norm_body``, ``rms_norm_bwd_body``,
@@ -44,7 +46,9 @@ LAUNCHES = {"rms_norm": 0, "rms_norm_bwd": 0, "cross_entropy": 0,
             "cross_entropy_bwd": 0, "flash_attention": 0,
             "flash_attention_bwd": 0, "splash_attention": 0,
             "splash_attention_bwd": 0, "paged_attention": 0,
-            "paged_kv_gather": 0, "gmm": 0, "tgmm": 0}
+            "paged_kv_gather": 0, "gmm": 0, "tgmm": 0,
+            # K6 with a group_offset (expert parallelism), counted apart.
+            "gmm_ep": 0, "tgmm_ep": 0}
 
 # Element-type codes shared with csrc/common.cuh (ttd::DType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -1031,14 +1035,23 @@ def _group_spans(group_sizes: torch.Tensor, rows: int):
 def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
                   group_sizes: torch.Tensor, *,
                   preferred_element_type: torch.dtype = torch.float32,
-                  transpose_rhs: bool = False) -> torch.Tensor:
+                  transpose_rhs: bool = False,
+                  group_offset: Optional[int] = None) -> torch.Tensor:
     """Plain version of megablox ``gmm``: ``out[r] = lhs[r] @ rhs[g]`` for
     the rows r of group g (consecutive rows, ``group_sizes`` [E] int32
     counting them in order), ``rhs`` [E, k, n] or, with ``transpose_rhs``,
     [E, n, k]; rows past the sizes' sum are zero.  A loop over groups with
     ``torch.matmul`` in f32 (megablox computes bf16 x bf16 products
     exactly and accumulates in f32, and any f32 operand in f32), rounded
-    once to ``preferred_element_type``.  Differentiable by autograd."""
+    once to ``preferred_element_type``.  Differentiable by autograd.
+
+    ``group_offset`` (megablox's, expert parallelism): ``rhs`` holds the
+    groups [offset, offset + rhs.shape[0]) of the ``group_sizes`` ones;
+    rows of every other group come back zero."""
+    if group_offset is not None:
+        return _gmm_reference_local(lhs, rhs, group_sizes,
+                                    preferred_element_type, transpose_rhs,
+                                    int(group_offset))
     m = lhs.shape[0]
     n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
     pieces = []
@@ -1051,20 +1064,60 @@ def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
     return torch.cat(pieces).to(preferred_element_type)
 
 
+def _gmm_reference_local(lhs, rhs, group_sizes, out_dtype, transpose_rhs,
+                         offset: int) -> torch.Tensor:
+    """``gmm_reference`` with ``group_offset``: the local groups' rows
+    from ``rhs[g - offset]``, zeros for the others and past the sum."""
+    m = lhs.shape[0]
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    local = range(offset, offset + rhs.shape[0])
+    pieces = []
+    for g, start, end in _group_spans(group_sizes, m):
+        if g in local:
+            w = rhs[g - offset].float()
+            pieces.append(lhs[start:end].float() @ (w.t() if transpose_rhs
+                                                    else w))
+        else:
+            pieces.append(lhs.new_zeros((end - start, n),
+                                        dtype=torch.float32))
+    done = sum(p.shape[0] for p in pieces)
+    pieces.append(lhs.new_zeros((m - done, n), dtype=torch.float32))
+    return torch.cat(pieces).to(out_dtype)
+
+
+def _local_groups(group_sizes, group_offset, num_actual_groups) -> tuple:
+    """(offset, count) of tgmm's output groups: all of them without an
+    offset, else ``num_actual_groups`` (default: the groups from the
+    offset on)."""
+    e = group_sizes.shape[0]
+    if group_offset is None and num_actual_groups is None:
+        return 0, e
+    off = int(group_offset or 0)
+    count = e - off if num_actual_groups is None else int(num_actual_groups)
+    if off < 0 or count < 1 or off + count > e:
+        raise ValueError(f"tgmm: groups [{off}, {off + count}) do not lie "
+                         f"in the {e} the sizes count")
+    return off, count
+
+
 def tgmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
                    group_sizes: torch.Tensor, *,
-                   preferred_element_type: torch.dtype = torch.float32
+                   preferred_element_type: torch.dtype = torch.float32,
+                   group_offset: Optional[int] = None,
+                   num_actual_groups: Optional[int] = None
                    ) -> torch.Tensor:
     """Plain version of megablox ``tgmm``: ``out[g] = lhs[:, rows of g] @
     rhs[rows of g]`` with ``lhs`` [k, m] (megablox's layout), ``rhs``
     [m, n]; [E, k, n], zero for an empty group.  f32 math, rounded once
-    to ``preferred_element_type``."""
+    to ``preferred_element_type``.  With ``group_offset`` (and
+    megablox's ``num_actual_groups``) only the local groups [offset,
+    offset + count) are computed: [count, k, n]."""
     k, m = lhs.shape
-    out = lhs.new_zeros((group_sizes.shape[0], k, rhs.shape[1]),
-                        dtype=torch.float32)
+    off, count = _local_groups(group_sizes, group_offset, num_actual_groups)
+    out = lhs.new_zeros((count, k, rhs.shape[1]), dtype=torch.float32)
     for g, start, end in _group_spans(group_sizes, m):
-        if end > start:
-            out[g] = lhs[:, start:end].float() @ rhs[start:end].float()
+        if end > start and off <= g < off + count:
+            out[g - off] = lhs[:, start:end].float() @ rhs[start:end].float()
     return out.to(preferred_element_type)
 
 
@@ -1103,7 +1156,8 @@ def gmm_tolerance(got: torch.Tensor, ref32: torch.Tensor,
     return allowed
 
 
-def _gmm_checks(name: str, lhs, rhs, group_sizes, transpose_rhs: bool):
+def _gmm_checks(name: str, lhs, rhs, group_sizes, transpose_rhs: bool,
+                group_offset: Optional[int] = None):
     """Raises on what the CUDA kernels do not take; returns (m, k, n)."""
     for what, t in (("lhs", lhs), ("rhs", rhs)):
         _check(name, t, what, GMM_DTYPES)
@@ -1116,7 +1170,14 @@ def _gmm_checks(name: str, lhs, rhs, group_sizes, transpose_rhs: bool):
             raise ValueError(f"tgmm: rhs {tuple(rhs.shape)} must be "
                              f"[m, n] with m = {m}")
         return m, k, rhs.shape[1]
-    if rhs.dim() != 3 or rhs.shape[0] != group_sizes.shape[0]:
+    if group_offset is not None:
+        e = group_sizes.shape[0]
+        if rhs.dim() != 3 or group_offset < 0 or rhs.shape[0] < 1 \
+                or group_offset + rhs.shape[0] > e:
+            raise ValueError(f"gmm: rhs {tuple(rhs.shape)} at group_offset "
+                             f"{group_offset} must hold groups inside the "
+                             f"{e} the sizes count")
+    elif rhs.dim() != 3 or rhs.shape[0] != group_sizes.shape[0]:
         raise ValueError(f"gmm: rhs {tuple(rhs.shape)} must be [E, k, n] "
                          f"with E = len(group_sizes) = "
                          f"{group_sizes.shape[0]}")
@@ -1142,25 +1203,28 @@ def _gmm_body_code(name: str, auto: str, body: Optional[str],
 
 def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor,
                 group_sizes: torch.Tensor, out_dtype: torch.dtype,
-                transpose_rhs: bool, body: Optional[str] = None
-                ) -> torch.Tensor:
+                transpose_rhs: bool, body: Optional[str] = None,
+                group_offset: Optional[int] = None) -> torch.Tensor:
     """K6 ``gmm`` on CUDA tensors: [m, n] in ``out_dtype``.  The group
     sizes stay on the device: the kernel's blocks read them.  ``body``
     None takes the library's choice (``gmm_body``); see
-    ``_gmm_body_code`` for a forced one."""
+    ``_gmm_body_code`` for a forced one.  ``group_offset``: ``rhs`` holds
+    the groups from there on; other groups' rows come back zero."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
-    m, k, n = _gmm_checks("gmm", lhs, rhs, group_sizes, transpose_rhs)
+    m, k, n = _gmm_checks("gmm", lhs, rhs, group_sizes, transpose_rhs,
+                          group_offset)
     lib = library()
     args = [lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), None,
-            m, k, n, rhs.shape[0], int(transpose_rhs),
+            m, k, n, group_sizes.shape[0], int(transpose_rhs),
             _DTYPE_CODES[lhs.dtype], _DTYPE_CODES[rhs.dtype],
             _DTYPE_CODES[out_dtype]]
     launch = lib.ttd_gmm
-    if body is not None:
+    if body is not None or group_offset is not None:
         args.append(_gmm_body_code(
             "gmm", gmm_body(lhs, rhs, transpose_rhs), body,
             lhs.dtype == rhs.dtype == torch.bfloat16))
+        args += [int(group_offset or 0), rhs.shape[0]]
         launch = lib.ttd_gmm_as
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
     if out.numel() == 0:
@@ -1168,30 +1232,35 @@ def gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor,
     args[3] = out.data_ptr()
     rc = launch(*args, _stream())
     _raise_on("gmm", rc)
-    _count("gmm")
+    _count("gmm" if group_offset is None else "gmm_ep")
     return out
 
 
 def tgmm_forward(lhs_mk: torch.Tensor, rhs: torch.Tensor,
                  group_sizes: torch.Tensor, out_dtype: torch.dtype,
-                 body: Optional[str] = None) -> torch.Tensor:
+                 body: Optional[str] = None,
+                 group_offset: Optional[int] = None,
+                 num_actual_groups: Optional[int] = None) -> torch.Tensor:
     """K6 ``tgmm`` on CUDA tensors, reading ``lhs_mk`` [m, k] in place
     (megablox's [k, m] operand is its transpose): [E, k, n] in
     ``out_dtype``, zero for an empty group.  ``body`` as ``gmm_forward``
-    (the choice is ``tgmm_body``)."""
+    (the choice is ``tgmm_body``); with ``group_offset`` the groups
+    [offset, offset + num_actual_groups) alone, [count, k, n]."""
     from tensorflow_train_distributed_torch.ops.cuda_build import library
 
     m, k, n = _gmm_checks("tgmm", lhs_mk, rhs, group_sizes, False)
     lib = library()
-    num_groups = group_sizes.shape[0]
+    off, num_groups = _local_groups(group_sizes, group_offset,
+                                    num_actual_groups)
     args = [lhs_mk.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), None,
             m, k, n, num_groups, _DTYPE_CODES[lhs_mk.dtype],
             _DTYPE_CODES[rhs.dtype], _DTYPE_CODES[out_dtype]]
     launch = lib.ttd_tgmm
-    if body is not None:
+    if body is not None or group_offset is not None:
         args.append(_gmm_body_code(
             "tgmm", tgmm_body(lhs_mk, rhs), body,
             lhs_mk.dtype == rhs.dtype == torch.bfloat16))
+        args.append(off)
         launch = lib.ttd_tgmm_as
     out = torch.empty((num_groups, k, n), dtype=out_dtype,
                       device=lhs_mk.device)
@@ -1200,27 +1269,34 @@ def tgmm_forward(lhs_mk: torch.Tensor, rhs: torch.Tensor,
     args[3] = out.data_ptr()
     rc = launch(*args, _stream())
     _raise_on("tgmm", rc)
-    _count("tgmm")
+    _count("tgmm" if group_offset is None else "tgmm_ep")
     return out
 
 
-def _gmm_call(lhs, rhs, group_sizes, out_dtype, transpose_rhs):
+def _gmm_call(lhs, rhs, group_sizes, out_dtype, transpose_rhs,
+              group_offset=None):
     """gmm's plain version for CPU tensors, its kernel for CUDA ones."""
     if _on_cpu("gmm", lhs, rhs, group_sizes):
         return gmm_reference(lhs, rhs, group_sizes,
                              preferred_element_type=out_dtype,
-                             transpose_rhs=transpose_rhs)
-    return gmm_forward(lhs, rhs, group_sizes, out_dtype, transpose_rhs)
+                             transpose_rhs=transpose_rhs,
+                             group_offset=group_offset)
+    return gmm_forward(lhs, rhs, group_sizes, out_dtype, transpose_rhs,
+                       group_offset=group_offset)
 
 
-def _tgmm_call(lhs_mk, rhs, group_sizes, out_dtype):
+def _tgmm_call(lhs_mk, rhs, group_sizes, out_dtype, group_offset=None,
+               num_actual_groups=None):
     """tgmm of ``lhs_mk.t()`` and ``rhs``: the plain version for CPU
     tensors, the kernel (reading ``lhs_mk`` in place) for CUDA ones."""
     if _on_cpu("tgmm", lhs_mk, rhs, group_sizes):
         return tgmm_reference(lhs_mk.t(), rhs, group_sizes,
-                              preferred_element_type=out_dtype)
+                              preferred_element_type=out_dtype,
+                              group_offset=group_offset,
+                              num_actual_groups=num_actual_groups)
     return tgmm_forward(lhs_mk.contiguous(), rhs.contiguous(), group_sizes,
-                        out_dtype)
+                        out_dtype, group_offset=group_offset,
+                        num_actual_groups=num_actual_groups)
 
 
 class _GmmFn(torch.autograd.Function):
@@ -1229,49 +1305,60 @@ class _GmmFn(torch.autograd.Function):
     transpose_rhs flipped) rounded to lhs's dtype and grad_rhs =
     tgmm(lhsᵀ, grad) rounded to rhs's dtype (swapped back when the
     forward read rhs transposed).  Each product is the kernel on CUDA
-    tensors and the plain version on CPU ones."""
+    tensors and the plain version on CPU ones.  A ``group_offset`` goes
+    to both products of the backward (megablox's ``_gmm_bwd``): grad_lhs
+    is zero off the local groups' rows, grad_rhs covers the rhs.shape[0]
+    local groups."""
 
     @staticmethod
-    def forward(ctx, lhs, rhs, group_sizes, out_dtype, transpose_rhs):
+    def forward(ctx, lhs, rhs, group_sizes, out_dtype, transpose_rhs,
+                group_offset=None):
         ctx.save_for_backward(lhs, rhs, group_sizes)
         ctx.transpose_rhs = transpose_rhs
-        return _gmm_call(lhs, rhs, group_sizes, out_dtype, transpose_rhs)
+        ctx.group_offset = group_offset
+        return _gmm_call(lhs, rhs, group_sizes, out_dtype, transpose_rhs,
+                         group_offset)
 
     @staticmethod
     def backward(ctx, grad):
         lhs, rhs, group_sizes = ctx.saved_tensors
         grad = grad.contiguous()
         dlhs = drhs = None
+        off = ctx.group_offset
         if ctx.needs_input_grad[0]:
             dlhs = _gmm_call(grad, rhs, group_sizes, lhs.dtype,
-                             not ctx.transpose_rhs)
+                             not ctx.transpose_rhs, off)
         if ctx.needs_input_grad[1]:
-            drhs = _tgmm_call(lhs, grad, group_sizes, rhs.dtype)
+            drhs = _tgmm_call(lhs, grad, group_sizes, rhs.dtype, off,
+                              None if off is None else rhs.shape[0])
             if ctx.transpose_rhs:
                 drhs = drhs.transpose(1, 2)
-        return dlhs, drhs, None, None, None
+        return dlhs, drhs, None, None, None, None
 
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
         preferred_element_type: torch.dtype = torch.float32,
-        transpose_rhs: bool = False) -> torch.Tensor:
+        transpose_rhs: bool = False,
+        group_offset: Optional[int] = None) -> torch.Tensor:
     """Grouped matmul with megablox's signature and layout (arguments as
-    ``gmm_reference``; no ``group_offset``): the kernel on CUDA tensors,
-    the plain version on CPU ones, differentiable through ``_GmmFn``.
-    The kernel takes contiguous f32/bf16 operands and int32 sizes on the
-    same device and never reads the sizes on the host."""
+    ``gmm_reference``, ``group_offset`` included): the kernel on CUDA
+    tensors, the plain version on CPU ones, differentiable through
+    ``_GmmFn``.  The kernel takes contiguous f32/bf16 operands and int32
+    sizes on the same device and never reads the sizes on the host."""
     if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
         return _GmmFn.apply(lhs, rhs, group_sizes, preferred_element_type,
-                            bool(transpose_rhs))
+                            bool(transpose_rhs), group_offset)
     return _gmm_call(lhs, rhs, group_sizes, preferred_element_type,
-                     bool(transpose_rhs))
+                     bool(transpose_rhs), group_offset)
 
 
 def tgmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
-         preferred_element_type: torch.dtype = torch.float32
-         ) -> torch.Tensor:
+         preferred_element_type: torch.dtype = torch.float32,
+         group_offset: Optional[int] = None,
+         num_actual_groups: Optional[int] = None) -> torch.Tensor:
     """Transposed grouped matmul with megablox's signature and layout
     (arguments as ``tgmm_reference``): ``lhs`` [k, m] is read in place
     when it is the transpose of a contiguous [m, k] tensor (as
     ``x.t()``), copied otherwise."""
-    return _tgmm_call(lhs.t(), rhs, group_sizes, preferred_element_type)
+    return _tgmm_call(lhs.t(), rhs, group_sizes, preferred_element_type,
+                      group_offset, num_actual_groups)

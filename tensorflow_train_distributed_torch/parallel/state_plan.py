@@ -1,0 +1,392 @@
+"""Where each piece of the train state lives on a mesh, and the step's
+collectives (the port's counterpart of what GSPMD does implicitly in the
+JAX ``Trainer``).
+
+Each parameter has a spec (``sharding.make_state_shardings``).  Its
+``expert`` axis shards the compute: an MoE block holds only its rank's
+experts' stacks (``models.moe.set_expert_parallel``).  Its other axes
+(``fsdp``, ``tensor``, and ``data`` under ZeRO-1 or the sharded update)
+shard storage: the model computes on the whole parameter, while the
+optimizer state and the update live on this rank's piece alone, and the
+updated pieces are all-gathered back into the parameter.
+
+A step, after the backward of the local batch's mean loss:
+
+1. the gradients' mean over the batch axes: one flat ``all_reduce`` over
+   ``data``, then over ``fsdp`` a ``reduce_scatter`` along the dim a
+   parameter splits over it (an ``all_reduce`` for the others), divided
+   by data × fsdp.  Under ``grad_quant`` the fsdp sum comes first and
+   exact, then the int8 error-feedback mean over ``data``
+   (``collectives.ef_grad_sync``, or ``ef_bucket_sync`` per bucket of
+   ``plan_grad_buckets`` under ``grad_overlap``), as the JAX pipeline is
+   manual over ``data`` alone.  Tensor and expert ranks hold the same
+   batch: nothing is reduced over them;
+2. under a loss scale, the finiteness of this rank's pieces and-ed over
+   every rank (``all_finite``): the pieces differ along the storage and
+   expert axes, and every rank takes or skips the step with the others;
+3. the optimizer on the pieces, the global norm of a clip summing each
+   piece's squares over the ranks holding the others
+   (``optimizers.norm_reducer``);
+4. the pieces all-gathered back.
+
+On a mesh of one rank (the trainer's when it is given none) nothing is
+reduced, split or gathered, and each step above is the identity or the
+single-device arithmetic.
+
+Checkpoints hold the whole state (``full_state``: the pieces gathered,
+the experts' stacks gathered, the error-feedback residual as one row per
+data rank), written by rank 0; ``load_full_state`` cuts it for this rank,
+refolding the residual's rows onto another data width
+(``sharding.fold_leading_replicas``), so a run saved at one world size
+restores at another.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tensorflow_train_distributed_torch.parallel import collectives as C
+from tensorflow_train_distributed_torch.parallel import sharding as S
+from tensorflow_train_distributed_torch.training import optimizers
+
+
+class StatePlan:
+    """The state's layout on ``mesh`` for parameters named ``names`` with
+    full shapes ``shapes`` (``{name: shape}``)."""
+
+    def __init__(self, mesh, shapes: dict, *, zero1: bool = False,
+                 sharded_update: bool = False,
+                 rules=S.DEFAULT_RULES):
+        self.mesh = mesh
+        self.names = list(shapes)
+        self.specs = S.make_state_shardings(mesh, shapes, rules)
+        ep = mesh.shape["expert"]
+        self.expert_dim0 = {
+            k: ep > 1 and "expert" in (s[0] or ()) if s else False
+            for k, s in self.specs.items()}
+        self.local_shapes = {
+            k: ((shapes[k][0] // ep,) + tuple(shapes[k][1:])
+                if self.expert_dim0[k] else tuple(shapes[k]))
+            for k in self.names}
+        storage = {k: S.storage_axes(s) for k, s in self.specs.items()}
+        if zero1 or sharded_update:
+            storage = S.zero1_opt_shardings(mesh, self.local_shapes,
+                                            storage)
+        self.storage = storage
+        # The axes over which a parameter's gradient pieces differ: its
+        # storage split, and ``expert`` for a stack the ranks hold a
+        # slice of (the router's expert dim is whole on every rank).
+        self.norm_axes = {
+            k: tuple(a for a in S.AXES
+                     if a in S.spec_groups(mesh, storage[k])
+                     or (a == "expert" and self.expert_dim0[k]))
+            for k in self.names}
+        self.split = {k: S.num_pieces(mesh, storage[k]) > 1
+                      for k in self.names}
+        self.sharded_update = any(self.split.values())
+        self.needs_norm_reduce = any(self.norm_axes.values())
+        self.n_batch = mesh.group_size(("data", "fsdp"))
+        self.trivial = (self.n_batch == 1 and not self.sharded_update
+                        and not self.needs_norm_reduce)
+        self._axes_by_id: dict = {}
+
+    # -- the layout ------------------------------------------------------
+
+    def local_params(self, full: dict) -> dict:
+        """This rank's parameters from the full ones: each expert stack
+        cut to the rank's experts, everything else whole."""
+        m = self.mesh
+        return {k: (v.chunk(m.shape["expert"], 0)[m.index("expert")]
+                    if self.expert_dim0.get(k) else v)
+                for k, v in full.items()}
+
+    def pieces(self, params: list) -> list:
+        """The optimizer's view of the parameters: this rank's piece of
+        each (a view of its storage, flagged as the parameter is)."""
+        if not self.sharded_update:
+            return params
+        out = []
+        for k, p in zip(self.names, params):
+            if not self.split[k]:
+                out.append(p)
+                continue
+            v = S.shard(self.mesh, self.storage[k], p.detach())
+            out.append(v.requires_grad_(p.requires_grad))
+        return out
+
+    def piece_shape(self, k: str) -> tuple:
+        shape = list(self.local_shapes[k])
+        for d, axes in enumerate(self.storage[k]):
+            if axes:
+                shape[d] //= self.mesh.group_size(axes)
+        return tuple(shape)
+
+    # -- the step --------------------------------------------------------
+
+    def sync_grads(self, grads: list, *, residual: Optional[list] = None,
+                   wire: str = "none", overlap: int = 0) -> tuple:
+        """(this rank's piece of each mean gradient, the new residual, the
+        data group's finiteness flag under ``wire`` else None, the wire MB
+        a rank sent).  ``grads`` are the local batch's, None for frozen
+        parameters."""
+        m = self.mesh
+        live = [i for i, g in enumerate(grads) if g is not None]
+        out = list(grads)
+        dgrp, fgrp = m.group("data"), m.group("fsdp")
+        D, F = m.shape["data"], m.shape["fsdp"]
+        finite, wire_mb = None, 0.0
+        if wire != "none":
+            g = [grads[i].float() for i in live]
+            if fgrp is not None:
+                g = [x / F for x in _flat_all_reduce(g, fgrp)]
+            r = [residual[i] for i in live]
+            if overlap > 1:
+                mean, new_r, flags = [None] * len(g), [None] * len(g), []
+                for bucket in C.plan_grad_buckets(g, overlap):
+                    bm, br, bf = C.ef_bucket_sync(
+                        [g[j] for j in bucket], [r[j] for j in bucket],
+                        dgrp, wire=wire)
+                    for j, a, b in zip(bucket, bm, br):
+                        mean[j], new_r[j] = a, b
+                    flags.append(bf)
+                    wire_mb += C.bucket_sync_wire_bytes(
+                        [g[j] for j in bucket], D, wire) / 1e6
+                finite = torch.stack(flags).all()
+            else:
+                mean, new_r, finite = C.ef_grad_sync(g, r, dgrp, wire=wire)
+                wire_mb = C.grad_sync_wire_bytes(g, D, wire) / 1e6
+            residual = list(residual)
+            for j, i in enumerate(live):
+                residual[i] = new_r[j]
+                out[i] = S.shard(m, self.storage[self.names[i]], mean[j])
+            return out, residual, finite, wire_mb
+        g = [grads[i].float() for i in live]
+        if dgrp is not None:
+            g = _flat_all_reduce(g, dgrp)
+        rest = {}
+        if fgrp is not None:
+            plain = []
+            for j, i in enumerate(live):
+                spec = self.storage[self.names[i]]
+                d = next((d for d, a in enumerate(spec) if a == ("fsdp",)),
+                         None)
+                if d is None:
+                    plain.append(j)
+                else:
+                    g[j] = C.reduce_scatter(g[j], fgrp, scatter_dim=d)
+                    rest[j] = spec[:d] + (None,) + spec[d + 1:]
+            if plain:
+                for j, x in zip(plain, _flat_all_reduce(
+                        [g[j] for j in plain], fgrp)):
+                    g[j] = x
+        n = D * F
+        for j, i in enumerate(live):
+            spec = rest.get(j, self.storage[self.names[i]])
+            out[i] = S.shard(m, spec, g[j] / n if n > 1 else g[j])
+        return out, residual, finite, wire_mb
+
+    def all_finite(self, flag: torch.Tensor) -> torch.Tensor:
+        """``flag`` (this rank's gradient pieces are finite) and-ed over
+        every rank of the mesh."""
+        return C.all_reduce(flag.to(torch.int32), self.mesh.group(S.AXES),
+                            op="min").bool()
+
+    def _reduce_norm(self, tensors) -> torch.Tensor:
+        parts: dict = {}
+        for t in tensors:
+            if t is None:
+                continue
+            axes = self._axes_by_id.get(id(t), ())
+            sq = (t.float() * t.float()).sum()
+            parts[axes] = parts[axes] + sq if axes in parts else sq
+        total = None
+        for axes in sorted(parts):
+            s = parts[axes]
+            for a in axes:
+                s = C.all_reduce(s, self.mesh.group(a))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+
+    def norm_context(self, grads: list):
+        """``optimizers.global_norm`` over pieces held across ranks,
+        within the block (a no-op where one rank holds everything)."""
+        if not self.needs_norm_reduce:
+            return contextlib.nullcontext()
+        self._axes_by_id = {id(g): self.norm_axes[k]
+                            for k, g in zip(self.names, grads)
+                            if g is not None}
+        return optimizers.norm_reducer(self._reduce_norm)
+
+    def apply(self, tx, opt_state, params: list, grads: list):
+        """The optimizer on this rank's pieces, the pieces gathered back
+        into the parameters; returns the new optimizer state."""
+        pieces = self.pieces(params)
+        with self.norm_context(grads):
+            updates, opt_state = tx.update(grads, opt_state, pieces)
+        with torch.no_grad():
+            for k, p, v, u in zip(self.names, params, pieces, updates):
+                if u is None:       # a frozen parameter
+                    continue
+                v.add_(u)
+                if self.split[k]:
+                    p.copy_(S.gather(self.mesh, self.storage[k], v))
+        return opt_state
+
+    # -- whole state <-> this rank's state -------------------------------
+
+    def _full_tensor(self, k: str, t: torch.Tensor) -> torch.Tensor:
+        t = S.gather(self.mesh, self.storage[k], t.detach())
+        if self.expert_dim0[k]:
+            t = C.all_gather(t, self.mesh.group("expert"), gather_dim=0)
+        return t
+
+    def _local_tensor(self, k: str, t: torch.Tensor) -> torch.Tensor:
+        m = self.mesh
+        if self.expert_dim0[k]:
+            t = t.chunk(m.shape["expert"], 0)[m.index("expert")]
+        return S.shard(m, self.storage[k], t).contiguous()
+
+    def _map_opt(self, node, live: list, fn):
+        """``node`` (the optimizer state) with every per-parameter tensor
+        — an element of a list as long as the parameters (or the live
+        ones) — replaced by ``fn(name, tensor)``."""
+        if isinstance(node, (list, tuple)) and len(node) in (
+                len(self.names), len(live)) and not hasattr(node, "_fields"):
+            index = (range(len(self.names)) if len(node) == len(self.names)
+                     else live)
+            items = [fn(self.names[i], t) if isinstance(t, torch.Tensor)
+                     else self._map_opt(t, live, fn)
+                     for i, t in zip(index, node)]
+            return type(node)(items)
+        if isinstance(node, dict):
+            return {k: self._map_opt(v, live, fn) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            items = [self._map_opt(v, live, fn) for v in node]
+            return (type(node)(*items) if hasattr(node, "_fields")
+                    else type(node)(items))
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: self._map_opt(getattr(node, f.name), live, fn)
+                for f in dataclasses.fields(node) if f.init})
+        return node
+
+    def full_state(self, state, live: list):
+        """The whole state from every rank's (collective: every rank
+        calls it); ``state`` itself on a trivial mesh."""
+        if self.trivial and not any(self.expert_dim0.values()) \
+                and state.grad_residual is None:
+            return state
+        m = self.mesh
+        params = {k: (self._full_tensor(k, p) if self.expert_dim0[k]
+                      else p) for k, p in state.params.items()}
+
+        def opt_fn(k, t):
+            if tuple(t.shape) != self.piece_shape(k):
+                return t
+            return self._full_tensor(k, t)
+
+        opt = self._map_opt(state.opt_state, live, opt_fn)
+        residual = None
+        if state.grad_residual is not None:
+            residual = []
+            for k, r in zip(self.names, state.grad_residual):
+                if r is None:
+                    residual.append(None)
+                    continue
+                if self.expert_dim0[k]:
+                    r = C.all_gather(r, m.group("expert"), gather_dim=0)
+                residual.append(C.all_gather(r[None], m.group("data"),
+                                             gather_dim=0))
+        return state.replace(params=params, opt_state=opt,
+                             grad_residual=residual)
+
+    def load_full_state(self, full, template):
+        """This rank's state from a whole one (``full_state``'s layout):
+        parameters copied into ``template``'s (the model's own), the
+        optimizer state and the residual cut for this rank."""
+        m = self.mesh
+        with torch.no_grad():
+            for k, p in template.params.items():
+                src = full.params[k]
+                if self.expert_dim0[k]:
+                    src = src.chunk(m.shape["expert"], 0)[m.index("expert")]
+                if src is not p:
+                    p.copy_(src)
+
+        def opt_fn(k, t):
+            full_shape = list(self.local_shapes[k])
+            if self.expert_dim0[k]:
+                full_shape[0] *= m.shape["expert"]
+            if list(t.shape) != full_shape:
+                return t
+            return self._local_tensor(k, t)
+
+        live = [i for i, p in enumerate(template.params.values())
+                if p.requires_grad]
+        opt = self._map_opt(full.opt_state, live, opt_fn)
+        residual = None
+        if full.grad_residual is not None:
+            residual = []
+            for k, r in zip(self.names, full.grad_residual):
+                if r is None:
+                    residual.append(None)
+                    continue
+                r = S.fold_leading_replicas(r, m.shape["data"])
+                r = r[m.index("data")]
+                if self.expert_dim0[k]:
+                    r = r.chunk(m.shape["expert"], 0)[m.index("expert")]
+                residual.append(r.contiguous())
+        return full.replace(params=template.params, opt_state=opt,
+                            grad_residual=residual)
+
+
+def _flat_all_reduce(tensors: list, group) -> list:
+    """Sum each tensor over ``group`` with one collective on their
+    concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    flat = C.all_reduce(flat, group)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+    return out
+
+
+def mean_metrics(metrics: dict, group) -> dict:
+    """The batch group's mean of a step's metrics (device scalars), each
+    rank's weighted by its ``loss_weight`` where the task reports one
+    (then the total weight); the metrics unchanged on a group of one."""
+    if group is None or not metrics:
+        return metrics
+    names = sorted(metrics)
+    vals = torch.stack([metrics[k].float().reshape(()) for k in names])
+    w = metrics.get("loss_weight")
+    if w is not None:
+        wf = w.float().reshape(())
+        vals = torch.where(torch.tensor([k == "loss_weight" for k in names],
+                                        device=vals.device), vals, vals * wf)
+    vals = C.all_reduce(vals, group)
+    n = C.group_size(group)
+    if w is not None:
+        total = vals[names.index("loss_weight")]
+        out = {k: (v if k == "loss_weight" else v / total)
+               for k, v in zip(names, vals)}
+    else:
+        out = {k: v / n for k, v in zip(names, vals)}
+    return out
+
+
+def weighted_grad_factor(weight: Optional[torch.Tensor], group
+                         ) -> Optional[torch.Tensor]:
+    """For a weighted-mean loss: the factor that makes the mean of the
+    ranks' scaled gradients the gradient of the global weighted mean
+    (``w_local · n / w_total``); None when unweighted or alone."""
+    if weight is None or group is None:
+        return None
+    total = C.all_reduce(weight.float().reshape(()), group)
+    return weight.float() * C.group_size(group) / total

@@ -84,10 +84,19 @@ class PreemptionWatcher:
 
 
 def sync_preemption_flag(local_flag: bool) -> bool:
-    """True iff any process was preempted.  The port runs one process,
-    so this is the local flag (the JAX package OR-reduces it across
-    hosts)."""
-    return bool(local_flag)
+    """True iff any process was preempted: the flag OR-reduced across the
+    job's processes (the local flag where one process runs)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return bool(local_flag)
+    import torch
+
+    device = ("cuda" if dist.get_backend() == "nccl" else "cpu")
+    flag = torch.tensor([int(bool(local_flag))], device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 class PreemptionCheckpointCallback:
@@ -126,7 +135,11 @@ class PreemptionCheckpointCallback:
         mgr = self.checkpoint_manager
         state = getattr(self.trainer, "_live_state", None)
         if mgr is not None and state is not None:
-            mgr.save(int(state.step), state)
+            save = getattr(self.trainer, "save_checkpoint", None)
+            if save is not None:
+                save(int(state.step), state, manager=mgr)
+            else:
+                mgr.save(int(state.step), state)
             self.saved_step = int(state.step)
             logger.warning(
                 "preemption: checkpoint saved at step %d; stopping",

@@ -35,6 +35,7 @@ re-dial) or the ``--redials`` budget runs out.
 import argparse
 import json
 import logging
+import os
 import socket
 import sys
 import time
@@ -164,4 +165,13 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    # End without the interpreter's finalization: a daemon thread (a
+    # relay, a KV install, the stats loop) still inside a torch call
+    # while the interpreter tears down can abort the process, turning a
+    # clean drain's 0 into SIGABRT.  The logs are flushed first; the
+    # worker loop has already flushed its event spool.
+    logging.shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

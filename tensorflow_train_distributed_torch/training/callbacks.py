@@ -378,7 +378,12 @@ class BestCheckpoint(Callback):
             return None  # never immortalize a non-finite state
         step = int(state.step)
         self.best, self.best_step = cur, step
-        self._mgr.save(step, state)
+        save = getattr(getattr(self, "trainer", None), "save_checkpoint",
+                       None)
+        if save is not None:
+            save(step, state, manager=self._mgr)
+        else:
+            self._mgr.save(step, state)
         logger.info("BestCheckpoint: %s=%.5g at step %d", self.monitor,
                     cur, step)
         return None  # observation only; the state itself is unchanged

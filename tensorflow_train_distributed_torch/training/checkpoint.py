@@ -44,6 +44,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from tensorflow_train_distributed_torch.parallel.sharding import (
+    fold_leading_replicas,
+)
 from tensorflow_train_distributed_torch.runtime import faults
 
 logger = logging.getLogger(__name__)
@@ -273,8 +276,10 @@ class CheckpointManager:
 
     def _restore_into(self, step: int, template: Any):
         manifest, blob = self._read(step)
-        arrays, values = flatten(template)
+        arrays0, values0 = flatten(template)
         saved, saved_values = manifest["tensors"], manifest["values"]
+        arrays, values, saved, saved_values, fold = _residual_compat(
+            step, arrays0, values0, saved, saved_values)
         missing = sorted(set(arrays) - set(saved))
         extra = sorted(set(saved) - set(arrays))
         lacking = [n for n in missing if n.startswith("model_state/")]
@@ -293,7 +298,11 @@ class CheckpointManager:
             e = saved[name]
             dtype = (_TORCH_NAMES[x.dtype] if isinstance(x, torch.Tensor)
                      else np.asarray(x).dtype.name)
-            if list(x.shape) != e["shape"] or dtype != e["dtype"]:
+            shape = list(x.shape)
+            if name in fold:
+                # One row a data rank: any count of rows refolds.
+                shape, e = shape[1:], dict(e, shape=e["shape"][1:])
+            if shape != e["shape"] or dtype != e["dtype"]:
                 raise ValueError(
                     f"checkpoint step {step}: {name} is {e['dtype']} "
                     f"{e['shape']}, the state's {dtype} {list(x.shape)}")
@@ -301,13 +310,16 @@ class CheckpointManager:
         with torch.no_grad():
             for name, x in arrays.items():
                 src = self._tensor(manifest, blob, name)
+                if name in fold:
+                    src = fold_leading_replicas(src, x.shape[0])
                 if isinstance(x, torch.Tensor):
                     x.copy_(src)
                     restored[name] = x
                 else:
                     restored[name] = np.array(src.numpy()).reshape(x.shape)
         self.restored_meta = manifest["meta"]
-        return _rebuild(template, {**restored, **saved_values})
+        return _rebuild(template,
+                        {**arrays0, **values0, **restored, **saved_values})
 
     def restore(self, template: Any, step: Optional[int] = None):
         """Restore into ``template`` (a state of the same structure, e.g.
@@ -393,6 +405,41 @@ class CheckpointManager:
         manifest, blob = self._read(step, mmap=True)
         return {name[len(prefix):]: self._tensor(manifest, blob, name)
                 for name in manifest["tensors"] if name.startswith(prefix)}
+
+
+_RESIDUAL = "grad_residual"
+
+
+def _residual_compat(step, arrays, values, saved, saved_values):
+    """The error-feedback residual (``TrainState.grad_residual``) across
+    runs that differ in it: a checkpoint without it restores into a
+    state with it zero-initialized, one with it restores into a state
+    without it dropping it, and its leading dim (one row a data rank)
+    refolds onto another data width.  Returns the (template arrays,
+    template values, saved tensors, saved values) to match, and the
+    names to refold."""
+    def mine(n):
+        return n == _RESIDUAL or n.startswith(_RESIDUAL + "/")
+
+    t_has = any(mine(n) for n in arrays)
+    s_has = any(mine(n) for n in saved)
+    if t_has and not s_has:
+        logger.warning(
+            "checkpoint step %d predates grad_residual: restored with "
+            "error-feedback residuals zero-initialized", step)
+    elif s_has and not t_has:
+        logger.warning(
+            "checkpoint step %d carries grad-quant residuals the run does "
+            "not use; dropping them", step)
+    values = {n: v for n, v in values.items() if not mine(n)}
+    saved_values = {n: v for n, v in saved_values.items() if not mine(n)}
+    if not (t_has and s_has):
+        arrays = {n: x for n, x in arrays.items() if not mine(n)}
+        saved = {n: e for n, e in saved.items() if not mine(n)}
+        return arrays, values, saved, saved_values, set()
+    fold = {n for n in arrays if mine(n) and n in saved
+            and arrays[n].shape[0] != saved[n]["shape"][0]}
+    return arrays, values, saved, saved_values, fold
 
 
 def _rebuild(template, leaves: dict, path: str = ""):

@@ -18,6 +18,7 @@ host integer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Optional, Sequence, Union
@@ -34,9 +35,28 @@ class GradientTransformation:
     update: Callable[[list, Any, Optional[list]], tuple]
 
 
+# A sharded or expert-parallel step holds pieces of the gradients: the
+# global norm then sums each piece's squares across the ranks that hold
+# the other pieces (``parallel.state_plan``).  None: one rank holds all.
+_NORM_REDUCER: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def norm_reducer(fn: Callable):
+    """Within the block, ``global_norm(tensors)`` is ``fn(tensors)``."""
+    global _NORM_REDUCER
+    prev, _NORM_REDUCER = _NORM_REDUCER, fn
+    try:
+        yield
+    finally:
+        _NORM_REDUCER = prev
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm);
     None entries (frozen parameters' gradients) are left out."""
+    if _NORM_REDUCER is not None:
+        return _NORM_REDUCER(tensors)
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors
                           if t is not None))
 

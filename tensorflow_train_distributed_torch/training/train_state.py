@@ -9,6 +9,12 @@ flax-style names (``convert.py``); the trainer updates them in place.
 (``batch_stats/stem_bn/mean``; ``convert.model_state_names``); a
 forward in training mode updates them in place.  Empty for the
 decoders.
+
+``grad_residual`` is the quantized gradient sync's error-feedback
+residual (``TrainerConfig.grad_quant``), one f32 tensor a parameter
+(None for a frozen one): this rank's row in a running state, one row a
+data rank (``[W, *shape]``) in the whole state a checkpoint holds; None
+without grad_quant.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ class TrainState:
     opt_state: Any
     loss_scale: Optional[LossScaleState] = None
     model_state: dict = dataclasses.field(default_factory=dict)
+    grad_residual: Optional[list] = None
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)

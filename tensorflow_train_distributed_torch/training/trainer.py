@@ -1,5 +1,5 @@
-"""Single-device trainer (counterpart of the JAX package's
-``training/trainer.py`` on a one-device mesh).
+"""The trainer (counterpart of the JAX package's ``training/trainer.py``),
+on one device or on a mesh of ranks (``mesh=``, ``runtime.mesh``).
 
 One step, as the JAX ``_single_step``: cast the batch's floating entries
 to the policy's compute dtype; forward and backward of the task's loss
@@ -46,6 +46,21 @@ averages) and back.  Dropout draws from a ``torch.Generator`` seeded from
 the JAX trainer folds the step (and the microbatch) into its key: a
 resumed run draws what the uninterrupted one drew.  The generator is
 built at the step's first draw, so a model without dropout builds none.
+
+On a mesh (``Trainer(..., mesh=)``, one process a device over
+``torch.distributed``) each rank trains on its rows of the global batch
+(its batch-axes index; ``parallel.sharding.shard_batch``) and the
+gradient sync GSPMD inserts on JAX is explicit (``parallel.state_plan``):
+the mean over ``data``/``fsdp`` (a reduce-scatter along a dim a
+parameter splits over ``fsdp``), the optimizer on each rank's piece under
+``fsdp``/``tensor``, ``zero1`` and ``sharded_update``, the pieces
+gathered back.  ``grad_quant`` ("f32" or "int8") replaces the mean over
+``data`` by the error-feedback pipeline of ``parallel.collectives`` with
+its residual in the train state, bucketed under ``grad_overlap``; the
+kill switches ``TTD_NO_GRAD_QUANT`` and ``TTD_NO_GRAD_OVERLAP`` and the
+refusals are the JAX trainer's.  The metrics are the batch group's
+means.  Checkpoints hold the whole state, written by rank 0.  Without a
+mesh the trainer runs on one of one rank, through the same step.
 """
 
 from __future__ import annotations
@@ -53,6 +68,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import logging
+import os
 import time
 from typing import Callable, Iterable, Optional
 
@@ -64,7 +81,9 @@ from tensorflow_train_distributed_torch.data.pipeline import (
     to_device,
 )
 from tensorflow_train_distributed_torch.models import layers as L
+from tensorflow_train_distributed_torch.parallel import state_plan as SP
 from tensorflow_train_distributed_torch.runtime import faults
+from tensorflow_train_distributed_torch.runtime.mesh import AXES, Mesh
 from tensorflow_train_distributed_torch.training import mixed_precision as mp
 from tensorflow_train_distributed_torch.training.callbacks import (
     CallbackList,
@@ -79,6 +98,8 @@ from tensorflow_train_distributed_torch.training.optimizers import (
 )
 from tensorflow_train_distributed_torch.training.train_state import TrainState
 
+logger = logging.getLogger(__name__)
+
 
 def _stack_batches(it, k: int):
     """Group k host batches into one super-batch stacked on a new leading
@@ -91,6 +112,12 @@ def _stack_batches(it, k: int):
                 return
             group.append(b)
         yield {n: np.stack([b[n] for b in group]) for n in group[0]}
+
+
+def _has_model_state(model) -> bool:
+    from tensorflow_train_distributed_torch import convert
+
+    return bool(convert.model_state_names(model))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,18 +138,37 @@ class TrainerConfig:
     eval_state_view: Optional[Callable] = None
     # Optimizer steps per call over a stacked [k, ...] super-batch.
     steps_per_execution: int = 1
+    # On a mesh (the JAX TrainerConfig's fields): ZeRO-1 (optimizer state
+    # split over ``data``); the quantized gradient sync ("none", "f32" or
+    # "int8"), needing data > 1 and steps_per_execution 1; its buckets
+    # (0/1: one sync; TTD_NO_GRAD_OVERLAP=1 forces 0); the cross-replica
+    # sharded update (implies zero1's split).
+    zero1: bool = False
+    grad_quant: str = "none"
+    grad_overlap: int = 4
+    sharded_update: bool = False
 
 
 class Trainer:
     """Owns state creation, the step and the fit loop for one task (any
-    of ``models.registry.make_task``'s) on one device."""
+    of ``models.registry.make_task``'s) on ``mesh`` (a
+    ``runtime.mesh.Mesh``, one process a device), by default a mesh of
+    one rank."""
 
     def __init__(self, task, optimizer: GradientTransformation, *,
                  policy: Policy = Policy(),
                  config: TrainerConfig = TrainerConfig(),
                  lr_schedule: Optional[Callable[[int], float]] = None,
-                 device="cuda", callbacks=(), checkpoint_manager=None):
+                 device="cuda", callbacks=(), checkpoint_manager=None,
+                 mesh=None):
         self.task = task
+        self.mesh = mesh if mesh is not None else Mesh(dict.fromkeys(AXES,
+                                                                     1))
+        # The state's layout on the mesh (``create_state``).
+        self.plan: Optional[SP.StatePlan] = None
+        self.grad_quant = self._resolve_grad_quant(config, mesh)
+        self.grad_overlap = self._resolve_grad_overlap(config,
+                                                       self.grad_quant)
         self.tx = optimizer
         self.policy = policy
         self.config = config
@@ -141,10 +187,53 @@ class Trainer:
         self.timing = {"windows": [], "eval_s": [], "save_s": [],
                        "data_wait_s": 0.0}
 
+    @staticmethod
+    def _resolve_grad_overlap(config: TrainerConfig, grad_quant: str) -> int:
+        k = int(config.grad_overlap)
+        if k < 0:
+            raise ValueError(f"grad_overlap must be >= 0, got {k}")
+        if grad_quant == "none" or k <= 1:
+            return 0
+        if os.environ.get("TTD_NO_GRAD_OVERLAP", "0") not in ("", "0"):
+            logger.warning(
+                "TTD_NO_GRAD_OVERLAP=1: bucketed gradient sync disabled — "
+                "one sequential grad-quant sync (set before Trainer "
+                "construction)")
+            return 0
+        return k
+
+    @staticmethod
+    def _resolve_grad_quant(config: TrainerConfig, mesh) -> str:
+        gq = config.grad_quant
+        if gq not in ("none", "f32", "int8"):
+            raise ValueError(f"grad_quant must be none|f32|int8, got {gq!r}")
+        if gq == "none":
+            return gq
+        if os.environ.get("TTD_NO_GRAD_QUANT", "0") not in ("", "0"):
+            logger.warning(
+                "TTD_NO_GRAD_QUANT=1: quantized gradient collectives "
+                "disabled — exact gradient mean (set before Trainer "
+                "construction)")
+            return "none"
+        if mesh is None or mesh.shape["data"] <= 1:
+            logger.warning(
+                "grad_quant=%r is a no-op on a data=1 mesh; using the "
+                "exact single-program step", gq)
+            return "none"
+        if config.steps_per_execution > 1:
+            raise ValueError(
+                "grad_quant does not compose with steps_per_execution>1 "
+                "(the comm program is dispatched separately per step); "
+                "drop one of the two")
+        return gq
+
     def create_state(self, params: Optional[dict] = None) -> TrainState:
         """Load ``params`` (``{name: tensor}`` as ``convert`` makes them),
         or random weights from ``config.seed``, into the task's model as
-        f32 (the policy's param dtype) masters on the device."""
+        f32 (the policy's param dtype) masters on the device.  On a mesh
+        the params are the whole model's (the same on every rank): an
+        expert-parallel MoE keeps its rank's experts, and the optimizer
+        state covers this rank's pieces."""
         from tensorflow_train_distributed_torch import convert
 
         model = self.task.model
@@ -154,6 +243,7 @@ class Trainer:
                 self.config.seed)
             params = convert.init_params(self.task.config, gen,
                                          device=self.device, dtype=dtype)
+        params = self._plan_for(model, params)
         model.load_state_dict(
             {k: v.to(device=self.device, dtype=dtype)
              for k, v in params.items()}, strict=True, assign=True)
@@ -161,12 +251,43 @@ class Trainer:
         model.train()
         named = dict(model.named_parameters())
         buffers = dict(model.named_buffers())
+        plist = list(named.values())
+        residual = None
+        if self.grad_quant != "none":
+            residual = [torch.zeros_like(p, dtype=torch.float32)
+                        if p.requires_grad else None for p in plist]
         return TrainState(
             step=0, params=named,
-            opt_state=self.tx.init(list(named.values())),
+            opt_state=self.tx.init(self.plan.pieces(plist)),
             loss_scale=mp.LossScaleState.create(self.policy, self.device),
             model_state={k: buffers[b] for k, b in
-                         convert.model_state_names(model).items()})
+                         convert.model_state_names(model).items()},
+            grad_residual=residual)
+
+    def _plan_for(self, model, params: dict) -> dict:
+        """Lay the model out on the mesh: shard its MoE blocks over
+        ``expert``, make the state plan, and return this rank's params."""
+        from tensorflow_train_distributed_torch.models import moe
+
+        mesh = self.mesh
+        names = [k for k, _ in model.named_parameters()]
+        shapes = {k: tuple(params[k].shape) for k in names}
+        moe.set_expert_parallel(model, mesh)
+        if _has_model_state(model) and mesh.group_size(
+                ("data", "fsdp")) > 1:
+            raise ValueError(
+                "a model with running statistics (BatchNorm) trains on one "
+                "batch rank only: cross-rank batch statistics are not "
+                "ported (ROADMAP Queue 1 step 7)")
+        if self.grad_quant != "none" and _has_model_state(model):
+            raise ValueError(
+                "grad_quant requires a task with no mutable model "
+                "collections (e.g. BatchNorm batch_stats); drop "
+                "grad-quant for this task")
+        self.plan = SP.StatePlan(mesh, shapes, zero1=self.config.zero1,
+                                 sharded_update=self.config.sharded_update)
+        return {**params, **self.plan.local_params(
+            {k: params[k] for k in names})}
 
     def _generator(self, step: int, micro: Optional[int] = None):
         """The dropout generator of a step (and microbatch): seeded from
@@ -233,14 +354,18 @@ class Trainer:
         return grads, loss, metrics
 
     def _apply_grads(self, state: TrainState, params: list,
-                     grads: list) -> dict:
-        """The optimizer update (skipped on a loss-scaled overflow) and
-        the lr / grad_norm / loss-scale metrics."""
+                     grads: list, finite=None) -> dict:
+        """The optimizer update (skipped on a loss-scaled overflow, by every
+        rank together) and the lr / grad_norm / loss-scale metrics.
+        ``grads`` are this rank's pieces of the mean gradients and
+        ``finite`` the data group's flag where the sync took one."""
         metrics = {}
         ls = state.loss_scale
+        plan = self.plan
         apply = True
         if ls is not None:
-            finite = mp.grads_finite(grads)
+            finite = plan.all_finite(mp.grads_finite(grads)
+                                     if finite is None else finite)
             state.loss_scale = mp.update_loss_scale(ls, finite, self.policy)
             metrics.update(loss_scale=state.loss_scale.scale,
                            grads_finite=finite.float())
@@ -248,14 +373,11 @@ class Trainer:
             # scale their loss.
             apply = bool(finite)
         if apply:
-            updates, state.opt_state = self.tx.update(grads, state.opt_state,
-                                                      params)
-            with torch.no_grad():
-                for p, u in zip(params, updates):
-                    if u is not None:       # None: a frozen parameter
-                        p.add_(u)
+            state.opt_state = plan.apply(self.tx, state.opt_state, params,
+                                         grads)
         if self.config.log_grad_norm:
-            metrics["grad_norm"] = global_norm(grads)
+            with plan.norm_context(grads):
+                metrics["grad_norm"] = global_norm(grads)
         if self.lr_schedule is not None:
             metrics["lr"] = torch.tensor(float(self.lr_schedule(state.step)),
                                          dtype=torch.float32)
@@ -275,9 +397,30 @@ class Trainer:
                                                        state.step)):
                 grads, loss, metrics = self._microbatch_grads(
                     params, batch, state.loss_scale)
-        extra = self._apply_grads(state, params, grads)
+        grads, loss, metrics, finite = self._sync(state, grads, loss,
+                                                  metrics)
+        extra = self._apply_grads(state, params, grads, finite)
         state.step += 1
         return dict(metrics, loss=loss, **extra)
+
+    def _sync(self, state: TrainState, grads: list, loss, metrics: dict):
+        """The mesh's gradient sync and the batch group's mean metrics."""
+        group = self.mesh.group(("data", "fsdp"))
+        factor = SP.weighted_grad_factor(metrics.get("loss_weight"), group)
+        if factor is not None:
+            grads = [None if g is None else g * factor for g in grads]
+        grads, state.grad_residual, finite, wire_mb = self.plan.sync_grads(
+            grads, residual=state.grad_residual, wire=self.grad_quant,
+            overlap=self.grad_overlap)
+        metrics = SP.mean_metrics(dict(metrics, loss=loss), group)
+        loss = metrics.pop("loss")
+        if self.grad_quant != "none":
+            metrics["grad_comm_mb"] = torch.tensor(wire_mb)
+            if self.grad_overlap:
+                metrics["grad_buckets"] = torch.tensor(
+                    float(min(self.grad_overlap, sum(
+                        g is not None for g in grads))))
+        return grads, loss, metrics, finite
 
     def train_steps(self, state: TrainState, batch: dict) -> dict:
         """``steps_per_execution`` optimizer steps over a super-batch of
@@ -416,10 +559,60 @@ class Trainer:
     def _save(self, step: int, state: TrainState) -> None:
         t0 = time.perf_counter()
         # One batch a step: the data position is the step.
-        self.checkpoint_manager.save(
+        self.save_checkpoint(
             step, state,
             meta={"data_position": {"batches_consumed": int(step)}})
         self.timing["save_s"].append(time.perf_counter() - t0)
+
+    def save_checkpoint(self, step: int, state: TrainState, manager=None,
+                        meta: Optional[dict] = None) -> None:
+        """Save the whole state through ``manager`` (the trainer's by
+        default): on a mesh every rank gathers, rank 0 writes, and every
+        rank waits until the step is committed."""
+        manager = manager or self.checkpoint_manager
+        full = self.full_state(state)
+        if self._is_writer():
+            manager.save(step, full, meta=meta)
+        self._barrier()
+
+    # -- the state across ranks ------------------------------------------
+
+    def _live(self, state: TrainState) -> list:
+        return [i for i, p in enumerate(state.params.values())
+                if p.requires_grad]
+
+    def full_state(self, state: TrainState) -> TrainState:
+        """The whole state (what a checkpoint holds) from every rank's:
+        collective on a mesh (every rank calls it), ``state`` itself on
+        a mesh of one rank."""
+        return self.plan.full_state(state, self._live(state))
+
+    def restore(self, manager, state: TrainState,
+                step: Optional[int] = None) -> Optional[TrainState]:
+        """``manager.restore`` of the whole state into this rank's
+        ``state``: every rank reads the step, then keeps its own pieces
+        (another world size's checkpoint included).  None when no step
+        restores."""
+        template = self.full_state(state)
+        # Rank 0 reads first: a torn step is quarantined once, and the
+        # others then read the step it restored.
+        full = manager.restore(template, step=step) \
+            if self._is_writer() else None
+        self._barrier()
+        if not self._is_writer():
+            full = manager.restore(template, step=step)
+        if full is None:
+            return None
+        return self.plan.load_full_state(full, state)
+
+    def _is_writer(self) -> bool:
+        return self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+
+        if self.mesh.size > 1:
+            dist.barrier()
 
     # -- evaluation and prediction ---------------------------------------
 
@@ -463,9 +656,18 @@ class Trainer:
                         break
         finally:
             it.close()
+        host = [{k: float(v) for k, v in m.items()}
+                for m in device_metrics]
+        group = self.mesh.group(("data", "fsdp"))
+        if group is not None:
+            import torch.distributed as dist
+
+            ranks = [None] * SP.C.group_size(group)
+            dist.all_gather_object(ranks, host, group=group)
+            host = [m for r in ranks for m in r]
         acc = MetricAccumulator()
-        for m in device_metrics:
-            acc.update({k: float(v) for k, v in m.items()})
+        for m in host:
+            acc.update(m)
         out = acc.result()
         if getattr(self.task, "report_perplexity", False) and "loss" in out:
             # exp of the mean loss, not the mean of per-batch exps.

@@ -1391,6 +1391,103 @@ def test_tgmm_kernel(gen, case, types):
             assert not got[i].any()          # an empty group writes zeros
 
 
+# K6-EP: (case, group_offset, local groups): odd offsets, a shard whose
+# groups are all empty, a shard at the zero tail's edge, one group.
+_EP_SHARDS = [(0, 1, 3), (0, 3, 2), (0, 1, 1), (2, 1, 1), (2, 2, 1),
+              (3, 1, 1)]
+
+
+@pytest.mark.parametrize("shard", range(len(_EP_SHARDS)))
+@pytest.mark.parametrize("types", [
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float32)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_gmm_group_offset_kernel(gen, shard, types, transpose):
+    """K6-EP's gmm (every body: bf16 x bf16 on wgmma, an f32 lhs split
+    into three bf16 terms, f32 x f32 on FMAs): within the tolerance of
+    the plain version with the offset, exactly 0 outside the shard's
+    rows, and the shard's rows equal to the unsharded kernel's bit for
+    bit; counted as ``gmm_ep``."""
+    case, off, local = _EP_SHARDS[shard]
+    m, k, n, sizes = _GMM_CASES[case]
+    lt, rt, ot = types
+    e = len(sizes)
+    lhs = _randn(gen, m, k, dtype=lt)
+    rhs = _randn(gen, *((e, n, k) if transpose else (e, k, n)), dtype=rt)
+    part = rhs[off:off + local].contiguous()
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    before = K.launch_counts()
+    got = K.gmm(lhs, part, gs, preferred_element_type=ot,
+                transpose_rhs=transpose, group_offset=off)
+    after = K.launch_counts()
+    assert after["gmm_ep"] == before["gmm_ep"] + 1
+    assert after["gmm"] == before["gmm"]
+    ref32 = K.gmm_reference(lhs, part, gs, transpose_rhs=transpose,
+                            group_offset=off)
+    sumsq32 = K.gmm_reference(lhs.float() ** 2, part.float() ** 2, gs,
+                              transpose_rhs=transpose, group_offset=off)
+    _assert_within(got, ref32, sumsq32, k, (lhs, part))
+    spans = K._group_spans(gs.cpu(), m)
+    r0, r1 = spans[off][1], spans[off + local - 1][2]
+    assert not got[:r0].any() and not got[r1:].any()
+    full = K.gmm(lhs, rhs, gs, preferred_element_type=ot,
+                 transpose_rhs=transpose)
+    assert torch.equal(got[r0:r1], full[r0:r1])
+
+
+@pytest.mark.parametrize("shard", range(len(_EP_SHARDS)))
+@pytest.mark.parametrize("types", [
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32, torch.float32)])
+def test_tgmm_group_offset_kernel(gen, shard, types):
+    """K6-EP's tgmm: the local groups alone, [local, k, n], each its
+    slice of the unsharded tgmm bit for bit (an empty group zeros);
+    counted as ``tgmm_ep``."""
+    case, off, local = _EP_SHARDS[shard]
+    m, k, n, sizes = _GMM_CASES[case]
+    lt, rt, ot = types
+    x = _randn(gen, m, k, dtype=lt)
+    g = _randn(gen, m, n, dtype=rt)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    before = K.launch_counts()["tgmm_ep"]
+    got = K.tgmm(x.t(), g, gs, preferred_element_type=ot, group_offset=off,
+                 num_actual_groups=local)
+    assert K.launch_counts()["tgmm_ep"] == before + 1
+    assert got.shape == (local, k, n)
+    full = K.tgmm(x.t(), g, gs, preferred_element_type=ot)
+    assert torch.equal(got, full[off:off + local])
+    ref32 = K.tgmm_reference(x.t(), g, gs, group_offset=off,
+                             num_actual_groups=local)
+    sumsq32 = K.tgmm_reference(x.float().t() ** 2, g.float() ** 2, gs,
+                               group_offset=off, num_actual_groups=local)
+    _assert_within(got, ref32, sumsq32,
+                   _group_rows(sizes, m)[off:off + local], (x, g))
+
+
+def test_gmm_group_offset_backward_passes_the_offset(gen):
+    """``_GmmFn`` with an offset on the card: grad_lhs (gmm_ep) zero off
+    the shard's rows and grad_rhs (tgmm_ep) over its local groups, each
+    equal to the unsharded backward's rows and slice bit for bit."""
+    m, k, n, sizes = _GMM_CASES[0]
+    off, local = 1, 3
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs = _randn(gen, m, k, dtype=torch.bfloat16)
+    rhs = _randn(gen, len(sizes), k, n, dtype=torch.bfloat16)
+    cot = _randn(gen, m, n)
+    a1, b1 = lhs.clone().requires_grad_(True), rhs.clone().requires_grad_(True)
+    K.gmm(a1, b1, gs).backward(cot)
+    a2 = lhs.clone().requires_grad_(True)
+    b2 = rhs[off:off + local].clone().requires_grad_(True)
+    K.gmm(a2, b2, gs, group_offset=off).backward(cot)
+    spans = K._group_spans(gs.cpu(), m)
+    r0, r1 = spans[off][1], spans[off + local - 1][2]
+    assert not a2.grad[:r0].any() and not a2.grad[r1:].any()
+    assert torch.equal(a2.grad[r0:r1], a1.grad[r0:r1])
+    assert torch.equal(b2.grad, b1.grad[off:off + local])
+
+
 _BF, _F32 = torch.bfloat16, torch.float32
 
 

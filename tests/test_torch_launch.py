@@ -264,11 +264,16 @@ def test_evaluate_and_predict_match_jax_trainer():
 # -- the launcher -------------------------------------------------------------
 
 
+# Each case: flags, and the exit they end in before any setup.  The
+# multi-device flags are ported: each case is one of their refusals (the
+# mesh axes slice 20 brings, the JAX launcher's parameter-server text, a
+# job of two processes without a coordinator, a JAX platform the port
+# has no device for).
 @pytest.mark.parametrize("flags", [
-    ["--strategy", "fsdp"], ["--mesh", "data=2"], ["--zero1"],
-    ["--grad-quant", "int8"], ["--num-processes", "2"],
+    ["--mesh", "seq=2"], ["--mesh", "pipeline=2"], ["--strategy", "ps"],
+    ["--mesh", "model=2"], ["--num-processes", "2"],
     ["--init-from-hf", "/nowhere"], ["--profiler-port", "9012"],
-    ["--platform", "cpu"]])
+    ["--platform", "tpu"]])
 def test_unported_flags_are_refused(flags, capsys):
     with pytest.raises(SystemExit) as e:
         tlaunch.main(["--config", "llama_tiny_sft", "--device", "cpu",
@@ -281,8 +286,22 @@ def test_unported_flags_are_refused(flags, capsys):
                                 "directory at /nowhere")
         assert err == []
         return
+    if flags[0] == "--strategy":
+        assert "ParameterServerStrategy is not supported" in e.value.code
+        return
+    if flags == ["--mesh", "model=2"]:
+        assert e.value.code.startswith("Unknown mesh axis 'model'")
+        return
+    if flags[0] == "--num-processes":
+        assert "need a coordinator address" in e.value.code
+        return
     assert e.value.code == 2
-    assert len(err) == 1 and "ROADMAP Queue 1 item" in err[0], err
+    if flags[0] == "--platform":        # argparse: not a choice
+        assert any("invalid choice: 'tpu'" in line for line in err), err
+        return
+    assert len(err) == 1 and "ROADMAP Queue 1" in err[0], err
+    if flags[0] == "--mesh":
+        assert "slice 20" in err[0], err
 
 
 @pytest.mark.parametrize("flags,match", [

@@ -502,9 +502,9 @@ def test_train_cli_rejects_bad_flags():
     with pytest.raises(SystemExit):
         tcli.main(["--config", "llama_tiny_sft", "--steps", "0",
                    "--device", "cpu"])
-    with pytest.raises(SystemExit):     # one device: no mesh strategy
+    with pytest.raises(SystemExit):     # a seq axis waits for slice 20
         tcli.main(["--config", "llama_tiny_sft", "--steps", "1",
-                   "--device", "cpu", "--strategy", "fsdp"])
+                   "--device", "cpu", "--mesh", "seq=2"])
 
 
 def test_train_cli_trains_llama_350m_shape_under_no_ffn(capsys,
