@@ -303,7 +303,7 @@
    card's with the headroom logged (its teacher forcing re-prefills each
    prompt as the engine did and feeds the rest at a capacity that does
    not bind, as decode routes it); (e) ``generate()`` on Qwen, gmm bf16
-   and dense int8, a 1,000-token prompt and 64 tokens against teacher
+   and dense int8, a 1,000-token prompt and 32 tokens against teacher
    forcing (``DECODE_TOL``, ``DECODE_AGREE``), prefill seconds and ms a
    token; (f) ``sample.py --dispatch gmm`` and ``--quant int8 --dispatch
    dense`` on a 2-step launcher checkpoint of moe_tiny_lm_gmm, tokens
@@ -399,6 +399,25 @@
    bit for bit.  At world size 1 the expert axis is 1: (c) runs the
    unsharded gmm dispatch and checks the NCCL init, the mesh knobs'
    no-op and the warning, not ``group_offset`` (which (a) and (b) do).
+26. Sequence, pipeline and tensor-split serving on one card.  (a)
+   ``parallel.ring_attention.ring_attention`` for 4 shards emulated in
+   this process at Mistral-7B's attention (B 1, H 32, KVH 8, D 128, bf16,
+   S 16,384), causal and window 4,096 with 4 sinks: the output and q/k/v
+   gradients against an f32 computation (phase 9's bar) and against K2 or
+   K7 over the whole sequence; ms a shard.  (b) Ulysses' local attention
+   on each shard's 8 heads through the dispatch (K7): 4 forward and 4
+   backward launches, the heads equal to one call over all 32 bit for
+   bit; K7 timed at a shard's shape.  (c) llama_125m as 4 emulated GPipe
+   stages (3 layers each, 8 microbatches of 1 x 2,048) through
+   ``parallel.pipeline``'s tick schedule, forward and backward: the loss
+   and gradients against the depth loop (phase 6b's bound) and the
+   launch counts the schedule predicts (``gpipe_launches``).  (d)
+   ``ServingEngine(mesh=)`` at tensor 2: Llama-2-7B at full width and
+   ``SPLIT_LAYERS`` layers in two processes sharing the card over gloo,
+   phase 3's requests and engine settings, phase 3's re-prefill bar on
+   each rank, K4 = layers x decode steps a rank, each rank's peak memory;
+   K4 and K5 timed at a rank's 16 heads.  Every printed line is also
+   appended to ``chiprun_out/chip_smoke.log``.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -410,6 +429,8 @@ import dataclasses
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -586,6 +607,20 @@ KERNELS += [
     ("gmm_ep", _CSRC + "grouped_matmul.cu", _MB + ":314", "ep_block"),
     ("tgmm_ep", _CSRC + "grouped_matmul.cu", _MB + ":573", "ep_block"),
 ]
+# Phase 26 (b): Ulysses' local attention, K7 over each emulated shard's 8
+# of Mistral-7B's 32 heads at S 16,384; (d): the tensor-split engine's
+# kernels on one rank (16 of Llama-2-7B's heads; K1f's rows are whole).
+KERNELS += [
+    ("splash_attention", _CSRC + "flash_attention_fwd.cu", _SP + ":895",
+     "ulysses"),
+    ("splash_attention_bwd", _CSRC + "flash_attention_bwd.cu", _SP + ":1857",
+     "ulysses"),
+    ("rms_norm", _CSRC + "rms_norm.cu", _PK + ":396", "split_serve"),
+    ("paged_attention", _CSRC + "paged_attention.cu", _PK + ":290",
+     "split_serve"),
+    ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121",
+     "split_serve"),
+]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LANE_KERNELS = [k[0] for k in KERNELS if k[3] == "lane_control"]
 FLEET_KERNELS = [k[0] for k in KERNELS if k[3] == "fleet_serve"]
@@ -607,12 +642,24 @@ CASES = []
 _T0 = time.perf_counter()
 
 
+# Every line the script prints is also appended here: a caller that keeps
+# only the end of the output reads the rest from the file.
+LOG_PATH = os.path.join("chiprun_out", "chip_smoke.log")
+
+
+def _tee(line: str) -> None:
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(line + "\n")
+
+
 def log(msg: str) -> None:
-    """Print ``msg``; a phase's heading ("== ...") also gets the seconds
-    since the script started."""
+    """Print ``msg`` (and append it to ``LOG_PATH``); a phase's heading
+    ("== ...") also gets the seconds since the script started."""
     if msg.startswith("=="):
         msg = f"{msg}  [{time.perf_counter() - _T0:.1f} s]"
-    print(msg, flush=True)
+    _tee(msg)
 
 
 def _drain_stamps(log_every: int):
@@ -2695,6 +2742,11 @@ def _sample_leg(ck, rows_in, max_new, flags,
     return [json.loads(x)["completion"] for x in buf.getvalue().splitlines()]
 
 
+# Phase 22 (e)'s new tokens after its 1,000-token prompt (64 until the
+# whole script's clock asked for 32).
+MOE_GEN_NEW = 32
+
+
 def phase_moe_serve() -> tuple:
     """Phase 22: MoE decode and serving, and int8 weight-only serving, at
     full width and depth (random weights from seed 0).  Kernel cases at
@@ -2710,7 +2762,7 @@ def phase_moe_serve() -> tuple:
     floor and a fault planted in K4 failing it (``_gqa_fault``), the
     same weights in f32 compute against phase 3's bars on the two checked
     requests; (e) ``generate()`` on
-    Qwen, gmm bf16 and dense int8, a 1,000-token prompt and 64 tokens,
+    Qwen, gmm bf16 and dense int8, a 1,000-token prompt and 32 tokens,
     against teacher forcing; (f) ``sample.py --dispatch gmm`` and
     ``--quant int8 --dispatch dense`` on a 2-step launcher checkpoint of
     moe_tiny_lm_gmm, tokens equal to ``generate()``'s.  Each engine leg
@@ -2796,7 +2848,8 @@ def phase_moe_serve() -> tuple:
             1, cfg.vocab_size, (1, 1000)), device="cuda")
         rec, counts = _moe_generate_leg(
             "(e) qwen generate(), gmm bf16",
-            dataclasses.replace(cfg, dispatch="gmm"), params, gprompt, 64)
+            dataclasses.replace(cfg, dispatch="gmm"), params, gprompt,
+            MOE_GEN_NEW)
         add(gen_counts, counts)
         out["e_generate_gmm_bf16"] = rec
         _free()
@@ -2851,8 +2904,8 @@ def phase_moe_serve() -> tuple:
         t_leg = time.perf_counter()
 
         rec, counts = _moe_generate_leg(
-            "(e) qwen generate(), dense int8", dcfg, qparams, gprompt, 64,
-            scales=scales)
+            "(e) qwen generate(), dense int8", dcfg, qparams, gprompt,
+            MOE_GEN_NEW, scales=scales)
         add(gen_counts, counts)
         out["e_generate_dense_int8"] = rec
         del qparams, scales
@@ -7187,6 +7240,592 @@ def phase_multi_gpu(lora_losses: list) -> tuple:
     return counts, rows, rec
 
 
+# -- phase 26 -----------------------------------------------------------------
+
+SP_SHARDS = 4                      # the emulated seq group (a) and (b)
+SP_SEQ = 16_384                    # 4,096 rows a shard
+PP_STAGES, PP_MICRO = 4, 8         # (c): llama_125m, 3 layers a stage
+SPLIT_TOL = 0.25                   # (d): phase 3's re-prefill bar
+
+
+def _mistral_qkv(gen, s):
+    """Mistral-7B's attention operands at sequence ``s``: q [1, 32, s, 128]
+    pre-scaled by D^-0.5, k/v [1, 8, s, 128] and a cotangent, bf16 views
+    of [B, S, H, D] storage (the model's layout)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    def bshd(heads):
+        return torch.randn(1, s, heads, 128, generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = bshd(32), bshd(8), bshd(8), bshd(32)
+    return K.splash_scaled_q(q, 128 ** -0.5), k, v, do
+
+
+def _emulated_ring(q, k, v, do, *, causal, window, sinks):
+    """``parallel.ring_attention.ring_attention`` (the module's per-rank
+    body) for each of ``SP_SHARDS`` ranks of one sequence in this process,
+    one rank after another: each hop returns the block the ring would
+    hand that rank (the previous rank's, by identity, so one autograd
+    graph spans the ranks and the cotangents land where the reverse hops
+    would take them), and the sinks' sum-broadcast returns shard 0's
+    slice.  Each rank's forward and backward (its slice of ``do``) is
+    timed on the device.  Returns (out, dq, dk, dv, ms per rank)."""
+    import torch
+    from tensorflow_train_distributed_torch.parallel import (
+        ring_attention as RA,
+    )
+
+    n = SP_SHARDS
+    w = q.shape[2] // n
+    ql, kl, vl = _leaf(q, k, v)
+    state = dict(rank=0, bcast=0, blocks=None)
+
+    def ring_permute(x, group, shift=1):
+        for blocks in state["blocks"]:
+            for j, b in enumerate(blocks):
+                if x is b:
+                    return blocks[(j - shift) % n]
+        raise AssertionError("(a) a hop of a block the ring does not hold")
+
+    def broadcast_from(x, group, src=0):
+        kind = state["bcast"] % 2
+        state["bcast"] += 1
+        return state["blocks"][kind][src][:, :, :x.shape[2]]
+
+    saved = {name: getattr(RA, name) for name in (
+        "ring_permute", "broadcast_from", "group_rank", "group_size")}
+    RA.ring_permute, RA.broadcast_from = ring_permute, broadcast_from
+    RA.group_size = lambda g: n
+    RA.group_rank = lambda g: state["rank"]
+    outs, ms = [], []
+    try:
+        for i in range(n):
+            state["rank"] = i
+            state["blocks"] = [[t[:, :, j * w:(j + 1) * w] for j in range(n)]
+                               for t in (kl, vl)]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            o = RA.ring_attention(
+                ql[:, :, i * w:(i + 1) * w], state["blocks"][0][i],
+                state["blocks"][1][i], group="seq", causal=causal,
+                softmax_scale=1.0, window=window, sinks=sinks)
+            o.backward(do[:, :, i * w:(i + 1) * w])
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            outs.append(o.detach())
+            del o
+            torch.cuda.empty_cache()
+    finally:
+        for name, fn in saved.items():
+            setattr(RA, name, fn)
+    return torch.cat(outs, 2), ql.grad, kl.grad, vl.grad, ms
+
+
+def phase_ring(gen) -> dict:
+    """26 (a): the ring over 4 emulated shards at Mistral-7B's attention
+    (B 1, H 32, KVH 8, D 128, bf16, S 16,384: 4,096 rows a shard), causal
+    (3 hops) and window 4,096 with 4 sinks (1 hop and the sink block).
+    Output and q/k/v gradients held to an f32 computation of the same
+    function within phase 9's bf16 bar, 2^-7 (|ref32| + |terms|) + 1e-6,
+    and against K2 (causal) or K7 (window) over the whole sequence within
+    that plus the kernel's own distance from ref32."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    q, k, v, do = _mistral_qkv(gen, SP_SEQ)
+    rec = {}
+    for label, causal, window, sinks in (("causal", True, None, 0),
+                                         ("window 4096 sinks 4", True, 4096,
+                                          4)):
+        ref, pairs = _flash_f32(q, k, v, do, causal, None, 1.0,
+                                window=window, sinks=sinks)
+        if window is None:
+            kname = "K2"
+            o, lse = K.flash_attention_forward(q, k, v, None, True, 1.0)
+            grads = K.flash_attention_backward(q, k, v, o, lse, do, None,
+                                               True, 1.0)
+        else:
+            kname = "K7"
+            o, lse = K.splash_attention_forward(q, k, v, None, window, sinks)
+            grads = K.splash_attention_backward(q, k, v, o, lse, do, None,
+                                                window, sinks)
+        kern = dict(zip(("out", "dq", "dk", "dv"), (o, *grads)))
+        del o, lse, grads
+        torch.cuda.synchronize()
+        got = dict(zip(("out", "dq", "dk", "dv", "ms"), _emulated_ring(
+            q, k, v, do, causal=causal, window=window, sinks=sinks)))
+        errs = {}
+        for name in ("out", "dq", "dk", "dv"):
+            r32 = ref[name]
+            allowed = 2 ** -7 * (r32.abs() + ref[name + "_t"]) + 1e-6
+            rule = "2^-7 (|ref32| + |terms|) + 1e-6"
+            _check(f"(a) ring {label} {name} vs f32", got[name], r32,
+                   allowed, rule)
+            errs[name] = _check(
+                f"(a) ring {label} {name} vs {kname}", got[name], kern[name],
+                (kern[name].float() - r32).abs() + allowed,
+                f"|{kname} - ref32| + the above")
+        log(f"  (a) ring {label}: ms per shard (forward and backward) "
+            f"{[round(x, 1) for x in got['ms']]}; {pairs} visible pairs")
+        rec[label] = dict(max_abs_err=errs, ms_per_shard=got["ms"],
+                          pairs=pairs, shards=SP_SHARDS, seq=SP_SEQ)
+        del ref, kern, got
+        _free()
+    del q, k, v, do
+    _free()
+    return rec
+
+
+def phase_ulysses(gen) -> tuple:
+    """26 (b): Ulysses' local attention on 4 emulated shards at the same
+    shapes: each shard's 8 query heads and 2 kv heads over the whole
+    sequence through the kernel dispatch (K7, window 4,096, 4 sinks),
+    forward and backward; the K7 counts zeroed just before and read just
+    after: 4 each.  The concatenated heads and their gradients must equal
+    one K7 call over all 32 heads bit for bit (heads are independent, and
+    a shard's heads are whole GQA groups).  Returns (counts, the ulysses
+    rows, record)."""
+    import torch
+    from tensorflow_train_distributed_torch.ops import attention as TA
+    from tensorflow_train_distributed_torch.ops import kernels as K
+
+    q, k, v, do = _mistral_qkv(gen, SP_SEQ)
+    hq, hk = 32 // SP_SHARDS, 8 // SP_SHARDS
+    kw = dict(causal=True, window=4096, sinks=4, softmax_scale=1.0)
+    leaves = [_leaf(q[:, i * hq:(i + 1) * hq], k[:, i * hk:(i + 1) * hk],
+                    v[:, i * hk:(i + 1) * hk]) for i in range(SP_SHARDS)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    outs = []
+    for i, (qi, ki, vi) in enumerate(leaves):
+        o = TA.multihead_attention_kernel(qi, ki, vi, **kw)
+        o.backward(do[:, i * hq:(i + 1) * hq])
+        outs.append(o.detach())
+    torch.cuda.synchronize()
+    counts = {n: K.launch_counts()[n]
+              for n in ("splash_attention", "splash_attention_bwd")}
+    log(f"  (b) launches {counts} (expected 4 each)")
+    if counts != {"splash_attention": 4, "splash_attention_bwd": 4}:
+        raise AssertionError(f"(b) K7 launches {counts}")
+    qa, ka, va = _leaf(q, k, v)
+    whole = TA.multihead_attention_kernel(qa, ka, va, **kw)
+    whole.backward(do)
+    same = (torch.equal(torch.cat(outs, 1), whole)
+            and torch.equal(torch.cat([l[0].grad for l in leaves], 1),
+                            qa.grad)
+            and torch.equal(torch.cat([l[1].grad for l in leaves], 1),
+                            ka.grad)
+            and torch.equal(torch.cat([l[2].grad for l in leaves], 1),
+                            va.grad))
+    log(f"  (b) the 4 shards' heads against one K7 call over all 32 heads "
+        f"(bar: bit for bit): {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("(b) Ulysses' shards differ from one K7 call "
+                             "over all heads")
+    del q, k, v, do, leaves, outs, whole, qa, ka, va
+    _free()
+    row = _splash_case(gen, "ulysses shard (8 of 32 heads)", 1, hq, hk,
+                       SP_SEQ, 128, 4096, 4, packed=False,
+                       dtype=torch.bfloat16, timed=True, flex=False)
+    _free()
+    rows = {"splash_attention": {f: row[f] for f in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")},
+        "splash_attention_bwd": dict(
+            max_abs_err=row["max_abs_err_bwd"], ms=row["bwd_ms"],
+            plain_ms=row["plain_bwd_ms"], bound_ms=row["bwd_bound_ms"],
+            bound_by=row["bwd_bound_by"],
+            library_ms=row["library_bwd_ms"])}
+    return counts, rows, dict(launches=counts, bitwise=same, shard=row)
+
+
+def gpipe_launches(stages: int, micro: int, per: int) -> dict:
+    """K1f/K1b/K2/K3 launches of (c)'s emulated schedule under full remat.
+    Forward: every stage runs all M + S - 1 ticks, bubble ticks included.
+    Backward: the ticks whose outputs reach the harvested microbatches,
+    M a stage (a rank's own graph also carries its bubble ticks' zero
+    cotangents back through the ring; one process holds no such hop).
+    Each emulated stage's forward ends in the final norm; one loss."""
+    fwd = stages * (micro + stages - 1) * per
+    bwd = stages * micro * per
+    return {"flash_attention": fwd + bwd, "flash_attention_bwd": bwd,
+            "rms_norm": 2 * (fwd + bwd) + stages,
+            "rms_norm_bwd": 2 * bwd + 1, "cross_entropy": 1,
+            "cross_entropy_bwd": 1}
+
+
+class _EmulatedStages:
+    """The collectives of ``parallel.pipeline`` for stages run one after
+    another in this process: a hop hands stage s the tensor stage s-1
+    sent at the same call (so one autograd graph spans the stages), stage
+    0 the zeros it discards; the harvest is the last stage's own value;
+    the replicated input and output need no transpose (one loss)."""
+
+    def __init__(self, n):
+        self.n, self.stage, self.sent = n, 0, [[] for _ in range(n)]
+
+    def group_rank(self, group):
+        return self.stage
+
+    def group_size(self, group):
+        return self.n
+
+    def ring_permute(self, x, group, shift=1):
+        mine = self.sent[self.stage]
+        mine.append(x)
+        if self.stage == 0:
+            return x.detach().new_zeros(x.shape)
+        return self.sent[self.stage - 1][len(mine) - 1]
+
+    def broadcast_from(self, x, group, src=0):
+        return x if self.stage == src else x.detach().new_zeros(x.shape)
+
+    @staticmethod
+    def replicated_input(x, group):
+        return x
+
+    replicated_output = replicated_input
+
+
+def phase_gpipe() -> tuple:
+    """26 (c): llama_125m at full width and depth (12 layers, 3 a stage)
+    as 4 emulated GPipe stages, 8 microbatches of 1 x 2,048, bf16 compute
+    over f32 params, through the module's tick schedule (each stage's
+    forward the model's own pipelined forward, ``pipeline_stages`` with
+    its collectives emulated), forward and backward; the loss and every
+    parameter's gradient held to the plain depth loop on the same batch
+    within phase 6b's bf16 bound (relative L2 3e-2); the counts zeroed
+    just before and read just after, equal to ``gpipe_launches``."""
+    import torch
+    from torch import nn
+    from tensorflow_train_distributed_torch.data.datasets import SyntheticLM
+    from tensorflow_train_distributed_torch.data.pipeline import (
+        HostBatches,
+        to_device,
+    )
+    from tensorflow_train_distributed_torch.models.llama import (
+        LLAMA_PRESETS,
+        CausalLmTask,
+    )
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.ops.losses import (
+        softmax_cross_entropy,
+    )
+    from tensorflow_train_distributed_torch.parallel import pipeline as PP
+    from tensorflow_train_distributed_torch.training import optimizers
+    from tensorflow_train_distributed_torch.training.mixed_precision import (
+        Policy,
+    )
+    from tensorflow_train_distributed_torch.training.trainer import Trainer
+
+    cfg = LLAMA_PRESETS["llama_125m"]
+    per = cfg.num_layers // PP_STAGES
+    src = SyntheticLM(num_examples=64, seq_len=2048, vocab_size=32_000)
+    host = next(iter(HostBatches(src, PP_MICRO, seed=SEED)))
+    trainer = Trainer(CausalLmTask(cfg, device="meta"), optimizers.sgd(0.0),
+                      policy=Policy.from_name("mixed_bfloat16"),
+                      device="cuda")
+    state = trainer.create_state()
+    params = list(state.params.values())
+    batch = trainer.policy.cast_to_compute(to_device(host, "cuda"))
+    want, loss_p, _ = trainer._microbatch_grads(params, batch, None)
+    model = trainer.task.model
+    layers = model.layers
+    emu = _EmulatedStages(PP_STAGES)
+    saved_c = PP.C
+    PP.C = emu
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for s in range(PP_STAGES):
+            emu.stage = s
+            model.layers = nn.ModuleDict(
+                (str(i), layers[i]) for i in range(s * per, (s + 1) * per))
+            model.pipeline = (None, PP_STAGES, s, PP_MICRO)
+            logits = model(batch["tokens"]).float()
+        loss, _ = softmax_cross_entropy(logits, batch["targets"])
+        got = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+    finally:
+        PP.C = saved_c
+        model.layers, model.pipeline = layers, None
+    wall = time.perf_counter() - t0
+    counts = {n: K.launch_counts()[n] for n in LAUNCH_KERNELS}
+    expect = gpipe_launches(PP_STAGES, PP_MICRO, per)
+    log(f"  (c) launches {counts} (the schedule's {expect})")
+    if counts != expect:
+        raise AssertionError(f"(c) launches {counts} != {expect}")
+    rel_loss = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(state.params, got, want):
+        rel = ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"  (c) loss pipeline {loss.item():.6f} depth loop "
+        f"{loss_p.item():.6f} (relative {rel_loss:.2e}); worst leaf "
+        f"{worst_name} relative L2 {worst:.3e} (bound 3e-2); forward and "
+        f"backward {wall:.2f} s")
+    if not (rel_loss <= 3e-2 and worst <= 3e-2):
+        raise AssertionError(f"(c) pipeline vs depth loop: loss {rel_loss}, "
+                             f"{worst_name} {worst}")
+    rec = dict(stages=PP_STAGES, microbatches=PP_MICRO, layers_a_stage=per,
+               ticks=PP.num_pipeline_ticks(PP_MICRO, PP_STAGES),
+               launches=counts, loss=loss.item(), depth_loop_loss=
+               loss_p.item(), worst_leaf=worst_name, worst_rel_l2=worst,
+               wall_s=wall)
+    del trainer, state, params, batch, want, got, logits, model, layers
+    _free()
+    return counts, rec
+
+
+def _split_rank(rank: int, port: int, job_path: str, out_path: str) -> None:
+    """One rank of (d), in its own process on the card: Llama-2-7B's
+    phase-3 weights (seed 0) in a ``ServingEngine(mesh=)`` at tensor 2
+    over gloo (c10d stages the card's tensors through the host), phase
+    3's engine settings and requests; writes its record to
+    ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from tensorflow_train_distributed_torch import convert
+    from tensorflow_train_distributed_torch.models.llama import LLAMA_PRESETS
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.runtime.mesh import (
+        MeshConfig,
+        build_mesh,
+    )
+    from tensorflow_train_distributed_torch.serving import ServingEngine
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        mesh = build_mesh(MeshConfig(data=1, tensor=2))
+        config = dataclasses.replace(LLAMA_PRESETS["llama2_7b"],
+                                     num_layers=job["layers"])
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        params = convert.init_params(config, gen, device="cuda")
+        eng = ServingEngine(config, params, slots=8, chunk=8, cache_len=1024,
+                            kv_block_size=16, record_logits=True,
+                            overlap=False, prefill_budget=0, device="cuda",
+                            mesh=mesh)
+        del params
+        _free()
+        weights = sum(t.numel() * t.element_size()
+                      for t in eng._model.state_dict().values())
+        pool = eng._grids()[0].layers[0]["key_pool"]
+        eng.submit([1] * 16, 2)
+        eng.run()
+        eng.stats.update(decode_steps=0, decode_s=0.0, prefill_s=0.0,
+                         prefill_tokens=0)
+        eng.decode_logits.clear()
+        ready = time.perf_counter() - t0
+        prompts, max_new = job["prompts"], job["max_new"]
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        steps = eng.stats["decode_steps"]
+        for rid, p in zip(rids, prompts):
+            toks = out[rid]
+            if (len(toks) != len(p) + max_new or toks[:len(p)] != p
+                    or not all(0 <= t < config.vocab_size for t in toks)):
+                raise AssertionError(f"request {rid}: malformed output")
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"a kernel of the path never ran: {counts}")
+        if counts["paged_attention"] != config.num_layers * steps:
+            raise AssertionError(
+                f"paged_attention launches {counts['paged_attention']} != "
+                f"layers x decode steps {config.num_layers * steps}")
+        c = _consistency(eng, out, [(rids[i], prompts[i])
+                                    for i in job["check"]], max_new,
+                         SPLIT_TOL)
+        # Phase 3's greedy tokens: each generated position against its
+        # (the split sums every row-split product in two halves, so a
+        # near-tie can turn and the request then follows another path).
+        same, whole, first = 0, 0, []
+        for rid, p, ref in zip(rids, prompts, job["tokens"]):
+            gen, want = out[rid][len(p):], ref[len(p):]
+            agree = [a == b for a, b in zip(gen, want)]
+            same += sum(agree)
+            whole += int(all(agree))
+            first.append(agree.index(False) if not all(agree) else None)
+        rec = dict(rank=rank, launches=counts, decode_steps=steps,
+                   wall_s=wall, ready_s=ready,
+                   tokens_per_s=len(rids) * max_new / wall,
+                   decode_ms_per_step=eng.stats["decode_s"] / steps * 1e3,
+                   peak_mem_gib=peak / 2 ** 30, weights_gib=weights / 2 ** 30,
+                   kv_pool_shape=list(pool.shape),
+                   consistency=dict(worst=c["worst"], agree=c["agree"],
+                                    total=c["total"], bar=c["bar"]),
+                   phase3_generated_equal=same,
+                   phase3_generated_total=len(rids) * max_new,
+                   phase3_requests_equal=whole,
+                   phase3_first_difference=first,
+                   kv_stats=dict(eng.kv_stats))
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def _split_kernel_rows(rms_row) -> dict:
+    """K4 and K5 at a tensor rank's shapes (16 of Llama-2-7B's 32 heads x
+    128; phase 2's 8 lanes of 64 blocks of 16 rows; K5 at the engine's
+    one-lane radix hit), as phase 2 measures them; K1f's row is phase
+    2's at [8, 4096], the same rows (the norm is over d_model, which the
+    split keeps whole)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    lanes, heads, hd, bs, n_blk = 8, 16, 128, 16, 64
+    nb = 1 + lanes * n_blk
+    c = n_blk * bs
+    perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
+    table = perm[:lanes * n_blk].view(lanes, n_blk).to(torch.int32)
+    lengths = torch.randint(16, c - 1, (lanes,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    q = torch.randn(lanes, 1, heads, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    kpool, vpool = (torch.randn(nb, bs, heads, hd, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    case = _paged_case("bf16, a tensor rank's 16 heads", q, kpool, vpool,
+                       None, table, lengths, c)
+    CASES.append(dict(case, kernel="paged_attention"))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    gather = _gather_case("bf16, a tensor rank's lane", kpool,
+                          [table[i:i + 1] for i in range(lanes)], c, True)
+    rows = {"rms_norm": rms_row,
+            "paged_attention": {k: case[k] for k in keys},
+            "paged_kv_gather": gather}
+    del q, kpool, vpool
+    _free()
+    return rows
+
+
+# (d) runs 16 of Llama-2-7B's 32 layers: the whole script's clock (its
+# phases 1-25 took 1,015-1,125 s on the card's hosts) leaves no room for
+# the full depth.
+SPLIT_LAYERS = 16
+
+
+def phase_split_serve(run3: dict, stats3: dict, rms_row,
+                      layers: int = SPLIT_LAYERS) -> tuple:
+    """26 (d): the tensor-split engine at tensor 2, two processes sharing
+    the card over gloo (NCCL refuses two ranks on one device), Llama-2-7B
+    at full width (16 heads and ffn 5,504 a rank) and ``layers`` layers,
+    on phase 3's requests with its engine settings: phase 3's re-prefill
+    bar on each rank, K4 launches = layers x decode steps a rank, each
+    rank's peak memory beside phase 3's (whose engine has 32 layers),
+    agreement with phase 3's tokens logged (a cut depth is another
+    model: its tokens agree with phase 3's by chance alone).  Returns
+    (rank 0's counts, the split_serve rows, record)."""
+    _free()
+    tmp = os.path.join(os.getcwd(), "_split_smoke")      # git-ignored
+    os.makedirs(tmp, exist_ok=True)
+    job = os.path.join(tmp, "job.json")
+    with open(job, "w") as f:
+        json.dump(dict(prompts=run3["prompts"], tokens=run3["tokens"],
+                       max_new=run3["max_new"], check=[1, 5],
+                       layers=layers), f)
+    port = int(_nccl_flags()[-1].rsplit(":", 1)[1])
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        cmd = [sys.executable, "-c",
+               f"import chip_smoke as c; c._split_rank({rank}, {port}, "
+               f"{job!r}, {os.path.join(tmp, f'rank{rank}.json')!r})"]
+        procs.append(subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=os.getcwd(),
+                     OMP_NUM_THREADS="4")))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines()[-40:]:
+            log(f"    [rank {rank}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"(d) rank {rank} exited {p.returncode}")
+    recs = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for r in recs:
+        log(f"  (d) rank {r['rank']}: launches {r['launches']}, decode "
+            f"steps {r['decode_steps']}, {r['decode_ms_per_step']:.1f} ms a "
+            f"step (phase 3: {stats3['decode_ms_per_step']:.1f}), peak "
+            f"{r['peak_mem_gib']:.2f} GiB (phase 3's one-card engine: "
+            f"{stats3['peak_mem_gib']:.2f}), weights {r['weights_gib']:.2f} "
+            f"GiB, pool {r['kv_pool_shape']}, re-prefill worst "
+            f"{r['consistency']['worst']:.4f} (bar {SPLIT_TOL}); generated "
+            f"tokens equal to phase 3's {r['phase3_generated_equal']}/"
+            f"{r['phase3_generated_total']}, requests whole "
+            f"{r['phase3_requests_equal']}/{len(r['phase3_first_difference'])}"
+            f", first difference at {r['phase3_first_difference']}")
+    if recs[0]["launches"] != recs[1]["launches"]:
+        raise AssertionError(f"(d) the ranks' launches differ: "
+                             f"{[r['launches'] for r in recs]}")
+    log(f"  (d) {wall:.1f} s for both processes (start, weights, warm-up, "
+        f"requests, checks)")
+    rows = _split_kernel_rows(rms_row)
+    rec = dict(ranks=recs, wall_s=wall, layers=layers, tensor=2,
+               collective_backend="gloo (card tensors staged through the "
+                                  "host)", phase3=dict(
+                   decode_ms_per_step=stats3["decode_ms_per_step"],
+                   peak_mem_gib=stats3["peak_mem_gib"]))
+    return recs[0]["launches"], rows, rec
+
+
+def phase_parallel(run3: dict, stats3: dict, rms_row) -> tuple:
+    """Phase 26: (a) ring, (b) Ulysses, (c) GPipe, (d) the tensor-split
+    engine.  Returns (path counts, kernel rows, record)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    rec = dict(card=smi_line())
+    rec["ring"] = phase_ring(gen)
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+    ul_counts, ul_rows, rec["ulysses"] = phase_ulysses(gen)
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+    rec["gpipe_launches"], rec["gpipe"] = phase_gpipe()
+    log(f"  (c) {time.perf_counter() - t0:.1f} s")
+    split_counts, split_rows, rec["split_serve"] = phase_split_serve(
+        run3, stats3, rms_row)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["unverified"] = ("multi-rank NCCL for seq, pipeline and tensor-split "
+                         "serving: this machine has one GPU")
+    log(f"  phase 26: {rec['seconds']:.1f} s")
+    return ({"ulysses": ul_counts, "split_serve": split_counts},
+            {"ulysses": ul_rows, "split_serve": split_rows}, rec)
+
+
 def main() -> int:
     import torch
 
@@ -7207,6 +7846,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    open(LOG_PATH, "w").close()
     engines = {}
     log("== phase 1: device and build")
     phase_device()
@@ -7336,6 +7977,12 @@ def main() -> int:
         "expert-parallel block, the launcher at nccl world size 1)")
     ep_counts, rows["ep_block"], multi_gpu = phase_multi_gpu(
         lora_7b["losses"])
+    torch.cuda.empty_cache()
+    log("== phase 26: ring and Ulysses attention, the GPipe schedule, the "
+        "tensor-split engine (two processes on the card)")
+    par_counts, par_rows, parallel = phase_parallel(
+        run3, engines["llama2_7b_bf16"], rows["serve"]["rms_norm"])
+    rows.update(par_rows)
 
     paths = {"serve": counts, "linear_serve": run3["linear_counts"],
              "autosize_serve": autosize_counts, "launch_fused": fused_counts,
@@ -7346,30 +7993,31 @@ def main() -> int:
              "lora_launch": lora_counts, "lora_7b": lora_7b_counts,
              "spec_serve": spec_counts, "lane_control": lane_counts,
              "generate": generate_counts, "fleet_serve": fleet_counts,
-             "ep_block": ep_counts, **moe_counts22, **interop_counts}
+             "ep_block": ep_counts, **moe_counts22, **interop_counts,
+             **par_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
                for name, source, replaces, path in KERNELS]
-    print(json.dumps({"engines": engines}), flush=True)
-    print(json.dumps({"training": training}), flush=True)
-    print(json.dumps({"moe_training": moe_training}), flush=True)
-    print(json.dumps({"moe_kernel_cases": moe_cases}), flush=True)
-    print(json.dumps({"window_training": window_training}), flush=True)
-    print(json.dumps({"window_kernel_cases": window_cases}), flush=True)
-    print(json.dumps({"launcher": launcher}), flush=True)
-    print(json.dumps({"families": families}), flush=True)
-    print(json.dumps({"lora_7b": lora_7b}), flush=True)
-    print(json.dumps({"spec_serving": spec_serving}, default=str),
-          flush=True)
-    print(json.dumps({"lane_control": lane_control}), flush=True)
-    print(json.dumps({"generation": generation}), flush=True)
-    print(json.dumps({"moe_serving": moe_serving}), flush=True)
-    print(json.dumps({"fleet": fleet}), flush=True)
-    print(json.dumps({"interop": interop}), flush=True)
-    print(json.dumps({"multi_gpu": multi_gpu}), flush=True)
-    print(json.dumps({"kernel_cases": CASES}), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    _tee(json.dumps({"engines": engines}))
+    _tee(json.dumps({"training": training}))
+    _tee(json.dumps({"moe_training": moe_training}))
+    _tee(json.dumps({"moe_kernel_cases": moe_cases}))
+    _tee(json.dumps({"window_training": window_training}))
+    _tee(json.dumps({"window_kernel_cases": window_cases}))
+    _tee(json.dumps({"launcher": launcher}))
+    _tee(json.dumps({"families": families}))
+    _tee(json.dumps({"lora_7b": lora_7b}))
+    _tee(json.dumps({"spec_serving": spec_serving}, default=str))
+    _tee(json.dumps({"lane_control": lane_control}))
+    _tee(json.dumps({"generation": generation}))
+    _tee(json.dumps({"moe_serving": moe_serving}))
+    _tee(json.dumps({"fleet": fleet}))
+    _tee(json.dumps({"interop": interop}))
+    _tee(json.dumps({"multi_gpu": multi_gpu}))
+    _tee(json.dumps({"parallel": parallel}))
+    _tee(json.dumps({"kernel_cases": CASES}))
+    _tee(json.dumps({"kernels": kernels}))
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

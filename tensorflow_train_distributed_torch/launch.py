@@ -27,9 +27,12 @@ the CPU.  ``--zero1``, ``--sharded-update``, ``--grad-quant`` and
 rank reads its rows of every global batch; rank 0 prints and writes the
 checkpoints, which hold the whole state and restore at any world size
 (a device-loss relaunch with ``TTD_ELASTIC_DEVICES`` restores onto the
-survivors).  A mesh with ``seq`` or ``pipeline`` above 1 waits for slice
-20 (``runtime.mesh.SLICE_20``); one with ``tensor`` or ``fsdp`` above 1
-logs what those axes do not split yet (``runtime.mesh.UNSPLIT_COMPUTE``).
+survivors).  A ``seq`` axis shards each row's tokens for a config with
+``seq_parallel`` and a ``pipeline`` axis splits the layers into GPipe
+stages for one with ``pipeline_microbatches`` (``llama_tiny_pp``); other
+configs run whole rows and every layer on each such rank, as the JAX
+launcher does.  A mesh with ``tensor`` or ``fsdp`` above 1 logs what
+those axes do not split yet (``runtime.mesh.UNSPLIT_COMPUTE``).
 
 The config's registry entry supplies the dataset, global batch, peak
 learning rate, schedule, warmup ratio and global-norm clip unless a flag
@@ -584,10 +587,8 @@ def _parse_mesh_overrides(spec: str) -> dict:
 
 def _check_mesh_flags(args) -> None:
     """The mesh flags' refusals, before any setup: an unknown or
-    parameter-server strategy, and a seq or pipeline axis above 1 (exit
-    2, naming the slice that brings them)."""
+    parameter-server strategy, an unknown axis."""
     from tensorflow_train_distributed_torch.runtime.mesh import (
-        SLICE_20,
         strategy_preset,
     )
 
@@ -596,10 +597,8 @@ def _check_mesh_flags(args) -> None:
             strategy_preset(args.strategy)
         except ValueError as e:
             raise SystemExit(str(e))
-    for axis, n in (_parse_mesh_overrides(args.mesh) if args.mesh
-                    else {}).items():
-        if axis in ("seq", "pipeline") and n > 1:
-            _refuse(f"--mesh {axis}={n}", SLICE_20)
+    if args.mesh:
+        _parse_mesh_overrides(args.mesh)
 
 
 def _build_mesh(args, entry, cluster):
@@ -607,7 +606,6 @@ def _build_mesh(args, entry, cluster):
     shrunk to the world, ``--mesh`` overrides, the elastic degrade,
     ``--dcn`` placement."""
     from tensorflow_train_distributed_torch.runtime.mesh import (
-        SLICE_20,
         UNSPLIT_COMPUTE,
         MeshConfig,
         build_mesh,
@@ -637,13 +635,9 @@ def _build_mesh(args, entry, cluster):
         cfg = fitted
     dcn = _parse_mesh_overrides(args.dcn) if args.dcn else None
     try:
-        sizes = cfg.resolve(n)
+        cfg.resolve(n)
     except ValueError as e:
         raise SystemExit(f"--strategy {strategy}: {e}")
-    for axis in ("seq", "pipeline"):
-        if sizes[axis] > 1:
-            _refuse(f"--strategy {strategy} ({axis}={sizes[axis]})",
-                    SLICE_20)
     try:
         mesh = build_mesh(cfg, world_size=n, rank=cluster.process_id,
                           device_type=("cuda" if args.device.startswith(

@@ -39,7 +39,8 @@ from tensorflow_train_distributed_torch.models.quant import (
 )
 
 
-def _decode_model(config, params: dict, *, quant_scales=None, device):
+def _decode_model(config, params: dict, *, quant_scales=None, device,
+                  prepare=None):
     """The decoder for ``config`` holding ``params`` (a flat
     ``{name: tensor}`` dict in the port's layout — ``convert``): a
     ``MoeLmModel`` for a ``MoeConfig``, a ``LlamaModel`` for a
@@ -48,7 +49,9 @@ def _decode_model(config, params: dict, *, quant_scales=None, device):
     meta device, frozen (serving takes no gradients, and an int8 kernel
     cannot be a parameter that requires one), and takes the tensors by
     assignment, so weights are never allocated twice; ``quant_scales``
-    go to their int8 kernels' modules (``quant.attach_scales``)."""
+    go to their int8 kernels' modules (``quant.attach_scales``).
+    ``prepare(model)`` lays the meta model out before the load (the
+    tensor-split and expert-parallel engine's)."""
     from tensorflow_train_distributed_torch.models.moe import (
         MoeConfig,
         MoeLmModel,
@@ -62,6 +65,9 @@ def _decode_model(config, params: dict, *, quant_scales=None, device):
         raise TypeError(f"no decoder for config type "
                         f"{type(config).__name__}")
     model.requires_grad_(False)
+    if prepare is not None:
+        prepare(model)
+        model.requires_grad_(False)
     model.load_state_dict({k: v.to(device) for k, v in params.items()},
                           strict=True, assign=True)
     if quant_scales is not None:

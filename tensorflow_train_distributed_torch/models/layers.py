@@ -189,8 +189,20 @@ class Embed(_Leaf):
         self.dtype = dtype
         self.embedding = nn.Parameter(
             torch.empty(vocab_size, features, dtype=dtype, device=device))
+        # (mesh, table_axis, vocab_size) of a row-sharded table holding
+        # this rank's rows (``set_tensor_parallel``).
+        self.row_shard = None
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.row_shard is not None:
+            from tensorflow_train_distributed_torch.ops.embedding import (
+                sharded_lookup,
+            )
+
+            mesh, axis, vocab = self.row_shard
+            return self._cast(sharded_lookup(
+                self.embedding, ids, mesh=mesh, table_axis=axis,
+                vocab_size=vocab)).to(self.dtype)
         # take-then-cast equals the JAX cast-then-take bit for bit; the
         # backward then sums repeated tokens' rows in f32 (JAX sums them
         # in the compute dtype before its cast back).
@@ -467,11 +479,14 @@ class MlpBlock(nn.Module):
                             device=device)
         self.wo = Dense(hidden, features, use_bias=not gated, dtype=dtype,
                         device=device)
+        # The tensor group of a split FFN (``set_tensor_parallel``).
+        self.tensor_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = _ACTIVATIONS[self.activation]
         if self.gated:
-            return self.wo(act(self.wi_gate(x)) * self.wi_up(x))
+            return _tensor_sum(self.wo(act(self.wi_gate(x)) * self.wi_up(x)),
+                               self.tensor_group)
         h = dropout(act(self.wi(x)), self.dropout_rate, self.training)
         return self.wo(h)
 
@@ -515,6 +530,11 @@ class MultiHeadAttention(nn.Module):
         self.fused_qkv = fused_qkv
         self.window = window
         self.sinks = sinks
+        # (method, group): attention over a sequence sharded on the seq
+        # axis (``set_seq_parallel``); the tensor group whose sum follows
+        # the row-split out projection (``set_tensor_parallel``).
+        self.seq_parallel = None
+        self.tensor_group = None
         kvh = self.num_kv_heads
         if fused_qkv:
             self.qkv = Dense(features, (num_heads + 2 * kvh) * head_dim,
@@ -568,7 +588,7 @@ class MultiHeadAttention(nn.Module):
             q = rotate(q, *rope)
             k = rotate(k, *rope)
         if cache is None:
-            return self._train_step(q, k, v, segment_ids)
+            return self._train_step(q, k, v, segment_ids, x_kv is not None)
         if x_kv is not None or not (self.causal and self.use_rope):
             raise ValueError("decode is causal self-attention with RoPE")
         if segment_ids is not None:
@@ -587,15 +607,29 @@ class MultiHeadAttention(nn.Module):
             out = self._slot_decode_step(q, k, v, layer_cache, positions)
         return self._attn_epilogue(out)
 
-    def _train_step(self, q, k, v, segment_ids):
+    def _train_step(self, q, k, v, segment_ids, cross: bool = False):
         """Attention over the whole sequence (the JAX ``__call__`` without
         decode): causal (keys at their queries' positions) or full; GQA's
         kv heads are read, not repeated, by the kernels (the reference
-        paths repeat them)."""
-        out = multihead_attention_kernel(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=self.causal, segment_ids=segment_ids, window=self.window,
-            sinks=self.sinks)
+        paths repeat them).  Under ``seq_parallel`` the sequence is this
+        rank's block and ring or Ulysses attention spans the axis, the
+        unrepeated KV handed over (self-attention only)."""
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if self.seq_parallel is not None:
+            if cross:
+                raise ValueError("seq_parallel supports self-attention only")
+            from tensorflow_train_distributed_torch.parallel.ring_attention \
+                import METHODS
+
+            method, group = self.seq_parallel
+            out = METHODS[method](
+                qh, kh, vh, group=group, causal=self.causal,
+                segment_ids=segment_ids, window=self.window,
+                sinks=self.sinks)
+        else:
+            out = multihead_attention_kernel(
+                qh, kh, vh, causal=self.causal, segment_ids=segment_ids,
+                window=self.window, sinks=self.sinks)
         out = dropout(out.transpose(1, 2), self.dropout_rate, self.training)
         return self._attn_epilogue(out)
 
@@ -825,6 +859,55 @@ class MultiHeadAttention(nn.Module):
         return out.transpose(1, 2)
 
     def _attn_epilogue(self, out: torch.Tensor) -> torch.Tensor:
-        """Head merge and output projection (shared by all modes)."""
+        """Head merge and output projection (shared by all modes); under
+        a tensor split the row-split product's sum over the group."""
         b, s = out.shape[:2]
-        return self.out(out.reshape(b, s, self.num_heads * self.head_dim))
+        y = self.out(out.reshape(b, s, self.num_heads * self.head_dim))
+        return _tensor_sum(y, self.tensor_group)
+
+
+def _tensor_sum(y: torch.Tensor, group) -> torch.Tensor:
+    """The all-reduce after a row-split product (the identity without a
+    tensor group)."""
+    if group is None:
+        return y
+    from tensorflow_train_distributed_torch.parallel.collectives import psum
+
+    return psum(y, group)
+
+
+def set_tensor_parallel(model: nn.Module, mesh, axis: str,
+                        vocab_size: int) -> None:
+    """Make ``model`` (a decoder holding one rank's share of a tensor
+    split, ``llama.tensor_split``) sum its row-split products over the
+    ``axis`` group and look its tokens up in its row block of the
+    ``vocab_size``-row embedding."""
+    group = mesh.group(axis)
+    for m in model.modules():
+        if isinstance(m, (MultiHeadAttention, MlpBlock)):
+            m.tensor_group = group
+    emb = model.token_embed
+    e = emb.embedding
+    emb.embedding = nn.Parameter(torch.empty(
+        (vocab_size // mesh.shape[axis],) + tuple(e.shape[1:]),
+        dtype=e.dtype, device=e.device), requires_grad=False)
+    emb.row_shard = (mesh, axis, vocab_size)
+
+
+def set_seq_parallel(model: nn.Module, method: str, group) -> int:
+    """Route every ``MultiHeadAttention`` of ``model`` through
+    ``parallel.ring_attention``'s ``method`` ("ring" or "ulysses") over
+    the seq axis's ``group``.  Returns the number of layers set."""
+    from tensorflow_train_distributed_torch.parallel.ring_attention import (
+        METHODS,
+    )
+
+    if method not in METHODS:
+        raise ValueError(f"seq_parallel must be one of {sorted(METHODS)}, "
+                         f"got {method!r}")
+    n = 0
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.seq_parallel = (method, group)
+            n += 1
+    return n

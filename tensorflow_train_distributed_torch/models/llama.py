@@ -14,8 +14,16 @@ unrolled layouts differ only in its parameter tree, which
 ``convert.params_from_flax`` flattens (``scan_layers`` only names the
 paths of the serving engine's KV wire manifest).  ``LlamaConfig.lora`` (a ``models.lora.LoraSpec``) builds the
 model with rank-r adapters on the targeted projections and everything
-else frozen (``lora.apply_lora``).  Sequence and pipeline parallelism
-wait for later slices.
+else frozen (``lora.apply_lora``).
+
+On a mesh (``set_mesh``, which the trainer calls): ``seq_parallel``
+("ring" or "ulysses") attends across a ``seq`` axis above 1 through
+``parallel.ring_attention`` (each rank holds S/n tokens of every row, its
+RoPE positions global, given by the trainer); ``pipeline_microbatches``
+under a ``pipeline`` axis above 1 keeps only this stage's L/S layers and
+runs them in the GPipe schedule of ``parallel.pipeline``
+(``_pipelined_blocks``).  Without those fields either axis runs the whole
+model on every rank, as the JAX package's does.
 
 Rematerialisation (``remat``, ``remat_policy``), as the JAX package's:
 
@@ -95,6 +103,13 @@ class LlamaConfig:
     # LoRA fine-tuning (models.lora.LoraSpec): a frozen base and trainable
     # adapters on the targeted projections; None = full fine-tuning.
     lora: object = None
+    # "ring" | "ulysses" | None: context parallelism over the seq mesh axis
+    # (``set_mesh``).
+    seq_parallel: Optional[str] = None
+    # GPipe microbatch count: with a pipeline mesh axis above 1 the stack
+    # runs the ``parallel.pipeline`` schedule, each stage holding L/S
+    # layers (``set_mesh``).
+    pipeline_microbatches: Optional[int] = None
     # The JAX package's layer layout (scanned or unrolled), as its preset
     # has it.  The port's model is one list of layers either way; the
     # field names the paths of the KV handoff's wire manifest
@@ -180,7 +195,8 @@ LLAMA_PRESETS = {
                                    max_positions=128, dtype=torch.float32),
     "llama_tiny_pp": LlamaConfig(vocab_size=256, d_model=64, num_layers=4,
                                  num_heads=4, num_kv_heads=2, ffn_size=128,
-                                 max_positions=128, dtype=torch.float32),
+                                 max_positions=128, dtype=torch.float32,
+                                 pipeline_microbatches=4),
 }
 
 
@@ -214,6 +230,61 @@ class DecoderBlock(nn.Module):
         if self.remat_ffn and cache is None and torch.is_grad_enabled():
             return x + checkpoint(self.mlp, h, use_reentrant=False)
         return x + self.mlp(h)
+
+
+def tensor_split(config: LlamaConfig, params: dict, n: int,
+                 index: int) -> tuple:
+    """Rank ``index``'s share of ``params`` under an ``n``-way tensor split
+    of the serving forward (Megatron's layout): the config of a decoder
+    with H/n query heads, KV/n kv heads and an ffn of F/n, and its
+    weights.  q/k/v (and the fused qkv's three parts) and the FFN's gate
+    and up projections keep their column blocks, the out and down
+    projections their row blocks (each followed by a sum over the group:
+    ``layers.set_tensor_parallel``), the token embedding its row block
+    (``ops.embedding.sharded_lookup``); the norms and the LM head stay
+    whole.  Refuses kv heads (and heads, ffn, vocab) that ``n`` does not
+    divide: kv heads are not repeated across ranks."""
+    cfg = config
+    for what, size in (("heads", cfg.num_heads), ("kv heads", cfg.kv_heads),
+                       ("ffn_size", cfg.ffn_size),
+                       ("vocab_size", cfg.vocab_size)):
+        if size % n:
+            raise ValueError(
+                f"tensor-split serving needs {what} ({size}) divisible by "
+                f"the tensor axis ({n}); kv heads are not repeated")
+    hd = cfg.attn_head_dim
+    h, kv = cfg.num_heads // n, cfg.kv_heads // n
+    local = dataclasses.replace(cfg, num_heads=h, num_kv_heads=kv,
+                                ffn_size=cfg.ffn_size // n, head_dim=hd)
+
+    def cols(t, width, offset=0):
+        return t[..., offset + index * width:offset + (index + 1) * width]
+
+    def rows(t, width):
+        return t[index * width:(index + 1) * width]
+
+    out = {}
+    for k, t in params.items():
+        leaf = k.rsplit(".", 2)
+        mod = leaf[-2] if len(leaf) > 2 else ""
+        if k == "token_embed.embedding":
+            t = rows(t, cfg.vocab_size // n)
+        elif ".attention." in k and mod == "query":
+            t = cols(t, h * hd)
+        elif ".attention." in k and mod in ("key", "value"):
+            t = cols(t, kv * hd)
+        elif ".attention." in k and mod == "qkv":
+            qw, kw = cfg.num_heads * hd, cfg.kv_heads * hd
+            t = torch.cat([cols(t, h * hd), cols(t, kv * hd, qw),
+                           cols(t, kv * hd, qw + kw)], dim=-1)
+        elif ".attention.out." in k and leaf[-1] == "kernel":
+            t = rows(t, h * hd)
+        elif ".mlp." in k and mod in ("wi_gate", "wi_up"):
+            t = cols(t, cfg.ffn_size // n)
+        elif ".mlp.wo." in k and leaf[-1] == "kernel":
+            t = rows(t, cfg.ffn_size // n)
+        out[k] = t.contiguous()
+    return local, out
 
 
 def segment_relative_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -273,6 +344,80 @@ class LlamaModel(nn.Module):
             )
 
             apply_lora(self, cfg.lora)
+        # (group, stages, stage, microbatches) once ``set_mesh`` engages
+        # the pipeline; ``seq_sharded`` once it engages seq parallelism.
+        self.pipeline = None
+        self.seq_sharded = False
+
+    def set_mesh(self, mesh) -> None:
+        """Lay the model out on ``mesh`` (the JAX ambient mesh's effect):
+        ``seq_parallel`` under a ``seq`` axis above 1 sends every
+        attention through ``parallel.ring_attention`` over the axis's
+        group (the batch's [B, S] leaves then hold this rank's S/n
+        tokens: ``seq_sharded``); ``pipeline_microbatches`` under a
+        ``pipeline`` axis above 1 keeps this stage's layers alone (layer i
+        on stage i // (L/S), the ``stage`` -> ``pipeline`` rule), each
+        under its own name, and runs them in the GPipe schedule."""
+        cfg = self.config
+        if cfg.seq_parallel is not None and mesh.shape["seq"] > 1:
+            L.set_seq_parallel(self, cfg.seq_parallel, mesh.group("seq"))
+            self.seq_sharded = True
+        n = mesh.shape["pipeline"]
+        if cfg.pipeline_microbatches and n > 1:
+            if cfg.num_layers % n:
+                raise ValueError(
+                    f"num_layers={cfg.num_layers} not divisible by the "
+                    f"pipeline axis size {n}")
+            stage, per = mesh.index("pipeline"), cfg.num_layers // n
+            self.layers = nn.ModuleDict(
+                (str(i), self.layers[i])
+                for i in range(stage * per, (stage + 1) * per))
+            self.pipeline = (mesh.group("pipeline"), n, stage,
+                             cfg.pipeline_microbatches)
+
+    def _pipelined_blocks(self, x, segment_ids, positions):
+        """The decoder stack as the GPipe schedule over the pipeline
+        group (the JAX ``_pipelined_blocks``).  Packed segment ids and
+        positions ride each hop with the activation: at tick t stage s
+        holds microbatch t - s, so side inputs cannot be indexed by the
+        tick on later stages.  Outer remat wraps each layer as on the
+        plain path."""
+        from tensorflow_train_distributed_torch.parallel.pipeline import (
+            pipeline_stages,
+        )
+
+        cfg = self.config
+        group, _, _, m = self.pipeline
+        b = x.shape[0]
+        if b % m:
+            raise ValueError(f"batch size {b} not divisible by "
+                             f"num_microbatches={m}")
+        layers = list(self.layers.values())
+        extra = ({"context_fn": _DOTS_CONTEXT}
+                 if cfg.remat_policy == "dots" else {})
+
+        def stage_fn(_, carry):
+            h, seg, pos = carry
+            rope = L.rope_sin_cos(pos, cfg.attn_head_dim, base=cfg.rope_base,
+                                  scaling=cfg.rope_scaling)
+            for layer in layers:
+                if wants_outer_remat(cfg) and torch.is_grad_enabled():
+                    h = checkpoint(layer, h, None, None, positions=pos,
+                                   rope=rope, segment_ids=seg,
+                                   use_reentrant=False, **extra)
+                else:
+                    h = layer(h, None, None, positions=pos, rope=rope,
+                              segment_ids=seg)
+            return h, seg, pos
+
+        def micro(t):
+            return (None if t is None
+                    else t.reshape(m, b // m, *t.shape[1:]))
+
+        out, _, _ = pipeline_stages(
+            stage_fn, None, (micro(x), micro(segment_ids), micro(positions)),
+            group=group, unstack_params=False)
+        return out.reshape(b, *out.shape[2:])
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[L.KVCache] = None, *,
@@ -301,6 +446,13 @@ class LlamaModel(nn.Module):
                 positions = torch.arange(
                     tokens.shape[1], device=tokens.device).expand(
                         tokens.shape)
+        if self.pipeline is not None:
+            if cache is not None:
+                raise ValueError(
+                    "decode mode does not run under a pipeline mesh; "
+                    "generate outside the pipeline strategy")
+            x = self._pipelined_blocks(x, segment_ids, positions)
+            return self.lm_head(self.final_norm(x))
         rope = L.rope_sin_cos(positions, cfg.attn_head_dim,
                               base=cfg.rope_base, scaling=cfg.rope_scaling)
         if cache is not None:
@@ -400,10 +552,12 @@ class CausalLmTask:
 
     def loss_fn(self, batch: dict):
         """(mean loss, metrics) of one batch: ``tokens``, ``targets``
-        [B, S] and optionally ``segment_ids``, ``loss_weights``,
+        [B, S] and optionally ``segment_ids``, ``positions`` (a
+        sequence-sharded batch's global ones), ``loss_weights``,
         ``sample_weight``."""
         logits = self.model(batch["tokens"],
-                            segment_ids=batch.get("segment_ids")).float()
+                            segment_ids=batch.get("segment_ids"),
+                            positions=batch.get("positions")).float()
         weights = fold_sample_weight(batch, batch["targets"].shape,
                                      batch.get("loss_weights"))
         loss, acc = softmax_cross_entropy(logits, batch["targets"],

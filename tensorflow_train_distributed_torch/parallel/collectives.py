@@ -93,9 +93,17 @@ def reduce_scatter(x: torch.Tensor, group, *, scatter_dim: int = 0
 def all_to_all(x: torch.Tensor, group, *, split_dim: int,
                concat_dim: int) -> torch.Tensor:
     """Chunk j of ``split_dim`` goes to rank j; the chunks received are
-    concatenated along ``concat_dim`` in rank order (tiled)."""
+    concatenated along ``concat_dim`` in rank order (tiled).
+    Differentiable: the backward sends the cotangent back with the two
+    dims swapped."""
     if group is None:
         return x.clone()
+    if _wants_grad(x):
+        return _AllToAll.apply(x, group, split_dim, concat_dim)
+    return _all_to_all(x, group, split_dim, concat_dim)
+
+
+def _all_to_all(x, group, split_dim, concat_dim):
     n = group_size(group)
     chunks = [c.contiguous() for c in x.chunk(n, dim=split_dim)]
     if len(chunks) != n or any(c.shape != chunks[0].shape for c in chunks):
@@ -109,18 +117,149 @@ def all_to_all(x: torch.Tensor, group, *, split_dim: int,
 
 def ring_permute(x: torch.Tensor, group, *, shift: int = 1) -> torch.Tensor:
     """Rotate ``x`` around the group's ring: rank i sends to
-    i + shift and receives from i - shift."""
+    i + shift and receives from i - shift.  Differentiable: the backward
+    rotates the cotangent by ``-shift``."""
     if group is None:
         return x.clone()
+    if _wants_grad(x):
+        return _RingPermute.apply(x, group, shift)
+    return _ring_permute(x, group, shift)
+
+
+def _ring_permute(x, group, shift):
     n, me = group_size(group), group_rank(group)
     ranks = dist.get_process_group_ranks(group)
+    x = x.contiguous()
     out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), ranks[(me + shift) % n],
+    ops = [dist.P2POp(dist.isend, x, ranks[(me + shift) % n],
                       group),
            dist.P2POp(dist.irecv, out, ranks[(me - shift) % n], group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+# --- differentiable hops ----------------------------------------------------
+#
+# The JAX ring and pipeline take their backward passes from autodiff of
+# ``lax.scan`` over ``ppermute``, ``all_to_all`` and ``psum`` inside
+# ``shard_map``.  These are the same transposes: a rotation's is the
+# opposite rotation, an all-to-all's the swapped one, a sum's a sum.  Each
+# rank's loss is its own term of the objective (the sum over ranks), so
+# cotangents that cross ranks are summed where they land.  A value that
+# leaves the per-rank body replicated (every rank holds it and computes
+# the same loss from it) counts once: ``replicated_output`` divides its
+# cotangent by the group's size before the sum, as ``shard_map``'s
+# transpose does for an output unmapped along the axis; an input that
+# enters replicated gets its ranks' cotangents summed
+# (``replicated_input``, the transpose of an unmapped input).
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ring_permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_permute(g.contiguous(), ctx.group, -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return (_all_to_all(g, group, concat_dim, split_dim),
+                None, None, None)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity forward; the backward scales, or sums over
+    ``group`` (``scale`` None)."""
+
+    @staticmethod
+    def forward(ctx, x, group, scale):
+        ctx.group, ctx.scale = group, scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.scale is not None:
+            return g * ctx.scale, None, None
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (the JAX ``lax.psum``); its
+    backward sums the cotangents over the group."""
+    if group is None:
+        return x
+    if _wants_grad(x):
+        return _Psum.apply(x, group)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def broadcast_from(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank of ``group``: the masked
+    ``psum`` of the JAX ring's sinks and pipeline's harvest.  In the
+    backward the owner receives the sum of the ranks' cotangents (each
+    rank's term of the objective) and the others nothing; wrap the
+    result in ``replicated_output`` where every rank computes the same
+    loss from it, so the owner receives that cotangent once."""
+    if group is None:
+        return x
+    # ``where`` on a flag tensor: every rank builds the same graph (the
+    # backward's collective runs on all of them), and a non-finite value
+    # off the owner does not leak through a product with 0.
+    mine = torch.tensor(group_rank(group) == src, device=x.device)
+    return psum(torch.where(mine, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device)), group)
+
+
+def replicated_input(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; in the backward the ranks' cotangents are summed
+    (a value every rank holds feeds per-rank work that differs)."""
+    if group is None or not _wants_grad(x):
+        return x
+    return _ScaleGrad.apply(x, group, None)
+
+
+def replicated_output(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; in the backward the cotangent is divided by the
+    group's size (every rank computes the same loss from ``x``, so the
+    sum over ranks that follows counts it once)."""
+    if group is None or not _wants_grad(x):
+        return x
+    return _ScaleGrad.apply(x, group, 1.0 / group_size(group))
 
 
 # --- quantized gradient collectives (EQuARX recipe) -------------------------

@@ -13,14 +13,18 @@ updated pieces are all-gathered back into the parameter.
 A step, after the backward of the local batch's mean loss:
 
 1. the gradients' mean over the batch axes: one flat ``all_reduce`` over
-   ``data``, then over ``fsdp`` a ``reduce_scatter`` along the dim a
+   ``seq`` where the batch's sequences are sharded over it (each rank's
+   gradient is of its tokens' share of the loss) and over ``data``,
+   then over ``fsdp`` a ``reduce_scatter`` along the dim a
    parameter splits over it (an ``all_reduce`` for the others), divided
    by data × fsdp.  Under ``grad_quant`` the fsdp sum comes first and
    exact, then the int8 error-feedback mean over ``data``
    (``collectives.ef_grad_sync``, or ``ef_bucket_sync`` per bucket of
    ``plan_grad_buckets`` under ``grad_overlap``), as the JAX pipeline is
-   manual over ``data`` alone.  Tensor and expert ranks hold the same
-   batch: nothing is reduced over them;
+   manual over ``data`` alone.  Tensor, expert and pipeline ranks hold
+   the same batch: nothing is reduced over them (a pipelined model's
+   stage-owned layers differ along ``pipeline``; its replicated
+   parameters get whole gradients on every stage, ``parallel.pipeline``);
 2. under a loss scale, the finiteness of this rank's pieces and-ed over
    every rank (``all_finite``): the pieces differ along the storage and
    expert axes, and every rank takes or skips the step with the others;
@@ -34,8 +38,9 @@ reduced, split or gathered, and each step above is the identity or the
 single-device arithmetic.
 
 Checkpoints hold the whole state (``full_state``: the pieces gathered,
-the experts' stacks gathered, the error-feedback residual as one row per
-data rank), written by rank 0; ``load_full_state`` cuts it for this rank,
+the experts' stacks gathered, a pipelined model's stage-owned layers
+gathered from every stage under their own names, the error-feedback
+residual as one row per data rank), written by rank 0; ``load_full_state`` cuts it for this rank,
 refolding the residual's rows onto another data width
 (``sharding.fold_leading_replicas``), so a run saved at one world size
 restores at another.
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 from typing import Optional
 
 import numpy as np
@@ -61,9 +67,16 @@ class StatePlan:
 
     def __init__(self, mesh, shapes: dict, *, zero1: bool = False,
                  sharded_update: bool = False,
-                 rules=S.DEFAULT_RULES):
+                 rules=S.DEFAULT_RULES, pipelined: bool = False,
+                 seq_sharded: bool = False):
         self.mesh = mesh
         self.names = list(shapes)
+        # A pipelined model holds its stage's layers ``layers.<i>.*``.
+        self.stage_owned = {
+            k: pipelined and mesh.shape["pipeline"] > 1
+            and _LAYER.match(k) is not None for k in self.names}
+        self.pipelined = any(self.stage_owned.values())
+        self.seq_group = mesh.group("seq") if seq_sharded else None
         self.specs = S.make_state_shardings(mesh, shapes, rules)
         ep = mesh.shape["expert"]
         self.expert_dim0 = {
@@ -84,7 +97,8 @@ class StatePlan:
         self.norm_axes = {
             k: tuple(a for a in S.AXES
                      if a in S.spec_groups(mesh, storage[k])
-                     or (a == "expert" and self.expert_dim0[k]))
+                     or (a == "expert" and self.expert_dim0[k])
+                     or (a == "pipeline" and self.stage_owned[k]))
             for k in self.names}
         self.split = {k: S.num_pieces(mesh, storage[k]) > 1
                       for k in self.names}
@@ -92,7 +106,8 @@ class StatePlan:
         self.needs_norm_reduce = any(self.norm_axes.values())
         self.n_batch = mesh.group_size(("data", "fsdp"))
         self.trivial = (self.n_batch == 1 and not self.sharded_update
-                        and not self.needs_norm_reduce)
+                        and not self.needs_norm_reduce
+                        and self.seq_group is None)
         self._axes_by_id: dict = {}
 
     # -- the layout ------------------------------------------------------
@@ -140,10 +155,13 @@ class StatePlan:
         dgrp, fgrp = m.group("data"), m.group("fsdp")
         D, F = m.shape["data"], m.shape["fsdp"]
         finite, wire_mb = None, 0.0
+        sgrp = self.seq_group
         if wire != "none":
             g = [grads[i].float() for i in live]
-            if fgrp is not None:
-                g = [x / F for x in _flat_all_reduce(g, fgrp)]
+            for grp in (sgrp, fgrp):
+                if grp is not None:
+                    g = [x / C.group_size(grp)
+                         for x in _flat_all_reduce(g, grp)]
             r = [residual[i] for i in live]
             if overlap > 1:
                 mean, new_r, flags = [None] * len(g), [None] * len(g), []
@@ -166,8 +184,9 @@ class StatePlan:
                 out[i] = S.shard(m, self.storage[self.names[i]], mean[j])
             return out, residual, finite, wire_mb
         g = [grads[i].float() for i in live]
-        if dgrp is not None:
-            g = _flat_all_reduce(g, dgrp)
+        for grp in (sgrp, dgrp):
+            if grp is not None:
+                g = _flat_all_reduce(g, grp)
         rest = {}
         if fgrp is not None:
             plain = []
@@ -184,7 +203,7 @@ class StatePlan:
                 for j, x in zip(plain, _flat_all_reduce(
                         [g[j] for j in plain], fgrp)):
                     g[j] = x
-        n = D * F
+        n = D * F * C.group_size(sgrp)
         for j, i in enumerate(live):
             spec = rest.get(j, self.storage[self.names[i]])
             out[i] = S.shard(m, spec, g[j] / n if n > 1 else g[j])
@@ -251,35 +270,120 @@ class StatePlan:
             t = t.chunk(m.shape["expert"], 0)[m.index("expert")]
         return S.shard(m, self.storage[k], t).contiguous()
 
-    def _map_opt(self, node, live: list, fn):
-        """``node`` (the optimizer state) with every per-parameter tensor
-        — an element of a list as long as the parameters (or the live
-        ones) — replaced by ``fn(name, tensor)``."""
-        if isinstance(node, (list, tuple)) and len(node) in (
-                len(self.names), len(live)) and not hasattr(node, "_fields"):
-            index = (range(len(self.names)) if len(node) == len(self.names)
-                     else live)
-            items = [fn(self.names[i], t) if isinstance(t, torch.Tensor)
-                     else self._map_opt(t, live, fn)
-                     for i, t in zip(index, node)]
-            return type(node)(items)
+    def _walk(self, node, list_fn):
+        """``node`` (the optimizer state) with every per-parameter list
+        (one ``list_fn`` answers for: a new list, else None) replaced."""
+        if isinstance(node, (list, tuple)) and not hasattr(node, "_fields"):
+            items = list_fn(node)
+            if items is not None:
+                return type(node)(items)
         if isinstance(node, dict):
-            return {k: self._map_opt(v, live, fn) for k, v in node.items()}
+            return {k: self._walk(v, list_fn) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            items = [self._map_opt(v, live, fn) for v in node]
+            items = [self._walk(v, list_fn) for v in node]
             return (type(node)(*items) if hasattr(node, "_fields")
                     else type(node)(items))
         if dataclasses.is_dataclass(node) and not isinstance(node, type):
             return dataclasses.replace(node, **{
-                f.name: self._map_opt(getattr(node, f.name), live, fn)
+                f.name: self._walk(getattr(node, f.name), list_fn)
                 for f in dataclasses.fields(node) if f.init})
         return node
+
+    def _map_opt(self, node, live: list, fn):
+        """``node`` (the optimizer state) with every per-parameter tensor
+        — an element of a list as long as the parameters (or the live
+        ones) — replaced by ``fn(name, tensor)``."""
+        def list_fn(items):
+            if len(items) not in (len(self.names), len(live)):
+                return None
+            index = (range(len(self.names)) if len(items) == len(self.names)
+                     else live)
+            return [fn(self.names[i], t) if isinstance(t, torch.Tensor)
+                    else self._map_opt(t, live, fn)
+                    for i, t in zip(index, items)]
+        return self._walk(node, list_fn)
+
+    # -- a pipelined model's stages --------------------------------------
+
+    def _full_names(self) -> tuple:
+        """(every name of the whole model in its order, full name ->
+        the local name at its place in a stage)."""
+        layer = [k for k in self.names if self.stage_owned[k]]
+        idx = sorted({int(_LAYER.match(k).group(1)) for k in layer})
+        per, first = len(idx), idx[0]
+        suffixes = [_LAYER.match(k).group(2) for k in layer
+                    if int(_LAYER.match(k).group(1)) == first]
+        lo = self.names.index(layer[0])
+        hi = self.names.index(layer[-1]) + 1
+        full, rep = list(self.names[:lo]), {k: k for k in self.names}
+        for g in range(per * self.mesh.shape["pipeline"]):
+            for suf in suffixes:
+                name = f"layers.{g}.{suf}"
+                full.append(name)
+                rep[name] = f"layers.{first + g % per}.{suf}"
+        return full + list(self.names[hi:]), rep
+
+    def _stage_gather(self, k: str, t: torch.Tensor) -> dict:
+        """{the name of the same place on every stage: that stage's
+        tensor} for stage-owned ``k`` (collective over ``pipeline``)."""
+        m = _LAYER.match(k)
+        per = len({_LAYER.match(n).group(1) for n in self.names
+                   if self.stage_owned[n]})
+        j = int(m.group(1)) % per
+        parts = C.all_gather(t.detach()[None], self.mesh.group("pipeline"),
+                             gather_dim=0)
+        return {f"layers.{s * per + j}.{m.group(2)}": parts[s]
+                for s in range(parts.shape[0])}
+
+    def _expand_stages(self, node, live: list, params: dict) -> tuple:
+        """(the optimizer state ``node``, ``params``) of this stage made
+        whole: each stage-owned entry of a per-parameter list gathered
+        from every stage, in the whole model's order."""
+        full, rep = self._full_names()
+
+        def expand(names, items) -> list:
+            got = {}
+            for k, t in zip(names, items):
+                if self.stage_owned[k] and isinstance(t, torch.Tensor):
+                    got.update(self._stage_gather(k, t))
+                else:
+                    got[k] = t
+            keep = set(names)
+            return [got[f] for f in full if rep[f] in keep and f in got]
+
+        def list_fn(items):
+            if len(items) == len(self.names):
+                return expand(self.names, items)
+            if len(items) == len(live):
+                return expand([self.names[i] for i in live], items)
+            return None
+
+        out = self._walk(node, list_fn)
+        names = list(params)
+        whole = dict(zip([f for f in full if rep[f] in set(names)],
+                         expand(names, [params[k] for k in names])))
+        return out, whole
+
+    def _contract_stages(self, node, live: list):
+        """The inverse of ``_expand_stages`` on the optimizer state: each
+        whole per-parameter list cut to this stage's entries."""
+        full, rep = self._full_names()
+        local = set(self.names)
+        live_full = [f for f in full
+                     if self.names.index(rep[f]) in set(live)]
+
+        def list_fn(items):
+            for names in (full, live_full):
+                if len(items) == len(names):
+                    return [t for f, t in zip(names, items) if f in local]
+            return None
+        return self._walk(node, list_fn)
 
     def full_state(self, state, live: list):
         """The whole state from every rank's (collective: every rank
         calls it); ``state`` itself on a trivial mesh."""
         if self.trivial and not any(self.expert_dim0.values()) \
-                and state.grad_residual is None:
+                and state.grad_residual is None and not self.pipelined:
             return state
         m = self.mesh
         params = {k: (self._full_tensor(k, p) if self.expert_dim0[k]
@@ -291,6 +395,11 @@ class StatePlan:
             return self._full_tensor(k, t)
 
         opt = self._map_opt(state.opt_state, live, opt_fn)
+        if self.pipelined:
+            if state.grad_residual is not None:
+                raise ValueError("grad_quant does not compose with a "
+                                 "pipelined model's checkpoints")
+            opt, params = self._expand_stages(opt, live, params)
         residual = None
         if state.grad_residual is not None:
             residual = []
@@ -328,7 +437,10 @@ class StatePlan:
 
         live = [i for i, p in enumerate(template.params.values())
                 if p.requires_grad]
-        opt = self._map_opt(full.opt_state, live, opt_fn)
+        opt = full.opt_state
+        if self.pipelined:
+            opt = self._contract_stages(opt, live)
+        opt = self._map_opt(opt, live, opt_fn)
         residual = None
         if full.grad_residual is not None:
             residual = []
@@ -343,6 +455,15 @@ class StatePlan:
                 residual.append(r.contiguous())
         return full.replace(params=template.params, opt_state=opt,
                             grad_residual=residual)
+
+
+_LAYER = re.compile(r"^layers\.(\d+)\.(.+)$")
+
+
+def stage_layer(name: str) -> bool:
+    """Whether ``name`` is a layer's parameter, which a pipelined model's
+    stages own (``layers.<i>.*``)."""
+    return _LAYER.match(name) is not None
 
 
 def _flat_all_reduce(tensors: list, group) -> list:

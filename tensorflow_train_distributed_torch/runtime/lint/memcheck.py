@@ -135,6 +135,7 @@ def reset() -> None:
     """Forget every ledger and projection (test isolation)."""
     with _STATE_LOCK:
         _RELEASES.clear()
+        _PURGES.clear()
         _LEDGERS.clear()
         _PROJ.clear()
 
@@ -188,10 +189,9 @@ def tree_bytes(tree) -> int:
 
 
 def _purge_owner(tok) -> None:
-    with _STATE_LOCK:
-        _LEDGERS.pop(tok, None)
-        for k in [k for k in _PROJ if k[1] == tok]:
-            del _PROJ[k]
+    # The owner's finalizer: like ``_release`` it only queues, since a
+    # collection inside a _STATE_LOCK section would deadlock on the lock.
+    _PURGES.append(tok)
 
 
 def _owner_token(x) -> object:
@@ -328,6 +328,7 @@ def _budget_error(site: str, pool: str, projected: int, budget: int,
 # including one inside a _STATE_LOCK section: they only append here, and
 # every ledger reader drains the queue under the lock first.
 _RELEASES: deque = deque()
+_PURGES: deque = deque()        # owner tokens whose owner was collected
 
 
 def _release(tok, pool: str, aid: int, nbytes: int) -> None:
@@ -335,6 +336,14 @@ def _release(tok, pool: str, aid: int, nbytes: int) -> None:
 
 
 def _drain_releases_locked() -> None:
+    while True:
+        try:
+            tok = _PURGES.popleft()
+        except IndexError:
+            break
+        _LEDGERS.pop(tok, None)
+        for k in [k for k in _PROJ if k[1] == tok]:
+            del _PROJ[k]
     while True:
         try:
             tok, pool, aid, nbytes = _RELEASES.popleft()

@@ -14,8 +14,7 @@ the presets are the JAX package's:
 - ``expert``   — expert parallelism for MoE layers;
 - ``pipeline`` — pipeline stages.
 
-``seq`` and ``pipeline`` above 1 are refused until their modules land
-(``SLICE_20``).  ``build_mesh`` returns a ``Mesh``: the axis sizes, this
+``build_mesh`` returns a ``Mesh``: the axis sizes, this
 rank's coordinates, the process group of every axis set the trainer
 reduces over, and, where a process group is up, the
 ``torch.distributed.device_mesh.DeviceMesh`` over the six named axes.
@@ -38,8 +37,6 @@ from typing import Optional, Sequence
 # Canonical axis order: outermost first (the JAX package's AXES).
 AXES = ("pipeline", "data", "fsdp", "expert", "seq", "tensor")
 
-SLICE_20 = ("ROADMAP Queue 1 step 7, slice 20 (ring/Ulysses sequence "
-            "parallelism and the GPipe pipeline)")
 # The tensor and fsdp axes shard storage, not compute (``parallel.
 # state_plan``): what is left open against the JAX package's GSPMD.
 UNSPLIT_COMPUTE = ("ROADMAP Queue 1 step 7 (the Megatron split of the "
@@ -273,18 +270,24 @@ class Mesh:
         return out
 
     # Axis sets the port reduces over: each axis alone, the batch axes,
-    # and every axis (the step's all-ranks finiteness flag).
-    GROUP_AXES = tuple((a,) for a in AXES) + (("data", "fsdp"), AXES)
+    # the batch and seq axes (a step's metrics under sequence
+    # parallelism), and every axis (the step's all-ranks finiteness flag).
+    GROUP_AXES = tuple((a,) for a in AXES) + (
+        ("data", "fsdp"), ("data", "fsdp", "seq"), AXES)
 
     def _make_groups(self) -> None:
         """Every rank calls ``new_group`` for every group of every axis
         set, in one order (c10d's rule)."""
         import torch.distributed as dist
 
+        made = set()
         for axes in self.GROUP_AXES:
-            n = math.prod(self.shape[a] for a in axes)
-            if n == 1:
+            # An axis set is its axes above 1: sets that differ only in
+            # axes of size 1 share one group.
+            axes = self._live(axes)
+            if not axes or axes in made:
                 continue
+            made.add(axes)
             others = [a for a in AXES if a not in axes]
             for pos in itertools.product(
                     *(range(self.shape[a]) for a in others)):
@@ -308,14 +311,17 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         return tuple(a for a in AXES if a in axes)
 
+    def _live(self, axes) -> tuple:
+        return tuple(a for a in self._key(axes) if self.shape[a] > 1)
+
     def group_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in self._key(axes))
 
     def group(self, axes):
         """The process group along ``axes`` (None where it holds one
         rank, or where no process group is up)."""
-        key = self._key(axes)
-        if self.group_size(key) == 1:
+        key = self._live(axes)
+        if not key:
             return None
         if key not in self._groups:
             if self.size == 1:
@@ -350,8 +356,7 @@ def build_mesh(config: Optional[MeshConfig] = None, *,
     none is up).  A bare ``MeshConfig(strategy=...)`` resolves its preset
     against the world so shrink-to-fit applies (``dp_tp`` on one rank is
     1×1).  ``dcn_axes`` (``--dcn``) numbers ranks node by node with the
-    named axes across nodes (``hybrid_shapes``).  Refuses ``seq`` or
-    ``pipeline`` above 1 (``SLICE_20``)."""
+    named axes across nodes (``hybrid_shapes``)."""
     import torch.distributed as dist
 
     up = dist.is_available() and dist.is_initialized()
@@ -366,11 +371,6 @@ def build_mesh(config: Optional[MeshConfig] = None, *,
     ) and config.data == -1:
         config = strategy_preset(config.strategy, world_size)
     sizes = config.resolve(world_size)
-    for a in ("seq", "pipeline"):
-        if sizes[a] > 1:
-            raise ValueError(
-                f"a mesh with {a}={sizes[a]} needs {SLICE_20}; the port "
-                "runs data, fsdp, expert and tensor axes today")
     grid = _hybrid_order(sizes, dcn_axes) if dcn_axes else None
     return Mesh(sizes, rank, device_type=device_type, rank_grid=grid,
                 process_groups=up)

@@ -146,6 +146,7 @@ from tensorflow_train_distributed_torch.models.generate import (
     filter_logits,
     validate_sampling,
 )
+from tensorflow_train_distributed_torch.models import layers as L
 from tensorflow_train_distributed_torch.models.layers import KVCache
 from tensorflow_train_distributed_torch.models.lora import has_lora_leaves
 from tensorflow_train_distributed_torch.models.moe import MoeConfig
@@ -351,7 +352,8 @@ class ServingEngine:
                  prefix_cache_limit: int = 32,
                  hbm_budget_bytes: Optional[int] = None,
                  hbm_headroom: float = 0.1,
-                 record_logits: bool = False, device="cuda"):
+                 record_logits: bool = False, device="cuda",
+                 mesh=None, rules=None):
         if (config.sliding_window is not None or config.attention_sinks):
             raise ValueError(
                 "the serving engine's caches hold the full context; "
@@ -487,14 +489,35 @@ class ServingEngine:
         self._spec_ctrl = (spec.DepthController(spec_depths)
                            if spec_depths is not None
                            and not _killed("TTD_NO_ADAPTIVE_SPEC") else None)
+        self.mesh = mesh
+        self._split = self._mesh_split(config, mesh, rules)
+        local_config, params, prepare = self._mesh_layout(
+            config, cast_floating(params, config.dtype), draft_config,
+            quant_scales)
+        self._local_config = local_config
         self._model = _decode_model(
-            config, cast_floating(params, config.dtype),
-            quant_scales=quant_scales, device=self.device)
+            local_config, params, quant_scales=quant_scales,
+            device=self.device, prepare=prepare)
         self._draft = (None if draft_config is None else _decode_model(
             draft_config, cast_floating(draft_params, draft_config.dtype),
             quant_scales=draft_quant_scales, device=self.device))
         if autosize:
             kv_pool_blocks, budget = self._solve_hbm_autosize()
+            if mesh is not None and mesh.size > 1:
+                # Each rank reads its own card; ranks that admitted
+                # differently would part at the next collective.
+                from tensorflow_train_distributed_torch.parallel import (
+                    collectives,
+                )
+                from tensorflow_train_distributed_torch.runtime.mesh import (
+                    AXES,
+                )
+
+                both = collectives.all_reduce(
+                    torch.tensor([kv_pool_blocks, budget],
+                                 dtype=torch.int64),
+                    mesh.group(AXES), op="min")
+                kv_pool_blocks, budget = (int(v) for v in both)
             self.hbm_budget_bytes = self._hbm_autosized = budget
         self._kv_pool = self._radix = None
         self._kv_pool_bytes = 0
@@ -506,7 +529,7 @@ class ServingEngine:
             # pools included, the scratch block too), from the shapes.
             self._kv_pool_bytes = sum(
                 _pool_bytes(c, 1 + kv_pool_blocks, self.kv_block_size)
-                for c in (config, draft_config) if c is not None)
+                for c in (local_config, draft_config) if c is not None)
             self._kv_pool.bytes_per_block = (self._kv_pool_bytes
                                              // (1 + kv_pool_blocks))
         # Preloaded prefixes: tuple(tokens) -> (target, draft) batch-1
@@ -570,6 +593,80 @@ class ServingEngine:
         self._refills: set = set()     # slots refilled since the dispatch
         if self.hbm_budget_bytes is not None:
             self._prefill_pair_bytes()     # admission reads the memo
+
+    # -- the mesh --------------------------------------------------------
+
+    @staticmethod
+    def _mesh_split(config, mesh, rules) -> Optional[tuple]:
+        """(axis, n) of the tensor split the mesh gives the heads (the
+        rules' ``heads`` target, ``tensor`` by default), None without."""
+        if mesh is None:
+            return None
+        from tensorflow_train_distributed_torch.parallel import sharding
+
+        table = sharding._rules_for_mesh(
+            mesh, sharding.DEFAULT_RULES if rules is None else rules)
+        axes = table.get("heads") or ()
+        if len(axes) > 1:
+            raise ValueError(f"heads split over {axes}: the engine splits "
+                             "them over one mesh axis")
+        return (axes[0], mesh.shape[axes[0]]) if axes else None
+
+    def _mesh_layout(self, config, params: dict, draft_config,
+                     quant_scales) -> tuple:
+        """(this rank's config, its weights, the layout of its meta
+        model).  Under a tensor split (``_split``) each rank builds the
+        decoder with its H/t heads, KV/t kv heads and F/t ffn
+        (``llama.tensor_split``), so its pools hold only its kv heads and
+        the kernels (K1f, K4, K5) run on whole local heads on every rank.
+        (The JAX engine turns its fused paged-attention kernel off under
+        a mesh because GSPMD cannot partition a Pallas call; here each
+        rank's call is whole, so K4 stays on.)  Under ``expert`` each MoE
+        block holds its experts' stacks (``moe.set_expert_parallel``).
+        ``data`` replicates the engine: every rank decodes every slot."""
+        mesh = self.mesh
+        prepare = []
+        if self._split is not None:
+            from tensorflow_train_distributed_torch.models import llama
+
+            axis, n = self._split
+            if not isinstance(config, llama.LlamaConfig):
+                raise ValueError(
+                    "a tensor-split engine serves Llama-family decoders; "
+                    "serve MoE configs over the expert axis")
+            if draft_config is not None or quant_scales is not None:
+                raise ValueError(
+                    "a tensor-split engine serves full-precision weights "
+                    "without a draft")
+            config, params = llama.tensor_split(config, params, n,
+                                                mesh.index(axis))
+            vocab = self.config.vocab_size
+
+            def split(model):
+                L.set_tensor_parallel(model, mesh, axis, vocab)
+            prepare.append(split)
+        if mesh is not None and mesh.shape["expert"] > 1 and isinstance(
+                config, MoeConfig):
+            from tensorflow_train_distributed_torch.models import moe
+
+            ep, ix = mesh.shape["expert"], mesh.index("expert")
+            params = {k: (v.chunk(ep, 0)[ix] if ".experts." in k else v)
+                      for k, v in params.items()}
+
+            def experts(model):
+                moe.set_expert_parallel(model, mesh)
+            prepare.append(experts)
+
+        def run(model):
+            for fn in prepare:
+                fn(model)
+        return config, params, (run if prepare else None)
+
+    def _refuse_split(self, what: str) -> None:
+        if self._split is not None:
+            raise ValueError(
+                f"{what}: a tensor-split engine's KV rows hold this "
+                "rank's kv heads only; the wire recipe carries whole rows")
 
     # -- host <-> device ---------------------------------------------------
 
@@ -1961,6 +2058,7 @@ class ServingEngine:
         token stays unexported (its logit picks the first token on the
         receiving side).  A dense-dispatch MoE engine and the linear
         engine export nothing."""
+        self._refuse_split("export_prefix_kv")
         if not self.paged or self._exact_prefill:
             return None
         tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
@@ -2002,6 +2100,7 @@ class ServingEngine:
         takes.  A torn or lying manifest raises ValueError.  A
         dense-dispatch MoE engine and the linear engine install nothing
         (0)."""
+        self._refuse_split("install_prefix_kv")
         if not self.paged or self._exact_prefill:
             return 0
         tokens = [int(t) for t in meta.get("tokens", ())]
@@ -2098,6 +2197,7 @@ class ServingEngine:
         generated so far.  Otherwise read-only: two calls between steps
         give equal ``meta`` and ``blob``; the caller decides whether the
         move committed and then ``cancel()``s here."""
+        self._refuse_split("export_lane")
         self._settle()
         for item in self._queue:
             if item[0] == request_id:
@@ -2143,6 +2243,7 @@ class ServingEngine:
         refused — the re-admitted request prefills locally).  The request
         itself is re-admitted with ``submit(..., resume_from=)``, which
         radix-hits the rows seeded here."""
+        self._refuse_split("install_lane")
         kv = meta.get("kv") if isinstance(meta, dict) else None
         if not kv or not blob:
             return 0

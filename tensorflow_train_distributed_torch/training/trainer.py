@@ -58,8 +58,13 @@ gathered back.  ``grad_quant`` ("f32" or "int8") replaces the mean over
 ``data`` by the error-feedback pipeline of ``parallel.collectives`` with
 its residual in the train state, bucketed under ``grad_overlap``; the
 kill switches ``TTD_NO_GRAD_QUANT`` and ``TTD_NO_GRAD_OVERLAP`` and the
-refusals are the JAX trainer's.  The metrics are the batch group's
-means.  Checkpoints hold the whole state, written by rank 0.  Without a
+refusals are the JAX trainer's.  A model that shards sequences over
+``seq`` (``LlamaConfig.seq_parallel``) trains each rank on its block of
+every row (``_seq_shard``, with the rows' global positions), and ``seq``
+joins the gradient mean and the metrics' group, each rank's gradient
+weighted by its tokens' share of the loss (``weighted_grad_factor``); a
+pipelined model (``pipeline_microbatches``) holds its stage's layers.
+The metrics are the batch group's means.  Checkpoints hold the whole state, written by rank 0.  Without a
 mesh the trainer runs on one of one rank, through the same step.
 """
 
@@ -270,6 +275,8 @@ class Trainer:
         from tensorflow_train_distributed_torch.models import moe
 
         mesh = self.mesh
+        if hasattr(model, "set_mesh"):
+            model.set_mesh(mesh)
         names = [k for k, _ in model.named_parameters()]
         shapes = {k: tuple(params[k].shape) for k in names}
         moe.set_expert_parallel(model, mesh)
@@ -284,8 +291,16 @@ class Trainer:
                 "grad_quant requires a task with no mutable model "
                 "collections (e.g. BatchNorm batch_stats); drop "
                 "grad-quant for this task")
-        self.plan = SP.StatePlan(mesh, shapes, zero1=self.config.zero1,
-                                 sharded_update=self.config.sharded_update)
+        self.plan = SP.StatePlan(
+            mesh, shapes, zero1=self.config.zero1,
+            sharded_update=self.config.sharded_update,
+            pipelined=getattr(model, "pipeline", None) is not None,
+            seq_sharded=getattr(model, "seq_sharded", False))
+        if self.plan.pipelined:
+            # Other stages' layers stay with their stages.
+            held = set(names)
+            params = {k: v for k, v in params.items()
+                      if k in held or not SP.stage_layer(k)}
         return {**params, **self.plan.local_params(
             {k: params[k] for k in names})}
 
@@ -387,7 +402,7 @@ class Trainer:
         """One optimizer step on a batch of device tensors; returns the
         step's metrics as device scalars and advances ``state``."""
         params = list(state.params.values())
-        batch = self.policy.cast_to_compute(batch)
+        batch = self._seq_shard(self.policy.cast_to_compute(batch))
         self.task.model.train()
         if self.config.grad_accum > 1:
             grads, loss, metrics = self._accumulated_grads(
@@ -403,9 +418,42 @@ class Trainer:
         state.step += 1
         return dict(metrics, loss=loss, **extra)
 
+    def _seq_shard(self, batch: dict) -> dict:
+        """This rank's block of every [B, S] leaf of ``batch`` when the
+        model shards sequences over ``seq`` (the JAX rules shard
+        ``length`` over it), with the global RoPE positions computed on
+        the whole rows first: a packed row's positions restart at its
+        segments, which may span the cut."""
+        if self.plan.seq_group is None:
+            return batch
+        from tensorflow_train_distributed_torch.models.llama import (
+            segment_relative_positions,
+        )
+
+        n, i = self.mesh.shape["seq"], self.mesh.index("seq")
+        b, s = batch["tokens"].shape[:2]
+        if s % n:
+            raise ValueError(f"sequence length {s} does not split over "
+                             f"seq={n}")
+        batch = dict(batch)
+        if "positions" not in batch:
+            seg = batch.get("segment_ids")
+            batch["positions"] = (
+                segment_relative_positions(seg) if seg is not None
+                else torch.arange(s, device=batch["tokens"].device).expand(
+                    b, s))
+        w = s // n
+        return {k: (v[:, i * w:(i + 1) * w] if v.dim() >= 2
+                    and tuple(v.shape[:2]) == (b, s) else v)
+                for k, v in batch.items()}
+
+    def _batch_group(self):
+        """The ranks whose batches differ: the batch axes and ``seq``."""
+        return self.mesh.group(("data", "fsdp", "seq"))
+
     def _sync(self, state: TrainState, grads: list, loss, metrics: dict):
         """The mesh's gradient sync and the batch group's mean metrics."""
-        group = self.mesh.group(("data", "fsdp"))
+        group = self._batch_group()
         factor = SP.weighted_grad_factor(metrics.get("loss_weight"), group)
         if factor is not None:
             grads = [None if g is None else g * factor for g in grads]
@@ -649,8 +697,8 @@ class Trainer:
         try:
             with self.inference(state):
                 for batch in it:
-                    loss, metrics = self.task.loss_fn(
-                        self.policy.cast_to_compute(batch))
+                    loss, metrics = self.task.loss_fn(self._seq_shard(
+                        self.policy.cast_to_compute(batch)))
                     device_metrics.append(dict(metrics, loss=loss.float()))
                     if steps is not None and len(device_metrics) >= steps:
                         break
@@ -658,7 +706,7 @@ class Trainer:
             it.close()
         host = [{k: float(v) for k, v in m.items()}
                 for m in device_metrics]
-        group = self.mesh.group(("data", "fsdp"))
+        group = self._batch_group()
         if group is not None:
             import torch.distributed as dist
 

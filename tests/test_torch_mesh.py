@@ -138,9 +138,17 @@ def test_dcn_numbers_ranks_node_by_node():
 
 @pytest.mark.parametrize("axis", ["seq", "pipeline"])
 def test_build_mesh_refuses_seq_and_pipeline_naming_slice_20(axis):
-    with pytest.raises(ValueError, match="slice 20"):
-        tmesh.build_mesh(tmesh.MeshConfig(data=1, **{axis: 2}),
-                         world_size=2, rank=0)
+    """The seq and pipeline axes build (their modules have landed): rank
+    1 of a 2-rank mesh sits at index 1 along the axis, alone on the
+    others, and the preset that names the axis resolves to it."""
+    m = tmesh.build_mesh(tmesh.MeshConfig(data=1, **{axis: 2}),
+                         world_size=2, rank=1)
+    assert m.shape[axis] == 2 and m.size == 2
+    assert m.index(axis) == 1 and m.index(("data", "fsdp")) == 0
+    assert m.group_ranks(axis) == [0, 1]
+    preset = {"seq": "dp_sp", "pipeline": "dp_pp"}[axis]
+    assert tmesh.build_mesh(tmesh.MeshConfig(strategy=preset),
+                            world_size=2, rank=0).shape[axis] == 2
 
 
 @pytest.mark.parametrize("spec,warned", [

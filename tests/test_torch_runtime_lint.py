@@ -186,6 +186,27 @@ def test_owner_charge_is_replaced_by_the_same_site(ledger):
     assert memcheck.live_bytes() == 128                 # purged with it
 
 
+def test_owner_collected_inside_a_locked_section_does_not_deadlock(ledger):
+    """An owner's finalizer can run at any allocation, also inside a
+    ledger section that holds the (non-reentrant) state lock: it queues
+    its purge, which the next reader applies."""
+    o = _Owner()
+    o.owned(16)
+    tok = memcheck._owner_token(o)
+    done = threading.Event()
+
+    def collect_while_locked():
+        with memcheck._STATE_LOCK:
+            memcheck._purge_owner(tok)
+        done.set()
+
+    t = threading.Thread(target=collect_while_locked, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert done.is_set() and not t.is_alive()
+    assert memcheck.live_bytes() == 0
+
+
 def test_over_budget_raises_before_the_allocation(ledger):
     o = _Owner()
     o.budget = 300

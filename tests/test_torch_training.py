@@ -496,15 +496,18 @@ def test_train_cli_on_cpu(capsys):
                                            "grad_norm"} <= x.keys()
 
 
-def test_train_cli_rejects_bad_flags():
+def test_train_cli_rejects_bad_flags(monkeypatch):
     with pytest.raises(SystemExit):
         tcli.main(["--config", "no_such_config", "--device", "cpu"])
     with pytest.raises(SystemExit):
         tcli.main(["--config", "llama_tiny_sft", "--steps", "0",
                    "--device", "cpu"])
-    with pytest.raises(SystemExit):     # a seq axis waits for slice 20
-        tcli.main(["--config", "llama_tiny_sft", "--steps", "1",
-                   "--device", "cpu", "--mesh", "seq=2"])
+    # A seq axis trains: two gloo ranks take a step of
+    # llama_tiny_sft, whole rows on each (no seq_parallel in its config).
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    assert tcli.main(["--config", "llama_tiny_sft", "--steps", "1",
+                      "--device", "cpu", "--strategy", "dp", "--mesh",
+                      "seq=2", "--cpu-devices", "2"]) == 0
 
 
 def test_train_cli_trains_llama_350m_shape_under_no_ffn(capsys,
