@@ -416,8 +416,22 @@
    ``SPLIT_LAYERS`` layers in two processes sharing the card over gloo,
    phase 3's requests and engine settings, phase 3's re-prefill bar on
    each rank, K4 = layers x decode steps a rank, each rank's peak memory;
-   K4 and K5 timed at a rank's 16 heads.  Every printed line is also
-   appended to ``chiprun_out/chip_smoke.log``.
+   K4 and K5 timed at a rank's 16 heads.
+27. The bench tools (``tensorflow_train_distributed_torch/tools/``)
+   under the card lock the script holds from phase 1 on: in this process
+   bench_lm (llama_125m, 8 x 2048, a traced window after the timed one),
+   bench_moe (moe_370m, gmm), bench_bert (bert_base, bf16), bench_vit
+   (vit_b16, bf16), each for 2 warm-up and 3 timed steps; bench_generate
+   (llama_125m, 8 x 128 + 32), bench_serving (llama_125m, 8 requests) and
+   a 2-client bench_gateway (llama_125m); then ``tools/bench.py
+   --families lm`` in a process of its own.  Each record must name this
+   card, have inherited the lock, and give a finite rate, an MFU in (0, 1)
+   or an MBU in (0, 1]; bench_lm's step within 1.5x of phase 6's;
+   bench.py's last line a headline under 500 bytes, its family's record
+   the lock inherited; ``profile_summary`` of bench_lm's trace with 2
+   steps, ``_profile_train_step``'s kinds, and time in each training
+   kernel's kind.  Every printed line is also appended to
+   ``chiprun_out/chip_smoke.log``.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -436,15 +450,32 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
-PEAK_BF16_FLOPS = 989e12      # dense tensor-core bf16
-PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
-# f32 products as bf16 products of an exact split into hi, mid and lo
-# terms: K6's "wgmma" body splits its one f32 operand, three products an
-# f32 product (hi.b + mid.b + lo.b); K2's and K7's "split" body splits
-# both, six (lo.hi + mid.mid + hi.lo + mid.hi + hi.mid + hi.hi).
-PEAK_F32_SPLIT_FLOPS = PEAK_BF16_FLOPS / 3
-ATTENTION_SPLIT_PRODUCTS = 6
+# The H100's peaks, the kernel bounds, the decode byte bound and the MFU
+# formulas live in one module of the port.
+from tensorflow_train_distributed_torch.tools.roofline import (  # noqa: E402
+    ATTENTION_SPLIT_PRODUCTS,
+    FORMULAS,
+    PEAK_BF16_FLOPS,
+    PEAK_F32_FLOPS,
+    PEAK_F32_SPLIT_FLOPS,
+    RESNET50_FWD_FLOPS,
+    bert_flops_per_token,
+    bound,
+    decode_bytes_per_step,
+    decoder_flops_per_token,
+    lora_flops_per_token,
+    moe_active_params,
+    moe_flops_per_token,
+    non_embedding_params,
+    product_bound,
+    transformer_flops_per_token,
+    vit_forward_flops,
+)
+# One table of device-time kinds for every profile the script reads.
+from tensorflow_train_distributed_torch.tools.profile_summary import (  # noqa
+    KINDS,
+    classify,
+)
 
 SEED = 0
 _CSRC = "tensorflow_train_distributed_torch/csrc/"
@@ -731,28 +762,8 @@ def in_turns(fn, other_fn) -> tuple:
     return (a + device_ms(fn)) / 2, b / 2
 
 
-def bound(nbytes: float, flops: float, peak_flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def _fma_note(fma) -> str:
     return "" if fma is None else f", FMA route's bound {fma[0] * 1e3:.1f} us"
-
-
-def product_bound(nbytes: float, flops: float, f32: bool,
-                  products: int = 3):
-    """The bound of work that is products (attention, grouped matmuls):
-    bf16 on the tensor cores, f32 as the ``products`` bf16 products of an
-    exact split that the split bodies run for each f32 product (K6: 3;
-    K2's and K7's f32 body: ATTENTION_SPLIT_PRODUCTS), so at that many
-    times the bf16 operations.  Returns it and, for f32, the FMA route's
-    bound at 67 TFLOP/s (None for bf16), logged beside it."""
-    if not f32:
-        return bound(nbytes, flops, PEAK_BF16_FLOPS), None
-    return (bound(nbytes, products * flops, PEAK_BF16_FLOPS),
-            bound(nbytes, flops, PEAK_F32_FLOPS))
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -1190,8 +1201,7 @@ def _profile_chunk(eng, vocab):
         eng.serve_step()               # one decode chunk, no admissions
         wall_us = (time.perf_counter() - t0) * 1e6
     eng.run()
-    kinds = {"matmul": 0.0, "paged_attention": 0.0, "rms_norm": 0.0,
-             "other": 0.0}
+    kinds = dict.fromkeys(KINDS, 0.0)
     top = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1199,19 +1209,8 @@ def _profile_chunk(eng, vocab):
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us <= 0:
             continue
-        name = e.key
-        low = name.lower()
-        kind = ("paged_attention" if "paged_attention" in low
-                else "rms_norm" if "rms_norm" in low
-                else "batch_norm" if ("batch_norm" in low or "bn_fw" in low
-                                      or "bn_bw" in low)
-                else "conv" if any(k in low for k in (
-                    "conv", "fprop", "dgrad", "wgrad"))
-                else "matmul" if any(k in low for k in (
-                    "gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul"))
-                else "other")
-        kinds[kind] += us
-        top.append((us, e.count, name[:60]))
+        kinds[classify(e.key)] += us
+        top.append((us, e.count, e.key[:60]))
     busy = sum(kinds.values())
     if busy == 0:
         log("  profile: the profiler recorded no device time (not measured)")
@@ -2402,38 +2401,6 @@ def _capacity_binds(cfg) -> bool:
             and cfg.capacity_factor * cfg.top_k < cfg.num_experts)
 
 
-def decode_bytes_per_step(cfg, params, scales, slots: int,
-                          context: float) -> dict:
-    """Least bytes one decode step of ``slots`` lanes reads: every weight
-    but the embedding (its ``slots`` rows) and the routed experts, plus
-    the experts the step runs, plus the KV rows of ``context`` positions a
-    lane.  The gmm dispatch runs the experts some token routed to, here
-    their expected count under uniform routing (E (1 - (1 - k/E)^T) for T
-    tokens); the dense dispatch runs all E.  int8 kernels count one byte a
-    weight and their f32 scales four a channel (``quantized_bytes``)."""
-    from tensorflow_train_distributed_torch.models.quant import (
-        quantized_bytes,
-    )
-
-    def nbytes(keep):
-        return quantized_bytes({k: v for k, v in params.items()
-                                if keep(k)}) + quantized_bytes(
-            {k: v for k, v in (scales or {}).items() if keep(k)})
-
-    expert = nbytes(lambda k: ".experts." in k)
-    emb = params["token_embed.embedding"]
-    rest = nbytes(lambda k: ".experts." not in k and "token_embed" not in k)
-    e, k = cfg.num_experts, cfg.top_k
-    live = e * (1 - (1 - k / e) ** slots) if cfg.dispatch == "gmm" else e
-    kv = (cfg.num_layers * 2 * cfg.kv_heads * cfg.attn_head_dim
-          * emb.element_size() * context * slots)
-    total = (rest + expert * live / e + slots * emb.shape[1]
-             * emb.element_size() + kv)
-    return dict(bytes=total, experts_run=live, expert_gb=expert / 1e9,
-                other_weight_gb=rest / 1e9, kv_gb=kv / 1e9,
-                bound_ms=total / HBM_BYTES_PER_S * 1e3)
-
-
 def _warm_and_zero(eng) -> None:
     """One short request through ``eng`` (its first calls' allocations),
     then its step stats, radix counters and recorded logits, the card's
@@ -3548,15 +3515,14 @@ def phase_train(steps: int = 20, log_every: int = 5) -> tuple:
     b, s = entry["global_batch_size"], entry["dataset_kwargs"]["seq_len"]
     tokens = b * s
     n_params = state.num_params()
-    n_dense = n_params - cfg.vocab_size * cfg.d_model    # no embedding
-    flops = (6 * n_dense + 6 * cfg.num_layers * s * cfg.d_model) * tokens
+    per_token, formula = decoder_flops_per_token(n_params, cfg, s)
+    flops = per_token * tokens
     stats = dict(
         config=name, steps=steps, batch=b, seq=s, params=n_params,
         step_ms=step_s * 1e3, window_ms_per_step=[w * 1e3 for w in windows],
         tokens_per_s=tokens / step_s, peak_mem_gib=peak / 2 ** 30,
         wall_s=wall, losses=losses,
-        mfu=flops / step_s / PEAK_BF16_FLOPS,
-        mfu_formula="(6 (N - V d) + 6 L S d) tokens / step_s / 989e12")
+        mfu=flops / step_s / PEAK_BF16_FLOPS, mfu_formula=formula)
     stats["profile"] = _profile_train_step(trainer, state, batches)
     log(f"  training: {json.dumps(stats)}")
     return counts, stats
@@ -3579,37 +3545,14 @@ def _profile_train_step(trainer, state, batches):
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = dict.fromkeys(("matmul", "conv", "batch_norm", "gmm", "tgmm",
-                           "flash_attention", "flash_attention_bwd",
-                           "splash_attention", "splash_attention_bwd",
-                           "cross_entropy", "rms_norm", "other"), 0.0)
+    kinds = dict.fromkeys(KINDS, 0.0)
     top, n_kernels = [], 0
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
             continue
         n_kernels += e.count
-        low = e.key.lower()
-        # K7 is K2's kernels with BAND = true (the di pass has no band and
-        # counts as flash_attention_bwd).
-        band = "true>" in low or "lb1ee" in low
-        kind = ("tgmm" if "ttd_grouped" in low and "tgmm_" in low
-                else "gmm" if "ttd_grouped" in low
-                else ("splash_attention_bwd" if band
-                      else "flash_attention_bwd") if "flash_bwd" in low
-                else ("splash_attention" if band
-                      else "flash_attention") if "flash_fwd" in low
-                else "cross_entropy" if ("ce_fwd_kernel" in low
-                                         or "ce_bwd_kernel" in low)
-                else "rms_norm" if "rms_norm" in low
-                else "batch_norm" if ("batch_norm" in low or "bn_fw" in low
-                                      or "bn_bw" in low)
-                else "conv" if any(k in low for k in (
-                    "conv", "fprop", "dgrad", "wgrad"))
-                else "matmul" if any(k in low for k in (
-                    "gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul"))
-                else "other")
-        kinds[kind] += us
+        kinds[classify(e.key)] += us
         top.append((us, e.count, e.key[:70]))
     busy = sum(kinds.values())
     if busy == 0:
@@ -4229,11 +4172,9 @@ def phase_moe_train(steps: int = 20, log_every: int = 5) -> tuple:
     windows = [(t1 - t0_) / log_every for t0_, t1 in zip(stamps, stamps[1:])]
     step_s = statistics.median(windows) if windows else wall / steps
     tokens = b * s
-    n_expert = sum(p.numel() for k, p in state.params.items()
-                   if ".experts." in k)
-    n_dense = state.num_params() - n_expert
-    active = n_dense + n_expert * cfg.top_k / cfg.num_experts
-    flops_per_token = 6 * active + 12 * cfg.num_layers * cfg.d_model * s * 0.5
+    _, active = moe_active_params(
+        {k: p.numel() for k, p in state.params.items()}, cfg)
+    flops_per_token = moe_flops_per_token(active, cfg, s)
     stats = dict(
         config="moe_370m", dispatch="gmm", steps=steps, batch=b, seq=s,
         params=state.num_params(), active_params=int(active),
@@ -4242,8 +4183,7 @@ def phase_moe_train(steps: int = 20, log_every: int = 5) -> tuple:
         wall_s=wall, losses=losses, first_window_loss=first,
         last_window_loss=last,
         mfu=flops_per_token * tokens / step_s / PEAK_BF16_FLOPS,
-        mfu_formula="(6 (N_dense + N_expert k / E) + 12 L d S / 2) tokens"
-                    " / step_s / 989e12 (tools/bench_moe.py)")
+        mfu_formula=FORMULAS["moe"])
     stats["profile"] = _profile_train_step(trainer, state, batches)
     log(f"  moe training: {json.dumps(stats)}")
     return counts, stats
@@ -4572,9 +4512,9 @@ def phase_window_train(steps: int = 10, log_every: int = 2,
     w = cfg.sliding_window
     tokens = b * s
     n_params = state.num_params()
-    n_dense = n_params - cfg.vocab_size * cfg.d_model    # no embedding
     keys = sum(min(i + 1, w) for i in range(s)) / s    # mean visible keys
-    flops = (6 * n_dense + 12 * num_layers * cfg.d_model * keys) * tokens
+    per_token, formula = decoder_flops_per_token(n_params, cfg, s)
+    flops = per_token * tokens
     stats = dict(
         config=name, num_layers=num_layers, steps=steps, batch=b, seq=s,
         window=w, params=n_params, step_ms=step_s * 1e3,
@@ -4584,8 +4524,7 @@ def phase_window_train(steps: int = 10, log_every: int = 2,
         unseen_batch_loss=[unseen_before, unseen_after],
         mean_visible_keys=keys,
         mfu=flops / step_s / PEAK_BF16_FLOPS,
-        mfu_formula=(f"(6 (N - V d) + 12 L d {keys:.1f}) tokens / step_s "
-                     f"/ 989e12 ({keys:.1f} = mean visible keys)"))
+        mfu_formula=formula)
     stats["profile"] = _profile_train_step(trainer, state, batches)
     log(f"  windowed training: {json.dumps(stats)}")
     return counts, stats
@@ -5129,11 +5068,6 @@ RESNET_FLAGS = ["--config", "resnet50_imagenet", "--global-batch-size",
                 str(KILLED_STEPS), "--checkpoint-every", str(SAVE_EVERY),
                 "--max-to-keep", "2",
                 "--log-every", "5", "--seed", str(SEED)]
-# ResNet-50 v1.5's published forward cost: 4.09e9 multiply-adds a
-# 224x224 image (torchvision's resnet50, which is v1.5), 2 FLOPs each.
-RESNET50_FWD_FLOPS = 2 * 4.09e9
-
-
 def bert_launches(num_layers: int, steps: int, eval_batches: int) -> dict:
     """K2 and K3 launches of ``steps`` BERT training steps and
     ``eval_batches`` evaluation batches: one full-attention forward a
@@ -5157,15 +5091,6 @@ def wmt_launches(cfg, steps: int, eval_batches: int = 0,
     return {"flash_attention": fwd * (steps + eval_batches)
             + bleu_batches * (e + 2 * d * max_len),
             "flash_attention_bwd": fwd * steps}
-
-
-def _non_embedding_params(cfg) -> int:
-    from tensorflow_train_distributed_torch import convert
-
-    return sum(math.prod(shape) for name, shape in
-               convert.expected_shapes(cfg).items()
-               if not name.endswith(("embedding", "pos_embedding"))
-               and "batch_stats" not in name)
 
 
 def _expect_launches(label, summary, want) -> dict:
@@ -5308,9 +5233,8 @@ def phase_bert() -> tuple:
                                                 KILLED_STEPS, 4))
         b, s = entry["global_batch_size"], 128
         stats = _run_stats("bert_base_mlm", ra[3], b, ra[4])
-        n_ne = _non_embedding_params(cfg)
-        flops = (6 * n_ne + 12 * cfg.num_layers * s * cfg.hidden_size) \
-            * b * s
+        n_ne = non_embedding_params(cfg)
+        flops = bert_flops_per_token(n_ne, cfg, s) * b * s
         step_s = stats["step_ms"] / 1e3
         stats.update(
             card=smi_line(), config="bert_base_mlm", batch=b, seq=s,
@@ -5362,15 +5286,12 @@ def phase_wmt() -> tuple:
             cfg, 0, eval_batches=1, bleu_batches=1, max_len=256))
         b, s = 64, 256
         stats = _run_stats("transformer_big_wmt", ra[3], b, ra[4])
-        n_ne = _non_embedding_params(cfg)
-        d, le, ld = cfg.d_model, cfg.num_encoder_layers, \
-            cfg.num_decoder_layers
+        n_ne = non_embedding_params(cfg)
         # Each parameter meets one token of its stream (source for the
         # encoder, target for the decoder): 6 N B S; the tied logits 6 d V
         # a target token; attention 12 S d a layer and token, the
         # decoder's causal self-attention half of it.
-        flops = (6 * n_ne + 6 * d * cfg.vocab_size
-                 + 12 * s * d * (le + 0.5 * ld + ld)) * b * s
+        flops = transformer_flops_per_token(n_ne, cfg, s) * b * s
         step_s = stats["step_ms"] / 1e3
         stats.update(
             card=smi_line(), config="transformer_big_wmt", batch=b, seq=s,
@@ -5457,7 +5378,7 @@ def phase_resnet() -> dict:
                      save_bytes=ra[3]["save_bytes"],
                      mfu=3 * RESNET50_FWD_FLOPS * 256 / (
                          stats["step_ms"] / 1e3) / PEAK_BF16_FLOPS,
-                     mfu_formula="3 x 2 x 4.09e9 x B / step_s / 989e12")
+                     mfu_formula=FORMULAS["resnet50"])
         for name in ("resnet50_imagenet_s2d", "resnet50_imagenet_s2d_bnsub"):
             r = _in_process(name, "--config", name, *RESNET_FLAGS[2:6],
                             "--steps", "5", "--log-every", "1", "--seed",
@@ -5774,8 +5695,8 @@ def phase_lora_7b() -> tuple:
     losses = _losses("llama2_7b_sft LoRA", r[1])
     b, s = 2, 4096
     step_s = summary["step_ms"] / 1e3
-    n_ne = _non_embedding_params(cfg)
-    flops = (4 * n_ne + 8 * cfg.num_layers * s * cfg.d_model) * b * s
+    n_ne = non_embedding_params(cfg)
+    flops = lora_flops_per_token(n_ne, cfg, s) * b * s
     stats = dict(
         card=smi_line(), config="llama2_7b_sft", cuts=LORA_7B_CUTS,
         lora="rank 8, alpha 16, query,value", steps=10, batch=b, seq=s,
@@ -6400,18 +6321,6 @@ HF_TRAIN_FLAGS = ["--config", "llama_125m_lm", "--steps", "4",
 HF_SERVE_LAYERS = 2               # of Llama-2-7B's 32, at full width
 
 
-def vit_forward_flops(cfg) -> float:
-    """FLOPs (2 per multiply-add) of one image's ViT forward: the patch
-    projection, per block the q/k/v/out and MLP products over every token
-    and the two attention products, and the head."""
-    d, n = cfg.hidden_size, cfg.num_patches
-    seq = n + (cfg.pooling == "cls")
-    block = seq * (4 * d * d + 2 * d * cfg.mlp_dim) + 2 * seq * seq * d
-    macs = (n * 3 * cfg.patch_size ** 2 * d + cfg.num_layers * block
-            + d * cfg.num_classes)
-    return 2.0 * macs
-
-
 def _vit_leg(root: str) -> tuple:
     """(a): vit_b16_imagenet through the launcher and its --eval-only;
     vit_tiny card vs CPU.  Returns (vit_tiny's launches, stats)."""
@@ -6444,7 +6353,7 @@ def _vit_leg(root: str) -> tuple:
     dev = _device_fed("vit_b16_imagenet", VIT_FLAGS[2:4], steps=5,
                       profile=True)
     dev["mfu"] = 3 * fwd * dev["examples_per_s"] / PEAK_BF16_FLOPS
-    dev["mfu_formula"] = "3 x forward FLOPs x images/s / 989e12"
+    dev["mfu_formula"] = FORMULAS["vit"]
     stats["device_fed"] = dev
     log(f"  vit_b16_imagenet: {json.dumps(stats)}")
     entry = registry.get_entry("vit_tiny")
@@ -7826,6 +7735,136 @@ def phase_parallel(run3: dict, stats3: dict, rms_row) -> tuple:
             {"ulysses": ul_rows, "split_serve": split_rows}, rec)
 
 
+BENCH_DIR = "_bench_smoke"         # git-ignored; deleted at phase 27's end
+# (tool, arguments) of phase 27's in-process runs: each model at the size
+# the bench tools' defaults run it, cut to 2 warm-up and 3 timed steps or
+# a few requests.
+BENCH_RUNS = (
+    ("bench_lm", ["--preset", "llama_125m", "--batch-per-chip", "8",
+                  "--seq", "2048", "--warmup", "2", "--iters", "3",
+                  "--profile-dir", os.path.join(BENCH_DIR, "lm_trace")]),
+    ("bench_moe", ["--preset", "moe_370m", "--dispatch", "gmm",
+                   "--batch-per-chip", "8", "--seq", "1024", "--warmup", "2",
+                   "--iters", "3"]),
+    ("bench_bert", ["--preset", "bert_base", "--batch-per-chip", "32",
+                    "--seq", "128", "--warmup", "2", "--iters", "3"]),
+    ("bench_vit", ["--preset", "vit_b16", "--batch-per-chip", "64",
+                   "--warmup", "2", "--iters", "3"]),
+    ("bench_generate", ["--preset", "llama_125m", "--batch", "8",
+                        "--prompt-len", "128", "--max-new", "32",
+                        "--warmup", "1", "--iters", "2"]),
+    ("bench_serving", ["--preset", "llama_125m", "--requests", "8",
+                       "--prompt-range", "16,64", "--new-range", "16,32",
+                       "--reps", "1"]),
+    ("bench_gateway", ["--preset", "llama_125m", "--clients", "2",
+                       "--requests-per-client", "2", "--no-ab"]),
+)
+
+
+def _bench_tool(name: str, argv: list) -> dict:
+    """``tools/<name>.py``'s main in this process, its record parsed from
+    the last line it printed; it must succeed on this card under the
+    script's card lock ("inherited")."""
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(
+        f"tensorflow_train_distributed_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv + ["--device", "cuda"])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  {name}: {json.dumps(rec)}")
+    if rc != 0 or rec.get("error"):
+        raise AssertionError(f"{name}: rc {rc}, {rec.get('error')}")
+    if (rec.get("card_lock") != "inherited"
+            or rec.get("device_kind") != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"{name}: lock {rec.get('card_lock')}, "
+                             f"device {rec.get('device_kind')}")
+    if not (isinstance(rec["value"], float) and math.isfinite(rec["value"])
+            and rec["value"] > 0):
+        raise AssertionError(f"{name}: rate {rec['value']}")
+    if "mfu" in rec and not 0 < rec["mfu"] < 1:
+        raise AssertionError(f"{name}: MFU {rec['mfu']} outside (0, 1)")
+    if "mbu" in rec and not 0 < rec["mbu"] <= 1:
+        raise AssertionError(f"{name}: MBU {rec['mbu']} outside (0, 1]")
+    return rec
+
+
+def phase_bench(phase6_step_ms: float) -> dict:
+    """Phase 27: the bench tools (``tensorflow_train_distributed_torch/
+    tools/``) on the card, under the card lock this script holds: each
+    tool of ``BENCH_RUNS`` in this process, then ``tools/bench.py
+    --families lm`` in a process of its own, whose family subprocess
+    inherits the lock; ``profile_summary`` on the trace ``bench_lm
+    --profile-dir`` wrote.  Every rate finite, every MFU in (0, 1) and
+    MBU in (0, 1]; bench_lm's step within 1.5x of phase 6's (the same
+    batch, sequence, policy and remat; host-bound figures move by up to
+    that much); the summary's kinds ``_profile_train_step``'s."""
+    from tensorflow_train_distributed_torch.runtime import chip_lock
+    from tensorflow_train_distributed_torch.tools import profile_summary
+
+    t0 = time.perf_counter()
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    try:
+        out = {"card": smi_line(), "lock_holder": chip_lock.lock_holder()}
+        if out["lock_holder"] != os.getpid():
+            raise AssertionError(f"the card lock's holder is "
+                                 f"{out['lock_holder']}, not this script")
+        for name, argv in BENCH_RUNS:
+            out[name] = _bench_tool(name, argv)
+        ratio = out["bench_lm"]["step_time_ms"] / phase6_step_ms
+        out["bench_lm_vs_phase6"] = ratio
+        if not 1 / 1.5 <= ratio <= 1.5:
+            raise AssertionError(f"bench_lm's step is {ratio:.2f}x phase "
+                                 f"6's {phase6_step_ms:.1f} ms")
+        summary = profile_summary.summarize(out["bench_lm"]["trace"])
+        out["profile_summary"] = {k: v for k, v in summary.items()
+                                  if k != "trace"}
+        log(f"  profile_summary: {json.dumps(out['profile_summary'])}")
+        busy = {k for k, v in summary["kinds"].items()
+                if v["ms_per_step"] > 0}
+        want = {"matmul", "flash_attention", "flash_attention_bwd",
+                "cross_entropy", "rms_norm"}
+        if (set(summary["kinds"]) != set(KINDS) or not want <= busy
+                or summary["steps"] != 2
+                or not 0 < summary["busy_share"] <= 1):
+            raise AssertionError(f"profile_summary: steps "
+                                 f"{summary['steps']}, kinds {busy}")
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "tensorflow_train_distributed_torch.tools.bench",
+             "--families", "lm"], capture_output=True, text=True,
+            timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        head = json.loads(lines[-1])
+        full = json.loads(lines[-2])
+        fam = full["configs"]["llama_125m"]
+        out["bench_py"] = dict(rc=proc.returncode, headline=head,
+                               headline_bytes=len(lines[-1]),
+                               card_lock=full.get("card_lock"),
+                               family_card_lock=fam.get("card_lock"),
+                               seconds=time.perf_counter() - t1)
+        log(f"  bench.py --families lm: {json.dumps(out['bench_py'])}")
+        if (proc.returncode != 0 or len(lines[-1]) >= 500
+                or head["metric"] != "llama_125m_train_tokens_per_sec"
+                or not head["value"] > 0
+                or full.get("card_lock") != "inherited"
+                or fam.get("card_lock") != "inherited"):
+            raise AssertionError(f"bench.py: rc {proc.returncode}, "
+                                 f"{proc.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 27: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7841,6 +7880,20 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    from tensorflow_train_distributed_torch.runtime.chip_lock import (
+        chip_lock,
+    )
+
+    # The card lock, for the whole script: no bench of this card's host
+    # times beside it (phase 27's tools inherit it).
+    with chip_lock():
+        return _phases()
+
+
+def _phases() -> int:
+    import torch
+    from tensorflow_train_distributed_torch.models.llama import LLAMA_PRESETS
+
     _FRESH_FLAGS.update(_backend_flags())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7983,6 +8036,11 @@ def main() -> int:
     par_counts, par_rows, parallel = phase_parallel(
         run3, engines["llama2_7b_bf16"], rows["serve"]["rms_norm"])
     rows.update(par_rows)
+    torch.cuda.empty_cache()
+    log("== phase 27: the bench tools (bench_lm, bench_moe, bench_bert, "
+        "bench_vit, bench_generate, bench_serving, bench_gateway, bench.py, "
+        "profile_summary)")
+    bench = phase_bench(training["step_ms"])
 
     paths = {"serve": counts, "linear_serve": run3["linear_counts"],
              "autosize_serve": autosize_counts, "launch_fused": fused_counts,
@@ -8016,6 +8074,7 @@ def main() -> int:
     _tee(json.dumps({"interop": interop}))
     _tee(json.dumps({"multi_gpu": multi_gpu}))
     _tee(json.dumps({"parallel": parallel}))
+    _tee(json.dumps({"bench": bench}))
     _tee(json.dumps({"kernel_cases": CASES}))
     _tee(json.dumps({"kernels": kernels}))
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")

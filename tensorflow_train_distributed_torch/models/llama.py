@@ -568,6 +568,8 @@ class CausalLmTask:
         return loss, metrics
 
     def predict_fn(self, batch: dict) -> torch.Tensor:
-        """Next-token logits."""
+        """Next-token logits (``positions``: a sequence-sharded batch's
+        global ones)."""
         return self.model(batch["tokens"],
-                          segment_ids=batch.get("segment_ids"))
+                          segment_ids=batch.get("segment_ids"),
+                          positions=batch.get("positions"))

@@ -19,9 +19,9 @@ series, as the JAX fleet shows them unarmed.  The AST ``check()`` half
 waits for the static lint (ROADMAP Queue 1 step 8).
 
 The peaks read ``TTD_PEAK_FLOPS`` / ``TTD_PEAK_HBM_BYTES`` as JAX's do;
-without them, the datasheet of the card this process already drives
-(the table below holds the H100 alone: 989 TFLOP/s dense bf16, 3.35
-TB/s), else None.  A process that has not initialised CUDA (a fleet's
+without them, the data sheet of the card this process already drives
+(``training/memory.py``'s table: the H100's 989 TFLOP/s dense bf16,
+3.35 TB/s), else None.  A process that has not initialised CUDA (a fleet's
 parent, whose workers own the card) never initialises it here.
 """
 
@@ -34,11 +34,6 @@ _ARM_ENV = "TTD_COMPILECHECK"
 _KILL_ENV = "TTD_NO_COMPILECHECK"
 _PEAK_FLOPS_ENV = "TTD_PEAK_FLOPS"
 _PEAK_HBM_ENV = "TTD_PEAK_HBM_BYTES"
-
-#: Datasheet peaks by device-name substring: (dense bf16 FLOP/s, HBM
-#: bytes/s).  NVIDIA H100 SXM.
-_DATASHEET = {"h100": (989e12, 3.35e12)}
-
 
 def _truthy(v: Optional[str]) -> bool:
     return v is not None and v.strip().lower() not in ("", "0", "false",
@@ -83,11 +78,12 @@ def _datasheet() -> Optional[tuple]:
         kind = torch.cuda.get_device_name(torch.cuda.current_device())
     except Exception:  # noqa: BLE001 — no torch / no card
         return None
-    kind = kind.lower()
-    for sub, peaks in _DATASHEET.items():
-        if sub in kind:
-            return peaks
-    return None
+    from tensorflow_train_distributed_torch.training import memory
+
+    tflops = memory.peak_tflops(kind)
+    if tflops is None:
+        return None
+    return tflops * 1e12, memory.hbm_bandwidth_bytes_per_sec(kind)
 
 
 def peak_flops_per_s() -> Optional[float]:

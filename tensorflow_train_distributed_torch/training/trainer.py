@@ -726,13 +726,19 @@ class Trainer:
                 steps: Optional[int] = None) -> torch.Tensor:
         """The task's ``predict_fn`` over the batches, concatenated along
         the batch on the host; rows with ``sample_weight`` 0 (the padding
-        of an evaluation loader) are dropped."""
+        of an evaluation loader) are dropped.  A sequence-sharded model
+        runs on this rank's block of the rows and gathers every position
+        over ``seq``, so each rank returns the whole rows."""
         outs, keeps = [], []
         with self.inference(state):
             for host in batches:
-                batch = self.policy.cast_to_compute(
-                    to_device(host, self.device))
-                out = self.task.predict_fn(batch).cpu()
+                batch = self._seq_shard(self.policy.cast_to_compute(
+                    to_device(host, self.device)))
+                out = self.task.predict_fn(batch)
+                if self.plan.seq_group is not None:
+                    out = SP.C.all_gather(out, self.plan.seq_group,
+                                          gather_dim=1)
+                out = out.cpu()
                 outs.append(out)
                 w = host.get("sample_weight")
                 keeps.append(torch.ones(out.shape[0], dtype=torch.bool)

@@ -127,6 +127,43 @@ def llama_sp_curves(rank, *, params_npz, batches_npz, steps, methods):
     return out
 
 
+def llama_sp_predict(rank, *, params_npz, batches_npz, n, methods, out):
+    """``Trainer.predict`` of llama_tiny (MHA) with ``seq_parallel`` = each
+    of ``methods`` on a seq mesh of the world, from ``params_npz`` over the
+    first ``n`` batches of ``batches_npz``; each rank writes each method's
+    logits to ``out`` with its rank before the suffix (``x.npz`` ->
+    ``x.1.npz``): every rank returns the whole rows."""
+    from tensorflow_train_distributed_torch.models import llama
+    from tensorflow_train_distributed_torch.training import optimizers
+    from tensorflow_train_distributed_torch.training.mixed_precision import (
+        Policy,
+    )
+    from tensorflow_train_distributed_torch.training.trainer import (
+        Trainer,
+        TrainerConfig,
+    )
+
+    world = torch.distributed.get_world_size()
+    params = _load(params_npz)
+    with np.load(batches_npz) as f:
+        batches = [{k[len(f"{j}."):]: f[k] for k in f.files
+                    if k.startswith(f"{j}.")} for j in range(n)]
+    logits = {}
+    for method in methods:
+        cfg = dataclasses.replace(llama.LLAMA_PRESETS["llama_tiny"],
+                                  seq_parallel=method, num_kv_heads=None)
+        trainer = Trainer(llama.CausalLmTask(cfg, device="meta"),
+                          optimizers.make_optimizer("adam", 1e-3),
+                          device="cpu", mesh=_mesh({"data": 1,
+                                                    "seq": world}),
+                          policy=Policy.from_name("float32"),
+                          config=TrainerConfig(seed=0))
+        state = trainer.create_state({k: v.clone()
+                                      for k, v in params.items()})
+        logits[method] = trainer.predict(batches, state).numpy()
+    np.savez(out.replace(".npz", f".{rank}.npz"), **logits)
+
+
 # -- pipeline ------------------------------------------------------------
 
 

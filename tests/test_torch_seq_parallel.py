@@ -208,3 +208,57 @@ def test_llama_tiny_curve_under_seq2_matches_jax_dp_sp(curves, method):
     assert len(port[method]) == STEPS == len(jax_loss)
     np.testing.assert_allclose(port[method], jax_loss, rtol=2e-3)
     assert port[method][-1] < port[method][0]
+
+
+# -- predict under seq -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def predictions(tmp_path_factory):
+    """Two batches of 4 rows of 32 tokens through ``Trainer.predict``
+    under seq=2 (ring and Ulysses) and through the JAX ``predict`` of the
+    ring model on its dp_sp mesh (data 1 x seq 2), from the JAX
+    trainer's initial params."""
+    it = iter(HostBatches(SyntheticLM(num_examples=16, seq_len=32,
+                                      vocab_size=256), 4, seed=3))
+    batches = [next(it) for _ in range(2)]
+    mesh = jmesh.build_mesh(jmesh.MeshConfig(data=1, seq=2),
+                            devices=jax.devices()[:2])
+    trainer, _ = _jax_trainer(mesh, "ring")
+    state = trainer.create_state(batches[0])
+    flat = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(
+        fnn.unbox(state.params), sep="/").items()}
+    tcfg = dataclasses.replace(tllama.LLAMA_PRESETS["llama_tiny"],
+                               num_kv_heads=None)
+    root = tmp_path_factory.mktemp("predict")
+    params = str(root / "params.npz")
+    np.savez(params, **{k: v.numpy() for k, v in convert.params_from_flax(
+        flat, tcfg).items()})
+    data = str(root / "batches.npz")
+    np.savez(data, **{f"{j}.{k}": v for j, b in enumerate(batches)
+                      for k, v in b.items()})
+    out = str(root / "logits.npz")
+    MultiProcessRunner(
+        "_torch_mesh_workers:llama_sp_predict", 2,
+        payload=dict(params_npz=params, batches_npz=data, n=len(batches),
+                     methods=["ring", "ulysses"], out=out),
+        timeout=240).run()
+    port = {}
+    for rank in range(2):
+        with np.load(out.replace(".npz", f".{rank}.npz")) as f:
+            port.update({(rank, k): f[k] for k in f.files})
+    return port, np.asarray(trainer.predict(iter(batches), state))
+
+
+@pytest.mark.parametrize("method", ["ring", "ulysses"])
+def test_predict_under_seq2_returns_every_position_as_jax(predictions,
+                                                          method):
+    """Every rank returns every position's logits, [8, 32, 256], as the
+    JAX ``predict`` returns them (the forward bars of the attention
+    cases)."""
+    port, jax_logits = predictions
+    assert jax_logits.shape == (8, 32, 256)
+    for rank in range(2):
+        np.testing.assert_allclose(port[rank, method], jax_logits,
+                                   atol=2e-5, rtol=1e-4,
+                                   err_msg=f"rank {rank}")
