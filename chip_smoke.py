@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # one H100
 
 1. Device: prints the card's name and power limit, requires compute
-   capability 9.0, builds the CUDA kernels from ``csrc/`` and prints the
-   build time.
+   capability 9.0, builds the CUDA kernels from ``csrc/`` and, beside
+   them, the native host libraries from ``native/src/`` (g++), and prints
+   the build times.
 2. Kernels against their plain PyTorch versions on the card, at the serving
    path's shapes: RMSNorm [8, 4096] and [128, 4096] bf16; paged attention
    over 8 lanes, 32 heads (MHA), head_dim 128, block 16, 64 blocks a lane,
@@ -430,8 +431,23 @@
    bench.py's last line a headline under 500 bytes, its family's record
    the lock inherited; ``profile_summary`` of bench_lm's trace with 2
    steps, ``_profile_train_step``'s kinds, and time in each training
-   kernel's kind.  Every printed line is also appended to
-   ``chiprun_out/chip_smoke.log``.
+   kernel's kind.
+28. The native host runtime and the data-parallel tools, under the same
+   lock.  (a) The native libraries (``native/``, built by g++ in phase 1
+   beside the kernels), ``tools/bench_allreduce --host --world 4`` (the
+   native TCP ring over four processes, GB/s on the host clock) and its
+   device leg at NCCL world size 1, whose record must carry the one-rank
+   copy's rate and no bus bandwidth.  (b) ``tools/bench_grad_quant`` at
+   llama_125m full width (8 x 2048, bf16 over f32, ``GQ_STEPS`` steps a
+   leg) at NCCL world size 1: the four legs (each resolves to the exact
+   step at one data rank, as the JAX trainer does), the kill switch bit
+   for bit ``none``, loss parity within the JAX tool's bar, each leg's
+   ``train/*`` spans one a step, the headline under 500 bytes; launch
+   counts zeroed before and read after, the "grad_quant" path's rows.
+   (c) ``tools/bench_input`` on 512 JPEGs from seed 0 without workers:
+   PIL, libjpeg on 1, 2 and 4 threads and at half resolution, the
+   stager's leg, and the decoder ``decode_image`` chose and why.  Every
+   printed line is also appended to ``chiprun_out/chip_smoke.log``.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -448,6 +464,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # The H100's peaks, the kernel bounds, the decode byte bound and the MFU
@@ -652,6 +669,10 @@ KERNELS += [
     ("paged_kv_gather", _CSRC + "paged_kv_gather.cu", _PK + ":121",
      "split_serve"),
 ]
+# Phase 28 (b): bench_grad_quant's four legs at llama_125m, phase 5's
+# shapes (8 x 2048 bf16); the numbers beside them are phase 5's.
+KERNELS += [(name, source, where, "grad_quant")
+            for name, source, where, path in KERNELS if path == "train"]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LANE_KERNELS = [k[0] for k in KERNELS if k[3] == "lane_control"]
 FLEET_KERNELS = [k[0] for k in KERNELS if k[3] == "fleet_serve"]
@@ -769,6 +790,23 @@ def _fma_note(fma) -> str:
 # -- phase 1 ------------------------------------------------------------------
 
 
+# Phase 1's build of the native host libraries (phase 28 reports it).
+NATIVE_BUILD: dict = {}
+
+
+def _build_native(out: dict) -> None:
+    from tensorflow_train_distributed_torch import native
+
+    t0 = time.perf_counter()
+    try:
+        out["core"] = native.build()
+        native.load_jpeg_library()
+        out["jpeg_ok"] = True
+    except native.NativeUnavailable as e:
+        out["error"] = str(e)
+    out["seconds"] = time.perf_counter() - t0
+
+
 def phase_device():
     import torch
     from tensorflow_train_distributed_torch.ops import cuda_build
@@ -781,9 +819,20 @@ def phase_device():
         raise RuntimeError(f"the kernels are built for sm_90a; this card is "
                            f"sm_{cap[0]}{cap[1]}")
     t0 = time.perf_counter()
-    cuda_build.library()
+    # The native host libraries (g++) build beside the kernels (nvcc).
+    native_build = {}
+    thread = threading.Thread(target=_build_native, args=(native_build,))
+    thread.start()
+    try:
+        cuda_build.library()
+    finally:
+        thread.join()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({cuda_build.build_info.get('path')})")
+    log(f"native build: {json.dumps(native_build)}")
+    if "error" in native_build:
+        raise RuntimeError(f"native build: {native_build['error']}")
+    NATIVE_BUILD.update(native_build)
     for line in cuda_build.build_info.get("ptxas", "").splitlines():
         if "registers" in line or line.startswith("=="):
             log(f"  ptxas {line.strip()}")
@@ -7865,6 +7914,117 @@ def phase_bench(phase6_step_ms: float) -> dict:
     return out
 
 
+# Phase 28 (b): steps a leg of bench_grad_quant at llama_125m (the first
+# is left out of its times).  Cut first if the script nears its limit.
+GQ_STEPS = 4
+GQ_FLAGS = ["--preset", "llama_125m", "--batch", "8", "--seq", "2048",
+            "--policy", "mixed_bfloat16", "--steps", str(GQ_STEPS)]
+GQ_SPANS = ("train/data_wait", "train/step_dispatch", "train/host_callbacks")
+
+
+def _tool_lines(name: str, argv: list) -> tuple:
+    """``tools/<name>.py``'s main in this process: (rc, its printed JSON
+    lines, seconds)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(
+        f"tensorflow_train_distributed_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv + ["--device", "cuda"])
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()
+             if x.startswith("{")]
+    return rc, lines, time.perf_counter() - t0
+
+
+def _native_tool(name: str, argv: list) -> dict:
+    import torch
+
+    rc, lines, secs = _tool_lines(name, argv)
+    rec = dict(lines[-1], seconds=secs)
+    log(f"  {name} {' '.join(argv)}: {json.dumps(rec)}")
+    if (rc != 0 or rec.get("error") or rec.get("card_lock") != "inherited"
+            or rec.get("device_kind") != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"{name}: rc {rc}, {rec}")
+    return rec
+
+
+def phase_native_tools() -> tuple:
+    """Phase 28: (a) the native ring and bench_allreduce, (b)
+    bench_grad_quant at llama_125m, (c) bench_input's decode legs.
+    Returns ({"grad_quant": counts}, the record)."""
+    import torch
+    from tensorflow_train_distributed_torch.data import image as I
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.tools import bench_grad_quant
+
+    t0 = time.perf_counter()
+    out = {"card": smi_line(), "native_build": NATIVE_BUILD}
+    # (a)
+    host = _native_tool("bench_allreduce", ["--host", "--world", "4"])
+    if not (host["devices"] == 4 and host["value"] > 0):
+        raise AssertionError(f"(a) host ring: {host}")
+    dev = _native_tool("bench_allreduce", ["--world", "1"])
+    if not (dev["backend"] == "nccl" and dev["devices"] == 1
+            and dev["value"] is None and dev["bus_bandwidth_gbps"] is None
+            and dev["copy_gbps"] > 0 and "copy" in dev["note"]):
+        raise AssertionError(f"(a) the one-rank device leg: {dev}")
+    out["allreduce"] = {"host_ring_world4": host, "device_nccl_world1": dev}
+    # (b)
+    K.reset_launch_counts()
+    rc, lines, secs = _tool_lines("bench_grad_quant", GQ_FLAGS)
+    counts = {k: K.launch_counts()[k] for k in TRAIN_KERNELS}
+    others = {k: v for k, v in K.launch_counts().items()
+              if k not in TRAIN_KERNELS and v}
+    rec, head = lines[-2], lines[-1]
+    head_bytes = len(json.dumps(head))
+    legs = rec["legs"]
+    log(f"  bench_grad_quant: {json.dumps(head)} ({head_bytes} bytes, "
+        f"{secs:.1f} s); resolved "
+        f"{ {k: v['grad_quant'] for k, v in legs.items()} }")
+    for name, leg in dict(legs, ks=rec["killswitch"]).items():
+        log(f"    {name}: losses {leg.get('losses')} ms a step "
+            f"{leg['wall_per_step_ms']} spans {leg['span_counts']}")
+        bad = {k: leg["span_counts"].get(k) for k in GQ_SPANS
+               if leg["span_counts"].get(k) != GQ_STEPS}
+        if bad:
+            raise AssertionError(f"(b) {name}'s spans {bad}")
+    if (rc != 0 or not head["passed"] or head_bytes >= 500
+            or not rec["killswitch"]["bitwise_equal_to_none"]
+            or not rec["loss_parity"]["within_tol"]
+            or rec["card_lock"] != "inherited"):
+        raise AssertionError(f"(b) bench_grad_quant: rc {rc}, {head}")
+    want = {k: 4 * GQ_STEPS * v
+            for k, v in train_launches_per_step(12).items()}
+    log(f"  launches {counts} (expected {want}); others {others}")
+    if counts != want or others:
+        raise AssertionError(f"(b) launches {counts}, others {others}; "
+                             f"expected {want}")
+    out["grad_quant"] = dict(
+        headline=head, headline_bytes=head_bytes, seconds=secs,
+        ms={k: v["wall_per_step_ms"] for k, v in legs.items()},
+        ks_ms=rec["killswitch"]["wall_per_step_ms"],
+        resolved={k: v["grad_quant"] for k, v in legs.items()},
+        losses={k: v["losses"] for k, v in legs.items()},
+        tol=bench_grad_quant.LOSS_PARITY_TOL)
+    # (c)
+    inp = _native_tool("bench_input", ["--records", "512", "--workers", ""])
+    if not (all(v > 0 for v in inp["decode_modes"].values())
+            and len(inp["decode_modes"]) == 5
+            and inp["native"]["decoder"] in ("libjpeg", "pil")):
+        raise AssertionError(f"(c) bench_input: {inp}")
+    out["input"] = dict(decode_modes=inp["decode_modes"],
+                        modes=inp["modes"], native=inp["native"],
+                        decode_image=list(I.decoder()),
+                        seconds=inp["seconds"])
+    log(f"  decode_image: {I.decoder()}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 28: {out['seconds']:.1f} s")
+    return {"grad_quant": counts}, out
+
+
 def main() -> int:
     import torch
 
@@ -8041,6 +8201,11 @@ def _phases() -> int:
         "bench_vit, bench_generate, bench_serving, bench_gateway, bench.py, "
         "profile_summary)")
     bench = phase_bench(training["step_ms"])
+    torch.cuda.empty_cache()
+    log("== phase 28: the native host runtime (ring, stager, libjpeg), "
+        "bench_allreduce, bench_grad_quant, bench_input's decode legs")
+    native_counts, native_tools = phase_native_tools()
+    rows["grad_quant"] = rows["train"]
 
     paths = {"serve": counts, "linear_serve": run3["linear_counts"],
              "autosize_serve": autosize_counts, "launch_fused": fused_counts,
@@ -8052,7 +8217,7 @@ def _phases() -> int:
              "spec_serve": spec_counts, "lane_control": lane_counts,
              "generate": generate_counts, "fleet_serve": fleet_counts,
              "ep_block": ep_counts, **moe_counts22, **interop_counts,
-             **par_counts}
+             **par_counts, **native_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -8075,9 +8240,12 @@ def _phases() -> int:
     _tee(json.dumps({"multi_gpu": multi_gpu}))
     _tee(json.dumps({"parallel": parallel}))
     _tee(json.dumps({"bench": bench}))
+    _tee(json.dumps({"native_tools": native_tools}))
     _tee(json.dumps({"kernel_cases": CASES}))
     _tee(json.dumps({"kernels": kernels}))
-    log(f"whole script: {time.perf_counter() - t_start:.1f} s")
+    whole = time.perf_counter() - t_start
+    log(f"whole script: {whole:.1f} s of 1200 s"
+        + (" (past 1150 s: cut GQ_STEPS first)" if whole > 1150 else ""))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

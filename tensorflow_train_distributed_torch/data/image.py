@@ -23,18 +23,24 @@ as the reference's ImageNet TFRecords carry them, or bare ``jpeg`` and
 ``label``.
 
 PIL is imported inside the calls, so the package imports without it.
-The JAX package's native libjpeg decoder is not ported: every image
-decodes through PIL.
+JPEGs decode through the native libjpeg decoder (``native/jpeg.py``)
+where it builds and its pixels equal PIL's on a probe (the JAX package's
+rule: a crop must be the same on every worker and after a restart);
+otherwise, and for every other format, through PIL.  ``decoder()`` says
+which, and why; the reason is logged once.
 """
 
 from __future__ import annotations
 
 import io
+import logging
 import re
 import zlib
 from functools import partial
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 # ImageNet channel statistics (the torchvision/MLPerf convention).
 MEAN_RGB = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -81,8 +87,54 @@ def _pil_image():
     return Image
 
 
+# (the decoder JPEGs take: "libjpeg" or "pil", why), decided once.
+_DECODER = None
+
+
+def decoder() -> tuple:
+    """("libjpeg", reason) where the native decoder is built and equals
+    PIL on a chroma-subsampled probe, else ("pil", reason): PIL and the
+    system libjpeg are separate builds, and a mismatch would change the
+    seeded crops between hosts.  Decided once a process, and logged."""
+    global _DECODER
+    if _DECODER is None:
+        from tensorflow_train_distributed_torch.native import jpeg as njpeg
+
+        ok, why = njpeg.native.jpeg_status()
+        if ok:
+            try:
+                Image = _pil_image()
+                y, x = np.mgrid[0:48, 0:64]
+                probe = np.stack([y * 5 % 256, x * 3 % 256,
+                                  (y + x) * 7 % 256], axis=-1).astype(
+                                      np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(probe).save(buf, "JPEG", quality=85)
+                data = buf.getvalue()
+                with Image.open(io.BytesIO(data)) as im:
+                    pil = np.asarray(im.convert("RGB"), np.uint8)
+                ok = np.array_equal(njpeg.decode_rgb(data), pil)
+                why = ("the native decoder's pixels equal PIL's on the "
+                       "probe" if ok else "the native decoder's pixels "
+                       "differ from PIL's on the probe")
+            except Exception as e:  # noqa: BLE001 — any fault means PIL
+                ok, why = False, f"the parity probe failed: {e}"
+        _DECODER = ("libjpeg" if ok else "pil", why)
+        logger.info("JPEG decode: %s (%s)", *_DECODER)
+    return _DECODER
+
+
 def decode_image(data: bytes) -> np.ndarray:
-    """Encoded image bytes (JPEG, PNG, ...) → uint8 [H, W, 3] RGB."""
+    """Encoded image bytes (JPEG, PNG, ...) → uint8 [H, W, 3] RGB: JPEGs
+    through libjpeg where ``decoder()`` chose it (a CMYK or corrupt JPEG
+    then goes to PIL), everything else through PIL."""
+    if data[:2] == b"\xff\xd8" and decoder()[0] == "libjpeg":
+        from tensorflow_train_distributed_torch.native import jpeg as njpeg
+
+        try:
+            return njpeg.decode_rgb(data)
+        except ValueError:
+            pass
     Image = _pil_image()
     with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"), np.uint8)

@@ -23,8 +23,17 @@ shard, the index stride ``order[p::P]`` of the epoch's permutation
 (``shard_policy="data"``), or whole files ``f % P == p`` of a
 ``ConcatSource`` shuffled within the shard (``"file"``).  The defaults
 (0 of 1) read everything in one process; the data service's workers
-(``data/service.py``) each read one shard.  The JAX loader's native
-stager is not ported.
+(``data/service.py``) each read one shard.
+
+``DataConfig(use_native=True)`` assembles the batches of ``__iter__`` on
+the native stager (``native/staging.py``: worker threads gather packed
+records off the GIL, in submission order), the same batches in the same
+order; the source is packed once a loader.  A source whose transform
+depends on the epoch is packed at epoch 0 (its augmentation frozen there,
+with a warning), and ``iter_from`` then fetches epoch 0 too, so a resumed
+run reads what the stager served.  Where the native library cannot be
+built the loader raises (``native.NativeUnavailable``): it never falls
+back to the Python path.
 """
 
 from __future__ import annotations
@@ -200,6 +209,10 @@ class DataConfig:
     drop_remainder: bool = True
     num_epochs: Optional[int] = None
     shard_policy: str = "data"
+    # The native stager (``native.staging``): same batches, same order,
+    # assembled off the GIL from the source packed in host memory.
+    use_native: bool = False
+    native_threads: int = 2
 
 
 class HostDataLoader:
@@ -218,6 +231,12 @@ class HostDataLoader:
                 f"global_batch_size={config.global_batch_size} not divisible "
                 f"by process_count={process_count}")
         self.host_batch_size = config.global_batch_size // process_count
+        # The stager's packed source, made once (``__iter__``).
+        self._native_packed = None
+        if config.use_native:
+            from tensorflow_train_distributed_torch import native
+
+            native.load_library()       # raises where it cannot build
         if config.shard_policy not in ("data", "file"):
             raise ValueError(f"shard_policy must be data|file, got "
                              f"{config.shard_policy!r}")
@@ -284,11 +303,20 @@ class HostDataLoader:
              < self._shard_len()).astype(np.float32)
         return dict(batch, sample_weight=w)
 
+    def _augmentation_frozen(self) -> bool:
+        """True when the stager serves ``__iter__`` over an epoch-aware
+        source: it packs the transformed records once, at epoch 0, so
+        ``iter_from`` fetches epoch 0 as well, or a restart would read
+        other crops than the uninterrupted run."""
+        return self.config.use_native and getattr(self.source,
+                                                  "epoch_aware", False)
+
     def _batches(self, epoch: int, first_batch: int) -> Iterator[dict]:
         order = self._padded_order(epoch)
         bs = self.host_batch_size
+        fetch_epoch = 0 if self._augmentation_frozen() else epoch
         for b in range(first_batch, self.steps_per_epoch()):
-            records = [fetch_record(self.source, int(i), epoch)
+            records = [fetch_record(self.source, int(i), fetch_epoch)
                        for i in order[b * bs:(b + 1) * bs]]
             batch = {k: np.stack([r[k] for r in records])
                      for k in records[0]}
@@ -313,7 +341,44 @@ class HostDataLoader:
         return resumed()
 
     def __iter__(self) -> Iterator[dict]:
+        if self.config.use_native:
+            return self._native_iter()
         return self.iter_from(0)
+
+    def _epoch_orders(self) -> Iterator[np.ndarray]:
+        epoch = 0
+        while self.config.num_epochs is None or epoch < self.config.num_epochs:
+            yield self._padded_order(epoch)
+            epoch += 1
+
+    def _native_iter(self) -> Iterator[dict]:
+        from tensorflow_train_distributed_torch.native.staging import (
+            native_batch_iterator,
+            pack_for_staging,
+        )
+
+        if getattr(self.source, "epoch_aware", False):
+            import warnings
+
+            warnings.warn(
+                "use_native packs transformed records ONCE, so a "
+                "per-epoch augmentation transform is frozen at its "
+                "epoch-0 crops; use the in-process or data-service "
+                "path for fresh-per-epoch augmentation", stacklevel=3)
+        if self._native_packed is None:
+            # Once a loader: re-created iterators (an evaluation, a
+            # restart) reuse the packed matrix.
+            self._native_packed = pack_for_staging(self.source)
+        it = native_batch_iterator(
+            self.source, self._epoch_orders(), self.host_batch_size,
+            num_threads=self.config.native_threads,
+            packed=self._native_packed)
+        if self.config.drop_remainder:
+            yield from it
+            return
+        spe = self.steps_per_epoch()
+        for i, batch in enumerate(it):
+            yield self._with_sample_weight(batch, i % spe)
 
     def _shard_len(self) -> int:
         """This process's records in one epoch, before padding."""

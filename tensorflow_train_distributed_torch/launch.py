@@ -88,8 +88,11 @@ resume whose remaining steps are not a multiple of k rounds them up.
 and ``--profile-dir`` captures a ``torch.profiler`` trace of the
 ``--profile-steps START,STOP`` window.
 
-``--profiler-port`` (the JAX profiler server) is parsed and refused with
-the ROADMAP item that brings it, exit 2.
+``--profiler-port P`` opens a localhost capture listener in rank 0's
+process (``runtime/profiling.CaptureServer``; 0 picks a free port, logged):
+a request for N steps traces the next N steps into the directory it names
+and answers with the trace's path, the on-demand capture the JAX flag's
+profiler server gives, without a planned ``--profile-dir`` window.
 ``--device`` (default ``cuda``) never falls back to the CPU; on CUDA the
 launcher pins cuDNN to its deterministic algorithms, so a resumed run of
 a convolutional model ends where an uninterrupted one does.
@@ -108,17 +111,6 @@ import time
 from typing import Optional, Sequence
 
 logger = logging.getLogger(__name__)
-
-_Q1 = "ROADMAP Queue 1"
-# Flags of the JAX launcher the port refuses: (dest, what brings it).
-# Each defaults to None (or False), so any use of it is refused.
-_REFUSED = {
-    # jax.profiler's remote-capture server has no PyTorch counterpart;
-    # --profile-dir captures a step window instead.
-    "profiler_port": f"{_Q1} item 7 (tooling, step 8: PyTorch has no "
-                     "remote-capture profiler server; use --profile-dir)",
-}
-
 
 from tensorflow_train_distributed_torch.runtime.mesh import (  # noqa: E402
     STRATEGY_PRESETS,
@@ -243,6 +235,10 @@ def build_parser(light: bool = False) -> argparse.ArgumentParser:
       "directory (reference: TensorBoard callback profile_batch)")
     a("--profile-steps", default="10,20", metavar="START,STOP",
       help="step window for --profile-dir")
+    a("--profiler-port", type=int, default=None, metavar="PORT",
+      help="on-demand traces: a localhost listener (0: a free port) that "
+      "takes {\"steps\": N, \"logdir\": DIR} and traces the next N steps "
+      "(runtime/profiling.request_capture)")
     # Self-healing supervision (runtime.supervisor): the launcher runs as
     # a child process, its exit is classified (clean / preemption /
     # device loss / crash) and relaunched under a restart budget; the
@@ -331,25 +327,7 @@ def build_parser(light: bool = False) -> argparse.ArgumentParser:
       help="the JAX flag: picks --device (cpu, or cuda for cuda/gpu)")
     d("--cpu-devices", type=int, default=None, metavar="N",
       help="start N local ranks on the CPU (gloo), one process each")
-    refused = p.add_argument_group(
-        "refused", "JAX launcher flags the port does not implement yet")
-    refused.add_argument("--profiler-port", type=int, default=None)
     return p
-
-
-def _refuse(flag: str, item: str):
-    print(f"train_distributed: {flag} is not ported; {item} brings it",
-          file=sys.stderr)
-    raise SystemExit(2)
-
-
-def refuse_unported(args) -> None:
-    """Exit 2, with one line on standard error, on the first JAX flag the
-    port does not implement."""
-    for dest, item in _REFUSED.items():
-        v = getattr(args, dest)
-        if v is not None and v is not False:
-            _refuse("--" + dest.replace("_", "-"), item)
 
 
 def _parse_profile_steps(spec: str) -> tuple:
@@ -800,7 +778,6 @@ def _run(args, joined: list) -> RunResult:
         CheckpointManager,
     )
 
-    refuse_unported(args)
     if args.config is None:
         raise SystemExit("--config is required")
     _check_mesh_flags(args)
@@ -992,6 +969,15 @@ def _run(args, joined: list) -> RunResult:
         callbacks.append(ProfileCallback(
             args.profile_dir, start_step=profile_window[0],
             stop_step=profile_window[1]))
+    if args.profiler_port is not None and writer:
+        from tensorflow_train_distributed_torch.runtime.profiling import (
+            CaptureServer,
+        )
+
+        capture = CaptureServer(args.profiler_port)
+        logger.warning("profiler capture server listening on %s:%d",
+                       capture.host, capture.port)
+        callbacks.append(capture)
     if args.stall_timeout > 0:
         callbacks.append(StallWatchdog(args.stall_timeout))
     ckpt = watcher = None

@@ -22,6 +22,15 @@ tensor normalised by them as one multiply-add.  Names match flax's
 (``stem_conv``, ``BottleneckBlock_{k}/Conv_{i}``, ``BatchNorm_{i}``,
 ``proj_conv``, ``proj_bn``, ``Dense_0``); the running statistics are
 buffers ``…/mean`` and ``…/var`` (flax's ``batch_stats`` collection).
+
+On a mesh whose batch group (``data`` x ``fsdp``, ``ResNet.set_mesh``)
+holds more than one rank, the training statistics cover the global
+batch, as the JAX model's do over global arrays: each layer sums the
+per-channel f32 ``x`` and ``x²`` (of the strided subset under
+``stats_stride``) and the count over the group with the differentiable
+``collectives.psum``, so the backward carries the cross-rank terms, and
+normalises by ``E[x²] - E[x]²`` (flax's one-pass variance).  At one batch
+rank the layer runs the ``F.batch_norm`` call above.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from torch import nn
 
 from tensorflow_train_distributed_torch.models import layers as L
 from tensorflow_train_distributed_torch.models.vision_task import VisionTask
+from tensorflow_train_distributed_torch.parallel import collectives as C
 
 # ImageNet channel statistics in [0, 1] pixel units (the JAX package's
 # ``data/image.py`` constants).
@@ -88,6 +98,8 @@ class BatchNorm(L._Leaf):
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("mean", torch.empty(features, device=device))
         self.register_buffer("var", torch.empty(features, device=device))
+        # The process group of the batch ranks (None: one rank).
+        self.group = None
 
     def init_spec(self) -> dict:
         return {"scale": ("fill", 0.0 if self.zero_init else 1.0),
@@ -103,6 +115,8 @@ class BatchNorm(L._Leaf):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self._cast(self.scale).float()
         bias = self._cast(self.bias).float()
+        if self.training and self.group is not None:
+            return self._global(x, scale, bias)
         if self.stats_stride > 1:
             return self._subsampled(x, scale, bias)
         if not self.training:
@@ -119,6 +133,29 @@ class BatchNorm(L._Leaf):
         self._update(mean, unbiased * ((n - 1) / n))
         return y
 
+    def _global(self, x, scale, bias):
+        """Training statistics over the batch group's global batch: the
+        sums of x and x² and the count, ``psum``-ed over the group."""
+        s = self.stats_stride
+        sub = (x[:, :, ::s, ::s] if x.dim() == 4 and s > 1 else x).float()
+        axes = (0,) + tuple(range(2, sub.dim()))
+        count = torch.full((1,), sub.numel() // sub.shape[1],
+                           dtype=torch.float32, device=x.device)
+        sums = C.psum(torch.cat([sub.sum(axes), torch.square(sub).sum(axes),
+                                 count]), self.group)
+        c = sub.shape[1]
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - torch.square(mean), min=0.0)
+        self._update(mean.detach(), var.detach())
+        if s > 1:
+            return self._affine(x, scale, bias, mean, var)
+        # flax's normalisation: (x - mean) · scale · rsqrt(var + eps) + bias.
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        w = (scale * torch.rsqrt(var + self.epsilon)).view(shape)
+        return ((x.float() - mean.view(shape)) * w
+                + bias.view(shape)).to(x.dtype)
+
     def _subsampled(self, x, scale, bias):
         if self.training:
             s = self.stats_stride
@@ -130,6 +167,11 @@ class BatchNorm(L._Leaf):
             self._update(mean.detach(), var.detach())
         else:
             mean, var = self.mean, self.var
+        return self._affine(x, scale, bias, mean, var)
+
+    def _affine(self, x, scale, bias, mean, var):
+        """x normalised by (mean, var) and the affine, as one multiply-add
+        in x's dtype."""
         inv = torch.rsqrt(var + self.epsilon)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         w = (scale * inv).to(x.dtype).view(shape)
@@ -235,6 +277,14 @@ class ResNet(nn.Module):
 
     def init_spec(self) -> dict:
         return {"Dense_0.kernel": ("fill", 0.0)}
+
+    def set_mesh(self, mesh) -> None:
+        """Every BatchNorm's training statistics over ``mesh``'s batch
+        group (``data`` x ``fsdp``; none where it holds one rank)."""
+        group = mesh.group(("data", "fsdp"))
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.space_to_depth and x.shape[-1] == 3:

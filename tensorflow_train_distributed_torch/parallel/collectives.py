@@ -27,9 +27,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-#: Elements per quantization block (the JAX package's
-#: ``native.ringcoll.Q8_BLOCK``).
-Q8_BLOCK = 512
+# Elements per quantization block: the native ring's, one recipe (the
+# JAX package reads its ``native.ringcoll.Q8_BLOCK`` likewise).
+from tensorflow_train_distributed_torch.native.ringcoll import (
+    Q8_BLOCK,
+)
 
 #: Leaves smaller than this stay on the exact f32 path.
 DEFAULT_MIN_QUANT_ELEMS = 512

@@ -58,6 +58,7 @@ import torch
 
 from tensorflow_train_distributed_torch.parallel import collectives as C
 from tensorflow_train_distributed_torch.parallel import sharding as S
+from tensorflow_train_distributed_torch.runtime import events
 from tensorflow_train_distributed_torch.training import optimizers
 
 
@@ -109,6 +110,9 @@ class StatePlan:
                         and not self.needs_norm_reduce
                         and self.seq_group is None)
         self._axes_by_id: dict = {}
+        # The last bucketed sync's buckets, as parameter indices in
+        # dispatch order (``sync_grads`` with ``overlap``).
+        self.buckets: list = []
 
     # -- the layout ------------------------------------------------------
 
@@ -144,11 +148,16 @@ class StatePlan:
     # -- the step --------------------------------------------------------
 
     def sync_grads(self, grads: list, *, residual: Optional[list] = None,
-                   wire: str = "none", overlap: int = 0) -> tuple:
+                   wire: str = "none", overlap: int = 0,
+                   device=None) -> tuple:
         """(this rank's piece of each mean gradient, the new residual, the
         data group's finiteness flag under ``wire`` else None, the wire MB
         a rank sent).  ``grads`` are the local batch's, None for frozen
-        parameters."""
+        parameters.  Under ``wire`` the sync is the JAX pipeline's
+        ``train/grad_comm`` span: one that ends where the sums are ready
+        on ``device``, or with ``overlap`` one a bucket (``bucket=``,
+        ``buckets=``) that meters the host; ``self.buckets`` then holds
+        the buckets' parameter indices."""
         m = self.mesh
         live = [i for i, g in enumerate(grads) if g is not None]
         out = list(grads)
@@ -165,19 +174,28 @@ class StatePlan:
             r = [residual[i] for i in live]
             if overlap > 1:
                 mean, new_r, flags = [None] * len(g), [None] * len(g), []
-                for bucket in C.plan_grad_buckets(g, overlap):
-                    bm, br, bf = C.ef_bucket_sync(
-                        [g[j] for j in bucket], [r[j] for j in bucket],
-                        dgrp, wire=wire)
-                    for j, a, b in zip(bucket, bm, br):
-                        mean[j], new_r[j] = a, b
-                    flags.append(bf)
-                    wire_mb += C.bucket_sync_wire_bytes(
+                buckets = C.plan_grad_buckets(g, overlap)
+                self.buckets = [[live[j] for j in b] for b in buckets]
+                for b, bucket in enumerate(buckets):
+                    mb = C.bucket_sync_wire_bytes(
                         [g[j] for j in bucket], D, wire) / 1e6
+                    with events.span("train/grad_comm", wire=wire, mb=mb,
+                                     bucket=b, buckets=len(buckets)):
+                        bm, br, bf = C.ef_bucket_sync(
+                            [g[j] for j in bucket], [r[j] for j in bucket],
+                            dgrp, wire=wire)
+                    for j, a, b_ in zip(bucket, bm, br):
+                        mean[j], new_r[j] = a, b_
+                    flags.append(bf)
+                    wire_mb += mb
                 finite = torch.stack(flags).all()
             else:
-                mean, new_r, finite = C.ef_grad_sync(g, r, dgrp, wire=wire)
                 wire_mb = C.grad_sync_wire_bytes(g, D, wire) / 1e6
+                with events.device_span("train/grad_comm",
+                                        torch.device(device or "cpu"),
+                                        wire=wire, mb=wire_mb):
+                    mean, new_r, finite = C.ef_grad_sync(g, r, dgrp,
+                                                         wire=wire)
             residual = list(residual)
             for j, i in enumerate(live):
                 residual[i] = new_r[j]
@@ -241,19 +259,34 @@ class StatePlan:
                             if g is not None}
         return optimizers.norm_reducer(self._reduce_norm)
 
-    def apply(self, tx, opt_state, params: list, grads: list):
+    def apply(self, tx, opt_state, params: list, grads: list, *,
+              buckets: Optional[list] = None):
         """The optimizer on this rank's pieces, the pieces gathered back
-        into the parameters; returns the new optimizer state."""
+        into the parameters; returns the new optimizer state.  With
+        ``buckets`` (parameter indices, ``self.buckets``) each bucket's
+        parameters are written under its own ``train/optimizer_apply``
+        span, as the JAX bucketed step applies a bucket at a time; the
+        update itself is computed once, in bucket 0's span (a clip's
+        global norm reads every bucket)."""
         pieces = self.pieces(params)
-        with self.norm_context(grads):
-            updates, opt_state = tx.update(grads, opt_state, pieces)
-        with torch.no_grad():
-            for k, p, v, u in zip(self.names, params, pieces, updates):
-                if u is None:       # a frozen parameter
-                    continue
-                v.add_(u)
-                if self.split[k]:
-                    p.copy_(S.gather(self.mesh, self.storage[k], v))
+        parts = buckets or [range(len(params))]
+        for b, ix in enumerate(parts):
+            with (events.span("train/optimizer_apply", bucket=b,
+                              buckets=len(parts)) if buckets
+                  else contextlib.nullcontext()):
+                if b == 0:
+                    with self.norm_context(grads):
+                        updates, opt_state = tx.update(grads, opt_state,
+                                                       pieces)
+                with torch.no_grad():
+                    for i in ix:
+                        k, p, v, u = (self.names[i], params[i], pieces[i],
+                                      updates[i])
+                        if u is None:       # a frozen parameter
+                            continue
+                        v.add_(u)
+                        if self.split[k]:
+                            p.copy_(S.gather(self.mesh, self.storage[k], v))
         return opt_state
 
     # -- whole state <-> this rank's state -------------------------------

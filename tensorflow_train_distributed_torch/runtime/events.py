@@ -665,3 +665,36 @@ def span(name: str, **attrs):
 
 def instant(name: str, **attrs) -> None:
     _RECORDER.instant(name, **attrs)
+
+
+class _DeviceSpan:
+    """``span`` whose block ends when ``device`` has run the work queued
+    in it (``torch.cuda.synchronize``) while recording is on: the span
+    meters device time, as a JAX span that blocks on its result does."""
+
+    __slots__ = ("_span", "_device")
+
+    def __init__(self, span_cm, device):
+        self._span = span_cm
+        self._device = device
+
+    def __enter__(self):
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if exc[0] is None and self._device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self._device)
+        return self._span.__exit__(*exc)
+
+
+def device_span(name: str, device, **attrs):
+    """``span(name, **attrs)`` that, on a CUDA ``device`` (a
+    ``torch.device``), waits for the block's queued device work before it
+    ends.  Under the kill switch it records nothing and waits for
+    nothing."""
+    if trace_killed():
+        return _NULL_SPAN
+    return _DeviceSpan(_RECORDER.span(name, **attrs), device)

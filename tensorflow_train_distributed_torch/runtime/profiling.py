@@ -14,17 +14,26 @@ counterpart of the JAX package's ``runtime/profiling.py`` over
 - ``device_memory_stats``: bytes in use, peak and limit of each device
   (``torch.cuda.memory_stats`` and ``mem_get_info``).
 - ``SpeedMonitor``: step time and throughput between log events.
-
-The JAX package's ``start_profiler_server`` (remote capture) has no
-PyTorch counterpart; the launcher refuses ``--profiler-port``.
+- ``CaptureServer``: on-demand capture, the launcher's
+  ``--profiler-port`` (the JAX package starts ``jax.profiler``'s server
+  there).  A localhost TCP listener takes one JSON line a connection,
+  ``{"steps": N, "logdir": DIR}``; the trainer then traces the next N
+  steps it dispatches and replies on the same connection with one JSON line,
+  ``{"path": ..., "first_step": a, "last_step": b}``.
+  ``request_capture`` is the client.  Each step boundary inside the
+  window leaves a ``ttd/step <n>`` marker in the trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import json
 import logging
 import os
+import queue
+import socket
+import threading
 from typing import Iterator, Optional
 
 from tensorflow_train_distributed_torch.training.callbacks import (
@@ -179,3 +188,128 @@ class SpeedMonitor(Callback):
             out["examples_per_sec"] = (
                 self.examples_per_step / (out["median_step_ms"] / 1e3))
         return out
+
+
+STEP_MARKER = "ttd/step "
+
+
+class CaptureServer(Callback):
+    """``--profiler-port``: a listener on ``host:port`` (0 picks a free
+    port, ``self.port``) that queues capture requests; as a ``fit``
+    callback it starts a trace after the step it next reports, ends it
+    once N more steps are reported (steps snap to the trainer's read
+    windows, as ``ProfileCallback``'s do) and answers the request.
+    Training's end closes the listener, answering an open capture with
+    the steps it holds."""
+
+    def __init__(self, port: int = 0, host: str = "127.0.0.1"):
+        self._sock = socket.create_server((host, port))
+        self.host, self.port = host, self._sock.getsockname()[1]
+        self._requests: queue.Queue = queue.Queue()
+        self._active: Optional[dict] = None
+        self._thread = threading.Thread(target=self._accept, daemon=True,
+                                        name="ttd-capture-server")
+        self._thread.start()
+        logger.info("profiler capture server listening on %s:%d", host,
+                    self.port)
+
+    def _accept(self) -> None:
+        while True:
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:         # closed
+                return
+            try:
+                line = conn.makefile("r").readline()
+                req = json.loads(line)
+                steps, logdir = int(req["steps"]), str(req["logdir"])
+                if steps < 1:
+                    raise ValueError(f"steps must be >= 1, got {steps}")
+            except (ValueError, KeyError, TypeError, OSError) as e:
+                _reply(conn, {"error": f"bad capture request: {e}"})
+                continue
+            self._requests.put((conn, steps, logdir))
+
+    def transform_state(self, state):
+        """Every dispatch boundary of ``fit`` (after step ``state.step``):
+        start a queued capture, or mark and count a step of the open
+        one."""
+        step = int(state.step)
+        a = self._active
+        if a is not None:
+            with annotate(f"{STEP_MARKER}{step}"):
+                pass
+            a["last"] = step
+            if step >= a["first"] + a["steps"] - 1:
+                self._finish()
+            return None
+        try:
+            conn, steps, logdir = self._requests.get_nowait()
+        except queue.Empty:
+            return None
+        _sync_device()
+        try:
+            start_trace(logdir)
+        except RuntimeError as e:
+            _reply(conn, {"error": str(e)})
+            return None
+        self._active = dict(conn=conn, steps=steps, first=step + 1,
+                            last=None)
+        return None
+
+    def _finish(self) -> None:
+        a, self._active = self._active, None
+        _sync_device()
+        path = stop_trace()
+        _reply(a["conn"], {"path": path, "first_step": a["first"],
+                           "last_step": a["last"]})
+
+    def on_train_end(self, state):
+        if self._active is not None:
+            self._finish()
+        self.close()
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        while True:
+            try:
+                conn, _, _ = self._requests.get_nowait()
+            except queue.Empty:
+                break
+            _reply(conn, {"error": "training ended before the capture"})
+
+
+def _sync_device() -> None:
+    """The work queued so far ends before a trace starts or stops."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _reply(conn, obj: dict) -> None:
+    try:
+        conn.sendall((json.dumps(obj) + "\n").encode())
+    except OSError:
+        pass
+    finally:
+        conn.close()
+
+
+def request_capture(port: int, steps: int, logdir: str, *,
+                    host: str = "127.0.0.1",
+                    timeout: Optional[float] = 600.0) -> dict:
+    """Ask a ``CaptureServer`` for a trace of the next ``steps`` steps
+    into ``logdir``; blocks until the reply (``path``, ``first_step``,
+    ``last_step``, or ``error``)."""
+    with socket.create_connection((host, port), timeout=timeout) as c:
+        c.sendall((json.dumps({"steps": steps, "logdir": logdir})
+                   + "\n").encode())
+        line = c.makefile("r").readline()
+    if not line:
+        raise ConnectionError("the capture server closed the connection "
+                              "without a reply")
+    return json.loads(line)

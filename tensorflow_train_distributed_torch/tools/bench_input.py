@@ -18,25 +18,31 @@ JPEGs in TFRecords (seed 0), it drains ``--records`` records in each mode:
 - ``workers<N>``: ``data/service.py``'s dispatcher with N worker
   processes (``--data-workers`` of the launcher);
 - ``mmap_predecoded``: the same images decoded once into the mmap shard
-  layout (``u8_image_to_f32``).
+  layout (``u8_image_to_f32``);
+- ``inprocess_native``: ``inprocess_u8`` on the native stager
+  (``DataConfig(use_native=True)``: the records transformed and packed
+  once, the crops frozen at epoch 0, batches gathered off the GIL).
 
-``decode_modes`` times raw decode alone; PIL is the port's decoder.  The
-JAX tool's native libjpeg legs (its ``native.jpeg``) are not ported: the
-record says so (``native``), and ROADMAP Queue 1 step 8d brings them.
+``decode_modes`` times raw decode alone: PIL, the native libjpeg decoder
+(``native/jpeg.py``) on 1, 2 and 4 threads of its pool, and at half
+resolution (DCT-domain, one thread).  ``native`` says which decoder the
+transforms' ``data.image.decode_image`` chose and why.  The native legs
+need the native libraries: where they cannot be built the tool fails
+with the compiler's message, as every native caller does.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import os
 import sys
 import tempfile
 import time
+import warnings
 
 from tensorflow_train_distributed_torch.tools import bench_lm as B
-
-NATIVE = "not ported (ROADMAP step 8d)"
 
 
 def _make_corpus(root: str, n: int, hw: int, shards: int = 4) -> None:
@@ -82,6 +88,7 @@ def bench_input(records: int, image_hw: int, size: int, batch: int,
         open_sharded,
         write_shards,
     )
+    from tensorflow_train_distributed_torch.data import image as I
     from tensorflow_train_distributed_torch.data.image import _encoded_bytes
     from tensorflow_train_distributed_torch.data.pipeline import (
         DataConfig,
@@ -95,6 +102,7 @@ def bench_input(records: int, image_hw: int, size: int, batch: int,
         TFRecordSource,
         open_tfrecord_dir,
     )
+    from tensorflow_train_distributed_torch.native import jpeg as njpeg
 
     transform = f"imagenet_train_{size}"
     cfg = DataConfig(global_batch_size=batch, shuffle=True, seed=0,
@@ -111,6 +119,14 @@ def bench_input(records: int, image_hw: int, size: int, batch: int,
             with Image.open(io.BytesIO(data)) as im:
                 np.asarray(im.convert("RGB"), np.uint8)
         decode["pil"] = len(raws) / (time.perf_counter() - t0)
+        for threads in (1, 2, 4):
+            t0 = time.perf_counter()
+            njpeg.decode_batch(raws, num_threads=threads)
+            decode[f"native_t{threads}"] = (len(raws)
+                                            / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        njpeg.decode_batch(raws, scale_denom=2, num_threads=1)
+        decode["native_halfres_t1"] = len(raws) / (time.perf_counter() - t0)
 
         src = open_tfrecord_dir(root, transform=transform)
         results["inprocess"] = _drain(iter(HostDataLoader(src, cfg)),
@@ -118,6 +134,11 @@ def bench_input(records: int, image_hw: int, size: int, batch: int,
         u8 = open_tfrecord_dir(root, transform=f"imagenet_train_u8_{size}")
         results["inprocess_u8"] = _drain(iter(HostDataLoader(u8, cfg)),
                                          records, batch)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the frozen crops: known
+            results["inprocess_native"] = _drain(iter(HostDataLoader(
+                u8, dataclasses.replace(cfg, use_native=True))), records,
+                batch)
         for n in workers:
             spec = SourceSpec("tfrecord_dir",
                               {"root": root, "transform": transform})
@@ -146,7 +167,7 @@ def bench_input(records: int, image_hw: int, size: int, batch: int,
             "unit": "records/sec (host)", "value": max(results.values()),
             "records": records, "image_hw": image_hw, "crop": size,
             "batch": batch, "modes": results, "decode_modes": decode,
-            "native": NATIVE}
+            "native": dict(zip(("decoder", "why"), I.decoder()))}
 
 
 def main(argv=None) -> int:

@@ -262,12 +262,14 @@ class Refused(ValueError):
     """A JAX flag the port does not implement (the record names why)."""
 
 
-def run_tool(args, metric: str, unit: str, fn, **fields) -> int:
+def run_tool(args, metric: str, unit: str, fn, *, headline=None,
+             **fields) -> int:
     """``fn(device)`` under the card lock (the record's ``card_lock``:
     "acquired", "inherited" from a parent, or "none" on the CPU); prints
-    its record as the last line and returns 0.  A failure prints a record
-    with ``error`` and a null ``value`` and returns 1 (2 for a refused
-    flag); the memory guard's refusal exits 2 itself."""
+    its record as the last line (then ``headline(record)`` after it,
+    where given) and returns 0.  A failure prints a record with ``error``
+    and a null ``value`` and returns 1 (2 for a refused flag); the memory
+    guard's refusal exits 2 itself."""
     try:
         device = resolve_device(args)
         require_card(device)
@@ -281,6 +283,8 @@ def run_tool(args, metric: str, unit: str, fn, **fields) -> int:
               flush=True)
         return 2 if isinstance(e, Refused) else 1
     print(json.dumps(rec), flush=True)
+    if headline is not None:
+        print(json.dumps(headline(rec)), flush=True)
     return 0
 
 

@@ -65,7 +65,20 @@ joins the gradient mean and the metrics' group, each rank's gradient
 weighted by its tokens' share of the loss (``weighted_grad_factor``); a
 pipelined model (``pipeline_microbatches``) holds its stage's layers.
 The metrics are the batch group's means.  Checkpoints hold the whole state, written by rank 0.  Without a
-mesh the trainer runs on one of one rank, through the same step.
+mesh the trainer runs on one of one rank, through the same step.  A
+model with running statistics (ResNet's BatchNorm) computes them over
+the batch group's global batch (``ResNet.set_mesh``).
+
+The flight recorder (``runtime.events``) holds the JAX trainer's spans:
+``train/data_wait``, ``train/step_dispatch`` (``step=``),
+``train/host_callbacks`` (``step=``, ``steps=``), ``train/eval`` and
+``train/checkpoint_save`` (``final=`` at the end) in ``fit``; under
+``grad_quant`` the pipeline's ``train/grad_fwdbwd``, ``train/grad_comm``
+(``wire=``, ``mb=``) and ``train/optimizer_apply``, which end where the
+device is done on CUDA, or in the bucketed form one ``grad_comm`` and one
+``optimizer_apply`` a bucket (``bucket=``, ``buckets=``) metering the
+host and one ``train/step_barrier`` that waits for the device.
+``TTD_NO_TRACE=1`` records nothing and waits for nothing.
 """
 
 from __future__ import annotations
@@ -87,7 +100,7 @@ from tensorflow_train_distributed_torch.data.pipeline import (
 )
 from tensorflow_train_distributed_torch.models import layers as L
 from tensorflow_train_distributed_torch.parallel import state_plan as SP
-from tensorflow_train_distributed_torch.runtime import faults
+from tensorflow_train_distributed_torch.runtime import events, faults
 from tensorflow_train_distributed_torch.runtime.mesh import AXES, Mesh
 from tensorflow_train_distributed_torch.training import mixed_precision as mp
 from tensorflow_train_distributed_torch.training.callbacks import (
@@ -275,22 +288,18 @@ class Trainer:
         from tensorflow_train_distributed_torch.models import moe
 
         mesh = self.mesh
+        if self.grad_quant != "none" and _has_model_state(model):
+            raise ValueError(
+                "grad_quant requires a task with no mutable model "
+                "collections (e.g. BatchNorm batch_stats): the "
+                "implicit GSPMD path reduces them across the batch "
+                "axis, which the per-shard gradient pipeline does "
+                "not reproduce — drop grad-quant for this task")
         if hasattr(model, "set_mesh"):
             model.set_mesh(mesh)
         names = [k for k, _ in model.named_parameters()]
         shapes = {k: tuple(params[k].shape) for k in names}
         moe.set_expert_parallel(model, mesh)
-        if _has_model_state(model) and mesh.group_size(
-                ("data", "fsdp")) > 1:
-            raise ValueError(
-                "a model with running statistics (BatchNorm) trains on one "
-                "batch rank only: cross-rank batch statistics are not "
-                "ported (ROADMAP Queue 1 step 7)")
-        if self.grad_quant != "none" and _has_model_state(model):
-            raise ValueError(
-                "grad_quant requires a task with no mutable model "
-                "collections (e.g. BatchNorm batch_stats); drop "
-                "grad-quant for this task")
         self.plan = SP.StatePlan(
             mesh, shapes, zero1=self.config.zero1,
             sharded_update=self.config.sharded_update,
@@ -388,8 +397,9 @@ class Trainer:
             # scale their loss.
             apply = bool(finite)
         if apply:
-            state.opt_state = plan.apply(self.tx, state.opt_state, params,
-                                         grads)
+            state.opt_state = plan.apply(
+                self.tx, state.opt_state, params, grads,
+                buckets=plan.buckets if self.grad_overlap else None)
         if self.config.log_grad_norm:
             with plan.norm_context(grads):
                 metrics["grad_norm"] = global_norm(grads)
@@ -404,17 +414,31 @@ class Trainer:
         params = list(state.params.values())
         batch = self._seq_shard(self.policy.cast_to_compute(batch))
         self.task.model.train()
-        if self.config.grad_accum > 1:
-            grads, loss, metrics = self._accumulated_grads(
-                params, batch, state.loss_scale, state.step)
-        else:
-            with L.dropout_generator(functools.partial(self._generator,
-                                                       state.step)):
-                grads, loss, metrics = self._microbatch_grads(
-                    params, batch, state.loss_scale)
+        # The grad-quant pipeline's sub-spans, as the JAX trainer's three
+        # programs: the sequential form's end where its results are ready;
+        # the bucketed form's meter the host, and its one device wait is
+        # the step barrier.
+        quant, overlap = self.grad_quant != "none", self.grad_overlap
+        with (contextlib.nullcontext() if not quant
+              else events.span("train/grad_fwdbwd", overlap=1) if overlap
+              else events.device_span("train/grad_fwdbwd", self.device)):
+            if self.config.grad_accum > 1:
+                grads, loss, metrics = self._accumulated_grads(
+                    params, batch, state.loss_scale, state.step)
+            else:
+                with L.dropout_generator(functools.partial(self._generator,
+                                                           state.step)):
+                    grads, loss, metrics = self._microbatch_grads(
+                        params, batch, state.loss_scale)
         grads, loss, metrics, finite = self._sync(state, grads, loss,
                                                   metrics)
-        extra = self._apply_grads(state, params, grads, finite)
+        with (events.span("train/optimizer_apply") if quant and not overlap
+              else contextlib.nullcontext()):
+            extra = self._apply_grads(state, params, grads, finite)
+        if quant and overlap:
+            with events.device_span("train/step_barrier", self.device,
+                                    buckets=len(self.plan.buckets)):
+                pass
         state.step += 1
         return dict(metrics, loss=loss, **extra)
 
@@ -459,15 +483,14 @@ class Trainer:
             grads = [None if g is None else g * factor for g in grads]
         grads, state.grad_residual, finite, wire_mb = self.plan.sync_grads(
             grads, residual=state.grad_residual, wire=self.grad_quant,
-            overlap=self.grad_overlap)
+            overlap=self.grad_overlap, device=self.device)
         metrics = SP.mean_metrics(dict(metrics, loss=loss), group)
         loss = metrics.pop("loss")
         if self.grad_quant != "none":
             metrics["grad_comm_mb"] = torch.tensor(wire_mb)
             if self.grad_overlap:
                 metrics["grad_buckets"] = torch.tensor(
-                    float(min(self.grad_overlap, sum(
-                        g is not None for g in grads))))
+                    float(len(self.plan.buckets)))
         return grads, loss, metrics, finite
 
     def train_steps(self, state: TrainState, batch: dict) -> dict:
@@ -536,13 +559,19 @@ class Trainer:
         stop = False
         t_mark = time.perf_counter()
         while True:
+            # The flight recorder's step anatomy (``runtime.events``, the
+            # JAX trainer's spans): the wait for a batch, the step's
+            # dispatch, the metric read and callbacks, evaluations and
+            # saves.
             t0 = time.perf_counter()
-            batch = next(device_iter, None)
+            with events.span("train/data_wait"):
+                batch = next(device_iter, None)
             self.timing["data_wait_s"] += time.perf_counter() - t0
             if batch is None:
                 break
-            metrics = (self.train_step(state, batch) if k == 1
-                       else self.train_steps(state, batch))
+            with events.span("train/step_dispatch", step=state.step + k):
+                metrics = (self.train_step(state, batch) if k == 1
+                           else self.train_steps(state, batch))
             cur = state.step
             # Callbacks that save (the preemption handler) read the live
             # state from here.
@@ -566,11 +595,13 @@ class Trainer:
             drained = (len(pending) * k >= self.config.log_every or stop
                        or will_ckpt or eval_due)
             if drained:
-                for s, m in pending:
-                    host = {k: float(v) for k, v in m.items()}
-                    history.append((s, host))
-                    stop |= self.callbacks.step_end(s, host)
-                    last_metrics = host
+                with events.span("train/host_callbacks", step=cur,
+                                 steps=len(pending) * k):
+                    for s, m in pending:
+                        host = {k: float(v) for k, v in m.items()}
+                        history.append((s, host))
+                        stop |= self.callbacks.step_end(s, host)
+                        last_metrics = host
                 self.timing["windows"].append(
                     (len(pending) * k, time.perf_counter() - t_mark))
                 pending.clear()
@@ -581,9 +612,10 @@ class Trainer:
                 t0 = time.perf_counter()
                 self.callbacks.eval_begin()
                 try:
-                    val = {f"val_{k}": v for k, v in self.evaluate(
-                        src, view(state) if view else state,
-                        steps=eval_steps).items()}
+                    with events.span("train/eval", step=cur):
+                        val = {f"val_{k}": v for k, v in self.evaluate(
+                            src, view(state) if view else state,
+                            steps=eval_steps).items()}
                 finally:
                     self.callbacks.eval_end()
                 self.timing["eval_s"].append(time.perf_counter() - t0)
@@ -595,14 +627,17 @@ class Trainer:
             state = self.callbacks.apply_state_transforms(state)
             box[0] = state
             if will_ckpt and not stop and not self.state_poisoned:
-                self._save(cur, state)
+                with events.span("train/checkpoint_save", step=cur):
+                    self._save(cur, state)
             if drained:
                 t_mark = time.perf_counter()
             if stop:
                 break
         if ckpt is not None and not self.state_poisoned \
                 and state.step > start:
-            self._save(state.step, state)
+            with events.span("train/checkpoint_save", step=int(state.step),
+                             final=True):
+                self._save(state.step, state)
 
     def _save(self, step: int, state: TrainState) -> None:
         t0 = time.perf_counter()

@@ -279,3 +279,104 @@ def planted_overflow(rank, *, variants):
                      "scale": [m_["loss_scale"] for _, m_ in history],
                      "unchanged": unchanged, "planted": planted}
     return out
+
+
+# -- the trainer's flight-recorder spans and cross-rank BatchNorm -----------
+
+
+def train_spans(rank, *, variants, steps, dump=None):
+    """For each of ``variants`` ({name: TrainerConfig overrides}),
+    ``steps`` of llama_tiny_sft on a data=2 mesh with the flight recorder
+    cleared just before ``fit``: the ``train/*`` events as [name, attrs]
+    in recording order.  Rank 0 saves each run's Chrome trace to
+    ``<dump>.<name>.json``."""
+    from tensorflow_train_distributed_torch.parallel.sharding import (
+        shard_batch,
+    )
+    from tensorflow_train_distributed_torch.runtime import events
+
+    m = _mesh({"data": 2})
+    out = {}
+    for name, kw in variants.items():
+        trainer = make_llama_trainer(m, clip=0.0, **kw)
+        state = trainer.create_state()
+        batches = [shard_batch(m, b) for b in llama_batches(steps, 16)]
+        rec = events.get_recorder()
+        rec.clear()
+        trainer.fit(batches, steps=steps, state=state)
+        out[name] = [[e[0], e[5] or {}] for e in rec.events()
+                     if e[0].startswith("train/")]
+        if dump and rank == 0:
+            rec.save(f"{dump}.{name}.json")
+    return out
+
+
+def resnet_entry(stride: int):
+    """resnet_tiny's registry entry, BatchNorm's statistics over every
+    ``stride``-th row and column."""
+    from tensorflow_train_distributed_torch.models import registry
+
+    entry = registry.get_entry("resnet_tiny")
+    return dict(entry, config=dataclasses.replace(entry["config"],
+                                                  bn_stats_stride=stride))
+
+
+def resnet_trainer(entry, mesh=None):
+    """resnet_tiny's trainer as the sync-BN tests hold it: adamw 1e-3,
+    f32, a metric read every step."""
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.training import optimizers
+    from tensorflow_train_distributed_torch.training.mixed_precision import (
+        Policy,
+    )
+    from tensorflow_train_distributed_torch.training.trainer import (
+        Trainer,
+        TrainerConfig,
+    )
+
+    return Trainer(registry.make_task(entry, device="meta"),
+                   optimizers.make_optimizer("adamw", 1e-3), device="cpu",
+                   mesh=mesh, policy=Policy.from_name("float32"),
+                   config=TrainerConfig(log_every=1))
+
+
+def resnet_batches(entry, steps: int, batch: int) -> list:
+    from tensorflow_train_distributed_torch.data import datasets
+    from tensorflow_train_distributed_torch.data.pipeline import HostBatches
+
+    it = iter(HostBatches(datasets.get_dataset(
+        entry["dataset"], **dict(entry["dataset_kwargs"], num_examples=64)),
+        batch, seed=0))
+    return [next(it) for _ in range(steps)]
+
+
+def sync_bn(rank, *, runs, steps, batch):
+    """For each of ``runs`` ({stride: [params_npz, out]}), ``steps`` of
+    resnet_tiny (``stats_stride`` stride) on a data=2 mesh from the
+    weights and statistics in params_npz, each rank on its half of the
+    global batches.  Rank 0 writes the running statistics to out; every
+    rank returns, by stride, its history and a digest of its statistics
+    (they must agree)."""
+    from tensorflow_train_distributed_torch.parallel.sharding import (
+        shard_batch,
+    )
+
+    m = _mesh({"data": 2})
+    res = {}
+    for stride, (params_npz, out) in runs.items():
+        entry = resnet_entry(int(stride))
+        trainer = resnet_trainer(entry, m)
+        with np.load(params_npz) as f:
+            params = {k: torch.from_numpy(f[k]) for k in f.files}
+        state = trainer.create_state(params)
+        batches = [shard_batch(m, b)
+                   for b in resnet_batches(entry, steps, batch)]
+        state, history = trainer.fit(batches, steps=steps, state=state)
+        stats = {k: v.detach().numpy()
+                 for k, v in state.model_state.items()}
+        if rank == 0:
+            np.savez(out, **stats)
+        res[stride] = {"history": [[s, h] for s, h in history],
+                       "digest": float(sum(np.abs(v).sum()
+                                           for v in stats.values()))}
+    return res

@@ -246,15 +246,20 @@ def test_bench_generate_moe_preset_cpu_smoke():
 
 
 def test_bench_input_cpu_smoke():
-    """Every mode gives a positive host rate; the native decode legs are
-    named as not ported."""
+    """Every mode gives a positive host rate, the native decode legs and
+    the stager's among them; the record names the decoder that
+    ``decode_image`` chose."""
     rc, rec = _main(bench_input.main, [
         "--records", "32", "--image-hw", "48", "--size", "32", "--batch",
         "16", "--workers", "2", "--device", "cpu"])
     assert rc == 0
     assert set(rec["modes"]) == {"inprocess", "inprocess_u8", "workers2",
-                                 "mmap_predecoded"}
+                                 "mmap_predecoded", "inprocess_native"}
     assert all(v > 0 for v in rec["modes"].values())
-    assert rec["decode_modes"]["pil"] > 0
-    assert rec["native"] == "not ported (ROADMAP step 8d)"
+    assert set(rec["decode_modes"]) == {"pil", "native_t1", "native_t2",
+                                        "native_t4", "native_halfres_t1"}
+    assert all(v > 0 for v in rec["decode_modes"].values())
+    from tensorflow_train_distributed_torch.data import image as I
+
+    assert (rec["native"]["decoder"], rec["native"]["why"]) == I.decoder()
     assert np.isclose(rec["value"], max(rec["modes"].values()))

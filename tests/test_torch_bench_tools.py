@@ -473,3 +473,26 @@ def test_profile_summary_kinds_are_the_phases_kinds():
                        ("nvjet_tst_64x8", "matmul"),
                        ("elementwise_kernel", "other")):
         assert profile_summary.classify(name) == kind, name
+
+
+# -- bench_input's native legs ---------------------------------------------------
+
+
+def test_bench_input_native_legs_raise_without_a_compiler(tmp_path,
+                                                          monkeypatch):
+    """The libjpeg and stager legs need the native libraries: with no
+    compiler and nothing built the tool ends in a failure record naming
+    the compiler, and never times PIL in their place."""
+    from tensorflow_train_distributed_torch import native
+    from tensorflow_train_distributed_torch.data import image
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_loaded", {})
+    monkeypatch.setattr(image, "_DECODER", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    rc, rec = _last_record(bench_input.main, [
+        "--records", "16", "--image-hw", "32", "--size", "16", "--batch",
+        "8", "--workers", "", "--device", "cpu"])
+    assert rc == 1 and rec["value"] is None
+    assert "NativeUnavailable" in rec["error"]
+    assert "no C++ compiler" in rec["error"]

@@ -268,13 +268,18 @@ def test_evaluate_and_predict_match_jax_trainer():
 # multi-device flags are ported: each case is one of their refusals (the
 # JAX launcher's parameter-server text, a job of two processes without a
 # coordinator, a JAX platform the port has no device for), except the
-# seq and pipeline axes, which now train: two gloo ranks run a step.
+# seq and pipeline axes, which now train: two gloo ranks run a step, and
+# --profiler-port, which trains a step beside its capture listener.
 @pytest.mark.parametrize("flags", [
     ["--mesh", "seq=2"], ["--mesh", "pipeline=2"], ["--strategy", "ps"],
     ["--mesh", "model=2"], ["--num-processes", "2"],
-    ["--init-from-hf", "/nowhere"], ["--profiler-port", "9012"],
+    ["--init-from-hf", "/nowhere"], ["--profiler-port", "0"],
     ["--platform", "tpu"]])
 def test_unported_flags_are_refused(flags, capsys, monkeypatch):
+    if flags[0] == "--profiler-port":
+        assert tlaunch.main(["--config", "llama_tiny_sft", "--device",
+                             "cpu", *flags, "--steps", "1"]) == 0
+        return
     if flags[0] == "--mesh" and flags[1] in ("seq=2", "pipeline=2"):
         # The axis trains: llama_tiny_pp's 4 layers split into 2 stages;
         # under seq llama_tiny_sft (no seq_parallel) runs whole rows on

@@ -223,3 +223,43 @@ def test_trace_annotate_memory_and_speed(tmp_path):
     assert mon.summary()["examples_per_sec"] == 16 / 0.02
     with pytest.raises(ValueError, match="stop_step"):
         profiling.ProfileCallback(str(tmp_path), start_step=5, stop_step=2)
+
+
+def test_profiler_port_captures_the_steps_asked_for(tmp_path):
+    """``--profiler-port``: a capture request sent while the launcher
+    runs gets a trace of the next 3 steps after the boundary that took
+    it, with one step marker for each and no other."""
+    import socket
+    import threading
+    import time
+
+    from tensorflow_train_distributed_torch.testing import free_ports
+
+    port = free_ports(1)[0]
+    done = {}
+    run = threading.Thread(target=lambda: done.update(out=_port(
+        "--profiler-port", str(port), "--steps", "40")))
+    run.start()
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                break
+            except OSError:
+                assert time.monotonic() < deadline and run.is_alive()
+                time.sleep(0.02)
+        reply = profiling.request_capture(port, 3, str(tmp_path / "cap"),
+                                          timeout=120)
+    finally:
+        run.join(timeout=120)
+    assert not run.is_alive() and "out" in done
+    assert "error" not in reply, reply
+    first, last = reply["first_step"], reply["last_step"]
+    assert 2 <= first and last == first + 2 and last <= 40
+    events = json.loads(open(reply["path"]).read())["traceEvents"]
+    marks = sorted(int(e["name"][len(profiling.STEP_MARKER):])
+                   for e in events
+                   if e.get("name", "").startswith(profiling.STEP_MARKER))
+    assert marks == [first, first + 1, first + 2]
+    assert any("aten::" in e.get("name", "") for e in events)
