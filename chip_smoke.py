@@ -446,8 +446,26 @@
    counts zeroed before and read after, the "grad_quant" path's rows.
    (c) ``tools/bench_input`` on 512 JPEGs from seed 0 without workers:
    PIL, libjpeg on 1, 2 and 4 threads and at half resolution, the
-   stager's leg, and the decoder ``decode_image`` chose and why.  Every
-   printed line is also appended to ``chiprun_out/chip_smoke.log``.
+   stager's leg, and the decoder ``decode_image`` chose and why.
+29. Memory planning, debug mode and the static lint, in this process under
+   the same lock.  (a) ``training.memory.plan_train_memory``'s estimate
+   beside the measured peaks (above what the process held before each
+   trainer was built) of phase 6 (llama_125m_lm, 8 x 2048, full remat),
+   phase 10 (mistral_7b_lm, 4 layers, 8 x 8192) and ``PLAN_RUNS``' two
+   2-step runs (llama_125m_lm 16 x 2048 without remat;
+   mistral_7b_lm at 2 layers, 8 x 8192): no estimate may fall more than
+   ``memory.PLAN_MARGIN`` below its peak; Llama-2-7B's full fine-tune
+   (adamw, 16 bytes a parameter) must be refused with nothing allocated.
+   (b) ``runtime.debug.debug_mode`` on llama_125m_lm at full width, 1 x
+   2048: one step under it equal bit for bit (loss and parameters) to the
+   same step without it, its K1f, K1b, K2 and K3 launches counted (the
+   "debug" path's rows: phase 5 holds each kernel against its plain
+   version at this step's shapes and times it there); then a NaN planted
+   in layer 3's query kernel (a row of K2's input) must raise
+   ``FloatingPointError`` naming ``flash_attention``, and
+   ``assert_tree_finite`` must name that leaf.  (c) ``ttd_lint`` over the
+   port and this script: zero findings.  Every printed line is also
+   appended to ``chiprun_out/chip_smoke.log``.
 
 Every phase raises on failure; the last line is the JSON device record
 only when all passed.  Exits non-zero without CUDA, or when run outside
@@ -672,6 +690,10 @@ KERNELS += [
 # Phase 28 (b): bench_grad_quant's four legs at llama_125m, phase 5's
 # shapes (8 x 2048 bf16); the numbers beside them are phase 5's.
 KERNELS += [(name, source, where, "grad_quant")
+            for name, source, where, path in KERNELS if path == "train"]
+# Phase 29 (b): one llama_125m step under debug mode at 1 x 2048; the
+# numbers beside them are phase 5's cases at that shape.
+KERNELS += [(name, source, where, "debug")
             for name, source, where, path in KERNELS if path == "train"]
 SERVE_KERNELS = [k[0] for k in KERNELS if k[3] == "serve"]
 LANE_KERNELS = [k[0] for k in KERNELS if k[3] == "lane_control"]
@@ -3138,14 +3160,14 @@ def _rms_norm_bwd_case(gen, n: int, d: int, *, dx_only: bool = False
     def whole(b=None):
         return K.rms_norm_backward(x, s, r, g, body=b)
 
-    def dx_only(b=None):
+    def dx_alone(b=None):
         return K.rms_norm_backward(x, s, r, g, with_ds=False, body=b)
 
     other = "block" if body == "warp" else "warp"
     ms = device_ms(whole)
     other_ms = device_ms(lambda: whole(other))
-    dx_ms = device_ms(dx_only)
-    dx_other_ms = device_ms(lambda: dx_only(other))
+    dx_ms = device_ms(dx_alone)
+    dx_other_ms = device_ms(lambda: dx_alone(other))
     plain_ms = _backward_ms(yp, [xp, sp], g)
     del yp
     xl, sl = _leaf(x, s)
@@ -3465,8 +3487,9 @@ def _flash_case(gen, label, b, h, kvh, s, d, *, packed, main,
 def phase_train_kernels() -> dict:
     """The training kernels against their plain versions at the training
     path's shapes; returns their rows of the kernels' JSON line by path:
-    "train" (llama_125m_lm) and "window_train" (K1f and K1b at
-    mistral_7b_lm's rows)."""
+    "train" (llama_125m_lm), "window_train" (K1f and K1b at
+    mistral_7b_lm's rows) and "debug" (llama_125m_lm at phase 29 (b)'s
+    1 x 2048)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -3489,7 +3512,14 @@ def phase_train_kernels() -> dict:
     torch.cuda.empty_cache()
     window["rms_norm_bwd"] = _rms_norm_bwd_case(gen, 65536, 4096)
     torch.cuda.empty_cache()
-    return {"train": rows, "window_train": window}
+    # Phase 29 (b)'s step: llama_125m_lm at 1 x 2048.
+    debug = {"rms_norm": _rms_norm_fwd_case(gen, 2048, 768),
+             "rms_norm_bwd": _rms_norm_bwd_case(gen, 2048, 768)}
+    debug.update(_cross_entropy_cases(gen, 2048))
+    debug.update(_flash_case(gen, "llama_125m 1 x 2048", 1, 12, 12, 2048,
+                             64, packed=False, main=True))
+    torch.cuda.empty_cache()
+    return {"train": rows, "window_train": window, "debug": debug}
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -3526,6 +3556,7 @@ def phase_train(steps: int = 20, log_every: int = 5) -> tuple:
     entry = registry.get_entry(name)
     cfg = entry["config"]
     drains = _drain_stamps(log_every)
+    base = torch.cuda.memory_allocated()
     _, trainer, batches = T.make_trainer(args, entry, callbacks=[drains])
     state = trainer.create_state()
     torch.cuda.synchronize()
@@ -3570,7 +3601,7 @@ def phase_train(steps: int = 20, log_every: int = 5) -> tuple:
         config=name, steps=steps, batch=b, seq=s, params=n_params,
         step_ms=step_s * 1e3, window_ms_per_step=[w * 1e3 for w in windows],
         tokens_per_s=tokens / step_s, peak_mem_gib=peak / 2 ** 30,
-        wall_s=wall, losses=losses,
+        base_mem_gib=base / 2 ** 30, wall_s=wall, losses=losses,
         mfu=flops / step_s / PEAK_BF16_FLOPS, mfu_formula=formula)
     stats["profile"] = _profile_train_step(trainer, state, batches)
     log(f"  training: {json.dumps(stats)}")
@@ -4505,6 +4536,7 @@ def phase_window_train(steps: int = 10, log_every: int = 2,
     cfg = dataclasses.replace(entry["config"], num_layers=num_layers)
     entry = dict(entry, config=cfg)
     drains = _drain_stamps(log_every)
+    base = torch.cuda.memory_allocated()
     task, trainer, batches = T.make_trainer(args, entry, callbacks=[drains])
     state = trainer.create_state()
     order = iter(batches)
@@ -4569,7 +4601,8 @@ def phase_window_train(steps: int = 10, log_every: int = 2,
         window=w, params=n_params, step_ms=step_s * 1e3,
         window_ms_per_step=[x * 1e3 for x in windows],
         tokens_per_s=tokens / step_s, peak_mem_gib=peak / 2 ** 30,
-        wall_s=wall, losses=losses, first_batch_trained_loss=first_after,
+        base_mem_gib=base / 2 ** 30, wall_s=wall, losses=losses,
+        first_batch_trained_loss=first_after,
         unseen_batch_loss=[unseen_before, unseen_after],
         mean_visible_keys=keys,
         mfu=flops / step_s / PEAK_BF16_FLOPS,
@@ -8025,6 +8058,180 @@ def phase_native_tools() -> tuple:
     return {"grad_quant": counts}, out
 
 
+# Phase 29 (a)'s own runs: (config, layers, batch, seq, remat).  Phase 6
+# pins the head's backward under full remat, phase 10 the optimizer's
+# update; these pin the blocks without remat and the head at Mistral's
+# width.
+PLAN_RUNS = (("llama_125m_lm", 12, 16, 2048, False),
+             ("mistral_7b_lm", 2, 8, 8192, True))
+DEBUG_POISON = "layers.3.attention.query.kernel"
+
+
+def phase_planner_debug(peaks=None) -> tuple:
+    """Phase 29.  ``peaks``: {"phase 6": GiB, "phase 10": GiB}, each
+    training phase's peak above what the process held before its trainer
+    was built (alone, (a) has its own runs only).  Returns ({"debug":
+    counts}, the record)."""
+    import numpy as np
+    import torch
+    from tensorflow_train_distributed_torch.models import registry
+    from tensorflow_train_distributed_torch.ops import kernels as K
+    from tensorflow_train_distributed_torch.runtime import debug as D
+    from tensorflow_train_distributed_torch.runtime.lint import run_lint
+    from tensorflow_train_distributed_torch.tools import (
+        memory_calibration as MC,
+    )
+    from tensorflow_train_distributed_torch.training import memory as M
+
+    t0 = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    out = {"card": smi_line(), "margin": M.PLAN_MARGIN}
+    # (a) the planner against the card
+    points = [(src, *cfg) for src, cfg in (
+        ("phase 6", ("llama_125m_lm", 12, 8, 2048, True)),
+        ("phase 10", ("mistral_7b_lm", 4, 8, 8192, True)))
+        if peaks and src in peaks]
+    points += [("phase 29", *run) for run in PLAN_RUNS]
+    rows = []
+    for src, name, layers, b, s, remat in points:
+        if src == "phase 29":
+            # The calibration's own measurement: 2 fit steps, the peak
+            # above what the process held before the trainer was built.
+            rec = MC.measure(name, layers, b, s, remat, fwd_bwd=False)
+            _free()
+            if not all(math.isfinite(x) for x in rec["losses"]):
+                raise AssertionError(f"(a) {name}: non-finite loss {rec}")
+            measured = rec["peak_fit"] / 2 ** 30
+        else:
+            measured = peaks[src]
+        plan = MC.plan(dict(config=name, layers=layers, batch=b, seq=s,
+                            remat=remat), device_name=card)
+        est = plan["step_bytes_per_device"] / 2 ** 30
+        row = dict(source=src, config=name, layers=layers, batch=b, seq=s,
+                   remat=remat, measured_gib=measured, estimate_gib=est,
+                   error=(est - measured) / measured,
+                   phase=plan["peak_phase"], fits=plan["fits"])
+        log(f"  (a) {src} {name} L{layers} {b} x {s} remat {remat}: "
+            f"measured {measured:.3f} GiB, plan {est:.3f} GiB "
+            f"({100 * row['error']:+.2f}%, {plan['peak_phase']})")
+        if est < measured * (1 - M.PLAN_MARGIN) or not plan["fits"]:
+            raise AssertionError(f"(a) the plan says fits below the card's "
+                                 f"peak by more than the margin: {row}")
+        rows.append(row)
+    before = torch.cuda.memory_allocated()
+    task = registry.make_task(registry.get_entry("llama2_7b_sft"),
+                              device="meta")
+    big = M.plan_train_memory(task, {"tokens": np.zeros((2, 4096),
+                                                        np.int32)},
+                              "adamw", device_name=card)
+    allocated = torch.cuda.memory_allocated() - before
+    log(f"  (a) llama2_7b_sft full fine-tune: state "
+        f"{big['state_bytes_per_device'] / 1e9:.1f} GB, step "
+        f"{big['step_bytes_per_device'] / 1e9:.1f} GB of "
+        f"{big['budget_bytes'] / 1e9:.0f}: fits {big['fits']}; "
+        f"{allocated} bytes allocated")
+    if big["fits"] or allocated:
+        raise AssertionError(f"(a) llama2_7b full fine-tune: fits "
+                             f"{big['fits']}, {allocated} bytes allocated")
+    out["plan"] = rows
+    out["llama2_7b_full_ft"] = dict(
+        params=big["param_elements"],
+        state_gb=big["state_bytes_per_device"] / 1e9,
+        step_gb=big["step_bytes_per_device"] / 1e9, fits=big["fits"])
+    out["plan_s"] = time.perf_counter() - t0
+    # (b) debug mode, one llama_125m step at 1 x 2048
+    t1 = time.perf_counter()
+    name = "llama_125m_lm"
+    cfg = registry.get_entry(name)["config"]
+    at = (name, cfg.num_layers, 1, 2048, cfg.remat, 1)
+
+    def step(debug: bool, poison: bool = False):
+        _, trainer, batches = MC.trainer(*at)
+        state = trainer.create_state()
+        if poison:
+            with torch.no_grad():
+                state.params[DEBUG_POISON][5, :] = float("nan")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            if debug:
+                with D.debug_mode():
+                    state, history = trainer.fit(batches, steps=1,
+                                                 state=state)
+            else:
+                state, history = trainer.fit(batches, steps=1, state=state)
+            torch.cuda.synchronize()
+        finally:
+            counts = K.launch_counts()
+        return (state, history, time.perf_counter() - t, counts)
+
+    plain, plain_hist, plain_s, _ = step(False)
+    debugged, debug_hist, debug_s, counts = step(True)
+    same_loss = plain_hist[0][1]["loss"] == debug_hist[0][1]["loss"]
+    same_params = all(torch.equal(v, debugged.params[k])
+                      for k, v in plain.params.items())
+    counts = {k: v for k, v in counts.items() if v}
+    want = train_launches_per_step(12)
+    log(f"  (b) a clean step: loss {plain_hist[0][1]['loss']:.6f} plain, "
+        f"{debug_hist[0][1]['loss']:.6f} under debug_mode; parameters "
+        f"equal {same_params}; {plain_s * 1e3:.1f} ms plain, "
+        f"{debug_s * 1e3:.1f} ms under debug_mode "
+        f"({debug_s / plain_s:.1f}x); launches {counts} (expected {want})")
+    if not (same_loss and same_params):
+        raise AssertionError("(b) a step under debug_mode differs from the "
+                             "same step without it")
+    if counts != want:
+        raise AssertionError(f"(b) debug step launches {counts}; expected "
+                             f"{want}")
+    del plain, debugged
+    _free()
+    poisoned = None
+    try:
+        poisoned = step(True, poison=True)
+        message = None
+    except FloatingPointError as e:
+        message = str(e)
+    log(f"  (b) a NaN row in {DEBUG_POISON}: {message}")
+    if poisoned is not None or "the flash_attention kernel" not in message:
+        raise AssertionError(f"(b) the poisoned step did not name "
+                             f"flash_attention: {message}")
+    _, trainer, _ = MC.trainer(*at)
+    state = trainer.create_state()
+    leaf = state.params[DEBUG_POISON]
+    with torch.no_grad():
+        leaf[5, :] = float("nan")
+    try:
+        D.assert_tree_finite(state.params, "params")
+        tree = None
+    except FloatingPointError as e:
+        tree = str(e)
+    log(f"  (b) assert_tree_finite: {tree!r}")
+    want = f"{DEBUG_POISON}: {leaf.shape[1]}/{leaf.numel()} non-finite"
+    if tree is None or want not in tree.splitlines()[1:][0]:
+        raise AssertionError(f"(b) assert_tree_finite: {tree!r}")
+    del trainer, state
+    _free()
+    out["debug"] = dict(step_ms=plain_s * 1e3, debug_step_ms=debug_s * 1e3,
+                        slowdown=debug_s / plain_s,
+                        loss=plain_hist[0][1]["loss"], bitwise=True,
+                        launches=counts, poisoned=message, tree=tree,
+                        seconds=time.perf_counter() - t1)
+    # (c) the static lint, in process
+    t2 = time.perf_counter()
+    findings = run_lint()
+    lint_s = time.perf_counter() - t2
+    log(f"  (c) ttd_lint over the port and chip_smoke.py: "
+        f"{len(findings)} findings, {lint_s:.1f} s")
+    if findings:
+        raise AssertionError("(c) ttd_lint: " + "; ".join(
+            f.format() for f in findings[:10]))
+    out["lint"] = dict(findings=0, seconds=lint_s)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 29: {out['seconds']:.1f} s")
+    return {"debug": {k: counts.get(k, 0) for k in TRAIN_KERNELS}}, out
+
+
 def main() -> int:
     import torch
 
@@ -8087,6 +8294,7 @@ def _phases() -> int:
     log("== phase 5: training kernels against their plain versions")
     train_rows = phase_train_kernels()
     rows["train"] = train_rows["train"]
+    rows["debug"] = train_rows["debug"]
     log("== phase 6: trainer, llama_125m_lm full width and depth")
     train_counts, training = phase_train()
     torch.cuda.empty_cache()
@@ -8206,6 +8414,13 @@ def _phases() -> int:
         "bench_allreduce, bench_grad_quant, bench_input's decode legs")
     native_counts, native_tools = phase_native_tools()
     rows["grad_quant"] = rows["train"]
+    torch.cuda.empty_cache()
+    log("== phase 29: the memory planner against the card's peaks, debug "
+        "mode at llama_125m_lm full width, ttd_lint")
+    debug_counts, planner_debug = phase_planner_debug(
+        {"phase 6": training["peak_mem_gib"] - training["base_mem_gib"],
+         "phase 10": (window_training["peak_mem_gib"]
+                      - window_training["base_mem_gib"])})
 
     paths = {"serve": counts, "linear_serve": run3["linear_counts"],
              "autosize_serve": autosize_counts, "launch_fused": fused_counts,
@@ -8217,7 +8432,7 @@ def _phases() -> int:
              "spec_serve": spec_counts, "lane_control": lane_counts,
              "generate": generate_counts, "fleet_serve": fleet_counts,
              "ep_block": ep_counts, **moe_counts22, **interop_counts,
-             **par_counts, **native_counts}
+             **par_counts, **native_counts, **debug_counts}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, path=path, launches=paths[path][name],
                     **rows[path][name])
@@ -8241,6 +8456,7 @@ def _phases() -> int:
     _tee(json.dumps({"parallel": parallel}))
     _tee(json.dumps({"bench": bench}))
     _tee(json.dumps({"native_tools": native_tools}))
+    _tee(json.dumps({"planner_debug": planner_debug}))
     _tee(json.dumps({"kernel_cases": CASES}))
     _tee(json.dumps({"kernels": kernels}))
     whole = time.perf_counter() - t_start

@@ -18,8 +18,10 @@ has two faces with one signature and layout (the JAX function's):
 
 Every wrapper adds one to ``LAUNCHES[name]`` (``_count``, under a lock: a
 fleet's driver threads launch concurrently) where it launches its kernel,
-and nowhere else, so a run can show that its main path went through the
-kernels (``reset_launch_counts`` / ``launch_counts``); K6 with a
+and nowhere else (under ``runtime.debug.debug_mode`` the same call checks
+the launch's inputs and outputs for non-finite values, ``NAN_TRAP``), so
+a run can show that its main path went through the kernels
+(``reset_launch_counts`` / ``launch_counts``); K6 with a
 ``group_offset`` (an expert shard's groups) counts as ``gmm_ep`` /
 ``tgmm_ep``.  K1f, K1b, K4 and
 K5 have two bodies each, K6 three and K2/K7 four, one launch either way
@@ -60,9 +62,20 @@ _SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
 _LAUNCH_LOCK = threading.Lock()
 
 
-def _count(name: str) -> None:
+#: A callable ``(name, inputs, outputs)`` that every launch hands its
+#: tensors to, or None.  ``runtime.debug.debug_mode(nan_checks=True)``
+#: sets it to a check that raises ``FloatingPointError`` naming the kernel
+#: (a dispatch mode does not see the kernels) and restores it on exit.
+NAN_TRAP = None
+
+
+def _count(name: str, inputs=(), outputs=()) -> None:
+    """Count one launch of kernel ``name`` and hand its ``inputs`` and
+    ``outputs`` to ``NAN_TRAP`` where one is set."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+    if NAN_TRAP is not None:
+        NAN_TRAP(name, inputs, outputs)
 
 
 def reset_launch_counts() -> None:
@@ -164,7 +177,7 @@ def rms_norm_forward(x2: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"rms_norm: the {body} body does not run on these "
                          f"rows (cudaError {rc})")
     _raise_on("rms_norm", rc)
-    _count("rms_norm")
+    _count("rms_norm", (x2, scale), (y, r))
     return y, r
 
 
@@ -242,7 +255,7 @@ def rms_norm_backward(x2: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"rms_norm_bwd: the {body} body does not run on "
                          f"these rows (cudaError {rc})")
     _raise_on("rms_norm_bwd", rc)
-    _count("rms_norm_bwd")
+    _count("rms_norm_bwd", (x2, scale, r, g), (dx, ds))
     if chosen == "block" and with_ds:   # the JAX function's einsum
         ds = torch.einsum("nd,nd->d", g.float(),
                           x2.float() * r[:, None]).to(scale.dtype)
@@ -318,7 +331,7 @@ def cross_entropy_forward(logits2: torch.Tensor, labels: torch.Tensor):
         logits2.data_ptr(), labels.data_ptr(), loss.data_ptr(),
         lse.data_ptr(), n, v, _DTYPE_CODES[logits2.dtype], _stream())
     _raise_on("cross_entropy", rc)
-    _count("cross_entropy")
+    _count("cross_entropy", (logits2,), (loss, lse))
     return loss, lse
 
 
@@ -342,7 +355,7 @@ def cross_entropy_backward(logits2: torch.Tensor, labels: torch.Tensor,
         g.data_ptr(), dlogits.data_ptr(), n, v,
         _DTYPE_CODES[logits2.dtype], _stream())
     _raise_on("cross_entropy_bwd", rc)
-    _count("cross_entropy_bwd")
+    _count("cross_entropy_bwd", (logits2, lse, g), (dlogits,))
     return dlogits
 
 
@@ -498,7 +511,7 @@ def flash_attention_forward(q, k, v, segment_ids, causal: bool,
         _strides(q, k, v, o), b, h, k.shape[1], s, d, sm_scale, int(causal),
         _DTYPE_CODES[q.dtype], code, _stream())
     _raise_on("flash_attention", rc)
-    _count("flash_attention")
+    _count("flash_attention", (q, k, v), (o, lse))
     return o, lse
 
 
@@ -526,7 +539,7 @@ def flash_attention_backward(q, k, v, o, lse, do, segment_ids, causal: bool,
         _strides(q, k, v, o, do, dq, dk, dv), b, h, kvh, s, d, sm_scale,
         int(causal), _DTYPE_CODES[q.dtype], code, _stream())
     _raise_on("flash_attention_bwd", rc)
-    _count("flash_attention_bwd")
+    _count("flash_attention_bwd", (q, k, v, o, lse, do), (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -655,7 +668,7 @@ def splash_attention_forward(qs, k, v, segment_ids, window: int, sinks: int):
         _strides(qs, k, v, o), b, h, k.shape[1], s, d, window, sinks,
         _DTYPE_CODES[qs.dtype], _stream())
     _raise_on("splash_attention", rc)
-    _count("splash_attention")
+    _count("splash_attention", (qs, k, v), (o, lse))
     return o, lse
 
 
@@ -680,7 +693,7 @@ def splash_attention_backward(qs, k, v, o, lse, do, segment_ids,
         _strides(qs, k, v, o, do, dq, dk, dv), b, h, kvh, s, d, window,
         sinks, _DTYPE_CODES[qs.dtype], _stream())
     _raise_on("splash_attention_bwd", rc)
-    _count("splash_attention_bwd")
+    _count("splash_attention_bwd", (qs, k, v, o, lse, do), (dq, dk, dv))
     return dq, dk, dv
 
 

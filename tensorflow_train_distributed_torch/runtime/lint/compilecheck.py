@@ -15,8 +15,10 @@ This module is that runtime surface only, with JAX's names and return
 shapes.  Eager PyTorch compiles no programs (``registry.compile_site`` is
 a declaration here), so the ledger stays empty: ``total_compiles()`` is
 0, ``program_stats()`` is ``{}`` and the mfu/mbu gauges render no
-series, as the JAX fleet shows them unarmed.  The AST ``check()`` half
-waits for the static lint (ROADMAP Queue 1 step 8).
+series, as the JAX fleet shows them unarmed.  The JAX module's AST
+``check()`` half has no counterpart: the port has no ``jax.jit`` and no
+``torch.compile`` site to hold to a declaration (``runtime/lint``'s
+docstring).
 
 The peaks read ``TTD_PEAK_FLOPS`` / ``TTD_PEAK_HBM_BYTES`` as JAX's do;
 without them, the data sheet of the card this process already drives

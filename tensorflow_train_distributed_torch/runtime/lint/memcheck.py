@@ -1,7 +1,21 @@
-"""Memory-budget discipline: the device-allocator registry and its live-byte
-sanitizer, over torch tensors (the runtime half of the JAX package's
-``runtime/lint/memcheck.py``; its AST checker waits for the rest of the
-lint package, ROADMAP Queue 1 step 8).
+"""Memory-budget discipline: the device-allocator registry, its live-byte
+sanitizer and its static checker, over torch tensors (the JAX package's
+``runtime/lint/memcheck.py``).
+
+- **the static checker** (``memcheck``, registered in ``core``): a module
+  that declares any ``@memory_budget`` pool is a hot allocator module
+  (``serving.py`` is required to be), and inside one every host-side
+  device allocation (``torch.empty`` / ``zeros`` / ``ones`` / ``full``
+  and the like, ``*_like`` and ``arange`` / ``tensor`` among them, given
+  a ``device=`` that is not the literal ``"cpu"`` or ``"meta"``, and
+  ``.cuda()``) must be reachable from an ``@memory_budget`` allocator
+  through the module's own calls.  A device allocation outside one is an
+  unbudgeted pool in the making.  Every ``@memory_budget`` must declare a
+  budget (``budget_bytes`` or ``budget_fn``) and a ``pool``.  The JAX
+  checker's donation rule (a donated buffer kept alive behind a
+  ``@compile_site`` program's call) has no counterpart: torch has no
+  donated buffers, and eager calls free nothing their caller still
+  holds.
 
 - **arming** (``TTD_MEMCHECK=1``; ``TTD_NO_MEMCHECK=1`` vetoes it, and is
   re-read per allocation as a live escape hatch): allocators declared
@@ -33,6 +47,7 @@ instant once a pool crosses 90% of its budget.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import functools
 import inspect
@@ -45,6 +60,14 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from tensorflow_train_distributed_torch.runtime import events
+from tensorflow_train_distributed_torch.runtime.lint.core import (
+    Finding,
+    decorator_name,
+    dotted_name,
+    register_checker,
+)
+
+CHECKER = "memcheck"
 
 _ARM_ENV = "TTD_MEMCHECK"
 _KILL_ENV = "TTD_NO_MEMCHECK"
@@ -524,3 +547,198 @@ def annotate(fn, *, pool, budget_bytes=None, budget_fn=None,
     if not armed():
         return fn
     return _wrap(fn, spec)
+
+
+# -- static checker --------------------------------------------------------
+
+#: Torch calls that allocate on the device their ``device=`` names.
+_ALLOC_FNS = {"empty", "zeros", "ones", "full", "empty_like", "zeros_like",
+              "ones_like", "full_like", "empty_strided", "arange", "tensor",
+              "as_tensor", "rand", "randn", "randint", "randperm"}
+#: ``device=`` literals that allocate nothing on a card.
+_HOST_DEVICES = {"cpu", "meta"}
+
+#: Files that must declare at least one ``@memory_budget`` pool, by their
+#: package-relative paths (a ``tools/bench_serving.py`` must not match
+#: ``serving.py``'s rule).  The JAX package also requires its trainer;
+#: the port's trainer declares no pool (its state is counted by
+#: ``training/memory.plan_state_memory`` instead).
+_REQUIRED_HOT = (
+    os.path.join("tensorflow_train_distributed_torch", "serving.py"),
+)
+
+
+def _has_decorator(fn, name: str) -> Optional[ast.expr]:
+    for dec in fn.decorator_list:
+        dname = decorator_name(dec)
+        if dname and dname.split(".")[-1] == name:
+            return dec
+    return None
+
+
+def _kwarg(call: Optional[ast.expr], name: str) -> Optional[ast.expr]:
+    if not isinstance(call, ast.Call):
+        return None
+    for kw in call.keywords:
+        if kw.arg == name:
+            return kw.value
+    return None
+
+
+def _host_device(node: ast.expr) -> bool:
+    """``node`` is a literal host device: "cpu", "meta" or
+    ``torch.device("cpu")``."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value.split(":")[0] in _HOST_DEVICES
+    if (isinstance(node, ast.Call) and dotted_name(node.func) == "torch.device"
+            and node.args):
+        return _host_device(node.args[0])
+    return False
+
+
+def _is_alloc_call(node: ast.Call) -> bool:
+    name = dotted_name(node.func) or ""
+    if isinstance(node.func, ast.Attribute) and node.func.attr == "cuda":
+        return True
+    if not (name.startswith("torch.") and name.count(".") == 1
+            and name.split(".")[1] in _ALLOC_FNS):
+        return False
+    device = _kwarg(node, "device")
+    return device is not None and not _host_device(device)
+
+
+def _func_defs(tree: ast.Module) -> List[ast.FunctionDef]:
+    return [n for n in ast.walk(tree)
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+
+
+def _called_names(fn: ast.FunctionDef) -> set:
+    """Names ``fn``'s body calls directly (``helper(...)``) or through an
+    instance (``self.helper(...)``): the sanction closure's edges."""
+    out = set()
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Name):
+            out.add(f.id)
+        elif isinstance(f, ast.Attribute):
+            out.add(f.attr)
+    return out
+
+
+def _sanctioned_functions(tree: ast.Module) -> set:
+    """FunctionDef nodes (by id) whose device allocations are owned:
+    ``@memory_budget`` allocators and everything they reach through the
+    module's own calls; nested defs inherit their enclosing def's
+    sanction."""
+    defs = _func_defs(tree)
+    by_name: Dict[str, List[ast.FunctionDef]] = {}
+    for d in defs:
+        by_name.setdefault(d.name, []).append(d)
+    sanctioned = {id(d) for d in defs
+                  if _has_decorator(d, "memory_budget") is not None}
+    parents: Dict[int, int] = {}
+    for d in defs:
+        for child in ast.walk(d):
+            if child is not d and isinstance(
+                    child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                parents.setdefault(id(child), id(d))
+    changed = True
+    while changed:
+        changed = False
+        for d in defs:
+            if id(d) not in sanctioned and parents.get(id(d)) in sanctioned:
+                sanctioned.add(id(d))
+                changed = True
+        for d in defs:
+            if id(d) not in sanctioned:
+                continue
+            for callee in _called_names(d):
+                for target in by_name.get(callee, ()):
+                    if id(target) not in sanctioned:
+                        sanctioned.add(id(target))
+                        changed = True
+    return sanctioned
+
+
+def _enclosing_chain(tree: ast.Module) -> Dict[int, List[ast.AST]]:
+    """node id -> chain of enclosing FunctionDefs (innermost last)."""
+    chains: Dict[int, List[ast.AST]] = {}
+
+    def visit(node, chain):
+        for child in ast.iter_child_nodes(node):
+            nchain = chain
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                nchain = chain + [child]
+            chains[id(child)] = nchain
+            visit(child, nchain)
+
+    chains[id(tree)] = []
+    visit(tree, [])
+    return chains
+
+
+def _unbudgeted_alloc_findings(tree: ast.Module, path: str) -> List[Finding]:
+    sanctioned = _sanctioned_functions(tree)
+    chains = _enclosing_chain(tree)
+    out: List[Finding] = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and _is_alloc_call(node)):
+            continue
+        chain = chains.get(id(node), [])
+        if any(id(d) in sanctioned for d in chain):
+            continue
+        where = chain[-1].name if chain else "<module scope>"
+        out.append(Finding(
+            CHECKER, path, node.lineno,
+            f"un-annotated device allocation: {dotted_name(node.func)}(...) "
+            f"in '{where}' is not reachable from any @memory_budget "
+            f"allocator — declare the pool it belongs to "
+            f"(runtime/lint/registry.memory_budget) so the sanitizer and "
+            f"ttd_engine_hbm_bytes can see it"))
+    return out
+
+
+def _declaration_findings(tree: ast.Module, path: str) -> List[Finding]:
+    out: List[Finding] = []
+    for d in _func_defs(tree):
+        dec = _has_decorator(d, "memory_budget")
+        if dec is None:
+            continue
+        if (_kwarg(dec, "budget_bytes") is None
+                and _kwarg(dec, "budget_fn") is None):
+            out.append(Finding(
+                CHECKER, path, d.lineno,
+                f"'{d.name}': @memory_budget declares a pool but no "
+                f"budget — add budget_bytes=... or budget_fn=... (a pool "
+                f"without a budget is a gauge, not a discipline; a "
+                f"budget_fn may return None to track only at run time, "
+                f"but the declaration must say so)"))
+        if _kwarg(dec, "pool") is None:
+            out.append(Finding(
+                CHECKER, path, d.lineno,
+                f"'{d.name}': @memory_budget without pool=... — the "
+                f"ledger, the gauges and the spans all key on the pool "
+                f"name"))
+    return out
+
+
+def _module_is_hot(tree: ast.Module) -> bool:
+    return any(_has_decorator(d, "memory_budget") is not None
+               for d in _func_defs(tree))
+
+
+@register_checker(CHECKER)
+def check(tree: ast.Module, lines, path: str, ctx) -> List[Finding]:
+    findings: List[Finding] = []
+    hot = _module_is_hot(tree)
+    if any(path.endswith(req) for req in _REQUIRED_HOT) and not hot:
+        findings.append(Finding(
+            CHECKER, path, 1,
+            "registered hot allocator module declares no @memory_budget "
+            "pool — its big device allocators must be budget-annotated"))
+    if hot:
+        findings.extend(_unbudgeted_alloc_findings(tree, path))
+        findings.extend(_declaration_findings(tree, path))
+    return findings

@@ -19,8 +19,10 @@ live:
 
 - ``@dispatch_critical`` marks a function as living inside the
   overlap-critical decode window: the dispatch-purity checker forbids
-  host syncs (``block_until_ready``, ``np.asarray`` on device values,
-  ``.item()``, slow ``os.environ`` reads) in it.
+  host syncs (``.item()``, ``.tolist()``, ``.cpu()``, ``float()`` of a
+  tensor, ``np.asarray``, ``torch.cuda.synchronize()``, a tensor in a
+  branch test, slow ``os.environ`` reads) in it (``runtime/lint/
+  dispatch.py``).
 
 - ``_GUARDED_BY`` (class attribute) maps shared-attribute name ->
   guard spec.  A spec is ``("_lock",)`` (every access must hold
@@ -171,8 +173,9 @@ def compile_site(*, buckets=(), donates=(), statics=(), static_names=(),
     Eager PyTorch has no compile to watch, so in this package the
     declaration is all there is: it is free whether or not a sanitizer
     is armed, the function comes back untouched, and the site's name and
-    arguments are recorded on it (``__ttd_compile_site__``) for the
-    static lint that reads them (ROADMAP Queue 1 step 8).
+    arguments are recorded on it (``__ttd_compile_site__``).  No static
+    checker reads it: the JAX package's compile checker holds ``jax.jit``
+    sites, and the port has none.
     """
     def deco(fn):
         try:

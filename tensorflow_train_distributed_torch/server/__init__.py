@@ -23,8 +23,8 @@ port's engine: the frames, metric names and behaviors are JAX's.
 - ``server.metrics`` — stdlib Prometheus text-format registry.
 
 Launchers: ``serve_http.py`` and ``serve_worker.py``; chaos gate:
-``chaos_check.py --serving``.  (JAX's load generator,
-``tools/bench_gateway.py``, waits for ROADMAP Queue 1 step 8.)
+``chaos_check.py --serving``; load generator:
+``tools/bench_gateway.py`` (the JAX one's counterpart).
 """
 
 from tensorflow_train_distributed_torch.server.driver import (  # noqa: F401

@@ -158,6 +158,7 @@ from tensorflow_train_distributed_torch.runtime import events
 from tensorflow_train_distributed_torch.runtime.lint import memcheck
 from tensorflow_train_distributed_torch.runtime.lint.registry import (
     concurrency_guarded,
+    dispatch_critical,
     memory_budget,
     thread_role,
 )
@@ -293,7 +294,7 @@ def stream_uniforms(seeds: torch.Tensor, counts: torch.Tensor, draw: int,
     that exists only on the device needs no host copy."""
     key = _mix64(seeds.long() * _GOLDEN + counts.long() + 1)
     key = _mix64(key + _i64((draw + 1) * 0x9E3779B97F4A7C15))
-    col = torch.arange(1, width + 1, dtype=torch.int64,
+    col = torch.arange(1, width + 1, dtype=torch.int64,  # ttd-lint: disable=memcheck -- a [width] column index of the sampling step, freed with it (the JAX jit program's working set)
                        device=seeds.device) * _GOLDEN
     z = _mix64(key[:, None] + col)
     return (_shr(z, 12).double() + 0.5) * 2.0 ** -52
@@ -715,8 +716,8 @@ class ServingEngine:
         if self._greedy:
             return torch.argmax(logits, dim=-1)
         filt = self._filtered(logits)
-        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=filt.device)
-        counts = torch.as_tensor(counts, dtype=torch.int64,
+        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=filt.device)  # ttd-lint: disable=memcheck -- [n] stream seeds of the step, freed with it
+        counts = torch.as_tensor(counts, dtype=torch.int64,  # ttd-lint: disable=memcheck -- [n] stream counters of the step, freed with it
                                  device=filt.device)
         return spec.gumbel_argmax(filt, stream_uniforms(
             seeds, counts, PICK_DRAW, filt.shape[-1]))
@@ -888,7 +889,7 @@ class ServingEngine:
         in radix-shared blocks and are already there — shared blocks are
         never written).  Tables and positions are untouched."""
         bs = self.kv_block_size
-        pos = torch.arange(start, end, device=self.device)
+        pos = torch.arange(start, end, device=self.device)  # ttd-lint: disable=memcheck -- the scatter's row positions, freed with the insert
         dest = table_row[pos // bs].long() * bs + pos % bs
         for grid, cache_1 in zip(self._grids(), caches_1):
             for pool, lin in zip(grid.layers, cache_1.layers):
@@ -941,6 +942,7 @@ class ServingEngine:
                            device=self.device)
         return KVCache(layers=layers, index=index, cache_len=c)
 
+    @dispatch_critical
     def _flush_stale_lanes(self) -> None:
         """Point retired lanes' table rows at the scratch block and zero
         their positions in both grids before the next dispatch: their
@@ -948,7 +950,7 @@ class ServingEngine:
         the overlap's lagging chunk) decodes must land in scratch, not in
         blocks someone else now owns."""
         if self._stale_slots and self._cache is not None:
-            rows = self._to_device(np.array(sorted(self._stale_slots)))
+            rows = self._to_device(np.array(sorted(self._stale_slots)))  # ttd-lint: disable=dispatch -- a host set of slot numbers, no tensor
             self._cache.block_table[rows] = 0
             for grid in self._grids():
                 grid.index[rows] = 0
@@ -1624,6 +1626,7 @@ class ServingEngine:
 
     # -- dispatch: the one-chunk overlap -------------------------------------
 
+    @dispatch_critical
     def _carry_arrays(self):
         """The next dispatch's (token, counters) on the device: the
         previous dispatch's carry with the host values of slots refilled
@@ -1656,6 +1659,7 @@ class ServingEngine:
             self._refills.clear()
         return tok, counts
 
+    @dispatch_critical
     def _dispatch_chunk(self) -> None:
         """Enqueue one decode chunk (or speculative round) for all slots
         from the carry and start its tokens' copy to the host; the host
@@ -1671,7 +1675,7 @@ class ServingEngine:
         k = self._spec_depth()
         with events.span("decode/dispatch",
                          active=sum(r is not None for r in rids),
-                         fused=int(self.paged), spec_k=k):
+                         fused=int(self.paged), spec_k=k):  # ttd-lint: disable=dispatch -- a host bool
             self._flush_stale_lanes()
             tok, counts = self._carry_arrays()
             seeds_d = self._to_device(seeds)
@@ -1696,6 +1700,7 @@ class ServingEngine:
             self.overlap_stats["chunks"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
 
+    @dispatch_critical
     def _skip_eager_dispatch(self) -> bool:
         """Harvest first for this one step when every active slot
         certainly retires in the chunk in flight (budget exhaustion is
@@ -1705,7 +1710,7 @@ class ServingEngine:
         horizon = 1 if self._draft is not None else self.chunk
         certain = [s.remaining <= horizon
                    for s in self._slot_states if s is not None]
-        return bool(certain) and all(certain)
+        return bool(certain) and all(certain)  # ttd-lint: disable=dispatch -- a host list of bools
 
     def _harvest_prev(self, inf: dict, overlapped: bool) -> None:
         """Wait for ``inf``'s tokens — its event only: when

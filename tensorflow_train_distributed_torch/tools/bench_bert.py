@@ -54,12 +54,12 @@ def bench_bert(preset: str, batch: int, seq: int, warmup: int, iters: int,
     if seq > cfg.max_positions:
         raise ValueError(f"--seq {seq} > max_positions {cfg.max_positions}")
     dev = B.device_fields(device)
+    task = bert.BertMlmTask(cfg, device="meta")
     B.check_hbm_budget(
         sum(math.prod(s) for s in convert.expected_shapes(cfg).values()),
         budget_bytes=B.card_budget_bytes(device), force=force_hbm,
-        device_kind=dev["device_kind"])
-    trainer = B.trainer_for(bert.BertMlmTask(cfg, device="meta"),
-                            optimizers.adamw(1e-4, weight_decay=0.01),
+        device_kind=dev["device_kind"], task=task, batch=batch, seq=seq)
+    trainer = B.trainer_for(task, optimizers.adamw(1e-4, weight_decay=0.01),
                             device)
     state, timing = B.train_timing(
         trainer, mlm_batch(cfg.vocab_size, batch, seq), device=device,

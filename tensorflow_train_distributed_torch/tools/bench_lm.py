@@ -166,29 +166,51 @@ def card_budget_bytes(device: str):
 
 
 def check_hbm_budget(n_params: int, *, budget_bytes, force: bool,
-                     device_kind: str = "", extra_bytes: int = 0) -> None:
-    """Refuse a run whose train state (``STATE_BYTES_PER_PARAM`` a
-    parameter, plus ``extra_bytes``) exceeds ``budget_bytes``: print a
-    refusal record and exit 2, unless ``force``.  ``budget_bytes`` None
-    skips the guard.  Activations are not counted yet (ROADMAP step 8c):
-    a run the guard passes can still run out of memory, and then ends with
-    a failure record."""
-    from tensorflow_train_distributed_torch.training.memory import (
-        STATE_BYTES_PER_PARAM,
-    )
+                     device_kind: str = "", extra_bytes: int = 0,
+                     task=None, batch: int = 0, seq: int = 0) -> None:
+    """Refuse a run whose training step would not fit ``budget_bytes``:
+    print a refusal record and exit 2, unless ``force``.  ``budget_bytes``
+    None skips the guard.
+
+    With a ``task`` (built on the meta device) the step is
+    ``training.memory.plan_train_memory``'s at ``batch`` x ``seq`` (the
+    exact state, the activations the model calibrated on the card
+    estimates, the optimizer update's temporaries), plus ``extra_bytes``.
+    Where the planner does not cover the model (it raises: MoE, no layer
+    dims), or without a task, the state alone counts
+    (``STATE_BYTES_PER_PARAM`` a parameter, plus ``extra_bytes``): a run
+    that passes can still run out of memory, and then ends with a failure
+    record.  The record's ``activations`` says which was counted."""
+    import numpy as np
+
+    from tensorflow_train_distributed_torch.training import memory
 
     if budget_bytes is None:
         return
-    state = n_params * STATE_BYTES_PER_PARAM
-    need = state + extra_bytes
+    state = n_params * memory.STATE_BYTES_PER_PARAM
+    act, counted = None, "not counted: no model given"
+    if task is not None:
+        try:
+            plan = memory.plan_train_memory(
+                task, {"tokens": np.zeros((batch, seq), np.int32)})
+        except ValueError as e:
+            counted = f"not counted: {e}"
+        else:
+            state = plan["state_bytes_per_device"]
+            act = plan["activation_bytes_per_device"]
+            counted = f"counted (the step's peak: {plan['peak_phase']})"
+    need = (state if act is None else plan["step_bytes_per_device"]) \
+        + extra_bytes
     if need <= budget_bytes or force:
         return
     print(json.dumps({
-        "error": "refused: the train state exceeds the card's free "
+        "error": "refused: the training step exceeds the card's free "
                  "memory; rerun with --force-hbm to try anyway",
         "estimated_gib": round(need / 2 ** 30, 2),
         "budget_gib": round(budget_bytes / 2 ** 30, 2),
         "state_gib": round(state / 2 ** 30, 2),
+        "activation_gib": None if act is None else round(act / 2 ** 30, 2),
+        "activations": counted,
         "other_gib": round(extra_bytes / 2 ** 30, 2),
         "device_kind": device_kind}), flush=True)
     raise SystemExit(2)
@@ -351,11 +373,12 @@ def bench_lm(preset: str, batch: int, seq: int, warmup: int, iters: int, *,
     n_params = sum(math.prod(s) for s in convert.expected_shapes(cfg)
                    .values())
     dev = device_fields(device)
+    task = llama.CausalLmTask(cfg, device="meta")
     check_hbm_budget(n_params, budget_bytes=card_budget_bytes(device),
-                     force=force_hbm, device_kind=dev["device_kind"])
-    trainer = trainer_for(llama.CausalLmTask(cfg, device="meta"),
-                          optimizers.adamw(1e-4, b1=0.9, b2=0.95,
-                                           weight_decay=0.1), device)
+                     force=force_hbm, device_kind=dev["device_kind"],
+                     task=task, batch=batch, seq=seq)
+    trainer = trainer_for(task, optimizers.adamw(1e-4, b1=0.9, b2=0.95,
+                                                 weight_decay=0.1), device)
     state, timing = train_timing(trainer, lm_batch(cfg.vocab_size, batch,
                                                    seq),
                                  device=device, warmup=warmup, iters=iters,

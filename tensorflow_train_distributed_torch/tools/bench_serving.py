@@ -29,7 +29,8 @@ decode_mbu_fields``).
 - ``--spec-adaptive-ab``: adaptive speculation depth against every fixed
   depth on an easy (self-drafting) and a hard (random draft) phase.
 - ``--fused-ab``: refused.  The JAX A/B sets its fused paged-attention
-  kernel against an XLA block-gather leg (``TTD_NO_FUSED_ATTN``); the
+  kernel against an XLA block-gather leg (the JAX package's
+  fused-attention kill switch, which the port does not read); the
   port's paged engine always decodes through K4, and the linear engine
   (the ``--shared-prefix`` linear leg) is its only other path.
 
@@ -60,8 +61,9 @@ from tensorflow_train_distributed_torch.tools.bench_gateway import (
 FUSED_AB_REFUSAL = (
     "--fused-ab: no counterpart: the port's paged engine always decodes "
     "through its paged-attention kernel (K4), with no gather leg to set "
-    "against it (the JAX TTD_NO_FUSED_ATTN); the linear engine is the "
-    "other path, timed by --shared-prefix's linear leg")
+    "against it (the JAX package's fused-attention kill switch); the "
+    "linear engine is the other path, timed by --shared-prefix's linear "
+    "leg")
 
 
 def _requests(n, plo, phi, glo, ghi, vocab, seed):

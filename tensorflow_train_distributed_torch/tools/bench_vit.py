@@ -39,12 +39,12 @@ def bench_vit(preset: str, batch: int, warmup: int, iters: int, *,
         cfg = dataclasses.replace(cfg, remat=True)
     seq = cfg.num_patches + (1 if cfg.pooling == "cls" else 0)
     dev = B.device_fields(device)
+    task = vit.make_task(cfg, device="meta")
     B.check_hbm_budget(
         sum(math.prod(s) for s in convert.expected_shapes(cfg).values()),
         budget_bytes=B.card_budget_bytes(device), force=force_hbm,
-        device_kind=dev["device_kind"])
-    trainer = B.trainer_for(vit.make_task(cfg, device="meta"),
-                            optimizers.adamw(1e-3, weight_decay=0.05),
+        device_kind=dev["device_kind"], task=task, batch=batch, seq=seq)
+    trainer = B.trainer_for(task, optimizers.adamw(1e-3, weight_decay=0.05),
                             device)
     rng = np.random.default_rng(0)
     data = {"image": rng.normal(0, 1, (batch, cfg.image_size,

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import json
 import logging
-import math
 import os
 import socket
 import struct
@@ -397,8 +396,12 @@ class TerminateOnNaN(Callback):
         self.monitor = monitor
 
     def on_step_end(self, step, metrics):
-        if self.monitor in metrics and not math.isfinite(
-                float(metrics[self.monitor])):
+        from tensorflow_train_distributed_torch.runtime.debug import (
+            is_finite_scalar,
+        )
+
+        if self.monitor in metrics and not is_finite_scalar(
+                metrics[self.monitor]):
             logger.error("TerminateOnNaN: step %d %s=%r — stopping", step,
                          self.monitor, metrics[self.monitor])
             # Veto further checkpoint writes: the state is poisoned and must

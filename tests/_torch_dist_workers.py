@@ -380,3 +380,16 @@ def sync_bn(rank, *, runs, steps, batch):
                        "digest": float(sum(np.abs(v).sum()
                                            for v in stats.values()))}
     return res
+
+
+# -- the runner's own environment ------------------------------------------
+
+
+def child_env(rank):
+    """What the runner's child set up from its environment: torch's
+    thread count and whether it joined a process group."""
+    import torch.distributed as dist
+
+    return {"rank": rank, "threads": torch.get_num_threads(),
+            "distributed": dist.is_initialized(),
+            "world": dist.get_world_size() if dist.is_initialized() else 1}
